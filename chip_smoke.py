@@ -1,0 +1,404 @@
+"""Smoke test of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with an NVIDIA H100. It:
+
+1. prints the card (nvidia-smi name and power limit), the torch and CUDA
+   versions and the CSR kernels' build time, and turns TF32 off;
+2. writes 1,000 periodic structures (8-64 atoms, cubic cells of 16 Å^3 per
+   atom, numpy seed 0) and featurizes them with config.yml's Processing
+   values; builds CGCNN_demo at full width from torch.Generator seed 0,
+   with non-trivial BatchNorm running statistics, and saves it with the
+   port's checkpoint;
+3. checks each CSR kernel against its plain PyTorch version on the card, at
+   the shapes of a Predict batch (sorted dst with tail pads, permuted dst,
+   scattered mask, D in {1, 3, 150}, one gradient of each autograd pair):
+   gather bit-exact, sum to rtol 1e-5 and atol 1e-5·max|ref| (atomics
+   reorder the additions);
+4. times each kernel, its plain version and a library yardstick
+   (index_add_ / index_select, which the port never calls on the card) with
+   CUDA events, beside the memory bound (bytes over 3.35 TB/s);
+5. runs Predict through cli.run on the card with the launch counters reset
+   just before and read just after (each must be >= 32: 8 batches x 4
+   CGConv layers), then the same Predict on the CPU (plain versions, same
+   checkpoint), and requires 1,000 finite predictions that agree to
+   rtol 1e-4, atol 1e-4;
+6. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
+   {"ok": true, "device": {...}}.
+
+Every failed check raises and the script exits non-zero. Without CUDA, or
+without the rest of the repository beside it, it exits non-zero and prints
+no result. Work files go under build/chip_smoke/.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "build", "chip_smoke")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
+N_STRUCTURES = 1000
+
+# config.yml's values, written out because the card's Python has no yaml
+# (tests/test_torch_predict.py holds them to config.yml).
+PROCESSING = {
+    "dataset_type": "inmemory", "data_path": "data",
+    "target_path": "targets.csv", "dictionary_source": "default",
+    "dictionary_path": "atom_dict.json", "data_format": "json",
+    "verbose": "True", "graph_max_radius": 8.0, "graph_max_neighbors": 12,
+    "edge_features": "True", "graph_edge_length": 50,
+    "SM_descriptor": "False", "SOAP_descriptor": "False", "SOAP_rcut": 8.0,
+    "SOAP_nmax": 6, "SOAP_lmax": 4, "SOAP_sigma": 0.3,
+}
+TRAINING = {
+    "target_index": 0, "loss": "l1_loss", "train_ratio": 0.8,
+    "val_ratio": 0.05, "test_ratio": 0.15, "verbosity": 5,
+}
+PREDICT_JOB = {
+    "job_name": "my_predict_job", "reprocess": "False",
+    "model_path": "my_model.ckpt", "write_output": "True", "seed": 0,
+}
+CGCNN_DEMO = {
+    "model": "CGCNN", "dim1": 100, "dim2": 150, "pre_fc_count": 1,
+    "gc_count": 4, "post_fc_count": 3, "pool": "global_mean_pool",
+    "pool_order": "early", "batch_norm": "True", "batch_track_stats": "True",
+    "act": "relu", "dropout_rate": 0.0, "epochs": 250, "lr": 0.002,
+    "batch_size": 100, "optimizer": "AdamW", "optimizer_args": {},
+    "scheduler": "ReduceLROnPlateau",
+    "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
+                       "min_lr": 0.00001, "threshold": 0.0002},
+}
+
+
+def predict_config(data_path: str, model_path: str, job_name: str,
+                   device: str) -> dict:
+    """The config cli.load_config gives for --run_mode=Predict, with the
+    data, checkpoint, job name and device of this run."""
+    job = {**PREDICT_JOB, "run_mode": "Predict", "model_path": model_path,
+           "job_name": job_name, "seed": 1, "device": device}
+    return {"Job": job, "Processing": {**PROCESSING, "data_path": data_path},
+            "Training": dict(TRAINING), "Models": {}}
+
+
+def write_structures(root: str, n: int = N_STRUCTURES, seed: int = 0):
+    """n periodic structures, 8-64 atoms, cubic cells of 16 Å^3 per atom,
+    random species 1-83, as ase-json, with targets.csv."""
+    from matdeeplearn_torch.data.structures import Structure, write_ase_json
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    rows = []
+    for i in range(n):
+        na = int(rng.integers(8, 65))
+        cell = np.eye(3) * (16.0 * na) ** (1.0 / 3.0)
+        pos = rng.random((na, 3)) @ cell
+        z = rng.integers(1, 84, na)
+        write_ase_json(Structure(z, pos, cell, np.ones(3, bool), str(i)),
+                       os.path.join(root, f"{i}.json"))
+        rows.append(f"{i},{0.01 * float(z.sum()) / na + rng.normal():.6f}")
+    with open(os.path.join(root, "targets.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def device_ms(fn, reps: int = 100) -> float:
+    """Mean device time of fn() in ms: the launches queue up behind a sleep
+    kernel, so the host's per-call cost leaves no gaps between them."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_kernels(dst, mask, n, dev):
+    """Each kernel against its plain version on the card; returns the
+    largest |kernel - plain| of each."""
+    from matdeeplearn_torch.ops import csr
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    e = dst.shape[0]
+    perm = torch.randperm(e, device=dev, generator=g)
+    scattered = mask * (torch.rand(e, device=dev, generator=g) > 0.3).float()
+    cases = [("sorted dst, tail pads", dst, mask, 100),
+             ("permuted dst", dst[perm].contiguous(), mask[perm].contiguous(), 100),
+             ("scattered mask", dst, scattered, 100),
+             ("mask None", dst, None, 100)]
+    cases += [(f"D={d}", dst, mask, d) for d in (1, 3, 150)]
+    err = {"segment_sum": 0.0, "gather": 0.0}
+    for name, dv, mv, d in cases:
+        msg = torch.randn(e, d, device=dev, generator=g)
+        x = torch.randn(n, d, device=dev, generator=g)
+        ref = csr.segment_sum_plain(msg, dv, mv, n)
+        out = csr.segment_sum(msg, dv, mv, n)
+        torch.testing.assert_close(out, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()),
+                                   msg=lambda m: f"segment_sum, {name}: {m}")
+        gout = csr.gather(x, dv, mv)
+        if not torch.equal(gout, csr.gather_plain(x, dv, mv)):
+            raise AssertionError(f"gather, {name}: not bit-exact")
+        diff = float((out - ref).abs().max())
+        err["segment_sum"] = max(err["segment_sum"], diff)
+        print(f"  kernel check ok: {name}: segment_sum max |diff| {diff:.3e} "
+              f"(max |ref| {float(ref.abs().max()):.3e}), gather bit-exact")
+    # one gradient of each autograd pair
+    msg = torch.randn(e, 100, device=dev, generator=g, requires_grad=True)
+    x = torch.randn(n, 100, device=dev, generator=g, requires_grad=True)
+    cot_n = torch.randn(n, 100, device=dev, generator=g)
+    cot_e = torch.randn(e, 100, device=dev, generator=g)
+    (csr.sorted_segment_sum(msg, dst, mask, n) * cot_n).sum().backward()
+    if not torch.equal(msg.grad, csr.gather_plain(cot_n, dst, mask)):
+        raise AssertionError("SortedSegmentSum backward (gather) not bit-exact")
+    (csr.sorted_gather(x, dst, mask) * cot_e).sum().backward()
+    ref = csr.segment_sum_plain(cot_e, dst, mask, n)
+    torch.testing.assert_close(x.grad, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    err["segment_sum"] = max(err["segment_sum"], float((x.grad - ref).abs().max()))
+    print("  kernel check ok: gradients of SortedSegmentSum and SortedGather")
+    return err
+
+
+def time_kernels(dst, mask, n, dev, d=100):
+    """Kernel, plain and library times at one Predict batch's shapes, and
+    the bound of each (bytes each function must move over the memory rate,
+    or its f32 operations over the f32 rate, whichever is larger)."""
+    from matdeeplearn_torch.ops import csr
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    e = dst.shape[0]
+    msg = torch.randn(e, d, device=dev, generator=g)
+    x = torch.randn(n, d, device=dev, generator=g)
+    msg_m = msg * mask[:, None]
+    acc = torch.zeros(n, d, device=dev)
+    real = mask > 0
+    e_real = int(real.sum())
+    rows = int(torch.unique(dst[real]).numel())
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    res = {
+        "segment_sum": {
+            "ms": device_ms(lambda: csr.segment_sum(msg, dst, mask, n)),
+            "plain_ms": device_ms(lambda: csr.segment_sum_plain(msg, dst, mask, n)),
+            # out.index_add_ on pre-masked messages (one call, accumulating)
+            "library_ms": device_ms(lambda: acc.index_add_(0, dst, msg_m)),
+            **bound(4 * (e_real * d + 2 * e + n * d), 2 * e_real * d),
+        },
+        "gather": {
+            "ms": device_ms(lambda: csr.gather(x, dst, mask)),
+            "plain_ms": device_ms(lambda: csr.gather_plain(x, dst, mask)),
+            # index_select without the mask multiply
+            "library_ms": device_ms(lambda: torch.index_select(x, 0, dst)),
+            **bound(4 * (rows * d + 2 * e + e * d), e_real * d),
+        },
+    }
+    return res, e_real
+
+
+def run_predict(config) -> tuple[float, float]:
+    """cli.run(config) with its output echoed; returns (wall seconds,
+    evaluation seconds)."""
+    from matdeeplearn_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.run(config)
+    if config["Job"]["device"] == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    print("\n".join(ln for ln in text.splitlines()
+                    if not ln.startswith((" ", "{", "Settings"))))
+    m = re.search(r"Evaluation time \(s\): ([0-9.]+)", text)
+    return wall, float(m.group(1))
+
+
+def profile_predict(config, top: int = 12):
+    """One more Predict on the card under torch.profiler: device time by
+    kernel and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, evaluation = run_predict(config)
+    # device-side events only: an operator's own row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        print("profiled Predict: the profiler saw no device time (not measured)")
+        return
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy")) / 1e3
+    print(f"profiled Predict: device busy {busy_ms:.3f} ms of {1e3 * wall:.3f} ms "
+          f"wall ({100 * busy_ms / (1e3 * wall):.1f}%), {copy_ms:.3f} ms of it "
+          f"copies; kernels {busy_ms - copy_ms:.3f} ms against "
+          f"{1e3 * evaluation:.3f} ms evaluation; top device time:")
+    for key, us, count in rows[:top]:
+        print(f"  {us / 1e3:9.3f} ms {count:6d}x  {key[:110]}")
+
+
+def read_predictions(path: str) -> tuple[list, np.ndarray]:
+    with open(path) as f:
+        lines = f.read().splitlines()[1:]
+    ids = [ln.split(",")[0] for ln in lines]
+    preds = np.array([float(ln.split(",")[-1]) for ln in lines])
+    return ids, preds
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                                  assemble_batch)
+    from matdeeplearn_torch.data.dataset import get_dataset
+    from matdeeplearn_torch.models import MODEL_FIELDS, build_model
+    from matdeeplearn_torch.ops import csr
+    from matdeeplearn_torch.training.checkpoint import save_checkpoint
+
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(f"card: {smi}")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for matmul and cuDNN (full f32)")
+    print(f"CSR kernel build (nvcc {' '.join(csr.NVCC_FLAGS)}): "
+          f"{csr.build():.2f} s")
+
+    # ---- data and model ---------------------------------------------------
+    shutil.rmtree(WORK, ignore_errors=True)
+    data_dir = os.path.join(WORK, "data")
+    t0 = time.perf_counter()
+    write_structures(data_dir)
+    dataset = get_dataset(data_dir, 0, "True", {**PROCESSING, "data_path": data_dir})
+    print(f"{len(dataset)} structures written and featurized in "
+          f"{time.perf_counter() - t0:.2f} s: {int(dataset.node_ptr[-1])} atoms, "
+          f"{int(dataset.edge_ptr[-1])} edges "
+          f"({dataset.edge_ptr[-1] / dataset.node_ptr[-1]:.2f} a node)")
+    batch_size = 128  # Predict's default batch
+    spec = BatchSpec.for_dataset(dataset.node_counts(), dataset.edge_counts(),
+                                 batch_size)
+    steps = -(-len(dataset) // batch_size)
+    print(f"Predict spec on {card}: {spec.num_graphs} graphs, "
+          f"{spec.num_nodes} nodes, {spec.num_edges} edges a batch; "
+          f"{steps} batches")
+
+    gen = torch.Generator().manual_seed(0)
+    model = build_model("CGCNN", dataset, CGCNN_DEMO, generator=gen, device="cpu")
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.randn(buf.shape, generator=gen) * 0.5)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 1.5 + 0.5)
+    cfg = {k: v for k, v in CGCNN_DEMO.items() if k in MODEL_FIELDS["CGCNN"]}
+    cfg.update(num_features=dataset.num_features, output_dim=dataset.output_dim,
+               edge_resolution=dataset.num_edge_features)
+    model_path = os.path.join(WORK, "cgcnn_demo.ckpt")
+    save_checkpoint(model_path, model.state_dict(), "CGCNN", cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"CGCNN_demo: {n_params} parameters, checkpoint {model_path}")
+
+    # ---- kernel checks and times at a Predict batch's shapes --------------
+    data = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst")
+    batch = assemble_batch(data, np.arange(batch_size, dtype=np.int32), spec)
+    dst, mask, n = batch.edge_dst, batch.edge_mask, spec.num_nodes
+    print(f"kernel checks on {card} (E={dst.shape[0]}, N={n}):")
+    err = check_kernels(dst, mask, n, dev)
+    times, e_real = time_kernels(dst, mask, n, dev)
+    for k, t in times.items():
+        print(f"{k} on {smi}, E={dst.shape[0]} ({e_real} real), N={n}, D=100: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+    del data, batch
+
+    # ---- the main path: Predict on the card, then on the CPU --------------
+    os.chdir(WORK)
+    gpu_cfg = predict_config(data_dir, model_path, "chip_gpu", "cuda")
+    for k in csr.LAUNCHES:
+        csr.LAUNCHES[k] = 0
+    cold_wall, cold_eval = run_predict(gpu_cfg)
+    launches = dict(csr.LAUNCHES)
+    print(f"launches in one Predict: {launches}")
+    for k, v in launches.items():
+        if v < 4 * steps:
+            raise AssertionError(f"{k} launched {v} times, expected >= {4 * steps}")
+    print(f"Predict on {smi}, cold: {cold_wall:.4f} s wall, {cold_eval:.5f} s "
+          f"evaluation")
+    for i in range(3):
+        warm_wall, warm_eval = run_predict(gpu_cfg)
+        print(f"Predict on {smi}, warm run {i + 1}: {warm_wall:.4f} s wall, "
+              f"{warm_eval:.5f} s evaluation ({len(dataset) / warm_eval:.1f} "
+              f"graphs/s)")
+    profile_predict(gpu_cfg)
+    cpu_wall, _ = run_predict(
+        predict_config(data_dir, model_path, "chip_cpu", "cpu"))
+    print(f"Predict on the CPU (plain versions): {cpu_wall:.3f} s wall")
+    ids_g, pred_g = read_predictions("chip_gpu_predicted_outputs.csv")
+    ids_c, pred_c = read_predictions("chip_cpu_predicted_outputs.csv")
+    if len(pred_g) != N_STRUCTURES or not np.isfinite(pred_g).all():
+        raise AssertionError(f"expected {N_STRUCTURES} finite predictions")
+    if ids_g != ids_c:
+        raise AssertionError("card and CPU predictions list different ids")
+    np.testing.assert_allclose(pred_g, pred_c, rtol=1e-4, atol=1e-4)
+    print(f"card vs CPU predictions: max |diff| "
+          f"{float(np.abs(pred_g - pred_c).max()):.3e} (rtol 1e-4, atol 1e-4)")
+
+    kernels = []
+    for key, name, line in (("segment_sum", "csr_segment_sum", 135),
+                            ("gather", "csr_gather", 159)):
+        t = times[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "matdeeplearn_torch/csrc/csr.cu",
+            "replaces": f"matdeeplearn_tpu/ops/pallas_csr.py:{line}",
+            "launches": launches[key], "max_abs_err": err[key],
+            "check": "pass", "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
