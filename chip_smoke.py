@@ -5,7 +5,8 @@
 Run from the root of a checkout, on a machine with an NVIDIA H100. It:
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions and the CSR kernels' build time, and turns TF32 off;
+   versions and the build time of every kernel (all csrc/*.cu, one nvcc
+   each, in parallel), and turns TF32 off;
 2. writes 1,000 periodic structures (8-64 atoms, cubic cells of 16 Å^3 per
    atom, numpy seed 0) and featurizes them with config.yml's Processing
    values; builds CGCNN_demo at full width from torch.Generator seed 0,
@@ -16,15 +17,34 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    scattered mask, D in {1, 3, 150}, one gradient of each autograd pair):
    gather bit-exact, sum to rtol 1e-5 and atol 1e-5·max|ref| (atomics
    reorder the additions);
-4. times each kernel, its plain version and a library yardstick
+4. times each CSR kernel, its plain version and a library yardstick
    (index_add_ / index_select, which the port never calls on the card) with
    CUDA events, beside the memory bound (bytes over 3.35 TB/s);
-5. runs Predict through cli.run on the card with the launch counters reset
-   just before and read just after (each must be >= 32: 8 batches x 4
+5. checks the fused CGConv kernels against their plain versions at the
+   shapes of a CGCNN_demo training batch (batch 100, De 50; D 100, 3 and
+   150; sorted dst with tail pads, permuted dst, scattered mask): output,
+   d_x, d_xj, the six weight blocks and two biases, and the partial-sum
+   reduction, to rtol 1e-4 and atol 1e-4·max|ref|; then times them beside
+   their bound (operations over 67 TFLOP/s f32, or bytes) and the unfused
+   composition PR 1's CGConv runs (concat + 2 F.linear + activations +
+   csr.segment_sum, and its autograd backward) as the library yardstick;
+6. runs Predict through cli.run on the card with the launch counters reset
+   just before and read just after (each CSR kernel >= 32: 8 batches x 4
    CGConv layers), then the same Predict on the CPU (plain versions, same
    checkpoint), and requires 1,000 finite predictions that agree to
    rtol 1e-4, atol 1e-4;
-6. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
+7. trains CGCNN_demo through cli.run on the card (--run_mode=Training,
+   kernel auto, 5 epochs, verbosity 1, from that checkpoint) with the
+   launch counters reset just before and read just after: each fused
+   kernel must launch at least 4 layers x 8 steps x 5 epochs times; then
+   2 epochs of the same on the CPU (plain versions): the first epoch's
+   train error agrees to rtol 1e-3, every error is finite, and the card's
+   last train error is below its first; Predict on the card from the
+   checkpoint Training saved gives 1,000 finite predictions;
+8. trains 3 epochs under kernel csr and 3 more under kernel fused, and
+   prints the warm epoch time of each; profiles one warm training epoch
+   (device busy share, top kernels);
+9. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
    {"ok": true, "device": {...}}.
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
@@ -72,6 +92,16 @@ PREDICT_JOB = {
     "job_name": "my_predict_job", "reprocess": "False",
     "model_path": "my_model.ckpt", "write_output": "True", "seed": 0,
 }
+TRAIN_JOB = {
+    "job_name": "my_train_job", "reprocess": "False", "model": "CGCNN_demo",
+    "load_model": "False", "save_model": "True", "model_path": "my_model.ckpt",
+    "write_output": "True", "parallel": "True", "seed": 0,
+}
+TRAIN_SEED = 7
+EPOCHS_CARD, EPOCHS_CPU, EPOCHS_AB = 5, 2, 3
+EPOCH_LINE = re.compile(r"Epoch: (\d+), Learning Rate: ([0-9.]+), Training "
+                        r"Error: ([0-9.naN]+), Val Error: ([0-9.naN]+), "
+                        r"Time per epoch \(s\): ([0-9.]+)")
 CGCNN_DEMO = {
     "model": "CGCNN", "dim1": 100, "dim2": 150, "pre_fc_count": 1,
     "gc_count": 4, "post_fc_count": 3, "pool": "global_mean_pool",
@@ -92,6 +122,20 @@ def predict_config(data_path: str, model_path: str, job_name: str,
            "job_name": job_name, "seed": 1, "device": device}
     return {"Job": job, "Processing": {**PROCESSING, "data_path": data_path},
             "Training": dict(TRAINING), "Models": {}}
+
+
+def training_config(data_path: str, model_path: str, job_name: str,
+                    device: str, epochs: int, kernel: str = "auto") -> dict:
+    """The config cli.load_config gives for --run_mode=Training of
+    CGCNN_demo, resuming from `model_path` (load_model True), with this
+    run's epochs, kernel, device and verbosity 1."""
+    job = {**TRAIN_JOB, "run_mode": "Training", "job_name": job_name,
+           "seed": TRAIN_SEED, "device": device, "load_model": "True",
+           "model_path": model_path, "parallel": "False"}
+    model = {**CGCNN_DEMO, "epochs": epochs, "kernel": kernel,
+             "print_model": False}
+    return {"Job": job, "Processing": {**PROCESSING, "data_path": data_path},
+            "Training": {**TRAINING, "verbosity": 1}, "Models": model}
 
 
 def write_structures(root: str, n: int = N_STRUCTURES, seed: int = 0):
@@ -135,6 +179,14 @@ def device_ms(fn, reps: int = 100) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the f32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def check_kernels(dst, mask, n, dev):
@@ -200,11 +252,6 @@ def time_kernels(dst, mask, n, dev, d=100):
     e_real = int(real.sum())
     rows = int(torch.unique(dst[real]).numel())
 
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
     res = {
         "segment_sum": {
             "ms": device_ms(lambda: csr.segment_sum(msg, dst, mask, n)),
@@ -224,9 +271,145 @@ def time_kernels(dst, mask, n, dev, d=100):
     return res, e_real
 
 
-def run_predict(config) -> tuple[float, float]:
-    """cli.run(config) with its output echoed; returns (wall seconds,
-    evaluation seconds)."""
+FUSED_GRADS = ["x", "xj", "wfi", "wfj", "wfe", "bf", "wsi", "wsj", "wse", "bs"]
+
+
+def fused_inputs(batch, d, de, g, dev):
+    """Random node features (xj = x[src], as CGConv gathers it) and the
+    eight weight blocks of one CGConv at width d."""
+    x = torch.randn(batch.num_nodes, d, device=dev, generator=g)
+    xj = x[batch.edge_src.long()].contiguous()
+    shapes = ((d, d), (d, d), (de, d), (d,), (d, d), (d, d), (de, d), (d,))
+    ws = [0.1 * torch.randn(*sh, device=dev, generator=g) for sh in shapes]
+    return x, xj, ws
+
+
+def assert_fused(out, ref, what) -> float:
+    """rtol 1e-4, atol 1e-4·max|ref|: atomics reorder the f32 sums, and the
+    weight gradients sum over every edge in another order than the plain
+    version's GEMMs. Returns max |out - ref|."""
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-4 * max(float(ref.abs().max()), 1e-30),
+                               msg=lambda m: f"{what}: {m}")
+    return float((out - ref).abs().max())
+
+
+def check_fused(batch, dev, de=50):
+    """The fused CGConv kernels against their plain versions on the card;
+    returns the largest |kernel - plain| of each kernel."""
+    from matdeeplearn_torch.ops import fused_cgconv as FC
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    dst, mask, dist, n = (batch.edge_dst, batch.edge_mask,
+                          batch.edge_dist_norm, batch.num_nodes)
+    e = dst.shape[0]
+    perm = torch.randperm(e, device=dev, generator=g)
+    scattered = mask * (torch.rand(e, device=dev, generator=g) > 0.3).float()
+    err = {"fused_cgconv_fwd": 0.0, "fused_cgconv_bwd": 0.0,
+           "fused_cgconv_wgrad_reduce": 0.0}
+    for d in (100, 3, 150):
+        x, xj, ws = fused_inputs(batch, d, de, g, dev)
+        cot = torch.randn(n, d, device=dev, generator=g)
+        cases = [("sorted dst, tail pads", xj, dist, dst, mask),
+                 ("permuted dst", xj[perm].contiguous(), dist[perm].contiguous(),
+                  dst[perm].contiguous(), mask[perm].contiguous()),
+                 ("scattered mask", xj, dist, dst, scattered)]
+        for name, xjv, dv, dsv, mv in cases:
+            args = (x, xjv, dv, dsv, mv, *ws, n, 0.2)
+            fwd = assert_fused(FC.fused_cgconv(*args), FC.fused_cgconv_plain(*args),
+                               f"fused forward, D={d}, {name}")
+            got = FC.fused_cgconv_bwd(cot, *args)
+            refs = FC.fused_cgconv_bwd_plain(cot, *args)
+            bwd = max(assert_fused(a, b, f"fused d_{k}, D={d}, {name}")
+                      for k, a, b in zip(FUSED_GRADS, got, refs))
+            if float(got[1][mv == 0].abs().max()) != 0.0:
+                raise AssertionError(f"fused, D={d}, {name}: pad edges got "
+                                     "non-zero d_xj rows")
+            err["fused_cgconv_fwd"] = max(err["fused_cgconv_fwd"], fwd)
+            err["fused_cgconv_bwd"] = max(err["fused_cgconv_bwd"], bwd)
+            print(f"  fused kernel check ok: D={d}, {name}: forward max |diff| "
+                  f"{fwd:.3e}, backward (10 gradients) max |diff| {bwd:.3e}")
+        _, _, partial, blocks = FC.fused_cgconv_bwd_partials(cot, *args)
+        red = assert_fused(FC.wgrad_reduce(partial, blocks, d, de),
+                           FC.wgrad_reduce_plain(partial, d, de),
+                           f"wgrad_reduce, D={d}")
+        err["fused_cgconv_wgrad_reduce"] = max(err["fused_cgconv_wgrad_reduce"],
+                                               red)
+        print(f"  fused kernel check ok: D={d}, wgrad_reduce over {blocks} "
+              f"blocks max |diff| {red:.3e}")
+    return err
+
+
+def time_fused(batch, dev, d=100, de=50):
+    """Fused kernel, plain and library times at one training batch's shapes
+    (sorted dst), and the bound of each. The library yardstick is the
+    unfused composition PR 1's CGConv runs on the card (basis, CSR gather,
+    concat, two F.linear, sigmoid·softplus, CSR segment sum) and its
+    autograd backward; the port never calls it under kernel fused."""
+    import torch.nn.functional as F
+
+    from matdeeplearn_torch.ops import csr
+    from matdeeplearn_torch.ops import fused_cgconv as FC
+    from matdeeplearn_torch.ops.edge_basis import gaussian_basis
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    dst, mask, dist, n = (batch.edge_dst, batch.edge_mask,
+                          batch.edge_dist_norm, batch.num_nodes)
+    e = dst.shape[0]
+    e_real = int((mask > 0).sum())
+    x, xj, ws = fused_inputs(batch, d, de, g, dev)
+    cot = torch.randn(n, d, device=dev, generator=g)
+    args = (x, xj, dist, dst, mask, *ws, n, 0.2)
+    k, nb = 2 * d + de, 2 * d
+    k1 = k + 1
+
+    # the unfused composition, in torch.nn.Linear's (out, in) layout
+    leaves = [x.clone().requires_grad_(True), xj.clone().requires_grad_(True),
+              torch.cat(ws[0:3], 0).t().contiguous().requires_grad_(True),
+              ws[3].clone().requires_grad_(True),
+              torch.cat(ws[4:7], 0).t().contiguous().requires_grad_(True),
+              ws[7].clone().requires_grad_(True)]
+
+    def unfused(xv, xjv, wf, bf, wsm, bs):
+        z = torch.cat([csr.sorted_gather(xv, dst, mask), xjv,
+                       gaussian_basis(dist, 0.0, 1.0, de, 0.2)], -1)
+        msg = torch.sigmoid(F.linear(z, wf, bf)) * F.softplus(F.linear(z, wsm, bs))
+        return csr.sorted_segment_sum(msg, dst, mask, n)
+
+    out = unfused(*leaves)
+    _, _, partial, blocks = FC.fused_cgconv_bwd_partials(cot, *args)
+    pfloats = partial.numel()
+    res = {
+        "fused_cgconv_fwd": {
+            "ms": device_ms(lambda: FC.fused_cgconv(*args)),
+            "plain_ms": device_ms(lambda: FC.fused_cgconv_plain(*args)),
+            "library_ms": device_ms(lambda: unfused(*leaves)),
+            **bound(4 * (2 * n * d + e_real * d + 3 * e + k1 * nb),
+                    2 * e_real * k * nb),
+        },
+        # the backward kernel leaves per-block partial weight gradients;
+        # its bound counts the (2D+De+1, 2D) weight gradient as its output
+        "fused_cgconv_bwd": {
+            "ms": device_ms(lambda: FC.fused_cgconv_bwd_partials(cot, *args)),
+            "plain_ms": device_ms(lambda: FC.fused_cgconv_bwd_plain(cot, *args)),
+            "library_ms": device_ms(lambda: torch.autograd.grad(
+                out, leaves, cot, retain_graph=True)),
+            **bound(4 * (3 * n * d + e_real * d + e * d + 3 * e + 2 * k1 * nb),
+                    2 * e_real * (k * nb + nb * nb + k1 * nb)),
+        },
+        "fused_cgconv_wgrad_reduce": {
+            "ms": device_ms(lambda: FC.wgrad_reduce(partial, blocks, d, de)),
+            "plain_ms": device_ms(lambda: FC.wgrad_reduce_plain(partial, d, de)),
+            "library_ms": device_ms(lambda: partial.view(blocks, -1).sum(0)),
+            **bound(4 * (pfloats + k1 * nb), pfloats),
+        },
+    }
+    return res, e_real, blocks
+
+
+def run_cli(config) -> tuple[float, str]:
+    """cli.run(config) with its output echoed (the settings dump left out);
+    returns (wall seconds, the captured output)."""
     from matdeeplearn_torch import cli
 
     buf = io.StringIO()
@@ -239,8 +422,82 @@ def run_predict(config) -> tuple[float, float]:
     text = buf.getvalue()
     print("\n".join(ln for ln in text.splitlines()
                     if not ln.startswith((" ", "{", "Settings"))))
+    return wall, text
+
+
+def run_training(config) -> tuple[float, list]:
+    """Training through cli.run; returns (wall seconds, one (epoch, lr,
+    train error, val error, seconds) row per epoch line)."""
+    wall, text = run_cli(config)
+    rows = [(int(m.group(1)), *(float(v) for v in m.groups()[1:]))
+            for m in EPOCH_LINE.finditer(text)]
+    if len(rows) != config["Models"]["epochs"]:
+        raise AssertionError(f"expected {config['Models']['epochs']} epoch "
+                             f"lines, got {len(rows)}")
+    if not np.isfinite([r[2:4] for r in rows]).all():
+        raise AssertionError(f"non-finite errors in {rows}")
+    return wall, rows
+
+
+def warm_epoch_s(rows) -> float:
+    """Mean time of the epochs after the first."""
+    return float(np.mean([r[4] for r in rows[1:]]))
+
+
+def profile_training(dataset, dev, top: int = 14):
+    """One warm training epoch (kernel fused) under torch.profiler: device
+    time by kernel and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from matdeeplearn_torch.data.dataset import split_data
+    from matdeeplearn_torch.training import jobs
+
+    train_idx, val_idx, _ = split_data(dataset, TRAINING["train_ratio"],
+                                       TRAINING["val_ratio"],
+                                       TRAINING["test_ratio"], TRAIN_SEED)
+    run = jobs.setup_run(dataset, {**CGCNN_DEMO, "kernel": "fused"},
+                         "l1_loss", seed=TRAIN_SEED, device=dev)
+    kw = dict(train_idx=train_idx, val_idx=val_idx, epochs=1, verbosity=1,
+              seed=TRAIN_SEED)
+    jobs.run_fused_training(run, **kw)  # warm-up epoch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        jobs.run_fused_training(run, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    if not rows:
+        print("profiled training epoch: the profiler saw no device time "
+              "(not measured)")
+        return
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    print(f"profiled warm training epoch: device busy {busy_ms:.3f} ms of "
+          f"{1e3 * wall:.3f} ms wall ({100 * busy_ms / (1e3 * wall):.1f}%); "
+          f"top device time:")
+    for key, us, count in rows[:top]:
+        print(f"  {us / 1e3:9.3f} ms {count:6d}x {100 * us / 1e3 / busy_ms:5.1f}%  "
+              f"{key[:100]}")
+
+
+def run_predict(config) -> tuple[float, float]:
+    """Predict through cli.run; returns (wall seconds, evaluation seconds)."""
+    wall, text = run_cli(config)
     m = re.search(r"Evaluation time \(s\): ([0-9.]+)", text)
     return wall, float(m.group(1))
+
+
+def device_rows(prof) -> list:
+    """(name, device µs, count) of each kernel and copy the profiler saw.
+    Device-side events only (an operator's own row repeats its kernels'
+    time), and no user annotations (such as Optimizer.step's range, whose
+    device span includes the kernels inside it and the gaps between them)."""
+    return [(ev.key, ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0
+            and not getattr(ev, "is_user_annotation", False)]
 
 
 def profile_predict(config, top: int = 12):
@@ -250,11 +507,7 @@ def profile_predict(config, top: int = 12):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, evaluation = run_predict(config)
-    # device-side events only: an operator's own row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     if not rows:
         print("profiled Predict: the profiler saw no device time (not measured)")
         return
@@ -286,7 +539,8 @@ def main() -> int:
                                                   assemble_batch)
     from matdeeplearn_torch.data.dataset import get_dataset
     from matdeeplearn_torch.models import MODEL_FIELDS, build_model
-    from matdeeplearn_torch.ops import csr
+    from matdeeplearn_torch.ops import _build, csr
+    from matdeeplearn_torch.ops import fused_cgconv as FC
     from matdeeplearn_torch.training.checkpoint import save_checkpoint
 
     dev = torch.device("cuda")
@@ -298,8 +552,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmul and cuDNN (full f32)")
-    print(f"CSR kernel build (nvcc {' '.join(csr.NVCC_FLAGS)}): "
-          f"{csr.build():.2f} s")
+    srcs = [os.path.relpath(p, REPO) for p in _build.sources()]
+    print(f"kernel build of {', '.join(srcs)} (nvcc {' '.join(_build.NVCC_FLAGS)}, "
+          f"one process each, in parallel): {_build.build():.2f} s")
 
     # ---- data and model ---------------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
@@ -335,7 +590,7 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"CGCNN_demo: {n_params} parameters, checkpoint {model_path}")
 
-    # ---- kernel checks and times at a Predict batch's shapes --------------
+    # ---- CSR kernel checks and times at a Predict batch's shapes ----------
     data = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst")
     batch = assemble_batch(data, np.arange(batch_size, dtype=np.int32), spec)
     dst, mask, n = batch.edge_dst, batch.edge_mask, spec.num_nodes
@@ -348,7 +603,27 @@ def main() -> int:
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
     del data, batch
 
-    # ---- the main path: Predict on the card, then on the CPU --------------
+    # ---- fused CGConv kernels at a training batch's shapes ----------------
+    train_bs = CGCNN_DEMO["batch_size"]
+    tspec = BatchSpec.for_dataset(dataset.node_counts(), dataset.edge_counts(),
+                                  train_bs)
+    tdata = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst",
+                                             kernel_fused=True)
+    tbatch = assemble_batch(tdata, np.arange(train_bs, dtype=np.int32), tspec)
+    print(f"fused kernel checks on {card} (training batch: B={tspec.num_graphs}, "
+          f"N={tspec.num_nodes}, E={tspec.num_edges}, De=50):")
+    err.update(check_fused(tbatch, dev))
+    ftimes, fe_real, blocks = time_fused(tbatch, dev)
+    times.update(ftimes)
+    for k, t in ftimes.items():
+        print(f"{k} on {smi}, E={tspec.num_edges} ({fe_real} real), "
+              f"N={tspec.num_nodes}, D=100, De=50, {blocks} backward blocks: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
+    del tdata, tbatch
+
+    # ---- main path 1: Predict on the card, then on the CPU ----------------
     os.chdir(WORK)
     gpu_cfg = predict_config(data_dir, model_path, "chip_gpu", "cuda")
     for k in csr.LAUNCHES:
@@ -380,15 +655,82 @@ def main() -> int:
     print(f"card vs CPU predictions: max |diff| "
           f"{float(np.abs(pred_g - pred_c).max()):.3e} (rtol 1e-4, atol 1e-4)")
 
+    # ---- main path 2: Training on the card, then on the CPU ---------------
+    def resume_from_init(name):
+        path = os.path.join(WORK, f"{name}.ckpt")
+        shutil.copy(model_path, path)
+        return path
+
+    n_train = int(len(dataset) * TRAINING["train_ratio"])
+    train_steps = -(-n_train // train_bs)
+    gpu_train = resume_from_init("train_gpu")
+    for counts in (csr.LAUNCHES, FC.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    wall, card_rows = run_training(training_config(
+        data_dir, gpu_train, "chip_train_gpu", "cuda", EPOCHS_CARD))
+    train_launches = dict(FC.LAUNCHES)
+    print(f"launches in one Training run of {EPOCHS_CARD} epochs: "
+          f"{train_launches}; CSR {dict(csr.LAUNCHES)}")
+    need = 4 * train_steps * EPOCHS_CARD
+    for k, v in train_launches.items():
+        if v < need:
+            raise AssertionError(f"{k} launched {v} times, expected >= {need}")
+    warm = warm_epoch_s(card_rows)
+    print(f"Training on {smi}: {wall:.3f} s wall for {EPOCHS_CARD} epochs; "
+          f"epoch 1 (cold) {card_rows[0][4]:.5f} s, warm epochs "
+          f"{warm:.5f} s on average ({n_train / warm:.1f} train graphs/s)")
+    cpu_train = resume_from_init("train_cpu")
+    cpu_wall, cpu_rows = run_training(training_config(
+        data_dir, cpu_train, "chip_train_cpu", "cpu", EPOCHS_CPU, "fused"))
+    print(f"Training on the CPU (plain versions): {cpu_wall:.3f} s wall for "
+          f"{EPOCHS_CPU} epochs")
+    np.testing.assert_allclose(card_rows[0][2], cpu_rows[0][2], rtol=1e-3)
+    if not card_rows[-1][2] < card_rows[0][2]:
+        raise AssertionError(f"the card's train error did not fall: "
+                             f"{card_rows[0][2]} -> {card_rows[-1][2]}")
+    print(f"card vs CPU: epoch 1 train error {card_rows[0][2]:.5f} vs "
+          f"{cpu_rows[0][2]:.5f} (rtol 1e-3); epoch 2 {card_rows[1][2]:.5f} "
+          f"vs {cpu_rows[1][2]:.5f}; the card's train error "
+          f"{card_rows[0][2]:.5f} -> {card_rows[-1][2]:.5f}")
+    run_predict(predict_config(data_dir, gpu_train, "chip_trained", "cuda"))
+    _, pred_t = read_predictions("chip_trained_predicted_outputs.csv")
+    if len(pred_t) != N_STRUCTURES or not np.isfinite(pred_t).all():
+        raise AssertionError(f"Predict from the trained checkpoint: expected "
+                             f"{N_STRUCTURES} finite predictions")
+    print(f"Predict from the checkpoint Training saved: {len(pred_t)} finite "
+          f"predictions")
+
+    # ---- kernel csr against kernel fused, then a profiled warm epoch ------
+    ab = {}
+    for kernel in ("csr", "fused"):
+        _, rows = run_training(training_config(
+            data_dir, resume_from_init(f"train_{kernel}"), f"chip_ab_{kernel}",
+            "cuda", EPOCHS_AB, kernel))
+        ab[kernel] = warm_epoch_s(rows)
+    print(f"warm epoch on {smi}: kernel csr {ab['csr']:.5f} s, kernel fused "
+          f"{ab['fused']:.5f} s (main path: {warm:.5f} s)")
+    profile_training(dataset, dev)
+
     kernels = []
-    for key, name, line in (("segment_sum", "csr_segment_sum", 135),
-                            ("gather", "csr_gather", 159)):
+    for key, name, src, line, count in (
+            ("segment_sum", "csr_segment_sum", "csr.cu", "pallas_csr.py:135",
+             launches["segment_sum"]),
+            ("gather", "csr_gather", "csr.cu", "pallas_csr.py:159",
+             launches["gather"]),
+            ("fused_cgconv_fwd", "fused_cgconv_fwd", "fused_cgconv.cu",
+             "pallas_fused.py:112", train_launches["fused_cgconv_fwd"]),
+            ("fused_cgconv_bwd", "fused_cgconv_bwd", "fused_cgconv.cu",
+             "pallas_fused.py:137", train_launches["fused_cgconv_bwd"]),
+            ("fused_cgconv_wgrad_reduce", "fused_cgconv_wgrad_reduce",
+             "fused_cgconv.cu", "pallas_fused.py:137",
+             train_launches["fused_cgconv_wgrad_reduce"])):
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "matdeeplearn_torch/csrc/csr.cu",
-            "replaces": f"matdeeplearn_tpu/ops/pallas_csr.py:{line}",
-            "launches": launches[key], "max_abs_err": err[key],
+            "source": f"matdeeplearn_torch/csrc/{src}",
+            "replaces": f"matdeeplearn_tpu/ops/{line}",
+            "launches": count, "max_abs_err": err[key],
             "check": "pass", "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

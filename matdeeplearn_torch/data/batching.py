@@ -12,8 +12,10 @@ edges and builds the masks with tensor ops on the dataset's device:
 
 Under edge_order="dst" each graph's edges are sorted by (local dst, local
 src) once on the host, so the assembled batch's edge_dst is non-decreasing
-over real edges: the layout of the CSR kernels (ops/csr.py). Packed and
-windowed batches are not ported yet (ROADMAP queue 1, items 3 and 15).
+over real edges: the layout of the CSR kernels (ops/csr.py). A dataset
+made with kernel_fused=True (dst order only) marks its batches for the
+fused CGConv kernel (ops/fused_cgconv.py). Packed and windowed batches are
+not ported yet (ROADMAP queue 1, items 3 and 15).
 """
 
 from __future__ import annotations
@@ -71,6 +73,8 @@ class DeviceDataset:
     # (N,) float32 per-node in-degree under edge_order "dst": a dataset
     # constant that batches take through the node gather.
     node_indeg: torch.Tensor | None = None
+    # batches run CGConv on the fused kernel (needs edge_order "dst")
+    kernel_fused: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -82,7 +86,11 @@ class DeviceDataset:
 
     @classmethod
     def from_graph_dataset(cls, ds, device: str | torch.device,
-                           edge_order: str | None = None) -> "DeviceDataset":
+                           edge_order: str | None = None,
+                           kernel_fused: bool = False) -> "DeviceDataset":
+        if kernel_fused and edge_order != "dst":
+            raise ValueError("kernel_fused needs edge_order='dst' (the "
+                             "in-degree comes with the sorted order)")
         if edge_order not in (None, "dst"):
             raise NotImplementedError(
                 f"edge_order={edge_order!r}: only 'dst' is ported (the src "
@@ -129,6 +137,7 @@ class DeviceDataset:
             edge_dist_norm=t(ed, torch.float32),
             edge_order=edge_order,
             node_indeg=node_indeg,
+            kernel_fused=kernel_fused,
         )
 
 
@@ -153,6 +162,7 @@ class GraphBatch:
     # edge_order "dst".
     in_degree: torch.Tensor | None = None
     edge_order: str | None = None
+    kernel_fused: bool = False
 
     @property
     def dst_sorted(self) -> bool:
@@ -238,4 +248,5 @@ def assemble_batch(data: DeviceDataset, graph_ids, spec: BatchSpec) -> GraphBatc
         n_node=ncounts,
         in_degree=in_degree,
         edge_order=data.edge_order,
+        kernel_fused=data.kernel_fused,
     )

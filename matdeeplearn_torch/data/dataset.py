@@ -10,8 +10,9 @@ either package can read a cache the other wrote):
   ptr arrays   (G+1,)           CSR offsets into node/edge arrays
 
 Graphs are built with the numpy featurizer (data/graphs.py:build_graph).
-Not yet ported: the C++ featurizer loader, the "large" streaming dataset,
-the SOAP/SM descriptors and the train/val/test splits (ROADMAP queue 1).
+The train/val/test and CV splits cut one seeded torch.randperm, as the
+reference does. Not yet ported: the C++ featurizer loader, the "large"
+streaming dataset and the SOAP/SM descriptors (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import shutil
 from dataclasses import dataclass, field, replace
 
 import numpy as np
+import torch
 
 from matdeeplearn_torch.data import graphs as G
 from matdeeplearn_torch.data.structures import Structure, read_ase_db, read_structure
@@ -281,3 +283,48 @@ def get_dataset(
     if ds is None:
         ds = process_data(data_path, processed_path, args)
     return ds.with_target_index(target_index)
+
+
+# ------------------------------------------------------------------ splitting
+
+
+def _seeded_permutation(n: int, seed: int) -> np.ndarray:
+    """torch.randperm with a manually seeded Generator, as the reference's
+    random_split (process.py:46-50)."""
+    g = torch.Generator().manual_seed(int(seed))
+    return torch.randperm(n, generator=g).numpy()
+
+
+def split_data(dataset, train_ratio: float, val_ratio: float,
+               test_ratio: float, seed: int):
+    """Seeded train/val/test split (reference split_data, process.py:27-63):
+    sizes are int(n * ratio) each, the remainder unused; contiguous slices
+    of one seeded permutation in train/val/test order."""
+    n = len(dataset)
+    if train_ratio + val_ratio + test_ratio > 1:
+        raise ValueError("invalid ratios: their sum exceeds 1")
+    n_train = int(n * train_ratio)
+    n_val = int(n * val_ratio)
+    n_test = int(n * test_ratio)
+    perm = _seeded_permutation(n, seed)
+    train_idx = perm[:n_train]
+    val_idx = perm[n_train:n_train + n_val]
+    test_idx = perm[n_train + n_val:n_train + n_val + n_test]
+    print(
+        "train length:", n_train, "val length:", n_val,
+        "test length:", n_test, "unused length:", n - n_train - n_val - n_test,
+        "seed :", seed,
+    )
+    return train_idx, val_idx, test_idx
+
+
+def split_data_CV(dataset, num_folds: int, seed: int):
+    """Seeded equal-fold CV split (reference split_data_CV, process.py:69-79)."""
+    n = len(dataset)
+    fold_length = n // num_folds
+    perm = _seeded_permutation(n, seed)
+    print(
+        "fold length :", fold_length,
+        "unused length:", n - fold_length * num_folds, "seed", seed,
+    )
+    return [perm[i * fold_length:(i + 1) * fold_length] for i in range(num_folds)]

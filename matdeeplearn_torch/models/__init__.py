@@ -31,12 +31,14 @@ MODEL_FIELDS = {"CGCNN": _COMMON}
 
 def build_model(name: str, dataset, hyperparams: dict, *,
                 generator: torch.Generator | None = None,
+                dropout_seed: int = 0,
                 device: str | torch.device | None = None):
     """Instantiate a model by registry name with dataset-derived dims.
 
-    String booleans ("True"/"False") are coerced, as in the reference's
-    YAML. `precision` must be "f32" and `remat` false: bf16 and
-    rematerialization are not ported yet.
+    Initial weights come from `generator`, dropout masks from a generator
+    seeded with `dropout_seed`. String booleans ("True"/"False") are
+    coerced, as in the reference's YAML. `precision` must be "f32" and
+    `remat` false: bf16 and rematerialization are not ported yet.
     """
     if name in NOT_PORTED:
         raise NotImplementedError(
@@ -60,4 +62,5 @@ def build_model(name: str, dataset, hyperparams: dict, *,
     kwargs.setdefault("num_features", dataset.num_features)
     kwargs.setdefault("edge_resolution", dataset.num_edge_features)
     kwargs.setdefault("edge_width", getattr(dataset, "edge_width", 0.2))
-    return MODEL_REGISTRY[name](**kwargs, generator=generator, device=device)
+    return MODEL_REGISTRY[name](**kwargs, generator=generator,
+                                dropout_seed=dropout_seed, device=device)

@@ -2,12 +2,15 @@
 
 Stack: pre-FC → gc_count × [CGConv → BatchNorm? → dropout] (no inter-conv
 activation, cgcnn.py:146) → pool → post-FC → lin_out.
+
+Dropout masks come from the model's own torch.Generator, seeded with
+`dropout_seed` (the job seed), one per device, never from torch's global
+generator: the same seed gives the same masks.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from matdeeplearn_torch.models.base import GNNBase
 from matdeeplearn_torch.nn.conv import CGConv
@@ -23,6 +26,7 @@ class CGCNN(GNNBase):
                  output_dim: int = 1, edge_resolution: int = 50,
                  edge_width: float = 0.2, *,
                  generator: torch.Generator | None = None,
+                 dropout_seed: int = 0,
                  device: str | torch.device | None = None):
         super().__init__(
             num_features=num_features, dim1=dim1, dim2=dim2,
@@ -34,15 +38,30 @@ class CGCNN(GNNBase):
         self.gc_count = gc_count
         self.batch_norm = batch_norm
         self.dropout_rate = dropout_rate
+        self.dropout_seed = dropout_seed
+        self._dropout_gens: dict[torch.device, torch.Generator] = {}
         for i in range(gc_count):
             self.add_module(f"conv{i}", CGConv(
-                self.gc_dim, edge_resolution, generator=generator, device=device))
+                self.gc_dim, edge_resolution, edge_width, generator=generator,
+                device=device))
             if batch_norm:
                 self.add_module(f"bn{i}", MaskedBatchNorm(
                     self.gc_dim, track_stats=batch_track_stats, device=device))
 
+    def dropout(self, x):
+        """Inverted dropout with a mask drawn from the model's generator."""
+        if not self.training or self.dropout_rate <= 0:
+            return x
+        gen = self._dropout_gens.get(x.device)
+        if gen is None:
+            gen = torch.Generator(device=x.device).manual_seed(self.dropout_seed)
+            self._dropout_gens[x.device] = gen
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.dropout_rate
+        return x * keep / (1.0 - self.dropout_rate)
+
     def forward(self, batch):
-        edge_attr = self.edge_features(batch)
+        # the fused CGConv builds the edge basis inside its kernel
+        edge_attr = None if batch.kernel_fused else self.edge_features(batch)
         out = self.apply_pre_fc(batch.x)
         for i in range(self.gc_count):
             out = getattr(self, f"conv{i}")(out, batch, edge_attr)
@@ -50,6 +69,5 @@ class CGCNN(GNNBase):
                 out = getattr(self, f"bn{i}")(
                     out, mask=batch.node_mask,
                     use_running_average=not self.training)
-            if self.dropout_rate > 0:
-                out = F.dropout(out, self.dropout_rate, self.training)
+            out = self.dropout(out)
         return self.apply_head(out, batch)

@@ -19,79 +19,34 @@ Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
 `LAUNCHES` counts kernel launches (plain calls are not counted).
 
-The library is built with nvcc at first use into build/torch_kernels/<hash>/
-under the repository root, keyed by a hash of the source; `build()` forces
-the build and returns the seconds it took.
+The library is built with nvcc at first use (ops/_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
-LAUNCHES = {"segment_sum": 0, "gather": 0}
+from matdeeplearn_torch.ops import _build
 
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "csr.cu"
-)
-_BUILD_ROOT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build", "torch_kernels",
-)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+LAUNCHES = {"segment_sum": 0, "gather": 0}
 
 _lib = None
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CSR kernels cannot be built")
-
-
-def _library_path() -> str:
-    with open(_SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(_BUILD_ROOT, tag, "libmdl_csr.so")
-
-
-def build() -> float:
-    """Compile csrc/csr.cu if needed and load it; returns build seconds
-    (0.0 when the library was already built or loaded)."""
+def _load():
+    """The bound library of csrc/csr.cu (built at first use, ops/_build.py)."""
     global _lib
-    if _lib is not None:
-        return 0.0
-    path = _library_path()
-    t0 = time.perf_counter()
-    built = 0.0
-    if not os.path.exists(path):
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.tmp{os.getpid()}"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, path)
-        built = time.perf_counter() - t0
-    lib = ctypes.CDLL(path)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mdl_csr_segment_sum.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
-    lib.mdl_csr_segment_sum.restype = ci
-    lib.mdl_csr_gather.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-    lib.mdl_csr_gather.restype = ci
-    _lib = lib
-    return built
+    if _lib is None:
+        lib = _build.library("csr")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.mdl_csr_segment_sum.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.mdl_csr_segment_sum.restype = ci
+        lib.mdl_csr_gather.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.mdl_csr_gather.restype = ci
+        _lib = lib
+    return _lib
 
 
 def _check_cuda(name, t, dtype, ndim):
@@ -152,10 +107,10 @@ def segment_sum(msg: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor | None,
     out = torch.zeros((n, d), dtype=torch.float32, device=msg.device)
     if e == 0 or d == 0 or n == 0:
         return out
-    build()
+    lib = _load()
     with torch.cuda.device(msg.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib.mdl_csr_segment_sum(msg.data_ptr(), dst.data_ptr(), _ptr(mask),
+        rc = lib.mdl_csr_segment_sum(msg.data_ptr(), dst.data_ptr(), _ptr(mask),
                                       out.data_ptr(), e, d, n, stream)
     _raise_on(rc, "mdl_csr_segment_sum")
     LAUNCHES["segment_sum"] += 1
@@ -174,11 +129,11 @@ def gather(x: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor | None
     out = torch.empty((e, d), dtype=torch.float32, device=x.device)
     if e == 0 or d == 0:
         return out.zero_()
-    build()
+    lib = _load()
     vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib.mdl_csr_gather(x.data_ptr(), dst.data_ptr(), _ptr(mask),
+        rc = lib.mdl_csr_gather(x.data_ptr(), dst.data_ptr(), _ptr(mask),
                                  out.data_ptr(), e, d, n, vec4, stream)
     _raise_on(rc, "mdl_csr_gather")
     LAUNCHES["gather"] += 1

@@ -1,10 +1,11 @@
-"""Losses, the eval step and evaluation in id order.
+"""Losses, the train and eval steps, and evaluation in id order.
 
-Reference counterparts: evaluate() (training/training.py:58-92). Losses are
-pad-mask-aware, and the error over a split is the sample-weighted mean the
-reference computes (loss × batch count). The loss sums stay on the device;
-evaluation waits for it once, at the end. The train step waits for the
-training slice (ROADMAP queue 1, item 6).
+Reference counterparts: train() (training/training.py:34-54) and evaluate()
+(:58-92); the reference package's training/train.py:_train_step_body.
+Losses are pad-mask-aware, and the error over a split is the
+sample-weighted mean the reference computes (loss × batch count). A step
+returns its loss and graph count as device tensors and never waits for the
+device; the sums stay on the device, and `evaluate` waits once, at the end.
 """
 
 from __future__ import annotations
@@ -91,6 +92,37 @@ def epoch_id_matrix(indices, batch_size: int, shuffle: bool, seed) -> np.ndarray
     padded = np.full(steps * batch_size, -1, dtype=np.int64)
     padded[:n] = order
     return padded.reshape(steps, batch_size).astype(np.int32)
+
+
+def train_step(model, optimizer, loss_fn, spec: BatchSpec, data: DeviceDataset,
+               ids):
+    """One optimizer step on the batch of dataset ids `ids` (a (B,) array or
+    device tensor, -1 for pad slots): BatchNorm in training mode (batch
+    statistics, running update), masked loss, backward, optimizer.step().
+    Returns (loss, graph count) as device tensors."""
+    batch = assemble_batch(data, ids, spec)
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    out = model(batch)
+    y = batch.y if out.ndim > 1 else batch.y[:, 0]
+    loss = loss_fn(out, y, batch.graph_mask)
+    loss.backward()
+    optimizer.step()
+    return loss.detach(), torch.sum(batch.graph_mask)
+
+
+@torch.no_grad()
+def eval_sums(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids):
+    """Σ loss·count and Σ count over the rows of the (S, B) id matrix `ids`,
+    as device tensors, in eval mode."""
+    model.eval()
+    loss_sum = torch.zeros((), device=data.device)
+    count_sum = torch.zeros((), device=data.device)
+    for row in ids:
+        loss, count, _ = eval_step(model, loss_fn, spec, data, row)
+        loss_sum += loss * count
+        count_sum += count
+    return loss_sum, count_sum
 
 
 @torch.no_grad()

@@ -7,8 +7,11 @@ installed, without the repository's conftest (which imports jax):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: gather bit-exact; segment-sum rtol 1e-5 and atol
-1e-5·max|ref|, because its atomics reorder the additions; whole-model
-outputs and gradients 1e-4 against the same model on the CPU.
+1e-5·max|ref|, because its atomics reorder the additions; the fused CGConv
+kernels rtol 1e-4 and atol 1e-4·max|ref| (atomics, and sums over every edge
+in another order than the plain version's GEMMs); whole-model outputs and
+gradients 1e-4 against the same model on the CPU; a short training run's
+errors 1e-3 against the CPU.
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from matdeeplearn_torch.ops import csr
+from matdeeplearn_torch.ops import fused_cgconv as FC
 
 
 @pytest.fixture(autouse=True)
@@ -135,3 +139,173 @@ def test_cgcnn_on_cuda_matches_cpu(cuda_device, tmp_path):
         torch.testing.assert_close(g_gpu[k], g, rtol=1e-4,
                                    atol=1e-4 * max(float(g.abs().max()), 1e-6),
                                    msg=lambda m, k=k: f"{k}: {m}")
+
+
+def _fused_inputs(case, d, de=50, seed=0, device="cuda"):
+    rng = np.random.default_rng(seed)
+    dst, mask, n = _problem(rng, case)
+    e = len(dst)
+    g = torch.Generator().manual_seed(seed)
+    t = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(device)
+    x, xj = t(n, d), t(e, d)
+    dist = torch.rand(e, generator=g).to(device)
+    ws = [t(d, d, s=0.1), t(d, d, s=0.1), t(de, d, s=0.1), t(d, s=0.1),
+          t(d, d, s=0.1), t(d, d, s=0.1), t(de, d, s=0.1), t(d, s=0.1)]
+    return (x, xj, dist, torch.as_tensor(dst, device=device),
+            torch.as_tensor(mask, device=device), ws, n)
+
+
+def _assert_fused_close(out, ref, name):
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-4 * max(float(ref.abs().max()), 1e-30),
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "scattered"])
+@pytest.mark.parametrize("d", [3, 100, 150, 256])
+def test_fused_cgconv_kernels_match_plain(cuda_device, case, d):
+    x, xj, dist, dst, mask, ws, n = _fused_inputs(case, d, device=cuda_device)
+    out = FC.fused_cgconv(x, xj, dist, dst, mask, *ws, n, 0.2)
+    _assert_fused_close(out, FC.fused_cgconv_plain(x, xj, dist, dst, mask, *ws,
+                                                   n, 0.2), "forward")
+    g = torch.randn(n, d, device=cuda_device)
+    got = FC.fused_cgconv_bwd(g, x, xj, dist, dst, mask, *ws, n, 0.2)
+    ref = FC.fused_cgconv_bwd_plain(g, x, xj, dist, dst, mask, *ws, n, 0.2)
+    names = ["x", "xj", "wfi", "wfj", "wfe", "bf", "wsi", "wsj", "wse", "bs"]
+    for name, a, b in zip(names, got, ref):
+        assert a.shape == b.shape, name
+        _assert_fused_close(a, b, f"d_{name}")
+    # pad edges get zero d_xj rows
+    assert float(got[1][mask == 0].abs().max()) == 0.0
+
+
+def test_fused_cgconv_autograd_and_launch_counts(cuda_device):
+    x, xj, dist, dst, mask, ws, n = _fused_inputs("sorted", 16,
+                                                  device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in [x, xj] + ws]
+    before = dict(FC.LAUNCHES)
+    out = FC.FusedCGConv.apply(leaves[0], leaves[1], dist, dst, mask,
+                             *leaves[2:], n, 0.2)
+    cot = torch.randn_like(out)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert FC.LAUNCHES["fused_cgconv_fwd"] == before["fused_cgconv_fwd"] + 1
+    assert FC.LAUNCHES["fused_cgconv_bwd"] == before["fused_cgconv_bwd"] + 1
+    assert (FC.LAUNCHES["fused_cgconv_wgrad_reduce"]
+            == before["fused_cgconv_wgrad_reduce"] + 1)
+    ref = FC.fused_cgconv_bwd_plain(cot, x, xj, dist, dst, mask, *ws, n, 0.2)
+    for leaf, r in zip(leaves, ref):
+        _assert_fused_close(leaf.grad, r, "autograd")
+
+
+def test_wgrad_reduce_matches_plain(cuda_device):
+    d, de, blocks = 100, 50, 7
+    floats = FC._load().mdl_fused_cgconv_partial_floats(d, de)
+    partial = torch.randn(blocks * floats, device=cuda_device)
+    _assert_fused_close(FC.wgrad_reduce(partial, blocks, d, de),
+                        FC.wgrad_reduce_plain(partial, d, de), "reduce")
+
+
+def test_fused_cgconv_raises_instead_of_falling_back(cuda_device):
+    x, xj, dist, dst, mask, ws, n = _fused_inputs("sorted", 8,
+                                                  device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        FC.fused_cgconv(x, xj, dist, dst.long(), mask, *ws, n, 0.2)
+    with pytest.raises(ValueError, match="contiguous"):
+        FC.fused_cgconv(x, xj.t().contiguous().t(), dist, dst, mask, *ws, n,
+                        0.2)
+    wide = _fused_inputs("sorted", 300, device=cuda_device)
+    with pytest.raises(ValueError, match="wider"):
+        FC.fused_cgconv(*wide[:5], *wide[5], wide[6], 0.2)
+
+
+def _toy(tmp_path, n=24):
+    import chip_smoke
+    from matdeeplearn_torch.data.dataset import get_dataset
+
+    chip_smoke.write_structures(str(tmp_path), n=n)
+    return get_dataset(str(tmp_path), 0, "False",
+                       {"graph_max_radius": 6.0, "graph_max_neighbors": 8,
+                        "verbose": "False"})
+
+
+def test_fused_cgcnn_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """A small CGCNN on batches marked for the fused kernel, in training
+    mode: outputs and parameter gradients on the card (fused kernels)
+    against the CPU (plain versions)."""
+    from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                                  assemble_batch)
+    from matdeeplearn_torch.models import build_model
+
+    ds = _toy(tmp_path)
+    spec = BatchSpec.for_dataset(ds.node_counts(), ds.edge_counts(), 10)
+    ids = np.array([3, 0, 9, 14, 6, 1, 22, 7, -1, -1], np.int32)
+    hp = {"dim1": 32, "dim2": 24, "gc_count": 3, "post_fc_count": 2}
+    model = build_model("CGCNN", ds, hp, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    results = {}
+    for dev in ("cpu", cuda_device):
+        m = build_model("CGCNN", ds, hp, device=dev)
+        m.load_state_dict(model.state_dict())
+        m.train()
+        batch = assemble_batch(DeviceDataset.from_graph_dataset(
+            ds, dev, edge_order="dst", kernel_fused=True), ids, spec)
+        before = FC.LAUNCHES["fused_cgconv_bwd"]
+        out = m(batch)
+        (out * batch.graph_mask).abs().sum().backward()
+        if dev != "cpu":
+            assert FC.LAUNCHES["fused_cgconv_bwd"] == before + 3
+        results[str(dev)] = (out.detach().cpu(),
+                             {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = results["cpu"], results[str(cuda_device)]
+    torch.testing.assert_close(o_gpu, o_cpu, rtol=1e-4, atol=1e-4)
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], g, rtol=1e-4,
+                                   atol=1e-4 * max(float(g.abs().max()), 1e-6),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+def test_training_on_cuda_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """train_regular on the card (fused kernels, capturable AdamW) and on
+    the CPU (plain versions): the same errors, to 1e-3."""
+    from matdeeplearn_torch.training import jobs
+
+    ds = _toy(tmp_path / "data", n=40)
+    monkeypatch.chdir(tmp_path)
+    mp = {"model": "CGCNN", "dim1": 32, "dim2": 24, "gc_count": 2,
+          "post_fc_count": 1, "batch_size": 8, "epochs": 3, "lr": 0.005,
+          "optimizer": "AdamW", "scheduler": "ReduceLROnPlateau",
+          "scheduler_args": {"factor": 0.8, "patience": 0}, "kernel": "fused",
+          "print_model": False}
+    tp = {"loss": "l1_loss", "train_ratio": 0.7, "val_ratio": 0.15,
+          "test_ratio": 0.15, "verbosity": 1}
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        jp = {"job_name": f"t_{dev}", "seed": 4, "save_model": "False",
+              "write_output": "False"}
+        errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
+    for split in ("train", "val", "test"):
+        assert np.isfinite(errs["cuda"][split])
+        np.testing.assert_allclose(errs["cuda"][split], errs["cpu"][split],
+                                   rtol=1e-3, atol=1e-3, err_msg=split)
+
+
+def test_training_resumes_across_devices(cuda_device, tmp_path, monkeypatch):
+    """A checkpoint Training saved on the CPU resumes on the card, and one
+    saved on the card resumes on the CPU (load_model: "True")."""
+    from matdeeplearn_torch.training import jobs
+
+    ds = _toy(tmp_path / "data", n=30)
+    monkeypatch.chdir(tmp_path)
+    mp = {"model": "CGCNN", "dim1": 16, "dim2": 12, "gc_count": 2,
+          "post_fc_count": 1, "batch_size": 8, "epochs": 1, "lr": 0.005,
+          "kernel": "fused", "print_model": False}
+    tp = {"loss": "l1_loss", "train_ratio": 0.7, "val_ratio": 0.15,
+          "test_ratio": 0.15, "verbosity": 1}
+    jp = {"seed": 5, "write_output": "False", "model_path": "m.ckpt"}
+    jobs.train_regular(ds, {**jp, "job_name": "a"}, tp, mp, device="cpu")
+    for dev in ("cuda", "cpu", "cuda"):
+        errors = jobs.train_regular(ds, {**jp, "job_name": dev,
+                                         "load_model": "True"}, tp, mp,
+                                    device=dev)
+        assert np.isfinite(list(errors.values())).all(), dev

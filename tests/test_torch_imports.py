@@ -24,6 +24,15 @@ def _port_modules():
         if m.name != "matdeeplearn_torch.__main__")
 
 
+def test_training_slice_modules_are_walked():
+    """The import check below covers the Training slice's modules."""
+    mods = set(_port_modules())
+    for name in ("ops._build", "ops.fused_cgconv", "training.optimizers",
+                 "training.scheduler", "training.trainer", "training.jobs",
+                 "utils.summary", "cli"):
+        assert f"matdeeplearn_torch.{name}" in mods, name
+
+
 def test_port_and_chip_smoke_import_without_jax():
     code = "\n".join([
         "import importlib, sys",
