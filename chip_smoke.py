@@ -9,9 +9,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    each, in parallel), and turns TF32 off;
 2. writes 1,000 periodic structures (8-64 atoms, cubic cells of 16 Å^3 per
    atom, numpy seed 0) and featurizes them with config.yml's Processing
-   values; builds CGCNN_demo at full width from torch.Generator seed 0,
-   with non-trivial BatchNorm running statistics, and saves it with the
-   port's checkpoint;
+   values; builds CGCNN_demo and SchNet_demo at full width from
+   torch.Generator seed 0, with non-trivial BatchNorm running statistics,
+   and saves each with the port's checkpoint;
 3. checks each CSR kernel against its plain PyTorch version on the card, at
    the shapes of a Predict batch (sorted dst with tail pads, permuted dst,
    scattered mask, D in {1, 3, 150}, one gradient of each autograd pair):
@@ -28,6 +28,11 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    their bound (operations over 67 TFLOP/s f32, or bytes) and the unfused
    composition PR 1's CGConv runs (concat + 2 F.linear + activations +
    csr.segment_sum, and its autograd backward) as the library yardstick;
+   then the same for the fused SchNet cfconv kernels (F 150, 3 and 100,
+   cutoff 8: output, d_xj, the four filter gradients, zero d_xj on masked
+   edges, the reduction; the yardstick is the unfused SchNet composition:
+   basis, 2 F.linear with shifted softplus, cutoff, index_select,
+   csr.segment_sum, and its autograd backward);
 6. runs Predict through cli.run on the card with the launch counters reset
    just before and read just after (each CSR kernel >= 32: 8 batches x 4
    CGConv layers), then the same Predict on the CPU (plain versions, same
@@ -44,8 +49,13 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
 8. trains 3 epochs under kernel csr and 3 more under kernel fused, and
    prints the warm epoch time of each; profiles one warm training epoch
    (device busy share, top kernels);
-9. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
-   {"ok": true, "device": {...}}.
+9. does 7 for SchNet_demo (each cfconv kernel >= 4 x 8 x 5 launches), then
+   SchNet Predict on the card from the checkpoint Training saved (counters
+   reset just before: csr_segment_sum >= 4 x 8 launches; 1,000 finite
+   predictions that agree with the CPU Predict of that checkpoint to rtol
+   1e-4, atol 1e-4; one more profiled), then does 8 for SchNet_demo;
+10. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
+    {"ok": true, "device": {...}}.
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -112,6 +122,16 @@ CGCNN_DEMO = {
     "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
                        "min_lr": 0.00001, "threshold": 0.0002},
 }
+SCHNET_DEMO = {
+    "model": "SchNet", "dim1": 100, "dim2": 100, "dim3": 150, "cutoff": 8,
+    "pre_fc_count": 1, "gc_count": 4, "post_fc_count": 3,
+    "pool": "global_mean_pool", "pool_order": "early", "batch_norm": "True",
+    "batch_track_stats": "True", "act": "relu", "dropout_rate": 0.0,
+    "epochs": 250, "lr": 0.0005, "batch_size": 100, "optimizer": "AdamW",
+    "optimizer_args": {}, "scheduler": "ReduceLROnPlateau",
+    "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
+                       "min_lr": 0.00001, "threshold": 0.0002},
+}
 
 
 def predict_config(data_path: str, model_path: str, job_name: str,
@@ -125,14 +145,15 @@ def predict_config(data_path: str, model_path: str, job_name: str,
 
 
 def training_config(data_path: str, model_path: str, job_name: str,
-                    device: str, epochs: int, kernel: str = "auto") -> dict:
-    """The config cli.load_config gives for --run_mode=Training of
-    CGCNN_demo, resuming from `model_path` (load_model True), with this
-    run's epochs, kernel, device and verbosity 1."""
+                    device: str, epochs: int, kernel: str = "auto",
+                    model: dict = CGCNN_DEMO) -> dict:
+    """The config cli.load_config gives for --run_mode=Training of `model`
+    (CGCNN_demo or SchNet_demo), resuming from `model_path` (load_model
+    True), with this run's epochs, kernel, device and verbosity 1."""
     job = {**TRAIN_JOB, "run_mode": "Training", "job_name": job_name,
            "seed": TRAIN_SEED, "device": device, "load_model": "True",
            "model_path": model_path, "parallel": "False"}
-    model = {**CGCNN_DEMO, "epochs": epochs, "kernel": kernel,
+    model = {**model, "epochs": epochs, "kernel": kernel,
              "print_model": False}
     return {"Job": job, "Processing": {**PROCESSING, "data_path": data_path},
             "Training": {**TRAINING, "verbosity": 1}, "Models": model}
@@ -407,6 +428,137 @@ def time_fused(batch, dev, d=100, de=50):
     return res, e_real, blocks
 
 
+CFCONV_GRADS = ["xj", "w0", "b0", "w1", "b1"]
+
+
+def cfconv_inputs(batch, f, de, g, dev):
+    """xj = h[src] of random node features h, and the four filter
+    parameters of one cfconv at width f."""
+    h = torch.randn(batch.num_nodes, f, device=dev, generator=g)
+    xj = torch.index_select(h, 0, batch.edge_src)
+    shapes = ((de, f), (f,), (f, f), (f,))
+    ws = [0.1 * torch.randn(*sh, device=dev, generator=g) for sh in shapes]
+    return h, xj, ws
+
+
+def check_cfconv(batch, dev, de=50, cutoff=8.0):
+    """The fused cfconv kernels against their plain versions on the card;
+    returns the largest |kernel - plain| of each kernel."""
+    from matdeeplearn_torch.ops import fused_cfconv as FS
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    dst, mask, n = batch.edge_dst, batch.edge_mask, batch.num_nodes
+    dist, wraw = batch.edge_dist_norm, batch.edge_weight
+    e = dst.shape[0]
+    perm = torch.randperm(e, device=dev, generator=g)
+    scattered = mask * (torch.rand(e, device=dev, generator=g) > 0.3).float()
+    err = {k: 0.0 for k in FS.LAUNCHES}
+    for f in (150, 3, 100):
+        _, xj, ws = cfconv_inputs(batch, f, de, g, dev)
+        cot = torch.randn(n, f, device=dev, generator=g)
+        p = lambda t: t[perm].contiguous()
+        cases = [("sorted dst, tail pads", xj, dist, wraw, dst, mask),
+                 ("permuted dst", p(xj), p(dist), p(wraw), p(dst), p(mask)),
+                 ("scattered mask", xj, dist, wraw, dst, scattered)]
+        for name, *edges in cases:
+            args = (*edges, *ws, n, 0.2, cutoff)
+            fwd = assert_fused(FS.fused_cfconv(*args), FS.fused_cfconv_plain(*args),
+                               f"cfconv forward, F={f}, {name}")
+            got = FS.fused_cfconv_bwd(cot, *args)
+            refs = FS.fused_cfconv_bwd_plain(cot, *args)
+            bwd = max(assert_fused(a, b, f"cfconv d_{k}, F={f}, {name}")
+                      for k, a, b in zip(CFCONV_GRADS, got, refs))
+            if float(got[0][edges[4] == 0].abs().max()) != 0.0:
+                raise AssertionError(f"cfconv, F={f}, {name}: masked edges got "
+                                     "non-zero d_xj rows")
+            err["fused_cfconv_fwd"] = max(err["fused_cfconv_fwd"], fwd)
+            err["fused_cfconv_bwd"] = max(err["fused_cfconv_bwd"], bwd)
+            print(f"  cfconv kernel check ok: F={f}, {name}: forward max |diff| "
+                  f"{fwd:.3e}, backward (5 gradients) max |diff| {bwd:.3e}")
+        _, partial, blocks = FS.fused_cfconv_bwd_partials(cot, *args)
+        red = assert_fused(FS.wgrad_reduce(partial, blocks, f, de),
+                           FS.wgrad_reduce_plain(partial, f, de),
+                           f"cfconv wgrad_reduce, F={f}")
+        err["fused_cfconv_wgrad_reduce"] = max(
+            err["fused_cfconv_wgrad_reduce"], red)
+        print(f"  cfconv kernel check ok: F={f}, wgrad_reduce over {blocks} "
+              f"blocks max |diff| {red:.3e}")
+    return err
+
+
+def time_cfconv(batch, dev, f=150, de=50, cutoff=8.0):
+    """Fused cfconv kernel, plain and library times at one SchNet_demo
+    training batch's shapes (sorted dst), and the bound of each. The
+    library yardstick is the unfused SchNet composition (basis, two
+    F.linear with shifted softplus, cutoff, index_select, CSR segment sum)
+    and its autograd backward; the port never calls it under kernel
+    fused."""
+    import math
+
+    import torch.nn.functional as F
+
+    from matdeeplearn_torch.ops import csr
+    from matdeeplearn_torch.ops import fused_cfconv as FS
+    from matdeeplearn_torch.ops.edge_basis import gaussian_basis
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    dst, mask, n = batch.edge_dst, batch.edge_mask, batch.num_nodes
+    dist, wraw, src = batch.edge_dist_norm, batch.edge_weight, batch.edge_src
+    e = dst.shape[0]
+    e_real = int((mask > 0).sum())
+    h, xj, ws = cfconv_inputs(batch, f, de, g, dev)
+    cot = torch.randn(n, f, device=dev, generator=g)
+    args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, cutoff)
+
+    # the unfused composition, in torch.nn.Linear's (out, in) layout
+    leaves = [h.clone().requires_grad_(True),
+              ws[0].t().contiguous().requires_grad_(True),
+              ws[1].clone().requires_grad_(True),
+              ws[2].t().contiguous().requires_grad_(True),
+              ws[3].clone().requires_grad_(True)]
+
+    def unfused(hv, w0, b0, w1, b1):
+        basis = gaussian_basis(dist, 0.0, 1.0, de, 0.2)
+        w = F.linear(F.softplus(F.linear(basis, w0, b0)) - 0.6931471805599453,
+                     w1, b1)
+        c = 0.5 * (torch.cos(wraw * (math.pi / cutoff)) + 1.0)
+        msg = torch.index_select(hv, 0, src) * w * c[:, None]
+        return csr.sorted_segment_sum(msg, dst, mask, n)
+
+    out = unfused(*leaves)
+    _, partial, blocks = FS.fused_cfconv_bwd_partials(cot, *args)
+    pfloats = partial.numel()
+    weights = (de + 1) * f + (f + 1) * f
+    res = {
+        "fused_cfconv_fwd": {
+            "ms": device_ms(lambda: FS.fused_cfconv(*args)),
+            "plain_ms": device_ms(lambda: FS.fused_cfconv_plain(*args)),
+            "library_ms": device_ms(lambda: unfused(*leaves)),
+            **bound(4 * (n * f + e_real * f + 4 * e + weights),
+                    2 * e_real * (de * f + f * f)),
+        },
+        # the backward kernel leaves per-block partial weight gradients;
+        # its bound counts the four weight gradients as its output
+        "fused_cfconv_bwd": {
+            "ms": device_ms(lambda: FS.fused_cfconv_bwd_partials(cot, *args)),
+            "plain_ms": device_ms(lambda: FS.fused_cfconv_bwd_plain(cot, *args)),
+            "library_ms": device_ms(lambda: torch.autograd.grad(
+                out, leaves, cot, retain_graph=True)),
+            **bound(4 * (n * f + e_real * f + e * f + 4 * e + 2 * weights),
+                    2 * e_real * (2 * de * f + 3 * f * f)),
+        },
+        "fused_cfconv_wgrad_reduce": {
+            "ms": device_ms(lambda: FS.wgrad_reduce(partial, blocks, f, de)),
+            "plain_ms": device_ms(lambda: FS.wgrad_reduce_plain(partial, f, de)),
+            "library_ms": device_ms(lambda: partial.view(blocks, -1).sum(0)),
+            # the output is the (round4(De+1) + round4(F+1), F) stack
+            **bound(4 * (pfloats + f * (FS._round4(de + 1) + FS._round4(f + 1))),
+                    pfloats),
+        },
+    }
+    return res, e_real, blocks
+
+
 def run_cli(config) -> tuple[float, str]:
     """cli.run(config) with its output echoed (the settings dump left out);
     returns (wall seconds, the captured output)."""
@@ -444,9 +596,10 @@ def warm_epoch_s(rows) -> float:
     return float(np.mean([r[4] for r in rows[1:]]))
 
 
-def profile_training(dataset, dev, top: int = 14):
-    """One warm training epoch (kernel fused) under torch.profiler: device
-    time by kernel and the device's busy share of the wall time."""
+def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14):
+    """One warm training epoch of `model` (kernel fused) under
+    torch.profiler: device time by kernel and the device's busy share of
+    the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from matdeeplearn_torch.data.dataset import split_data
@@ -455,7 +608,7 @@ def profile_training(dataset, dev, top: int = 14):
     train_idx, val_idx, _ = split_data(dataset, TRAINING["train_ratio"],
                                        TRAINING["val_ratio"],
                                        TRAINING["test_ratio"], TRAIN_SEED)
-    run = jobs.setup_run(dataset, {**CGCNN_DEMO, "kernel": "fused"},
+    run = jobs.setup_run(dataset, {**model, "kernel": "fused"},
                          "l1_loss", seed=TRAIN_SEED, device=dev)
     kw = dict(train_idx=train_idx, val_idx=val_idx, epochs=1, verbosity=1,
               seed=TRAIN_SEED)
@@ -468,12 +621,13 @@ def profile_training(dataset, dev, top: int = 14):
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
     if not rows:
-        print("profiled training epoch: the profiler saw no device time "
-              "(not measured)")
+        print(f"profiled {model['model']} training epoch: the profiler saw no "
+              "device time (not measured)")
         return
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
-    print(f"profiled warm training epoch: device busy {busy_ms:.3f} ms of "
+    print(f"profiled warm {model['model']} training epoch: device busy "
+          f"{busy_ms:.3f} ms of "
           f"{1e3 * wall:.3f} ms wall ({100 * busy_ms / (1e3 * wall):.1f}%); "
           f"top device time:")
     for key, us, count in rows[:top]:
@@ -500,7 +654,7 @@ def device_rows(prof) -> list:
             and not getattr(ev, "is_user_annotation", False)]
 
 
-def profile_predict(config, top: int = 12):
+def profile_predict(config, label: str = "CGCNN", top: int = 12):
     """One more Predict on the card under torch.profiler: device time by
     kernel and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -509,12 +663,14 @@ def profile_predict(config, top: int = 12):
         wall, evaluation = run_predict(config)
     rows = device_rows(prof)
     if not rows:
-        print("profiled Predict: the profiler saw no device time (not measured)")
+        print(f"profiled {label} Predict: the profiler saw no device time "
+              "(not measured)")
         return
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy")) / 1e3
-    print(f"profiled Predict: device busy {busy_ms:.3f} ms of {1e3 * wall:.3f} ms "
+    print(f"profiled {label} Predict: device busy {busy_ms:.3f} ms of "
+          f"{1e3 * wall:.3f} ms "
           f"wall ({100 * busy_ms / (1e3 * wall):.1f}%), {copy_ms:.3f} ms of it "
           f"copies; kernels {busy_ms - copy_ms:.3f} ms against "
           f"{1e3 * evaluation:.3f} ms evaluation; top device time:")
@@ -540,6 +696,7 @@ def main() -> int:
     from matdeeplearn_torch.data.dataset import get_dataset
     from matdeeplearn_torch.models import MODEL_FIELDS, build_model
     from matdeeplearn_torch.ops import _build, csr
+    from matdeeplearn_torch.ops import fused_cfconv as FS
     from matdeeplearn_torch.ops import fused_cgconv as FC
     from matdeeplearn_torch.training.checkpoint import save_checkpoint
 
@@ -574,21 +731,31 @@ def main() -> int:
           f"{spec.num_nodes} nodes, {spec.num_edges} edges a batch; "
           f"{steps} batches")
 
-    gen = torch.Generator().manual_seed(0)
-    model = build_model("CGCNN", dataset, CGCNN_DEMO, generator=gen, device="cpu")
-    with torch.no_grad():
-        for name, buf in model.named_buffers():
-            if name.endswith("running_mean"):
-                buf.copy_(torch.randn(buf.shape, generator=gen) * 0.5)
-            elif name.endswith("running_var"):
-                buf.copy_(torch.rand(buf.shape, generator=gen) * 1.5 + 0.5)
-    cfg = {k: v for k, v in CGCNN_DEMO.items() if k in MODEL_FIELDS["CGCNN"]}
-    cfg.update(num_features=dataset.num_features, output_dim=dataset.output_dim,
-               edge_resolution=dataset.num_edge_features)
-    model_path = os.path.join(WORK, "cgcnn_demo.ckpt")
-    save_checkpoint(model_path, model.state_dict(), "CGCNN", cfg)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"CGCNN_demo: {n_params} parameters, checkpoint {model_path}")
+    def initial_checkpoint(demo: dict, path: str) -> str:
+        """`demo` at full width from torch.Generator seed 0, with random
+        BatchNorm running statistics, saved with the port's checkpoint."""
+        name = demo["model"]
+        gen = torch.Generator().manual_seed(0)
+        model = build_model(name, dataset, demo, generator=gen, device="cpu")
+        with torch.no_grad():
+            for key, buf in model.named_buffers():
+                if key.endswith("running_mean"):
+                    buf.copy_(torch.randn(buf.shape, generator=gen) * 0.5)
+                elif key.endswith("running_var"):
+                    buf.copy_(torch.rand(buf.shape, generator=gen) * 1.5 + 0.5)
+        cfg = {k: v for k, v in demo.items() if k in MODEL_FIELDS[name]}
+        cfg.update(num_features=dataset.num_features,
+                   output_dim=dataset.output_dim,
+                   edge_resolution=dataset.num_edge_features)
+        save_checkpoint(path, model.state_dict(), name, cfg)
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{name} at full width: {n_params} parameters, checkpoint {path}")
+        return path
+
+    model_path = initial_checkpoint(CGCNN_DEMO,
+                                    os.path.join(WORK, "cgcnn_demo.ckpt"))
+    schnet_path = initial_checkpoint(SCHNET_DEMO,
+                                     os.path.join(WORK, "schnet_demo.ckpt"))
 
     # ---- CSR kernel checks and times at a Predict batch's shapes ----------
     data = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst")
@@ -618,6 +785,17 @@ def main() -> int:
     for k, t in ftimes.items():
         print(f"{k} on {smi}, E={tspec.num_edges} ({fe_real} real), "
               f"N={tspec.num_nodes}, D=100, De=50, {blocks} backward blocks: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
+    print(f"cfconv kernel checks on {card} (the same training batch, De=50, "
+          f"cutoff 8):")
+    err.update(check_cfconv(tbatch, dev))
+    stimes, se_real, sblocks = time_cfconv(tbatch, dev)
+    times.update(stimes)
+    for k, t in stimes.items():
+        print(f"{k} on {smi}, E={tspec.num_edges} ({se_real} real), "
+              f"N={tspec.num_nodes}, F=150, De=50, {sblocks} backward blocks: "
               f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})")
@@ -656,9 +834,9 @@ def main() -> int:
           f"{float(np.abs(pred_g - pred_c).max()):.3e} (rtol 1e-4, atol 1e-4)")
 
     # ---- main path 2: Training on the card, then on the CPU ---------------
-    def resume_from_init(name):
+    def resume_from_init(name, init=model_path):
         path = os.path.join(WORK, f"{name}.ckpt")
-        shutil.copy(model_path, path)
+        shutil.copy(init, path)
         return path
 
     n_train = int(len(dataset) * TRAINING["train_ratio"])
@@ -712,6 +890,83 @@ def main() -> int:
           f"{ab['fused']:.5f} s (main path: {warm:.5f} s)")
     profile_training(dataset, dev)
 
+    # ---- main path 3: SchNet_demo Training on the card, then the CPU ------
+    gpu_schnet = resume_from_init("schnet_gpu", schnet_path)
+    for counts in (csr.LAUNCHES, FC.LAUNCHES, FS.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    wall, s_rows = run_training(training_config(
+        data_dir, gpu_schnet, "chip_schnet_gpu", "cuda", EPOCHS_CARD,
+        model=SCHNET_DEMO))
+    schnet_launches = dict(FS.LAUNCHES)
+    print(f"launches in one SchNet Training run of {EPOCHS_CARD} epochs: "
+          f"{schnet_launches}; CSR {dict(csr.LAUNCHES)}; fused CGConv "
+          f"{dict(FC.LAUNCHES)}")
+    for k, v in schnet_launches.items():
+        if v < need:
+            raise AssertionError(f"{k} launched {v} times, expected >= {need}")
+    s_warm = warm_epoch_s(s_rows)
+    print(f"SchNet Training on {smi}: {wall:.3f} s wall for {EPOCHS_CARD} "
+          f"epochs; epoch 1 (cold) {s_rows[0][4]:.5f} s, warm epochs "
+          f"{s_warm:.5f} s on average ({n_train / s_warm:.1f} train graphs/s)")
+    cpu_wall, s_cpu_rows = run_training(training_config(
+        data_dir, resume_from_init("schnet_cpu", schnet_path), "chip_schnet_cpu",
+        "cpu", EPOCHS_CPU, "fused", model=SCHNET_DEMO))
+    print(f"SchNet Training on the CPU (plain versions): {cpu_wall:.3f} s wall "
+          f"for {EPOCHS_CPU} epochs")
+    np.testing.assert_allclose(s_rows[0][2], s_cpu_rows[0][2], rtol=1e-3)
+    if not s_rows[-1][2] < s_rows[0][2]:
+        raise AssertionError(f"the card's SchNet train error did not fall: "
+                             f"{s_rows[0][2]} -> {s_rows[-1][2]}")
+    print(f"SchNet card vs CPU: epoch 1 train error {s_rows[0][2]:.5f} vs "
+          f"{s_cpu_rows[0][2]:.5f} (rtol 1e-3); epoch 2 {s_rows[1][2]:.5f} vs "
+          f"{s_cpu_rows[1][2]:.5f}; the card's train error "
+          f"{s_rows[0][2]:.5f} -> {s_rows[-1][2]:.5f}")
+
+    # ---- main path 4: SchNet_demo Predict on the card, then the CPU -------
+    for k in csr.LAUNCHES:
+        csr.LAUNCHES[k] = 0
+    s_wall, s_eval = run_predict(predict_config(data_dir, gpu_schnet,
+                                                "chip_schnet_predict", "cuda"))
+    s_predict_launches = dict(csr.LAUNCHES)
+    print(f"launches in one SchNet Predict: {s_predict_launches}")
+    if s_predict_launches["segment_sum"] < 4 * steps:
+        raise AssertionError(f"segment_sum launched "
+                             f"{s_predict_launches['segment_sum']} times in "
+                             f"SchNet Predict, expected >= {4 * steps}")
+    s_warm_wall, s_warm_eval = run_predict(predict_config(
+        data_dir, gpu_schnet, "chip_schnet_predict", "cuda"))
+    print(f"SchNet Predict on {smi}: cold {s_wall:.4f} s wall, {s_eval:.5f} s "
+          f"evaluation; warm {s_warm_wall:.4f} s wall, {s_warm_eval:.5f} s "
+          f"evaluation ({len(dataset) / s_warm_eval:.1f} graphs/s)")
+    profile_predict(predict_config(data_dir, gpu_schnet, "chip_schnet_predict",
+                                   "cuda"), "SchNet")
+    run_predict(predict_config(data_dir, gpu_schnet, "chip_schnet_predict_cpu",
+                               "cpu"))
+    ids_g, pred_g = read_predictions("chip_schnet_predict_predicted_outputs.csv")
+    ids_c, pred_c = read_predictions(
+        "chip_schnet_predict_cpu_predicted_outputs.csv")
+    if len(pred_g) != N_STRUCTURES or not np.isfinite(pred_g).all():
+        raise AssertionError(f"SchNet Predict: expected {N_STRUCTURES} finite "
+                             f"predictions")
+    if ids_g != ids_c:
+        raise AssertionError("SchNet card and CPU predictions list different ids")
+    np.testing.assert_allclose(pred_g, pred_c, rtol=1e-4, atol=1e-4)
+    print(f"SchNet card vs CPU predictions: max |diff| "
+          f"{float(np.abs(pred_g - pred_c).max()):.3e} (rtol 1e-4, atol 1e-4)")
+
+    # ---- SchNet: kernel csr against kernel fused, then a profiled epoch ---
+    s_ab = {}
+    for kernel in ("csr", "fused"):
+        _, rows = run_training(training_config(
+            data_dir, resume_from_init(f"schnet_{kernel}", schnet_path),
+            f"chip_schnet_ab_{kernel}", "cuda", EPOCHS_AB, kernel,
+            model=SCHNET_DEMO))
+        s_ab[kernel] = warm_epoch_s(rows)
+    print(f"SchNet warm epoch on {smi}: kernel csr {s_ab['csr']:.5f} s, kernel "
+          f"fused {s_ab['fused']:.5f} s (main path: {s_warm:.5f} s)")
+    profile_training(dataset, dev, SCHNET_DEMO)
+
     kernels = []
     for key, name, src, line, count in (
             ("segment_sum", "csr_segment_sum", "csr.cu", "pallas_csr.py:135",
@@ -724,7 +979,14 @@ def main() -> int:
              "pallas_fused.py:137", train_launches["fused_cgconv_bwd"]),
             ("fused_cgconv_wgrad_reduce", "fused_cgconv_wgrad_reduce",
              "fused_cgconv.cu", "pallas_fused.py:137",
-             train_launches["fused_cgconv_wgrad_reduce"])):
+             train_launches["fused_cgconv_wgrad_reduce"]),
+            ("fused_cfconv_fwd", "fused_cfconv_fwd", "fused_cfconv.cu",
+             "pallas_fused_schnet.py:66", schnet_launches["fused_cfconv_fwd"]),
+            ("fused_cfconv_bwd", "fused_cfconv_bwd", "fused_cfconv.cu",
+             "pallas_fused_schnet.py:86", schnet_launches["fused_cfconv_bwd"]),
+            ("fused_cfconv_wgrad_reduce", "fused_cfconv_wgrad_reduce",
+             "fused_cfconv.cu", "pallas_fused_schnet.py:86",
+             schnet_launches["fused_cfconv_wgrad_reduce"])):
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda",

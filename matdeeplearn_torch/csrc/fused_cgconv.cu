@@ -41,7 +41,9 @@
 //   walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... and adds each
 //   tile's z^T · dA into its own slice of a partial buffer in device
 //   memory (no atomics, 4 x 4 register micro-tiles, float4 traffic).
-//   mdl_fused_cgconv_wgrad_reduce then sums the slices in a fixed order.
+//   mdl_fused_cgconv_wgrad_reduce then sums the slices in a fixed order
+//   (edge_tile.cuh holds the sum and the epilogue, shared with
+//   fused_cfconv.cu).
 //   d_z = dA · W^T needs W transposed: the caller passes WT = W[:2D]^T.
 //
 // The caller zeroes out, d_x, d_xj and the partial buffer, and allocates
@@ -50,15 +52,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "edge_tile.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTE = 32;          // edges per tile
-constexpr int kRows = kTE / 8;   // tile rows per thread (8 warps)
-constexpr int kKC = 32;          // weight rows per shared-memory chunk
-constexpr int kMaxShared = 232448;
-
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
 struct Geometry {
   long long e;  // edge slots
@@ -81,15 +77,6 @@ Geometry make_geometry(long long e, int d, int de, int n, float coeff,
   g.ldn = round4(2 * d);
   g.coeff = coeff; g.step = step;
   return g;
-}
-
-__device__ __forceinline__ float sigmoidf(float a) {
-  return 1.f / (1.f + expf(-a));
-}
-
-// Unthresholded softplus, as the reference package computes it.
-__device__ __forceinline__ float softplusf(float a) {
-  return fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));
 }
 
 // Loads the tile's edge weights and destinations into shared memory (a
@@ -203,27 +190,6 @@ __device__ void tile_gemm(const float* __restrict__ a_s, int lda, int ka,
         }
       }
     }
-  }
-}
-
-// out[dst[r], c] += v_s[r, c] for the tile's real rows: one thread per
-// column adds runs of equal dst and flushes each with one atomicAdd.
-__device__ void flush_runs(const float* v_s, int d, const float* w_s,
-                           const int* dst_s, float* __restrict__ out) {
-  for (int c = threadIdx.x; c < d; c += kThreads) {
-    float acc = 0.f;
-    int cur = -1;
-    for (int r = 0; r < kTE; ++r) {
-      if (w_s[r] == 0.f) continue;
-      const int node = dst_s[r];
-      if (node != cur) {
-        if (cur >= 0) atomicAdd(out + (long long)cur * d + c, acc);
-        acc = 0.f;
-        cur = node;
-      }
-      acc += v_s[r * d + c];
-    }
-    if (cur >= 0) atomicAdd(out + (long long)cur * d + c, acc);
   }
 }
 
@@ -383,26 +349,6 @@ fused_cgconv_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-// dw[k, c] = Σ_b partial[b][micro-tile of (k, c)], summed in block order.
-__global__ void __launch_bounds__(kThreads)
-fused_cgconv_wgrad_reduce_kernel(const float* __restrict__ partial,
-                                 int blocks, int tiles_w, int cgroups,
-                                 int k1, int nb, float* __restrict__ dw) {
-  const long long total = (long long)tiles_w * 16;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < total; p += stride) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += partial[(long long)b * total + p];
-    const int m = (int)(p / 16);
-    const int i = (int)(p % 16) / 4;
-    const int q = (int)(p % 4);
-    const int k = (m / cgroups) * 4 + i;
-    const int c = (m % cgroups) * 4 + q;
-    if (k < k1 && c < nb) dw[(long long)k * nb + c] = s;
-  }
-}
-
 size_t fwd_shared_bytes(const Geometry& g) {
   return sizeof(float) * ((size_t)kTE * g.ldz + (size_t)kKC * g.ldn + kTE) +
          sizeof(int) * kTE;
@@ -535,14 +481,8 @@ int mdl_fused_cgconv_wgrad_reduce(const void* partial, void* dw, int blocks,
                                   int d, int de, void* stream) {
   const Geometry g = make_geometry(0, d, de, 0, 0.f, 0.f);
   const int cgroups = g.ldn / 4;
-  const int tiles_w = (g.ldz / 4) * cgroups;
-  const long long total = (long long)tiles_w * 16;
-  const unsigned grid = (unsigned)((total + kThreads - 1) / kThreads);
-  fused_cgconv_wgrad_reduce_kernel<<<grid, kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partial), blocks, tiles_w, cgroups, g.k1,
-      2 * d, static_cast<float*>(dw));
-  return (int)cudaGetLastError();
+  return launch_wgrad_reduce(partial, dw, blocks, (g.ldz / 4) * cgroups,
+                             cgroups, g.k1, 2 * d, stream);
 }
 
 }  // extern "C"

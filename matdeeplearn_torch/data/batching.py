@@ -14,8 +14,8 @@ Under edge_order="dst" each graph's edges are sorted by (local dst, local
 src) once on the host, so the assembled batch's edge_dst is non-decreasing
 over real edges: the layout of the CSR kernels (ops/csr.py). A dataset
 made with kernel_fused=True (dst order only) marks its batches for the
-fused CGConv kernel (ops/fused_cgconv.py). Packed and windowed batches are
-not ported yet (ROADMAP queue 1, items 3 and 15).
+fused conv kernels (ops/fused_cgconv.py, ops/fused_cfconv.py). Packed and
+windowed batches are not ported yet (ROADMAP queue 1, items 3 and 15).
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ class DeviceDataset:
     # (N,) float32 per-node in-degree under edge_order "dst": a dataset
     # constant that batches take through the node gather.
     node_indeg: torch.Tensor | None = None
-    # batches run CGConv on the fused kernel (needs edge_order "dst")
+    # batches run the conv on its fused kernel (needs edge_order "dst")
     kernel_fused: bool = False
 
     @property

@@ -1,7 +1,7 @@
 """Model registry: build a model by its config name.
 
-Only CGCNN is ported; the reference's other names raise NotImplementedError
-that names their ROADMAP item.
+CGCNN and SchNet are ported; the reference's other names raise
+NotImplementedError that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -9,12 +9,13 @@ from __future__ import annotations
 import torch
 
 from matdeeplearn_torch.models.cgcnn import CGCNN
+from matdeeplearn_torch.models.schnet import SchNet
 
-MODEL_REGISTRY = {"CGCNN": CGCNN}
+MODEL_REGISTRY = {"CGCNN": CGCNN, "SchNet": SchNet}
 
 # ROADMAP queue 1 items of the models still to port.
 NOT_PORTED = {
-    "GCN": "item 8", "SchNet": "item 9", "MEGNet": "item 10", "MPNN": "item 11",
+    "GCN": "item 8", "MEGNet": "item 10", "MPNN": "item 11",
     "SM": "item 12", "SOAP": "item 12",
 }
 
@@ -26,7 +27,7 @@ _COMMON = {
     "act", "dropout_rate", "output_dim", "edge_resolution", "edge_width",
     "precision", "remat",
 }
-MODEL_FIELDS = {"CGCNN": _COMMON}
+MODEL_FIELDS = {"CGCNN": _COMMON, "SchNet": _COMMON | {"dim3", "cutoff"}}
 
 
 def build_model(name: str, dataset, hyperparams: dict, *,

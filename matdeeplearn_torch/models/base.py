@@ -6,6 +6,10 @@ BatchNorm, early or late pooling, `post_fc_count` dense layers, a final
 `lin_out`, and a squeeze to (B,) for single targets. Subclasses build the
 conv stack. f32 only: bf16 activations are not ported yet (ROADMAP queue 1,
 item 5).
+
+Dropout masks come from the model's own torch.Generator, seeded with
+`dropout_seed` (the job seed), one per device, never from torch's global
+generator: the same seed gives the same masks.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ class GNNBase(nn.Module):
                  pre_fc_count: int, post_fc_count: int, pool: str,
                  pool_order: str, act: str, output_dim: int,
                  edge_resolution: int, edge_width: float,
+                 dropout_rate: float = 0.0, dropout_seed: int = 0,
                  generator: torch.Generator | None = None,
                  device: str | torch.device | None = None):
         super().__init__()
@@ -36,6 +41,8 @@ class GNNBase(nn.Module):
         self.pool = get_pool(pool)
         self.act = get_activation(act)
         self.edge_resolution, self.edge_width = edge_resolution, edge_width
+        self.dropout_rate, self.dropout_seed = dropout_rate, dropout_seed
+        self._dropout_gens: dict[torch.device, torch.Generator] = {}
         kw = dict(generator=generator, device=device)
         for i in range(pre_fc_count):
             fan_in = num_features if i == 0 else dim1
@@ -56,6 +63,17 @@ class GNNBase(nn.Module):
         """On-device Gaussian expansion of stored normalized distances."""
         return gaussian_basis(batch.edge_dist_norm, 0.0, 1.0,
                               self.edge_resolution, self.edge_width)
+
+    def dropout(self, x):
+        """Inverted dropout with a mask drawn from the model's generator."""
+        if not self.training or self.dropout_rate <= 0:
+            return x
+        gen = self._dropout_gens.get(x.device)
+        if gen is None:
+            gen = torch.Generator(device=x.device).manual_seed(self.dropout_seed)
+            self._dropout_gens[x.device] = gen
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.dropout_rate
+        return x * keep / (1.0 - self.dropout_rate)
 
     def apply_pre_fc(self, x):
         for i in range(self.pre_fc_count):

@@ -1,7 +1,8 @@
 """Core layers with reference-parity numerics.
 
   * torch.nn.Linear's default init U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-    weight and bias, drawn from an explicit torch.Generator,
+    weight and bias, drawn from an explicit torch.Generator, or on request
+    Xavier-uniform (Glorot) weights with zero biases, SchNet's init,
   * BatchNorm1d over masked (padded) rows: statistics over true rows only,
     biased variance to normalize, unbiased for the running update,
     momentum 0.1, and the track_running_stats switch (models/cgcnn.py:84-87),
@@ -27,6 +28,16 @@ def torch_linear_init(tensor: torch.Tensor, fan_in: int,
                       generator: torch.Generator | None = None) -> torch.Tensor:
     """Fill `tensor` in place from U(-k, k), k = 1/sqrt(fan_in)."""
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    with torch.no_grad():
+        return tensor.uniform_(-bound, bound, generator=generator)
+
+
+def xavier_uniform_init(tensor: torch.Tensor, fan_in: int, fan_out: int,
+                        generator: torch.Generator | None = None
+                        ) -> torch.Tensor:
+    """Fill `tensor` in place from U(-k, k), k = sqrt(6/(fan_in+fan_out)):
+    the reference package's glorot_uniform on the (in, out) kernel."""
+    bound = math.sqrt(6.0 / (fan_in + fan_out)) if fan_in + fan_out > 0 else 0.0
     with torch.no_grad():
         return tensor.uniform_(-bound, bound, generator=generator)
 
@@ -63,16 +74,26 @@ def get_activation(name: str) -> Callable:
 
 
 class Linear(nn.Module):
-    """Dense layer y = x W^T + b with torch.nn.Linear's default init."""
+    """Dense layer y = x W^T + b. init "torch": torch.nn.Linear's default
+    init; "xavier": Xavier-uniform weight, zero bias."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, generator: torch.Generator | None = None,
+                 *, init: str = "torch",
+                 generator: torch.Generator | None = None,
                  device: str | torch.device | None = None):
         super().__init__()
+        if init not in ("torch", "xavier"):
+            raise ValueError(f"unknown init {init!r}: expected torch|xavier")
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device))
         self.bias = (nn.Parameter(torch.empty(out_features, device=device))
                      if bias else None)
+        if init == "xavier":
+            xavier_uniform_init(self.weight, in_features, out_features,
+                                generator)
+            if self.bias is not None:
+                nn.init.zeros_(self.bias)
+            return
         torch_linear_init(self.weight, in_features, generator)
         if self.bias is not None:
             torch_linear_init(self.bias, in_features, generator)

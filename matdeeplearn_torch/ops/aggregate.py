@@ -4,7 +4,10 @@ On a dst-sorted batch (edge_order "dst") the dst-side ops go through the
 CSR kernels (ops/csr.py), at every width: the TPU package kept widths
 below 8 on XLA because of its 128-lane one-hot matmul, which these kernels
 do not have. Other batches use the masked segment ops (ops/segment.py).
-Pad edges gather zero rows on both paths.
+Pad edges gather zero rows at dst on both paths (gather_dst). gather_src
+returns x[0] rows on pad edges (they point at node 0) and relies on its
+callers' masks: every aggregation multiplies by edge_mask, and the fused
+kernels give masked edges zero gradients.
 """
 
 from __future__ import annotations

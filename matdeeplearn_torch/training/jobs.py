@@ -35,11 +35,14 @@ KERNELS = ("auto", "xla", "csr", "fused", "pallas")
 
 @dataclass(frozen=True)
 class KernelPlan:
-    """What one run's CGConvs run on (see resolve_kernel)."""
+    """What one run's convolutions run on (see resolve_kernel)."""
 
     name: str               # fused | csr | xla
     edge_order: str | None  # "dst" for fused and csr, None: reference order
-    fused: bool             # CGConv on the fused kernel
+    fused: bool             # the conv on its fused kernel
+
+
+TRAINABLE = ("CGCNN", "SchNet")  # the models whose Training is ported
 
 
 def resolve_kernel(model_name: str, kernel: str, batching: str,
@@ -48,17 +51,20 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
     in-memory padded batches (the reference package's _resolve_kernel,
     training/jobs.py:80-199):
 
-      fused — CGConv on the fused kernel (ops/fused_cgconv.py), dst-sorted
-              batches; the x_j gather stays in torch;
-      csr   — the unfused CGConv with the CSR kernels (ops/csr.py) on its
-              x_i gather and mean, dst-sorted batches;
+      fused — the model's conv on its fused kernel, dst-sorted batches
+              (CGConv: ops/fused_cgconv.py; SchNet's cfconv:
+              ops/fused_cfconv.py); the x_j gather stays in torch;
+      csr   — the unfused conv with the CSR kernels (ops/csr.py) on its
+              dst-side gathers and aggregation, dst-sorted batches;
       xla   — masked plain segment ops on the reference edge order;
       auto  — fused on a CUDA device, xla elsewhere (where the kernels'
               plain versions would run, as the reference keeps auto on XLA
-              off its accelerator). The choice on the card is not the TPU's
-              verdict carried over: chip_smoke.py times a warm training
-              epoch under fused and under csr, and PERF.md records that
-              the two are even so far.
+              off its accelerator), for CGCNN and SchNet alike. This is
+              the port's choice, not the TPU's verdict carried over (the
+              reference's auto never picks its fused cfconv, measured
+              slower on its TPU): chip_smoke.py times a warm training
+              epoch under fused and under csr for both models, and
+              PERF.md records what it found.
 
     A request the port cannot honour raises NotImplementedError naming its
     ROADMAP item; nothing falls back quietly.
@@ -66,10 +72,10 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel '{kernel}' — expected one of "
                          "auto|xla|csr|fused|pallas")
-    if model_name != "CGCNN":
+    if model_name not in TRAINABLE:
         raise NotImplementedError(
             f"training {model_name} is not ported yet (ROADMAP queue 1, "
-            "items 8-12)")
+            "items 8 and 10-12)")
     if batching != "padded":
         raise NotImplementedError(
             f"batching={batching!r} is not ported yet (ROADMAP queue 1, "
@@ -291,8 +297,9 @@ def predict(dataset, loss: str, job_parameters: dict,
             device: str | torch.device | None = None) -> float:
     """The Predict run mode: rebuild the model from the checkpoint header,
     batch-128 inference on dst-sorted batches (the CSR kernels carry every
-    CGConv gather and mean), write `<job>_predicted_outputs.csv`, report
-    the error. Runs on CUDA unless `device` names another device."""
+    CGConv x_i gather and mean, and every SchNet cfconv sum), write
+    `<job>_predicted_outputs.csv`, report the error. Runs on CUDA unless
+    `device` names another device."""
     dev = resolve_device(device)
     model_path = job_parameters["model_path"]
     if not os.path.exists(model_path):

@@ -8,10 +8,10 @@ installed, without the repository's conftest (which imports jax):
 
 Tolerances: gather bit-exact; segment-sum rtol 1e-5 and atol
 1e-5·max|ref|, because its atomics reorder the additions; the fused CGConv
-kernels rtol 1e-4 and atol 1e-4·max|ref| (atomics, and sums over every edge
-in another order than the plain version's GEMMs); whole-model outputs and
-gradients 1e-4 against the same model on the CPU; a short training run's
-errors 1e-3 against the CPU.
+and cfconv kernels rtol 1e-4 and atol 1e-4·max|ref| (atomics, and sums over
+every edge in another order than the plain version's GEMMs); whole-model
+outputs and gradients 1e-4 against the same model on the CPU; a short
+training run's errors 1e-3 against the CPU.
 """
 
 import numpy as np
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from matdeeplearn_torch.ops import csr
+from matdeeplearn_torch.ops import fused_cfconv as FS
 from matdeeplearn_torch.ops import fused_cgconv as FC
 
 
@@ -309,3 +310,151 @@ def test_training_resumes_across_devices(cuda_device, tmp_path, monkeypatch):
                                          "load_model": "True"}, tp, mp,
                                     device=dev)
         assert np.isfinite(list(errors.values())).all(), dev
+
+
+def _cfconv_inputs(case, f, de=50, cutoff=8.0, seed=0, device="cuda"):
+    """xj, dist, raw distances up to the cutoff, dst, mask and the four
+    filter parameters of one cfconv at width f."""
+    rng = np.random.default_rng(seed)
+    dst, mask, n = _problem(rng, case)
+    e = len(dst)
+    g = torch.Generator().manual_seed(seed)
+    t = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(device)
+    xj = t(e, f)
+    dist = torch.rand(e, generator=g).to(device)
+    wraw = (cutoff * torch.rand(e, generator=g)).to(device)
+    ws = [t(de, f, s=0.3), t(f, s=0.3), t(f, f, s=0.3), t(f, s=0.3)]
+    return (xj, dist, wraw, torch.as_tensor(dst, device=device),
+            torch.as_tensor(mask, device=device), ws, n)
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "scattered"])
+@pytest.mark.parametrize("f", [3, 100, 150, 256])
+def test_fused_cfconv_kernels_match_plain(cuda_device, case, f):
+    xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs(case, f,
+                                                      device=cuda_device)
+    args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
+    _assert_fused_close(FS.fused_cfconv(*args), FS.fused_cfconv_plain(*args),
+                        "forward")
+    g = torch.randn(n, f, device=cuda_device)
+    got = FS.fused_cfconv_bwd(g, *args)
+    ref = FS.fused_cfconv_bwd_plain(g, *args)
+    for name, a, b in zip(["xj", "w0", "b0", "w1", "b1"], got, ref):
+        assert a.shape == b.shape, name
+        _assert_fused_close(a, b, f"d_{name}")
+    assert float(got[0][mask == 0].abs().max()) == 0.0
+
+
+def test_fused_cfconv_autograd_and_launch_counts(cuda_device):
+    xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("sorted", 16,
+                                                      device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in [xj] + ws]
+    before = dict(FS.LAUNCHES)
+    out = FS.FusedCFConv.apply(leaves[0], dist, wraw, dst, mask, *leaves[1:],
+                               n, 0.2, 8.0)
+    cot = torch.randn_like(out)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    for k in FS.LAUNCHES:
+        assert FS.LAUNCHES[k] == before[k] + 1, k
+    ref = FS.fused_cfconv_bwd_plain(cot, xj, dist, wraw, dst, mask, *ws, n,
+                                    0.2, 8.0)
+    for leaf, r in zip(leaves, ref):
+        _assert_fused_close(leaf.grad, r, "autograd")
+
+
+@pytest.mark.parametrize("f", [3, 150])
+def test_cfconv_wgrad_reduce_matches_plain(cuda_device, f):
+    de, blocks = 50, 7
+    floats = FS._load().mdl_fused_cfconv_partial_floats(f, de)
+    partial = torch.randn(blocks * floats, device=cuda_device)
+    _assert_fused_close(FS.wgrad_reduce(partial, blocks, f, de),
+                        FS.wgrad_reduce_plain(partial, f, de), "reduce")
+
+
+def test_fused_cfconv_raises_instead_of_falling_back(cuda_device):
+    xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("sorted", 8,
+                                                      device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        FS.fused_cfconv(xj, dist, wraw, dst.long(), mask, *ws, n, 0.2, 8.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        FS.fused_cfconv(xj.t().contiguous().t(), dist, wraw, dst, mask, *ws,
+                        n, 0.2, 8.0)
+    wide = _cfconv_inputs("sorted", 300, device=cuda_device)
+    with pytest.raises(ValueError, match="wider"):
+        FS.fused_cfconv(*wide[:5], *wide[5], wide[6], 0.2, 8.0)
+
+
+def test_fused_schnet_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """A small SchNet on batches marked for the fused kernel, in training
+    mode: outputs and parameter gradients on the card (cfconv kernels)
+    against the CPU (plain versions)."""
+    from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                                  assemble_batch)
+    from matdeeplearn_torch.models import build_model
+
+    ds = _toy(tmp_path)
+    spec = BatchSpec.for_dataset(ds.node_counts(), ds.edge_counts(), 10)
+    ids = np.array([3, 0, 9, 14, 6, 1, 22, 7, -1, -1], np.int32)
+    hp = {"dim1": 32, "dim2": 24, "dim3": 40, "cutoff": 6, "gc_count": 3,
+          "post_fc_count": 2}
+    model = build_model("SchNet", ds, hp, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    results = {}
+    for dev in ("cpu", cuda_device):
+        m = build_model("SchNet", ds, hp, device=dev)
+        m.load_state_dict(model.state_dict())
+        m.train()
+        batch = assemble_batch(DeviceDataset.from_graph_dataset(
+            ds, dev, edge_order="dst", kernel_fused=True), ids, spec)
+        before = FS.LAUNCHES["fused_cfconv_bwd"]
+        out = m(batch)
+        (out * batch.graph_mask).abs().sum().backward()
+        if dev != "cpu":
+            assert FS.LAUNCHES["fused_cfconv_bwd"] == before + 3
+        results[str(dev)] = (out.detach().cpu(),
+                             {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = results["cpu"], results[str(cuda_device)]
+    torch.testing.assert_close(o_gpu, o_cpu, rtol=1e-4, atol=1e-4)
+    # atol from each layer's largest gradient: the bias of each block's
+    # `lin` feeds a training-mode BatchNorm, so its gradient is a sum that
+    # cancels to ~1e-8 and its own max says nothing of the f32 rounding
+    layer_max = {}
+    for k, g in g_cpu.items():
+        layer = k.rsplit(".", 1)[0]
+        layer_max[layer] = max(layer_max.get(layer, 1e-6), float(g.abs().max()))
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], g, rtol=1e-4,
+                                   atol=1e-4 * layer_max[k.rsplit(".", 1)[0]],
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("kernel", ["fused", "csr"])
+def test_schnet_training_on_cuda_matches_cpu(cuda_device, tmp_path,
+                                             monkeypatch, kernel):
+    """train_regular of a small SchNet on the card and on the CPU (plain
+    versions): the same errors, to 1e-3. Without BatchNorm: behind a
+    training-mode BatchNorm the bias of each block's `lin` gets a gradient
+    that cancels to ~1e-8, AdamW turns its rounding noise into steps of
+    ±lr, and the eval-mode errors then follow the noise (ROADMAP §3)."""
+    from matdeeplearn_torch.training import jobs
+
+    ds = _toy(tmp_path / "data", n=40)
+    monkeypatch.chdir(tmp_path)
+    mp = {"model": "SchNet", "dim1": 32, "dim2": 24, "dim3": 40, "cutoff": 6,
+          "batch_norm": "False",
+          "gc_count": 2, "post_fc_count": 1, "batch_size": 8, "epochs": 3,
+          "lr": 0.005, "optimizer": "AdamW", "scheduler": "ReduceLROnPlateau",
+          "scheduler_args": {"factor": 0.8, "patience": 0}, "kernel": kernel,
+          "print_model": False}
+    tp = {"loss": "l1_loss", "train_ratio": 0.7, "val_ratio": 0.15,
+          "test_ratio": 0.15, "verbosity": 1}
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        jp = {"job_name": f"s_{dev}", "seed": 4, "save_model": "False",
+              "write_output": "False"}
+        errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
+    for split in ("train", "val", "test"):
+        assert np.isfinite(errs["cuda"][split])
+        np.testing.assert_allclose(errs["cuda"][split], errs["cpu"][split],
+                                   rtol=1e-3, atol=1e-3, err_msg=split)

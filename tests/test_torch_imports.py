@@ -25,11 +25,12 @@ def _port_modules():
 
 
 def test_training_slice_modules_are_walked():
-    """The import check below covers the Training slice's modules."""
+    """The import check below covers the Training and SchNet slices'
+    modules."""
     mods = set(_port_modules())
     for name in ("ops._build", "ops.fused_cgconv", "training.optimizers",
                  "training.scheduler", "training.trainer", "training.jobs",
-                 "utils.summary", "cli"):
+                 "utils.summary", "cli", "ops.fused_cfconv", "models.schnet"):
         assert f"matdeeplearn_torch.{name}" in mods, name
 
 

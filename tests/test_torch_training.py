@@ -308,7 +308,7 @@ def test_resolve_kernel():
         TJ.resolve_kernel("CGCNN", "triton", "padded", cpu)
     for args, item in ((("CGCNN", "pallas", "padded"), "queue 2, item 6"),
                        (("CGCNN", "fused", "packed"), "item 3"),
-                       (("SchNet", "fused", "padded"), "items 8-12")):
+                       (("GCN", "fused", "padded"), "items 8 and 10-12")):
         with pytest.raises(NotImplementedError, match=item):
             TJ.resolve_kernel(*args, cpu)
 
