@@ -9,7 +9,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    each, in parallel), and turns TF32 off;
 2. writes 1,000 periodic structures (8-64 atoms, cubic cells of 16 Å^3 per
    atom, numpy seed 0) and featurizes them with config.yml's Processing
-   values; builds CGCNN_demo and SchNet_demo at full width from
+   values; builds CGCNN_demo, SchNet_demo and MPNN_demo at full width from
    torch.Generator seed 0, with non-trivial BatchNorm running statistics,
    and saves each with the port's checkpoint;
 3. checks each CSR kernel against its plain PyTorch version on the card, at
@@ -33,12 +33,21 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    edges, the reduction; the yardstick is the unfused SchNet composition:
    basis, 2 F.linear with shifted softplus, cutoff, index_select,
    csr.segment_sum, and its autograd backward);
-6. runs Predict through cli.run on the card with the launch counters reset
+6. checks the bilinear NNConv kernels (forward, backward, weight gradient)
+   against their plain versions on the same training batch, at (D, H, K) =
+   (100, 100, 100), (3, 7, 5) and (150, 100, 150), with sorted dst and
+   tail pads, permuted rows and a scattered mask: output, d_xj, d_a, d_w1
+   and d_b1 to rtol 1e-4 and atol 1e-4·max|ref|, masked rows exactly zero
+   in the output, d_xj and d_a, and d_w1/d_b1 bit-identical between two
+   calls; then times them at MPNN_demo's widths beside their operations
+   bound, their plain versions and one torch.einsum over the same inputs
+   (and its autograd backward to xj and a) as the library yardstick;
+7. runs Predict through cli.run on the card with the launch counters reset
    just before and read just after (each CSR kernel >= 32: 8 batches x 4
    CGConv layers), then the same Predict on the CPU (plain versions, same
    checkpoint), and requires 1,000 finite predictions that agree to
    rtol 1e-4, atol 1e-4;
-7. trains CGCNN_demo through cli.run on the card (--run_mode=Training,
+8. trains CGCNN_demo through cli.run on the card (--run_mode=Training,
    kernel auto, 5 epochs, verbosity 1, from that checkpoint) with the
    launch counters reset just before and read just after: each fused
    kernel must launch at least 4 layers x 8 steps x 5 epochs times; then
@@ -46,15 +55,26 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    train error agrees to rtol 1e-3, every error is finite, and the card's
    last train error is below its first; Predict on the card from the
    checkpoint Training saved gives 1,000 finite predictions;
-8. trains 3 epochs under kernel csr and 3 more under kernel fused, and
+9. trains 3 epochs under kernel csr and 3 more under kernel fused, and
    prints the warm epoch time of each; profiles one warm training epoch
    (device busy share, top kernels);
-9. does 7 for SchNet_demo (each cfconv kernel >= 4 x 8 x 5 launches), then
-   SchNet Predict on the card from the checkpoint Training saved (counters
-   reset just before: csr_segment_sum >= 4 x 8 launches; 1,000 finite
-   predictions that agree with the CPU Predict of that checkpoint to rtol
-   1e-4, atol 1e-4; one more profiled), then does 8 for SchNet_demo;
-10. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
+10. does 8 for SchNet_demo (each cfconv kernel >= 4 x 8 x 5 launches), then
+    SchNet Predict on the card from the checkpoint Training saved (counters
+    reset just before: csr_segment_sum >= 4 x 8 launches; 1,000 finite
+    predictions that agree with the CPU Predict of that checkpoint to rtol
+    1e-4, atol 1e-4; one more profiled), then does 9 for SchNet_demo;
+11. does 8 for MPNN_demo: the bilinear forward, backward and weight-gradient
+    kernels and csr_segment_sum and csr_gather each >= 4 x 8 x 5 launches;
+    the comparison with the CPU (kernel fused, plain versions) runs 1 epoch
+    on each side on the first 200 structures (a plain epoch over all 1,000
+    takes minutes on the CPU; the Predict comparison keeps all 1,000); then
+    MPNN Predict on the card from the checkpoint Training saved (counters
+    reset just before: the bilinear forward and csr_segment_sum >= 4 x 8
+    launches; 1,000 finite predictions that agree with the CPU Predict of
+    that checkpoint to rtol 1e-4, atol 1e-4; one more profiled); then 3
+    warm-timed epochs under kernel xla (the einsum over the formed per-edge
+    weights) and 3 under kernel fused, and one profiled warm epoch;
+12. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
     {"ok": true, "device": {...}}.
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
@@ -109,6 +129,8 @@ TRAIN_JOB = {
 }
 TRAIN_SEED = 7
 EPOCHS_CARD, EPOCHS_CPU, EPOCHS_AB = 5, 2, 3
+EPOCHS_CPU_MPNN = 1  # MPNN's plain versions on the CPU take longest
+N_COMPARE_MPNN = 200  # structures of MPNN's card/CPU training comparison
 EPOCH_LINE = re.compile(r"Epoch: (\d+), Learning Rate: ([0-9.]+), Training "
                         r"Error: ([0-9.naN]+), Val Error: ([0-9.naN]+), "
                         r"Time per epoch \(s\): ([0-9.]+)")
@@ -117,6 +139,16 @@ CGCNN_DEMO = {
     "gc_count": 4, "post_fc_count": 3, "pool": "global_mean_pool",
     "pool_order": "early", "batch_norm": "True", "batch_track_stats": "True",
     "act": "relu", "dropout_rate": 0.0, "epochs": 250, "lr": 0.002,
+    "batch_size": 100, "optimizer": "AdamW", "optimizer_args": {},
+    "scheduler": "ReduceLROnPlateau",
+    "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
+                       "min_lr": 0.00001, "threshold": 0.0002},
+}
+MPNN_DEMO = {
+    "model": "MPNN", "dim1": 100, "dim2": 100, "dim3": 100, "pre_fc_count": 1,
+    "gc_count": 4, "post_fc_count": 3, "pool": "global_mean_pool",
+    "pool_order": "early", "batch_norm": "True", "batch_track_stats": "True",
+    "act": "relu", "dropout_rate": 0.0, "epochs": 250, "lr": 0.001,
     "batch_size": 100, "optimizer": "AdamW", "optimizer_args": {},
     "scheduler": "ReduceLROnPlateau",
     "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
@@ -148,8 +180,9 @@ def training_config(data_path: str, model_path: str, job_name: str,
                     device: str, epochs: int, kernel: str = "auto",
                     model: dict = CGCNN_DEMO) -> dict:
     """The config cli.load_config gives for --run_mode=Training of `model`
-    (CGCNN_demo or SchNet_demo), resuming from `model_path` (load_model
-    True), with this run's epochs, kernel, device and verbosity 1."""
+    (CGCNN_demo, SchNet_demo or MPNN_demo), resuming from `model_path`
+    (load_model True), with this run's epochs, kernel, device and
+    verbosity 1."""
     job = {**TRAIN_JOB, "run_mode": "Training", "job_name": job_name,
            "seed": TRAIN_SEED, "device": device, "load_model": "True",
            "model_path": model_path, "parallel": "False"}
@@ -559,6 +592,128 @@ def time_cfconv(batch, dev, f=150, de=50, cutoff=8.0):
     return res, e_real, blocks
 
 
+BILINEAR_GRADS = ["xj", "a", "w1", "b1"]
+
+
+def bilinear_inputs(batch, d, h, k, g, dev):
+    """xj = x[src] of random node features, a = relu(·) as the edge network
+    gives it, and lin1's (H, D·K) matrix and bias, of one NNConv message."""
+    x = torch.randn(batch.num_nodes, d, device=dev, generator=g)
+    xj = torch.index_select(x, 0, batch.edge_src)
+    a = torch.relu(torch.randn(xj.shape[0], h, device=dev, generator=g))
+    w1 = 0.1 * torch.randn(h, d * k, device=dev, generator=g)
+    b1 = 0.1 * torch.randn(d * k, device=dev, generator=g)
+    return xj, a, w1, b1
+
+
+def check_bilinear(batch, dev):
+    """The bilinear NNConv kernels against their plain versions on the
+    card; returns the largest |kernel - plain| of each kernel."""
+    from matdeeplearn_torch.ops import fused_bilinear as FB
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    mask = batch.edge_mask
+    e = mask.shape[0]
+    perm = torch.randperm(e, device=dev, generator=g)
+    scattered = mask * (torch.rand(e, device=dev, generator=g) > 0.3).float()
+    err = {k: 0.0 for k in FB.LAUNCHES}
+    for d, h, k in ((100, 100, 100), (3, 7, 5), (150, 100, 150)):
+        xj, a, w1, b1 = bilinear_inputs(batch, d, h, k, g, dev)
+        cot = torch.randn(e, k, device=dev, generator=g)
+        p = lambda t: t[perm].contiguous()
+        cases = [("sorted dst, tail pads", xj, a, mask, cot),
+                 ("permuted dst", p(xj), p(a), p(mask), p(cot)),
+                 ("scattered mask", xj, a, scattered, cot)]
+        for name, xjv, av, mv, cv in cases:
+            what = f"D={d}, H={h}, K={k}, {name}"
+            args = (xjv, av, w1, b1, mv)
+            out = FB.fused_bilinear(*args)
+            fwd = assert_fused(out, FB.fused_bilinear_plain(*args),
+                               f"bilinear forward, {what}")
+            rows = FB.fused_bilinear_bwd_rows(cv, *args)
+            dw = FB.fused_bilinear_wgrad(cv, xjv, av, mv)
+            if not torch.equal(FB.fused_bilinear_wgrad(cv, xjv, av, mv), dw):
+                raise AssertionError(f"bilinear dW, {what}: two calls differ")
+            got = (*rows, *FB.split_wgrad(dw, w1.shape, b1.shape))
+            refs = FB.fused_bilinear_bwd_plain(cv, *args)
+            errs = [assert_fused(x, r, f"bilinear d_{n}, {what}")
+                    for n, x, r in zip(BILINEAR_GRADS, got, refs)]
+            for t in (out, *rows):
+                if float(t[mv == 0].abs().max()) != 0.0:
+                    raise AssertionError(f"bilinear, {what}: masked rows are "
+                                         "not exactly zero")
+            err["fused_bilinear_fwd"] = max(err["fused_bilinear_fwd"], fwd)
+            err["fused_bilinear_bwd"] = max(err["fused_bilinear_bwd"], *errs[:2])
+            err["fused_bilinear_wgrad"] = max(err["fused_bilinear_wgrad"],
+                                              *errs[2:])
+            print(f"  bilinear kernel check ok: {what}: forward max |diff| "
+                  f"{fwd:.3e}, d_xj/d_a {max(errs[:2]):.3e}, d_w1/d_b1 "
+                  f"{max(errs[2:]):.3e} (bit-identical twice); masked rows "
+                  f"zero")
+    return err
+
+
+def time_bilinear(batch, dev, d=100, h=100, k=100):
+    """Bilinear kernel, plain and library times at one MPNN_demo training
+    batch's shapes (sorted dst, tail pads), and the bound of each. The
+    library yardstick is one torch.einsum over the same inputs (and its
+    autograd backward to xj and a alone, the backward kernel's outputs);
+    the port never calls it. Each bound counts the function's operations,
+    not the kernel's schedule."""
+    from matdeeplearn_torch.ops import fused_bilinear as FB
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    mask = batch.edge_mask
+    e = mask.shape[0]
+    e_real = int((mask > 0).sum())
+    xj, a, w1, b1 = bilinear_inputs(batch, d, h, k, g, dev)
+    cot = torch.randn(e, k, device=dev, generator=g)
+    args = (xj, a, w1, b1, mask)
+    leaves = [t.clone().requires_grad_(True) for t in (xj, a)]
+
+    def library(xjv, av, w1v, b1v):
+        msg = (torch.einsum("eh,ed,hdk->ek", av, xjv, w1v.view(h, d, k))
+               + xjv @ b1v.view(d, k))
+        return msg * mask[:, None]
+
+    out = library(*leaves, w1, b1)
+    a_ext = torch.cat([a, torch.ones_like(a[:, :1])], 1)
+    ge = cot * mask[:, None]
+    units = h + 1
+    w_floats = units * d * k
+    res = {
+        "fused_bilinear_fwd": {
+            "ms": device_ms(lambda: FB.fused_bilinear(*args), 20),
+            "plain_ms": device_ms(lambda: FB.fused_bilinear_plain(*args), 10),
+            "library_ms": device_ms(lambda: library(*args[:4]), 10),
+            # X = [a | 1]·xj, then X @ [W1; b1]
+            **bound(4 * (e_real * (d + h + k) + e + w_floats),
+                    e_real * h * d + 2 * e_real * units * d * k),
+        },
+        "fused_bilinear_bwd": {
+            "ms": device_ms(lambda: FB.fused_bilinear_bwd_rows(cot, *args), 20),
+            "plain_ms": device_ms(lambda: FB.bwd_rows_plain(cot, *args), 10),
+            "library_ms": device_ms(lambda: torch.autograd.grad(
+                out, leaves, cot, retain_graph=True), 10),
+            # U = ge @ [W1; b1]ᵀ, then d_xj = Σ_h [a | 1]·U, d_a = xj·U
+            **bound(4 * (e_real * (2 * d + 2 * h + k) + e + w_floats),
+                    2 * e_real * units * d * k + e_real * (4 * h * d + d)),
+        },
+        "fused_bilinear_wgrad": {
+            "ms": device_ms(lambda: FB.fused_bilinear_wgrad(cot, xj, a, mask),
+                            20),
+            "plain_ms": device_ms(lambda: FB.wgrad_plain(cot, xj, a, mask, k),
+                                  10),
+            "library_ms": device_ms(lambda: torch.einsum(
+                "eh,ed,ek->hdk", a_ext, xj, ge), 10),
+            # X = [a | 1]·xj, then Xᵀ ge
+            **bound(4 * (e_real * (d + h + k) + e + w_floats),
+                    e_real * h * d + 2 * e_real * units * d * k),
+        },
+    }
+    return res, e_real
+
+
 def run_cli(config) -> tuple[float, str]:
     """cli.run(config) with its output echoed (the settings dump left out);
     returns (wall seconds, the captured output)."""
@@ -678,6 +833,13 @@ def profile_predict(config, label: str = "CGCNN", top: int = 12):
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {key[:110]}")
 
 
+def reset_launches(*counts):
+    """Set every kernel launch counter in `counts` to 0."""
+    for c in counts:
+        for k in c:
+            c[k] = 0
+
+
 def read_predictions(path: str) -> tuple[list, np.ndarray]:
     with open(path) as f:
         lines = f.read().splitlines()[1:]
@@ -696,6 +858,7 @@ def main() -> int:
     from matdeeplearn_torch.data.dataset import get_dataset
     from matdeeplearn_torch.models import MODEL_FIELDS, build_model
     from matdeeplearn_torch.ops import _build, csr
+    from matdeeplearn_torch.ops import fused_bilinear as FB
     from matdeeplearn_torch.ops import fused_cfconv as FS
     from matdeeplearn_torch.ops import fused_cgconv as FC
     from matdeeplearn_torch.training.checkpoint import save_checkpoint
@@ -756,6 +919,8 @@ def main() -> int:
                                     os.path.join(WORK, "cgcnn_demo.ckpt"))
     schnet_path = initial_checkpoint(SCHNET_DEMO,
                                      os.path.join(WORK, "schnet_demo.ckpt"))
+    mpnn_path = initial_checkpoint(MPNN_DEMO,
+                                   os.path.join(WORK, "mpnn_demo.ckpt"))
 
     # ---- CSR kernel checks and times at a Predict batch's shapes ----------
     data = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst")
@@ -799,13 +964,22 @@ def main() -> int:
               f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})")
+    print(f"bilinear kernel checks on {card} (the same training batch):")
+    err.update(check_bilinear(tbatch, dev))
+    btimes, be_real = time_bilinear(tbatch, dev)
+    times.update(btimes)
+    for k, t in btimes.items():
+        print(f"{k} on {smi}, E={tspec.num_edges} ({be_real} real), "
+              f"D=H=K=100: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, library {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     del tdata, tbatch
 
     # ---- main path 1: Predict on the card, then on the CPU ----------------
     os.chdir(WORK)
     gpu_cfg = predict_config(data_dir, model_path, "chip_gpu", "cuda")
-    for k in csr.LAUNCHES:
-        csr.LAUNCHES[k] = 0
+    all_counts = (csr.LAUNCHES, FC.LAUNCHES, FS.LAUNCHES, FB.LAUNCHES)
+    reset_launches(*all_counts)
     cold_wall, cold_eval = run_predict(gpu_cfg)
     launches = dict(csr.LAUNCHES)
     print(f"launches in one Predict: {launches}")
@@ -842,9 +1016,7 @@ def main() -> int:
     n_train = int(len(dataset) * TRAINING["train_ratio"])
     train_steps = -(-n_train // train_bs)
     gpu_train = resume_from_init("train_gpu")
-    for counts in (csr.LAUNCHES, FC.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    reset_launches(*all_counts)
     wall, card_rows = run_training(training_config(
         data_dir, gpu_train, "chip_train_gpu", "cuda", EPOCHS_CARD))
     train_launches = dict(FC.LAUNCHES)
@@ -892,9 +1064,7 @@ def main() -> int:
 
     # ---- main path 3: SchNet_demo Training on the card, then the CPU ------
     gpu_schnet = resume_from_init("schnet_gpu", schnet_path)
-    for counts in (csr.LAUNCHES, FC.LAUNCHES, FS.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    reset_launches(*all_counts)
     wall, s_rows = run_training(training_config(
         data_dir, gpu_schnet, "chip_schnet_gpu", "cuda", EPOCHS_CARD,
         model=SCHNET_DEMO))
@@ -924,8 +1094,7 @@ def main() -> int:
           f"{s_rows[0][2]:.5f} -> {s_rows[-1][2]:.5f}")
 
     # ---- main path 4: SchNet_demo Predict on the card, then the CPU -------
-    for k in csr.LAUNCHES:
-        csr.LAUNCHES[k] = 0
+    reset_launches(*all_counts)
     s_wall, s_eval = run_predict(predict_config(data_dir, gpu_schnet,
                                                 "chip_schnet_predict", "cuda"))
     s_predict_launches = dict(csr.LAUNCHES)
@@ -967,6 +1136,91 @@ def main() -> int:
           f"fused {s_ab['fused']:.5f} s (main path: {s_warm:.5f} s)")
     profile_training(dataset, dev, SCHNET_DEMO)
 
+    # ---- main path 5: MPNN_demo Training on the card, then the CPU --------
+    gpu_mpnn = resume_from_init("mpnn_gpu", mpnn_path)
+    reset_launches(*all_counts)
+    wall, m_rows = run_training(training_config(
+        data_dir, gpu_mpnn, "chip_mpnn_gpu", "cuda", EPOCHS_CARD,
+        model=MPNN_DEMO))
+    mpnn_launches = dict(FB.LAUNCHES)
+    mpnn_csr = dict(csr.LAUNCHES)
+    print(f"launches in one MPNN Training run of {EPOCHS_CARD} epochs: "
+          f"{mpnn_launches}; CSR {mpnn_csr}; fused CGConv {dict(FC.LAUNCHES)}; "
+          f"cfconv {dict(FS.LAUNCHES)}")
+    for k, v in {**mpnn_launches, **mpnn_csr}.items():
+        if v < need:
+            raise AssertionError(f"{k} launched {v} times in MPNN Training, "
+                                 f"expected >= {need}")
+    m_warm = warm_epoch_s(m_rows)
+    print(f"MPNN Training on {smi}: {wall:.3f} s wall for {EPOCHS_CARD} "
+          f"epochs; epoch 1 (cold) {m_rows[0][4]:.5f} s, warm epochs "
+          f"{m_warm:.5f} s on average ({n_train / m_warm:.1f} train graphs/s)")
+    if not m_rows[-1][2] < m_rows[0][2]:
+        raise AssertionError(f"the card's MPNN train error did not fall: "
+                             f"{m_rows[0][2]} -> {m_rows[-1][2]}")
+    # card against CPU, on the first structures only (PERF.md: one plain
+    # MPNN epoch over all 1,000 took 107 s on the card's host)
+    sub_dir = os.path.join(WORK, f"data_first{N_COMPARE_MPNN}")
+    write_structures(sub_dir, n=N_COMPARE_MPNN)
+    sub = {}
+    for where in ("cuda", "cpu"):
+        sub_wall, sub[where] = run_training(training_config(
+            sub_dir, resume_from_init(f"mpnn_first_{where}", mpnn_path),
+            f"chip_mpnn_first_{where}", where, EPOCHS_CPU_MPNN, "fused",
+            model=MPNN_DEMO))
+        print(f"MPNN Training on the first {N_COMPARE_MPNN} structures, "
+              f"{'the card' if where == 'cuda' else 'the CPU (plain versions)'}"
+              f": {sub_wall:.3f} s wall, the epoch {sub[where][0][4]:.3f} s")
+    np.testing.assert_allclose(sub["cuda"][0][2], sub["cpu"][0][2], rtol=1e-3)
+    print(f"MPNN card vs CPU on the first {N_COMPARE_MPNN} structures: epoch 1 "
+          f"train error {sub['cuda'][0][2]:.5f} vs {sub['cpu'][0][2]:.5f} "
+          f"(rtol 1e-3); on all {N_STRUCTURES}, the card's train error "
+          f"{m_rows[0][2]:.5f} -> {m_rows[-1][2]:.5f}")
+
+    # ---- main path 6: MPNN_demo Predict on the card, then the CPU ---------
+    reset_launches(*all_counts)
+    m_wall, m_eval = run_predict(predict_config(data_dir, gpu_mpnn,
+                                                "chip_mpnn_predict", "cuda"))
+    m_predict_launches = {**FB.LAUNCHES, **csr.LAUNCHES}
+    print(f"launches in one MPNN Predict: {m_predict_launches}")
+    for k in ("fused_bilinear_fwd", "segment_sum"):
+        if m_predict_launches[k] < 4 * steps:
+            raise AssertionError(f"{k} launched {m_predict_launches[k]} times "
+                                 f"in MPNN Predict, expected >= {4 * steps}")
+    m_warm_wall, m_warm_eval = run_predict(predict_config(
+        data_dir, gpu_mpnn, "chip_mpnn_predict", "cuda"))
+    print(f"MPNN Predict on {smi}: cold {m_wall:.4f} s wall, {m_eval:.5f} s "
+          f"evaluation; warm {m_warm_wall:.4f} s wall, {m_warm_eval:.5f} s "
+          f"evaluation ({len(dataset) / m_warm_eval:.1f} graphs/s)")
+    profile_predict(predict_config(data_dir, gpu_mpnn, "chip_mpnn_predict",
+                                   "cuda"), "MPNN")
+    m_cpu_wall, _ = run_predict(predict_config(
+        data_dir, gpu_mpnn, "chip_mpnn_predict_cpu", "cpu"))
+    print(f"MPNN Predict on the CPU (plain versions): {m_cpu_wall:.3f} s wall")
+    ids_g, pred_g = read_predictions("chip_mpnn_predict_predicted_outputs.csv")
+    ids_c, pred_c = read_predictions(
+        "chip_mpnn_predict_cpu_predicted_outputs.csv")
+    if len(pred_g) != N_STRUCTURES or not np.isfinite(pred_g).all():
+        raise AssertionError(f"MPNN Predict: expected {N_STRUCTURES} finite "
+                             f"predictions")
+    if ids_g != ids_c:
+        raise AssertionError("MPNN card and CPU predictions list different ids")
+    np.testing.assert_allclose(pred_g, pred_c, rtol=1e-4, atol=1e-4)
+    print(f"MPNN card vs CPU predictions: max |diff| "
+          f"{float(np.abs(pred_g - pred_c).max()):.3e} (rtol 1e-4, atol 1e-4)")
+
+    # ---- MPNN: kernel xla against kernel fused, then a profiled epoch -----
+    m_ab = {}
+    for kernel in ("xla", "fused"):
+        _, rows = run_training(training_config(
+            data_dir, resume_from_init(f"mpnn_{kernel}", mpnn_path),
+            f"chip_mpnn_ab_{kernel}", "cuda", EPOCHS_AB, kernel,
+            model=MPNN_DEMO))
+        m_ab[kernel] = warm_epoch_s(rows)
+    print(f"MPNN warm epoch on {smi}: kernel xla (einsum) {m_ab['xla']:.5f} s, "
+          f"kernel fused {m_ab['fused']:.5f} s (main path: {m_warm:.5f} s)")
+    profile_training(dataset, dev, MPNN_DEMO)
+
     kernels = []
     for key, name, src, line, count in (
             ("segment_sum", "csr_segment_sum", "csr.cu", "pallas_csr.py:135",
@@ -986,7 +1240,14 @@ def main() -> int:
              "pallas_fused_schnet.py:86", schnet_launches["fused_cfconv_bwd"]),
             ("fused_cfconv_wgrad_reduce", "fused_cfconv_wgrad_reduce",
              "fused_cfconv.cu", "pallas_fused_schnet.py:86",
-             schnet_launches["fused_cfconv_wgrad_reduce"])):
+             schnet_launches["fused_cfconv_wgrad_reduce"]),
+            ("fused_bilinear_fwd", "fused_bilinear_fwd", "fused_bilinear.cu",
+             "pallas_bilinear.py:63, :235", mpnn_launches["fused_bilinear_fwd"]),
+            ("fused_bilinear_bwd", "fused_bilinear_bwd", "fused_bilinear.cu",
+             "pallas_bilinear.py:83, :134", mpnn_launches["fused_bilinear_bwd"]),
+            ("fused_bilinear_wgrad", "fused_bilinear_wgrad", "fused_bilinear.cu",
+             "pallas_bilinear.py:83, :134",
+             mpnn_launches["fused_bilinear_wgrad"])):
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda",

@@ -6,11 +6,15 @@ the port's state_dicts.
 
 The reference trees are nested dicts of numpy arrays (or anything np.asarray
 takes). Scope names carry over with "." for "/" (`pre_lin0`,
-`conv{i}.lin_f`, `conv{i}.lin_s`, `bn{i}`, `post_lin{i}`, `lin_out`):
+`conv{i}.lin_f`, `conv{i}.lin_s`, `bn{i}`, `post_lin{i}`, `lin_out`,
+`edge_nn{i}.lin0`, `gru{i}`, ...):
 
   Linear     kernel (in, out) <-> weight (out, in), transposed;  bias <-> bias
   BatchNorm  scale <-> weight, bias <-> bias (params);
              mean <-> running_mean, var <-> running_var (batch_stats)
+  GRUCell    w_ih (in, 3H) <-> weight_ih (3H, in), w_hh <-> weight_hh, both
+             transposed; b_ih <-> bias_ih, b_hh <-> bias_hh
+  NNConv     root (din, dim) <-> root, as it is
 """
 
 from __future__ import annotations
@@ -20,6 +24,13 @@ import torch
 
 _STAT_TO_TORCH = {"mean": "running_mean", "var": "running_var"}
 _STAT_FROM_TORCH = {v: k for k, v in _STAT_TO_TORCH.items()}
+# parameters stored transposed, and as they are (the Linear kernel and the
+# BatchNorm scale, which share the torch name `weight`, come apart by rank)
+_TRANSPOSED = {"kernel": "weight", "w_ih": "weight_ih", "w_hh": "weight_hh"}
+_AS_IS = {"scale": "weight", "bias": "bias", "b_ih": "bias_ih",
+          "b_hh": "bias_hh", "root": "root"}
+_FROM_TORCH_T = {v: k for k, v in _TRANSPOSED.items()}
+_FROM_TORCH = {v: k for k, v in _AS_IS.items()}
 
 
 def _leaves(tree, prefix=()):
@@ -35,12 +46,10 @@ def params_from_jax(params: dict, batch_stats: dict | None = None) -> dict:
     out = {}
     for path, leaf in _leaves(params):
         scope, name = ".".join(path[:-1]), path[-1]
-        if name == "kernel":
-            out[f"{scope}.weight"] = torch.tensor(leaf.T.copy())
-        elif name == "scale":
-            out[f"{scope}.weight"] = torch.tensor(leaf)
-        elif name == "bias":
-            out[f"{scope}.bias"] = torch.tensor(leaf)
+        if name in _TRANSPOSED:
+            out[f"{scope}.{_TRANSPOSED[name]}"] = torch.tensor(leaf.T.copy())
+        elif name in _AS_IS:
+            out[f"{scope}.{_AS_IS[name]}"] = torch.tensor(leaf)
         else:
             raise KeyError(f"unknown parameter {'/'.join(path)}")
     for path, leaf in _leaves(batch_stats or {}):
@@ -63,11 +72,10 @@ def params_to_jax(state_dict: dict) -> tuple[dict, dict]:
     for key, t in state_dict.items():
         *scope, name = key.split(".")
         a = t.detach().cpu().numpy()
-        if name == "weight":
-            _put(params, scope + ["kernel" if a.ndim == 2 else "scale"],
-                 a.T.copy() if a.ndim == 2 else a)
-        elif name == "bias":
-            _put(params, scope + ["bias"], a)
+        if name in _FROM_TORCH_T and not (name == "weight" and a.ndim == 1):
+            _put(params, scope + [_FROM_TORCH_T[name]], a.T.copy())
+        elif name in _FROM_TORCH:
+            _put(params, scope + [_FROM_TORCH[name]], a)
         elif name in _STAT_FROM_TORCH:
             _put(batch_stats, scope + [_STAT_FROM_TORCH[name]], a)
         else:

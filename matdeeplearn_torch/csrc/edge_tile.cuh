@@ -1,9 +1,10 @@
-// Pieces shared by the fused edge-tile kernels (fused_cgconv.cu and
-// fused_cfconv.cu): the tile geometry, the activations, the run-flush
-// epilogue that adds a tile's rows into their destination nodes, and the
-// fixed-order sum of the backward kernels' per-block partial weight
-// gradients. Each .cu file builds into its own library, so the anonymous
-// namespace gives every library its own copy.
+// Pieces shared by the edge-tile kernels (fused_cgconv.cu, fused_cfconv.cu
+// and fused_bilinear.cu): the tile geometry, the choice of columns a
+// thread owns, the activations, the run-flush epilogue that adds a tile's
+// rows into their destination nodes, and the fixed-order sum of the
+// backward kernels' per-block partial weight gradients. Each .cu file
+// builds into its own library, so the anonymous namespace gives every
+// library its own copy.
 
 #pragma once
 
@@ -16,8 +17,21 @@ constexpr int kTE = 32;          // edges per tile
 constexpr int kRows = kTE / 8;   // tile rows per thread (8 warps)
 constexpr int kKC = 32;          // right-operand rows per shared-memory chunk
 constexpr int kMaxShared = 232448;
+constexpr int kBadShape = 1001;  // a width over 256, or too much shared memory
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Columns a thread owns (of 32 * CPT): the smallest instantiated CPT that
+// covers n columns, or 0 when n > 256.
+int cpt_for(int n) {
+  const int need = (n + 31) / 32;
+  if (need <= 1) return 1;
+  if (need <= 2) return 2;
+  if (need <= 4) return 4;
+  if (need <= 5) return 5;
+  if (need <= 8) return 8;
+  return 0;
+}
 
 __device__ __forceinline__ float sigmoidf(float a) {
   return 1.f / (1.f + expf(-a));

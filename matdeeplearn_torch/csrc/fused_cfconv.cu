@@ -427,20 +427,6 @@ int launch_bwd(const float* xj, const float* dist, const float* wraw,
   return (int)cudaGetLastError();
 }
 
-// Columns a thread owns (of 32 * CPT): the smallest instantiated CPT that
-// covers F, or 0 when F > 256.
-int cpt_for(int f) {
-  const int need = (f + 31) / 32;
-  if (need <= 1) return 1;
-  if (need <= 2) return 2;
-  if (need <= 4) return 4;
-  if (need <= 5) return 5;
-  if (need <= 8) return 8;
-  return 0;
-}
-
-constexpr int kBadShape = 1001;  // F > 256 or shared memory over the limit
-
 }  // namespace
 
 extern "C" {

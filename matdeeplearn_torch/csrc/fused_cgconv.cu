@@ -390,20 +390,6 @@ int launch_bwd(const float* x, const float* xj, const float* dist,
   return (int)cudaGetLastError();
 }
 
-// Columns a thread owns (of 32 * CPT): the smallest instantiated CPT that
-// covers D, or 0 when D > 256.
-int cpt_for(int d) {
-  const int need = (d + 31) / 32;
-  if (need <= 1) return 1;
-  if (need <= 2) return 2;
-  if (need <= 4) return 4;
-  if (need <= 5) return 5;
-  if (need <= 8) return 8;
-  return 0;
-}
-
-constexpr int kBadShape = 1001;  // D > 256 or shared memory over the limit
-
 }  // namespace
 
 extern "C" {

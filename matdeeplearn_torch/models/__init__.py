@@ -1,6 +1,6 @@
 """Model registry: build a model by its config name.
 
-CGCNN and SchNet are ported; the reference's other names raise
+CGCNN, SchNet and MPNN are ported; the reference's other names raise
 NotImplementedError that names their ROADMAP item.
 """
 
@@ -9,14 +9,14 @@ from __future__ import annotations
 import torch
 
 from matdeeplearn_torch.models.cgcnn import CGCNN
+from matdeeplearn_torch.models.mpnn import MPNN
 from matdeeplearn_torch.models.schnet import SchNet
 
-MODEL_REGISTRY = {"CGCNN": CGCNN, "SchNet": SchNet}
+MODEL_REGISTRY = {"CGCNN": CGCNN, "SchNet": SchNet, "MPNN": MPNN}
 
 # ROADMAP queue 1 items of the models still to port.
 NOT_PORTED = {
-    "GCN": "item 8", "MEGNet": "item 10", "MPNN": "item 11",
-    "SM": "item 12", "SOAP": "item 12",
+    "GCN": "item 8", "MEGNet": "item 10", "SM": "item 12", "SOAP": "item 12",
 }
 
 # Config fields each model takes (other YAML hyperparameters are ignored,
@@ -27,7 +27,8 @@ _COMMON = {
     "act", "dropout_rate", "output_dim", "edge_resolution", "edge_width",
     "precision", "remat",
 }
-MODEL_FIELDS = {"CGCNN": _COMMON, "SchNet": _COMMON | {"dim3", "cutoff"}}
+MODEL_FIELDS = {"CGCNN": _COMMON, "SchNet": _COMMON | {"dim3", "cutoff"},
+                "MPNN": _COMMON | {"dim3"}}
 
 
 def build_model(name: str, dataset, hyperparams: dict, *,

@@ -1,9 +1,9 @@
 """Graph convolutions on the static-shape padded batch (data/batching.py).
 
 Message passing follows PyG's source_to_target flow: edge (src, dst)
-carries a message from src that is aggregated at dst. CGConv and SchNet's
-interaction block are ported; ROADMAP queue 1 items 8, 10 and 11 hold the
-others.
+carries a message from src that is aggregated at dst. CGConv, SchNet's
+interaction block and MPNN's NNConv are ported; ROADMAP queue 1 items 8 and
+10 hold the others.
 """
 
 from __future__ import annotations
@@ -14,8 +14,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from matdeeplearn_torch.nn.layers import Linear, shifted_softplus
+from matdeeplearn_torch.nn.layers import (Linear, shifted_softplus,
+                                          torch_linear_init)
 from matdeeplearn_torch.ops.aggregate import edge_aggregate, gather_dst, gather_src
+from matdeeplearn_torch.ops.fused_bilinear import FusedBilinear
 from matdeeplearn_torch.ops.fused_cfconv import FusedCFConv
 from matdeeplearn_torch.ops.fused_cgconv import FusedCGConv
 
@@ -108,3 +110,53 @@ class SchNetInteraction(nn.Module):
             agg = edge_aggregate(xj * w * (c * batch.edge_mask)[:, None],
                                  batch, reduce="sum")
         return self.lin(shifted_softplus(self.lin2(agg)))
+
+
+class EdgeNetFactored(nn.Module):
+    """MPNN's edge network, Linear(edge_dim, hidden) → ReLU → Linear(hidden,
+    D·K), with the second layer handed over raw: forward returns (a, w1, b1)
+    with a = relu(lin0(e)), w1 = lin1's (hidden, D·K) matrix in (in, out)
+    layout and b1 its (D·K,) bias, so that a @ w1 + b1 is the per-edge D×K
+    weight, flat index d·K + k."""
+
+    def __init__(self, edge_dim: int, hidden: int, dout: int, *,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        self.lin0 = Linear(edge_dim, hidden, generator=generator, device=device)
+        self.lin1 = Linear(hidden, dout, generator=generator, device=device)
+
+    def forward(self, e):
+        return F.relu(self.lin0(e)), self.lin1.weight.t(), self.lin1.bias
+
+
+class NNConv(nn.Module):
+    """Edge-conditioned conv (MPNN): out_i = x_i·root + bias + mean_{j→i}
+    x_j·W(e_ij), W(e) the D×K matrix of the edge network (EdgeNetFactored,
+    whose (a, w1, b1) forward takes as given), aggr="mean". root (din, dim)
+    from U(-1/√din, 1/√din), bias zeros.
+
+    On a dst-sorted batch (kernels csr and fused) the message runs on the
+    bilinear kernel (ops/fused_bilinear.py), which never forms the (E, D, K)
+    per-edge weights, and the mean on the CSR kernels; on the reference
+    order it is the einsum over the formed weights. Both branches keep one
+    parameter tree.
+    """
+
+    def __init__(self, din: int, dim: int, *,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        self.dim = dim
+        self.root = nn.Parameter(torch.empty(din, dim, device=device))
+        torch_linear_init(self.root, din, generator)
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x, batch, a, w1, b1):
+        xj = gather_src(x, batch)
+        if batch.dst_sorted:
+            msg = FusedBilinear.apply(xj, a, w1, b1, batch.edge_mask)
+        else:
+            w_e = (a @ w1 + b1).reshape(-1, x.shape[1], self.dim)
+            msg = torch.einsum("ed,edk->ek", xj, w_e)
+        return edge_aggregate(msg, batch, reduce="mean") + x @ self.root + self.bias

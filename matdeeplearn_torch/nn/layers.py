@@ -7,11 +7,14 @@
     biased variance to normalize, unbiased for the running update,
     momentum 0.1, and the track_running_stats switch (models/cgcnn.py:84-87),
   * the activation table behind the config's `act` strings
-    (models/cgcnn.py:127 getattr(F, act)).
+    (models/cgcnn.py:127 getattr(F, act)),
+  * a single-step GRU with torch.nn.GRU's gates and layout (MPNN).
 
 Parameter names follow the reference package's scopes through convert.py:
 Linear `weight` (out, in) is its `kernel` (in, out) transposed; BatchNorm
-`weight`/`bias`/`running_mean`/`running_var` are `scale`/`bias`/`mean`/`var`.
+`weight`/`bias`/`running_mean`/`running_var` are `scale`/`bias`/`mean`/`var`;
+GRUCell `weight_ih`/`weight_hh` are `w_ih`/`w_hh` transposed and
+`bias_ih`/`bias_hh` are `b_ih`/`b_hh`.
 """
 
 from __future__ import annotations
@@ -142,3 +145,30 @@ class MaskedBatchNorm(nn.Module):
                         self.momentum * unbiased)
         inv = torch.rsqrt(var + self.epsilon)
         return (x - mean) * inv * self.weight + self.bias
+
+
+class GRUCell(nn.Module):
+    """One step of torch.nn.GRU (MPNN runs it on sequences of length one):
+    gates r, z, n in torch's order, n = tanh(i_n + r·h_n), h' = (1-z)·n + z·h.
+    Parameters in torch's layout, weight_ih (3H, in), weight_hh (3H, H),
+    bias_ih and bias_hh (3H,), all drawn from U(-1/√H, 1/√H)."""
+
+    def __init__(self, input_size: int, hidden: int, *,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        shapes = {"weight_ih": (3 * hidden, input_size),
+                  "weight_hh": (3 * hidden, hidden),
+                  "bias_ih": (3 * hidden,), "bias_hh": (3 * hidden,)}
+        for name, shape in shapes.items():
+            p = nn.Parameter(torch.empty(shape, device=device))
+            torch_linear_init(p, hidden, generator)
+            self.register_parameter(name, p)
+
+    def forward(self, x, h):
+        i_r, i_z, i_n = F.linear(x, self.weight_ih, self.bias_ih).chunk(3, -1)
+        h_r, h_z, h_n = F.linear(h, self.weight_hh, self.bias_hh).chunk(3, -1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h

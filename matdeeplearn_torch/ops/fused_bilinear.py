@@ -1,0 +1,296 @@
+"""NNConv's bilinear edge message in hand-written CUDA kernels, forward and
+backward.
+
+The kernels in csrc/fused_bilinear.cu replace the reference package's
+ops/pallas_bilinear.py:_fwd_kernel and :_fwd_kernel_chunked (forward) and
+:_bwd_kernel and :_bwd_kernel_chunked (backward): two TPU schedules of one
+function, served here by one kernel each way. The function is that
+package's `fused_bilinear_msg` (:438-462) times the edge mask:
+
+  fused_bilinear(xj, a, w1, b1, mask)[e]
+    = mask[e] · (Σ_h a[e,h]·(xj[e] @ W1[h]) + xj[e] @ b1)
+    = mask[e] · xj[e] @ reshape(a[e] @ w1 + b1, (D, K))
+
+xj (E, D) pre-gathered x[src]; a (E, H) the edge network's hidden layer;
+w1 (H, D·K) its second layer in (in, out) layout and b1 (D·K,) that
+layer's bias, with the flat index d·K + k; mask (E,) float32 (pad edges
+0). It returns (E, K) float32. A row whose mask is 0 is exactly zero, and
+so are its d_xj and d_a rows; it adds nothing to d_w1 or d_b1. The
+reference function takes no mask, but its caller multiplies the messages
+by it before the sum, so its cotangent is zero on pad rows there too.
+
+Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
+PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
+`LAUNCHES` counts kernel launches. The backward launches two kernels:
+`fused_bilinear_bwd` (d_xj and d_a) and `fused_bilinear_wgrad` (d_w1 and
+d_b1, summed over the edges in a fixed order; csrc/fused_bilinear.cu says
+why). FusedBilinear saves its inputs alone and recomputes in the backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from matdeeplearn_torch.ops import _build
+from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on
+
+LAUNCHES = {"fused_bilinear_fwd": 0, "fused_bilinear_bwd": 0,
+            "fused_bilinear_wgrad": 0}
+MAX_WIDTH = 256  # the kernels' largest D and K
+# The plain versions' largest per-edge intermediate ((rows, D·K) or
+# (rows, (H+1)·D)): 2^26 floats, 256 MB. A training batch's whole (E, D, K)
+# tensor at MPNN_demo width would be 3.2 GB.
+_CHUNK_FLOATS = 1 << 26
+
+_lib = None
+
+
+def _load():
+    """The bound library of csrc/fused_bilinear.cu (ops/_build.py)."""
+    global _lib
+    if _lib is None:
+        lib = _build.library("fused_bilinear")
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mdl_fused_bilinear_fwd.argtypes = [vp] * 5 + [cl, ci, ci, ci, vp]
+        lib.mdl_fused_bilinear_fwd.restype = ci
+        lib.mdl_fused_bilinear_bwd.argtypes = [vp] * 7 + [cl, ci, ci, ci, vp]
+        lib.mdl_fused_bilinear_bwd.restype = ci
+        lib.mdl_fused_bilinear_wgrad.argtypes = ([vp] * 7
+                                                 + [cl, ci, ci, ci, ci, vp])
+        lib.mdl_fused_bilinear_wgrad.restype = ci
+        lib.mdl_fused_bilinear_wgrad_slices.argtypes = [ci, ci]
+        lib.mdl_fused_bilinear_wgrad_slices.restype = ci
+        lib.mdl_fused_bilinear_wgrad_splits.argtypes = [cl, ci, ci, ci]
+        lib.mdl_fused_bilinear_wgrad_splits.restype = ci
+        _lib = lib
+    return _lib
+
+
+def _dims(xj, a, b1) -> tuple[int, int, int, int]:
+    """(E, D, H, K)."""
+    e, d = xj.shape
+    return e, d, a.shape[1], b1.numel() // d
+
+
+def extend_weight(w1, b1, d: int) -> torch.Tensor:
+    """The kernels' ((H+1)·D, K) weight [W1; b1]: unit h is rows h·D to
+    h·D + D - 1, and the bias is unit H."""
+    k = b1.numel() // d
+    return torch.cat([w1.reshape(-1, k), b1.reshape(d, k)], 0).contiguous()
+
+
+def split_wgrad(dw: torch.Tensor, w1_shape, b1_shape) -> tuple:
+    """(d_w1, d_b1) out of the ((H+1)·D, K) gradient of [W1; b1]."""
+    hd = w1_shape[0] * (dw.shape[0] // (w1_shape[0] + 1))  # H·D
+    return dw[:hd].reshape(w1_shape), dw[hd:].reshape(b1_shape)
+
+
+def _chunks(e: int, width: int) -> list[slice]:
+    step = max(1, _CHUNK_FLOATS // max(width, 1))
+    return [slice(s, min(e, s + step)) for s in range(0, e, step)]
+
+
+def _with_bias_unit(a) -> torch.Tensor:
+    """[a | 1]: the bias as unit H."""
+    return torch.cat([a, torch.ones_like(a[:, :1])], 1)
+
+
+# ------------------------------------------------------------- plain versions
+
+
+def fused_bilinear_plain(xj, a, w1, b1, mask):
+    """Plain PyTorch version: the reference's `_reference_compose` times
+    the mask, in chunks of edges."""
+    e, d, _, k = _dims(xj, a, b1)
+    out = torch.empty((e, k), dtype=xj.dtype, device=xj.device)
+    for sl in _chunks(e, d * k):
+        w_e = (a[sl] @ w1 + b1.reshape(-1)).reshape(-1, d, k)
+        out[sl] = torch.einsum("ed,edk->ek", xj[sl], w_e)
+    return out * mask[:, None]
+
+
+def bwd_rows_plain(g, xj, a, w1, b1, mask) -> tuple:
+    """Plain (d_xj, d_a): with ge = mask·g and U[e, h] = ge[e] @ W[h]ᵀ
+    over the units of [W1; b1], d_xj = Σ_h [a | 1][e, h]·U[e, h] and
+    d_a[e, h] = xj[e] · U[e, h]."""
+    e, d, h, _ = _dims(xj, a, b1)
+    ge = g * mask[:, None]
+    wt = extend_weight(w1, b1, d).t()
+    d_xj, d_a = torch.empty_like(xj), torch.empty_like(a)
+    for sl in _chunks(e, (h + 1) * d):
+        u = (ge[sl] @ wt).reshape(-1, h + 1, d)
+        d_xj[sl] = torch.einsum("eh,ehd->ed", _with_bias_unit(a[sl]), u)
+        d_a[sl] = torch.einsum("ed,ehd->eh", xj[sl], u[:, :h])
+    return d_xj, d_a
+
+
+def wgrad_plain(g, xj, a, mask, k: int) -> torch.Tensor:
+    """Plain gradient of [W1; b1], ((H+1)·D, K): Xᵀ (mask·g) with
+    X[e, h·D + d] = [a | 1][e, h]·xj[e, d]."""
+    e, d = xj.shape
+    h = a.shape[1]
+    ge = g * mask[:, None]
+    dw = torch.zeros(((h + 1) * d, k), dtype=xj.dtype, device=xj.device)
+    for sl in _chunks(e, (h + 1) * d):
+        x = (_with_bias_unit(a[sl])[:, :, None] * xj[sl][:, None, :])
+        dw += x.reshape(-1, (h + 1) * d).t() @ ge[sl]
+    return dw
+
+
+def fused_bilinear_bwd_plain(g, xj, a, w1, b1, mask) -> tuple:
+    """Plain backward: (d_xj, d_a, d_w1, d_b1)."""
+    d_xj, d_a = bwd_rows_plain(g, xj, a, w1, b1, mask)
+    dw = wgrad_plain(g, xj, a, mask, b1.numel() // xj.shape[1])
+    return (d_xj, d_a, *split_wgrad(dw, w1.shape, b1.shape))
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def _check_inputs(xj, a, mask, w1=None, b1=None, g=None):
+    _check_cuda("xj", xj, torch.float32, 2)
+    _check_cuda("a", a, torch.float32, 2)
+    _check_cuda("mask", mask, torch.float32, 1)
+    e, d = xj.shape
+    h = a.shape[1]
+    ts = [xj, a, mask]
+    bad = a.shape[0] != e or mask.shape[0] != e or d == 0
+    if w1 is not None:
+        k = b1.numel() // max(d, 1)
+        bad = bad or b1.numel() != d * k or tuple(w1.shape) != (h, d * k)
+        ts += [w1, b1]
+    if g is not None:
+        _check_cuda("g", g, torch.float32, 2)
+        bad = bad or g.shape[0] != e
+        ts.append(g)
+    if bad:
+        raise ValueError(
+            f"fused_bilinear: inconsistent shapes xj {tuple(xj.shape)}, a "
+            f"{tuple(a.shape)}, mask {tuple(mask.shape)}"
+            + ("" if w1 is None else f", w1 {tuple(w1.shape)}, b1 "
+               f"{tuple(b1.shape)}")
+            + ("" if g is None else f", g {tuple(g.shape)}"))
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError("fused_bilinear: every tensor must be float32")
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"fused_bilinear: tensors on several devices {devs}")
+
+
+def _check_widths(d: int, k: int):
+    if d > MAX_WIDTH or k > MAX_WIDTH:
+        raise ValueError(f"fused_bilinear: D={d}, K={k}: wider than the "
+                         f"kernels' {MAX_WIDTH}")
+
+
+def fused_bilinear(xj, a, w1, b1, mask) -> torch.Tensor:
+    """(E, K) f32 messages mask[e]·xj[e] @ reshape(a[e] @ w1 + b1, (D, K))."""
+    if xj.device.type == "cpu":
+        return fused_bilinear_plain(xj, a, w1, b1, mask)
+    _check_inputs(xj, a, mask, w1, b1)
+    e, d, h, k = _dims(xj, a, b1)
+    _check_widths(d, k)
+    out = torch.zeros((e, k), dtype=torch.float32, device=xj.device)
+    if e == 0 or k == 0:
+        return out
+    w = extend_weight(w1, b1, d)
+    lib = _load()
+    with torch.cuda.device(xj.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mdl_fused_bilinear_fwd(xj.data_ptr(), a.data_ptr(),
+                                        w.data_ptr(), mask.data_ptr(),
+                                        out.data_ptr(), e, d, k, h, stream)
+    _raise_on(rc, "mdl_fused_bilinear_fwd")
+    LAUNCHES["fused_bilinear_fwd"] += 1
+    return out
+
+
+def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask) -> tuple:
+    """(d_xj, d_a) for the cotangent g: the backward kernel."""
+    if xj.device.type == "cpu":
+        return bwd_rows_plain(g, xj, a, w1, b1, mask)
+    _check_inputs(xj, a, mask, w1, b1, g)
+    e, d, h, k = _dims(xj, a, b1)
+    _check_widths(d, k)
+    if g.shape[1] != k:
+        raise ValueError(f"fused_bilinear_bwd: g {tuple(g.shape)} must be "
+                         f"({e}, {k})")
+    d_xj = torch.zeros_like(xj)
+    d_a = torch.zeros_like(a)
+    if e == 0 or k == 0:
+        return d_xj, d_a
+    # unit h of [W1; b1], transposed: ((H+1), K, D)
+    wt = extend_weight(w1, b1, d).view(h + 1, d, k).transpose(1, 2).contiguous()
+    lib = _load()
+    with torch.cuda.device(xj.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mdl_fused_bilinear_bwd(xj.data_ptr(), a.data_ptr(),
+                                        wt.data_ptr(), mask.data_ptr(),
+                                        g.data_ptr(), d_xj.data_ptr(),
+                                        d_a.data_ptr(), e, d, k, h, stream)
+    _raise_on(rc, "mdl_fused_bilinear_bwd")
+    LAUNCHES["fused_bilinear_bwd"] += 1
+    return d_xj, d_a
+
+
+def fused_bilinear_wgrad(g, xj, a, mask) -> torch.Tensor:
+    """The ((H+1)·D, K) gradient of [W1; b1] for the cotangent g (E, K):
+    the weight-gradient kernel, bit-identical from run to run on one card."""
+    if xj.device.type == "cpu":
+        return wgrad_plain(g, xj, a, mask, g.shape[1])
+    _check_inputs(xj, a, mask, g=g)
+    e, d = xj.shape
+    h, k = a.shape[1], g.shape[1]
+    _check_widths(d, k)
+    dev = xj.device
+    if e == 0 or k == 0:
+        return torch.zeros(((h + 1) * d, k), dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        splits = lib.mdl_fused_bilinear_wgrad_splits(e, d, k, h)
+    if splits < 1:
+        _raise_on(-splits, "mdl_fused_bilinear_wgrad_splits")
+    partial = torch.empty(splits * (h + 1) * d * k, dtype=torch.float32,
+                          device=dev)
+    counts = torch.zeros(lib.mdl_fused_bilinear_wgrad_slices(d, h),
+                         dtype=torch.int32, device=dev)
+    dw = torch.empty(((h + 1) * d, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mdl_fused_bilinear_wgrad(
+            xj.data_ptr(), a.data_ptr(), mask.data_ptr(), g.data_ptr(),
+            partial.data_ptr(), counts.data_ptr(), dw.data_ptr(), e, d, k, h,
+            splits, stream)
+    _raise_on(rc, "mdl_fused_bilinear_wgrad")
+    LAUNCHES["fused_bilinear_wgrad"] += 1
+    return dw
+
+
+def fused_bilinear_bwd(g, xj, a, w1, b1, mask) -> tuple:
+    """Gradients of fused_bilinear for the output cotangent g: (d_xj, d_a,
+    d_w1, d_b1). Each of the two wrappers it calls dispatches by device."""
+    d_xj, d_a = fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask)
+    dw = fused_bilinear_wgrad(g, xj, a, mask)
+    return (d_xj, d_a, *split_wgrad(dw, w1.shape, b1.shape))
+
+
+# ------------------------------------------------------------------ autograd
+
+
+class FusedBilinear(torch.autograd.Function):
+    """fused_bilinear with the backward kernels as its backward; no
+    gradient for the mask."""
+
+    @staticmethod
+    def forward(ctx, xj, a, w1, b1, mask):
+        ctx.save_for_backward(xj, a, w1, b1, mask)
+        return fused_bilinear(xj.contiguous(), a.contiguous(), w1, b1, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        xj, a, w1, b1, mask = ctx.saved_tensors
+        grads = fused_bilinear_bwd(g.contiguous(), xj.contiguous(),
+                                   a.contiguous(), w1, b1, mask)
+        return (*grads, None)

@@ -42,7 +42,7 @@ class KernelPlan:
     fused: bool             # the conv on its fused kernel
 
 
-TRAINABLE = ("CGCNN", "SchNet")  # the models whose Training is ported
+TRAINABLE = ("CGCNN", "SchNet", "MPNN")  # the models whose Training is ported
 
 
 def resolve_kernel(model_name: str, kernel: str, batching: str,
@@ -53,18 +53,24 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
 
       fused — the model's conv on its fused kernel, dst-sorted batches
               (CGConv: ops/fused_cgconv.py; SchNet's cfconv:
-              ops/fused_cfconv.py); the x_j gather stays in torch;
+              ops/fused_cfconv.py; MPNN's NNConv message:
+              ops/fused_bilinear.py); the x_j gather stays in torch;
       csr   — the unfused conv with the CSR kernels (ops/csr.py) on its
-              dst-side gathers and aggregation, dst-sorted batches;
-      xla   — masked plain segment ops on the reference edge order;
+              dst-side gathers and aggregation, dst-sorted batches. MPNN's
+              message runs on the bilinear kernel here too, as the
+              reference composes it with csr (jobs.py:145-146): for MPNN,
+              fused differs from csr only in the batches' kernel_fused
+              flag, which MPNN does not read;
+      xla   — masked plain segment ops on the reference edge order (MPNN:
+              the einsum over the formed per-edge weights);
       auto  — fused on a CUDA device, xla elsewhere (where the kernels'
               plain versions would run, as the reference keeps auto on XLA
-              off its accelerator), for CGCNN and SchNet alike. This is
-              the port's choice, not the TPU's verdict carried over (the
+              off its accelerator), for CGCNN, SchNet and MPNN alike. This
+              is the port's choice, not the TPU's verdict carried over (the
               reference's auto never picks its fused cfconv, measured
-              slower on its TPU): chip_smoke.py times a warm training
-              epoch under fused and under csr for both models, and
-              PERF.md records what it found.
+              slower on its TPU): chip_smoke.py times warm training epochs
+              under the other kernels for each model, and PERF.md records
+              what it found.
 
     A request the port cannot honour raises NotImplementedError naming its
     ROADMAP item; nothing falls back quietly.
@@ -75,7 +81,7 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
     if model_name not in TRAINABLE:
         raise NotImplementedError(
             f"training {model_name} is not ported yet (ROADMAP queue 1, "
-            "items 8 and 10-12)")
+            "items 8, 10 and 12)")
     if batching != "padded":
         raise NotImplementedError(
             f"batching={batching!r} is not ported yet (ROADMAP queue 1, "
@@ -297,7 +303,8 @@ def predict(dataset, loss: str, job_parameters: dict,
             device: str | torch.device | None = None) -> float:
     """The Predict run mode: rebuild the model from the checkpoint header,
     batch-128 inference on dst-sorted batches (the CSR kernels carry every
-    CGConv x_i gather and mean, and every SchNet cfconv sum), write
+    CGConv x_i gather and mean, every SchNet cfconv sum and every NNConv
+    mean; the bilinear kernel every NNConv message), write
     `<job>_predicted_outputs.csv`, report the error. Runs on CUDA unless
     `device` names another device."""
     dev = resolve_device(device)

@@ -8,10 +8,12 @@ installed, without the repository's conftest (which imports jax):
 
 Tolerances: gather bit-exact; segment-sum rtol 1e-5 and atol
 1e-5·max|ref|, because its atomics reorder the additions; the fused CGConv
-and cfconv kernels rtol 1e-4 and atol 1e-4·max|ref| (atomics, and sums over
-every edge in another order than the plain version's GEMMs); whole-model
-outputs and gradients 1e-4 against the same model on the CPU; a short
-training run's errors 1e-3 against the CPU.
+and cfconv kernels and the bilinear NNConv kernels rtol 1e-4 and atol
+1e-4·max|ref| (atomics, and sums over every edge or hidden unit in another
+order than the plain version's GEMMs); whole-model outputs and gradients
+1e-4 against the same model on the CPU; a short training run's errors 1e-3
+against the CPU. The bilinear weight gradient is bit-identical between two
+calls.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from matdeeplearn_torch.ops import csr
+from matdeeplearn_torch.ops import fused_bilinear as FB
 from matdeeplearn_torch.ops import fused_cfconv as FS
 from matdeeplearn_torch.ops import fused_cgconv as FC
 
@@ -452,6 +455,149 @@ def test_schnet_training_on_cuda_matches_cpu(cuda_device, tmp_path,
     errs = {}
     for dev in ("cpu", "cuda"):
         jp = {"job_name": f"s_{dev}", "seed": 4, "save_model": "False",
+              "write_output": "False"}
+        errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
+    for split in ("train", "val", "test"):
+        assert np.isfinite(errs["cuda"][split])
+        np.testing.assert_allclose(errs["cuda"][split], errs["cpu"][split],
+                                   rtol=1e-3, atol=1e-3, err_msg=split)
+
+
+def _bilinear_inputs(case, d, h, k, seed=0, device="cuda"):
+    """xj, a = relu(·) (zeros as the edge network gives them), w1, b1 and
+    the mask of one NNConv message at widths (D, H, K)."""
+    rng = np.random.default_rng(seed)
+    _, mask, _ = _problem(rng, case)
+    e = len(mask)
+    g = torch.Generator().manual_seed(seed)
+    t = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(device)
+    return (t(e, d), torch.relu(t(e, h)), t(h, d * k, s=0.1), t(d * k, s=0.1),
+            torch.as_tensor(mask, device=device))
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "scattered"])
+@pytest.mark.parametrize("d,h,k", [(3, 7, 5), (100, 100, 100),
+                                   (150, 100, 150), (256, 9, 256),
+                                   (64, 20, 33)])
+def test_fused_bilinear_kernels_match_plain(cuda_device, case, d, h, k):
+    args = _bilinear_inputs(case, d, h, k, device=cuda_device)
+    mask = args[-1]
+    _assert_fused_close(FB.fused_bilinear(*args),
+                        FB.fused_bilinear_plain(*args), "forward")
+    g = torch.randn(len(mask), k, device=cuda_device)
+    got = FB.fused_bilinear_bwd(g, *args)
+    ref = FB.fused_bilinear_bwd_plain(g, *args)
+    for name, a, b in zip(["xj", "a", "w1", "b1"], got, ref):
+        assert a.shape == b.shape, name
+        _assert_fused_close(a, b, f"d_{name}")
+    off = mask == 0
+    for a in (FB.fused_bilinear(*args), got[0], got[1]):
+        assert float(a[off].abs().max()) == 0.0
+
+
+def test_fused_bilinear_wgrad_is_bit_identical(cuda_device):
+    xj, a, _, _, mask = _bilinear_inputs("sorted", 100, 100, 100,
+                                         device=cuda_device)
+    g = torch.randn(len(mask), 100, device=cuda_device)
+    first = FB.fused_bilinear_wgrad(g, xj, a, mask)
+    assert torch.equal(FB.fused_bilinear_wgrad(g, xj, a, mask), first)
+
+
+def test_fused_bilinear_autograd_and_launch_counts(cuda_device):
+    xj, a, w1, b1, mask = _bilinear_inputs("sorted", 16, 12, 8,
+                                           device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (xj, a, w1, b1)]
+    before = dict(FB.LAUNCHES)
+    out = FB.FusedBilinear.apply(*leaves, mask)
+    cot = torch.randn_like(out)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    for key in FB.LAUNCHES:
+        assert FB.LAUNCHES[key] == before[key] + 1, key
+    ref = FB.fused_bilinear_bwd_plain(cot, xj, a, w1, b1, mask)
+    for leaf, r in zip(leaves, ref):
+        _assert_fused_close(leaf.grad, r, "autograd")
+
+
+def test_fused_bilinear_raises_instead_of_falling_back(cuda_device):
+    xj, a, w1, b1, mask = _bilinear_inputs("sorted", 8, 4, 8,
+                                           device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        FB.fused_bilinear(xj.t().contiguous().t(), a, w1, b1, mask)
+    with pytest.raises(ValueError, match="float32"):
+        FB.fused_bilinear(xj, a, w1, b1, mask.double())
+    wide = _bilinear_inputs("sorted", 300, 4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="wider"):
+        FB.fused_bilinear(*wide)
+
+
+def _mpnn_hp(**kw):
+    return {"dim1": 24, "dim2": 16, "dim3": 20, "gc_count": 3,
+            "post_fc_count": 2, **kw}
+
+
+def test_mpnn_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """A small MPNN on dst-sorted batches, in training mode: outputs and
+    parameter gradients on the card (bilinear and CSR kernels) against the
+    CPU (plain versions)."""
+    from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                                  assemble_batch)
+    from matdeeplearn_torch.models import build_model
+
+    ds = _toy(tmp_path)
+    spec = BatchSpec.for_dataset(ds.node_counts(), ds.edge_counts(), 10)
+    ids = np.array([3, 0, 9, 14, 6, 1, 22, 7, -1, -1], np.int32)
+    model = build_model("MPNN", ds, _mpnn_hp(), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    results = {}
+    for dev in ("cpu", cuda_device):
+        m = build_model("MPNN", ds, _mpnn_hp(), device=dev)
+        m.load_state_dict(model.state_dict())
+        m.train()
+        batch = assemble_batch(DeviceDataset.from_graph_dataset(
+            ds, dev, edge_order="dst", kernel_fused=True), ids, spec)
+        before = dict(FB.LAUNCHES)
+        out = m(batch)
+        (out * batch.graph_mask).abs().sum().backward()
+        if dev != "cpu":
+            for key in FB.LAUNCHES:
+                assert FB.LAUNCHES[key] == before[key] + 3, key
+        results[str(dev)] = (out.detach().cpu(),
+                             {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = results["cpu"], results[str(cuda_device)]
+    torch.testing.assert_close(o_gpu, o_cpu, rtol=1e-4, atol=1e-4)
+    # atol from each layer's largest gradient: conv{i}.bias feeds a
+    # training-mode BatchNorm, so its gradient cancels to rounding noise
+    layer_max = {}
+    for k, g in g_cpu.items():
+        layer = k.rsplit(".", 1)[0]
+        layer_max[layer] = max(layer_max.get(layer, 1e-6), float(g.abs().max()))
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], g, rtol=1e-4,
+                                   atol=1e-4 * layer_max[k.rsplit(".", 1)[0]],
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("kernel", ["fused", "csr"])
+def test_mpnn_training_on_cuda_matches_cpu(cuda_device, tmp_path, monkeypatch,
+                                           kernel):
+    """train_regular of a small MPNN on the card and on the CPU (plain
+    versions): the same errors, to 1e-3. Without BatchNorm, for the reason
+    the SchNet run above gives (conv{i}.bias behind BatchNorm)."""
+    from matdeeplearn_torch.training import jobs
+
+    ds = _toy(tmp_path / "data", n=40)
+    monkeypatch.chdir(tmp_path)
+    mp = {"model": "MPNN", **_mpnn_hp(gc_count=2, post_fc_count=1),
+          "batch_norm": "False", "batch_size": 8, "epochs": 3, "lr": 0.005,
+          "optimizer": "AdamW", "scheduler": "ReduceLROnPlateau",
+          "scheduler_args": {"factor": 0.8, "patience": 0}, "kernel": kernel,
+          "print_model": False}
+    tp = {"loss": "l1_loss", "train_ratio": 0.7, "val_ratio": 0.15,
+          "test_ratio": 0.15, "verbosity": 1}
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        jp = {"job_name": f"m_{dev}", "seed": 4, "save_model": "False",
               "write_output": "False"}
         errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
     for split in ("train", "val", "test"):

@@ -25,12 +25,13 @@ def _port_modules():
 
 
 def test_training_slice_modules_are_walked():
-    """The import check below covers the Training and SchNet slices'
+    """The import check below covers the Training, SchNet and MPNN slices'
     modules."""
     mods = set(_port_modules())
     for name in ("ops._build", "ops.fused_cgconv", "training.optimizers",
                  "training.scheduler", "training.trainer", "training.jobs",
-                 "utils.summary", "cli", "ops.fused_cfconv", "models.schnet"):
+                 "utils.summary", "cli", "ops.fused_cfconv", "models.schnet",
+                 "ops.fused_bilinear", "models.mpnn"):
         assert f"matdeeplearn_torch.{name}" in mods, name
 
 
