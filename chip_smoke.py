@@ -9,9 +9,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    each, in parallel), and turns TF32 off;
 2. writes 1,000 periodic structures (8-64 atoms, cubic cells of 16 Å^3 per
    atom, numpy seed 0) and featurizes them with config.yml's Processing
-   values; builds CGCNN_demo, SchNet_demo and MPNN_demo at full width from
-   torch.Generator seed 0, with non-trivial BatchNorm running statistics,
-   and saves each with the port's checkpoint;
+   values; builds CGCNN_demo, SchNet_demo, MPNN_demo and GCN_demo at full
+   width from torch.Generator seed 0, with non-trivial BatchNorm running
+   statistics, and saves each with the port's checkpoint;
 3. checks each CSR kernel against its plain PyTorch version on the card, at
    the shapes of a Predict batch (sorted dst with tail pads, permuted dst,
    scattered mask, D in {1, 3, 150}, one gradient of each autograd pair):
@@ -74,7 +74,29 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     that checkpoint to rtol 1e-4, atol 1e-4; one more profiled); then 3
     warm-timed epochs under kernel xla (the einsum over the formed per-edge
     weights) and 3 under kernel fused, and one profiled warm epoch;
-12. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
+12. builds the windowed layout of the 1,000 structures and checks the
+    windowed kernels (segment-sum, SpMM, gather) against their plain
+    versions on the card, at the layout of a GCN_demo training batch with 10
+    pad graph slots (windows that own no tile, tail capacity tiles) and at a
+    random windowize_edges layout with an empty window, D in {1, 100, 150},
+    NaN in the messages and weights of pad slots: sums to rtol 1e-5 and atol
+    1e-5·max|ref| (a fixed order, not index_add_'s), finite, bit-identical
+    twice, zero on nodes without edges; the gather bit-exact; the gradients
+    of the three autograd Functions; then times them at the full training
+    batch beside their bound, their plain versions and index_add_ /
+    index_select as the library yardsticks (this phase runs right after 6);
+13. trains 3 epochs of CGCNN_demo under kernel pallas beside 9's csr and
+    fused epochs (the windowed segment-sum at D 100 and its gather);
+14. does 8 for GCN_demo under kernel pallas: the windowed SpMM (every
+    message sum), segment-sum (every degree) and gather (the SpMM's
+    backward) each >= 4 x 8 x 5 launches, 2 CPU epochs to compare; then GCN
+    Predict on the card from the checkpoint Training saved (dst-sorted CSR
+    plan; counters reset just before: csr_segment_sum >= 2 x 4 x 8
+    launches; 1,000 finite predictions that agree with the CPU Predict of
+    that checkpoint to rtol 1e-4, atol 1e-4; one more profiled); then 3
+    warm-timed epochs each under kernels xla, csr and pallas, and one
+    profiled warm pallas epoch;
+15. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
     {"ok": true, "device": {...}}.
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
@@ -154,6 +176,16 @@ MPNN_DEMO = {
     "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
                        "min_lr": 0.00001, "threshold": 0.0002},
 }
+GCN_DEMO = {
+    "model": "GCN", "dim1": 100, "dim2": 150, "pre_fc_count": 1,
+    "gc_count": 4, "post_fc_count": 3, "pool": "global_mean_pool",
+    "pool_order": "early", "batch_norm": "True", "batch_track_stats": "True",
+    "act": "relu", "dropout_rate": 0.0, "epochs": 250, "lr": 0.002,
+    "batch_size": 100, "optimizer": "AdamW", "optimizer_args": {},
+    "scheduler": "ReduceLROnPlateau",
+    "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
+                       "min_lr": 0.00001, "threshold": 0.0002},
+}
 SCHNET_DEMO = {
     "model": "SchNet", "dim1": 100, "dim2": 100, "dim3": 150, "cutoff": 8,
     "pre_fc_count": 1, "gc_count": 4, "post_fc_count": 3,
@@ -180,7 +212,7 @@ def training_config(data_path: str, model_path: str, job_name: str,
                     device: str, epochs: int, kernel: str = "auto",
                     model: dict = CGCNN_DEMO) -> dict:
     """The config cli.load_config gives for --run_mode=Training of `model`
-    (CGCNN_demo, SchNet_demo or MPNN_demo), resuming from `model_path`
+    (CGCNN_demo, SchNet_demo, MPNN_demo or GCN_demo), resuming from `model_path`
     (load_model True), with this run's epochs, kernel, device and
     verbosity 1."""
     job = {**TRAIN_JOB, "run_mode": "Training", "job_name": job_name,
@@ -714,6 +746,153 @@ def time_bilinear(batch, dev, d=100, h=100, k=100):
     return res, e_real
 
 
+def assert_sum(out, ref, what) -> float:
+    """rtol 1e-5, atol 1e-5·max|ref|: the windowed sums add in a fixed
+    order that is not index_add_'s. Returns max |out - ref|."""
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * max(float(ref.abs().max()), 1e-30),
+                               msg=lambda m: f"{what}: {m}")
+    return float((out - ref).abs().max())
+
+
+def batch_edges(batch):
+    """The windowed layout of a windowed batch, as ops/windowed.py takes it."""
+    from matdeeplearn_torch.ops.aggregate import _windowed_edges
+
+    return _windowed_edges(batch)
+
+
+def check_windowed(cases, dev):
+    """The windowed kernels against their plain versions on the card, for
+    each (name, layout, n, tw) case at D = 1, 100 and 150, with NaN in the
+    messages and weights of pad slots: the sums to rtol 1e-5, atol
+    1e-5·max|ref|, finite, bit-identical twice, exactly zero on nodes
+    without edges (windows that own no tile included); the gather
+    bit-exact; the gradients of the three autograd Functions (the SpMM's to
+    both operands). Returns the largest |kernel - plain| of each kernel."""
+    from matdeeplearn_torch.ops import windowed as WO
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    err = {k: 0.0 for k in WO.LAUNCHES}
+    for name, we, n, tw in cases:
+        e = we.dst.shape[0]
+        pad = we.dst < 0
+        real = WO.slot_valid(we.dst, we.window_id, tw, n)
+        no_edge = torch.ones(n, dtype=torch.bool, device=dev)
+        no_edge[we.dst[real].long()] = False
+        for d in (1, 100, 150):
+            what = f"{name}, D={d}"
+            msg = torch.randn(e, d, device=dev, generator=g)
+            w = torch.randn(e, device=dev, generator=g)
+            msg[pad], w[pad] = float("nan"), float("nan")
+            x = torch.randn(n, d, device=dev, generator=g)
+            cot_n = torch.randn(n, d, device=dev, generator=g)
+            cot_e = torch.randn(e, d, device=dev, generator=g)
+            for key, fn, wv in (("windowed_segment_sum",
+                                 lambda: WO.segment_sum(msg, we, n, tw), None),
+                                ("windowed_spmm",
+                                 lambda: WO.spmm(w, msg, we, n, tw), w)):
+                out = fn()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"{key}, {what}: NaN from pad slots")
+                if not torch.equal(out, fn()):
+                    raise AssertionError(f"{key}, {what}: two calls differ")
+                if float(out[no_edge].abs().max()) != 0.0:
+                    raise AssertionError(f"{key}, {what}: nodes without edges "
+                                         "are not zero")
+                ref = WO.segment_sum_plain(msg, we.dst, we.window_id, n, tw, wv)
+                err[key] = max(err[key], assert_sum(out, ref, f"{key}, {what}"))
+            gout = WO.gather(x, we, tw)
+            if not torch.equal(gout, WO.gather_plain(x, we.dst, we.window_id, tw)):
+                raise AssertionError(f"windowed_gather, {what}: not bit-exact")
+            # the autograd Functions: sum → gather, SpMM → gather and torch,
+            # gather → sum
+            m = msg.clone().requires_grad_(True)
+            (WO.windowed_segment_sum(m, we, n, tw) * cot_n).sum().backward()
+            gg = WO.gather_plain(cot_n, we.dst, we.window_id, tw)
+            if not torch.equal(m.grad, gg):
+                raise AssertionError(f"WindowedSegmentSum backward, {what}: "
+                                     "not bit-exact")
+            m = msg.clone().requires_grad_(True)
+            wt = w.clone().requires_grad_(True)
+            (WO.windowed_spmm(wt, m, we, n, tw) * cot_n).sum().backward()
+            assert_sum(m.grad[real], (gg * w[:, None])[real],
+                       f"WindowedSpmm d_msg, {what}")
+            assert_sum(wt.grad[real], (msg * gg).sum(-1)[real],
+                       f"WindowedSpmm d_w, {what}")
+            xt = x.clone().requires_grad_(True)
+            (WO.windowed_gather(xt, we, tw) * cot_e).sum().backward()
+            ref = WO.segment_sum_plain(cot_e, we.dst, we.window_id, n, tw)
+            err["windowed_segment_sum"] = max(
+                err["windowed_segment_sum"],
+                assert_sum(xt.grad, ref, f"WindowedGather backward, {what}"))
+            print(f"  windowed kernel check ok: {what}: segment_sum max |diff| "
+                  f"{err['windowed_segment_sum']:.3e}, spmm "
+                  f"{err['windowed_spmm']:.3e}, gather bit-exact; NaN on pad "
+                  f"slots kept out; sums bit-identical twice; gradients ok")
+    return err
+
+
+def time_windowed(batch, dev, d=100):
+    """Windowed kernel, plain and library times at one GCN_demo training
+    batch's layout, and the bound of each (bytes each function must move
+    over the memory rate, or its f32 operations on real slots over the f32
+    rate, whichever is larger). The library yardsticks: index_add_ over the
+    same slots with the mask (and the weight) applied beforehand, and
+    index_select; the port never calls them under kernel pallas. The
+    segment-sum is timed at D = 1 (GCN's degree, its row in the kernels
+    line) and at D = 100 (CGConv's mean under kernel pallas)."""
+    from matdeeplearn_torch.ops import windowed as WO
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    we, n, tw = batch_edges(batch), batch.num_nodes, batch.window_size
+    e, t = we.dst.shape[0], we.window_id.shape[0]
+    real = WO.slot_valid(we.dst, we.window_id, tw, n)
+    e_real = int(real.sum())
+    rows = int(torch.unique(we.dst[real]).numel())
+    dst_safe = torch.clamp(we.dst, min=0)
+    w = torch.rand(e, device=dev, generator=g)
+    layout_bytes = 4 * (e + 2 * t)  # dst, window id and first flag
+
+    def sums(dd):
+        msg = torch.randn(e, dd, device=dev, generator=g)
+        acc = torch.zeros(n, dd, device=dev)
+        msg_m = torch.where(real[:, None], msg, 0.0)
+        return msg, acc, msg_m
+
+    res = {}
+    for key, dd in (("windowed_segment_sum", 1), ("windowed_segment_sum_d100", d)):
+        msg, acc, msg_m = sums(dd)
+        res[key] = {
+            "ms": device_ms(lambda: WO.segment_sum(msg, we, n, tw)),
+            "plain_ms": device_ms(lambda: WO.segment_sum_plain(
+                msg, we.dst, we.window_id, n, tw)),
+            "library_ms": device_ms(lambda: acc.index_add_(0, dst_safe, msg_m)),
+            **bound(4 * (e_real * dd + n * dd) + layout_bytes, e_real * dd),
+            "d": dd,
+        }
+    msg, acc, _ = sums(d)
+    msg_w = torch.where(real[:, None], msg * w[:, None], 0.0)
+    res["windowed_spmm"] = {
+        "ms": device_ms(lambda: WO.spmm(w, msg, we, n, tw)),
+        "plain_ms": device_ms(lambda: WO.segment_sum_plain(
+            msg, we.dst, we.window_id, n, tw, w)),
+        "library_ms": device_ms(lambda: acc.index_add_(0, dst_safe, msg_w)),
+        **bound(4 * (e_real * (d + 1) + n * d) + layout_bytes, 2 * e_real * d),
+        "d": d,
+    }
+    x = torch.randn(n, d, device=dev, generator=g)
+    res["windowed_gather"] = {
+        "ms": device_ms(lambda: WO.gather(x, we, tw)),
+        "plain_ms": device_ms(lambda: WO.gather_plain(x, we.dst, we.window_id,
+                                                      tw)),
+        "library_ms": device_ms(lambda: torch.index_select(x, 0, dst_safe)),
+        **bound(4 * (rows * d + e * d) + layout_bytes, 0),
+        "d": d,
+    }
+    return res, e_real
+
+
 def run_cli(config) -> tuple[float, str]:
     """cli.run(config) with its output echoed (the settings dump left out);
     returns (wall seconds, the captured output)."""
@@ -751,8 +930,9 @@ def warm_epoch_s(rows) -> float:
     return float(np.mean([r[4] for r in rows[1:]]))
 
 
-def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14):
-    """One warm training epoch of `model` (kernel fused) under
+def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14,
+                     kernel: str = "fused"):
+    """One warm training epoch of `model` (kernel `kernel`) under
     torch.profiler: device time by kernel and the device's busy share of
     the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -763,7 +943,7 @@ def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14):
     train_idx, val_idx, _ = split_data(dataset, TRAINING["train_ratio"],
                                        TRAINING["val_ratio"],
                                        TRAINING["test_ratio"], TRAIN_SEED)
-    run = jobs.setup_run(dataset, {**model, "kernel": "fused"},
+    run = jobs.setup_run(dataset, {**model, "kernel": kernel},
                          "l1_loss", seed=TRAIN_SEED, device=dev)
     kw = dict(train_idx=train_idx, val_idx=val_idx, epochs=1, verbosity=1,
               seed=TRAIN_SEED)
@@ -781,7 +961,8 @@ def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14):
         return
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
-    print(f"profiled warm {model['model']} training epoch: device busy "
+    print(f"profiled warm {model['model']} training epoch (kernel {kernel}): "
+          f"device busy "
           f"{busy_ms:.3f} ms of "
           f"{1e3 * wall:.3f} ms wall ({100 * busy_ms / (1e3 * wall):.1f}%); "
           f"top device time:")
@@ -854,13 +1035,15 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                                  WindowedDeviceData, assemble,
                                                   assemble_batch)
-    from matdeeplearn_torch.data.dataset import get_dataset
+    from matdeeplearn_torch.data.dataset import get_dataset, windowed_layout
     from matdeeplearn_torch.models import MODEL_FIELDS, build_model
     from matdeeplearn_torch.ops import _build, csr
     from matdeeplearn_torch.ops import fused_bilinear as FB
     from matdeeplearn_torch.ops import fused_cfconv as FS
     from matdeeplearn_torch.ops import fused_cgconv as FC
+    from matdeeplearn_torch.ops import windowed as WO
     from matdeeplearn_torch.training.checkpoint import save_checkpoint
 
     dev = torch.device("cuda")
@@ -921,6 +1104,7 @@ def main() -> int:
                                      os.path.join(WORK, "schnet_demo.ckpt"))
     mpnn_path = initial_checkpoint(MPNN_DEMO,
                                    os.path.join(WORK, "mpnn_demo.ckpt"))
+    gcn_path = initial_checkpoint(GCN_DEMO, os.path.join(WORK, "gcn_demo.ckpt"))
 
     # ---- CSR kernel checks and times at a Predict batch's shapes ----------
     data = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst")
@@ -975,10 +1159,60 @@ def main() -> int:
               f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     del tdata, tbatch
 
+    # ---- windowed kernels at a GCN_demo training batch's layout ----------
+    t0 = time.perf_counter()
+    layout = windowed_layout(dataset)
+    tw, te = layout.tw, layout.te
+    print(f"windowed layout of {len(dataset)} structures in "
+          f"{time.perf_counter() - t0:.2f} s: tw={tw}, te={te}, "
+          f"{int(layout.node_counts_w.sum())} node slots, "
+          f"{int(layout.wedge_ptr[-1])} edge slots in {int(layout.tile_ptr[-1])} "
+          f"tiles, {100 * float(layout.wvalid.mean()):.1f}% real")
+    wspec = BatchSpec.for_dataset(layout.node_counts_w, layout.wedge_counts,
+                                  train_bs, align=max(8, tw), align_edges=te)
+    wdata = DeviceDataset.from_graph_dataset(
+        dataset, dev, windowed=WindowedDeviceData.from_layout(layout, dev))
+    wbatch = assemble(wdata, np.arange(train_bs, dtype=np.int32), wspec)
+    spec128 = BatchSpec.for_dataset(layout.node_counts_w, layout.wedge_counts,
+                                    128, align=max(8, tw), align_edges=te)
+    used = int(layout.tile_counts[:train_bs].sum())
+    print(f"windowed training spec: B={wspec.num_graphs}, N={wspec.num_nodes}, "
+          f"E={wspec.num_edges} ({wspec.num_edges // te} tiles; the first "
+          f"batch {int(wbatch.edge_mask.sum())} real edges in {used} tiles, "
+          f"{wspec.num_edges // te - used} tail capacity tiles); at batch "
+          f"128: N={spec128.num_nodes}, E={spec128.num_edges}")
+    pad_ids = np.concatenate([np.arange(train_bs - 10),
+                              np.full(10, -1)]).astype(np.int32)
+    pbatch = assemble(wdata, pad_ids, wspec)
+    rng = np.random.default_rng(12)
+    n_r = wspec.num_nodes
+    dst_r = np.sort(rng.integers(0, n_r, wspec.num_edges // 2))
+    dst_r[(dst_r >= tw) & (dst_r < 2 * tw)] = 0
+    mask_r = np.ones(len(dst_r), np.float32)
+    mask_r[-500:] = 0
+    we_r = WO.windowize_edges(torch.as_tensor(np.sort(dst_r).astype(np.int32),
+                                              device=dev),
+                              torch.as_tensor(mask_r, device=dev), n_r, tw, te)
+    print(f"windowed kernel checks on {card}:")
+    err.update(check_windowed(
+        [("GCN_demo layout, 10 pad graph slots", batch_edges(pbatch),
+          wspec.num_nodes, tw),
+         ("windowize_edges, an empty window", we_r, n_r, tw)], dev))
+    wtimes, we_real = time_windowed(wbatch, dev)
+    times.update(wtimes)
+    for k, t in wtimes.items():
+        print(f"{k} on {smi}, E={wspec.num_edges} ({we_real} real), "
+              f"N={wspec.num_nodes}, tw={tw}, te={te}, D={t['d']}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
+    del wdata, wbatch, pbatch
+
     # ---- main path 1: Predict on the card, then on the CPU ----------------
     os.chdir(WORK)
     gpu_cfg = predict_config(data_dir, model_path, "chip_gpu", "cuda")
-    all_counts = (csr.LAUNCHES, FC.LAUNCHES, FS.LAUNCHES, FB.LAUNCHES)
+    all_counts = (csr.LAUNCHES, FC.LAUNCHES, FS.LAUNCHES, FB.LAUNCHES,
+                  WO.LAUNCHES)
     reset_launches(*all_counts)
     cold_wall, cold_eval = run_predict(gpu_cfg)
     launches = dict(csr.LAUNCHES)
@@ -1051,15 +1285,16 @@ def main() -> int:
     print(f"Predict from the checkpoint Training saved: {len(pred_t)} finite "
           f"predictions")
 
-    # ---- kernel csr against kernel fused, then a profiled warm epoch ------
+    # ---- kernels csr, fused and pallas, then a profiled warm epoch --------
     ab = {}
-    for kernel in ("csr", "fused"):
+    for kernel in ("csr", "fused", "pallas"):
         _, rows = run_training(training_config(
             data_dir, resume_from_init(f"train_{kernel}"), f"chip_ab_{kernel}",
             "cuda", EPOCHS_AB, kernel))
         ab[kernel] = warm_epoch_s(rows)
     print(f"warm epoch on {smi}: kernel csr {ab['csr']:.5f} s, kernel fused "
-          f"{ab['fused']:.5f} s (main path: {warm:.5f} s)")
+          f"{ab['fused']:.5f} s, kernel pallas {ab['pallas']:.5f} s (main "
+          f"path: {warm:.5f} s)")
     profile_training(dataset, dev)
 
     # ---- main path 3: SchNet_demo Training on the card, then the CPU ------
@@ -1221,6 +1456,82 @@ def main() -> int:
           f"kernel fused {m_ab['fused']:.5f} s (main path: {m_warm:.5f} s)")
     profile_training(dataset, dev, MPNN_DEMO)
 
+    # ---- main path 7: GCN_demo Training (kernel pallas), card then CPU ----
+    gpu_gcn = resume_from_init("gcn_gpu", gcn_path)
+    reset_launches(*all_counts)
+    wall, g_rows = run_training(training_config(
+        data_dir, gpu_gcn, "chip_gcn_gpu", "cuda", EPOCHS_CARD, "pallas",
+        model=GCN_DEMO))
+    gcn_launches = dict(WO.LAUNCHES)
+    print(f"launches in one GCN Training run of {EPOCHS_CARD} epochs (kernel "
+          f"pallas): {gcn_launches}; CSR {dict(csr.LAUNCHES)}")
+    for k, v in gcn_launches.items():
+        if v < need:
+            raise AssertionError(f"{k} launched {v} times in GCN Training, "
+                                 f"expected >= {need}")
+    g_warm = warm_epoch_s(g_rows)
+    print(f"GCN Training on {smi}: {wall:.3f} s wall for {EPOCHS_CARD} "
+          f"epochs; epoch 1 (cold) {g_rows[0][4]:.5f} s, warm epochs "
+          f"{g_warm:.5f} s on average ({n_train / g_warm:.1f} train graphs/s)")
+    cpu_wall, g_cpu_rows = run_training(training_config(
+        data_dir, resume_from_init("gcn_cpu", gcn_path), "chip_gcn_cpu", "cpu",
+        EPOCHS_CPU, "pallas", model=GCN_DEMO))
+    print(f"GCN Training on the CPU (plain versions): {cpu_wall:.3f} s wall "
+          f"for {EPOCHS_CPU} epochs")
+    np.testing.assert_allclose(g_rows[0][2], g_cpu_rows[0][2], rtol=1e-3)
+    if not g_rows[-1][2] < g_rows[0][2]:
+        raise AssertionError(f"the card's GCN train error did not fall: "
+                             f"{g_rows[0][2]} -> {g_rows[-1][2]}")
+    print(f"GCN card vs CPU: epoch 1 train error {g_rows[0][2]:.5f} vs "
+          f"{g_cpu_rows[0][2]:.5f} (rtol 1e-3); epoch 2 {g_rows[1][2]:.5f} vs "
+          f"{g_cpu_rows[1][2]:.5f}; the card's train error "
+          f"{g_rows[0][2]:.5f} -> {g_rows[-1][2]:.5f}")
+
+    # ---- main path 8: GCN_demo Predict on the card, then the CPU ----------
+    reset_launches(*all_counts)
+    g_wall, g_eval = run_predict(predict_config(data_dir, gpu_gcn,
+                                                "chip_gcn_predict", "cuda"))
+    g_predict_launches = dict(csr.LAUNCHES)
+    print(f"launches in one GCN Predict: {g_predict_launches}; windowed "
+          f"{dict(WO.LAUNCHES)}")
+    if g_predict_launches["segment_sum"] < 2 * 4 * steps:
+        raise AssertionError(f"segment_sum launched "
+                             f"{g_predict_launches['segment_sum']} times in "
+                             f"GCN Predict, expected >= {2 * 4 * steps}")
+    g_warm_wall, g_warm_eval = run_predict(predict_config(
+        data_dir, gpu_gcn, "chip_gcn_predict", "cuda"))
+    print(f"GCN Predict on {smi}: cold {g_wall:.4f} s wall, {g_eval:.5f} s "
+          f"evaluation; warm {g_warm_wall:.4f} s wall, {g_warm_eval:.5f} s "
+          f"evaluation ({len(dataset) / g_warm_eval:.1f} graphs/s)")
+    profile_predict(predict_config(data_dir, gpu_gcn, "chip_gcn_predict",
+                                   "cuda"), "GCN")
+    g_cpu_wall, _ = run_predict(predict_config(
+        data_dir, gpu_gcn, "chip_gcn_predict_cpu", "cpu"))
+    print(f"GCN Predict on the CPU (plain versions): {g_cpu_wall:.3f} s wall")
+    ids_g, pred_g = read_predictions("chip_gcn_predict_predicted_outputs.csv")
+    ids_c, pred_c = read_predictions("chip_gcn_predict_cpu_predicted_outputs.csv")
+    if len(pred_g) != N_STRUCTURES or not np.isfinite(pred_g).all():
+        raise AssertionError(f"GCN Predict: expected {N_STRUCTURES} finite "
+                             f"predictions")
+    if ids_g != ids_c:
+        raise AssertionError("GCN card and CPU predictions list different ids")
+    np.testing.assert_allclose(pred_g, pred_c, rtol=1e-4, atol=1e-4)
+    print(f"GCN card vs CPU predictions: max |diff| "
+          f"{float(np.abs(pred_g - pred_c).max()):.3e} (rtol 1e-4, atol 1e-4)")
+
+    # ---- GCN: kernels xla, csr and pallas, then a profiled pallas epoch ---
+    g_ab = {}
+    for kernel in ("xla", "csr", "pallas"):
+        _, rows = run_training(training_config(
+            data_dir, resume_from_init(f"gcn_{kernel}", gcn_path),
+            f"chip_gcn_ab_{kernel}", "cuda", EPOCHS_AB, kernel,
+            model=GCN_DEMO))
+        g_ab[kernel] = warm_epoch_s(rows)
+    print(f"GCN warm epoch on {smi}: kernel xla {g_ab['xla']:.5f} s, kernel "
+          f"csr {g_ab['csr']:.5f} s, kernel pallas {g_ab['pallas']:.5f} s "
+          f"(main path: {g_warm:.5f} s)")
+    profile_training(dataset, dev, GCN_DEMO, kernel="pallas")
+
     kernels = []
     for key, name, src, line, count in (
             ("segment_sum", "csr_segment_sum", "csr.cu", "pallas_csr.py:135",
@@ -1247,7 +1558,13 @@ def main() -> int:
              "pallas_bilinear.py:83, :134", mpnn_launches["fused_bilinear_bwd"]),
             ("fused_bilinear_wgrad", "fused_bilinear_wgrad", "fused_bilinear.cu",
              "pallas_bilinear.py:83, :134",
-             mpnn_launches["fused_bilinear_wgrad"])):
+             mpnn_launches["fused_bilinear_wgrad"]),
+            ("windowed_segment_sum", "windowed_segment_sum", "windowed.cu",
+             "pallas_segment.py:144", gcn_launches["windowed_segment_sum"]),
+            ("windowed_spmm", "windowed_spmm", "windowed.cu",
+             "pallas_segment.py:174", gcn_launches["windowed_spmm"]),
+            ("windowed_gather", "windowed_gather", "windowed.cu",
+             "pallas_segment.py:209", gcn_launches["windowed_gather"])):
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda",

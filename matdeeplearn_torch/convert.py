@@ -15,6 +15,8 @@ takes). Scope names carry over with "." for "/" (`pre_lin0`,
   GRUCell    w_ih (in, 3H) <-> weight_ih (3H, in), w_hh <-> weight_hh, both
              transposed; b_ih <-> bias_ih, b_hh <-> bias_hh
   NNConv     root (din, dim) <-> root, as it is
+  GCNConv    lin/kernel (no bias) <-> lin.weight, transposed, like any
+             Linear; bias <-> bias
 """
 
 from __future__ import annotations

@@ -14,8 +14,14 @@ Under edge_order="dst" each graph's edges are sorted by (local dst, local
 src) once on the host, so the assembled batch's edge_dst is non-decreasing
 over real edges: the layout of the CSR kernels (ops/csr.py). A dataset
 made with kernel_fused=True (dst order only) marks its batches for the
-fused conv kernels (ops/fused_cgconv.py, ops/fused_cfconv.py). Packed and
-windowed batches are not ported yet (ROADMAP queue 1, items 3 and 15).
+fused conv kernels (ops/fused_cgconv.py, ops/fused_cfconv.py).
+
+A dataset that carries the windowed layout (`WindowedDeviceData`, built from
+data/windowed.py) assembles windowed batches (`assemble_batch_windowed`):
+nodes in window-padded slots, edges in the per-graph windowed order with
+dst = -1 on pad slots, and per-tile window ids for the windowed kernels
+(ops/windowed.py). `assemble` picks the assembler the dataset calls for.
+Packed batches are not ported yet (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -39,16 +45,18 @@ class BatchSpec:
     num_edges: int   # padded edge slots
 
     @classmethod
-    def for_dataset(cls, node_counts, edge_counts, batch_size: int, align: int = 8):
+    def for_dataset(cls, node_counts, edge_counts, batch_size: int, align: int = 8,
+                    align_edges: int | None = None):
         """Tight upper bound over any batch of `batch_size` graphs: the sum of
-        the `batch_size` largest node/edge counts, aligned to `align`."""
+        the `batch_size` largest node/edge counts, nodes aligned to `align`
+        and edges to `align_edges` (default `align`)."""
         b = min(batch_size, len(node_counts))
         n = int(np.sort(np.asarray(node_counts))[-b:].sum())
         e = int(np.sort(np.asarray(edge_counts))[-b:].sum())
         return cls(
             batch_size,
             round_up(max(n, 1), align),
-            round_up(max(e, 1), align),
+            round_up(max(e, 1), align_edges or align),
         )
 
 
@@ -75,6 +83,8 @@ class DeviceDataset:
     node_indeg: torch.Tensor | None = None
     # batches run the conv on its fused kernel (needs edge_order "dst")
     kernel_fused: bool = False
+    # the windowed layout: batches are assembled windowed
+    windowed: "WindowedDeviceData | None" = None
 
     @property
     def device(self) -> torch.device:
@@ -87,7 +97,12 @@ class DeviceDataset:
     @classmethod
     def from_graph_dataset(cls, ds, device: str | torch.device,
                            edge_order: str | None = None,
-                           kernel_fused: bool = False) -> "DeviceDataset":
+                           kernel_fused: bool = False,
+                           windowed: "WindowedDeviceData | None" = None
+                           ) -> "DeviceDataset":
+        if windowed is not None and edge_order is not None:
+            raise ValueError("a windowed dataset keeps the reference edge "
+                             "order (the layout sorts each graph's edges)")
         if kernel_fused and edge_order != "dst":
             raise ValueError("kernel_fused needs edge_order='dst' (the "
                              "in-degree comes with the sorted order)")
@@ -138,6 +153,51 @@ class DeviceDataset:
             edge_order=edge_order,
             node_indeg=node_indeg,
             kernel_fused=kernel_fused,
+            windowed=windowed,
+        )
+
+
+@dataclass
+class WindowedDeviceData:
+    """The per-graph windowed layout (data/windowed.py:WindowedLayout) on
+    the device, with its window and tile sizes."""
+
+    tw: int                    # nodes per window
+    te: int                    # edges per tile
+    wvalid: torch.Tensor       # (EW_tot,) float32
+    wdst: torch.Tensor         # (EW_tot,) int32 graph-local dst, -1 pads
+    wsrc: torch.Tensor         # (EW_tot,) int32 graph-local src
+    wweight: torch.Tensor      # (EW_tot,) float32 edge weight
+    wdist: torch.Tensor        # (EW_tot,) float32 normalized distance
+    wedge_ptr: torch.Tensor    # (G+1,) int64
+    wedge_counts: torch.Tensor  # (G,) int64
+    tile_window: torch.Tensor  # (T_tot,) int32 graph-local window ids
+    tile_first: torch.Tensor   # (T_tot,) int32
+    tile_ptr: torch.Tensor     # (G+1,) int64
+    tile_counts: torch.Tensor  # (G,) int64
+    node_counts_w: torch.Tensor  # (G,) int64 window-padded node counts
+    in_degree: torch.Tensor    # (N_tot,) float32
+
+    @classmethod
+    def from_layout(cls, layout, device: str | torch.device
+                    ) -> "WindowedDeviceData":
+        def t(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
+
+        i32, i64, f32 = torch.int32, torch.int64, torch.float32
+        return cls(
+            tw=int(layout.tw), te=int(layout.te),
+            wvalid=t(layout.wvalid, f32), wdst=t(layout.wdst, i32),
+            wsrc=t(layout.wsrc, i32), wweight=t(layout.wweight, f32),
+            wdist=t(layout.wdist, f32), wedge_ptr=t(layout.wedge_ptr, i64),
+            wedge_counts=t(layout.wedge_counts, i64),
+            tile_window=t(layout.tile_window, i32),
+            tile_first=t(layout.tile_first, i32),
+            tile_ptr=t(layout.tile_ptr, i64),
+            tile_counts=t(layout.tile_counts, i64),
+            node_counts_w=t(layout.node_counts_w, i64),
+            in_degree=t(layout.in_degree, f32),
         )
 
 
@@ -159,14 +219,29 @@ class GraphBatch:
     u: torch.Tensor            # (B, 3)
     n_node: torch.Tensor       # (B,) int64 true node counts
     # (N_pad,) float32 in-degree of each node (0 on pads); set under
-    # edge_order "dst".
+    # edge_order "dst", and on windowed batches (1.0 on pad node slots).
     in_degree: torch.Tensor | None = None
     edge_order: str | None = None
     kernel_fused: bool = False
+    # Windowed batches (assemble_batch_windowed): edge_dst is -1 on pad
+    # slots (edge_dst_safe clamps it for index ops), and edges are ordered
+    # by (window, dst) in tiles of num_edges / len(tile_window) slots.
+    tile_window: torch.Tensor | None = None  # (T,) int32 window id per tile
+    tile_first: torch.Tensor | None = None   # (T,) int32 1 = first tile
+    window_size: int = 0                     # tw
 
     @property
     def dst_sorted(self) -> bool:
         return self.edge_order == "dst"
+
+    @property
+    def is_windowed(self) -> bool:
+        return self.tile_window is not None
+
+    @property
+    def edge_dst_safe(self) -> torch.Tensor:
+        """edge_dst with the pad marker -1 clamped to node 0."""
+        return torch.clamp(self.edge_dst, min=0)
 
     @property
     def num_graphs(self) -> int:
@@ -250,3 +325,101 @@ def assemble_batch(data: DeviceDataset, graph_ids, spec: BatchSpec) -> GraphBatc
         edge_order=data.edge_order,
         kernel_fused=data.kernel_fused,
     )
+
+
+def assemble_batch_windowed(data: DeviceDataset, wdata: WindowedDeviceData,
+                            graph_ids, spec: BatchSpec) -> GraphBatch:
+    """Windowed-batch assembly: as assemble_batch, but nodes occupy
+    window-padded slots (graph g starts at a multiple of tw) and edges come
+    in the per-graph windowed order, with dst = -1 on pad slots and the
+    window id and first-tile flag of every tile. Trailing capacity tiles
+    are parked on the last used window with tile_first 0; pad node slots
+    get in_degree 1.0. Gathers only."""
+    dev = data.device
+    tw, te = wdata.tw, wdata.te
+    B, N, E = spec.num_graphs, spec.num_nodes, spec.num_edges
+    if N % tw or E % te:
+        raise ValueError(f"spec {spec} is not aligned to tw={tw}, te={te}")
+    T, NW = E // te, N // tw
+    graph_ids = torch.as_tensor(graph_ids, dtype=torch.int64, device=dev)
+    gmask = graph_ids >= 0
+    ids = torch.where(gmask, graph_ids, 0)
+
+    ncounts = torch.where(gmask, data.node_counts[ids], 0)        # real
+    ncounts_w = torch.where(gmask, wdata.node_counts_w[ids], 0)   # padded
+    ncum_w = torch.cumsum(ncounts_w, 0)
+    node_off_w = ncum_w - ncounts_w
+    n_total_w = ncum_w[-1]
+
+    # --- nodes (window-padded slots) --------------------------------------
+    slot = torch.arange(N, device=dev)
+    g_of_node = _slot_to_graph(ncum_w, N)
+    g_safe = torch.clamp(g_of_node, max=B - 1)
+    local = slot - node_off_w[g_safe]
+    node_valid = (slot < n_total_w) & (local < ncounts[g_safe])
+    src_index = torch.where(node_valid, data.node_ptr[ids[g_safe]] + local, 0)
+    x = torch.where(node_valid[:, None], data.node_x[src_index], 0.0)
+    node_graph = torch.where(node_valid, g_of_node, B)
+    in_degree = torch.where(node_valid, wdata.in_degree[src_index], 1.0)
+
+    # --- edges (windowed order) -------------------------------------------
+    ecounts = torch.where(gmask, wdata.wedge_counts[ids], 0)
+    ecum = torch.cumsum(ecounts, 0)
+    edge_off = ecum - ecounts
+    eslot = torch.arange(E, device=dev)
+    g_of_edge = _slot_to_graph(ecum, E)
+    e_in_range = eslot < ecum[-1]
+    eg_safe = torch.clamp(g_of_edge, max=B - 1)
+    wslot = torch.where(e_in_range,
+                        wdata.wedge_ptr[ids[eg_safe]] + eslot - edge_off[eg_safe],
+                        0)
+    edge_valid = e_in_range & (wdata.wvalid[wslot] > 0)
+    offset = node_off_w[eg_safe]
+    esrc = torch.where(edge_valid, wdata.wsrc[wslot] + offset, 0)
+    edst = torch.where(edge_valid, wdata.wdst[wslot] + offset, -1)
+    ew = torch.where(edge_valid, wdata.wweight[wslot], 0.0)
+    ed = torch.where(edge_valid, wdata.wdist[wslot], 0.0)
+
+    # --- tiles -------------------------------------------------------------
+    tcounts = torch.where(gmask, wdata.tile_counts[ids], 0)
+    tcum = torch.cumsum(tcounts, 0)
+    tslot = torch.arange(T, device=dev)
+    g_of_tile = _slot_to_graph(tcum, T)
+    t_in_range = tslot < tcum[-1]
+    tg_safe = torch.clamp(g_of_tile, max=B - 1)
+    tidx = torch.where(t_in_range,
+                       wdata.tile_ptr[ids[tg_safe]] + tslot - (tcum - tcounts)[tg_safe],
+                       0)
+    wid = wdata.tile_window[tidx] + (node_off_w // tw)[tg_safe]
+    # trailing capacity tiles: parked on the last used window (their dst=-1
+    # slots add nothing)
+    last_w = torch.clamp(n_total_w // tw - 1, min=0)
+    wid = torch.clamp(torch.where(t_in_range, wid, last_w), max=NW - 1)
+    tfirst = torch.where(t_in_range, wdata.tile_first[tidx], 0)
+
+    return GraphBatch(
+        x=x,
+        edge_src=esrc.to(torch.int32),
+        edge_dst=edst.to(torch.int32),
+        edge_weight=ew,
+        edge_dist_norm=ed,
+        node_graph=node_graph,
+        node_mask=node_valid.to(torch.float32),
+        edge_mask=edge_valid.to(torch.float32),
+        graph_mask=gmask.to(torch.float32),
+        y=data.y[ids] * gmask[:, None].to(data.y.dtype),
+        u=data.u[ids],
+        n_node=ncounts,
+        in_degree=in_degree,
+        tile_window=wid.to(torch.int32),
+        tile_first=tfirst.to(torch.int32),
+        window_size=tw,
+    )
+
+
+def assemble(data: DeviceDataset, graph_ids, spec: BatchSpec) -> GraphBatch:
+    """The batch of `graph_ids`: windowed when the dataset carries the
+    windowed layout, padded otherwise."""
+    if data.windowed is not None:
+        return assemble_batch_windowed(data, data.windowed, graph_ids, spec)
+    return assemble_batch(data, graph_ids, spec)

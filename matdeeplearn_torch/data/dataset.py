@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from matdeeplearn_torch.data import graphs as G
+from matdeeplearn_torch.data import windowed as W
 from matdeeplearn_torch.data.structures import Structure, read_ase_db, read_structure
 
 PROCESSED_DIR_DEFAULT = "processed_tpu"
@@ -91,6 +92,10 @@ class GraphDataset:
     def with_target_index(self, index: int) -> "GraphDataset":
         return replace(self, target_index=index)
 
+    def windowed_layout(self, tw: int | None = None, te: int = 128):
+        """The graph-aligned windowed edge layout (see `windowed_layout`)."""
+        return windowed_layout(self, tw, te)
+
     # ------------------------------------------------------------------ cache
 
     def save(self, path: str):
@@ -140,6 +145,44 @@ class GraphDataset:
             species=list(meta.get("species", [])),
             cache_dir=path,
         )
+
+
+_LAYOUT_KEYS = ("worder", "wvalid", "wdst", "wsrc", "wweight", "wdist",
+                "wedge_ptr", "tile_window", "tile_first", "tile_ptr",
+                "node_counts_w", "in_degree")
+
+
+def default_window(node_counts) -> int:
+    """The default window: the 95th-percentile structure size, rounded up
+    to 8 and capped at 512 (the reference package's rule)."""
+    ncounts = np.asarray(node_counts)
+    p95 = int(np.percentile(ncounts, 95)) if len(ncounts) else 8
+    return int(min(512, max(8, W.round_up(p95, 8))))
+
+
+def windowed_layout(ds, tw: int | None = None, te: int = 128) -> W.WindowedLayout:
+    """The windowed edge layout of `ds` (data/windowed.py), for the windowed
+    kernels. Memoized on the dataset object and cached on disk next to the
+    processed data as windowed_v2_{tw}_{te}.npz, the reference package's
+    file name and keys, so either package reads what the other wrote."""
+    if tw is None:
+        tw = default_window(ds.node_counts())
+    memo = ds.__dict__.setdefault("_windowed_layouts", {})
+    if (tw, te) in memo:
+        return memo[(tw, te)]
+    cache_dir = getattr(ds, "cache_dir", None)
+    path = (os.path.join(cache_dir, f"windowed_v2_{tw}_{te}.npz")
+            if cache_dir else None)
+    if path and os.path.exists(path):
+        z = np.load(path)
+        layout = W.WindowedLayout(tw=tw, te=te, **{k: z[k] for k in _LAYOUT_KEYS})
+    else:
+        layout = W.build_windowed_layout(ds, tw=tw, te=te)
+        if path:
+            np.savez_compressed(path, **{k: getattr(layout, k)
+                                         for k in _LAYOUT_KEYS})
+    memo[(tw, te)] = layout
+    return layout
 
 
 DEFAULT_PROCESSING_ARGS = {

@@ -1,6 +1,6 @@
 """Model registry: build a model by its config name.
 
-CGCNN, SchNet and MPNN are ported; the reference's other names raise
+CGCNN, SchNet, MPNN and GCN are ported; the reference's other names raise
 NotImplementedError that names their ROADMAP item.
 """
 
@@ -9,15 +9,14 @@ from __future__ import annotations
 import torch
 
 from matdeeplearn_torch.models.cgcnn import CGCNN
+from matdeeplearn_torch.models.gcn import GCN
 from matdeeplearn_torch.models.mpnn import MPNN
 from matdeeplearn_torch.models.schnet import SchNet
 
-MODEL_REGISTRY = {"CGCNN": CGCNN, "SchNet": SchNet, "MPNN": MPNN}
+MODEL_REGISTRY = {"CGCNN": CGCNN, "SchNet": SchNet, "MPNN": MPNN, "GCN": GCN}
 
 # ROADMAP queue 1 items of the models still to port.
-NOT_PORTED = {
-    "GCN": "item 8", "MEGNet": "item 10", "SM": "item 12", "SOAP": "item 12",
-}
+NOT_PORTED = {"MEGNet": "item 10", "SM": "item 12", "SOAP": "item 12"}
 
 # Config fields each model takes (other YAML hyperparameters are ignored,
 # as the reference forwards **kwargs, training.py:250-252).
@@ -28,7 +27,7 @@ _COMMON = {
     "precision", "remat",
 }
 MODEL_FIELDS = {"CGCNN": _COMMON, "SchNet": _COMMON | {"dim3", "cutoff"},
-                "MPNN": _COMMON | {"dim3"}}
+                "MPNN": _COMMON | {"dim3"}, "GCN": _COMMON}
 
 
 def build_model(name: str, dataset, hyperparams: dict, *,

@@ -2,8 +2,8 @@
 
 Message passing follows PyG's source_to_target flow: edge (src, dst)
 carries a message from src that is aggregated at dst. CGConv, SchNet's
-interaction block and MPNN's NNConv are ported; ROADMAP queue 1 items 8 and
-10 hold the others.
+interaction block, MPNN's NNConv and GCNConv are ported; ROADMAP queue 1
+item 10 holds MEGNet's block.
 """
 
 from __future__ import annotations
@@ -160,3 +160,35 @@ class NNConv(nn.Module):
             w_e = (a @ w1 + b1).reshape(-1, x.shape[1], self.dim)
             msg = torch.einsum("ed,edk->ek", xj, w_e)
         return edge_aggregate(msg, batch, reduce="mean") + x @ self.root + self.bias
+
+
+class GCNConv(nn.Module):
+    """GCN with edge weights (PyG GCNConv with improved=True and
+    add_self_loops=False, the reference's models/gcn.py:80-82; the graph
+    already carries its self-loops): out = D^-1/2 Â D^-1/2 (x W) + b, the
+    degree the raw edge weights summed at dst. Xavier-uniform `lin` without
+    bias, zero `bias`.
+
+    The normalisation is reassociated into node space, as in the reference
+    package: out_i = dis_i · Σ_{j→i} ew · (dis_j · h_j) + b, so neither
+    per-edge dis gather exists. Both sums go through edge_aggregate: the
+    degree at D = 1 (the windowed segment-sum on a windowed batch), the
+    message with ew folded in (the windowed SpMM; elsewhere the scaled
+    messages).
+    """
+
+    def __init__(self, dim: int, *, generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        self.lin = Linear(dim, dim, bias=False, init="xavier",
+                          generator=generator, device=device)
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x, batch):
+        ew = batch.edge_weight * batch.edge_mask
+        deg = edge_aggregate(ew[:, None], batch, reduce="sum")[:, 0]
+        dis = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-30)), 0.0)
+        hd = self.lin(x) * dis[:, None]
+        out = edge_aggregate(gather_src(hd, batch), batch, reduce="sum",
+                             weights=ew)
+        return out * dis[:, None] + self.bias

@@ -4,7 +4,8 @@ queue 1, item 13.
 Reference counterparts: train_regular (training/training.py:377-539) and
 predict (:543-583); the reference package's training/jobs.py
 (_resolve_kernel, setup_run, run_fused_training, _final_outputs,
-train_regular, predict), for in-memory datasets and padded batches.
+train_regular, predict), for in-memory datasets and padded (also windowed)
+batches.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from matdeeplearn_torch.data import dataset as D
-from matdeeplearn_torch.data.batching import BatchSpec, DeviceDataset
+from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                              WindowedDeviceData)
 from matdeeplearn_torch.models import MODEL_FIELDS, build_model
 from matdeeplearn_torch.training import train as T
 from matdeeplearn_torch.training.checkpoint import load_checkpoint, save_checkpoint
@@ -37,40 +39,54 @@ KERNELS = ("auto", "xla", "csr", "fused", "pallas")
 class KernelPlan:
     """What one run's convolutions run on (see resolve_kernel)."""
 
-    name: str               # fused | csr | xla
+    name: str               # fused | csr | pallas | xla
     edge_order: str | None  # "dst" for fused and csr, None: reference order
     fused: bool             # the conv on its fused kernel
+    windowed: bool = False  # windowed batches, the windowed kernels (pallas)
 
 
-TRAINABLE = ("CGCNN", "SchNet", "MPNN")  # the models whose Training is ported
+TRAINABLE = ("CGCNN", "SchNet", "MPNN", "GCN")  # models whose Training is ported
+# models with a fused kernel of their own (GCN has none)
+FUSED_MODELS = ("CGCNN", "SchNet", "MPNN")
 
 
 def resolve_kernel(model_name: str, kernel: str, batching: str,
-                   device: torch.device) -> KernelPlan:
+                   device: torch.device, kernel_precision: str = "f32"
+                   ) -> KernelPlan:
     """The kernel request of a model config → what the port runs, for
     in-memory padded batches (the reference package's _resolve_kernel,
     training/jobs.py:80-199):
 
-      fused — the model's conv on its fused kernel, dst-sorted batches
-              (CGConv: ops/fused_cgconv.py; SchNet's cfconv:
-              ops/fused_cfconv.py; MPNN's NNConv message:
-              ops/fused_bilinear.py); the x_j gather stays in torch;
-      csr   — the unfused conv with the CSR kernels (ops/csr.py) on its
-              dst-side gathers and aggregation, dst-sorted batches. MPNN's
-              message runs on the bilinear kernel here too, as the
-              reference composes it with csr (jobs.py:145-146): for MPNN,
-              fused differs from csr only in the batches' kernel_fused
-              flag, which MPNN does not read;
-      xla   — masked plain segment ops on the reference edge order (MPNN:
-              the einsum over the formed per-edge weights);
-      auto  — fused on a CUDA device, xla elsewhere (where the kernels'
-              plain versions would run, as the reference keeps auto on XLA
-              off its accelerator), for CGCNN, SchNet and MPNN alike. This
-              is the port's choice, not the TPU's verdict carried over (the
-              reference's auto never picks its fused cfconv, measured
-              slower on its TPU): chip_smoke.py times warm training epochs
-              under the other kernels for each model, and PERF.md records
-              what it found.
+      fused  — the model's conv on its fused kernel, dst-sorted batches
+               (CGConv: ops/fused_cgconv.py; SchNet's cfconv:
+               ops/fused_cfconv.py; MPNN's NNConv message:
+               ops/fused_bilinear.py); the x_j gather stays in torch. GCN
+               has no fused kernel: as in the reference, it runs the pallas
+               plan, with the reference's note;
+      csr    — the unfused conv with the CSR kernels (ops/csr.py) on its
+               dst-side gathers and aggregation, dst-sorted batches (GCN:
+               the edge weights folded into the messages before the sum).
+               MPNN's message runs on the bilinear kernel here too, as the
+               reference composes it with csr (jobs.py:145-146): for MPNN,
+               fused differs from csr only in the batches' kernel_fused
+               flag, which MPNN does not read;
+      pallas — windowed batches (data/batching.py:assemble_batch_windowed)
+               and every edge aggregation on the windowed kernels
+               (ops/windowed.py): the SpMM where the sum is weighted (GCN),
+               the segment-sum otherwise, the gather as their backward. The
+               convs run unfused (MPNN: the einsum over the formed per-edge
+               weights, as the reference turns its bilinear kernel off
+               under pallas). kernel_precision "bf16" is refused;
+      xla    — masked plain segment ops on the reference edge order (MPNN:
+               the einsum over the formed per-edge weights);
+      auto   — on a CUDA device fused for CGCNN, SchNet and MPNN and csr for
+               GCN; xla elsewhere (where the kernels' plain versions would
+               run, as the reference keeps auto on XLA off its
+               accelerator). This is the port's choice, not the TPU's
+               verdict carried over (the reference's auto never picks its
+               fused cfconv, measured slower on its TPU): chip_smoke.py
+               times warm training epochs under the other kernels for each
+               model, and PERF.md records what it found.
 
     A request the port cannot honour raises NotImplementedError naming its
     ROADMAP item; nothing falls back quietly.
@@ -81,17 +97,25 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
     if model_name not in TRAINABLE:
         raise NotImplementedError(
             f"training {model_name} is not ported yet (ROADMAP queue 1, "
-            "items 8, 10 and 12)")
+            "items 10 and 12)")
     if batching != "padded":
         raise NotImplementedError(
             f"batching={batching!r} is not ported yet (ROADMAP queue 1, "
             "item 3)")
+    if kernel == "fused" and model_name not in FUSED_MODELS:
+        print("kernel=fused applies to CGCNN, SchNet and MPNN; other models "
+              "run the windowed aggregation kernel (kernel=pallas behavior)")
+        kernel = "pallas"
     if kernel == "pallas":
-        raise NotImplementedError(
-            "kernel=pallas (the windowed aggregation kernels) is not ported "
-            "yet (ROADMAP queue 2, item 6; queue 1, item 15)")
+        if str(kernel_precision).lower() != "f32":
+            raise NotImplementedError(
+                f"kernel_precision={kernel_precision!r}: the single-pass "
+                "bf16 arm of the windowed kernels is not ported (ROADMAP "
+                "queue 1, item 5); the windowed kernels sum in f32")
+        return KernelPlan("pallas", None, False, True)
     if kernel == "auto":
-        kernel = "fused" if device.type == "cuda" else "xla"
+        kernel = ("xla" if device.type != "cuda"
+                  else "fused" if model_name in FUSED_MODELS else "csr")
     return KernelPlan(kernel, None if kernel == "xla" else "dst",
                       kernel == "fused")
 
@@ -118,22 +142,37 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
               batch_size: int | None = None, print_model: bool = False,
               device: str | torch.device | None = None) -> Run:
     """Model, optimizer, scheduler, batch geometry and device-resident data
-    (the reference package's setup_run, in-memory padded branch). Initial
-    weights come from torch.Generator(seed) on the CPU, so every device
-    starts from the same weights; dropout masks from the model's generator
-    seeded with `seed`."""
+    (the reference package's setup_run, in-memory padded and windowed
+    branches). Initial weights come from torch.Generator(seed) on the CPU,
+    so every device starts from the same weights; dropout masks from the
+    model's generator seeded with `seed`."""
     dev = resolve_device(device)
     model_name = model_parameters.get("model", "CGCNN")
     bs = int(batch_size or model_parameters.get("batch_size", 100))
     plan = resolve_kernel(
         model_name, str(model_parameters.get("kernel", "auto")).lower(),
-        str(model_parameters.get("batching", "padded")).lower(), dev)
+        str(model_parameters.get("batching", "padded")).lower(), dev,
+        str(model_parameters.get("kernel_precision", "f32")))
     model = build_model(model_name, dataset, model_parameters,
                         generator=torch.Generator().manual_seed(int(seed)),
                         dropout_seed=int(seed), device="cpu").to(dev)
-    spec = BatchSpec.for_dataset(dataset.node_counts(), dataset.edge_counts(), bs)
-    data = DeviceDataset.from_graph_dataset(
-        dataset, dev, edge_order=plan.edge_order, kernel_fused=plan.fused)
+    if plan.windowed:
+        # kernel_tw / kernel_te: the window and tile sizes of the layout
+        layout = D.windowed_layout(
+            dataset,
+            tw=(int(model_parameters["kernel_tw"])
+                if model_parameters.get("kernel_tw") else None),
+            te=int(model_parameters.get("kernel_te", 128) or 128))
+        spec = BatchSpec.for_dataset(layout.node_counts_w, layout.wedge_counts,
+                                     bs, align=max(8, layout.tw),
+                                     align_edges=layout.te)
+        data = DeviceDataset.from_graph_dataset(
+            dataset, dev, windowed=WindowedDeviceData.from_layout(layout, dev))
+    else:
+        spec = BatchSpec.for_dataset(dataset.node_counts(),
+                                     dataset.edge_counts(), bs)
+        data = DeviceDataset.from_graph_dataset(
+            dataset, dev, edge_order=plan.edge_order, kernel_fused=plan.fused)
     lr = float(model_parameters.get("lr", 1e-3))
     optimizer = build_optimizer(model_parameters.get("optimizer", "AdamW"),
                                 model.parameters(), lr,
@@ -302,9 +341,10 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
 def predict(dataset, loss: str, job_parameters: dict,
             device: str | torch.device | None = None) -> float:
     """The Predict run mode: rebuild the model from the checkpoint header,
-    batch-128 inference on dst-sorted batches (the CSR kernels carry every
-    CGConv x_i gather and mean, every SchNet cfconv sum and every NNConv
-    mean; the bilinear kernel every NNConv message), write
+    batch-128 inference on dst-sorted batches, whatever kernel the model
+    trained with (the CSR kernels carry every CGConv x_i gather and mean,
+    every SchNet cfconv sum, every NNConv mean and every GCN sum; the
+    bilinear kernel every NNConv message), write
     `<job>_predicted_outputs.csv`, report the error. Runs on CUDA unless
     `device` names another device."""
     dev = resolve_device(device)

@@ -15,7 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from matdeeplearn_torch.data.batching import BatchSpec, DeviceDataset, assemble_batch
+from matdeeplearn_torch.data.batching import BatchSpec, DeviceDataset, assemble
 
 # --------------------------------------------------------------------- losses
 # Name-compatible with the reference's getattr(torch.nn.functional, loss)
@@ -99,8 +99,9 @@ def train_step(model, optimizer, loss_fn, spec: BatchSpec, data: DeviceDataset,
     """One optimizer step on the batch of dataset ids `ids` (a (B,) array or
     device tensor, -1 for pad slots): BatchNorm in training mode (batch
     statistics, running update), masked loss, backward, optimizer.step().
-    Returns (loss, graph count) as device tensors."""
-    batch = assemble_batch(data, ids, spec)
+    Returns (loss, graph count) as device tensors. The batch is windowed
+    when the dataset carries the windowed layout (batching.assemble)."""
+    batch = assemble(data, ids, spec)
     model.train()
     optimizer.zero_grad(set_to_none=True)
     out = model(batch)
@@ -128,7 +129,7 @@ def eval_sums(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids):
 @torch.no_grad()
 def eval_step(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids):
     """One batch in eval mode: (loss, graph count, per-slot outputs)."""
-    batch = assemble_batch(data, ids, spec)
+    batch = assemble(data, ids, spec)
     out = model(batch)
     y = batch.y if out.ndim > 1 else batch.y[:, 0]
     return loss_fn(out, y, batch.graph_mask), torch.sum(batch.graph_mask), out

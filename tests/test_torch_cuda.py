@@ -13,7 +13,8 @@ and cfconv kernels and the bilinear NNConv kernels rtol 1e-4 and atol
 order than the plain version's GEMMs); whole-model outputs and gradients
 1e-4 against the same model on the CPU; a short training run's errors 1e-3
 against the CPU. The bilinear weight gradient is bit-identical between two
-calls.
+calls. The windowed sums (fixed order) rtol 1e-5 and atol 1e-5·max|ref|
+and bit-identical between two calls; the windowed gather bit-exact.
 """
 
 import numpy as np
@@ -29,7 +30,7 @@ from matdeeplearn_torch.ops import fused_cgconv as FC
 @pytest.fixture(autouse=True)
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CSR kernels run only there")
+        pytest.skip("needs a CUDA card: the port's kernels run only there")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -598,6 +599,180 @@ def test_mpnn_training_on_cuda_matches_cpu(cuda_device, tmp_path, monkeypatch,
     errs = {}
     for dev in ("cpu", "cuda"):
         jp = {"job_name": f"m_{dev}", "seed": 4, "save_model": "False",
+              "write_output": "False"}
+        errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
+    for split in ("train", "val", "test"):
+        assert np.isfinite(errs["cuda"][split])
+        np.testing.assert_allclose(errs["cuda"][split], errs["cpu"][split],
+                                   rtol=1e-3, atol=1e-3, err_msg=split)
+
+
+# ------------------------------------------------------- windowed kernels
+
+
+def _windowed_problem(rng, d, tw, n=700, e=6000, device="cuda"):
+    """A random windowed layout (ops/windowed.py:windowize_edges, te 128):
+    sorted dst with nodes [tw, 2·tw) left without edges (an empty window),
+    a masked tail, the tail capacity tiles, NaN in the messages and weights
+    of pad slots; random node rows and cotangents."""
+    from matdeeplearn_torch.ops import windowed as WO
+
+    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    dst[(dst >= tw) & (dst < 2 * tw)] = 0
+    dst = np.sort(dst)
+    mask = np.ones(e, np.float32)
+    mask[-50:] = 0
+    we = WO.windowize_edges(torch.as_tensor(dst), torch.as_tensor(mask), n,
+                            tw, 128)
+    we = WO.WindowedEdges(*(t.to(device) for t in we))
+    ew = we.dst.shape[0]
+    g = torch.Generator().manual_seed(d)
+    pad = we.dst < 0
+    msg = torch.randn(ew, d, generator=g).to(device)
+    w = torch.randn(ew, generator=g).to(device)
+    msg[pad], w[pad] = float("nan"), float("nan")
+    x = torch.randn(n, d, generator=g).to(device)
+    cot_n = torch.randn(n, d, generator=g).to(device)
+    cot_e = torch.randn(ew, d, generator=g).to(device)
+    return we, msg, w, x, cot_n, cot_e, n
+
+
+@pytest.mark.parametrize("tw", [64, 512])
+@pytest.mark.parametrize("d", [1, 3, 100, 150, 300])
+def test_windowed_kernels_match_plain(cuda_device, d, tw):
+    """The three windowed kernels and their autograd Functions against the
+    plain versions: sums to rtol 1e-5, atol 1e-5·max|ref| (a fixed order,
+    not index_add_'s), the gather bit-exact, no NaN from pad slots, an
+    empty window exactly zero, two calls of the sum bit-identical."""
+    from matdeeplearn_torch.ops import windowed as WO
+
+    we, msg, w, x, cot_n, cot_e, n = _windowed_problem(
+        np.random.default_rng(d + tw), d, tw)
+    pwe = WO.WindowedEdges(*(v.cpu() for v in we))
+
+    m = msg.clone().requires_grad_(True)
+    out = WO.windowed_segment_sum(m, we, n, tw)
+    ref = WO.segment_sum_plain(msg.cpu(), pwe.dst, pwe.window_id, n, tw)
+    assert torch.isfinite(out).all()
+    _assert_sum_close(out.detach().cpu(), ref)
+    assert float(out.detach()[tw:2 * tw].abs().max()) == 0.0
+    assert torch.equal(out.detach(), WO.segment_sum(msg, we, n, tw))
+    (out * cot_n).sum().backward()
+    assert torch.equal(m.grad.cpu(), WO.gather_plain(cot_n.cpu(), pwe.dst,
+                                                     pwe.window_id, tw))
+
+    wt = w.clone().requires_grad_(True)
+    m = msg.clone().requires_grad_(True)
+    out = WO.windowed_spmm(wt, m, we, n, tw)
+    ref = WO.segment_sum_plain(msg.cpu(), pwe.dst, pwe.window_id, n, tw,
+                               w.cpu())
+    assert torch.isfinite(out).all()
+    _assert_sum_close(out.detach().cpu(), ref)
+    (out * cot_n).sum().backward()
+    gg = WO.gather_plain(cot_n.cpu(), pwe.dst, pwe.window_id, tw)
+    real = pwe.dst >= 0
+    torch.testing.assert_close(m.grad.cpu()[real], (gg * w.cpu()[:, None])[real])
+    torch.testing.assert_close(wt.grad.cpu()[real],
+                               (msg.cpu() * gg).sum(-1)[real])
+
+    xt = x.clone().requires_grad_(True)
+    out = WO.windowed_gather(xt, we, tw)
+    assert torch.equal(out.detach().cpu(),
+                       WO.gather_plain(x.cpu(), pwe.dst, pwe.window_id, tw))
+    (out * cot_e).sum().backward()
+    _assert_sum_close(xt.grad.cpu(), WO.segment_sum_plain(
+        cot_e.cpu(), pwe.dst, pwe.window_id, n, tw))
+
+
+def test_windowed_launch_counts_and_raises(cuda_device):
+    from matdeeplearn_torch.ops import windowed as WO
+
+    we, msg, w, x, _, _, n = _windowed_problem(np.random.default_rng(0), 8, 64)
+    before = dict(WO.LAUNCHES)
+    WO.segment_sum(msg, we, n, 64)
+    WO.spmm(w, msg, we, n, 64)
+    WO.gather(x, we, 64)
+    torch.cuda.synchronize()
+    for k in before:
+        assert WO.LAUNCHES[k] == before[k] + 1, k
+    with pytest.raises(ValueError, match="int32"):
+        WO.segment_sum(msg, we._replace(dst=we.dst.long()), n, 64)
+    with pytest.raises(ValueError, match="evenly"):
+        WO.gather(x, we._replace(window_id=we.window_id[:-1].contiguous(),
+                                 first_tile=we.first_tile[:-1].contiguous()),
+                  64)
+
+
+def _gcn_hp(**kw):
+    return {"dim1": 24, "dim2": 16, "gc_count": 3, "post_fc_count": 2, **kw}
+
+
+def test_windowed_gcn_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """A small GCN on windowed batches with pad graph slots (windows that
+    own no tile) in training mode: outputs and parameter gradients on the
+    card (windowed kernels) against the CPU (plain versions)."""
+    from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                                  WindowedDeviceData, assemble)
+    from matdeeplearn_torch.data.dataset import windowed_layout
+    from matdeeplearn_torch.models import build_model
+    from matdeeplearn_torch.ops import windowed as WO
+
+    ds = _toy(tmp_path)
+    layout = windowed_layout(ds)
+    spec = BatchSpec.for_dataset(layout.node_counts_w, layout.wedge_counts, 10,
+                                 align=layout.tw, align_edges=layout.te)
+    ids = np.array([3, 0, 9, 14, 6, 1, 22, 7, -1, -1], np.int32)
+    hp = _gcn_hp()
+    model = build_model("GCN", ds, hp, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    results = {}
+    for dev in ("cpu", cuda_device):
+        m = build_model("GCN", ds, hp, device=dev)
+        m.load_state_dict(model.state_dict())
+        m.train()
+        data = DeviceDataset.from_graph_dataset(
+            ds, dev, windowed=WindowedDeviceData.from_layout(layout, dev))
+        batch = assemble(data, ids, spec)
+        before = dict(WO.LAUNCHES)
+        out = m(batch)
+        (out * batch.graph_mask).abs().sum().backward()
+        if dev != "cpu":
+            for k in WO.LAUNCHES:
+                assert WO.LAUNCHES[k] == before[k] + 3, k
+        results[str(dev)] = (out.detach().cpu(),
+                             {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = results["cpu"], results[str(cuda_device)]
+    torch.testing.assert_close(o_gpu, o_cpu, rtol=1e-4, atol=1e-4)
+    layer_max = {}
+    for k, g in g_cpu.items():
+        layer = k.split(".", 1)[0]
+        layer_max[layer] = max(layer_max.get(layer, 1e-6), float(g.abs().max()))
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], g, rtol=1e-4,
+                                   atol=1e-4 * layer_max[k.split(".", 1)[0]],
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("kernel", ["pallas", "csr"])
+def test_gcn_training_on_cuda_matches_cpu(cuda_device, tmp_path, monkeypatch,
+                                          kernel):
+    """train_regular of a small GCN on the card and on the CPU (plain
+    versions): the same errors, to 1e-3. Without BatchNorm: conv{i}.bias
+    sits behind it (ROADMAP §3)."""
+    from matdeeplearn_torch.training import jobs
+
+    ds = _toy(tmp_path / "data", n=40)
+    monkeypatch.chdir(tmp_path)
+    mp = {"model": "GCN", **_gcn_hp(gc_count=2, post_fc_count=1),
+          "batch_norm": "False", "batch_size": 8, "epochs": 3, "lr": 0.005,
+          "optimizer": "AdamW", "scheduler": "ReduceLROnPlateau",
+          "scheduler_args": {"factor": 0.8, "patience": 0}, "kernel": kernel,
+          "print_model": False}
+    tp = {"loss": "l1_loss", "train_ratio": 0.7, "val_ratio": 0.15,
+          "test_ratio": 0.15, "verbosity": 1}
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        jp = {"job_name": f"g_{dev}", "seed": 4, "save_model": "False",
               "write_output": "False"}
         errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
     for split in ("train", "val", "test"):

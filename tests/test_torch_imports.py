@@ -25,13 +25,14 @@ def _port_modules():
 
 
 def test_training_slice_modules_are_walked():
-    """The import check below covers the Training, SchNet and MPNN slices'
-    modules."""
+    """The import check below covers the Training, SchNet, MPNN and GCN
+    slices' modules."""
     mods = set(_port_modules())
     for name in ("ops._build", "ops.fused_cgconv", "training.optimizers",
                  "training.scheduler", "training.trainer", "training.jobs",
                  "utils.summary", "cli", "ops.fused_cfconv", "models.schnet",
-                 "ops.fused_bilinear", "models.mpnn"):
+                 "ops.fused_bilinear", "models.mpnn", "data.windowed",
+                 "ops.windowed", "models.gcn"):
         assert f"matdeeplearn_torch.{name}" in mods, name
 
 

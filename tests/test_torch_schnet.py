@@ -369,8 +369,9 @@ def test_resolve_kernel_for_schnet():
     for (kernel, dev), plan in want.items():
         got = TJ.resolve_kernel("SchNet", kernel, "padded", dev)
         assert (got.name, got.edge_order, got.fused) == plan, (kernel, dev)
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        TJ.resolve_kernel("SchNet", "pallas", "padded", cpu)
+    got = TJ.resolve_kernel("SchNet", "pallas", "padded", cpu)
+    assert (got.name, got.edge_order, got.fused, got.windowed) == (
+        "pallas", None, False, True)
     with pytest.raises(NotImplementedError, match="item 3"):
         TJ.resolve_kernel("SchNet", "fused", "packed", cuda)
 

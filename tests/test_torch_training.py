@@ -306,9 +306,11 @@ def test_resolve_kernel():
     assert TJ.resolve_kernel("CGCNN", "xla", "padded", cuda).edge_order is None
     with pytest.raises(ValueError, match="unknown kernel"):
         TJ.resolve_kernel("CGCNN", "triton", "padded", cpu)
-    for args, item in ((("CGCNN", "pallas", "padded"), "queue 2, item 6"),
-                       (("CGCNN", "fused", "packed"), "item 3"),
-                       (("GCN", "fused", "padded"), "items 8, 10 and 12")):
+    plan = TJ.resolve_kernel("CGCNN", "pallas", "padded", cpu)
+    assert (plan.name, plan.edge_order, plan.fused, plan.windowed) == (
+        "pallas", None, False, True)
+    for args, item in ((("CGCNN", "fused", "packed"), "item 3"),
+                       (("MEGNet", "fused", "padded"), "items 10 and 12")):
         with pytest.raises(NotImplementedError, match=item):
             TJ.resolve_kernel(*args, cpu)
 
