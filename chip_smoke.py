@@ -23,15 +23,25 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
 5. checks the fused CGConv kernels against their plain versions at the
    shapes of a CGCNN_demo training batch (batch 100, De 50; D 100, 3 and
    150; sorted dst with tail pads, permuted dst, scattered mask): output,
-   d_x, d_xj, the six weight blocks and two biases, and the partial-sum
-   reduction, to rtol 1e-4 and atol 1e-4·max|ref|; then times them beside
-   their bound (operations over 67 TFLOP/s f32, or bytes) and the unfused
-   composition PR 1's CGConv runs (concat + 2 F.linear + activations +
-   csr.segment_sum, and its autograd backward) as the library yardstick;
-   then the same for the fused SchNet cfconv kernels (F 150, 3 and 100,
-   cutoff 8: output, d_xj, the four filter gradients, zero d_xj on masked
-   edges, the reduction; the yardstick is the unfused SchNet composition:
-   basis, 2 F.linear with shifted softplus, cutoff, index_select,
+   d_x, d_xj, the six weight blocks and two biases (bit-identical between
+   two calls), and each kernel of the backward against its plain stage
+   (the edge rows d_x, d_xj and dA, every weight-gradient slice, the slice
+   sum), to rtol 1e-4 and atol 1e-4·max|ref|, printing each check's worst
+   share of that limit (it raises after the last case if any is above 1);
+   then times them beside their bound (bytes, or operations over 67
+   TFLOP/s f32 on the FMA pipes and over 495/3 TFLOP/s for the 3xTF32
+   tensor-core kernels of the backward) and a library
+   yardstick: for the forward the unfused composition the csr CGConv runs
+   (concat + 2 F.linear + activations + csr.segment_sum), for the edge
+   kernel its autograd backward to x and xj, for the weight gradient one
+   torch.mm of zᵀ·dA, for the slice sum partial.sum(0); then the whole
+   backward (every launch and allocation) against the unfused autograd
+   backward, its split by kernel, and the fused forward plus backward
+   against the unfused pair; then the same for the fused SchNet cfconv
+   kernels (F 150, 3 and 100, cutoff 8: output, d_xj, the four filter
+   gradients, bit-identical between two calls, zero d_xj on masked edges,
+   the reduction; the yardstick is the unfused SchNet composition: basis,
+   2 F.linear with shifted softplus, cutoff, index_select,
    csr.segment_sum, and its autograd backward);
 6. checks the bilinear NNConv kernels (forward, backward, weight gradient)
    against their plain versions on the same training batch, at (D, H, K) =
@@ -57,7 +67,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    checkpoint Training saved gives 1,000 finite predictions;
 9. trains 3 epochs under kernel csr and 3 more under kernel fused, and
    prints the warm epoch time of each; profiles one warm training epoch
-   (device busy share, top kernels);
+   under each of fused and csr (device busy share, top kernels);
 10. does 8 for SchNet_demo (each cfconv kernel >= 4 x 8 x 5 launches), then
     SchNet Predict on the card from the checkpoint Training saved (counters
     reset just before: csr_segment_sum >= 4 x 8 launches; 1,000 finite
@@ -123,6 +133,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
+# H100 SXM dense TF32 tensor-core rate (495 TFLOP/s) over the three
+# mma.sync that 3xTF32 spends on each f32 product
+TF32X3_FLOPS = 495e12 / 3
 N_STRUCTURES = 1000
 
 # config.yml's values, written out because the card's Python has no yaml
@@ -267,10 +280,11 @@ def device_ms(fn, reps: int = 100) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    f32 operations over the f32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    f32 operations over `rate` (the FMA pipes' unless the kernel runs them
+    on the tensor cores), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -370,6 +384,16 @@ def fused_inputs(batch, d, de, g, dev):
     return x, xj, ws
 
 
+def limit_share(out, ref) -> float:
+    """The worst element's |out - ref| over what assert_fused allows it
+    (1e-4·max|ref| + 1e-4·|ref|): below 1 passes; inf if out is not finite
+    where ref is."""
+    if not bool(torch.isfinite(out[torch.isfinite(ref)]).all()):
+        return float("inf")
+    allowed = 1e-4 * max(float(ref.abs().max()), 1e-30) + 1e-4 * ref.abs()
+    return float(((out - ref).abs() / allowed).max())
+
+
 def assert_fused(out, ref, what) -> float:
     """rtol 1e-4, atol 1e-4·max|ref|: atomics reorder the f32 sums, and the
     weight gradients sum over every edge in another order than the plain
@@ -382,7 +406,9 @@ def assert_fused(out, ref, what) -> float:
 
 def check_fused(batch, dev, de=50):
     """The fused CGConv kernels against their plain versions on the card;
-    returns the largest |kernel - plain| of each kernel."""
+    returns the largest |kernel - plain| of each kernel. Every comparison of
+    every case runs and prints its worst share of the limit (limit_share)
+    before the first failure is raised."""
     from matdeeplearn_torch.ops import fused_cgconv as FC
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -391,8 +417,22 @@ def check_fused(batch, dev, de=50):
     e = dst.shape[0]
     perm = torch.randperm(e, device=dev, generator=g)
     scattered = mask * (torch.rand(e, device=dev, generator=g) > 0.3).float()
-    err = {"fused_cgconv_fwd": 0.0, "fused_cgconv_bwd": 0.0,
-           "fused_cgconv_wgrad_reduce": 0.0}
+    err = {k: 0.0 for k in FC.LAUNCHES}
+    failures = []
+
+    def reading(pairs, what):
+        """max |out - ref| and the worst limit_share over (name, out, ref)
+        pairs; a failed assert_fused is kept, not raised."""
+        diff = share = 0.0
+        for k, out, ref in pairs:
+            try:
+                diff = max(diff, assert_fused(out, ref, f"{what} {k}"))
+            except AssertionError as exc:
+                failures.append(str(exc))
+                diff = max(diff, float((out - ref).abs().max()))
+            share = max(share, limit_share(out, ref))
+        return diff, share
+
     for d in (100, 3, 150):
         x, xj, ws = fused_inputs(batch, d, de, g, dev)
         cot = torch.randn(n, d, device=dev, generator=g)
@@ -401,28 +441,59 @@ def check_fused(batch, dev, de=50):
                   dst[perm].contiguous(), mask[perm].contiguous()),
                  ("scattered mask", xj, dist, dst, scattered)]
         for name, xjv, dv, dsv, mv in cases:
+            what = f"D={d}, {name}"
+            failed = len(failures)
             args = (x, xjv, dv, dsv, mv, *ws, n, 0.2)
-            fwd = assert_fused(FC.fused_cgconv(*args), FC.fused_cgconv_plain(*args),
-                               f"fused forward, D={d}, {name}")
+            fwd, s_fwd = reading([("output", FC.fused_cgconv(*args),
+                                   FC.fused_cgconv_plain(*args))],
+                                 f"fused forward, {what}:")
             got = FC.fused_cgconv_bwd(cot, *args)
-            refs = FC.fused_cgconv_bwd_plain(cot, *args)
-            bwd = max(assert_fused(a, b, f"fused d_{k}, D={d}, {name}")
-                      for k, a, b in zip(FUSED_GRADS, got, refs))
+            refs = list(zip(FUSED_GRADS, got, FC.fused_cgconv_bwd_plain(cot, *args)))
+            nodes = reading(refs[:2], f"fused backward, {what}: d_")
+            weights = reading(refs[2:], f"fused backward, {what}: d_")
+            bwd = max(nodes[0], weights[0])
             if float(got[1][mv == 0].abs().max()) != 0.0:
-                raise AssertionError(f"fused, D={d}, {name}: pad edges got "
-                                     "non-zero d_xj rows")
-            err["fused_cgconv_fwd"] = max(err["fused_cgconv_fwd"], fwd)
-            err["fused_cgconv_bwd"] = max(err["fused_cgconv_bwd"], bwd)
-            print(f"  fused kernel check ok: D={d}, {name}: forward max |diff| "
-                  f"{fwd:.3e}, backward (10 gradients) max |diff| {bwd:.3e}")
-        _, _, partial, blocks = FC.fused_cgconv_bwd_partials(cot, *args)
-        red = assert_fused(FC.wgrad_reduce(partial, blocks, d, de),
-                           FC.wgrad_reduce_plain(partial, d, de),
-                           f"wgrad_reduce, D={d}")
-        err["fused_cgconv_wgrad_reduce"] = max(err["fused_cgconv_wgrad_reduce"],
-                                               red)
-        print(f"  fused kernel check ok: D={d}, wgrad_reduce over {blocks} "
-              f"blocks max |diff| {red:.3e}")
+                raise AssertionError(f"fused, {what}: pad edges got non-zero "
+                                     "d_xj rows")
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got[2:], FC.fused_cgconv_bwd(cot, *args)[2:])):
+                raise AssertionError(f"fused weight gradients, {what}: two "
+                                     "calls differ")
+            # each kernel of the backward against its plain stage
+            rows = FC.fused_cgconv_bwd_rows(cot, *args)
+            prow = FC.bwd_rows_plain(cot, *args)
+            real = mv != 0
+            edge, s_edge = reading([("d_x", rows[0], prow[0]),
+                                    ("d_xj", rows[1], prow[1]),
+                                    ("dA", rows[2][real], prow[2][real])],
+                                   f"fused backward rows, {what}:")
+            partial, slices = FC.fused_cgconv_wgrad(x, xjv, dv, dsv, mv,
+                                                    rows[2], n, de, 0.2)
+            want = FC.wgrad_partials_plain(x, xjv, dv, dsv, mv, prow[2], n, de,
+                                           0.2, slices)
+            k1 = 2 * d + de + 1
+            wgr, s_wgr = reading([("slices",
+                                   FC.from_partial_layout(partial, k1, 2 * d),
+                                   FC.from_partial_layout(want, k1, 2 * d))],
+                                 f"fused wgrad, {what}:")
+            red, s_red = reading([("sum", FC.wgrad_reduce(partial, slices, d, de),
+                                   FC.wgrad_reduce_plain(partial, d, de))],
+                                 f"wgrad_reduce, {what}:")
+            for key, v in (("fused_cgconv_fwd", fwd), ("fused_cgconv_bwd", edge),
+                           ("fused_cgconv_wgrad", wgr),
+                           ("fused_cgconv_wgrad_reduce", red)):
+                err[key] = max(err[key], v)
+            verdict = "ok" if len(failures) == failed else "FAILED"
+            print(f"  fused kernel check {verdict}: {what}: forward max |diff| "
+                  f"{fwd:.3e}, backward (10 gradients) {bwd:.3e}, bit-identical "
+                  f"twice; edge rows {edge:.3e}, {slices} wgrad slices "
+                  f"{wgr:.3e}, reduce {red:.3e}; worst share of the limit: "
+                  f"forward {s_fwd:.3g}, d_x and d_xj {nodes[1]:.3g}, weight "
+                  f"gradients {weights[1]:.3g}, edge rows {s_edge:.3g}, slices "
+                  f"{s_wgr:.3g}, reduce {s_red:.3g}")
+    if failures:
+        raise AssertionError(f"{len(failures)} fused CGConv checks failed; "
+                             f"the first: {failures[0]}")
     return err
 
 
@@ -463,8 +534,14 @@ def time_fused(batch, dev, d=100, de=50):
         return csr.sorted_segment_sum(msg, dst, mask, n)
 
     out = unfused(*leaves)
-    _, _, partial, blocks = FC.fused_cgconv_bwd_partials(cot, *args)
+    da = FC.fused_cgconv_bwd_rows(cot, *args)[2]
+    wg = (x, xj, dist, dst, mask, da, n, de, 0.2)
+    partial, blocks = FC.fused_cgconv_wgrad(*wg)
     pfloats = partial.numel()
+    # the library yardstick of the weight gradient: one product zᵀ·dA
+    # over the formed rows
+    zt = FC._edge_terms(x, xj, dist, dst, mask, n, de, 0.2)[0].t().contiguous()
+    dan = FC.bwd_rows_plain(cot, *args)[2].view(e, 2, -1)[..., :d].reshape(e, nb)
     res = {
         "fused_cgconv_fwd": {
             "ms": device_ms(lambda: FC.fused_cgconv(*args)),
@@ -473,15 +550,26 @@ def time_fused(batch, dev, d=100, de=50):
             **bound(4 * (2 * n * d + e_real * d + 3 * e + k1 * nb),
                     2 * e_real * k * nb),
         },
-        # the backward kernel leaves per-block partial weight gradients;
-        # its bound counts the (2D+De+1, 2D) weight gradient as its output
+        # the edge kernel: d_x, d_xj and dA from the recompute z·W and
+        # dA·W[:2D]ᵀ; its yardstick is the unfused autograd backward to x
+        # and xj alone
         "fused_cgconv_bwd": {
-            "ms": device_ms(lambda: FC.fused_cgconv_bwd_partials(cot, *args)),
-            "plain_ms": device_ms(lambda: FC.fused_cgconv_bwd_plain(cot, *args)),
+            "ms": device_ms(lambda: FC.fused_cgconv_bwd_rows(cot, *args)),
+            "plain_ms": device_ms(lambda: FC.bwd_rows_plain(cot, *args)),
             "library_ms": device_ms(lambda: torch.autograd.grad(
-                out, leaves, cot, retain_graph=True)),
-            **bound(4 * (3 * n * d + e_real * d + e * d + 3 * e + 2 * k1 * nb),
-                    2 * e_real * (k * nb + nb * nb + k1 * nb)),
+                out, leaves[:2], cot, retain_graph=True)),
+            **bound(4 * (3 * n * d + e_real * d + 3 * e + k1 * nb + nb * nb
+                         + e * d + e_real * nb),
+                    2 * e_real * (k * nb + nb * nb), TF32X3_FLOPS),
+        },
+        # the weight gradient zᵀ·dA in slices; its bound counts the slices
+        # as its output
+        "fused_cgconv_wgrad": {
+            "ms": device_ms(lambda: FC.fused_cgconv_wgrad(*wg)),
+            "plain_ms": device_ms(lambda: FC.wgrad_partials_plain(*wg, blocks)),
+            "library_ms": device_ms(lambda: torch.mm(zt, dan)),
+            **bound(4 * (n * d + e_real * d + 3 * e + e_real * nb + pfloats),
+                    2 * e_real * k1 * nb, TF32X3_FLOPS),
         },
         "fused_cgconv_wgrad_reduce": {
             "ms": device_ms(lambda: FC.wgrad_reduce(partial, blocks, d, de)),
@@ -490,7 +578,29 @@ def time_fused(batch, dev, d=100, de=50):
             **bound(4 * (pfloats + k1 * nb), pfloats),
         },
     }
-    return res, e_real, blocks
+    # the whole backward (every launch and allocation) against its autograd
+    # yardstick, and its split; the forward and backward pairs are sums of
+    # their timed parts (one forward + autograd backward per call outruns
+    # device_ms's sleep on the host)
+    whole_bytes = 4 * (3 * n * d + e_real * d + 3 * e + 2 * k1 * nb + e * d)
+    whole_flops = 2 * e_real * (k * nb + nb * nb + k1 * nb)
+    whole = {
+        "bwd_ms": device_ms(lambda: FC.fused_cgconv_bwd(cot, *args)),
+        "autograd_ms": device_ms(lambda: torch.autograd.grad(
+            out, leaves, cot, retain_graph=True)),
+        "alloc_ms": device_ms(lambda: (
+            torch.zeros(n, d, device=dev), torch.empty_like(da),
+            torch.empty_like(xj), torch.empty_like(partial),
+            FC.pad_weights(FC.pack_weights(*ws), d))),
+        **bound(whole_bytes, whole_flops, TF32X3_FLOPS),
+        # the same operations at the FMA pipes' rate, the bound of the
+        # scalar-FMA design this backward replaced
+        "fma_bound_ms": bound(whole_bytes, whole_flops)["bound_ms"],
+    }
+    whole["pair_ms"] = res["fused_cgconv_fwd"]["ms"] + whole["bwd_ms"]
+    whole["unfused_pair_ms"] = (res["fused_cgconv_fwd"]["library_ms"]
+                                + whole["autograd_ms"])
+    return res, e_real, blocks, whole
 
 
 CFCONV_GRADS = ["xj", "w0", "b0", "w1", "b1"]
@@ -536,10 +646,15 @@ def check_cfconv(batch, dev, de=50, cutoff=8.0):
             if float(got[0][edges[4] == 0].abs().max()) != 0.0:
                 raise AssertionError(f"cfconv, F={f}, {name}: masked edges got "
                                      "non-zero d_xj rows")
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got[1:], FS.fused_cfconv_bwd(cot, *args)[1:])):
+                raise AssertionError(f"cfconv weight gradients, F={f}, {name}: "
+                                     "two calls differ")
             err["fused_cfconv_fwd"] = max(err["fused_cfconv_fwd"], fwd)
             err["fused_cfconv_bwd"] = max(err["fused_cfconv_bwd"], bwd)
             print(f"  cfconv kernel check ok: F={f}, {name}: forward max |diff| "
-                  f"{fwd:.3e}, backward (5 gradients) max |diff| {bwd:.3e}")
+                  f"{fwd:.3e}, backward (5 gradients) max |diff| {bwd:.3e}, "
+                  f"weight gradients bit-identical twice")
         _, partial, blocks = FS.fused_cfconv_bwd_partials(cot, *args)
         red = assert_fused(FS.wgrad_reduce(partial, blocks, f, de),
                            FS.wgrad_reduce_plain(partial, f, de),
@@ -1129,14 +1244,33 @@ def main() -> int:
     print(f"fused kernel checks on {card} (training batch: B={tspec.num_graphs}, "
           f"N={tspec.num_nodes}, E={tspec.num_edges}, De=50):")
     err.update(check_fused(tbatch, dev))
-    ftimes, fe_real, blocks = time_fused(tbatch, dev)
+    ftimes, fe_real, blocks, whole = time_fused(tbatch, dev)
     times.update(ftimes)
     for k, t in ftimes.items():
         print(f"{k} on {smi}, E={tspec.num_edges} ({fe_real} real), "
-              f"N={tspec.num_nodes}, D=100, De=50, {blocks} backward blocks: "
+              f"N={tspec.num_nodes}, D=100, De=50, {blocks} wgrad slices: "
               f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})")
+              f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it)")
+    split = (f"allocations and weight padding {whole['alloc_ms']:.4f} ms, edge "
+             f"kernel {ftimes['fused_cgconv_bwd']['ms']:.4f} ms, wgrad "
+             f"{ftimes['fused_cgconv_wgrad']['ms']:.4f} ms, reduce "
+             f"{ftimes['fused_cgconv_wgrad_reduce']['ms']:.4f} ms")
+    print(f"whole fused CGConv backward (FC.fused_cgconv_bwd, every launch and "
+          f"allocation) on {smi}: {whole['bwd_ms']:.4f} ms against its autograd "
+          f"yardstick {whole['autograd_ms']:.4f} ms "
+          f"({whole['autograd_ms'] / whole['bwd_ms']:.2f}x); bound "
+          f"{whole['bound_ms']:.4f} ms ({whole['bound_by']}, "
+          f"{100 * whole['bound_ms'] / whole['bwd_ms']:.1f}% of it; at the "
+          f"67 TFLOP/s FMA rate {whole['fma_bound_ms']:.4f} ms, "
+          f"{100 * whole['fma_bound_ms'] / whole['bwd_ms']:.1f}%); split: "
+          f"{split}")
+    print(f"fused CGConv forward + whole backward {whole['pair_ms']:.4f} ms "
+          f"against the unfused pair on the CSR kernels (forward + autograd "
+          f"backward) {whole['unfused_pair_ms']:.4f} ms on {smi}")
+    if whole["pair_ms"] >= whole["unfused_pair_ms"]:
+        raise AssertionError("the fused CGConv pair is slower than the "
+                             "unfused pair, which kernel auto then must pick")
     print(f"cfconv kernel checks on {card} (the same training batch, De=50, "
           f"cutoff 8):")
     err.update(check_cfconv(tbatch, dev))
@@ -1296,6 +1430,7 @@ def main() -> int:
           f"{ab['fused']:.5f} s, kernel pallas {ab['pallas']:.5f} s (main "
           f"path: {warm:.5f} s)")
     profile_training(dataset, dev)
+    profile_training(dataset, dev, kernel="csr")
 
     # ---- main path 3: SchNet_demo Training on the card, then the CPU ------
     gpu_schnet = resume_from_init("schnet_gpu", schnet_path)
@@ -1542,6 +1677,8 @@ def main() -> int:
              "pallas_fused.py:112", train_launches["fused_cgconv_fwd"]),
             ("fused_cgconv_bwd", "fused_cgconv_bwd", "fused_cgconv.cu",
              "pallas_fused.py:137", train_launches["fused_cgconv_bwd"]),
+            ("fused_cgconv_wgrad", "fused_cgconv_wgrad", "fused_cgconv.cu",
+             "pallas_fused.py:137", train_launches["fused_cgconv_wgrad"]),
             ("fused_cgconv_wgrad_reduce", "fused_cgconv_wgrad_reduce",
              "fused_cgconv.cu", "pallas_fused.py:137",
              train_launches["fused_cgconv_wgrad_reduce"]),

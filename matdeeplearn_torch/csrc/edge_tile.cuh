@@ -1,14 +1,16 @@
 // Pieces shared by the edge-tile kernels (fused_cgconv.cu, fused_cfconv.cu
 // and fused_bilinear.cu): the tile geometry, the choice of columns a
 // thread owns, the activations, the run-flush epilogue that adds a tile's
-// rows into their destination nodes, and the fixed-order sum of the
-// backward kernels' per-block partial weight gradients. Each .cu file
-// builds into its own library, so the anonymous namespace gives every
-// library its own copy.
+// rows into their destination nodes, the fixed-order sum of the backward
+// kernels' per-block partial weight gradients, and the tensor-core and
+// async-copy primitives of the 3xTF32 kernels. Each .cu file builds into
+// its own library, so the anonymous namespace gives every library its own
+// copy.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -42,16 +44,17 @@ __device__ __forceinline__ float softplusf(float a) {
   return fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));
 }
 
-// out[dst[r], c] += v_s[r, c] for the tile's rows whose weight w_s[r] is
-// not zero: one thread per column adds runs of equal dst and flushes each
-// with one atomicAdd. Right for any dst order; on dst-sorted edges about
-// one atomic per node and column.
+// out[dst[r], c] += v_s[r, c] for the TE rows of a tile whose weight
+// w_s[r] is not zero: one thread per column adds runs of equal dst and
+// flushes each with one atomicAdd. Right for any dst order; on dst-sorted
+// edges about one atomic per node and column.
+template <int TE = kTE>
 __device__ void flush_runs(const float* v_s, int d, const float* w_s,
                            const int* dst_s, float* __restrict__ out) {
   for (int c = threadIdx.x; c < d; c += kThreads) {
     float acc = 0.f;
     int cur = -1;
-    for (int r = 0; r < kTE; ++r) {
+    for (int r = 0; r < TE; ++r) {
       if (w_s[r] == 0.f) continue;
       const int node = dst_s[r];
       if (node != cur) {
@@ -65,26 +68,67 @@ __device__ void flush_runs(const float* v_s, int d, const float* w_s,
   }
 }
 
-// The partials hold, per block, tiles_w 4 x 4 micro-tiles; micro-tile m
+// The partials hold, per slice, tiles_w 4 x 4 micro-tiles; micro-tile m
 // covers rows 4 * (m / cgroups) and columns 4 * (m % cgroups) of the
 // weight gradient. dw[k, c] (rows x nb, row-major) = Σ_b partial[b][the
-// micro-tile of (k, c)], summed in block order.
+// micro-tile of (k, c)].
+//
+// Bound: bytes (every slice read once). Each block owns 32 float4 of a
+// slice, one per lane, so a warp reads 512 contiguous bytes of a slice;
+// warp w sums the slices [w*B/8, (w+1)*B/8) with kAcc independent
+// accumulators (kAcc loads in flight per thread, not one dependent chain
+// of scalar loads), and warp 0 adds the 8 warp sums in warp order. The order of every addition is fixed by the slice
+// count alone, so dw is bit-identical from run to run.
+constexpr int kAcc = 8;
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+
 __global__ void __launch_bounds__(kThreads)
-wgrad_reduce_kernel(const float* __restrict__ partial, int blocks,
-                    int tiles_w, int cgroups, int rows, int nb,
+wgrad_reduce_kernel(const float4* __restrict__ partial, int blocks,
+                    long long total4, int cgroups, int rows, int nb,
                     float* __restrict__ dw) {
-  const long long total = (long long)tiles_w * 16;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < total; p += stride) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) s += partial[(long long)b * total + p];
-    const int m = (int)(p / 16);
-    const int i = (int)(p % 16) / 4;
-    const int q = (int)(p % 4);
-    const int k = (m / cgroups) * 4 + i;
-    const int c = (m % cgroups) * 4 + q;
-    if (k < rows && c < nb) dw[(long long)k * nb + c] = s;
+  __shared__ float4 warp_s[kThreads / 32][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long p = (long long)blockIdx.x * 32 + lane;
+  const int b0 = (int)((long long)blocks * warp / (kThreads / 32));
+  const int b1 = (int)((long long)blocks * (warp + 1) / (kThreads / 32));
+  float4 acc[kAcc];
+#pragma unroll
+  for (int u = 0; u < kAcc; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (p < total4) {
+    int b = b0;
+    for (; b + kAcc <= b1; b += kAcc) {
+      float4 v[kAcc];
+#pragma unroll
+      for (int u = 0; u < kAcc; ++u) v[u] = partial[(long long)(b + u) * total4 + p];
+#pragma unroll
+      for (int u = 0; u < kAcc; ++u) add4(acc[u], v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u) {
+      if (b + u < b1) add4(acc[u], partial[(long long)(b + u) * total4 + p]);
+    }
+  }
+#pragma unroll
+  for (int u = 1; u < kAcc; ++u) add4(acc[0], acc[u]);
+  warp_s[warp][lane] = acc[0];
+  __syncthreads();
+  if (warp != 0 || p >= total4) return;
+  float4 s = warp_s[0][lane];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) add4(s, warp_s[w][lane]);
+  const int m = (int)(p / 4);
+  const int k = (m / cgroups) * 4 + (int)(p % 4);
+  const int c = (m % cgroups) * 4;
+  if (k >= rows) return;
+  float* row = dw + (long long)k * nb;
+  const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (c + q < nb) row[c + q] = v[q];
   }
 }
 
@@ -92,13 +136,74 @@ wgrad_reduce_kernel(const float* __restrict__ partial, int blocks,
 int launch_wgrad_reduce(const void* partial, void* dw, int blocks,
                         int tiles_w, int cgroups, int rows, int nb,
                         void* stream) {
-  const long long total = (long long)tiles_w * 16;
-  const unsigned grid = (unsigned)((total + kThreads - 1) / kThreads);
+  const long long total4 = (long long)tiles_w * 4;
+  const unsigned grid = (unsigned)((total4 + 31) / 32);
   wgrad_reduce_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partial), blocks, tiles_w, cgroups, rows, nb,
+      static_cast<const float4*>(partial), blocks, total4, cgroups, rows, nb,
       static_cast<float*>(dw));
   return (int)cudaGetLastError();
+}
+
+// ---- 3xTF32 tensor-core products (mma.sync m16n8k8) and cp.async --------
+//
+// a = hi + lo, each rounded to TF32 (cvt.rna); a·b is taken as
+// hi_a·hi_b + hi_a·lo_b + lo_a·hi_b, accumulated in f32, small terms
+// first. The dropped lo_a·lo_b and the rounding of lo leave about 2^-21 of
+// |a·b|: f32 accuracy for these sums, as the TPU kernel's hi/lo bf16 split
+// (ops/pallas_fused.py:_hilo) gives its MXU.
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// d += a·b for one m16n8k8 TF32 fragment: a (16 x 8, row) in 4 registers,
+// b (8 x 8, col) in 2, d (16 x 8) in 4; the PTX ISA's fragment layouts:
+// with g = lane / 4 and t = lane % 4, a = {A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]}, b = {B[t][g], B[t+4][g]}, d = {D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(d, alo, bhi[0], bhi[1]);
+  mma_tf32(d, ahi, blo[0], blo[1]);
+  mma_tf32(d, ahi, bhi[0], bhi[1]);
+}
+
+// 16-byte global → shared copy; src_bytes 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes = 16) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 }  // namespace

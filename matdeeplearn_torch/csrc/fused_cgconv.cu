@@ -2,8 +2,10 @@
 // plain C interface for ctypes (bound in matdeeplearn_torch/ops/fused_cgconv.py).
 //
 // mdl_fused_cgconv_fwd replaces the reference package's
-// ops/pallas_fused.py:_fwd_kernel, and mdl_fused_cgconv_bwd together with
-// mdl_fused_cgconv_wgrad_reduce replaces ops/pallas_fused.py:_bwd_kernel.
+// ops/pallas_fused.py:_fwd_kernel. mdl_fused_cgconv_bwd (the edge rows),
+// mdl_fused_cgconv_wgrad (the weight gradient, in slices) and
+// mdl_fused_cgconv_wgrad_reduce (the fixed-order sum of the slices)
+// together replace ops/pallas_fused.py:_bwd_kernel.
 //
 // Per real edge e (mask[e] != 0, 0 <= dst[e] < n), with i = dst[e]:
 //   z[e]  = [x[i] | xj[e] | ek(dist[e]) | 1]     (K1 = 2D + De + 1 columns)
@@ -14,40 +16,57 @@
 //   d_af = gg*softplus(as)*s(af)*(1-s(af)),  d_as = gg*s(af)*s(as)
 //   d_x[i] += d_af·Wfi^T + d_as·Wsi^T,  d_xj[e] = d_af·Wfj^T + d_as·Wsj^T
 //   dW += z[e]^T · [d_af | d_as]  (its last row is the bias gradient)
-// Masked edges are skipped: a tile of TE edges with no real edge costs one
-// barrier; inside a mixed tile their rows are zero and add nothing.
+// Masked edges add nothing; their d_xj rows are zero.
 //
 // Bound: operations. At CGCNN_demo width (D 100, De 50) each real edge
-// costs 2*251*200 FLOP forward and about 2.6 times that backward, against
+// costs 2*251*200 FLOP forward and about 2.8 times that backward, against
 // ~1.2 KB of inputs and outputs a real edge, far above the card's f32
-// operations-per-byte line. The designs keep every intermediate on chip:
+// operations-per-byte line. Every intermediate stays on chip but dA.
 //
-// * One block of 256 threads owns a tile of TE = 32 edges. It builds the
-//   z tile in shared memory (x rows gathered by dst, xj rows, the Gaussian
-//   basis computed in place, a column of ones for the bias), and streams W
-//   through shared memory in chunks of 32 rows. Thread (tx, ty) of the
-//   8 warps accumulates rows ty + 8r (r < 4) and columns tx + 32j (j < CPT)
-//   of both af and as in registers: z is read as float4 broadcasts, W rows
-//   as consecutive floats, so neither read has bank conflicts. Plain f32
-//   FMA; no tensor cores (a later PR's speed work).
-// * Node-side sums (out in the forward, d_x in the backward) go through
-//   the epilogue of csr.cu's segment sum: the tile's rows are staged in
-//   shared memory, one thread per column walks the 32 rows, adds runs of
-//   equal dst and flushes each run with one atomicAdd. That is right for
-//   any dst order; on dst-sorted edges it is about one atomic per node and
-//   column. Atomics make the order of f32 additions vary from run to run.
-// * The weight gradient is a sum over every edge of the batch. The
-//   backward runs a persistent grid (about two blocks per SM); each block
-//   walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... and adds each
-//   tile's z^T · dA into its own slice of a partial buffer in device
-//   memory (no atomics, 4 x 4 register micro-tiles, float4 traffic).
-//   mdl_fused_cgconv_wgrad_reduce then sums the slices in a fixed order
-//   (edge_tile.cuh holds the sum and the epilogue, shared with
-//   fused_cfconv.cu).
-//   d_z = dA · W^T needs W transposed: the caller passes WT = W[:2D]^T.
+// The forward: one block of 256 threads owns a tile of kTE = 32 edges. It
+// builds the z tile in shared memory (x rows gathered by dst, xj rows, the
+// Gaussian basis computed in place, a column of ones for the bias), and
+// streams W through shared memory in chunks of 32 rows.
+// Thread (tx, ty) of the 8 warps accumulates rows ty + 8r (r < 4) and
+// columns tx + 32j (j < CPT) of both af and as in registers, in plain f32
+// FMA. out goes through the run-flush epilogue of edge_tile.cuh (runs of
+// equal dst added in a register, each flushed with one atomicAdd: right
+// for any dst order).
 //
-// The caller zeroes out, d_x, d_xj and the partial buffer, and allocates
-// everything; the kernels never synchronise.
+// The backward runs its three products on the tensor cores with the
+// 3xTF32 split of edge_tile.cuh (f32 accuracy; the TPU kernel's hi/lo
+// bf16 split does the same for its MXU):
+//
+// * mdl_fused_cgconv_bwd: one block of 256 threads owns a tile of TE = 64
+//   edges (32 at D > 128, where the accumulators would not fit). It builds
+//   z in shared memory, recomputes [af | as] = z·W with mma.sync m16n8k8,
+//   forms dA = [d_af | d_as] in place of z, writes dA's real rows to
+//   device memory, then computes [d_xi | d_xj] = dA · W[:2D]^T the same
+//   way. The 8 warps split the tile 2 (rows) x 4 (n8-tiles, interleaved);
+//   each warp keeps af and as (then d_xi and d_xj) for the same columns,
+//   so the activations need no exchange. The weights stream through two
+//   16-row shared buffers by cp.async, the next chunk in flight while the
+//   warps multiply the current one; the wrapper pads them (Wp: round8(K1)
+//   x 2*round8(D), each half of the columns zero-padded to round8(D), and
+//   WTp, W[:2D]^T in the same padded layout), so every row is a whole
+//   number of 16-byte copies at any D. Row strides of 4 mod 32 (z, dA)
+//   and 8 mod 16 (weights) keep every fragment load free of bank
+//   conflicts. d_x goes through the run-flush epilogue; d_xj rows are
+//   written for every slot of the tile (zero where masked), so the
+//   wrapper allocates it without zeroing.
+// * mdl_fused_cgconv_wgrad: dW = z^T · dA as a split-K product over the
+//   edges. Block (tile, slice) owns a 128 x 112 tile of dW (z columns x
+//   padded dA columns) and the 32-edge chunks slice, slice + S, ... (the
+//   strided order spreads the tail pads of a dst-sorted batch over every
+//   slice). Per chunk it regenerates its z columns from x[dst], xj and
+//   dist in shared memory, copies the dA columns by cp.async (zero-filled
+//   for masked edges), and multiplies with the accumulators in registers.
+//   Each slice writes, never adds, its dW in the 4 x 4 micro-tile layout
+//   of wgrad_reduce_kernel; no atomics touch dW, so it is bit-identical
+//   from run to run.
+//
+// The caller zeroes out and d_x, and allocates everything; the kernels
+// never synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,14 +75,24 @@
 
 namespace {
 
+__host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
+
+// The smallest stride >= v that is 4 mod 32: an A fragment's 8 rows x 4
+// columns then fall in 32 distinct banks.
+__host__ __device__ inline int stride_a(int v) { return v + (36 - v % 32) % 32; }
+
 struct Geometry {
   long long e;  // edge slots
   int d;        // feature width D
   int de;       // Gaussian basis size De
   int n;        // node slots
   int k1;       // 2D + De + 1 rows of W
-  int ldz;      // round4(k1): row stride of the z tile
+  int ldz;      // round4(k1): row stride of the forward's z tile
   int ldn;      // round4(2D): row stride of [af | as]-wide tiles
+  int dp;       // round8(D): each half of the padded weight columns
+  int kp;       // round8(k1): rows of the padded weight Wp
+  int lda;      // row stride of the backward's z / dA tile (4 mod 32)
+  int ldb;      // row stride of a streamed weight chunk: 2*dp + 8
   float coeff;  // -0.5 / width^2
   float step;   // 1 / (De - 1): the basis offsets are k * step
 };
@@ -75,6 +104,10 @@ Geometry make_geometry(long long e, int d, int de, int n, float coeff,
   g.k1 = 2 * d + de + 1;
   g.ldz = round4(g.k1);
   g.ldn = round4(2 * d);
+  g.dp = round8(d);
+  g.kp = round8(g.k1);
+  g.lda = stride_a(g.kp > 2 * g.dp ? g.kp : 2 * g.dp);
+  g.ldb = 2 * g.dp + 8;
   g.coeff = coeff; g.step = step;
   return g;
 }
@@ -82,11 +115,12 @@ Geometry make_geometry(long long e, int d, int de, int n, float coeff,
 // Loads the tile's edge weights and destinations into shared memory (a
 // masked edge, or one whose dst lies outside [0, n), gets weight 0) and
 // returns, uniformly across the block, whether any edge of it is real.
+template <int TE = kTE>
 __device__ bool load_edges(const int* __restrict__ dst,
                            const float* __restrict__ mask, long long e0,
                            const Geometry& g, float* w_s, int* dst_s) {
   bool real = false;
-  if (threadIdx.x < kTE) {
+  if (threadIdx.x < TE) {
     const long long e = e0 + threadIdx.x;
     float w = 0.f;
     int node = 0;
@@ -100,6 +134,18 @@ __device__ bool load_edges(const int* __restrict__ dst,
     real = w != 0.f;
   }
   return __syncthreads_or(real) != 0;
+}
+
+// The basis column k < De of edge e, the column of ones at k == De, zero
+// beyond.
+__device__ __forceinline__ float basis_or_one(const float* __restrict__ dist,
+                                              long long e, int k,
+                                              const Geometry& g) {
+  if (k < g.de) {
+    const float diff = dist[e] - (float)k * g.step;
+    return expf(g.coeff * diff * diff);
+  }
+  return k == g.de ? 1.f : 0.f;
 }
 
 // z tile: [x[dst] | xj | basis(dist) | 1 | zero pad to ldz]; zero rows for
@@ -235,115 +281,372 @@ fused_cgconv_fwd_kernel(const float* __restrict__ x,
   flush_runs(msg_s, g.d, w_s, dst_s, out);
 }
 
-template <int CPT>
-__global__ void __launch_bounds__(kThreads)
+// ---- the backward: edge rows -------------------------------------------
+
+constexpr int kKS = 16;  // weight rows per cp.async chunk (two k-steps)
+
+// The backward's z tile of TE rows: [x[dst] | xj | basis | 1 | zero to kp]
+// at row stride lda, zero rows for masked edges. Warp w takes rows w,
+// w + 8, ...; a lane issues the loads of all its rows before it stores.
+template <int TE>
+__device__ void build_z(const float* __restrict__ x,
+                        const float* __restrict__ xj,
+                        const float* __restrict__ dist, long long e0,
+                        const Geometry& g, const float* w_s,
+                        const int* dst_s, float* z_s) {
+  constexpr int R = TE / 8;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int c = lane; c < g.d; c += 32) {
+    float xv[R], jv[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int r = warp + 8 * q;
+      const bool real = w_s[r] != 0.f;
+      xv[q] = real ? x[(long long)dst_s[r] * g.d + c] : 0.f;
+      jv[q] = real ? xj[(e0 + r) * g.d + c] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      float* row = z_s + (warp + 8 * q) * g.lda;
+      row[c] = xv[q];
+      row[g.d + c] = jv[q];
+    }
+  }
+  for (int k = lane; k < g.kp - 2 * g.d; k += 32) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int r = warp + 8 * q;
+      z_s[r * g.lda + 2 * g.d + k] =
+          w_s[r] != 0.f ? basis_or_one(dist, e0 + r, k, g) : 0.f;
+    }
+  }
+}
+
+// Copies rows k0 .. k0 + kKS (those below rows) of the rows x width
+// row-major matrix b into b_s (stride ldb) by cp.async, as one group.
+__device__ void stage_rows(const float* __restrict__ b, int rows, int k0,
+                           int width, float* b_s, int ldb) {
+  const int n = min(kKS, rows - k0) * (width / 4);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = i / (width / 4);
+    const int c = 4 * (i - r * (width / 4));
+    cp_async16(b_s + r * ldb + c, b + (long long)(k0 + r) * width + c);
+  }
+  cp_async_commit();
+}
+
+// acc[mt][i][h] = a_s · b over kp columns of a_s, on the tensor cores
+// (3xTF32): the warp's rows (warp / 4) * 16 * MT + 16 * mt (+ g, + g + 8)
+// and, for each half h of the output, the n8-tile nt = warp % 4 + 4i of
+// that half (columns h * dp + 8 * nt ..). a_s holds kp zero-padded
+// columns at stride g.lda; b is a kp x 2*dp row-major matrix in device
+// memory, streamed through the two kKS-row buffers of b_s. Starts and
+// ends with a barrier: the caller's writes to a_s are visible, and a_s
+// and b_s are free afterwards.
+template <int MT, int NTW>
+__device__ void mma_tile(const float* a_s, int kp,
+                         const float* __restrict__ b, const Geometry& g,
+                         float* b_s, float (&acc)[MT][NTW][2][4]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int row0 = (warp >> 2) * 16 * MT;
+  const int wn = warp & 3;
+  const int ntiles = g.dp / 8;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][i][h][q] = 0.f;
+
+  const int chunks = (kp + kKS - 1) / kKS;
+  stage_rows(b, kp, 0, 2 * g.dp, b_s, g.ldb);
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) {
+      stage_rows(b, kp, (ch + 1) * kKS, 2 * g.dp,
+                 b_s + ((ch + 1) & 1) * kKS * g.ldb, g.ldb);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* bs = b_s + (ch & 1) * kKS * g.ldb;
+#pragma unroll
+    for (int ks = 0; ks < kKS / 8; ++ks) {
+      const int ka = ch * kKS + 8 * ks;
+      if (ka >= kp) break;
+      uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* ar = a_s + (row0 + 16 * mt + gr) * g.lda + ka + tq;
+        split_tf32(ar[0], ahi[mt][0], alo[mt][0]);
+        split_tf32(ar[8 * g.lda], ahi[mt][1], alo[mt][1]);
+        split_tf32(ar[4], ahi[mt][2], alo[mt][2]);
+        split_tf32(ar[8 * g.lda + 4], ahi[mt][3], alo[mt][3]);
+      }
+      const float* br = bs + (8 * ks + tq) * g.ldb + gr;
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        const int nt = wn + 4 * i;
+        if (nt >= ntiles) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = h * g.dp + 8 * nt;
+          uint32_t bhi[2], blo[2];
+          split_tf32(br[col], bhi[0], blo[0]);
+          split_tf32(br[4 * g.ldb + col], bhi[1], blo[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_3xtf32(acc[mt][i][h], ahi[mt], alo[mt], bhi, blo);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The edge rows of the backward for one tile of TE = 32 * MT edges: d_x
+// (atomically flushed runs), d_xj (every slot of the tile), and dA for
+// the weight-gradient kernel (real rows of da, E x 2*dp).
+template <int MT, int NTW>
+__global__ void __launch_bounds__(kThreads, 2)
 fused_cgconv_bwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ xj,
                         const float* __restrict__ dist,
                         const int* __restrict__ dst,
                         const float* __restrict__ mask,
-                        const float* __restrict__ w,
-                        const float* __restrict__ wt,
+                        const float* __restrict__ wp,
+                        const float* __restrict__ wtp,
                         const float* __restrict__ gout,
                         float* __restrict__ dx, float* __restrict__ dxj,
-                        float* __restrict__ partial, Geometry g,
-                        long long num_tiles) {
+                        float* __restrict__ da, Geometry g) {
+  constexpr int TE = 32 * MT;
   extern __shared__ float4 smem4[];
-  float* z_s = reinterpret_cast<float*>(smem4);
-  float* da_s = z_s + kTE * g.ldz;
-  float* b_s = da_s + kTE * g.ldn;
-  float* w_s = b_s + kKC * g.ldn;
-  int* dst_s = reinterpret_cast<int*>(w_s + kTE);
+  float* a_s = reinterpret_cast<float*>(smem4);
+  float* b_s = a_s + TE * g.lda;
+  float* w_s = b_s + 2 * kKS * g.ldb;
+  int* dst_s = reinterpret_cast<int*>(w_s + TE);
 
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  // da_s columns 2D..ldn-1 are never written: zero the tile once.
-  for (int i = threadIdx.x; i < kTE * g.ldn; i += kThreads) da_s[i] = 0.f;
-  const int cgroups = g.ldn / 4;
-  const int tiles_w = (g.ldz / 4) * cgroups;  // 4 x 4 micro-tiles of dW
-  float4* part = reinterpret_cast<float4*>(partial) +
-                 (long long)blockIdx.x * tiles_w * 4;
+  const long long e0 = (long long)blockIdx.x * TE;
+  const int span = (int)min((long long)TE, g.e - e0) * g.d;  // d_xj floats
+  float* dxj_tile = dxj + e0 * g.d;
+  if (!load_edges<TE>(dst, mask, e0, g, w_s, dst_s)) {
+    for (int i = threadIdx.x; i < span; i += kThreads) dxj_tile[i] = 0.f;
+    return;
+  }
+  build_z<TE>(x, xj, dist, e0, g, w_s, dst_s, a_s);
 
-  for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const long long e0 = tile * kTE;
-    __syncthreads();  // the previous tile's readers are done
-    if (!load_edges(dst, mask, e0, g, w_s, dst_s)) continue;
-    load_z(x, xj, dist, e0, g, w_s, dst_s, z_s);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int row0 = (warp >> 2) * 16 * MT;
+  const int wn = warp & 3;
+  const int ntiles = g.dp / 8;
 
-    float af[kRows][CPT], as[kRows][CPT];
-    tile_gemm<CPT>(z_s, g.ldz, g.k1, w, g.d, b_s, g.ldn, af, as);
+  // [af | as] = z · W, then dA = [d_af | d_as] in place of z (zero in the
+  // pad columns of each half, as the pad rows of WTp are)
+  float acc[MT][NTW][2][4];
+  mma_tile<MT, NTW>(a_s, g.kp, wp, g, b_s, acc);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = ty + 8 * r;
-      const float wr = w_s[row];
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 32 * j;
+    for (int i = 0; i < NTW; ++i) {
+      const int nt = wn + 4 * i;
+      if (nt >= ntiles) break;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = row0 + 16 * mt + gr + 8 * (q >> 1);
+        const int c = 8 * nt + 2 * tq + (q & 1);
+        const float wr = w_s[row];
+        const float gg = wr != 0.f && c < g.d
+                             ? wr * gout[(long long)dst_s[row] * g.d + c]
+                             : 0.f;
+        const float af = acc[mt][i][0][q];
+        const float as = acc[mt][i][1][q];
+        const float sf = sigmoidf(af);
+        a_s[row * g.lda + c] = gg * softplusf(as) * sf * (1.f - sf);
+        a_s[row * g.lda + g.dp + c] = gg * sf * sigmoidf(as);
+      }
+    }
+  }
+  __syncthreads();
+  const int row4 = g.dp / 2;  // float4 in a row of dA
+  for (int i = threadIdx.x; i < TE * row4; i += kThreads) {
+    const int r = i / row4;
+    const int c = i - r * row4;
+    if (w_s[r] != 0.f) {
+      reinterpret_cast<float4*>(da)[(e0 + r) * row4 + c] =
+          reinterpret_cast<const float4*>(a_s + r * g.lda)[c];
+    }
+  }
+
+  // [d_xi | d_xj] = dA · W[:2D]^T, staged as two TE x D tiles in place of dA
+  mma_tile<MT, NTW>(a_s, 2 * g.dp, wtp, g, b_s, acc);
+  float* di_s = a_s;
+  float* dj_s = a_s + TE * g.d;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < NTW; ++i) {
+      const int nt = wn + 4 * i;
+      if (nt >= ntiles) break;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = row0 + 16 * mt + gr + 8 * (q >> 1);
+        const int c = 8 * nt + 2 * tq + (q & 1);
         if (c < g.d) {
-          const float gg =
-              wr != 0.f ? wr * gout[(long long)dst_s[row] * g.d + c] : 0.f;
-          const float sf = sigmoidf(af[r][j]);
-          const float ss = sigmoidf(as[r][j]);
-          da_s[row * g.ldn + c] = gg * softplusf(as[r][j]) * sf * (1.f - sf);
-          da_s[row * g.ldn + g.d + c] = gg * sf * ss;
+          di_s[row * g.d + c] = acc[mt][i][0][q];
+          dj_s[row * g.d + c] = acc[mt][i][1][q];
         }
       }
     }
+  }
+  __syncthreads();
+  flush_runs<TE>(di_s, g.d, w_s, dst_s, dx);
+  for (int i = threadIdx.x; i < span; i += kThreads) {
+    dxj_tile[i] = w_s[i / g.d] != 0.f ? dj_s[i] : 0.f;
+  }
+}
 
-    // [d_xi | d_xj] = dA · W[:2D]^T
-    float di[kRows][CPT], dj[kRows][CPT];
-    tile_gemm<CPT>(da_s, g.ldn, 2 * g.d, wt, g.d, b_s, g.ldn, di, dj);
+// ---- the backward: the weight gradient ---------------------------------
+
+constexpr int kWM = 128;        // dW rows (z columns) of a block
+constexpr int kWN = 112;        // dW columns (of the padded 2*dp) of a block
+constexpr int kWK = 32;         // edges of a chunk
+constexpr int kLdZ = kWM + 8;   // 8 mod 32: conflict-free A fragments of z^T
+constexpr int kLdD = kWN + 8;   // 24 mod 32: conflict-free B fragments
+
+// Slice `slice` of dW = Σ over chunks slice, slice + slices, ... of
+// z[chunk]^T · dA[chunk], for this block's 128 x 112 tile; 8 warps in
+// 4 (32 rows) x 2 (56 columns), each 2 x 7 m16n8 fragments.
+__global__ void __launch_bounds__(kThreads, 2)
+fused_cgconv_wgrad_kernel(const float* __restrict__ x,
+                          const float* __restrict__ xj,
+                          const float* __restrict__ dist,
+                          const int* __restrict__ dst,
+                          const float* __restrict__ mask,
+                          const float* __restrict__ da,
+                          float* __restrict__ partial, Geometry g,
+                          int ntiles_n, int tiles, int slices) {
+  __shared__ float z_s[kWK * kLdZ];
+  __shared__ __align__(16) float d_s[kWK * kLdD];
+  __shared__ float w_s[kWK];
+  __shared__ int dst_s[kWK];
+
+  const int tile = blockIdx.x % tiles;
+  const int slice = blockIdx.x / tiles;
+  const int m0 = (tile / ntiles_n) * kWM;
+  const int n0 = (tile % ntiles_n) * kWN;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int wm = (warp >> 1) * 32;
+  const int wn = (warp & 1) * 56;
+  const int ldg = 2 * g.dp;
+  // this thread's z column (fixed) and rows r0, r0 + 2, ...
+  const int kc = threadIdx.x & (kWM - 1);
+  const int k = m0 + kc;
+  const int r0 = threadIdx.x / kWM;
+  constexpr int R = kWK * kWM / kThreads;
+
+  float acc[2][7][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = ty + 8 * r;
-      if (w_s[row] == 0.f) continue;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 32 * j;
-        if (c < g.d) dxj[(e0 + row) * g.d + c] = dj[r][j];
+    for (int i = 0; i < 7; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][i][q] = 0.f;
+
+  const long long chunks = (g.e + kWK - 1) / kWK;
+  for (long long ch = slice; ch < chunks; ch += slices) {
+    const long long e0 = ch * kWK;
+    if (!load_edges<kWK>(dst, mask, e0, g, w_s, dst_s)) continue;
+    for (int i = threadIdx.x; i < kWK * (kWN / 4); i += kThreads) {
+      const int r = i / (kWN / 4);
+      const int c = n0 + 4 * (i - r * (kWN / 4));
+      const bool ok = w_s[r] != 0.f && c < ldg;
+      cp_async16(d_s + r * kLdD + (c - n0),
+                 ok ? da + (e0 + r) * ldg + c : da, ok ? 16 : 0);
+    }
+    cp_async_commit();
+    float v[R];
+    if (k < g.d) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int r = r0 + 2 * q;
+        v[q] = w_s[r] != 0.f ? x[(long long)dst_s[r] * g.d + k] : 0.f;
+      }
+    } else if (k < 2 * g.d) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int r = r0 + 2 * q;
+        v[q] = w_s[r] != 0.f ? xj[(e0 + r) * g.d + k - g.d] : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int r = r0 + 2 * q;
+        v[q] = w_s[r] != 0.f && k < g.k1
+                   ? basis_or_one(dist, e0 + r, k - 2 * g.d, g)
+                   : 0.f;
       }
     }
-    __syncthreads();  // b_s is free: stage d_xi there (kKC*ldn >= kTE*D)
-    float* di_s = b_s;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = ty + 8 * r;
+    for (int q = 0; q < R; ++q) z_s[(r0 + 2 * q) * kLdZ + kc] = v[q];
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 32 * j;
-        if (c < g.d) di_s[row * g.d + c] = di[r][j];
+    for (int ks = 0; ks < kWK / 8; ++ks) {
+      uint32_t ahi[2][4], alo[2][4];
+      const float* zr = z_s + (8 * ks + tq) * kLdZ + wm + gr;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        split_tf32(zr[16 * mt], ahi[mt][0], alo[mt][0]);
+        split_tf32(zr[16 * mt + 8], ahi[mt][1], alo[mt][1]);
+        split_tf32(zr[4 * kLdZ + 16 * mt], ahi[mt][2], alo[mt][2]);
+        split_tf32(zr[4 * kLdZ + 16 * mt + 8], ahi[mt][3], alo[mt][3]);
+      }
+      const float* dr = d_s + (8 * ks + tq) * kLdD + wn + gr;
+#pragma unroll
+      for (int i = 0; i < 7; ++i) {
+        uint32_t bhi[2], blo[2];
+        split_tf32(dr[8 * i], bhi[0], blo[0]);
+        split_tf32(dr[4 * kLdD + 8 * i], bhi[1], blo[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_3xtf32(acc[mt][i], ahi[mt], alo[mt], bhi, blo);
+        }
       }
     }
     __syncthreads();
-    flush_runs(di_s, g.d, w_s, dst_s, dx);
+  }
 
-    // this block's slice of dW += z^T · dA, in 4 x 4 micro-tiles
-    for (int m = threadIdx.x; m < tiles_w; m += kThreads) {
-      const int k = (m / cgroups) * 4;
-      const int c = (m % cgroups) * 4;
-      float acc[4][4] = {};
-      for (int r = 0; r < kTE; ++r) {
-        if (w_s[r] == 0.f) continue;
-        const float4 zv = *reinterpret_cast<const float4*>(z_s + r * g.ldz + k);
-        const float4 dv =
-            *reinterpret_cast<const float4*>(da_s + r * g.ldn + c);
-        const float zr[4] = {zv.x, zv.y, zv.z, zv.w};
-        const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+  // write the tile into this slice, in wgrad_reduce_kernel's micro-tiles
+  const int cg = round4(2 * g.d) / 4;
+  float* out = partial + (long long)slice * (round4(g.k1) / 4) * cg * 16;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+  for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(zr[i], dr[q], acc[i][q]);
+    for (int i = 0; i < 7; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int kk = m0 + wm + 16 * mt + gr + 8 * (q >> 1);
+        const int n = n0 + wn + 8 * i + 2 * tq + (q & 1);
+        const int h = n / g.dp;
+        const int c = n - h * g.dp;
+        if (kk < g.k1 && h < 2 && c < g.d) {
+          const int nc = h * g.d + c;
+          out[((kk >> 2) * cg + (nc >> 2)) * 16 + (kk & 3) * 4 + (nc & 3)] =
+              acc[mt][i][q];
         }
-      }
-      float4* p = part + (long long)m * 4;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float4 v = p[i];
-        v.x += acc[i][0];
-        v.y += acc[i][1];
-        v.z += acc[i][2];
-        v.w += acc[i][3];
-        p[i] = v;
       }
     }
   }
@@ -354,8 +657,25 @@ size_t fwd_shared_bytes(const Geometry& g) {
          sizeof(int) * kTE;
 }
 
-size_t bwd_shared_bytes(const Geometry& g) {
-  return fwd_shared_bytes(g) + sizeof(float) * (size_t)kTE * g.ldn;
+size_t bwd_shared_bytes(const Geometry& g, int te) {
+  return sizeof(float) * ((size_t)te * g.lda + 2 * (size_t)kKS * g.ldb + te) +
+         sizeof(int) * te;
+}
+
+// Tile shape of the backward's edge kernel for width D: (MT, NTW) with
+// TE = 32 * MT edges and NTW n8-tiles of each half a warp, or (0, 0).
+void bwd_shape(int d, int& mt, int& ntw) {
+  const int ntiles = round8(d) / 8;
+  mt = ntiles <= 16 ? 2 : 1;
+  ntw = ntiles <= 4 ? 1 : ntiles <= 8 ? 2 : ntiles <= 16 ? 4
+      : ntiles <= 24 ? 6 : ntiles <= 32 ? 8 : 0;
+  if (ntw == 0) mt = 0;
+}
+
+// Output tiles of the weight-gradient kernel per slice.
+void wgrad_tiles(const Geometry& g, int& ntiles_n, int& tiles) {
+  ntiles_n = (2 * g.dp + kWN - 1) / kWN;
+  tiles = ((g.k1 + kWM - 1) / kWM) * ntiles_n;
 }
 
 template <int CPT>
@@ -373,20 +693,19 @@ int launch_fwd(const float* x, const float* xj, const float* dist,
   return (int)cudaGetLastError();
 }
 
-template <int CPT>
+template <int MT, int NTW>
 int launch_bwd(const float* x, const float* xj, const float* dist,
-               const int* dst, const float* mask, const float* w,
-               const float* wt, const float* gout, float* dx, float* dxj,
-               float* partial, const Geometry& g, int blocks,
-               cudaStream_t s) {
-  const size_t smem = bwd_shared_bytes(g);
+               const int* dst, const float* mask, const float* wp,
+               const float* wtp, const float* gout, float* dx, float* dxj,
+               float* da, const Geometry& g, cudaStream_t s) {
+  const size_t smem = bwd_shared_bytes(g, 32 * MT);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_cgconv_bwd_kernel<CPT>,
+      fused_cgconv_bwd_kernel<MT, NTW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (g.e + kTE - 1) / kTE;
-  fused_cgconv_bwd_kernel<CPT><<<(unsigned)blocks, kThreads, smem, s>>>(
-      x, xj, dist, dst, mask, w, wt, gout, dx, dxj, partial, g, tiles);
+  const long long tiles = (g.e + 32 * MT - 1) / (32 * MT);
+  fused_cgconv_bwd_kernel<MT, NTW><<<(unsigned)tiles, kThreads, smem, s>>>(
+      x, xj, dist, dst, mask, wp, wtp, gout, dx, dxj, da, g);
   return (int)cudaGetLastError();
 }
 
@@ -394,11 +713,19 @@ int launch_bwd(const float* x, const float* xj, const float* dist,
 
 extern "C" {
 
-// Floats per block of the weight gradient's partial buffer (the caller
-// allocates blocks times that many zeros).
+// Floats per slice of the weight gradient's partial buffer: the 4 x 4
+// micro-tiles of the (2D+De+1) x 2D gradient.
 long long mdl_fused_cgconv_partial_floats(int d, int de) {
   const Geometry g = make_geometry(0, d, de, 0, 0.f, 0.f);
   return (long long)(g.ldz / 4) * (g.ldn / 4) * 16;
+}
+
+// Blocks of mdl_fused_cgconv_wgrad per slice.
+int mdl_fused_cgconv_wgrad_tiles(int d, int de) {
+  const Geometry g = make_geometry(0, d, de, 0, 0.f, 0.f);
+  int ntiles_n, tiles;
+  wgrad_tiles(g, ntiles_n, tiles);
+  return tiles;
 }
 
 // All pointers are device pointers on the current device. w is the
@@ -429,40 +756,67 @@ int mdl_fused_cgconv_fwd(const void* x, const void* xj, const void* dist,
   }
 }
 
-// wt is W[:2D]^T (2D x 2D); gout (n x d); dx (n x d) and dxj (e x d) hold
-// zeros; partial holds blocks * mdl_fused_cgconv_partial_floats(d, de)
-// zeros.
+// The backward's edge rows. wp is W padded to round8(K1) x 2*round8(D)
+// (each half of the columns zero-padded), wtp is W[:2D]^T in the same
+// padded layout (2*round8(D) square); gout (n x d); dx (n x d) holds
+// zeros; dxj (e x d) and da (e x 2*round8(D)) need no initial value:
+// every row of dxj is written, and the rows of da of real edges.
 int mdl_fused_cgconv_bwd(const void* x, const void* xj, const void* dist,
-                         const void* dst, const void* mask, const void* w,
-                         const void* wt, const void* gout, void* dx,
-                         void* dxj, void* partial, long long e, int d, int de,
-                         int n, float coeff, float step, int blocks,
-                         void* stream) {
+                         const void* dst, const void* mask, const void* wp,
+                         const void* wtp, const void* gout, void* dx,
+                         void* dxj, void* da, long long e, int d, int de,
+                         int n, float coeff, float step, void* stream) {
   const Geometry g = make_geometry(e, d, de, n, coeff, step);
-  if (bwd_shared_bytes(g) > (size_t)kMaxShared || blocks < 1) return kBadShape;
+  int mt, ntw;
+  bwd_shape(d, mt, ntw);
+  if (mt == 0 || bwd_shared_bytes(g, 32 * mt) > (size_t)kMaxShared) {
+    return kBadShape;
+  }
   const float* xp = static_cast<const float*>(x);
   const float* xjp = static_cast<const float*>(xj);
-  const float* dp = static_cast<const float*>(dist);
-  const int* dsp = static_cast<const int*>(dst);
+  const float* dsp = static_cast<const float*>(dist);
+  const int* dtp = static_cast<const int*>(dst);
   const float* mp = static_cast<const float*>(mask);
-  const float* wp = static_cast<const float*>(w);
-  const float* wtp = static_cast<const float*>(wt);
+  const float* wpp = static_cast<const float*>(wp);
+  const float* wtpp = static_cast<const float*>(wtp);
   const float* gp = static_cast<const float*>(gout);
   float* dxp = static_cast<float*>(dx);
   float* dxjp = static_cast<float*>(dxj);
-  float* pp = static_cast<float*>(partial);
+  float* dap = static_cast<float*>(da);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cpt_for(d)) {
-    case 1: return launch_bwd<1>(xp, xjp, dp, dsp, mp, wp, wtp, gp, dxp, dxjp, pp, g, blocks, s);
-    case 2: return launch_bwd<2>(xp, xjp, dp, dsp, mp, wp, wtp, gp, dxp, dxjp, pp, g, blocks, s);
-    case 4: return launch_bwd<4>(xp, xjp, dp, dsp, mp, wp, wtp, gp, dxp, dxjp, pp, g, blocks, s);
-    case 5: return launch_bwd<5>(xp, xjp, dp, dsp, mp, wp, wtp, gp, dxp, dxjp, pp, g, blocks, s);
-    case 8: return launch_bwd<8>(xp, xjp, dp, dsp, mp, wp, wtp, gp, dxp, dxjp, pp, g, blocks, s);
+  switch (mt * 100 + ntw) {
+    case 201: return launch_bwd<2, 1>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    case 202: return launch_bwd<2, 2>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    case 204: return launch_bwd<2, 4>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    case 106: return launch_bwd<1, 6>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    case 108: return launch_bwd<1, 8>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
     default: return kBadShape;
   }
 }
 
-// dw (2D+De+1 x 2D) = the sum over blocks of the backward's partials.
+// The weight gradient in `slices` slices: partial holds slices *
+// mdl_fused_cgconv_partial_floats(d, de) floats, every one of a micro-tile
+// within the gradient written (no initial value needed); da is the edge
+// kernel's. Launches slices * mdl_fused_cgconv_wgrad_tiles(d, de) blocks.
+int mdl_fused_cgconv_wgrad(const void* x, const void* xj, const void* dist,
+                           const void* dst, const void* mask, const void* da,
+                           void* partial, long long e, int d, int de, int n,
+                           float coeff, float step, int slices,
+                           void* stream) {
+  const Geometry g = make_geometry(e, d, de, n, coeff, step);
+  if (slices < 1 || d > 256) return kBadShape;
+  int ntiles_n, tiles;
+  wgrad_tiles(g, ntiles_n, tiles);
+  fused_cgconv_wgrad_kernel<<<(unsigned)(tiles * slices), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(xj),
+      static_cast<const float*>(dist), static_cast<const int*>(dst),
+      static_cast<const float*>(mask), static_cast<const float*>(da),
+      static_cast<float*>(partial), g, ntiles_n, tiles, slices);
+  return (int)cudaGetLastError();
+}
+
+// dw (2D+De+1 x 2D) = the sum over the slices of the weight gradient.
 int mdl_fused_cgconv_wgrad_reduce(const void* partial, void* dw, int blocks,
                                   int d, int de, void* stream) {
   const Geometry g = make_geometry(0, d, de, 0, 0.f, 0.f);

@@ -43,11 +43,12 @@ import torch.nn.functional as F
 from matdeeplearn_torch.ops import _build
 from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on, segment_sum_plain
 from matdeeplearn_torch.ops.edge_basis import gaussian_basis
-from matdeeplearn_torch.ops.fused_cgconv import BLOCKS_PER_SM, _basis_constants
+from matdeeplearn_torch.ops.fused_cgconv import _basis_constants
 
 LAUNCHES = {"fused_cfconv_fwd": 0, "fused_cfconv_bwd": 0,
             "fused_cfconv_wgrad_reduce": 0}
 MAX_WIDTH = 256  # the kernels' largest F
+BLOCKS_PER_SM = 2  # the backward's persistent grid
 _LOG2 = 0.6931471805599453
 
 _lib = None

@@ -25,9 +25,11 @@ is zeroed by the wrapper.
 
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts kernel launches. The backward launches two kernels: the
-fused backward, which leaves per-block partial weight gradients, and
-`wgrad_reduce`, which sums them (csrc/fused_cgconv.cu says why).
+`LAUNCHES` counts kernel launches. The backward launches three kernels
+(csrc/fused_cgconv.cu says why): the edge rows (`fused_cgconv_bwd_rows`:
+d_x, d_xj and dA = [d_af | d_as]), the weight gradient in slices
+(`fused_cgconv_wgrad`: zᵀ·dA over strided 32-edge chunks) and the
+fixed-order sum of the slices (`wgrad_reduce`).
 """
 
 from __future__ import annotations
@@ -42,9 +44,10 @@ from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on, segment_sum_plain
 from matdeeplearn_torch.ops.edge_basis import gaussian_basis
 
 LAUNCHES = {"fused_cgconv_fwd": 0, "fused_cgconv_bwd": 0,
-            "fused_cgconv_wgrad_reduce": 0}
+            "fused_cgconv_wgrad": 0, "fused_cgconv_wgrad_reduce": 0}
 MAX_WIDTH = 256      # the kernels' largest D
-BLOCKS_PER_SM = 2    # the backward's persistent grid
+WGRAD_CHUNK = 32     # edges of a weight-gradient chunk (csrc kWK)
+BLOCKS_PER_SM = 2    # weight-gradient blocks per SM the slice count aims at
 
 _lib = None
 
@@ -59,14 +62,23 @@ def _load():
         lib.mdl_fused_cgconv_fwd.argtypes = [vp] * 7 + [cl, ci, ci, ci, cf, cf, vp]
         lib.mdl_fused_cgconv_fwd.restype = ci
         lib.mdl_fused_cgconv_bwd.argtypes = ([vp] * 11
-                                             + [cl, ci, ci, ci, cf, cf, ci, vp])
+                                             + [cl, ci, ci, ci, cf, cf, vp])
         lib.mdl_fused_cgconv_bwd.restype = ci
+        lib.mdl_fused_cgconv_wgrad.argtypes = ([vp] * 7
+                                               + [cl, ci, ci, ci, cf, cf, ci, vp])
+        lib.mdl_fused_cgconv_wgrad.restype = ci
         lib.mdl_fused_cgconv_wgrad_reduce.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.mdl_fused_cgconv_wgrad_reduce.restype = ci
         lib.mdl_fused_cgconv_partial_floats.argtypes = [ci, ci]
         lib.mdl_fused_cgconv_partial_floats.restype = cl
+        lib.mdl_fused_cgconv_wgrad_tiles.argtypes = [ci, ci]
+        lib.mdl_fused_cgconv_wgrad_tiles.restype = ci
         _lib = lib
     return _lib
+
+
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def pack_weights(wfi, wfj, wfe, bf, wsi, wsj, wse, bs) -> torch.Tensor:
@@ -76,6 +88,20 @@ def pack_weights(wfi, wfj, wfe, bf, wsi, wsj, wse, bs) -> torch.Tensor:
                       torch.cat([wfe, wse], 1),
                       torch.cat([bf.reshape(1, -1), bs.reshape(1, -1)], 1)],
                      0).contiguous()
+
+
+def pad_weights(w: torch.Tensor, d: int) -> tuple:
+    """The backward kernel's weights, from pack_weights' w: (Wp, WTp). Wp is
+    w with its rows padded to round8(2D+De+1) and each half of its columns
+    to DP = round8(D), zeros in the pads; WTp is W[:2D]ᵀ in the same padded
+    layout, (2·DP, 2·DP): WTp[h·DP + c, h'·DP + c'] = w[h'·D + c', h·D + c].
+    Every row is then a whole number of 16-byte copies."""
+    k1, dp = w.shape[0], _round(d, 8)
+    wp = w.new_zeros(_round(k1, 8), 2, dp)
+    wp[:k1, :, :d] = w.view(k1, 2, d)
+    wtp = w.new_zeros(2, dp, 2, dp)
+    wtp[..., :d] = wp[:2 * d].view(2, d, 2, dp).permute(2, 3, 0, 1)
+    return wp.view(-1, 2 * dp), wtp.view(2 * dp, 2 * dp)
 
 
 def unpack_weights(w: torch.Tensor, d: int, bias_shape) -> tuple:
@@ -117,14 +143,81 @@ def fused_cgconv_bwd_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi,
         return torch.autograd.grad(out, diff, g)
 
 
+def _edge_terms(x, xj, dist, dst, mask, num_nodes: int, de: int,
+                edge_width: float) -> tuple:
+    """(z, w): the (E, 2D+De+1) rows [x[dst] | xj | basis | 1] and each
+    edge's weight (mask, 0 where dst lies outside [0, num_nodes)), with z
+    zero on edges of weight 0, as the kernels see them."""
+    real = (dst >= 0) & (dst < num_nodes)
+    w = torch.where(real, mask, torch.zeros_like(mask))
+    xi = x[torch.where(real, dst, 0).to(torch.int64)]
+    z = torch.cat([xi, xj, gaussian_basis(dist, 0.0, 1.0, de, edge_width),
+                   torch.ones_like(dist)[:, None]], 1)
+    return torch.where((w != 0)[:, None], z, torch.zeros_like(z)), w
+
+
+def bwd_rows_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj,
+                   wse, bs, num_nodes: int, edge_width: float) -> tuple:
+    """Plain version of the backward's edge kernel: (d_x, d_xj, da), da
+    the (E, 2·DP) rows [d_af | d_as], each half zero-padded to DP =
+    round8(D), zero on masked edges (the kernel leaves those rows
+    unwritten)."""
+    d, de = xj.shape[1], wfe.shape[0]
+    w = pack_weights(wfi, wfj, wfe, bf, wsi, wsj, wse, bs)
+    z, we = _edge_terms(x, xj, dist, dst, mask, num_nodes, de, edge_width)
+    a = z @ w
+    af, as_ = a[:, :d], a[:, d:]
+    idx = torch.where(we != 0, dst, 0).to(torch.int64)
+    gg = g[idx] * we[:, None]
+    sf = torch.sigmoid(af)
+    dan = torch.cat([gg * F.softplus(as_) * sf * (1 - sf),
+                     gg * sf * torch.sigmoid(as_)], 1)
+    dz = dan @ w[:2 * d].t()
+    d_x = torch.zeros_like(x).index_add_(0, idx, dz[:, :d])
+    da = dan.new_zeros(dan.shape[0], 2, _round(d, 8))
+    da[..., :d] = dan.view(-1, 2, d)
+    return d_x, dz[:, d:].contiguous(), da.view(dan.shape[0], -1)
+
+
+def wgrad_partials_plain(x, xj, dist, dst, mask, da, num_nodes: int,
+                         de: int, edge_width: float, slices: int
+                         ) -> torch.Tensor:
+    """Plain version of the weight-gradient kernel: slice s holds the sum
+    over the 32-edge chunks s, s + slices, ... of zᵀ·[d_af | d_as], in
+    wgrad_reduce's micro-tile layout (zeros in its pads)."""
+    d = xj.shape[1]
+    z, w = _edge_terms(x, xj, dist, dst, mask, num_nodes, de, edge_width)
+    dan = da.view(-1, 2, _round(d, 8))[..., :d].reshape(-1, 2 * d)
+    dan = torch.where((w != 0)[:, None], dan, torch.zeros_like(dan))
+    chunk = torch.arange(z.shape[0], device=z.device) // WGRAD_CHUNK
+    dw = torch.stack([z[chunk % slices == s].t() @ dan[chunk % slices == s]
+                      for s in range(slices)])
+    return to_partial_layout(dw)
+
+
+def to_partial_layout(dw: torch.Tensor) -> torch.Tensor:
+    """(S, K, N) slices → wgrad_reduce's flat layout: per slice, micro-tile
+    m = (k // 4)·CG + n // 4 (CG = round4(N)/4) holds dw[4·(m // CG) + i,
+    4·(m % CG) + q] at 16·m + 4·i + q, zeros where k or n overrun."""
+    s, k, n = dw.shape
+    kg, cg = -(-k // 4), -(-n // 4)
+    p = dw.new_zeros(s, 4 * kg, 4 * cg)
+    p[:, :k, :n] = dw
+    return p.view(s, kg, 4, cg, 4).permute(0, 1, 3, 2, 4).reshape(-1)
+
+
+def from_partial_layout(partial: torch.Tensor, k: int, n: int
+                        ) -> torch.Tensor:
+    """Inverse of to_partial_layout: the (S, K, N) slices."""
+    kg, cg = -(-k // 4), -(-n // 4)
+    p = partial.reshape(-1, kg, cg, 4, 4).permute(0, 1, 3, 2, 4)
+    return p.reshape(-1, 4 * kg, 4 * cg)[:, :k, :n]
+
+
 def wgrad_reduce_plain(partial: torch.Tensor, d: int, de: int) -> torch.Tensor:
-    """Plain version of the partial-gradient sum: (blocks, micro-tiles, 4, 4)
-    partials, with micro-tile m covering rows 4·(m // CG) and columns
-    4·(m % CG) (CG = round4(2D)/4), → the (2D+De+1, 2D) weight gradient."""
-    k1, nb = 2 * d + de + 1, 2 * d
-    kg, cg = (k1 + 3) // 4, (nb + 3) // 4
-    s = partial.reshape(-1, kg, cg, 4, 4).sum(0)
-    return s.permute(0, 2, 1, 3).reshape(4 * kg, 4 * cg)[:k1, :nb]
+    """Plain version of the slice sum: the (2D+De+1, 2D) weight gradient
+    from to_partial_layout's slices."""
+    return from_partial_layout(partial, 2 * d + de + 1, 2 * d).sum(0)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -182,15 +275,15 @@ def fused_cgconv(x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj, wse,
 
 def wgrad_reduce(partial: torch.Tensor, blocks: int, d: int, de: int
                  ) -> torch.Tensor:
-    """Sum of the backward's per-block partial weight gradients →
-    (2D+De+1, 2D)."""
+    """Sum of the weight gradient's `blocks` slices → (2D+De+1, 2D), in a
+    fixed order (bit-identical from run to run)."""
     if partial.device.type == "cpu":
         return wgrad_reduce_plain(partial, d, de)
     _check_cuda("partial", partial, torch.float32, 1)
     lib = _load()
     if partial.numel() != blocks * lib.mdl_fused_cgconv_partial_floats(d, de):
         raise ValueError(f"wgrad_reduce: {partial.numel()} partial floats do "
-                         f"not match {blocks} blocks at D={d}, De={de}")
+                         f"not match {blocks} slices at D={d}, De={de}")
     dw = torch.empty((2 * d + de + 1, 2 * d), dtype=torch.float32,
                      device=partial.device)
     with torch.cuda.device(partial.device):
@@ -203,12 +296,15 @@ def wgrad_reduce(partial: torch.Tensor, blocks: int, d: int, de: int
     return dw
 
 
-def fused_cgconv_bwd_partials(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf,
-                              wsi, wsj, wse, bs, num_nodes: int,
-                              edge_width: float) -> tuple:
-    """The backward kernel alone (CUDA tensors only): (d_x, d_xj, partial,
-    blocks), where partial holds each block's share of the weight
-    gradient for wgrad_reduce."""
+def fused_cgconv_bwd_rows(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf,
+                          wsi, wsj, wse, bs, num_nodes: int,
+                          edge_width: float) -> tuple:
+    """The backward's edge kernel: (d_x, d_xj, da), da the (E, 2·DP) rows
+    [d_af | d_as] of real edges for fused_cgconv_wgrad (bwd_rows_plain
+    says the layout; rows of masked edges are not written on the card)."""
+    if x.device.type == "cpu":
+        return bwd_rows_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf,
+                              wsi, wsj, wse, bs, num_nodes, edge_width)
     w = pack_weights(wfi, wfj, wfe, bf, wsi, wsj, wse, bs)
     _check_inputs(x, xj, dist, dst, mask, w)
     _check_cuda("g", g, torch.float32, 2)
@@ -219,25 +315,65 @@ def fused_cgconv_bwd_partials(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf,
                          f"{tuple(x.shape)} must be ({num_nodes}, {d})")
     dev = x.device
     d_x = torch.zeros((num_nodes, d), dtype=torch.float32, device=dev)
-    d_xj = torch.zeros((e, d), dtype=torch.float32, device=dev)
+    da = torch.empty((e, 2 * _round(d, 8)), dtype=torch.float32, device=dev)
+    if e == 0 or d == 0 or num_nodes == 0:
+        return d_x, torch.zeros_like(xj), da
+    d_xj = torch.empty((e, d), dtype=torch.float32, device=dev)
+    wp, wtp = pad_weights(w, d)
     lib = _load()
-    blocks = max(1, min(-(-e // 32), BLOCKS_PER_SM * torch.cuda.get_device_properties(
-        dev).multi_processor_count))
-    partial = torch.zeros(blocks * lib.mdl_fused_cgconv_partial_floats(d, de),
-                          dtype=torch.float32, device=dev)
-    if e > 0 and d > 0 and num_nodes > 0:
-        wt = w[:2 * d].t().contiguous()
-        coeff, step = _basis_constants(de, edge_width)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.mdl_fused_cgconv_bwd(
-                x.data_ptr(), xj.data_ptr(), dist.data_ptr(), dst.data_ptr(),
-                mask.data_ptr(), w.data_ptr(), wt.data_ptr(), g.data_ptr(),
-                d_x.data_ptr(), d_xj.data_ptr(), partial.data_ptr(), e, d, de,
-                num_nodes, coeff, step, blocks, stream)
-        _raise_on(rc, "mdl_fused_cgconv_bwd")
-        LAUNCHES["fused_cgconv_bwd"] += 1
-    return d_x, d_xj, partial, blocks
+    coeff, step = _basis_constants(de, edge_width)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mdl_fused_cgconv_bwd(
+            x.data_ptr(), xj.data_ptr(), dist.data_ptr(), dst.data_ptr(),
+            mask.data_ptr(), wp.data_ptr(), wtp.data_ptr(), g.data_ptr(),
+            d_x.data_ptr(), d_xj.data_ptr(), da.data_ptr(), e, d, de,
+            num_nodes, coeff, step, stream)
+    _raise_on(rc, "mdl_fused_cgconv_bwd")
+    LAUNCHES["fused_cgconv_bwd"] += 1
+    return d_x, d_xj, da
+
+
+def wgrad_slices(e: int, d: int, de: int, device) -> int:
+    """The weight gradient's slice count on a CUDA device: about
+    BLOCKS_PER_SM blocks an SM, and no more slices than 32-edge chunks."""
+    tiles = _load().mdl_fused_cgconv_wgrad_tiles(d, de)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-e // WGRAD_CHUNK), round(BLOCKS_PER_SM * sms / tiles)))
+
+
+def fused_cgconv_wgrad(x, xj, dist, dst, mask, da, num_nodes: int, de: int,
+                       edge_width: float, slices: int | None = None) -> tuple:
+    """The backward's weight-gradient kernel: (partial, slices), the slices
+    of zᵀ·[d_af | d_as] over strided 32-edge chunks in wgrad_reduce's
+    layout. `slices` defaults to wgrad_slices on the card and 1 on the
+    CPU."""
+    if x.device.type == "cpu":
+        s = slices or 1
+        return wgrad_partials_plain(x, xj, dist, dst, mask, da, num_nodes, de,
+                                    edge_width, s), s
+    _check_inputs(x, xj, dist, dst, mask, da)
+    _check_cuda("da", da, torch.float32, 2)
+    e, d = xj.shape
+    if da.shape != (e, 2 * _round(d, 8)):
+        raise ValueError(f"fused_cgconv_wgrad: da {tuple(da.shape)} must be "
+                         f"({e}, {2 * _round(d, 8)})")
+    lib = _load()
+    s = slices or wgrad_slices(e, d, de, x.device)
+    floats = s * lib.mdl_fused_cgconv_partial_floats(d, de)
+    if e == 0 or d == 0 or num_nodes == 0:
+        return torch.zeros(floats, dtype=torch.float32, device=x.device), s
+    partial = torch.empty(floats, dtype=torch.float32, device=x.device)
+    coeff, step = _basis_constants(de, edge_width)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mdl_fused_cgconv_wgrad(
+            x.data_ptr(), xj.data_ptr(), dist.data_ptr(), dst.data_ptr(),
+            mask.data_ptr(), da.data_ptr(), partial.data_ptr(), e, d, de,
+            num_nodes, coeff, step, s, stream)
+    _raise_on(rc, "mdl_fused_cgconv_wgrad")
+    LAUNCHES["fused_cgconv_wgrad"] += 1
+    return partial, s
 
 
 def fused_cgconv_bwd(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj,
@@ -248,11 +384,14 @@ def fused_cgconv_bwd(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj,
         return fused_cgconv_bwd_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe,
                                       bf, wsi, wsj, wse, bs, num_nodes,
                                       edge_width)
-    d_x, d_xj, partial, blocks = fused_cgconv_bwd_partials(
+    d, de = xj.shape[1], wfe.shape[0]
+    d_x, d_xj, da = fused_cgconv_bwd_rows(
         g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj, wse, bs,
         num_nodes, edge_width)
-    dw = wgrad_reduce(partial, blocks, xj.shape[1], wfe.shape[0])
-    return (d_x, d_xj) + unpack_weights(dw, xj.shape[1], bf.shape)
+    partial, slices = fused_cgconv_wgrad(x, xj, dist, dst, mask, da,
+                                         num_nodes, de, edge_width)
+    dw = wgrad_reduce(partial, slices, d, de)
+    return (d_x, d_xj) + unpack_weights(dw, d, bf.shape)
 
 
 # ------------------------------------------------------------------ autograd

@@ -51,8 +51,8 @@ FUSED_MODELS = ("CGCNN", "SchNet", "MPNN")
 
 
 def resolve_kernel(model_name: str, kernel: str, batching: str,
-                   device: torch.device, kernel_precision: str = "f32"
-                   ) -> KernelPlan:
+                   device: torch.device, kernel_precision: str = "f32",
+                   csr_order: str | None = None) -> KernelPlan:
     """The kernel request of a model config → what the port runs, for
     in-memory padded batches (the reference package's _resolve_kernel,
     training/jobs.py:80-199):
@@ -62,14 +62,20 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                ops/fused_cfconv.py; MPNN's NNConv message:
                ops/fused_bilinear.py); the x_j gather stays in torch. GCN
                has no fused kernel: as in the reference, it runs the pallas
-               plan, with the reference's note;
+               plan, with the reference's note. kernel_precision "bf16" is
+               refused for CGCNN and SchNet (the fused kernels sum in f32;
+               the reference runs its single-pass arm there); MPNN's
+               bilinear kernel never reads it, as in the reference;
       csr    — the unfused conv with the CSR kernels (ops/csr.py) on its
                dst-side gathers and aggregation, dst-sorted batches (GCN:
                the edge weights folded into the messages before the sum).
                MPNN's message runs on the bilinear kernel here too, as the
                reference composes it with csr (jobs.py:145-146): for MPNN,
                fused differs from csr only in the batches' kernel_fused
-               flag, which MPNN does not read;
+               flag, which MPNN does not read. csr_order other than "dst"
+               is refused (the src order comes with MEGNet); the other
+               kernels ignore the key, as the reference reads it only for
+               csr;
       pallas — windowed batches (data/batching.py:assemble_batch_windowed)
                and every edge aggregation on the windowed kernels
                (ops/windowed.py): the SpMM where the sum is weighted (GCN),
@@ -86,11 +92,14 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                verdict carried over (the reference's auto never picks its
                fused cfconv, measured slower on its TPU): chip_smoke.py
                times warm training epochs under the other kernels for each
-               model, and PERF.md records what it found.
+               model, and PERF.md records what it found. On a CUDA device a
+               kernel_precision other than "f32" is ignored with a note:
+               the kernels auto picks sum in f32.
 
     A request the port cannot honour raises NotImplementedError naming its
     ROADMAP item; nothing falls back quietly.
     """
+    f32 = str(kernel_precision).lower() == "f32"
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel '{kernel}' — expected one of "
                          "auto|xla|csr|fused|pallas")
@@ -106,16 +115,25 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
         print("kernel=fused applies to CGCNN, SchNet and MPNN; other models "
               "run the windowed aggregation kernel (kernel=pallas behavior)")
         kernel = "pallas"
+    if not f32 and (kernel == "pallas"
+                    or kernel == "fused" and model_name != "MPNN"):
+        which = "windowed" if kernel == "pallas" else "fused"
+        raise NotImplementedError(
+            f"kernel_precision={kernel_precision!r}: the single-pass bf16 "
+            f"arm of the {which} kernels is not ported (ROADMAP queue 1, "
+            f"item 5); the {which} kernels sum in f32")
     if kernel == "pallas":
-        if str(kernel_precision).lower() != "f32":
-            raise NotImplementedError(
-                f"kernel_precision={kernel_precision!r}: the single-pass "
-                "bf16 arm of the windowed kernels is not ported (ROADMAP "
-                "queue 1, item 5); the windowed kernels sum in f32")
         return KernelPlan("pallas", None, False, True)
     if kernel == "auto":
         kernel = ("xla" if device.type != "cuda"
                   else "fused" if model_name in FUSED_MODELS else "csr")
+        if device.type == "cuda" and not f32:
+            print(f"kernel_precision={kernel_precision!r} is ignored: kernel "
+                  f"auto runs {kernel}, whose kernels sum in f32")
+    if kernel == "csr" and str(csr_order or "dst").lower() != "dst":
+        raise NotImplementedError(
+            f"csr_order={csr_order!r}: only the dst order is ported; the src "
+            "order comes with MEGNet (ROADMAP queue 1, item 10)")
     return KernelPlan(kernel, None if kernel == "xla" else "dst",
                       kernel == "fused")
 
@@ -152,7 +170,8 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
     plan = resolve_kernel(
         model_name, str(model_parameters.get("kernel", "auto")).lower(),
         str(model_parameters.get("batching", "padded")).lower(), dev,
-        str(model_parameters.get("kernel_precision", "f32")))
+        str(model_parameters.get("kernel_precision", "f32")),
+        model_parameters.get("csr_order"))
     model = build_model(model_name, dataset, model_parameters,
                         generator=torch.Generator().manual_seed(int(seed)),
                         dropout_seed=int(seed), device="cpu").to(dev)

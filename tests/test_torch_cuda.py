@@ -12,8 +12,8 @@ and cfconv kernels and the bilinear NNConv kernels rtol 1e-4 and atol
 1e-4·max|ref| (atomics, and sums over every edge or hidden unit in another
 order than the plain version's GEMMs); whole-model outputs and gradients
 1e-4 against the same model on the CPU; a short training run's errors 1e-3
-against the CPU. The bilinear weight gradient is bit-identical between two
-calls. The windowed sums (fixed order) rtol 1e-5 and atol 1e-5·max|ref|
+against the CPU. The bilinear, CGConv and cfconv weight gradients are
+bit-identical between two calls. The windowed sums (fixed order) rtol 1e-5 and atol 1e-5·max|ref|
 and bit-identical between two calls; the windowed gather bit-exact.
 """
 
@@ -184,6 +184,31 @@ def test_fused_cgconv_kernels_match_plain(cuda_device, case, d):
     assert float(got[1][mask == 0].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("d", [3, 100, 150, 256])
+def test_fused_cgconv_backward_stages_match_plain(cuda_device, d):
+    """Each kernel of the backward against its plain stage: the edge
+    kernel's d_x, d_xj and the dA rows of real edges, and every slice of
+    the weight-gradient kernel (scattered mask, so chunks mix real and
+    masked edges)."""
+    x, xj, dist, dst, mask, ws, n = _fused_inputs("scattered", d,
+                                                  device=cuda_device)
+    g = torch.randn(n, d, device=cuda_device)
+    args = (x, xj, dist, dst, mask, *ws, n, 0.2)
+    rows = FC.fused_cgconv_bwd_rows(g, *args)
+    ref = FC.bwd_rows_plain(g, *args)
+    real = mask != 0
+    for name, a, b in zip(["d_x", "d_xj", "da"], rows[:2] + (rows[2][real],),
+                          ref[:2] + (ref[2][real],)):
+        _assert_fused_close(a, b, name)
+    partial, slices = FC.fused_cgconv_wgrad(x, xj, dist, dst, mask, rows[2],
+                                            n, 50, 0.2)
+    want = FC.wgrad_partials_plain(x, xj, dist, dst, mask, ref[2], n, 50, 0.2,
+                                   slices)
+    k1 = 2 * d + 51
+    _assert_fused_close(FC.from_partial_layout(partial, k1, 2 * d),
+                        FC.from_partial_layout(want, k1, 2 * d), "slices")
+
+
 def test_fused_cgconv_autograd_and_launch_counts(cuda_device):
     x, xj, dist, dst, mask, ws, n = _fused_inputs("sorted", 16,
                                                   device=cuda_device)
@@ -194,17 +219,30 @@ def test_fused_cgconv_autograd_and_launch_counts(cuda_device):
     cot = torch.randn_like(out)
     (out * cot).sum().backward()
     torch.cuda.synchronize()
-    assert FC.LAUNCHES["fused_cgconv_fwd"] == before["fused_cgconv_fwd"] + 1
-    assert FC.LAUNCHES["fused_cgconv_bwd"] == before["fused_cgconv_bwd"] + 1
-    assert (FC.LAUNCHES["fused_cgconv_wgrad_reduce"]
-            == before["fused_cgconv_wgrad_reduce"] + 1)
+    assert set(FC.LAUNCHES) == {"fused_cgconv_fwd", "fused_cgconv_bwd",
+                                "fused_cgconv_wgrad",
+                                "fused_cgconv_wgrad_reduce"}
+    for k in FC.LAUNCHES:
+        assert FC.LAUNCHES[k] == before[k] + 1, k
     ref = FC.fused_cgconv_bwd_plain(cot, x, xj, dist, dst, mask, *ws, n, 0.2)
     for leaf, r in zip(leaves, ref):
         _assert_fused_close(leaf.grad, r, "autograd")
 
 
-def test_wgrad_reduce_matches_plain(cuda_device):
-    d, de, blocks = 100, 50, 7
+def test_fused_cgconv_wgrad_is_bit_identical(cuda_device):
+    """No atomics touch the weight gradient: two calls give the same bits."""
+    x, xj, dist, dst, mask, ws, n = _fused_inputs("unsorted", 100,
+                                                  device=cuda_device)
+    g = torch.randn(n, 100, device=cuda_device)
+    first = FC.fused_cgconv_bwd(g, x, xj, dist, dst, mask, *ws, n, 0.2)
+    again = FC.fused_cgconv_bwd(g, x, xj, dist, dst, mask, *ws, n, 0.2)
+    for a, b in zip(first[2:], again[2:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d,blocks", [(100, 7), (100, 66), (3, 264)])
+def test_wgrad_reduce_matches_plain(cuda_device, d, blocks):
+    de = 50
     floats = FC._load().mdl_fused_cgconv_partial_floats(d, de)
     partial = torch.randn(blocks * floats, device=cuda_device)
     _assert_fused_close(FC.wgrad_reduce(partial, blocks, d, de),
@@ -367,13 +405,25 @@ def test_fused_cfconv_autograd_and_launch_counts(cuda_device):
         _assert_fused_close(leaf.grad, r, "autograd")
 
 
-@pytest.mark.parametrize("f", [3, 150])
-def test_cfconv_wgrad_reduce_matches_plain(cuda_device, f):
-    de, blocks = 50, 7
+@pytest.mark.parametrize("f,blocks", [(3, 7), (150, 7), (150, 264)])
+def test_cfconv_wgrad_reduce_matches_plain(cuda_device, f, blocks):
+    de = 50
     floats = FS._load().mdl_fused_cfconv_partial_floats(f, de)
     partial = torch.randn(blocks * floats, device=cuda_device)
     _assert_fused_close(FS.wgrad_reduce(partial, blocks, f, de),
                         FS.wgrad_reduce_plain(partial, f, de), "reduce")
+
+
+def test_fused_cfconv_wgrad_is_bit_identical(cuda_device):
+    """The cfconv weight gradients (per-block partials, then the fixed-order
+    sum) give the same bits in two calls."""
+    xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("unsorted", 150,
+                                                      device=cuda_device)
+    g = torch.randn(n, 150, device=cuda_device)
+    args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
+    first, again = FS.fused_cfconv_bwd(g, *args), FS.fused_cfconv_bwd(g, *args)
+    for a, b in zip(first[1:], again[1:]):
+        assert torch.equal(a, b)
 
 
 def test_fused_cfconv_raises_instead_of_falling_back(cuda_device):

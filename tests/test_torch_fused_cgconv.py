@@ -7,6 +7,11 @@ the CPU.
   xj and dist permuted by its `order`, and d_xj mapped back through it.
   Tolerance rtol 1e-4, atol 1e-4·max|ref| (the interpret-mode kernel sums
   hi/lo bf16 products in another order than the port's plain GEMMs).
+* The plain versions of the card's three backward kernels (edge rows,
+  weight-gradient slices, slice sum), composed as the card composes them,
+  against the same JAX gradients (1e-4) and the autograd backward of the
+  plain forward (rtol 1e-5, atol 1e-5·max|ref|: f32 in another order); and
+  the slices' micro-tile layout against a dense sum written out.
 * The port's fused CGConv against its unfused CSR CGConv (same parameters,
   same dst-sorted batch): rtol 1e-5, atol 1e-5·max|ref|.
 * A small CGCNN in training mode under kernel fused against the JAX CGCNN
@@ -53,11 +58,13 @@ def _flat_batches(ds, ids):
     return jb
 
 
-@pytest.mark.parametrize("ids", sorted(IDS))
-def test_fused_op_and_gradients_match_jax_interpret(toy_dataset, ids):
-    d, de, width, tw, te = 16, 20, 0.2, 16, 32
-    jb = _flat_batches(toy_dataset, IDS[ids])
-    n, e = jb.num_nodes, jb.num_edges
+def _jax_case(ds, ids, d=16, de=20, width=0.2, tw=16, te=32):
+    """Inputs of one flat dst-sorted batch and the JAX fused_cgconv's
+    output and ten gradients on them (interpret mode, hilo: `_bwd_kernel`
+    computes the gradients). The JAX side runs the windowed layout of the
+    same batch; d_xj is mapped back through its order."""
+    jb = _flat_batches(ds, ids)
+    n = jb.num_nodes
     rng = np.random.default_rng(0)
     x = (rng.standard_normal((n, d)) * np.asarray(jb.node_mask)[:, None]
          ).astype(np.float32)
@@ -68,7 +75,6 @@ def test_fused_op_and_gradients_match_jax_interpret(toy_dataset, ids):
     mask, dist = np.asarray(jb.edge_mask), np.asarray(jb.edge_dist_norm)
     xj = x[src]
 
-    # JAX: the windowed layout of the same flat dst-sorted batch
     we = windowize_edges(jnp.asarray(dst), jnp.asarray(mask), n, tw, te)
     order, valid = np.asarray(we.order), np.asarray(we.valid) > 0
     cfg = (n, tw, te, de, width, True, True)  # interpret, hilo
@@ -84,17 +90,81 @@ def test_fused_op_and_gradients_match_jax_interpret(toy_dataset, ids):
     d_xj = np.zeros_like(xj)
     d_xj[order[valid]] = jgrads[1][valid]
     jgrads[1] = d_xj
+    return dict(x=x, xj=xj, dist=dist, dst=dst, mask=mask, params=params,
+                cot=cot, n=n, de=de, width=width, jout=np.asarray(jout),
+                jgrads=jgrads)
 
+
+@pytest.mark.parametrize("ids", sorted(IDS))
+def test_fused_op_and_gradients_match_jax_interpret(toy_dataset, ids):
+    c = _jax_case(toy_dataset, IDS[ids])
     # the port: the plain version through its autograd Function
-    leaves = [torch.tensor(a, requires_grad=True) for a in [x, xj] + params]
+    leaves = [torch.tensor(a, requires_grad=True)
+              for a in [c["x"], c["xj"]] + c["params"]]
     out = FC.FusedCGConv.apply(
-        leaves[0], leaves[1], torch.as_tensor(dist), torch.as_tensor(dst),
-        torch.as_tensor(mask), *leaves[2:], n, width)
-    (out * torch.as_tensor(cot)).sum().backward()
-    _close(out.detach().numpy(), jout, 1e-4, "forward")
-    for name, leaf, ref in zip(NAMES, leaves, jgrads):
+        leaves[0], leaves[1], torch.as_tensor(c["dist"]),
+        torch.as_tensor(c["dst"]), torch.as_tensor(c["mask"]), *leaves[2:],
+        c["n"], c["width"])
+    (out * torch.as_tensor(c["cot"])).sum().backward()
+    _close(out.detach().numpy(), c["jout"], 1e-4, "forward")
+    for name, leaf, ref in zip(NAMES, leaves, c["jgrads"]):
         _close(leaf.grad.numpy(), ref, 1e-4, f"d_{name}")
-    assert not leaves[1].grad.numpy()[mask == 0].any()
+    assert not leaves[1].grad.numpy()[c["mask"] == 0].any()
+
+
+@pytest.mark.parametrize("slices", [1, 3])
+@pytest.mark.parametrize("ids", sorted(IDS))
+def test_backward_stages_match_jax_bwd_kernel_and_autograd(toy_dataset, ids,
+                                                           slices):
+    """The plain versions of the backward's three kernels, composed as the
+    card composes them (edge rows, weight-gradient slices, slice sum),
+    against JAX's `_bwd_kernel` gradients (interpret mode) and the autograd
+    backward of the plain forward; tolerances as above."""
+    c = _jax_case(toy_dataset, IDS[ids])
+    t = {k: torch.as_tensor(c[k]) for k in ("x", "xj", "dist", "dst", "mask",
+                                            "cot")}
+    ws = [torch.as_tensor(p) for p in c["params"]]
+    args = (t["x"], t["xj"], t["dist"], t["dst"], t["mask"], *ws, c["n"],
+            c["width"])
+    d_x, d_xj, da = FC.fused_cgconv_bwd_rows(t["cot"], *args)
+    d = t["xj"].shape[1]
+    assert da.shape == (t["xj"].shape[0], 2 * 16)       # D 16: no pad columns
+    assert not da.numpy()[c["mask"] == 0].any()
+    partial, s = FC.fused_cgconv_wgrad(*args[:5], da, c["n"], c["de"],
+                                       c["width"], slices)
+    assert s == slices
+    dw = FC.wgrad_reduce(partial, s, d, c["de"])
+    got = (d_x, d_xj) + FC.unpack_weights(dw, d, ws[3].shape)
+    auto = FC.fused_cgconv_bwd_plain(t["cot"], *args)
+    for name, a, jref, aref in zip(NAMES, got, c["jgrads"], auto):
+        _close(a.numpy(), jref, 1e-4, f"d_{name} vs JAX")
+        _close(a.numpy(), aref.numpy(), 1e-5, f"d_{name} vs autograd")
+
+
+@pytest.mark.parametrize("d,de", [(3, 7), (100, 50)])
+def test_wgrad_layout_and_plain_sum(d, de):
+    """Micro-tile m of a slice covers rows 4·(m // CG) and columns
+    4·(m % CG) of the (2D+De+1, 2D) gradient (CG = round4(2D)/4);
+    wgrad_reduce_plain is the dense sum of the slices, and the layout
+    round-trips."""
+    k1, nb = 2 * d + de + 1, 2 * d
+    kg, cg, slices = -(-k1 // 4), -(-nb // 4), 5
+    rng = np.random.default_rng(d)
+    partial = rng.standard_normal((slices, kg * cg, 4, 4)).astype(np.float32)
+    dense = np.zeros((slices, 4 * kg, 4 * cg), np.float64)
+    for s in range(slices):
+        for m in range(kg * cg):
+            k, c = 4 * (m // cg), 4 * (m % cg)
+            dense[s, k:k + 4, c:c + 4] = partial[s, m]
+    p = torch.as_tensor(partial.reshape(-1))
+    np.testing.assert_array_equal(FC.from_partial_layout(p, k1, nb).numpy(),
+                                  dense[:, :k1, :nb])
+    np.testing.assert_allclose(FC.wgrad_reduce_plain(p, d, de).numpy(),
+                               dense[:, :k1, :nb].sum(0), rtol=1e-5, atol=1e-5)
+    back = FC.to_partial_layout(torch.as_tensor(dense[:, :k1, :nb]).float())
+    np.testing.assert_array_equal(
+        FC.from_partial_layout(back, k1, nb).numpy(),
+        dense[:, :k1, :nb].astype(np.float32))
 
 
 @pytest.mark.parametrize("ids", sorted(IDS))

@@ -376,6 +376,16 @@ def test_resolve_kernel_for_schnet():
         TJ.resolve_kernel("SchNet", "fused", "packed", cuda)
 
 
+def test_resolve_kernel_for_schnet_refuses_bf16_under_fused(capsys):
+    """The fused cfconv kernels sum in f32: an explicit fused request for
+    the single-pass bf16 arm raises; auto on the card notes the key."""
+    cuda = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        TJ.resolve_kernel("SchNet", "fused", "padded", cuda, "bf16")
+    assert TJ.resolve_kernel("SchNet", "auto", "padded", cuda, "bf16").fused
+    assert "kernel_precision='bf16' is ignored" in capsys.readouterr().out
+
+
 def _read_csv(path):
     with open(path) as f:
         rows = list(csv.reader(f))

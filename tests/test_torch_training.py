@@ -315,6 +315,52 @@ def test_resolve_kernel():
             TJ.resolve_kernel(*args, cpu)
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_resolve_kernel_refuses_bf16_under_fused(device):
+    """The fused CGConv kernels sum in f32: a request for the reference's
+    single-pass bf16 arm raises instead of running f32 quietly. MPNN's
+    bilinear kernel never reads the key (as in the reference)."""
+    dev = torch.device(device)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        TJ.resolve_kernel("CGCNN", "fused", "padded", dev, "bf16")
+    assert TJ.resolve_kernel("CGCNN", "fused", "padded", dev, "F32").fused
+    assert TJ.resolve_kernel("MPNN", "fused", "padded", dev, "bf16").fused
+
+
+def test_auto_on_cuda_notes_ignored_kernel_precision(capsys):
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    plan = TJ.resolve_kernel("CGCNN", "auto", "padded", cuda, "bf16")
+    note = capsys.readouterr().out
+    assert "kernel_precision='bf16' is ignored" in note
+    assert f"runs {plan.name}" in note and "sum in f32" in note
+    TJ.resolve_kernel("CGCNN", "auto", "padded", cuda, "f32")
+    TJ.resolve_kernel("CGCNN", "auto", "padded", cpu, "bf16")  # xla: unread
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("kernel,order,raises", [
+    ("csr", "src", True), ("csr", "SRC", True), ("csr", "dst", False),
+    ("csr", None, False), ("xla", "src", False), ("fused", "src", False),
+    ("pallas", "src", False)])
+def test_resolve_kernel_csr_order(kernel, order, raises):
+    """csr_order is read where the reference reads it, under csr: only the
+    dst order is ported (the src order comes with MEGNet)."""
+    cpu = torch.device("cpu")
+    if raises:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            TJ.resolve_kernel("CGCNN", kernel, "padded", cpu, csr_order=order)
+    else:
+        assert TJ.resolve_kernel("CGCNN", kernel, "padded", cpu,
+                                 csr_order=order).name == kernel
+
+
+def test_setup_run_reads_csr_order(toy_dataset):
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TJ.setup_run(toy_dataset, {**MODEL, "kernel": "csr",
+                                   "csr_order": "src"}, "l1_loss",
+                     device="cpu")
+
+
 def _config(tmp_path, data_dir, **models):
     with open(os.path.join(REPO, "config.yml")) as f:
         cfg = yaml.safe_load(f)
