@@ -755,7 +755,9 @@ def bilinear_inputs(batch, d, h, k, g, dev):
 
 def check_bilinear(batch, dev):
     """The bilinear NNConv kernels against their plain versions on the
-    card; returns the largest |kernel - plain| of each kernel."""
+    card; returns the largest |kernel - plain| of each kernel. Every
+    comparison of every case runs and prints its worst share of the limit
+    (limit_share) before the first failure is raised."""
     from matdeeplearn_torch.ops import fused_bilinear as FB
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -764,6 +766,21 @@ def check_bilinear(batch, dev):
     perm = torch.randperm(e, device=dev, generator=g)
     scattered = mask * (torch.rand(e, device=dev, generator=g) > 0.3).float()
     err = {k: 0.0 for k in FB.LAUNCHES}
+    failures = []
+
+    def reading(pairs, what):
+        """max |out - ref| and the worst limit_share over (name, out, ref)
+        pairs; a failed assert_fused is kept, not raised."""
+        diff = share = 0.0
+        for n, out, ref in pairs:
+            try:
+                diff = max(diff, assert_fused(out, ref, f"{what} {n}"))
+            except AssertionError as exc:
+                failures.append(str(exc))
+                diff = max(diff, float((out - ref).abs().max()))
+            share = max(share, limit_share(out, ref))
+        return diff, share
+
     for d, h, k in ((100, 100, 100), (3, 7, 5), (150, 100, 150)):
         xj, a, w1, b1 = bilinear_inputs(batch, d, h, k, g, dev)
         cot = torch.randn(e, k, device=dev, generator=g)
@@ -773,30 +790,36 @@ def check_bilinear(batch, dev):
                  ("scattered mask", xj, a, scattered, cot)]
         for name, xjv, av, mv, cv in cases:
             what = f"D={d}, H={h}, K={k}, {name}"
+            failed = len(failures)
             args = (xjv, av, w1, b1, mv)
             out = FB.fused_bilinear(*args)
-            fwd = assert_fused(out, FB.fused_bilinear_plain(*args),
-                               f"bilinear forward, {what}")
+            fwd, s_fwd = reading([("output", out, FB.fused_bilinear_plain(*args))],
+                                 f"bilinear forward, {what}:")
             rows = FB.fused_bilinear_bwd_rows(cv, *args)
             dw = FB.fused_bilinear_wgrad(cv, xjv, av, mv)
             if not torch.equal(FB.fused_bilinear_wgrad(cv, xjv, av, mv), dw):
                 raise AssertionError(f"bilinear dW, {what}: two calls differ")
             got = (*rows, *FB.split_wgrad(dw, w1.shape, b1.shape))
-            refs = FB.fused_bilinear_bwd_plain(cv, *args)
-            errs = [assert_fused(x, r, f"bilinear d_{n}, {what}")
-                    for n, x, r in zip(BILINEAR_GRADS, got, refs)]
+            pairs = list(zip(BILINEAR_GRADS, got,
+                             FB.fused_bilinear_bwd_plain(cv, *args)))
+            bwd, s_bwd = reading(pairs[:2], f"bilinear, {what}: d_")
+            wgr, s_wgr = reading(pairs[2:], f"bilinear, {what}: d_")
             for t in (out, *rows):
                 if float(t[mv == 0].abs().max()) != 0.0:
                     raise AssertionError(f"bilinear, {what}: masked rows are "
                                          "not exactly zero")
-            err["fused_bilinear_fwd"] = max(err["fused_bilinear_fwd"], fwd)
-            err["fused_bilinear_bwd"] = max(err["fused_bilinear_bwd"], *errs[:2])
-            err["fused_bilinear_wgrad"] = max(err["fused_bilinear_wgrad"],
-                                              *errs[2:])
-            print(f"  bilinear kernel check ok: {what}: forward max |diff| "
-                  f"{fwd:.3e}, d_xj/d_a {max(errs[:2]):.3e}, d_w1/d_b1 "
-                  f"{max(errs[2:]):.3e} (bit-identical twice); masked rows "
-                  f"zero")
+            for key, v in (("fused_bilinear_fwd", fwd), ("fused_bilinear_bwd", bwd),
+                           ("fused_bilinear_wgrad", wgr)):
+                err[key] = max(err[key], v)
+            verdict = "ok" if len(failures) == failed else "FAILED"
+            print(f"  bilinear kernel check {verdict}: {what}: forward max "
+                  f"|diff| {fwd:.3e}, d_xj/d_a {bwd:.3e}, d_w1/d_b1 {wgr:.3e} "
+                  f"(bit-identical twice); masked rows zero; worst share of "
+                  f"the limit: forward {s_fwd:.3g}, d_xj/d_a {s_bwd:.3g}, "
+                  f"d_w1/d_b1 {s_wgr:.3g}")
+    if failures:
+        raise AssertionError(f"{len(failures)} bilinear checks failed; the "
+                             f"first: {failures[0]}")
     return err
 
 
@@ -806,7 +829,9 @@ def time_bilinear(batch, dev, d=100, h=100, k=100):
     library yardstick is one torch.einsum over the same inputs (and its
     autograd backward to xj and a alone, the backward kernel's outputs);
     the port never calls it. Each bound counts the function's operations,
-    not the kernel's schedule."""
+    not the kernel's schedule: the forward and the weight gradient at the
+    3xTF32 rate of their tensor-core kernels (with the FMA pipes' rate
+    beside it as fma_bound_ms), the backward to the rows at the FMA rate."""
     from matdeeplearn_torch.ops import fused_bilinear as FB
 
     g = torch.Generator(device=dev).manual_seed(9)
@@ -828,14 +853,18 @@ def time_bilinear(batch, dev, d=100, h=100, k=100):
     ge = cot * mask[:, None]
     units = h + 1
     w_floats = units * d * k
+    # the forward's and the weight gradient's bytes (inputs once, output
+    # once) and operations (X, then one GEMM)
+    fwd_bytes = 4 * (e_real * (d + h + k) + e + w_floats)
+    fwd_flops = e_real * h * d + 2 * e_real * units * d * k
     res = {
         "fused_bilinear_fwd": {
             "ms": device_ms(lambda: FB.fused_bilinear(*args), 20),
             "plain_ms": device_ms(lambda: FB.fused_bilinear_plain(*args), 10),
             "library_ms": device_ms(lambda: library(*args[:4]), 10),
             # X = [a | 1]·xj, then X @ [W1; b1]
-            **bound(4 * (e_real * (d + h + k) + e + w_floats),
-                    e_real * h * d + 2 * e_real * units * d * k),
+            **bound(fwd_bytes, fwd_flops, TF32X3_FLOPS),
+            "fma_bound_ms": bound(fwd_bytes, fwd_flops)["bound_ms"],
         },
         "fused_bilinear_bwd": {
             "ms": device_ms(lambda: FB.fused_bilinear_bwd_rows(cot, *args), 20),
@@ -854,8 +883,8 @@ def time_bilinear(batch, dev, d=100, h=100, k=100):
             "library_ms": device_ms(lambda: torch.einsum(
                 "eh,ed,ek->hdk", a_ext, xj, ge), 10),
             # X = [a | 1]·xj, then Xᵀ ge
-            **bound(4 * (e_real * (d + h + k) + e + w_floats),
-                    e_real * h * d + 2 * e_real * units * d * k),
+            **bound(fwd_bytes, fwd_flops, TF32X3_FLOPS),
+            "fma_bound_ms": bound(fwd_bytes, fwd_flops)["bound_ms"],
         },
     }
     return res, e_real
@@ -1287,10 +1316,14 @@ def main() -> int:
     btimes, be_real = time_bilinear(tbatch, dev)
     times.update(btimes)
     for k, t in btimes.items():
+        fma = (f"; at the 67 TFLOP/s FMA rate {t['fma_bound_ms']:.4f} ms, "
+               f"{100 * t['fma_bound_ms'] / t['ms']:.1f}%"
+               if "fma_bound_ms" in t else "")
         print(f"{k} on {smi}, E={tspec.num_edges} ({be_real} real), "
               f"D=H=K=100: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
               f"ms, library {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of it{fma})")
     del tdata, tbatch
 
     # ---- windowed kernels at a GCN_demo training batch's layout ----------

@@ -22,6 +22,15 @@ constexpr int kMaxShared = 232448;
 constexpr int kBadShape = 1001;  // a width over 256, or too much shared memory
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+__host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
+
+// The smallest stride >= v that is 4 mod 32: an A fragment's 8 rows x 4
+// columns then fall in 32 distinct banks.
+__host__ __device__ inline int stride_a(int v) { return v + (36 - v % 32) % 32; }
+
+// The smallest stride >= v that is 8 mod 16 (8 or 24 mod 32): a B
+// fragment's 4 rows x 8 columns then fall in 32 distinct banks.
+__host__ __device__ inline int stride_b(int v) { return v + (24 - v % 16) % 16; }
 
 // Columns a thread owns (of 32 * CPT): the smallest instantiated CPT that
 // covers n columns, or 0 when n > 256.
@@ -159,10 +168,12 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   return r;
 }
 
+// lo is rounded as cvt.rna would, in two integer operations: v - hi is
+// finite wherever v is, and where v is not, hi carries it.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
+  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
 // d += a·b for one m16n8k8 TF32 fragment: a (16 x 8, row) in 4 registers,
@@ -189,6 +200,29 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ahi, bhi[0], bhi[1]);
 }
 
+// acc[mt][i] += A[mt] · B[i] in 3xTF32, pass by pass over all fragments
+// (lo·hi, then hi·lo, then hi·hi): each accumulator takes its three
+// products in mma_3xtf32's order, and no mma.sync waits on the one issued
+// just before it.
+template <int MT, int NTW>
+__device__ __forceinline__ void mma_3xtf32_tile(
+    float (&acc)[MT][NTW][4], const uint32_t (&ahi)[MT][4],
+    const uint32_t (&alo)[MT][4], const uint32_t (&bhi)[NTW][2],
+    const uint32_t (&blo)[NTW][2]) {
+#pragma unroll
+  for (int i = 0; i < NTW; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][i], alo[mt], bhi[i][0], bhi[i][1]);
+#pragma unroll
+  for (int i = 0; i < NTW; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][i], ahi[mt], blo[i][0], blo[i][1]);
+#pragma unroll
+  for (int i = 0; i < NTW; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][i], ahi[mt], bhi[i][0], bhi[i][1]);
+}
+
 // 16-byte global → shared copy; src_bytes 0 fills the 16 bytes with zeros.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes = 16) {
@@ -199,6 +233,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// 4-byte global → shared copy; src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes = 4) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
 }
 
 template <int N>

@@ -15,44 +15,70 @@
 //   d_xj[e]  = Σ_{h<=H} a[e,h] * U[e,h]
 //   d_a[e,h] = xj[e] · U[e,h]                                     (h < H)
 //   dW[h]    = Σ_e (a[e,h] * xj[e])^T ge[e]                       (D x K)
-// so msg = X @ W with X[e, h*D + d] = a[e,h] * xj[e,d], and dW = X^T ge.
-// Neither X nor the (E, D, K) per-edge weight tensor is ever stored. A row
-// whose mask is 0 is skipped: its msg, d_xj and d_a rows stay the caller's
-// zeros and it adds nothing to dW.
+// so msg = X @ W with X[e, r] = [a | 1][e, r / D] * xj[e, r % D] over the
+// flat reduction r < (H+1)*D (row h*D + d of W is unit h's row d), and
+// dW = X^T ge. Neither X nor the (E, D, K) per-edge weight tensor is ever
+// stored. A row whose mask is 0 is skipped: its msg, d_xj and d_a rows
+// stay the caller's zeros and it adds nothing to dW.
 //
 // Bound: operations. At MPNN_demo width (D = K = H = 100) a real edge costs
 // 2*(H+1)*D*K ≈ 2.02 MFLOP forward and twice that backward (U, and dW),
-// against ~1.2 KB of its rows. Plain f32 FMA out of shared memory; no
-// tensor cores (a later PR's speed work):
+// against ~1.2 KB of its rows.
 //
-// * Forward and backward (d_xj, d_a): one block of 256 threads owns a tile
-//   of 64 edges, loaded once into shared memory (xj for the forward; ge and
-//   xj for the backward). For each unit h it runs one (64 x D) @ (D x K)
-//   product (forward) or (64 x K) @ (K x D) product (backward, against W[h]
-//   transposed by the caller) with W[h] streamed through shared memory in
-//   chunks of up to 32 KB. Thread (tx, ty) of the 8 warps accumulates rows
-//   ty + 8r (r < 8) and columns tx + 32j (j < CPT) in registers: every
-//   value read from shared memory feeds 8 FMAs. The unit's product lands
-//   in a second set of registers, which the epilogue folds in: the forward
-//   adds a[e,h] times it to the message; the backward adds a[e,h] times U
-//   to d_xj and reduces xj · U across the warp (one warp holds whole rows)
-//   into d_a[e,h]. A tile with no real edge costs one barrier.
-// * dW is ((H+1)*D x K): 4 MB at MPNN_demo, too large for per-block copies
-//   of it. So it has a kernel of its own, over work items (slice of 64
-//   rows of the flat dW) x (edge split s of S), walked by a persistent
-//   grid of as many blocks as the card holds at once. An item sums the
-//   edge tiles s, s + S, s + 2S, ... in order (interleaved, so the tail of
-//   pad slots spreads over the splits) into its 64 x K slice in registers
-//   (8 rows and CPT columns a thread) and writes it to its split's
-//   partial; the last of the S items of a slice to finish (an atomic
-//   count) adds the S partials in the order s = 0..S-1. So repeated runs
-//   give bit-identical dW. The flat rows (row h*D + d is unit h's row d)
-//   waste no rows at D = 100. A slice reads its 64 columns of X, built from
-//   xj and a, and all of ge: ~30 MB at MPNN_demo's training batch, ~4.7 GB
-//   from L2 over its 158 slices, against ~0.06 GB of inputs.
+// The forward and the weight gradient run on the tensor cores: mma.sync
+// m16n8k8 in 3xTF32 (edge_tile.cuh: each operand split into TF32 hi + lo,
+// lo·hi + hi·lo + hi·hi accumulated in f32, f32 accuracy), issued pass by
+// pass over a warp's fragments (mma_3xtf32_tile) so that no mma waits on
+// the one before it. In both, the operand that the warps share is split
+// once per chunk into shared memory in fragment order (a warp loads a B
+// fragment's hi and lo as one 16-byte load a lane), and the generated
+// operand X (or X^T) is formed once per chunk in shared memory as f32 and
+// split by each warp as it loads its A fragment. Bound of each at the
+// 3xTF32 rate (495/3 TFLOP/s): 9.24e10 operations ≈ 0.56 ms at chip_smoke's
+// training batch (45,509 real edges in 80,176 slots).
 //
-// The caller zeroes out, d_xj, d_a and the counts, and allocates
-// everything; the kernels never synchronise.
+// * mdl_fused_bilinear_fwd: msg = mask * (X @ W) as one GEMM. A block of
+//   256 threads owns a tile of 128 edges (64 where K > 128 or the tile does
+//   not fit, 32 after that): its xj rows and [a | 1 | 0] rows are loaded
+//   once into shared memory. W, zero-padded by the wrapper to a multiple of
+//   32 rows and round8(K) columns, streams through in chunks of 32 flat
+//   rows. The warps specialise: 4 multiply (2 x 2, each 64 edges x NTW
+//   n8-tiles, 28 accumulators at K = 100) while the other 4 load W chunk
+//   c + 1 into registers, split it into the free W buffer and build X chunk
+//   c + 1 (X[e, r] for the chunk's 32 flat rows r, which may span units:
+//   any D works); one barrier a chunk. At D = H = K = 100: shared memory
+//   208 KB (W 2 x 28.7 KB, X 2 x 18.4 KB, the xj tile 51 KB, the [a | 1]
+//   tile 67.6 KB), one block an SM; W is read from L2 once per tile with a
+//   real edge (~1.4 GB at that batch). A tile with no real edge costs one
+//   barrier; the epilogue scales by the mask and writes real rows only.
+// * mdl_fused_bilinear_wgrad: dW = X^T (mask * g) as a split-K GEMM.
+//   live_chunks_kernel first lists the 32-edge chunks that hold a real
+//   edge (a batch's tail of pads drops out). Block (split s, tile) owns 128
+//   flat rows x up to 128 columns of dW in registers (8 warps in 4 x 2,
+//   each 32 rows x its n8-tiles) and walks the listed chunks s, s + S, ...
+//   Each chunk's xj rows, [a | 1] columns for the tile's units and g
+//   columns come by cp.async (16-byte where the widths allow) two chunks
+//   ahead into a two-slot ring; after each chunk's product the block
+//   builds the next chunk's X^T and its mask * g, split in fragment order
+//   (two barriers a chunk). At D = H = K = 100: 79 tiles, 105 KB of shared
+//   memory and two blocks an SM; S from the SM count, so that tiles x S
+//   blocks fill their last wave best (S = 10 on 132 SMs). Each block reads
+//   xj and g of its split's chunks once (~2.9 GB from L2 over all blocks)
+//   and writes its tile once, never adds, into its split's partial in
+//   wgrad_reduce_kernel's layout; that kernel (edge_tile.cuh) sums the S
+//   partials in a fixed order. No atomics touch dW and no buffer is
+//   zeroed, so dW is bit-identical from run to run on one card.
+// * mdl_fused_bilinear_bwd (d_xj, d_a): plain f32 FMA out of shared
+//   memory. One block of 256 threads owns a tile of 64 edges, loaded once
+//   (ge and xj). For each unit h it runs one (64 x K) @ (K x D) product
+//   against W[h] transposed by the caller, streamed through shared memory
+//   in chunks of up to 32 KB; thread (tx, ty) of the 8 warps accumulates
+//   rows ty + 8r (r < 8) and columns tx + 32j (j < CPT) in registers. The
+//   epilogue adds a[e,h] times U to d_xj and reduces xj · U across the
+//   warp (one warp holds whole rows) into d_a[e,h].
+//
+// The caller zeroes out, d_xj and d_a, and allocates everything; the
+// kernels never synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,13 +87,9 @@
 
 namespace {
 
-constexpr int kBTE = 64;            // edges per tile (forward, backward)
+constexpr int kBTE = 64;            // edges per tile of the backward
 constexpr int kBRows = kBTE / 8;    // tile rows per thread (8 warps)
-constexpr int kChunkFloats = 8192;  // 32 KB: largest shared chunk of W[h]
-constexpr int kWTE = 32;            // edges per step of the dW kernel
-constexpr int kWRows = 64;          // rows of the flat dW a dW item owns
-constexpr int kItemsPerSlot = 4;    // dW items per resident block
-static_assert(kThreads % kWRows == 0, "a dW thread loads one X column");
+constexpr int kChunkFloats = 8192;  // 32 KB: largest shared chunk of W[h]^T
 
 struct Geometry {
   long long e;  // edge slots
@@ -89,12 +111,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// sc_s[r] = mask of edge e0 + r (0 past the end) for the tile's kBTE rows;
+// sc_s[r] = mask of edge e0 + r (0 past the end) for the tile's TE rows;
 // returns, uniformly across the block, whether any of them is real.
+template <int TE = kBTE>
 __device__ bool load_scale(const float* __restrict__ mask, long long e0,
                            long long e, float* sc_s) {
   bool real = false;
-  if (threadIdx.x < kBTE) {
+  if (threadIdx.x < TE) {
     const long long i = e0 + threadIdx.x;
     const float m = i < e ? mask[i] : 0.f;
     sc_s[threadIdx.x] = m;
@@ -185,55 +208,6 @@ __device__ void unit_gemm(const float* __restrict__ a_s, int lda, int ka,
   }
 }
 
-template <int CPT>
-__global__ void __launch_bounds__(kThreads)
-bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
-                    const float* __restrict__ w,
-                    const float* __restrict__ mask, float* __restrict__ out,
-                    Geometry g, int kc) {
-  constexpr int ldn = 32 * CPT;
-  const int ldx = round4(g.d);
-  extern __shared__ float4 smem4[];
-  float* x_s = reinterpret_cast<float*>(smem4);  // kBTE x ldx
-  float* b_s = x_s + kBTE * ldx;                 // kc x ldn
-  float* sc_s = b_s + kc * ldn;                  // kBTE
-
-  const long long e0 = (long long)blockIdx.x * kBTE;
-  if (!load_scale(mask, e0, g.e, sc_s)) return;
-  load_rows(xj, e0, g.d, ldx, sc_s, false, x_s);
-
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  float acc[kBRows][CPT], part[kBRows][CPT];
-#pragma unroll
-  for (int r = 0; r < kBRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[r][j] = 0.f;
-  }
-  for (int h = 0; h <= g.h; ++h) {
-    unit_gemm<CPT>(x_s, ldx, g.d, w + (long long)h * g.d * g.k, g.k, kc, b_s,
-                   part);
-#pragma unroll
-    for (int r = 0; r < kBRows; ++r) {
-      const int row = ty + 8 * r;
-      const float ah = unit_weight(a, e0 + row, h, g, sc_s[row]);
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[r][j] = fmaf(ah, part[r][j], acc[r][j]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kBRows; ++r) {
-    const int row = ty + 8 * r;
-    const float s = sc_s[row];
-    if (s == 0.f) continue;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = tx + 32 * j;
-      if (c < g.k) out[(e0 + row) * g.k + c] = s * acc[r][j];
-    }
-  }
-}
-
 // wt holds W[h]^T (K x D) for each unit, (H+1) x K x D.
 template <int CPT>
 __global__ void __launch_bounds__(kThreads)
@@ -294,144 +268,6 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
   }
 }
 
-// Work item i of slices * S: slice = i % slices covers rows r0 = 64 *
-// slice .. r0 + 63 of the flat ((H+1)*D x K) dW, row h*D + d being unit h's
-// row d (a slice may span two units); split s = i / slices walks the edge
-// tiles s, s + S, s + 2S, ... in order. Thread (tx, ty) owns rows r0 + 8 *
-// ty + i (i < 8) and columns tx + 32j. Items that run at the same time
-// share their split, so their reads of xj and ge meet in L2. partial holds
-// S copies of dW, counts one zero per slice.
-template <int CPT>
-__global__ void __launch_bounds__(kThreads)
-bilinear_wgrad_kernel(const float* __restrict__ xj,
-                      const float* __restrict__ a,
-                      const float* __restrict__ mask,
-                      const float* __restrict__ gout,
-                      float* __restrict__ partial, int* __restrict__ counts,
-                      float* __restrict__ dw, Geometry g, int splits) {
-  constexpr int ldn = 32 * CPT;
-  __shared__ __align__(16) float x_s[kWTE * kWRows];  // X[e, r0..r0+63]
-  __shared__ __align__(16) float g_s[kWTE * ldn];     // ge[e]
-  __shared__ float sc_s[kWTE];
-  __shared__ int last;
-
-  const int rows = (g.h + 1) * g.d;
-  const int slices = (rows + kWRows - 1) / kWRows;
-  const long long items = (long long)slices * splits;
-  const long long tiles = (g.e + kWTE - 1) / kWTE;
-  const long long plane = (long long)rows * g.k;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  // the X column this thread loads (kThreads is a multiple of kWRows)
-  const int col = threadIdx.x % kWRows;
-
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    const int slice = (int)(item % slices);
-    const int s = (int)(item / slices);
-    const int r0 = slice * kWRows;
-    const int fr = r0 + col;
-    const int uh = fr / g.d;  // unit and row of W this thread's column is
-    const int ud = fr - uh * g.d;
-    float acc[8][CPT];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-    }
-    for (long long t = s; t < tiles; t += splits) {
-      const long long e0 = t * kWTE;
-      // sc_s is read only before the second barrier below, which every
-      // thread of the previous step has passed
-      bool real = false;
-      if (threadIdx.x < kWTE) {
-        const long long e = e0 + threadIdx.x;
-        const float m = e < g.e ? mask[e] : 0.f;
-        sc_s[threadIdx.x] = m;
-        real = m != 0.f;
-      }
-      // every thread is also done reading the previous step's x_s and g_s
-      if (!__syncthreads_or(real)) continue;
-      for (int i = threadIdx.x; i < kWTE * kWRows; i += kThreads) {
-        const int r = i / kWRows;
-        const long long e = e0 + r;
-        const float m = sc_s[r];
-        x_s[i] = (m != 0.f && fr < rows)
-                     ? unit_weight(a, e, uh, g, m) * xj[e * g.d + ud]
-                     : 0.f;
-      }
-      for (int i = threadIdx.x; i < kWTE * ldn; i += kThreads) {
-        const int r = i / ldn;
-        const int c = i - r * ldn;
-        const float m = sc_s[r];
-        g_s[i] = (m != 0.f && c < g.k) ? m * gout[(e0 + r) * g.k + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < kWTE; ++r) {
-        const float4 x0 =
-            *reinterpret_cast<const float4*>(x_s + r * kWRows + 8 * ty);
-        const float4 x1 =
-            *reinterpret_cast<const float4*>(x_s + r * kWRows + 8 * ty + 4);
-        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float gv = g_s[r * ldn + tx + 32 * j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(xv[i], gv, acc[i][j]);
-        }
-      }
-    }
-
-    // this split's rows, then the last item of the slice adds all S
-    float* mine = partial + s * plane + (long long)r0 * g.k;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (r0 + 8 * ty + i >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 32 * j;
-        if (c < g.k) mine[(8 * ty + i) * g.k + c] = acc[i][j];
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) last = atomicAdd(counts + slice, 1) == splits - 1;
-    __syncthreads();
-    if (last) {
-      __threadfence();
-      const long long base = (long long)r0 * g.k;
-      const int n = min(kWRows, rows - r0) * g.k;
-      for (int i = threadIdx.x; i < n; i += kThreads) {
-        float v = 0.f;
-        for (int p = 0; p < splits; ++p) {
-          v += __ldcg(partial + p * plane + base + i);
-        }
-        dw[base + i] = v;
-      }
-    }
-    __syncthreads();  // `last` is rewritten by the next item
-  }
-}
-
-template <int CPT>
-int launch_fwd(const float* xj, const float* a, const float* w,
-               const float* mask, float* out, const Geometry& g,
-               cudaStream_t s) {
-  const int ldn = 32 * CPT;
-  const int kc = chunk_rows(g.d, ldn);
-  const size_t smem =
-      sizeof(float) * ((size_t)kBTE * round4(g.d) + (size_t)kc * ldn + kBTE);
-  if (smem > (size_t)kMaxShared) return kBadShape;
-  cudaError_t err = cudaFuncSetAttribute(
-      bilinear_fwd_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (g.e + kBTE - 1) / kBTE;
-  bilinear_fwd_kernel<CPT><<<(unsigned)tiles, kThreads, smem, s>>>(
-      xj, a, w, mask, out, g, kc);
-  return (int)cudaGetLastError();
-}
-
 template <int CPT>
 int launch_bwd(const float* xj, const float* a, const float* wt,
                const float* mask, const float* gout, float* dxj, float* da,
@@ -452,36 +288,621 @@ int launch_bwd(const float* xj, const float* a, const float* wt,
   return (int)cudaGetLastError();
 }
 
-// Slices of the flat dW: blocks of kWRows of its (H+1)*D rows.
-int wgrad_slices(int d, int h) { return ((h + 1) * d + kWRows - 1) / kWRows; }
+// ---- the forward: msg = mask * (X @ W) on the tensor cores ---------------
 
-// Blocks of bilinear_wgrad_kernel<CPT> the card holds at once.
-template <int CPT>
-int wgrad_slots(int* slots) {
+constexpr int kFK = 32;   // flat rows of W (columns of X) a chunk holds
+constexpr int kLdX = 36;  // row stride of an X chunk: 4 mod 32
+constexpr int kPW = 4;    // producing warps of a forward block
+
+struct FwdLayout {
+  int rows;  // (H+1)*D: the flat reduction
+  int kp;    // round8(K): columns of the padded weight
+  int ntt;   // n8-tiles of a W chunk's fragment layout: NTW * WN >= kp / 8
+  int ldx;   // row stride of the xj tile
+  int lda;   // row stride of the [a | 1 | 0] tile, >= H + 2
+  unsigned long long magic;  // ceil(2^32 / D): c / D = (c * magic) >> 32
+};
+
+FwdLayout fwd_layout(const Geometry& g, int ntt) {
+  FwdLayout f;
+  f.rows = (g.h + 1) * g.d;
+  f.kp = round8(g.k);
+  f.ntt = ntt;
+  f.ldx = stride_a(g.d);
+  f.lda = stride_a(g.h + 2);
+  f.magic = ((1ull << 32) + g.d - 1) / g.d;
+  return f;
+}
+
+// Two W chunks in fragment order, two X chunks, the xj and [a | 1 | 0]
+// tiles and the mask.
+size_t fwd_shared_bytes(const FwdLayout& f, int te) {
+  return sizeof(float) * (2 * (size_t)kFK * 8 * f.ntt * 2 +
+                          2 * (size_t)te * kLdX + (size_t)te * (f.ldx + f.lda) +
+                          te);
+}
+
+// The B operands of the tensor-core kernels are kept in shared memory in
+// fragment order, split once: for k-step ks and n8-tile nt of a chunk,
+// lane (g, t) of a warp finds {hi B[t][g], hi B[t+4][g], lo B[t][g],
+// lo B[t+4][g]} as the uint4 at slot (ks * ntt + nt) * 32 + lane, so a
+// warp loads a fragment as 512 contiguous bytes.
+__device__ __forceinline__ uint4 split_pair(float b0, float b1) {
+  uint4 q;
+  split_tf32(b0, q.x, q.z);
+  split_tf32(b1, q.y, q.w);
+  return q;
+}
+
+// Loads the PF slots of W chunk ch that producer thread pt (of NT) owns:
+// B[t][g] and B[t+4][g] are W rows ch * kFK + 8 * ks + t (+ 4), column 8 *
+// nt + g; zero past the padded width kp. The loads stay in flight until
+// store_w.
+template <int NT, int PF>
+__device__ __forceinline__ void stage_w(const float* __restrict__ wp, int ch,
+                                        int kp, int ntt, int pt,
+                                        float (&st)[PF][2]) {
+#pragma unroll
+  for (int p = 0; p < PF; ++p) {
+    const int slot = pt + p * NT;
+    const int tile = slot >> 5;
+    const int ks = tile / ntt;
+    const int n = 8 * (tile - ks * ntt) + ((slot & 31) >> 2);
+    const float* src = wp + (long long)(ch * kFK + 8 * ks + (slot & 3)) * kp + n;
+    st[p][0] = n < kp ? __ldg(src) : 0.f;
+    st[p][1] = n < kp ? __ldg(src + 4 * kp) : 0.f;
+  }
+}
+
+template <int NT, int PF>
+__device__ __forceinline__ void store_w(const float (&st)[PF][2], int pt,
+                                        uint4* w_s) {
+#pragma unroll
+  for (int p = 0; p < PF; ++p) {
+    w_s[pt + p * NT] = split_pair(st[p][0], st[p][1]);
+  }
+}
+
+// Unit u = c / D and row d = c % D of flat column c (exact while c * D <
+// 2^32: the rounding of magic then adds less than 1 / D to c / D).
+__device__ __forceinline__ void unit_of(int c, const FwdLayout& f, int dd,
+                                        int& u, int& d) {
+  u = (int)(((unsigned long long)c * f.magic) >> 32);
+  d = c - u * dd;
+}
+
+// X chunk ch (TE x kFK at row stride kLdX): X[e, c] = [a | 1][e, c / D] *
+// xj[e, c % D] over the flat columns c of the chunk, zero past the last
+// unit (column H + 1 of a_s). Producer warp pw (of NPW) builds rows pw,
+// pw + NPW, ..., lane l column l.
+template <int TE, int NPW>
+__device__ __forceinline__ void build_x(int ch, int pw, const float* x_s,
+                                        const float* a_s, const FwdLayout& f,
+                                        const Geometry& g, float* xc_s) {
+  const int lane = threadIdx.x & 31;
+  int u, d;
+  unit_of(ch * kFK + lane, f, g.d, u, d);
+  const int oa = min(u, g.h + 1);
+#pragma unroll 4
+  for (int r = pw; r < TE; r += NPW) {
+    xc_s[r * kLdX + lane] = a_s[r * f.lda + oa] * x_s[r * f.ldx + d];
+  }
+}
+
+// One tile of TE = WM * 16 * MT edges in WM * WN + kPW warps. The first
+// WM * WN warps multiply: WM rows of 16 * MT edges and WN columns, warp column
+// wn owning the n8-tiles wn, wn + WN, ... (NTW of them, the last ones past
+// kp where WN does not divide the tile count; they feed output columns
+// that are never written). The other kPW warps produce: while the first
+// multiply chunk c, they load W chunk c + 1, split it into the free W
+// buffer and build X chunk c + 1; one barrier a chunk. wp is [W1; b1]
+// zero-padded to a multiple of kFK rows and to kp columns.
+template <int MT, int WM, int WN, int NTW>
+__global__ void __launch_bounds__(32 * (WM * WN + kPW), 1)
+bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
+                    const float* __restrict__ wp,
+                    const float* __restrict__ mask, float* __restrict__ out,
+                    Geometry g, FwdLayout f) {
+  constexpr int NC = WM * WN;             // multiplying warps
+  constexpr int NPT = 32 * kPW;           // producing threads
+  constexpr int TE = WM * 16 * MT;
+  constexpr int NTT = NTW * WN;
+  constexpr int WCH = kFK / 8 * NTT * 32;  // fragment slots of a W chunk
+  static_assert(WCH % NPT == 0, "every producing thread stages whole slots");
+  constexpr int PF = WCH / NPT;
+  extern __shared__ float4 smem4[];
+  uint4* w_s = reinterpret_cast<uint4*>(smem4);             // 2 W chunks
+  float* xc_s = reinterpret_cast<float*>(w_s + 2 * WCH);    // 2 x TE x kLdX
+  float* x_s = xc_s + 2 * TE * kLdX;                        // TE x ldx
+  float* a_s = x_s + TE * f.ldx;                            // TE x lda
+  float* sc_s = a_s + TE * f.lda;                           // TE
+
+  const long long e0 = (long long)blockIdx.x * TE;
+  if (!load_scale<TE>(mask, e0, g.e, sc_s)) return;
+  const int chunks = (f.rows + kFK - 1) / kFK;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool producer = warp >= NC;
+  const int pt = threadIdx.x - 32 * NC;  // producing thread, when producer
+  float st[PF][2];
+  if (producer) stage_w<NPT, PF>(wp, 0, f.kp, NTT, pt, st);
+
+  // the tile: xj rows and [a | 1 | 0] rows, zero for a masked edge
+  for (int r = warp; r < TE; r += NC + kPW) {
+    const bool real = sc_s[r] != 0.f;
+    const float* xr = xj + (e0 + r) * g.d;
+    const float* ar = a + (e0 + r) * g.h;
+    for (int c = lane; c < g.d; c += 32) {
+      x_s[r * f.ldx + c] = real ? xr[c] : 0.f;
+    }
+    for (int c = lane; c < g.h + 2; c += 32) {
+      a_s[r * f.lda + c] = !real || c > g.h ? 0.f : c == g.h ? 1.f : ar[c];
+    }
+  }
+  __syncthreads();
+  if (producer) {
+    store_w<NPT, PF>(st, pt, w_s);
+    build_x<TE, kPW>(0, warp - NC, x_s, a_s, f, g, xc_s);
+  }
+  __syncthreads();
+
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int row0 = (warp / WN) * 16 * MT;
+  const int wn = warp % WN;
+  float acc[MT][NTW][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][i][q] = 0.f;
+
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch & 1;
+    if (producer) {
+      if (ch + 1 < chunks) {
+        stage_w<NPT, PF>(wp, ch + 1, f.kp, NTT, pt, st);
+        store_w<NPT, PF>(st, pt, w_s + (buf ^ 1) * WCH);
+        build_x<TE, kPW>(ch + 1, warp - NC, x_s, a_s, f, g,
+                        xc_s + (buf ^ 1) * TE * kLdX);
+      }
+    } else {
+      const uint4* ws = w_s + buf * WCH;
+      const float* xs = xc_s + buf * TE * kLdX + (row0 + gr) * kLdX + tq;
+#pragma unroll
+      for (int ks = 0; ks < kFK / 8; ++ks) {
+        uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* xr = xs + 16 * mt * kLdX + 8 * ks;
+          split_tf32(xr[0], ahi[mt][0], alo[mt][0]);
+          split_tf32(xr[8 * kLdX], ahi[mt][1], alo[mt][1]);
+          split_tf32(xr[4], ahi[mt][2], alo[mt][2]);
+          split_tf32(xr[8 * kLdX + 4], ahi[mt][3], alo[mt][3]);
+        }
+        uint32_t bhi[NTW][2], blo[NTW][2];
+#pragma unroll
+        for (int i = 0; i < NTW; ++i) {
+          const uint4 q = ws[(ks * NTT + wn + WN * i) * 32 + lane];
+          bhi[i][0] = q.x;
+          bhi[i][1] = q.y;
+          blo[i][0] = q.z;
+          blo[i][1] = q.w;
+        }
+        mma_3xtf32_tile<MT, NTW>(acc, ahi, alo, bhi, blo);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (producer) return;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < NTW; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = row0 + 16 * mt + gr + 8 * (q >> 1);
+        const int c = 8 * (wn + WN * i) + 2 * tq + (q & 1);
+        const float s = sc_s[row];
+        if (s != 0.f && c < g.k) out[(e0 + row) * g.k + c] = s * acc[mt][i][q];
+      }
+    }
+  }
+}
+
+template <int MT, int WM, int WN, int NTW>
+int launch_fwd(const float* xj, const float* a, const float* wp,
+               const float* mask, float* out, const Geometry& g,
+               cudaStream_t s) {
+  constexpr int TE = WM * 16 * MT;
+  const FwdLayout f = fwd_layout(g, NTW * WN);
+  const size_t smem = fwd_shared_bytes(f, TE);
+  if (smem > (size_t)kMaxShared) return kBadShape;
+  cudaError_t err = cudaFuncSetAttribute(
+      bilinear_fwd_kernel<MT, WM, WN, NTW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (g.e + TE - 1) / TE;
+  bilinear_fwd_kernel<MT, WM, WN, NTW>
+      <<<(unsigned)tiles, 32 * (WM * WN + kPW), smem, s>>>(xj, a, wp, mask,
+                                                           out, g, f);
+  return (int)cudaGetLastError();
+}
+
+// The forward's tile for these widths: 128 edges in 4 multiplying warps (2
+// x 2, 64 edges x NTW n8-tiles each, NTW exactly half the tiles) where K <=
+// 128 and it fits in shared memory, else 64 edges (2 x 2 warps of 32
+// edges), else 32 (2 x 2 warps of 16), with NTW rounded up to an
+// instantiated count; kPW producing warps besides. Returns kBadShape where
+// none fits.
+int fwd_dispatch(const float* xj, const float* a, const float* wp,
+                 const float* mask, float* out, const Geometry& g,
+                 cudaStream_t s) {
+  const int ntiles = round8(g.k) / 8;
+  auto fits = [&](int te, int ntt) {
+    return fwd_shared_bytes(fwd_layout(g, ntt), te) <= (size_t)kMaxShared;
+  };
+  const int half = (ntiles + 1) / 2;
+  if (ntiles <= 16 && fits(128, 2 * half)) {
+    switch (half) {
+      case 1: return launch_fwd<4, 2, 2, 1>(xj, a, wp, mask, out, g, s);
+      case 2: return launch_fwd<4, 2, 2, 2>(xj, a, wp, mask, out, g, s);
+      case 3: return launch_fwd<4, 2, 2, 3>(xj, a, wp, mask, out, g, s);
+      case 4: return launch_fwd<4, 2, 2, 4>(xj, a, wp, mask, out, g, s);
+      case 5: return launch_fwd<4, 2, 2, 5>(xj, a, wp, mask, out, g, s);
+      case 6: return launch_fwd<4, 2, 2, 6>(xj, a, wp, mask, out, g, s);
+      case 7: return launch_fwd<4, 2, 2, 7>(xj, a, wp, mask, out, g, s);
+      default: return launch_fwd<4, 2, 2, 8>(xj, a, wp, mask, out, g, s);
+    }
+  }
+  const int ntw = half <= 4 ? 4 : half <= 8 ? 8 : half <= 12 ? 12 : 16;
+  if (fits(64, 2 * ntw)) {
+    switch (ntw) {
+      case 4: return launch_fwd<2, 2, 2, 4>(xj, a, wp, mask, out, g, s);
+      case 8: return launch_fwd<2, 2, 2, 8>(xj, a, wp, mask, out, g, s);
+      case 12: return launch_fwd<2, 2, 2, 12>(xj, a, wp, mask, out, g, s);
+      default: return launch_fwd<2, 2, 2, 16>(xj, a, wp, mask, out, g, s);
+    }
+  }
+  switch (ntw) {
+    case 4: return launch_fwd<1, 2, 2, 4>(xj, a, wp, mask, out, g, s);
+    case 8: return launch_fwd<1, 2, 2, 8>(xj, a, wp, mask, out, g, s);
+    case 12: return launch_fwd<1, 2, 2, 12>(xj, a, wp, mask, out, g, s);
+    default: return launch_fwd<1, 2, 2, 16>(xj, a, wp, mask, out, g, s);
+  }
+}
+
+// ---- the weight gradient: dW = X^T (mask * g), split over the edges -------
+
+constexpr int kWK = 32;      // edges of a chunk
+constexpr int kWM = 128;     // flat dW rows of a block's tile
+constexpr int kWN = 128;     // dW columns of a block's tile, at most
+
+struct WgradLayout {
+  int rows;    // (H+1)*D
+  int units;   // most units of [a | 1] a tile's rows span
+  int bn;      // dW columns of a tile (round8)
+  int ncs;     // column splits: ceil(round8(K) / bn)
+  int ntw;     // n8-tiles of a warp: ceil(bn / 16)
+  int tiles;   // ceil(rows / kWM) * ncs
+  int ldx;     // row stride of a chunk's xj rows (8 mod 16)
+  int lda;     // row stride of its [a | 1] columns (8 mod 16)
+  int ldg;     // row stride of its g columns (8 mod 16)
+  int stage;   // floats of one chunk as loaded: xj, [a | 1], g, mask
+  int cg;      // round4(K) / 4: micro-tile columns of the partial layout
+  long long plane;  // floats of one split's partial (wgrad_reduce layout)
+};
+
+WgradLayout wgrad_layout(const Geometry& g) {
+  WgradLayout w;
+  w.rows = (g.h + 1) * g.d;
+  const int span = (kWM - 1) / g.d + 2;
+  w.units = span < g.h + 1 ? span : g.h + 1;
+  const int kp = round8(g.k);
+  w.ncs = (kp + kWN - 1) / kWN;
+  w.bn = round8((kp + w.ncs - 1) / w.ncs);
+  w.ntw = (w.bn / 8 + 1) / 2;
+  w.tiles = ((w.rows + kWM - 1) / kWM) * w.ncs;
+  w.ldx = stride_b(g.d);
+  w.lda = stride_b(w.units);
+  w.ldg = stride_b(16 * w.ntw);
+  w.stage = kWK * (w.ldx + w.lda + w.ldg + 1);
+  w.cg = round4(g.k) / 4;
+  w.plane = (long long)(round4(w.rows) / 4) * w.cg * 16;
+  return w;
+}
+
+// Two loaded chunks, an X^T chunk (kWM x kLdX) and a B chunk in fragment
+// order (kWK / 8 * 2 * ntw * 32 uint4).
+size_t wgrad_shared_bytes(const WgradLayout& w) {
+  return sizeof(float) *
+         (2 * (size_t)w.stage + (size_t)kWM * kLdX + (size_t)kWK * 32 * w.ntw);
+}
+
+// live[0] = the number of 32-edge chunks with a real edge, live[1 ..] their
+// indices in increasing order: one block walks the chunks 1024 at a time,
+// a thread a chunk, and places them by a prefix sum of the flags.
+__global__ void __launch_bounds__(1024)
+live_chunks_kernel(const float* __restrict__ mask, long long e,
+                   int* __restrict__ live) {
+  __shared__ int warp_s[32];
+  __shared__ int base_s;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long chunks = (e + kWK - 1) / kWK;
+  if (threadIdx.x == 0) base_s = 0;
+  for (long long c0 = 0; c0 < chunks; c0 += 1024) {
+    const long long ch = c0 + threadIdx.x;
+    bool real = false;
+    if ((ch + 1) * kWK <= e) {
+      const float4* m4 = reinterpret_cast<const float4*>(mask + ch * kWK);
+#pragma unroll
+      for (int q = 0; q < kWK / 4; ++q) {
+        const float4 v = m4[q];
+        real |= v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+      }
+    } else {
+      for (long long i = ch * kWK; i < e; ++i) real |= mask[i] != 0.f;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, real);
+    if (lane == 0) warp_s[warp] = __popc(ballot);
+    __syncthreads();
+    int before = base_s;
+    for (int w = 0; w < warp; ++w) before += warp_s[w];
+    before += __popc(ballot & ((1u << lane) - 1u));
+    if (real) live[1 + before] = (int)ch;
+    __syncthreads();
+    if (threadIdx.x == 1023) base_s = before + (real ? 1 : 0);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) live[0] = base_s;
+}
+
+// Block (split, tile): tile = blockIdx % tiles owns flat dW rows m0 ..
+// m0 + 127 and columns n0 .. n0 + bn - 1; split = blockIdx / tiles walks
+// the chunks of the live list (live_chunks_kernel) at split, split + S, ...
+// in order. Each chunk's xj rows, its
+// [a | 1] columns for the tile's units and its g columns (those straight
+// into fragment order) come by 4-byte cp.async, two chunks ahead of the
+// product; one chunk ahead, every thread builds its share of the chunk's
+// X^T and of mask * g split into TF32 hi and lo, once for the block. 8
+// warps in 4 (32 rows) x 2 (n8-tiles wn, wn + 2, ...). The block writes its
+// tile into its split's partial in wgrad_reduce_kernel's layout.
+template <int NTW>
+__global__ void __launch_bounds__(kThreads, 2)
+bilinear_wgrad_kernel(const float* __restrict__ xj,
+                      const float* __restrict__ a,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ gout,
+                      const int* __restrict__ live,
+                      float* __restrict__ partial, Geometry g, WgradLayout w,
+                      int splits) {
+  constexpr int NTT = 2 * NTW;            // n8-tiles of a chunk's B
+  constexpr int BCH = kWK / 8 * NTT * 32;  // fragment slots of a B chunk
+  static_assert(BCH % kThreads == 0, "every thread builds whole slots");
+  extern __shared__ float4 smem4[];
+  uint4* b_s = reinterpret_cast<uint4*>(smem4);            // B chunk
+  float* xt_s = reinterpret_cast<float*>(b_s + BCH);        // X^T chunk
+  float* ring = xt_s + kWM * kLdX;                          // 2 loaded
+
+  const int tile = blockIdx.x % w.tiles;
+  const int split = blockIdx.x / w.tiles;
+  const int m0 = (tile / w.ncs) * kWM;
+  const int n0 = (tile % w.ncs) * w.bn;
+  const int u_first = m0 / g.d;
+  const int units = min(w.units, g.h + 1 - u_first);
+  const int ncols = min(w.bn, g.k - n0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int wm = (warp >> 1) * 32;
+  const int wn = warp & 1;
+
+  // the X^T build: this thread's rows 8 * (warp + 8 q) + gr (q < 2) of the
+  // tile and edges 4 * kb + tq (kb < 8); the xj column and [a | 1] column
+  // of each row (rows past the last stay in bounds; they are never written)
+  int ox[2], oa[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int m = min(m0 + 8 * (warp + 8 * q) + gr, w.rows - 1);
+    const int u = m / g.d;
+    ox[q] = m - u * g.d;
+    oa[q] = u - u_first;
+  }
+
+  // 16-byte copies of the xj and g rows where every row is whole float4
+  const bool vec = (g.d & 3) == 0 && (g.k & 3) == 0 && (ncols & 3) == 0;
+
+  // chunk ch → ring slot `slot`: xj rows, [a | 1] columns u_first .., g
+  // columns n0 .. (zeros past the last edge) and the mask
+  auto load_chunk = [&](long long ch, int slot) {
+    float* x_s = ring + slot * w.stage;
+    float* a_s = x_s + kWK * w.ldx;
+    float* g_s = a_s + kWK * w.lda;
+    float* sc_s = g_s + kWK * w.ldg;
+    for (int r = warp; r < kWK; r += 8) {
+      const long long e = ch * kWK + r;
+      const bool in = e < g.e;
+      const long long ee = in ? e : 0;
+      const float* xr = xj + ee * g.d;
+      const float* gg = gout + ee * g.k + n0;
+      if (vec) {
+        const int nb = in ? 16 : 0;
+        for (int c = 4 * lane; c < g.d; c += 128) cp_async16(x_s + r * w.ldx + c, xr + c, nb);
+        for (int c = 4 * lane; c < ncols; c += 128) cp_async16(g_s + r * w.ldg + c, gg + c, nb);
+      } else {
+        const int nb = in ? 4 : 0;
+        for (int c = lane; c < g.d; c += 32) cp_async4(x_s + r * w.ldx + c, xr + c, nb);
+        for (int c = lane; c < ncols; c += 32) cp_async4(g_s + r * w.ldg + c, gg + c, nb);
+      }
+      const int nb = in ? 4 : 0;
+      const float* ar = a + ee * g.h + u_first;
+      for (int c = lane; c < units; c += 32) {
+        if (u_first + c < g.h) {
+          cp_async4(a_s + r * w.lda + c, ar + c, nb);
+        } else {
+          a_s[r * w.lda + c] = 1.f;  // the bias unit
+        }
+      }
+      if (lane == 0) sc_s[r] = in ? mask[e] : 0.f;
+    }
+  };
+
+  // ring slot → X^T chunk and B chunk (mask * g, split, fragment order)
+  auto build = [&](int slot, float* xt, uint4* bq) {
+    const float* x_s = ring + slot * w.stage;
+    const float* a_s = x_s + kWK * w.ldx;
+    const float* g_s = a_s + kWK * w.lda;
+    const float* sc_s = g_s + kWK * w.ldg;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float* xr = xt + (8 * (warp + 8 * q) + gr) * kLdX + tq;
+#pragma unroll
+      for (int kb = 0; kb < kWK / 4; ++kb) {
+        const int k = 4 * kb + tq;
+        xr[4 * kb] = a_s[k * w.lda + oa[q]] * x_s[k * w.ldx + ox[q]];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < BCH / kThreads; ++p) {
+      const int slot_b = threadIdx.x + p * kThreads;
+      const int tile = slot_b >> 5;
+      const int ks = tile / NTT;
+      const int k = 8 * ks + (slot_b & 3);
+      const float* gr0 = g_s + k * w.ldg + 8 * (tile - ks * NTT) + ((slot_b & 31) >> 2);
+      bq[slot_b] = split_pair(sc_s[k] * gr0[0], sc_s[k + 4] * gr0[4 * w.ldg]);
+    }
+  };
+
+  float acc[2][NTW][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][i][q] = 0.f;
+
+  // the next chunk to load, its index read one load ahead
+  const int n_live = live[0];
+  int pos = split;
+  int next = pos < n_live ? live[1 + pos] : -1;
+  int issued = 0;
+  auto issue = [&](int slot) {
+    if (next >= 0) {
+      load_chunk(next, slot);
+      ++issued;
+      pos += splits;
+      next = pos < n_live ? live[1 + pos] : -1;
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+  cp_async_wait<1>();
+  __syncthreads();
+  if (issued > 0) build(0, xt_s, b_s);
+  for (int j = 0; j < issued; ++j) {
+    // chunk j is built and chunk j + 1 landed
+    cp_async_wait<0>();
+    __syncthreads();
+    const bool more = j + 1 < issued;
+    issue(j & 1);  // chunk j + 2, in the slot chunk j left
+    const float* xs = xt_s + (wm + gr) * kLdX + tq;
+#pragma unroll
+    for (int ks = 0; ks < kWK / 8; ++ks) {
+      // A = X^T: row m, column (edge) k; B = mask * g: row k, column n
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* xr = xs + 16 * mt * kLdX + 8 * ks;
+        split_tf32(xr[0], ahi[mt][0], alo[mt][0]);
+        split_tf32(xr[8 * kLdX], ahi[mt][1], alo[mt][1]);
+        split_tf32(xr[4], ahi[mt][2], alo[mt][2]);
+        split_tf32(xr[8 * kLdX + 4], ahi[mt][3], alo[mt][3]);
+      }
+      uint32_t bhi[NTW][2], blo[NTW][2];
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        const uint4 q = b_s[(ks * NTT + wn + 2 * i) * 32 + lane];
+        bhi[i][0] = q.x;
+        bhi[i][1] = q.y;
+        blo[i][0] = q.z;
+        blo[i][1] = q.w;
+      }
+      mma_3xtf32_tile<2, NTW>(acc, ahi, alo, bhi, blo);
+    }
+    __syncthreads();  // every warp is done with chunk j's operands
+    if (more) build((j + 1) & 1, xt_s, b_s);
+  }
+  cp_async_wait<0>();
+
+  float* out = partial + split * w.plane;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int i = 0; i < NTW; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + wm + 16 * mt + gr + 8 * (q >> 1);
+        const int c = 8 * (wn + 2 * i) + 2 * tq + (q & 1);
+        if (m < w.rows && c < ncols) {
+          const int n = n0 + c;
+          out[((m >> 2) * w.cg + (n >> 2)) * 16 + (m & 3) * 4 + (n & 3)] =
+              acc[mt][i][q];
+        }
+      }
+    }
+  }
+}
+
+// Sets the kernel's shared-memory size and returns the blocks the card
+// holds at once in *slots.
+template <int NTW>
+int wgrad_slots(const WgradLayout& w, int* slots) {
+  const size_t smem = wgrad_shared_bytes(w);
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = cudaFuncSetAttribute(
+      bilinear_wgrad_kernel<NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bilinear_wgrad_kernel<CPT>, kThreads, 0);
+        &per_sm, bilinear_wgrad_kernel<NTW>, kThreads, smem);
   }
   *slots = sms * per_sm;
   return (int)err;
 }
 
-template <int CPT>
+int wgrad_slots_for(const WgradLayout& w, int* slots) {
+  switch (w.ntw) {
+    case 1: return wgrad_slots<1>(w, slots);
+    case 2: return wgrad_slots<2>(w, slots);
+    case 3: return wgrad_slots<3>(w, slots);
+    case 4: return wgrad_slots<4>(w, slots);
+    case 5: return wgrad_slots<5>(w, slots);
+    case 6: return wgrad_slots<6>(w, slots);
+    case 7: return wgrad_slots<7>(w, slots);
+    default: return wgrad_slots<8>(w, slots);
+  }
+}
+
+template <int NTW>
 int launch_wgrad(const float* xj, const float* a, const float* mask,
-                 const float* gout, float* partial, int* counts, float* dw,
-                 const Geometry& g, int splits, cudaStream_t s) {
+                 const float* gout, const int* live, float* partial,
+                 const Geometry& g, const WgradLayout& w, int splits,
+                 cudaStream_t s) {
   int slots = 0;
-  const int err = wgrad_slots<CPT>(&slots);
+  const int err = wgrad_slots<NTW>(w, &slots);  // sets the shared size
   if (err != 0) return err;
-  const long long items = (long long)wgrad_slices(g.d, g.h) * splits;
-  const unsigned grid = (unsigned)(items < slots ? items : slots);
-  bilinear_wgrad_kernel<CPT><<<grid < 1 ? 1 : grid, kThreads, 0, s>>>(
-      xj, a, mask, gout, partial, counts, dw, g, splits);
+  bilinear_wgrad_kernel<NTW>
+      <<<(unsigned)(w.tiles * splits), kThreads, wgrad_shared_bytes(w), s>>>(
+          xj, a, mask, gout, live, partial, g, w, splits);
   return (int)cudaGetLastError();
 }
 
@@ -495,55 +916,56 @@ Geometry make_geometry(long long e, int d, int k, int h) {
 
 extern "C" {
 
-// Slices of the flat dW: its counts buffer holds this many ints.
-int mdl_fused_bilinear_wgrad_slices(int d, int h) {
-  return wgrad_slices(d, h);
+// Floats of one split's partial of the weight gradient (the 4 x 4
+// micro-tiles of the ((h+1)*d x k) gradient).
+long long mdl_fused_bilinear_partial_floats(int d, int k, int h) {
+  return wgrad_layout(make_geometry(0, d, k, h)).plane;
 }
 
-// Edge splits S of the dW kernel for these shapes on the current device:
-// about kItemsPerSlot work items per block the card holds at once, at
-// most one split per edge tile. Returns S >= 1, or minus a cudaError_t.
+// Edge splits S of the weight gradient for these shapes on the current
+// device: of S = 1 .. max(16, slots / tiles) (at most one split per chunk),
+// the one whose tiles x S blocks fill their last wave of the card's
+// resident blocks best, the smaller on a tie. Returns S >= 1, or minus a
+// cudaError_t (kBadShape for an unsupported width).
 int mdl_fused_bilinear_wgrad_splits(long long e, int d, int k, int h) {
-  int slots = 0, err = 0;
-  switch (cpt_for(k)) {
-    case 1: err = wgrad_slots<1>(&slots); break;
-    case 2: err = wgrad_slots<2>(&slots); break;
-    case 4: err = wgrad_slots<4>(&slots); break;
-    case 5: err = wgrad_slots<5>(&slots); break;
-    case 8: err = wgrad_slots<8>(&slots); break;
-    default: return -kBadShape;
-  }
+  if (d < 1 || d > 256 || k < 1 || k > 256) return -kBadShape;
+  const WgradLayout w = wgrad_layout(make_geometry(e, d, k, h));
+  if (wgrad_shared_bytes(w) > (size_t)kMaxShared) return -kBadShape;
+  int slots = 0;
+  const int err = wgrad_slots_for(w, &slots);
   if (err != 0) return -err;
-  const long long slices = wgrad_slices(d, h);
-  const long long tiles = (e + kWTE - 1) / kWTE;
-  long long s = ((long long)kItemsPerSlot * slots + slices - 1) / slices;
-  if (s > tiles) s = tiles;
-  return s < 1 ? 1 : (int)s;
+  if (slots < 1) return -kBadShape;
+  const long long chunks = (e + kWK - 1) / kWK;
+  const long long most = slots / w.tiles > 16 ? slots / w.tiles : 16;
+  long long best = 1;
+  double best_fill = 0.0;
+  for (long long s = 1; s <= most && s <= chunks; ++s) {
+    const long long blocks = w.tiles * s;
+    const long long waves = (blocks + slots - 1) / slots;
+    const double fill = (double)blocks / (double)(waves * slots);
+    if (fill > best_fill + 1e-9) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return (int)best;
 }
 
 // All pointers are device pointers on the current device. xj (e x d), a
-// (e x h), mask (e); w ((h+1)*d x k) is [W1; b1] with W1 as (h*d x k);
-// out (e x k) holds zeros. Returns 0 or a cudaError_t (kBadShape for an
+// (e x h), mask (e); wp is [W1; b1] ((h+1)*d x k, W1 as (h*d x k))
+// zero-padded to a multiple of 32 rows and to round8(k) columns; out
+// (e x k) holds zeros. Returns 0 or a cudaError_t (kBadShape for an
 // unsupported width or shared-memory size).
-int mdl_fused_bilinear_fwd(const void* xj, const void* a, const void* w,
+int mdl_fused_bilinear_fwd(const void* xj, const void* a, const void* wp,
                            const void* mask, void* out, long long e, int d,
                            int k, int h, void* stream) {
-  const Geometry g = make_geometry(e, d, k, h);
-  const float* xp = static_cast<const float*>(xj);
-  const float* ap = static_cast<const float*>(a);
-  const float* wp = static_cast<const float*>(w);
-  const float* mp = static_cast<const float*>(mask);
-  float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cpt_for(d) == 0) return kBadShape;
-  switch (cpt_for(k)) {
-    case 1: return launch_fwd<1>(xp, ap, wp, mp, op, g, s);
-    case 2: return launch_fwd<2>(xp, ap, wp, mp, op, g, s);
-    case 4: return launch_fwd<4>(xp, ap, wp, mp, op, g, s);
-    case 5: return launch_fwd<5>(xp, ap, wp, mp, op, g, s);
-    case 8: return launch_fwd<8>(xp, ap, wp, mp, op, g, s);
-    default: return kBadShape;
-  }
+  if (d < 1 || d > 256 || k < 1 || k > 256) return kBadShape;
+  return fwd_dispatch(static_cast<const float*>(xj),
+                      static_cast<const float*>(a),
+                      static_cast<const float*>(wp),
+                      static_cast<const float*>(mask), static_cast<float*>(out),
+                      make_geometry(e, d, k, h),
+                      static_cast<cudaStream_t>(stream));
 }
 
 // wt ((h+1) x k x d) holds each unit of [W1; b1] transposed; gout (e x k);
@@ -572,31 +994,43 @@ int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* wt,
   }
 }
 
-// dw ((h+1)*d x k) = [dW1; db1]. partial holds splits * (h+1)*d*k floats,
-// counts mdl_fused_bilinear_wgrad_slices(d, h) zeros; splits as
+// dw ((h+1)*d x k) = [dW1; db1]. partial holds splits *
+// mdl_fused_bilinear_partial_floats(d, k, h) floats and live 1 + ceil(e /
+// 32) ints (neither needs an initial value); splits as
 // mdl_fused_bilinear_wgrad_splits gives it (any splits >= 1 is right).
+// Launches the live-chunk list, the split kernel, then the fixed-order sum
+// of the splits.
 int mdl_fused_bilinear_wgrad(const void* xj, const void* a, const void* mask,
-                             const void* gout, void* partial, void* counts,
+                             const void* gout, void* live, void* partial,
                              void* dw, long long e, int d, int k, int h,
                              int splits, void* stream) {
+  if (d < 1 || d > 256 || k < 1 || k > 256 || splits < 1) return kBadShape;
   const Geometry g = make_geometry(e, d, k, h);
+  const WgradLayout w = wgrad_layout(g);
+  if (wgrad_shared_bytes(w) > (size_t)kMaxShared) return kBadShape;
   const float* xp = static_cast<const float*>(xj);
   const float* ap = static_cast<const float*>(a);
   const float* mp = static_cast<const float*>(mask);
   const float* gp = static_cast<const float*>(gout);
   float* pp = static_cast<float*>(partial);
-  int* cp = static_cast<int*>(counts);
-  float* dwp = static_cast<float*>(dw);
+  int* lp = static_cast<int*>(live);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cpt_for(d) == 0 || splits < 1) return kBadShape;
-  switch (cpt_for(k)) {
-    case 1: return launch_wgrad<1>(xp, ap, mp, gp, pp, cp, dwp, g, splits, s);
-    case 2: return launch_wgrad<2>(xp, ap, mp, gp, pp, cp, dwp, g, splits, s);
-    case 4: return launch_wgrad<4>(xp, ap, mp, gp, pp, cp, dwp, g, splits, s);
-    case 5: return launch_wgrad<5>(xp, ap, mp, gp, pp, cp, dwp, g, splits, s);
-    case 8: return launch_wgrad<8>(xp, ap, mp, gp, pp, cp, dwp, g, splits, s);
-    default: return kBadShape;
+  live_chunks_kernel<<<1, 1024, 0, s>>>(mp, e, lp);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  switch (w.ntw) {
+    case 1: err = launch_wgrad<1>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
+    case 2: err = launch_wgrad<2>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
+    case 3: err = launch_wgrad<3>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
+    case 4: err = launch_wgrad<4>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
+    case 5: err = launch_wgrad<5>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
+    case 6: err = launch_wgrad<6>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
+    case 7: err = launch_wgrad<7>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
+    default: err = launch_wgrad<8>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
   }
+  if (err != 0) return err;
+  return launch_wgrad_reduce(partial, dw, splits, (int)(w.plane / 16), w.cg,
+                             w.rows, k, stream);
 }
 
 }  // extern "C"

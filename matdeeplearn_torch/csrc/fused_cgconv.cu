@@ -75,12 +75,6 @@
 
 namespace {
 
-__host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
-
-// The smallest stride >= v that is 4 mod 32: an A fragment's 8 rows x 4
-// columns then fall in 32 distinct banks.
-__host__ __device__ inline int stride_a(int v) { return v + (36 - v % 32) % 32; }
-
 struct Geometry {
   long long e;  // edge slots
   int d;        // feature width D

@@ -19,12 +19,23 @@ so are its d_xj and d_a rows; it adds nothing to d_w1 or d_b1. The
 reference function takes no mask, but its caller multiplies the messages
 by it before the sum, so its cotangent is zero on pad rows there too.
 
+With X[e, h·D + d] = [a | 1][e, h]·xj[e, d] over the flat reduction of
+(H+1)·D rows, the message is mask·(X @ [W1; b1]) and the weight gradient
+Xᵀ·(mask·g): two GEMMs with a generated operand. Their kernels run on the
+tensor cores in 3xTF32 (f32 accuracy): the forward over 128-edge tiles
+against [W1; b1] padded to a multiple of FWD_CHUNK rows and round8(K)
+columns (`padded_weight`); the weight gradient over the 32-edge chunks
+that hold a real edge, split into S partials (S from the SM count) that a
+second kernel sums in a fixed order, so d_w1 and d_b1 are bit-identical
+from run to run. The backward to the rows (d_xj, d_a) runs on the FMA
+pipes. csrc/fused_bilinear.cu gives the tile sizes and bounds.
+
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts kernel launches. The backward launches two kernels:
+`LAUNCHES` counts kernel launches. The backward launches two wrappers:
 `fused_bilinear_bwd` (d_xj and d_a) and `fused_bilinear_wgrad` (d_w1 and
-d_b1, summed over the edges in a fixed order; csrc/fused_bilinear.cu says
-why). FusedBilinear saves its inputs alone and recomputes in the backward.
+d_b1). FusedBilinear saves its inputs alone and recomputes in the
+backward.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on
 LAUNCHES = {"fused_bilinear_fwd": 0, "fused_bilinear_bwd": 0,
             "fused_bilinear_wgrad": 0}
 MAX_WIDTH = 256  # the kernels' largest D and K
+FWD_CHUNK = 32   # flat rows of [W1; b1] a forward chunk stages (csrc kFK)
+WGRAD_CHUNK = 32  # edges of a weight-gradient chunk (csrc kWK)
 # The plain versions' largest per-edge intermediate ((rows, D·K) or
 # (rows, (H+1)·D)): 2^26 floats, 256 MB. A training batch's whole (E, D, K)
 # tensor at MPNN_demo width would be 3.2 GB.
@@ -60,8 +73,8 @@ def _load():
         lib.mdl_fused_bilinear_wgrad.argtypes = ([vp] * 7
                                                  + [cl, ci, ci, ci, ci, vp])
         lib.mdl_fused_bilinear_wgrad.restype = ci
-        lib.mdl_fused_bilinear_wgrad_slices.argtypes = [ci, ci]
-        lib.mdl_fused_bilinear_wgrad_slices.restype = ci
+        lib.mdl_fused_bilinear_partial_floats.argtypes = [ci, ci, ci]
+        lib.mdl_fused_bilinear_partial_floats.restype = cl
         lib.mdl_fused_bilinear_wgrad_splits.argtypes = [cl, ci, ci, ci]
         lib.mdl_fused_bilinear_wgrad_splits.restype = ci
         _lib = lib
@@ -79,6 +92,18 @@ def extend_weight(w1, b1, d: int) -> torch.Tensor:
     h·D + D - 1, and the bias is unit H."""
     k = b1.numel() // d
     return torch.cat([w1.reshape(-1, k), b1.reshape(d, k)], 0).contiguous()
+
+
+def padded_weight(w1, b1, d: int) -> torch.Tensor:
+    """The forward kernel's weight: extend_weight's ((H+1)·D, K) rows,
+    zero-padded to a multiple of FWD_CHUNK rows and to round8(K) columns,
+    so every chunk is whole 16-byte rows."""
+    w = extend_weight(w1, b1, d)
+    rows, k = w.shape
+    rp = -(-rows // FWD_CHUNK) * FWD_CHUNK
+    wp = w.new_zeros((rp, -(-k // 8) * 8))
+    wp[:rows, :k] = w
+    return wp
 
 
 def split_wgrad(dw: torch.Tensor, w1_shape, b1_shape) -> tuple:
@@ -195,7 +220,7 @@ def fused_bilinear(xj, a, w1, b1, mask) -> torch.Tensor:
     out = torch.zeros((e, k), dtype=torch.float32, device=xj.device)
     if e == 0 or k == 0:
         return out
-    w = extend_weight(w1, b1, d)
+    w = padded_weight(w1, b1, d)
     lib = _load()
     with torch.cuda.device(xj.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -237,7 +262,8 @@ def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask) -> tuple:
 
 def fused_bilinear_wgrad(g, xj, a, mask) -> torch.Tensor:
     """The ((H+1)·D, K) gradient of [W1; b1] for the cotangent g (E, K):
-    the weight-gradient kernel, bit-identical from run to run on one card."""
+    the weight-gradient kernel and its fixed-order sum of the splits,
+    bit-identical from run to run on one card."""
     if xj.device.type == "cpu":
         return wgrad_plain(g, xj, a, mask, g.shape[1])
     _check_inputs(xj, a, mask, g=g)
@@ -252,16 +278,15 @@ def fused_bilinear_wgrad(g, xj, a, mask) -> torch.Tensor:
         splits = lib.mdl_fused_bilinear_wgrad_splits(e, d, k, h)
     if splits < 1:
         _raise_on(-splits, "mdl_fused_bilinear_wgrad_splits")
-    partial = torch.empty(splits * (h + 1) * d * k, dtype=torch.float32,
-                          device=dev)
-    counts = torch.zeros(lib.mdl_fused_bilinear_wgrad_slices(d, h),
-                         dtype=torch.int32, device=dev)
+    partial = torch.empty(splits * lib.mdl_fused_bilinear_partial_floats(d, k, h),
+                          dtype=torch.float32, device=dev)
+    live = torch.empty(1 + -(-e // WGRAD_CHUNK), dtype=torch.int32, device=dev)
     dw = torch.empty(((h + 1) * d, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_fused_bilinear_wgrad(
             xj.data_ptr(), a.data_ptr(), mask.data_ptr(), g.data_ptr(),
-            partial.data_ptr(), counts.data_ptr(), dw.data_ptr(), e, d, k, h,
+            live.data_ptr(), partial.data_ptr(), dw.data_ptr(), e, d, k, h,
             splits, stream)
     _raise_on(rc, "mdl_fused_bilinear_wgrad")
     LAUNCHES["fused_bilinear_wgrad"] += 1

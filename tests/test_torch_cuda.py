@@ -546,12 +546,48 @@ def test_fused_bilinear_kernels_match_plain(cuda_device, case, d, h, k):
         assert float(a[off].abs().max()) == 0.0
 
 
-def test_fused_bilinear_wgrad_is_bit_identical(cuda_device):
-    xj, a, _, _, mask = _bilinear_inputs("sorted", 100, 100, 100,
-                                         device=cuda_device)
-    g = torch.randn(len(mask), 100, device=cuda_device)
+# (150, 100, 150): K > 128, the weight gradient's two column blocks
+@pytest.mark.parametrize("case,d,h,k", [("sorted", 100, 100, 100),
+                                        ("scattered", 150, 100, 150)])
+def test_fused_bilinear_wgrad_is_bit_identical(cuda_device, case, d, h, k):
+    xj, a, _, _, mask = _bilinear_inputs(case, d, h, k, device=cuda_device)
+    g = torch.randn(len(mask), k, device=cuda_device)
     first = FB.fused_bilinear_wgrad(g, xj, a, mask)
     assert torch.equal(FB.fused_bilinear_wgrad(g, xj, a, mask), first)
+
+
+# (E, D, H, K) at the edges of the tensor-core kernels' tiling: 32-row
+# chunks of the flat reduction spanning several units (D 3, 33, 1), K not
+# a multiple of 8, D > 128 (the forward's 64-edge tile), H = 1, and edge
+# counts that are not a multiple of the 128-edge tile or the 32-edge chunk
+@pytest.mark.parametrize("e,d,h,k", [(1000, 3, 7, 5), (777, 33, 1, 9),
+                                     (1001, 1, 3, 12), (515, 200, 12, 20),
+                                     (129, 64, 1, 100), (4099, 100, 100, 100),
+                                     (333, 130, 5, 129)])
+def test_fused_bilinear_tiling_edges_match_plain(cuda_device, e, d, h, k):
+    rng = np.random.default_rng(e + d + h + k)
+    t = lambda *shape, s=1.0: torch.tensor(
+        s * rng.standard_normal(shape), dtype=torch.float32, device=cuda_device)
+    mask = torch.tensor((rng.random(e) > 0.3).astype(np.float32),
+                        device=cuda_device)
+    args = (t(e, d), torch.relu(t(e, h)), t(h, d * k, s=0.1), t(d * k, s=0.1),
+            mask)
+    _assert_fused_close(FB.fused_bilinear(*args),
+                        FB.fused_bilinear_plain(*args), "forward")
+    g = t(e, k)
+    dw = FB.fused_bilinear_wgrad(g, *args[:2], mask)
+    _assert_fused_close(dw, FB.wgrad_plain(g, *args[:2], mask, k), "dW")
+    assert torch.equal(FB.fused_bilinear_wgrad(g, *args[:2], mask), dw)
+    assert float(FB.fused_bilinear(*args)[mask == 0].abs().max()) == 0.0
+
+
+def test_fused_bilinear_all_pad_batch_gives_zeros(cuda_device):
+    xj, a, w1, b1, mask = _bilinear_inputs("sorted", 100, 100, 100,
+                                           device=cuda_device)
+    pad = torch.zeros_like(mask)
+    g = torch.randn(len(mask), 100, device=cuda_device)
+    assert not FB.fused_bilinear(xj, a, w1, b1, pad).any()
+    assert not FB.fused_bilinear_wgrad(g, xj, a, pad).any()
 
 
 def test_fused_bilinear_autograd_and_launch_counts(cuda_device):

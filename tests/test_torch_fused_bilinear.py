@@ -14,7 +14,19 @@ JAX package on the CPU.
   the output, d_xj and d_a.
 * The plain versions process edges in chunks: any chunk size gives the
   same values, and the wrappers on CPU tensors launch nothing.
-* The layout of the kernels' weight [W1; b1] and its gradient.
+* The layout of the kernels' weight [W1; b1], its padded form for the
+  forward kernel, and its gradient.
+* The arithmetic of the forward and weight-gradient kernels, emulated in
+  torch: operands rounded to TF32 as `cvt.rna` does, a·b taken as
+  lo·hi + hi·lo + hi·hi with f32 accumulation (3xTF32), in the kernels'
+  order (the forward walks the flat reduction of (H+1)·D rows 8 at a time;
+  the weight gradient deals the 32-edge chunks that hold a real edge to
+  its splits in turn, walks each split's chunks 8 edges at a time, then
+  adds the splits in order). At MPNN_demo width (D = H = K = 100, 200
+  edges) the 3xTF32 emulation falls within the chip check's limit of the
+  JAX `fused_bilinear_msg` and its VJP (chip_smoke.py:assert_fused, rtol
+  1e-4 and atol 1e-4·max|ref|), and the single-pass TF32 emulation (hi·hi
+  alone) falls outside it: the limit tells the two builds apart.
 """
 
 import jax
@@ -134,3 +146,146 @@ def test_weight_layout_puts_the_bias_last_as_unit_h():
     assert torch.equal(w[h * d:], b1.reshape(d, k))
     d_w1, d_b1 = FB.split_wgrad(w, w1.shape, b1.shape)
     assert torch.equal(d_w1, w1) and torch.equal(d_b1, b1)
+
+
+@pytest.mark.parametrize("h,d,k", [(3, 4, 5), (7, 3, 8), (1, 33, 9),
+                                   (100, 100, 100)])
+def test_padded_weight_is_extend_weight_zero_padded(h, d, k):
+    """Rows to a multiple of FWD_CHUNK, columns to round8(K), zeros beyond
+    extend_weight's ((H+1)·D, K) block."""
+    rng = np.random.default_rng(h * d * k)
+    w1 = torch.tensor(rng.standard_normal((h, d * k)), dtype=torch.float32)
+    b1 = torch.tensor(rng.standard_normal(d * k), dtype=torch.float32)
+    wp = FB.padded_weight(w1, b1, d)
+    rows = (h + 1) * d
+    assert wp.shape == (-(-rows // FB.FWD_CHUNK) * FB.FWD_CHUNK, -(-k // 8) * 8)
+    assert wp.is_contiguous()
+    assert torch.equal(wp[:rows, :k], FB.extend_weight(w1, b1, d))
+    assert not wp[rows:].any() and not wp[:, k:].any()
+
+
+# ------------------------------------- the tensor-core kernels' arithmetic
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round the f32 word to 10 mantissa bits, to
+    nearest with ties away from zero (sign-magnitude, so one add does)."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mma(acc, a, b, passes: int):
+    """acc (f32) += a @ b as the kernels' mma_3xtf32 takes it: lo_a·hi_b,
+    hi_a·lo_b, then hi_a·hi_b, each one m16n8k8 step (products of TF32
+    values are exact; the 8-term sum is added to the f32 accumulator).
+    passes=1 keeps hi_a·hi_b alone (single-pass TF32)."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    terms = [(alo, bhi), (ahi, blo), (ahi, bhi)] if passes == 3 else [(ahi, bhi)]
+    for x, y in terms:
+        acc = (acc.double() + x.double() @ y.double()).float()
+    return acc
+
+
+def _x_rows(xj, a) -> torch.Tensor:
+    """X (E, (H+1)·D): X[e, h·D + d] = [a | 1][e, h]·xj[e, d], one f32
+    product, as the kernels form it."""
+    ext = torch.cat([a, torch.ones_like(a[:, :1])], 1)
+    return (ext[:, :, None] * xj[:, None, :]).reshape(len(xj), -1)
+
+
+def _emulated_forward(xj, a, w1, b1, mask, passes: int):
+    d = xj.shape[1]
+    x = _x_rows(xj, a)
+    wp = FB.padded_weight(w1, b1, d)
+    x = torch.cat([x, x.new_zeros(len(x), wp.shape[0] - x.shape[1])], 1)
+    acc = x.new_zeros(len(x), wp.shape[1])
+    for r in range(0, wp.shape[0], 8):
+        acc = _mma(acc, x[:, r:r + 8], wp[r:r + 8], passes)
+    k = b1.numel() // d
+    return mask[:, None] * acc[:, :k]
+
+
+def _emulated_wgrad(g, xj, a, mask, splits: int, passes: int):
+    x = _x_rows(xj, a)
+    ge = mask[:, None] * g
+    e = len(x)
+    chunks = -(-e // FB.WGRAD_CHUNK)
+    pad = chunks * FB.WGRAD_CHUNK - e
+    x = torch.cat([x, x.new_zeros(pad, x.shape[1])])
+    ge = torch.cat([ge, ge.new_zeros(pad, ge.shape[1])])
+    # the chunks with a real edge, dealt to the splits in turn
+    live = [ch for ch in range(chunks)
+            if mask[ch * FB.WGRAD_CHUNK:(ch + 1) * FB.WGRAD_CHUNK].any()]
+    total = x.new_zeros(x.shape[1], g.shape[1])
+    for s in range(splits):
+        acc = torch.zeros_like(total)
+        for ch in live[s::splits]:
+            for e0 in range(ch * FB.WGRAD_CHUNK, (ch + 1) * FB.WGRAD_CHUNK, 8):
+                acc = _mma(acc, x[e0:e0 + 8].t(), ge[e0:e0 + 8], passes)
+        total = total + acc
+    return total
+
+
+def _limit_share(out, ref) -> float:
+    """chip_smoke.py:limit_share: the worst |out - ref| over what
+    assert_fused allows (1e-4·max|ref| + 1e-4·|ref|); below 1 passes."""
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    allowed = 1e-4 * max(np.abs(ref).max(), 1e-30) + 1e-4 * np.abs(ref)
+    return float((np.abs(out - ref) / allowed).max())
+
+
+@pytest.fixture(scope="module")
+def mpnn_width():
+    """200 edges at D = H = K = 100 (a scattered mask, then 50 pads) and
+    the JAX chunked kernel's message and VJP, in interpret mode, as its own
+    tests run it."""
+    e, d, h, k = 200, 100, 100, 100
+    rng = np.random.default_rng(100)
+    xj = rng.standard_normal((e, d)).astype(np.float32)
+    a = np.maximum(rng.standard_normal((e, h)), 0).astype(np.float32)
+    w1 = (0.1 * rng.standard_normal((h, d * k))).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal(d * k)).astype(np.float32)
+    mask = (rng.random(e) > 0.3).astype(np.float32)
+    mask[150:] = 0  # a tail of pads: the last two 32-edge chunks hold none
+    cot = rng.standard_normal((e, k)).astype(np.float32)
+    jm = jnp.asarray(mask)[:, None]
+    out, vjp = jax.vjp(
+        lambda *p: jm * fused_bilinear_msg((128, True, False, True), *p),
+        *map(jnp.asarray, (xj, a, w1, b1)))
+    _, _, d_w1, d_b1 = vjp(jnp.asarray(cot))
+    t = [torch.as_tensor(v) for v in (xj, a, w1, b1, mask, cot)]
+    return t, np.asarray(out), np.asarray(d_w1), np.asarray(d_b1)
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)],
+                         ids=["3xtf32", "1xtf32"])
+def test_emulated_forward_against_jax_at_the_chip_limit(mpnn_width, passes,
+                                                        within):
+    (xj, a, w1, b1, mask, _), out, _, _ = mpnn_width
+    got = _emulated_forward(xj, a, w1, b1, mask, passes)
+    assert got.shape == out.shape
+    assert (got[mask == 0] == 0).all()
+    share = _limit_share(got, out)
+    assert (share < 1.0) == within, share
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)],
+                         ids=["3xtf32", "1xtf32"])
+def test_emulated_wgrad_against_jax_vjp_at_the_chip_limit(mpnn_width, passes,
+                                                          within, splits):
+    (xj, a, w1, b1, mask, cot), _, d_w1, d_b1 = mpnn_width
+    dw = _emulated_wgrad(cot, xj, a, mask, splits, passes)
+    got = FB.split_wgrad(dw, w1.shape, b1.shape)
+    shares = [_limit_share(x, r) for x, r in zip(got, (d_w1, d_b1))]
+    assert all((s < 1.0) == within for s in shares), shares
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # one ulp of TF32 above 1
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 2.0 ** -11),
+                      one + 2.0 ** -11], dtype=torch.float32)
+    want = torch.tensor([1.0, one, 1.0, -one, one + 2.0 ** -10],
+                        dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
