@@ -48,10 +48,11 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    (100, 100, 100), (3, 7, 5) and (150, 100, 150), with sorted dst and
    tail pads, permuted rows and a scattered mask: output, d_xj, d_a, d_w1
    and d_b1 to rtol 1e-4 and atol 1e-4·max|ref|, masked rows exactly zero
-   in the output, d_xj and d_a, and d_w1/d_b1 bit-identical between two
-   calls; then times them at MPNN_demo's widths beside their operations
-   bound, their plain versions and one torch.einsum over the same inputs
-   (and its autograd backward to xj and a) as the library yardstick;
+   in the output, d_xj and d_a, and d_xj/d_a and d_w1/d_b1 each
+   bit-identical between two calls; then times them at MPNN_demo's widths
+   beside their operations bound (3xTF32 rate, the FMA rate beside it),
+   their plain versions and one torch.einsum over the same inputs (and its
+   autograd backward to xj and a) as the library yardstick;
 7. runs Predict through cli.run on the card with the launch counters reset
    just before and read just after (each CSR kernel >= 32: 8 batches x 4
    CGConv layers), then the same Predict on the CPU (plain versions, same
@@ -133,8 +134,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
-# H100 SXM dense TF32 tensor-core rate (495 TFLOP/s) over the three
-# mma.sync that 3xTF32 spends on each f32 product
+# H100 SXM dense TF32 tensor-core rate (495 TFLOP/s) over the three TF32
+# products (mma.sync or wgmma) that 3xTF32 spends on each f32 product
 TF32X3_FLOPS = 495e12 / 3
 N_STRUCTURES = 1000
 
@@ -796,6 +797,10 @@ def check_bilinear(batch, dev):
             fwd, s_fwd = reading([("output", out, FB.fused_bilinear_plain(*args))],
                                  f"bilinear forward, {what}:")
             rows = FB.fused_bilinear_bwd_rows(cv, *args)
+            again = FB.fused_bilinear_bwd_rows(cv, *args)
+            if not all(torch.equal(x, y) for x, y in zip(again, rows)):
+                raise AssertionError(f"bilinear d_xj/d_a, {what}: two calls "
+                                     "differ")
             dw = FB.fused_bilinear_wgrad(cv, xjv, av, mv)
             if not torch.equal(FB.fused_bilinear_wgrad(cv, xjv, av, mv), dw):
                 raise AssertionError(f"bilinear dW, {what}: two calls differ")
@@ -814,7 +819,7 @@ def check_bilinear(batch, dev):
             verdict = "ok" if len(failures) == failed else "FAILED"
             print(f"  bilinear kernel check {verdict}: {what}: forward max "
                   f"|diff| {fwd:.3e}, d_xj/d_a {bwd:.3e}, d_w1/d_b1 {wgr:.3e} "
-                  f"(bit-identical twice); masked rows zero; worst share of "
+                  f"(both bit-identical twice); masked rows zero; worst share of "
                   f"the limit: forward {s_fwd:.3g}, d_xj/d_a {s_bwd:.3g}, "
                   f"d_w1/d_b1 {s_wgr:.3g}")
     if failures:
@@ -829,9 +834,9 @@ def time_bilinear(batch, dev, d=100, h=100, k=100):
     library yardstick is one torch.einsum over the same inputs (and its
     autograd backward to xj and a alone, the backward kernel's outputs);
     the port never calls it. Each bound counts the function's operations,
-    not the kernel's schedule: the forward and the weight gradient at the
-    3xTF32 rate of their tensor-core kernels (with the FMA pipes' rate
-    beside it as fma_bound_ms), the backward to the rows at the FMA rate."""
+    not the kernel's schedule, at the 3xTF32 rate of the three tensor-core
+    kernels (the forward, the backward to the rows, the weight gradient),
+    with the FMA pipes' rate beside it as fma_bound_ms."""
     from matdeeplearn_torch.ops import fused_bilinear as FB
 
     g = torch.Generator(device=dev).manual_seed(9)
@@ -857,6 +862,8 @@ def time_bilinear(batch, dev, d=100, h=100, k=100):
     # once) and operations (X, then one GEMM)
     fwd_bytes = 4 * (e_real * (d + h + k) + e + w_floats)
     fwd_flops = e_real * h * d + 2 * e_real * units * d * k
+    bwd_bytes = 4 * (e_real * (2 * d + 2 * h + k) + e + w_floats)
+    bwd_flops = 2 * e_real * units * d * k + e_real * (4 * h * d + d)
     res = {
         "fused_bilinear_fwd": {
             "ms": device_ms(lambda: FB.fused_bilinear(*args), 20),
@@ -872,8 +879,8 @@ def time_bilinear(batch, dev, d=100, h=100, k=100):
             "library_ms": device_ms(lambda: torch.autograd.grad(
                 out, leaves, cot, retain_graph=True), 10),
             # U = ge @ [W1; b1]ᵀ, then d_xj = Σ_h [a | 1]·U, d_a = xj·U
-            **bound(4 * (e_real * (2 * d + 2 * h + k) + e + w_floats),
-                    2 * e_real * units * d * k + e_real * (4 * h * d + d)),
+            **bound(bwd_bytes, bwd_flops, TF32X3_FLOPS),
+            "fma_bound_ms": bound(bwd_bytes, bwd_flops)["bound_ms"],
         },
         "fused_bilinear_wgrad": {
             "ms": device_ms(lambda: FB.fused_bilinear_wgrad(cot, xj, a, mask),

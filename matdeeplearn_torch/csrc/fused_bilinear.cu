@@ -25,17 +25,20 @@
 // 2*(H+1)*D*K ≈ 2.02 MFLOP forward and twice that backward (U, and dW),
 // against ~1.2 KB of its rows.
 //
-// The forward and the weight gradient run on the tensor cores: mma.sync
-// m16n8k8 in 3xTF32 (edge_tile.cuh: each operand split into TF32 hi + lo,
-// lo·hi + hi·lo + hi·hi accumulated in f32, f32 accuracy), issued pass by
-// pass over a warp's fragments (mma_3xtf32_tile) so that no mma waits on
-// the one before it. In both, the operand that the warps share is split
-// once per chunk into shared memory in fragment order (a warp loads a B
-// fragment's hi and lo as one 16-byte load a lane), and the generated
-// operand X (or X^T) is formed once per chunk in shared memory as f32 and
-// split by each warp as it loads its A fragment. Bound of each at the
-// 3xTF32 rate (495/3 TFLOP/s): 9.24e10 operations ≈ 0.56 ms at chip_smoke's
-// training batch (45,509 real edges in 80,176 slots).
+// All three kernels run on the tensor cores in 3xTF32 (each operand split
+// into TF32 hi + lo by split_tf32, lo·hi + hi·lo + hi·hi accumulated in
+// f32, f32 accuracy): the forward and the weight gradient on mma.sync
+// m16n8k8 (edge_tile.cuh), issued pass by pass over a warp's fragments
+// (mma_3xtf32_tile) so that no mma waits on the one before it, the
+// backward to the rows on wgmma m64nNk8. In the forward and the weight
+// gradient, the operand that the warps share is split once per chunk into
+// shared memory in fragment order (a warp loads a B fragment's hi and lo as
+// one 16-byte load a lane), and the generated operand X (or X^T) is formed
+// once per chunk in shared memory as f32 and split by each warp as it loads
+// its A fragment. Bound of each at the 3xTF32 rate (495/3 TFLOP/s) at
+// chip_smoke's training batch (45,509 real edges in 80,176 slots): 9.24e10
+// operations ≈ 0.56 ms for the forward and the weight gradient, 9.19e10 +
+// 1.8e9 ≈ 0.568 ms for the backward to the rows.
 //
 // * mdl_fused_bilinear_fwd: msg = mask * (X @ W) as one GEMM. A block of
 //   256 threads owns a tile of 128 edges (64 where K > 128 or the tile does
@@ -68,14 +71,30 @@
 //   wgrad_reduce_kernel's layout; that kernel (edge_tile.cuh) sums the S
 //   partials in a fixed order. No atomics touch dW and no buffer is
 //   zeroed, so dW is bit-identical from run to run on one card.
-// * mdl_fused_bilinear_bwd (d_xj, d_a): plain f32 FMA out of shared
-//   memory. One block of 256 threads owns a tile of 64 edges, loaded once
-//   (ge and xj). For each unit h it runs one (64 x K) @ (K x D) product
-//   against W[h] transposed by the caller, streamed through shared memory
-//   in chunks of up to 32 KB; thread (tx, ty) of the 8 warps accumulates
-//   rows ty + 8r (r < 8) and columns tx + 32j (j < CPT) in registers. The
-//   epilogue adds a[e,h] times U to d_xj and reduces xj · U across the
-//   warp (one warp holds whole rows) into d_a[e,h].
+// * mdl_fused_bilinear_bwd (d_xj, d_a): U = ge @ W^T, a (E x round8(K)) @
+//   (round8(K) x (H+1)*D) GEMM with a short reduction and a wide output,
+//   each unit's D columns folded at once into d_xj and d_a. A first kernel
+//   splits W once a call into TF32 hi and lo, laid out as the wgmma B
+//   descriptors read it (K-major core matrices of 8 rows x 16 bytes, no
+//   swizzle; 8.7 MB at MPNN_demo width). A block of two warpgroups owns a
+//   tile of 128 edges (each warpgroup 64 rows and all of round8(D) <= 104
+//   columns; past D = 104, 64 edges and a column half each): its ge = mask
+//   * g and xj rows are loaded once into shared memory, and ge is the A
+//   operand of every unit, loaded and split by each warp into registers
+//   k-step by k-step. The split W streams through a two-stage ring by
+//   16-byte cp.async, a stage being up to 8 k-steps of one unit (7 + 6 at
+//   K = 100), one barrier a stage; each k-step issues three wgmma m64nNk8
+//   (N = 104 at D = 100; 52 U accumulators a thread) and the stage ends on
+//   wgmma.wait_group. After a unit's last stage: d_xj += a[e, h] U (the
+//   bias unit by 1) in 52 more registers, d_a[e, h] = xj . U reduced over a
+//   row inside the 4 lanes that share it (a warpgroup holds whole rows, so
+//   no reduction across warps; past D = 104 the two column halves' partials
+//   add in warpgroup order), and the next unit's first wgmma drops U. At D
+//   = H = K = 100: 201 KB of shared memory (W 2 x 46.6 KB, ge 53.2 KB, xj
+//   53.2 KB), one block an SM, 214 registers; the split W is read from L2
+//   once per tile with a real edge (~3.1 GB at that batch). A tile with no
+//   real edge costs one barrier. No atomics: d_xj and d_a are
+//   bit-identical from run to run.
 //
 // The caller zeroes out, d_xj and d_a, and allocates everything; the
 // kernels never synchronise.
@@ -87,10 +106,6 @@
 
 namespace {
 
-constexpr int kBTE = 64;            // edges per tile of the backward
-constexpr int kBRows = kBTE / 8;    // tile rows per thread (8 warps)
-constexpr int kChunkFloats = 8192;  // 32 KB: largest shared chunk of W[h]^T
-
 struct Geometry {
   long long e;  // edge slots
   int d;        // xj width D
@@ -98,22 +113,9 @@ struct Geometry {
   int h;        // hidden units H (W holds H + 1 units)
 };
 
-// Rows of a right operand (ka x ldn) in one shared-memory chunk.
-int chunk_rows(int ka, int ldn) {
-  const int fit = (kChunkFloats / ldn) & ~3;
-  const int rows = fit > 4 ? fit : 4;
-  return round4(ka) < rows ? round4(ka) : rows;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // sc_s[r] = mask of edge e0 + r (0 past the end) for the tile's TE rows;
 // returns, uniformly across the block, whether any of them is real.
-template <int TE = kBTE>
+template <int TE>
 __device__ bool load_scale(const float* __restrict__ mask, long long e0,
                            long long e, float* sc_s) {
   bool real = false;
@@ -124,168 +126,6 @@ __device__ bool load_scale(const float* __restrict__ mask, long long e0,
     real = m != 0.f;
   }
   return __syncthreads_or(real) != 0;
-}
-
-// dst[r][c] = (scaled ? sc_s[r] : 1) * src[e0 + r][c] for c < w, zero for
-// c in [w, ld) and for skipped rows. src is (e x w) row-major.
-__device__ void load_rows(const float* __restrict__ src, long long e0, int w,
-                          int ld, const float* sc_s, bool scaled,
-                          float* dst) {
-  for (int i = threadIdx.x; i < kBTE * ld; i += kThreads) {
-    const int r = i / ld;
-    const int c = i - r * ld;
-    const float s = sc_s[r];
-    float v = 0.f;
-    if (s != 0.f && c < w) {
-      v = src[(e0 + r) * w + c];
-      if (scaled) v *= s;
-    }
-    dst[i] = v;
-  }
-}
-
-// a[e, h], 1 for the bias unit h = H, 0 for a skipped row.
-__device__ __forceinline__ float unit_weight(const float* __restrict__ a,
-                                             long long e, int h,
-                                             const Geometry& g, float s) {
-  if (s == 0.f) return 0.f;
-  return h < g.h ? a[e * g.h + h] : 1.f;
-}
-
-// part[r][j] = Σ_{k < ka} a_s[row][k] * b[k][c] for row = ty + 8r and
-// c = tx + 32j. a_s is a kBTE x lda tile in shared memory, zero from
-// column ka to round4(ka); b is a ka x nb row-major matrix in device
-// memory, streamed through b_s in chunks of kc rows, 32 * CPT columns wide
-// and zero beyond nb. Starts each chunk with a barrier, so the caller's
-// writes to a_s are visible and the previous chunk's readers are done.
-template <int CPT>
-__device__ void unit_gemm(const float* __restrict__ a_s, int lda, int ka,
-                          const float* __restrict__ b, int nb, int kc,
-                          float* __restrict__ b_s,
-                          float (&part)[kBRows][CPT]) {
-  constexpr int ldn = 32 * CPT;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < kBRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) part[r][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < ka; k0 += kc) {
-    const int kr = min(kc, ka - k0);
-    const int kr4 = round4(kr);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kr4 * ldn; i += kThreads) {
-      const int kk = i / ldn;
-      const int c = i - kk * ldn;
-      b_s[i] = (kk < kr && c < nb) ? b[(long long)(k0 + kk) * nb + c] : 0.f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kr4; kk += 4) {
-      float4 a4[kBRows];
-#pragma unroll
-      for (int r = 0; r < kBRows; ++r) {
-        a4[r] = *reinterpret_cast<const float4*>(a_s + (ty + 8 * r) * lda +
-                                                 k0 + kk);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float* brow = b_s + (kk + q) * ldn + tx;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float bv = brow[32 * j];
-#pragma unroll
-          for (int r = 0; r < kBRows; ++r) {
-            const float av = q == 0 ? a4[r].x
-                           : q == 1 ? a4[r].y
-                           : q == 2 ? a4[r].z
-                                    : a4[r].w;
-            part[r][j] = fmaf(av, bv, part[r][j]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// wt holds W[h]^T (K x D) for each unit, (H+1) x K x D.
-template <int CPT>
-__global__ void __launch_bounds__(kThreads)
-bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
-                    const float* __restrict__ wt,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ gout, float* __restrict__ dxj,
-                    float* __restrict__ da, Geometry g, int kc) {
-  constexpr int ldn = 32 * CPT;
-  const int ldk = round4(g.k);
-  extern __shared__ float4 smem4[];
-  float* x_s = reinterpret_cast<float*>(smem4);  // kBTE x ldn: xj
-  float* g_s = x_s + kBTE * ldn;                 // kBTE x ldk: ge
-  float* b_s = g_s + kBTE * ldk;                 // kc x ldn
-  float* sc_s = b_s + kc * ldn;                  // kBTE
-
-  const long long e0 = (long long)blockIdx.x * kBTE;
-  if (!load_scale(mask, e0, g.e, sc_s)) return;
-  load_rows(xj, e0, g.d, ldn, sc_s, false, x_s);
-  load_rows(gout, e0, g.k, ldk, sc_s, true, g_s);
-
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  float dx[kBRows][CPT], u[kBRows][CPT];
-#pragma unroll
-  for (int r = 0; r < kBRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) dx[r][j] = 0.f;
-  }
-  for (int h = 0; h <= g.h; ++h) {
-    unit_gemm<CPT>(g_s, ldk, g.k, wt + (long long)h * g.k * g.d, g.d, kc, b_s,
-                   u);
-#pragma unroll
-    for (int r = 0; r < kBRows; ++r) {
-      const int row = ty + 8 * r;
-      const float ah = unit_weight(a, e0 + row, h, g, sc_s[row]);
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        dx[r][j] = fmaf(ah, u[r][j], dx[r][j]);
-        dot = fmaf(x_s[row * ldn + tx + 32 * j], u[r][j], dot);
-      }
-      if (h < g.h) {  // uniform across the block
-        dot = warp_sum(dot);
-        if (tx == 0 && sc_s[row] != 0.f) da[(e0 + row) * g.h + h] = dot;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kBRows; ++r) {
-    const int row = ty + 8 * r;
-    if (sc_s[row] == 0.f) continue;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = tx + 32 * j;
-      if (c < g.d) dxj[(e0 + row) * g.d + c] = dx[r][j];
-    }
-  }
-}
-
-template <int CPT>
-int launch_bwd(const float* xj, const float* a, const float* wt,
-               const float* mask, const float* gout, float* dxj, float* da,
-               const Geometry& g, cudaStream_t s) {
-  const int ldn = 32 * CPT;
-  const int kc = chunk_rows(g.k, ldn);
-  const size_t smem =
-      sizeof(float) * ((size_t)kBTE * ldn + (size_t)kBTE * round4(g.k) +
-                       (size_t)kc * ldn + kBTE);
-  if (smem > (size_t)kMaxShared) return kBadShape;
-  cudaError_t err = cudaFuncSetAttribute(
-      bilinear_bwd_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (g.e + kBTE - 1) / kBTE;
-  bilinear_bwd_kernel<CPT><<<(unsigned)tiles, kThreads, smem, s>>>(
-      xj, a, wt, mask, gout, dxj, da, g, kc);
-  return (int)cudaGetLastError();
 }
 
 // ---- the forward: msg = mask * (X @ W) on the tensor cores ---------------
@@ -906,6 +746,445 @@ int launch_wgrad(const float* xj, const float* a, const float* mask,
   return (int)cudaGetLastError();
 }
 
+// ---- the backward to the rows: U = ge @ W^T, then d_xj and d_a ----------
+
+constexpr int kKS = 8;  // most k-steps (of 8 columns of W) a stage holds
+
+// wgmma in TF32 (sm_90a): d (a warpgroup's 64 rows x 8 NTW columns, f32;
+// lane (g, t) of warp w holds d[j] = {D[16w+g][8j+2t], D[16w+g][8j+2t+1],
+// D[16w+g+8][8j+2t], D[16w+g+8][8j+2t+1]}, mma.sync's m16n8 layout) += A · B
+// over k = 8, with A from registers (m16n8k8's A fragment of the warp's 16
+// rows: {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}) and B (8 NTW x 8,
+// K-major) from shared memory by descriptor; scale_d = 0 drops the old d.
+// The instruction only issues: wgmma_wait retires it.
+template <int NTW> struct WgmmaTf32;
+
+template <> struct WgmmaTf32<8> {
+  __device__ static void mma(float (&d)[8][4], const uint32_t (&a)[4],
+                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTf32<13> {
+  __device__ static void mma(float (&d)[13][4], const uint32_t (&a)[4],
+                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51"
+        "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTf32<16> {
+  __device__ static void mma(float (&d)[16][4], const uint32_t (&a)[4],
+                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving a register's reads or writes across an
+// asynchronous wgmma's issue or retirement.
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_reg(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// The descriptor of a K-major B operand without swizzle at p: core
+// matrices of 8 rows x 16 bytes (8 x 4 TF32 words, rows contiguous), the
+// two of a k-step 128 bytes apart (leading byte offset) and successive
+// 8-row groups 256 bytes apart (stride byte offset).
+__device__ __forceinline__ uint64_t b_desc(const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+struct BwdLayout {
+  int kt;   // k-steps of U's reduction: round8(K) / 8
+  int np;   // W rows of a unit in ws: the n8-tiles of all warpgroups x 8
+  int ks;   // k-steps a stage holds (<= kKS)
+  int nk;   // stages a unit: ceil(kt / ks)
+  int ldg;  // row stride of the ge tile (8 mod 16)
+  int ldx;  // row stride of the xj tile (8 mod 16)
+};
+
+// Words of one k-step of ws: hi, then lo, each np rows x 8 words.
+__host__ __device__ inline int kstep_words(int np) { return 2 * np * 8; }
+
+// Two W stages, the ge and xj tiles, the d_a partials (two units x WN
+// warpgroup columns) and the mask.
+size_t bwd_shared_bytes(const BwdLayout& b, int te, int wn) {
+  return sizeof(float) * (2 * (size_t)b.ks * kstep_words(b.np) +
+                          (size_t)te * (b.ldg + b.ldx) + 2 * (size_t)wn * te +
+                          te);
+}
+
+// The layout for a tile of te edges and np W rows a unit: the fewest
+// stages a unit whose two-stage ring fits in shared memory, the k-steps
+// dealt evenly. False where none fits.
+bool bwd_layout(const Geometry& g, int np, int te, int wn, BwdLayout* b) {
+  b->kt = round8(g.k) / 8;
+  b->np = np;
+  b->ldg = stride_b(8 * b->kt);
+  b->ldx = stride_b(np);
+  for (int most = kKS; most >= 1; --most) {
+    b->nk = (b->kt + most - 1) / most;
+    b->ks = (b->kt + b->nk - 1) / b->nk;
+    if (bwd_shared_bytes(*b, te, wn) <= (size_t)kMaxShared) return true;
+  }
+  return false;
+}
+
+// ws = W split once into TF32 hi and lo in the order the backward's B
+// descriptors read it: for unit u, k-step k8, part (hi, lo), 8-row group
+// n8 of the unit's np rows, half kh of the k-step, row r and column c < 4,
+// word ((((u * kt + k8) * 2 + part) * np / 8 + n8) * 2 + kh) * 32 + r * 4
+// + c holds that part of W[u*D + 8 n8 + r][8 k8 + 4 kh + c] (zero past D
+// or K). A stage is then one contiguous range of words.
+__global__ void __launch_bounds__(kThreads)
+split_weight_kernel(const float* __restrict__ w, int d, int k, int h,
+                    int kt, int np, uint32_t* __restrict__ ws) {
+  const long long total = (long long)(h + 1) * kt * np * 8;  // hi/lo pairs
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += (long long)gridDim.x * kThreads) {
+    // i = ((u * kt + k8) * np + n) * 8 + kk over the unit's row n and the
+    // k-step's column kk
+    const int kk = (int)(i & 7);
+    const long long un = i >> 3;
+    const int n = (int)(un % np);
+    const long long uk = un / np;
+    const int k8 = (int)(uk % kt);
+    const long long u = uk / kt;
+    const int col = 8 * k8 + kk;
+    const float v = n < d && col < k ? w[(u * d + n) * k + col] : 0.f;
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    const long long base = uk * kstep_words(np);
+    const long long at = ((long long)(n >> 3) * 2 + (kk >> 2)) * 32 +
+                         (n & 7) * 4 + (kk & 3);
+    ws[base + at] = hi;
+    ws[base + np * 8 + at] = lo;
+  }
+}
+
+// One tile of TE = 64 * 2 / WN edges, two warpgroups: with WN = 1 each owns
+// 64 of the tile's 128 rows and all of a unit's 8 NTW columns; with WN = 2
+// both own the tile's 64 rows, warpgroup wn the columns 8 NTW wn .. . The
+// tile's ge = mask * g (columns interleaved, so that a lane's A pair {k, k
+// + 4} is one 8-byte load) and xj rows are loaded once; ws streams through
+// a two-stage ring of 16-byte cp.async (a stage: ks k-steps of one unit,
+// one contiguous range of ws), one stage ahead, one barrier a stage. For
+// each k-step a warp loads and splits its A fragment and its warpgroup
+// issues three wgmma (lo·hi, hi·lo, hi·hi, f32 accumulation: 3xTF32) into
+// the unit's U; the stage ends on wgmma_wait. After a unit's last stage
+// the warp folds U into its d_xj accumulators (a[e, h] U, the bias unit by
+// 1), reduces xj . U over its columns (a fixed fmaf chain a lane, then the
+// lanes of the quad that share the row) into its d_a partial; the first
+// wgmma of the next unit drops U. The first TE threads add a unit's WN
+// partials in warpgroup order and write d_a one stage later. Real rows
+// only are written.
+template <int NTW, int WN>
+__global__ void __launch_bounds__(kThreads, 1)
+bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
+                    const uint32_t* __restrict__ ws,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ gout, float* __restrict__ dxj,
+                    float* __restrict__ da, Geometry g, BwdLayout b) {
+  constexpr int TE = 64 * 2 / WN;
+  const int stage_words = b.ks * kstep_words(b.np);
+  extern __shared__ float4 smem4[];
+  uint32_t* w_s = reinterpret_cast<uint32_t*>(smem4);  // 2 stages
+  float* g_s = reinterpret_cast<float*>(w_s + 2 * stage_words);  // TE x ldg
+  float* x_s = g_s + TE * b.ldg;                 // TE x ldx: xj
+  float* p_s = x_s + TE * b.ldx;                 // 2 x WN x TE: d_a parts
+  float* sc_s = p_s + 2 * WN * TE;               // TE: the mask
+
+  const long long e0 = (long long)blockIdx.x * TE;
+  if (!load_scale<TE>(mask, e0, g.e, sc_s)) return;
+  const int stages = (g.h + 1) * b.nk;
+
+  // stage s: unit s / nk, k-steps (s % nk) * ks .. of it
+  auto load_stage = [&](int s) {
+    if (s < stages) {
+      const int u = s / b.nk;
+      const int k0 = (s - u * b.nk) * b.ks;
+      const int q = min(b.ks, b.kt - k0) * kstep_words(b.np) / 4;
+      uint32_t* dst = w_s + (s & 1) * stage_words;
+      const uint32_t* src =
+          ws + ((long long)u * b.kt + k0) * kstep_words(b.np);
+      for (int i = threadIdx.x; i < q; i += kThreads) {
+        cp_async16(dst + 4 * i, src + 4 * i);
+      }
+    }
+    cp_async_commit();
+  };
+  load_stage(0);
+
+  // the ge tile (zero past K and on masked rows), interleaved: position p
+  // of a row holds column (p & ~7) + (p & 7) / 2 + 4 * (p & 1)
+  const int kp = 8 * b.kt;
+  for (int i = threadIdx.x; i < TE * kp; i += kThreads) {
+    const int r = i / kp;
+    const int p = i - r * kp;
+    const int k = (p & ~7) + ((p & 7) >> 1) + 4 * (p & 1);
+    const float s = sc_s[r];
+    g_s[r * b.ldg + p] =
+        s != 0.f && k < g.k ? s * gout[(e0 + r) * g.k + k] : 0.f;
+  }
+  // the xj tile, zero past D and on masked rows
+  for (int i = threadIdx.x; i < TE * b.np; i += kThreads) {
+    const int r = i / b.np;
+    const int c = i - r * b.np;
+    x_s[r * b.ldx + c] =
+        sc_s[r] != 0.f && c < g.d ? xj[(e0 + r) * g.d + c] : 0.f;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int wn = WN == 1 ? 0 : warp >> 2;       // warpgroup column
+  const int row0 = 16 * (WN == 1 ? warp : warp & 3);
+  const int col0 = wn * NTW * 8;  // the warpgroup's first column of a unit
+  const int r0 = row0 + gr;       // the lane's rows r0 and r0 + 8
+  const bool real0 = sc_s[r0] != 0.f;
+  const bool real1 = sc_s[r0 + 8] != 0.f;
+  const float* a0p = a + (real0 ? (e0 + r0) * g.h : 0);
+  const float* a1p = a + (real1 ? (e0 + r0 + 8) * g.h : 0);
+  const float* gs = g_s + r0 * b.ldg + 2 * tq;
+  const float* xs = x_s + r0 * b.ldx + col0 + 2 * tq;
+  // the warpgroup's B within a k-step: its first 8-row group, hi and lo
+  const int b_hi = (col0 / 8) * 64;
+  const int b_lo = b.np * 8 + b_hi;
+
+  float u[NTW][4], dx[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) u[j][q] = dx[j][q] = 0.f;
+
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<0>();
+    // the landed stage is read by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // stage s landed; every warp is done with stage s - 1
+    load_stage(s + 1);
+    const int h = s / b.nk;
+    const int c = s - h * b.nk;
+    if (c == 0 && h > 0 && threadIdx.x < TE && sc_s[threadIdx.x] != 0.f) {
+      // unit h - 1's d_a: its WN partials in warpgroup order
+      const float* p = p_s + ((h - 1) & 1) * WN * TE + threadIdx.x;
+      float v = p[0];
+#pragma unroll
+      for (int w = 1; w < WN; ++w) v += p[w * TE];
+      da[(e0 + threadIdx.x) * g.h + h - 1] = v;
+    }
+    const bool last = c == b.nk - 1;
+    const bool bias = h == g.h;
+    float a0 = 1.f, a1 = 1.f;
+    if (last && !bias) {
+      a0 = real0 ? __ldg(a0p + h) : 0.f;
+      a1 = real1 ? __ldg(a1p + h) : 0.f;
+    }
+
+    const uint32_t* wst = w_s + (s & 1) * stage_words;
+    const float* gk = gs + 8 * c * b.ks;
+    const int nks = min(b.ks, b.kt - c * b.ks);
+    uint32_t ahi[kKS][4], alo[kKS][4];
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fence_reg(u[j][q]);
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      if (ks < nks) {  // uniform across the block
+        // A = ge: rows r0, r0 + 8, columns {t, t + 4} of the k-step
+        const float2 x0 = *reinterpret_cast<const float2*>(gk + 8 * ks);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(gk + 8 * b.ldg + 8 * ks);
+        split_tf32(x0.x, ahi[ks][0], alo[ks][0]);
+        split_tf32(x1.x, ahi[ks][1], alo[ks][1]);
+        split_tf32(x0.y, ahi[ks][2], alo[ks][2]);
+        split_tf32(x1.y, ahi[ks][3], alo[ks][3]);
+        const uint32_t* wk = wst + ks * kstep_words(b.np);
+        const uint64_t dhi = b_desc(wk + b_hi);
+        const uint64_t dlo = b_desc(wk + b_lo);
+        wgmma_fence();
+        WgmmaTf32<NTW>::mma(u, alo[ks], dhi, c == 0 && ks == 0 ? 0 : 1);
+        WgmmaTf32<NTW>::mma(u, ahi[ks], dlo, 1);
+        WgmmaTf32<NTW>::mma(u, ahi[ks], dhi, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      if (ks < nks) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          fence_reg(ahi[ks][q]);
+          fence_reg(alo[ks][q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) fence_reg(u[j][q]);
+
+    if (!last) continue;
+    // the epilogue of unit h: lane (gr, tq) holds U[r0][c], U[r0][c + 1],
+    // U[r0 + 8][c], U[r0 + 8][c + 1] for c = col0 + 8 j + 2 tq
+    float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      dx[j][0] = fmaf(a0, u[j][0], dx[j][0]);
+      dx[j][1] = fmaf(a0, u[j][1], dx[j][1]);
+      dx[j][2] = fmaf(a1, u[j][2], dx[j][2]);
+      dx[j][3] = fmaf(a1, u[j][3], dx[j][3]);
+      if (!bias) {
+        const float2 v0 = *reinterpret_cast<const float2*>(xs + 8 * j);
+        const float2 v1 = *reinterpret_cast<const float2*>(xs + 8 * b.ldx + 8 * j);
+        dot0 = fmaf(v0.x, u[j][0], dot0);
+        dot0 = fmaf(v0.y, u[j][1], dot0);
+        dot1 = fmaf(v1.x, u[j][2], dot1);
+        dot1 = fmaf(v1.y, u[j][3], dot1);
+      }
+    }
+    if (!bias) {  // uniform across the block
+      dot0 += __shfl_xor_sync(0xffffffffu, dot0, 1);
+      dot0 += __shfl_xor_sync(0xffffffffu, dot0, 2);
+      dot1 += __shfl_xor_sync(0xffffffffu, dot1, 1);
+      dot1 += __shfl_xor_sync(0xffffffffu, dot1, 2);
+      if (tq == 0) {
+        float* p = p_s + ((h & 1) * WN + wn) * TE + r0;
+        p[0] = dot0;
+        p[8] = dot1;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    const int c = col0 + 8 * j + 2 * tq;
+    if (real0) {
+      float* out = dxj + (e0 + r0) * g.d;
+      if (c < g.d) out[c] = dx[j][0];
+      if (c + 1 < g.d) out[c + 1] = dx[j][1];
+    }
+    if (real1) {
+      float* out = dxj + (e0 + r0 + 8) * g.d;
+      if (c < g.d) out[c] = dx[j][2];
+      if (c + 1 < g.d) out[c + 1] = dx[j][3];
+    }
+  }
+}
+
+// The warpgroup layout for D: two row halves of a 128-edge tile, each with
+// all of round8(D) in NTW = 8 or 13 n8-tiles, where D <= 104; else two
+// column halves of a 64-edge tile, NTW = 13 up to D = 208 and 16 up to 256.
+int bwd_warpgroups(int d, int* wn) {
+  const int nt = round8(d) / 8;
+  *wn = nt <= 13 ? 1 : 2;
+  if (nt <= 8) return 8;
+  if (nt <= 26) return 13;
+  return 16;
+}
+
+template <int NTW, int WN>
+int launch_bwd(const float* xj, const float* a, const uint32_t* ws,
+               const float* mask, const float* gout, float* dxj, float* da,
+               const Geometry& g, const BwdLayout& b, cudaStream_t s) {
+  constexpr int TE = 64 * 2 / WN;
+  const size_t smem = bwd_shared_bytes(b, TE, WN);
+  cudaError_t err = cudaFuncSetAttribute(
+      bilinear_bwd_kernel<NTW, WN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (g.e + TE - 1) / TE;
+  bilinear_bwd_kernel<NTW, WN><<<(unsigned)tiles, kThreads, smem, s>>>(
+      xj, a, ws, mask, gout, dxj, da, g, b);
+  return (int)cudaGetLastError();
+}
+
 Geometry make_geometry(long long e, int d, int k, int h) {
   Geometry g;
   g.e = e; g.d = d; g.k = k; g.h = h;
@@ -968,29 +1247,49 @@ int mdl_fused_bilinear_fwd(const void* xj, const void* a, const void* wp,
                       static_cast<cudaStream_t>(stream));
 }
 
-// wt ((h+1) x k x d) holds each unit of [W1; b1] transposed; gout (e x k);
-// dxj (e x d) and da (e x h) hold zeros.
-int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* wt,
-                           const void* mask, const void* gout, void* dxj,
-                           void* da, long long e, int d, int k, int h,
-                           void* stream) {
+// Words of the backward's split weight (its ws argument) for these
+// widths, or -kBadShape for an unsupported one.
+long long mdl_fused_bilinear_split_words(int d, int k, int h) {
+  if (d < 1 || d > 256 || k < 1 || k > 256 || h < 1) return -kBadShape;
+  int wn = 1;
+  const int np = 8 * bwd_warpgroups(d, &wn) * wn;
+  return (long long)(h + 1) * (round8(k) / 8) * kstep_words(np);
+}
+
+// w ((h+1)*d x k) is [W1; b1] (W1 as (h*d x k)); ws holds
+// mdl_fused_bilinear_split_words(d, k, h) words, no initial value needed;
+// gout (e x k); dxj (e x d) and da (e x h) hold zeros. Launches the weight
+// split, then the tiles.
+int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* w,
+                           void* ws, const void* mask, const void* gout,
+                           void* dxj, void* da, long long e, int d, int k,
+                           int h, void* stream) {
+  if (d < 1 || d > 256 || k < 1 || k > 256 || h < 1) return kBadShape;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry g = make_geometry(e, d, k, h);
+  int wn = 1;
+  const int ntw = bwd_warpgroups(d, &wn);
+  BwdLayout b;
+  if (!bwd_layout(g, 8 * ntw * wn, 64 * 2 / wn, wn, &b)) return kBadShape;
+  const long long pairs = (long long)(h + 1) * b.kt * b.np * 8;
+  const long long blocks = (pairs + kThreads - 1) / kThreads;
+  uint32_t* wsp = static_cast<uint32_t*>(ws);
+  split_weight_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), kThreads,
+                        0, s>>>(static_cast<const float*>(w), d, k, h, b.kt,
+                                b.np, wsp);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
   const float* xp = static_cast<const float*>(xj);
   const float* ap = static_cast<const float*>(a);
-  const float* wp = static_cast<const float*>(wt);
   const float* mp = static_cast<const float*>(mask);
   const float* gp = static_cast<const float*>(gout);
   float* dxp = static_cast<float*>(dxj);
   float* dap = static_cast<float*>(da);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cpt_for(k) == 0) return kBadShape;
-  switch (cpt_for(d)) {
-    case 1: return launch_bwd<1>(xp, ap, wp, mp, gp, dxp, dap, g, s);
-    case 2: return launch_bwd<2>(xp, ap, wp, mp, gp, dxp, dap, g, s);
-    case 4: return launch_bwd<4>(xp, ap, wp, mp, gp, dxp, dap, g, s);
-    case 5: return launch_bwd<5>(xp, ap, wp, mp, gp, dxp, dap, g, s);
-    case 8: return launch_bwd<8>(xp, ap, wp, mp, gp, dxp, dap, g, s);
-    default: return kBadShape;
+  switch (ntw * wn) {
+    case 8: return launch_bwd<8, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
+    case 13: return launch_bwd<13, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
+    case 26: return launch_bwd<13, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
+    default: return launch_bwd<16, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
   }
 }
 

@@ -21,14 +21,20 @@ by it before the sum, so its cotangent is zero on pad rows there too.
 
 With X[e, h·D + d] = [a | 1][e, h]·xj[e, d] over the flat reduction of
 (H+1)·D rows, the message is mask·(X @ [W1; b1]) and the weight gradient
-Xᵀ·(mask·g): two GEMMs with a generated operand. Their kernels run on the
-tensor cores in 3xTF32 (f32 accuracy): the forward over 128-edge tiles
+Xᵀ·(mask·g): two GEMMs with a generated operand. With U = (mask·g) @
+[W1; b1]ᵀ cut into the H+1 units of D columns, d_xj = Σ_h [a | 1][:, h]·U_h
+and d_a[:, h] = rowsum(xj·U_h). All three kernels run on the tensor cores
+in 3xTF32 (f32 accuracy): the forward (`mma.sync`) over 128-edge tiles
 against [W1; b1] padded to a multiple of FWD_CHUNK rows and round8(K)
-columns (`padded_weight`); the weight gradient over the 32-edge chunks
-that hold a real edge, split into S partials (S from the SM count) that a
-second kernel sums in a fixed order, so d_w1 and d_b1 are bit-identical
-from run to run. The backward to the rows (d_xj, d_a) runs on the FMA
-pipes. csrc/fused_bilinear.cu gives the tile sizes and bounds.
+columns (`padded_weight`); the weight gradient (`mma.sync`) over the 32-edge
+chunks that hold a real edge, split into S partials (S from the SM count)
+that a second kernel sums in a fixed order; the backward to the rows
+(`wgmma`) over 128-edge tiles (64 for D > 104) whose mask·g is the A operand
+of every unit, against [W1; b1] split once a call into TF32 hi and lo in
+the layout its B descriptors read, folding each unit's U into d_xj and d_a
+as it leaves the tensor cores. No atomics: d_xj, d_a, d_w1 and d_b1 are
+bit-identical from run to run.
+csrc/fused_bilinear.cu gives the tile sizes and bounds.
 
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
@@ -68,11 +74,13 @@ def _load():
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mdl_fused_bilinear_fwd.argtypes = [vp] * 5 + [cl, ci, ci, ci, vp]
         lib.mdl_fused_bilinear_fwd.restype = ci
-        lib.mdl_fused_bilinear_bwd.argtypes = [vp] * 7 + [cl, ci, ci, ci, vp]
+        lib.mdl_fused_bilinear_bwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, vp]
         lib.mdl_fused_bilinear_bwd.restype = ci
         lib.mdl_fused_bilinear_wgrad.argtypes = ([vp] * 7
                                                  + [cl, ci, ci, ci, ci, vp])
         lib.mdl_fused_bilinear_wgrad.restype = ci
+        lib.mdl_fused_bilinear_split_words.argtypes = [ci, ci, ci]
+        lib.mdl_fused_bilinear_split_words.restype = cl
         lib.mdl_fused_bilinear_partial_floats.argtypes = [ci, ci, ci]
         lib.mdl_fused_bilinear_partial_floats.restype = cl
         lib.mdl_fused_bilinear_wgrad_splits.argtypes = [cl, ci, ci, ci]
@@ -246,15 +254,18 @@ def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask) -> tuple:
     d_a = torch.zeros_like(a)
     if e == 0 or k == 0:
         return d_xj, d_a
-    # unit h of [W1; b1], transposed: ((H+1), K, D)
-    wt = extend_weight(w1, b1, d).view(h + 1, d, k).transpose(1, 2).contiguous()
+    w = extend_weight(w1, b1, d)
     lib = _load()
+    # the kernel's TF32 hi/lo split of w, in the order its tiles read it
+    ws = torch.empty(lib.mdl_fused_bilinear_split_words(d, k, h),
+                     dtype=torch.int32, device=xj.device)
     with torch.cuda.device(xj.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_fused_bilinear_bwd(xj.data_ptr(), a.data_ptr(),
-                                        wt.data_ptr(), mask.data_ptr(),
-                                        g.data_ptr(), d_xj.data_ptr(),
-                                        d_a.data_ptr(), e, d, k, h, stream)
+                                        w.data_ptr(), ws.data_ptr(),
+                                        mask.data_ptr(), g.data_ptr(),
+                                        d_xj.data_ptr(), d_a.data_ptr(), e, d,
+                                        k, h, stream)
     _raise_on(rc, "mdl_fused_bilinear_bwd")
     LAUNCHES["fused_bilinear_bwd"] += 1
     return d_xj, d_a

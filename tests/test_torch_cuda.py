@@ -556,10 +556,23 @@ def test_fused_bilinear_wgrad_is_bit_identical(cuda_device, case, d, h, k):
     assert torch.equal(FB.fused_bilinear_wgrad(g, xj, a, mask), first)
 
 
+# (150, 100, 150): D > 104, two warps share a row's d_a
+@pytest.mark.parametrize("case,d,h,k", [("sorted", 100, 100, 100),
+                                        ("scattered", 150, 100, 150)])
+def test_fused_bilinear_bwd_rows_is_bit_identical(cuda_device, case, d, h, k):
+    args = _bilinear_inputs(case, d, h, k, device=cuda_device)
+    g = torch.randn(len(args[-1]), k, device=cuda_device)
+    d_xj, d_a = FB.fused_bilinear_bwd_rows(g, *args)
+    again = FB.fused_bilinear_bwd_rows(g, *args)
+    assert torch.equal(again[0], d_xj) and torch.equal(again[1], d_a)
+
+
 # (E, D, H, K) at the edges of the tensor-core kernels' tiling: 32-row
 # chunks of the flat reduction spanning several units (D 3, 33, 1), K not
-# a multiple of 8, D > 128 (the forward's 64-edge tile), H = 1, and edge
-# counts that are not a multiple of the 128-edge tile or the 32-edge chunk
+# a multiple of 8, D > 128 (the forward's 64-edge tile; the backward to
+# the rows' 64-edge tile past D 104, its 32-edge one past 208), H = 1, and
+# edge counts that are not a multiple of the 128-edge tile or the 32-edge
+# chunk
 @pytest.mark.parametrize("e,d,h,k", [(1000, 3, 7, 5), (777, 33, 1, 9),
                                      (1001, 1, 3, 12), (515, 200, 12, 20),
                                      (129, 64, 1, 100), (4099, 100, 100, 100),
@@ -578,7 +591,12 @@ def test_fused_bilinear_tiling_edges_match_plain(cuda_device, e, d, h, k):
     dw = FB.fused_bilinear_wgrad(g, *args[:2], mask)
     _assert_fused_close(dw, FB.wgrad_plain(g, *args[:2], mask, k), "dW")
     assert torch.equal(FB.fused_bilinear_wgrad(g, *args[:2], mask), dw)
-    assert float(FB.fused_bilinear(*args)[mask == 0].abs().max()) == 0.0
+    rows = FB.fused_bilinear_bwd_rows(g, *args)
+    for name, got, ref in zip(["d_xj", "d_a"], rows,
+                              FB.bwd_rows_plain(g, *args)):
+        _assert_fused_close(got, ref, name)
+    for t in (FB.fused_bilinear(*args), *rows):
+        assert float(t[mask == 0].abs().max()) == 0.0
 
 
 def test_fused_bilinear_all_pad_batch_gives_zeros(cuda_device):
@@ -588,6 +606,8 @@ def test_fused_bilinear_all_pad_batch_gives_zeros(cuda_device):
     g = torch.randn(len(mask), 100, device=cuda_device)
     assert not FB.fused_bilinear(xj, a, w1, b1, pad).any()
     assert not FB.fused_bilinear_wgrad(g, xj, a, pad).any()
+    d_xj, d_a = FB.fused_bilinear_bwd_rows(g, xj, a, w1, b1, pad)
+    assert not d_xj.any() and not d_a.any()
 
 
 def test_fused_bilinear_autograd_and_launch_counts(cuda_device):

@@ -27,6 +27,12 @@ JAX package on the CPU.
   JAX `fused_bilinear_msg` and its VJP (chip_smoke.py:assert_fused, rtol
   1e-4 and atol 1e-4·max|ref|), and the single-pass TF32 emulation (hi·hi
   alone) falls outside it: the limit tells the two builds apart.
+* The backward to the rows (d_xj, d_a) the same way, in its kernel's
+  order: U_h = (mask·g) @ W_hᵀ over round8(K) in k-steps of 8, then unit by
+  unit d_xj = fmaf(a_h, U_h, d_xj) and d_a[:, h] as each lane's fmaf chain
+  over its columns, added over the 4 lanes of a row's quad. At D = H = K =
+  100 the 3xTF32 emulation falls within the chip limit of JAX's chunked
+  VJP, and the 1xTF32 one outside it (at a reduction of K = 100).
 """
 
 import jax
@@ -227,6 +233,54 @@ def _emulated_wgrad(g, xj, a, mask, splits: int, passes: int):
     return total
 
 
+def _fma(x, y, acc):
+    """fmaf: x·y + acc rounded once to f32 (the f32 product is exact in
+    f64)."""
+    return (x.double() * y.double() + acc.double()).float()
+
+
+def _emulated_bwd_rows(g, xj, a, w1, b1, mask, passes: int):
+    """The backward-to-the-rows kernel's arithmetic in its order, for one
+    warp column (D <= 104): U_h = ge @ W_hᵀ by _mma over round8(K) in
+    k-steps of 8; after each unit d_xj = fmaf(a_h, U_h, d_xj) (the bias unit
+    by 1), and d_a[:, h] over the columns a lane holds (8 j + 2 t and
+    8 j + 2 t + 1 for its t = lane % 4, an fmaf chain in that order), then
+    the 4 lanes of the quad as (v0 + v1) + (v2 + v3). Rows whose mask is 0
+    stay zero: the kernel never writes them."""
+    e, d = xj.shape
+    h = a.shape[1]
+    k = b1.numel() // d
+    kp, dp = -(-k // 8) * 8, -(-d // 8) * 8
+    ge = torch.zeros(e, kp)
+    ge[:, :k] = mask[:, None] * g
+    w = torch.zeros(h + 1, dp, kp)
+    w[:, :d, :k] = FB.extend_weight(w1, b1, d).view(h + 1, d, k)
+    xp = torch.zeros(e, dp)
+    xp[:, :d] = xj
+    ext = torch.cat([a, torch.ones_like(a[:, :1])], 1)
+    lanes = [[c for j in range(dp // 8) for c in (8 * j + 2 * t, 8 * j + 2 * t + 1)]
+             for t in range(4)]
+    d_xj = torch.zeros(e, dp)
+    d_a = torch.zeros(e, h)
+    for u in range(h + 1):
+        acc = torch.zeros(e, dp)
+        for k0 in range(0, kp, 8):
+            acc = _mma(acc, ge[:, k0:k0 + 8], w[u, :, k0:k0 + 8].t(), passes)
+        d_xj = _fma(ext[:, u:u + 1], acc, d_xj)
+        if u < h:
+            v = []
+            for cols in lanes:
+                dot = torch.zeros(e)
+                for c in cols:
+                    dot = _fma(xp[:, c], acc[:, c], dot)
+                v.append(dot)
+            d_a[:, u] = (v[0] + v[1]) + (v[2] + v[3])
+    off = mask == 0
+    d_xj[off] = 0
+    d_a[off] = 0
+    return d_xj[:, :d], d_a
+
+
 def _limit_share(out, ref) -> float:
     """chip_smoke.py:limit_share: the worst |out - ref| over what
     assert_fused allows (1e-4·max|ref| + 1e-4·|ref|); below 1 passes."""
@@ -253,16 +307,17 @@ def mpnn_width():
     out, vjp = jax.vjp(
         lambda *p: jm * fused_bilinear_msg((128, True, False, True), *p),
         *map(jnp.asarray, (xj, a, w1, b1)))
-    _, _, d_w1, d_b1 = vjp(jnp.asarray(cot))
+    d_xj, d_a, d_w1, d_b1 = vjp(jnp.asarray(cot))
     t = [torch.as_tensor(v) for v in (xj, a, w1, b1, mask, cot)]
-    return t, np.asarray(out), np.asarray(d_w1), np.asarray(d_b1)
+    return (t, np.asarray(out), np.asarray(d_w1), np.asarray(d_b1),
+            np.asarray(d_xj), np.asarray(d_a))
 
 
 @pytest.mark.parametrize("passes,within", [(3, True), (1, False)],
                          ids=["3xtf32", "1xtf32"])
 def test_emulated_forward_against_jax_at_the_chip_limit(mpnn_width, passes,
                                                         within):
-    (xj, a, w1, b1, mask, _), out, _, _ = mpnn_width
+    (xj, a, w1, b1, mask, _), out, *_ = mpnn_width
     got = _emulated_forward(xj, a, w1, b1, mask, passes)
     assert got.shape == out.shape
     assert (got[mask == 0] == 0).all()
@@ -275,10 +330,23 @@ def test_emulated_forward_against_jax_at_the_chip_limit(mpnn_width, passes,
                          ids=["3xtf32", "1xtf32"])
 def test_emulated_wgrad_against_jax_vjp_at_the_chip_limit(mpnn_width, passes,
                                                           within, splits):
-    (xj, a, w1, b1, mask, cot), _, d_w1, d_b1 = mpnn_width
+    (xj, a, w1, b1, mask, cot), _, d_w1, d_b1, *_ = mpnn_width
     dw = _emulated_wgrad(cot, xj, a, mask, splits, passes)
     got = FB.split_wgrad(dw, w1.shape, b1.shape)
     shares = [_limit_share(x, r) for x, r in zip(got, (d_w1, d_b1))]
+    assert all((s < 1.0) == within for s in shares), shares
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)],
+                         ids=["3xtf32", "1xtf32"])
+def test_emulated_bwd_rows_against_jax_vjp_at_the_chip_limit(mpnn_width,
+                                                             passes, within):
+    (xj, a, w1, b1, mask, cot), *_, d_xj, d_a = mpnn_width
+    got = _emulated_bwd_rows(cot, xj, a, w1, b1, mask, passes)
+    for x, r in zip(got, (d_xj, d_a)):
+        assert x.shape == r.shape
+        assert (x[mask == 0] == 0).all()
+    shares = [_limit_share(x, r) for x, r in zip(got, (d_xj, d_a))]
     assert all((s < 1.0) == within for s in shares), shares
 
 
