@@ -28,9 +28,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    (the edge rows d_x, d_xj and dA, every weight-gradient slice, the slice
    sum), to rtol 1e-4 and atol 1e-4·max|ref|, printing each check's worst
    share of that limit (it raises after the last case if any is above 1);
-   then times them beside their bound (bytes, or operations over 67
-   TFLOP/s f32 on the FMA pipes and over 495/3 TFLOP/s for the 3xTF32
-   tensor-core kernels of the backward) and a library
+   then times them beside their bound (bytes, or operations over 495/3
+   TFLOP/s for these 3xTF32 tensor-core kernels, with the bound at the
+   FMA pipes' 67 TFLOP/s f32 beside the forward's) and a library
    yardstick: for the forward the unfused composition the csr CGConv runs
    (concat + 2 F.linear + activations + csr.segment_sum), for the edge
    kernel its autograd backward to x and xj, for the weight gradient one
@@ -38,11 +38,18 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    backward (every launch and allocation) against the unfused autograd
    backward, its split by kernel, and the fused forward plus backward
    against the unfused pair; then the same for the fused SchNet cfconv
-   kernels (F 150, 3 and 100, cutoff 8: output, d_xj, the four filter
-   gradients, bit-identical between two calls, zero d_xj on masked edges,
-   the reduction; the yardstick is the unfused SchNet composition: basis,
-   2 F.linear with shifted softplus, cutoff, index_select,
-   csr.segment_sum, and its autograd backward);
+   kernels (F 150, 3 and 100, cutoff 8, every case run and its worst
+   shares printed before a failure is raised: output, d_xj, the four
+   filter gradients, bit-identical between two calls, zero d_xj on masked
+   edges, and each kernel of the backward against its plain stage: the
+   edge rows d_xj, a, dw and dpre, every weight-gradient slice, the slice
+   sum; times beside their bounds, the backward's edge rows and weight
+   gradient at the 3xTF32 rate with the FMA rate's beside; the yardstick
+   is the unfused SchNet composition: basis, 2 F.linear with shifted
+   softplus, cutoff, index_select, csr.segment_sum, and its autograd
+   backward (to h alone for the edge rows), one torch.bmm of [b | 1]ᵀ·dpre
+   and [a | 1]ᵀ·dw for the weight gradient; then the whole backward
+   against its autograd yardstick);
 6. checks the bilinear NNConv kernels (forward, backward, weight gradient)
    against their plain versions on the same training batch, at (D, H, K) =
    (100, 100, 100), (3, 7, 5) and (150, 100, 150), with sorted dst and
@@ -543,13 +550,17 @@ def time_fused(batch, dev, d=100, de=50):
     # over the formed rows
     zt = FC._edge_terms(x, xj, dist, dst, mask, n, de, 0.2)[0].t().contiguous()
     dan = FC.bwd_rows_plain(cot, *args)[2].view(e, 2, -1)[..., :d].reshape(e, nb)
+    fwd_bytes = 4 * (2 * n * d + e_real * d + 3 * e + k1 * nb)
+    fwd_flops = 2 * e_real * k * nb
     res = {
+        # z·W on wgmma in 3xTF32 (with its weight split); the FMA pipes'
+        # bound beside it, the parent design's
         "fused_cgconv_fwd": {
             "ms": device_ms(lambda: FC.fused_cgconv(*args)),
             "plain_ms": device_ms(lambda: FC.fused_cgconv_plain(*args)),
             "library_ms": device_ms(lambda: unfused(*leaves)),
-            **bound(4 * (2 * n * d + e_real * d + 3 * e + k1 * nb),
-                    2 * e_real * k * nb),
+            **bound(fwd_bytes, fwd_flops, TF32X3_FLOPS),
+            "fma_bound_ms": bound(fwd_bytes, fwd_flops)["bound_ms"],
         },
         # the edge kernel: d_x, d_xj and dA from the recompute z·W and
         # dA·W[:2D]ᵀ; its yardstick is the unfused autograd backward to x
@@ -619,7 +630,13 @@ def cfconv_inputs(batch, f, de, g, dev):
 
 def check_cfconv(batch, dev, de=50, cutoff=8.0):
     """The fused cfconv kernels against their plain versions on the card;
-    returns the largest |kernel - plain| of each kernel."""
+    returns the largest |kernel - plain| of each kernel. Every comparison of
+    every case runs and prints its worst share of the limit (limit_share)
+    before the first failure is raised: the output, d_xj and the four
+    weight gradients, and each kernel of the backward against its plain
+    stage (the edge rows d_xj, a, dw and dpre of real edges, every
+    weight-gradient slice, the slice sum). The weight gradients must be
+    bit-identical between two calls and masked d_xj rows exactly zero."""
     from matdeeplearn_torch.ops import fused_cfconv as FS
 
     g = torch.Generator(device=dev).manual_seed(5)
@@ -629,6 +646,21 @@ def check_cfconv(batch, dev, de=50, cutoff=8.0):
     perm = torch.randperm(e, device=dev, generator=g)
     scattered = mask * (torch.rand(e, device=dev, generator=g) > 0.3).float()
     err = {k: 0.0 for k in FS.LAUNCHES}
+    failures = []
+
+    def reading(pairs, what):
+        """max |out - ref| and the worst limit_share over (name, out, ref)
+        pairs; a failed assert_fused is kept, not raised."""
+        diff = share = 0.0
+        for k, out, ref in pairs:
+            try:
+                diff = max(diff, assert_fused(out, ref, f"{what} {k}"))
+            except AssertionError as exc:
+                failures.append(str(exc))
+                diff = max(diff, float((out - ref).abs().max()))
+            share = max(share, limit_share(out, ref))
+        return diff, share
+
     for f in (150, 3, 100):
         _, xj, ws = cfconv_inputs(batch, f, de, g, dev)
         cot = torch.randn(n, f, device=dev, generator=g)
@@ -637,33 +669,57 @@ def check_cfconv(batch, dev, de=50, cutoff=8.0):
                  ("permuted dst", p(xj), p(dist), p(wraw), p(dst), p(mask)),
                  ("scattered mask", xj, dist, wraw, dst, scattered)]
         for name, *edges in cases:
+            what = f"F={f}, {name}"
+            failed = len(failures)
             args = (*edges, *ws, n, 0.2, cutoff)
-            fwd = assert_fused(FS.fused_cfconv(*args), FS.fused_cfconv_plain(*args),
-                               f"cfconv forward, F={f}, {name}")
+            fwd, s_fwd = reading([("output", FS.fused_cfconv(*args),
+                                   FS.fused_cfconv_plain(*args))],
+                                 f"cfconv forward, {what}:")
             got = FS.fused_cfconv_bwd(cot, *args)
-            refs = FS.fused_cfconv_bwd_plain(cot, *args)
-            bwd = max(assert_fused(a, b, f"cfconv d_{k}, F={f}, {name}")
-                      for k, a, b in zip(CFCONV_GRADS, got, refs))
+            refs = list(zip(CFCONV_GRADS, got, FS.fused_cfconv_bwd_plain(cot, *args)))
+            rows_in, s_rows_in = reading(refs[:1], f"cfconv backward, {what}: d_")
+            weights, s_weights = reading(refs[1:], f"cfconv backward, {what}: d_")
             if float(got[0][edges[4] == 0].abs().max()) != 0.0:
-                raise AssertionError(f"cfconv, F={f}, {name}: masked edges got "
+                raise AssertionError(f"cfconv, {what}: masked edges got "
                                      "non-zero d_xj rows")
             if not all(torch.equal(a, b) for a, b in
                        zip(got[1:], FS.fused_cfconv_bwd(cot, *args)[1:])):
-                raise AssertionError(f"cfconv weight gradients, F={f}, {name}: "
-                                     "two calls differ")
-            err["fused_cfconv_fwd"] = max(err["fused_cfconv_fwd"], fwd)
-            err["fused_cfconv_bwd"] = max(err["fused_cfconv_bwd"], bwd)
-            print(f"  cfconv kernel check ok: F={f}, {name}: forward max |diff| "
-                  f"{fwd:.3e}, backward (5 gradients) max |diff| {bwd:.3e}, "
-                  f"weight gradients bit-identical twice")
-        _, partial, blocks = FS.fused_cfconv_bwd_partials(cot, *args)
-        red = assert_fused(FS.wgrad_reduce(partial, blocks, f, de),
-                           FS.wgrad_reduce_plain(partial, f, de),
-                           f"cfconv wgrad_reduce, F={f}")
-        err["fused_cfconv_wgrad_reduce"] = max(
-            err["fused_cfconv_wgrad_reduce"], red)
-        print(f"  cfconv kernel check ok: F={f}, wgrad_reduce over {blocks} "
-              f"blocks max |diff| {red:.3e}")
+                raise AssertionError(f"cfconv weight gradients, {what}: two "
+                                     "calls differ")
+            # each kernel of the backward against its plain stage
+            rows = FS.fused_cfconv_bwd_rows(cot, *args)
+            prow = FS.bwd_rows_plain(cot, *args)
+            real = FS.edge_scale(edges[2], edges[3], edges[4], n, cutoff) != 0
+            edge, s_edge = reading(
+                [("d_xj", rows[0], prow[0])]
+                + [(k, r[real], q[real]) for k, r, q in
+                   zip(("a", "dw", "dpre"), rows[1:], prow[1:])],
+                f"cfconv backward rows, {what}:")
+            wg = (*edges[1:5], *rows[1:], n, f, de, 0.2, cutoff)
+            partial, slices = FS.fused_cfconv_wgrad(*wg)
+            want = FS.wgrad_partials_plain(*edges[1:5], *prow[1:], n, f, de,
+                                           0.2, cutoff, slices)
+            wgr, s_wgr = reading([("slices", partial, want)],
+                                 f"cfconv wgrad, {what}:")
+            red, s_red = reading([("sum", FS.wgrad_reduce(partial, slices, f, de),
+                                   FS.wgrad_reduce_plain(partial, f, de))],
+                                 f"cfconv wgrad_reduce, {what}:")
+            for key, v in (("fused_cfconv_fwd", fwd), ("fused_cfconv_bwd", edge),
+                           ("fused_cfconv_wgrad", wgr),
+                           ("fused_cfconv_wgrad_reduce", red)):
+                err[key] = max(err[key], v)
+            verdict = "ok" if len(failures) == failed else "FAILED"
+            print(f"  cfconv kernel check {verdict}: {what}: forward max |diff| "
+                  f"{fwd:.3e}, d_xj {rows_in:.3e}, weight gradients "
+                  f"{weights:.3e} (bit-identical twice); edge rows {edge:.3e}, "
+                  f"{slices} wgrad slices {wgr:.3e}, reduce {red:.3e}; masked "
+                  f"d_xj rows zero; worst share of the limit: forward "
+                  f"{s_fwd:.3g}, d_xj {s_rows_in:.3g}, weight gradients "
+                  f"{s_weights:.3g}, edge rows {s_edge:.3g}, slices "
+                  f"{s_wgr:.3g}, reduce {s_red:.3g}")
+    if failures:
+        raise AssertionError(f"{len(failures)} cfconv checks failed; the "
+                             f"first: {failures[0]}")
     return err
 
 
@@ -707,26 +763,58 @@ def time_cfconv(batch, dev, f=150, de=50, cutoff=8.0):
         return csr.sorted_segment_sum(msg, dst, mask, n)
 
     out = unfused(*leaves)
-    _, partial, blocks = FS.fused_cfconv_bwd_partials(cot, *args)
+    rows = FS.fused_cfconv_bwd_rows(cot, *args)
+    wg = (dist, wraw, dst, mask, *rows[1:], n, f, de, 0.2, cutoff)
+    partial, blocks = FS.fused_cfconv_wgrad(*wg)
     pfloats = partial.numel()
     weights = (de + 1) * f + (f + 1) * f
+    # the library yardstick of the weight gradient: one batched product of
+    # [b | 1]ᵀ·dpre and [a | 1]ᵀ·dw over the formed rows, both padded to
+    # F + 1 rows
+    prow = FS.bwd_rows_plain(cot, *args)
+    zcat = torch.zeros(2, e, f + 1, device=dev)
+    zcat[0, :, :de] = gaussian_basis(dist, 0.0, 1.0, de, 0.2)
+    zcat[:, :, de] = 1.0
+    zcat[1, :, :f] = prow[1][:, :f]
+    zcat[1, :, f] = 1.0
+    zt = zcat.transpose(1, 2).contiguous()
+    dcat = torch.stack([prow[3][:, :f], prow[2][:, :f]]).contiguous()
+    fwd_bytes = 4 * (n * f + e_real * f + 4 * e + weights)
+    fwd_flops = 2 * e_real * (de * f + f * f)
+    # the edge kernel: pre = b·W0, w = a·W1 and dw·W1ᵀ; it writes d_xj and
+    # the a, dw and dpre rows (its outputs)
+    rows_bytes = 4 * (n * f + e_real * f + 4 * e + weights + e * f
+                      + 3 * e_real * f)
+    rows_flops = 2 * e_real * (de * f + 2 * f * f)
+    # the weight gradient [b | 1]ᵀ·dpre and [a | 1]ᵀ·dw from those rows
+    wgrad_bytes = 4 * (3 * e + 3 * e_real * f + pfloats)
+    wgrad_flops = 2 * e_real * ((de + 1) * f + (f + 1) * f)
     res = {
         "fused_cfconv_fwd": {
             "ms": device_ms(lambda: FS.fused_cfconv(*args)),
             "plain_ms": device_ms(lambda: FS.fused_cfconv_plain(*args)),
             "library_ms": device_ms(lambda: unfused(*leaves)),
-            **bound(4 * (n * f + e_real * f + 4 * e + weights),
-                    2 * e_real * (de * f + f * f)),
+            **bound(fwd_bytes, fwd_flops),
         },
-        # the backward kernel leaves per-block partial weight gradients;
-        # its bound counts the four weight gradients as its output
+        # the edge rows on wgmma in 3xTF32 (with its weight split); its
+        # yardstick is the unfused autograd backward to h alone
         "fused_cfconv_bwd": {
-            "ms": device_ms(lambda: FS.fused_cfconv_bwd_partials(cot, *args)),
-            "plain_ms": device_ms(lambda: FS.fused_cfconv_bwd_plain(cot, *args)),
+            "ms": device_ms(lambda: FS.fused_cfconv_bwd_rows(cot, *args)),
+            "plain_ms": device_ms(lambda: FS.bwd_rows_plain(cot, *args)),
             "library_ms": device_ms(lambda: torch.autograd.grad(
-                out, leaves, cot, retain_graph=True)),
-            **bound(4 * (n * f + e_real * f + e * f + 4 * e + 2 * weights),
-                    2 * e_real * (2 * de * f + 3 * f * f)),
+                out, leaves[:1], cot, retain_graph=True)),
+            **bound(rows_bytes, rows_flops, TF32X3_FLOPS),
+            "fma_bound_ms": bound(rows_bytes, rows_flops)["bound_ms"],
+        },
+        # the weight gradient in slices on mma.sync in 3xTF32; its bound
+        # counts the slices as its output
+        "fused_cfconv_wgrad": {
+            "ms": device_ms(lambda: FS.fused_cfconv_wgrad(*wg)),
+            "plain_ms": device_ms(lambda: FS.wgrad_partials_plain(
+                *wg[:7], n, f, de, 0.2, cutoff, blocks)),
+            "library_ms": device_ms(lambda: torch.bmm(zt, dcat)),
+            **bound(wgrad_bytes, wgrad_flops, TF32X3_FLOPS),
+            "fma_bound_ms": bound(wgrad_bytes, wgrad_flops)["bound_ms"],
         },
         "fused_cfconv_wgrad_reduce": {
             "ms": device_ms(lambda: FS.wgrad_reduce(partial, blocks, f, de)),
@@ -737,7 +825,19 @@ def time_cfconv(batch, dev, f=150, de=50, cutoff=8.0):
                     pfloats),
         },
     }
-    return res, e_real, blocks
+    # the whole backward (every launch and allocation) against its autograd
+    # yardstick: the function's operations at the 3xTF32 rate, and at the
+    # FMA pipes' rate (the parent's one-kernel design)
+    whole_bytes = 4 * (n * f + e_real * f + e * f + 4 * e + 2 * weights)
+    whole_flops = 2 * e_real * (2 * de * f + 3 * f * f)
+    whole = {
+        "bwd_ms": device_ms(lambda: FS.fused_cfconv_bwd(cot, *args)),
+        "autograd_ms": device_ms(lambda: torch.autograd.grad(
+            out, leaves, cot, retain_graph=True)),
+        **bound(whole_bytes, whole_flops, TF32X3_FLOPS),
+        "fma_bound_ms": bound(whole_bytes, whole_flops)["bound_ms"],
+    }
+    return res, e_real, blocks, whole
 
 
 BILINEAR_GRADS = ["xj", "a", "w1", "b1"]
@@ -1283,11 +1383,14 @@ def main() -> int:
     ftimes, fe_real, blocks, whole = time_fused(tbatch, dev)
     times.update(ftimes)
     for k, t in ftimes.items():
+        fma = (f"; at the 67 TFLOP/s FMA rate {t['fma_bound_ms']:.4f} ms, "
+               f"{100 * t['fma_bound_ms'] / t['ms']:.1f}%"
+               if "fma_bound_ms" in t else "")
         print(f"{k} on {smi}, E={tspec.num_edges} ({fe_real} real), "
               f"N={tspec.num_nodes}, D=100, De=50, {blocks} wgrad slices: "
               f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it)")
+              f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it{fma})")
     split = (f"allocations and weight padding {whole['alloc_ms']:.4f} ms, edge "
              f"kernel {ftimes['fused_cgconv_bwd']['ms']:.4f} ms, wgrad "
              f"{ftimes['fused_cgconv_wgrad']['ms']:.4f} ms, reduce "
@@ -1310,14 +1413,25 @@ def main() -> int:
     print(f"cfconv kernel checks on {card} (the same training batch, De=50, "
           f"cutoff 8):")
     err.update(check_cfconv(tbatch, dev))
-    stimes, se_real, sblocks = time_cfconv(tbatch, dev)
+    stimes, se_real, sblocks, swhole = time_cfconv(tbatch, dev)
     times.update(stimes)
     for k, t in stimes.items():
+        fma = (f"; at the 67 TFLOP/s FMA rate {t['fma_bound_ms']:.4f} ms, "
+               f"{100 * t['fma_bound_ms'] / t['ms']:.1f}%"
+               if "fma_bound_ms" in t else "")
         print(f"{k} on {smi}, E={tspec.num_edges} ({se_real} real), "
-              f"N={tspec.num_nodes}, F=150, De=50, {sblocks} backward blocks: "
+              f"N={tspec.num_nodes}, F=150, De=50, {sblocks} wgrad slices: "
               f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})")
+              f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it{fma})")
+    print(f"whole fused cfconv backward (FS.fused_cfconv_bwd, every launch and "
+          f"allocation) on {smi}: {swhole['bwd_ms']:.4f} ms against its "
+          f"autograd yardstick {swhole['autograd_ms']:.4f} ms "
+          f"({swhole['autograd_ms'] / swhole['bwd_ms']:.2f}x); bound "
+          f"{swhole['bound_ms']:.4f} ms ({swhole['bound_by']}, "
+          f"{100 * swhole['bound_ms'] / swhole['bwd_ms']:.1f}% of it; at the "
+          f"67 TFLOP/s FMA rate {swhole['fma_bound_ms']:.4f} ms, "
+          f"{100 * swhole['fma_bound_ms'] / swhole['bwd_ms']:.1f}%)")
     print(f"bilinear kernel checks on {card} (the same training batch):")
     err.update(check_bilinear(tbatch, dev))
     btimes, be_real = time_bilinear(tbatch, dev)
@@ -1726,6 +1840,8 @@ def main() -> int:
              "pallas_fused_schnet.py:66", schnet_launches["fused_cfconv_fwd"]),
             ("fused_cfconv_bwd", "fused_cfconv_bwd", "fused_cfconv.cu",
              "pallas_fused_schnet.py:86", schnet_launches["fused_cfconv_bwd"]),
+            ("fused_cfconv_wgrad", "fused_cfconv_wgrad", "fused_cfconv.cu",
+             "pallas_fused_schnet.py:86", schnet_launches["fused_cfconv_wgrad"]),
             ("fused_cfconv_wgrad_reduce", "fused_cfconv_wgrad_reduce",
              "fused_cfconv.cu", "pallas_fused_schnet.py:86",
              schnet_launches["fused_cfconv_wgrad_reduce"]),

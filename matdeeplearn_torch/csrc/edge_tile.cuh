@@ -2,8 +2,9 @@
 // and fused_bilinear.cu): the tile geometry, the choice of columns a
 // thread owns, the activations, the run-flush epilogue that adds a tile's
 // rows into their destination nodes, the fixed-order sum of the backward
-// kernels' per-block partial weight gradients, and the tensor-core and
-// async-copy primitives of the 3xTF32 kernels. Each .cu file builds into
+// kernels' per-block partial weight gradients, and the mma.sync and
+// async-copy primitives of the 3xTF32 kernels (wgmma.cuh holds the wgmma
+// ones). Each .cu file builds into
 // its own library, so the anonymous namespace gives every library its own
 // copy.
 
@@ -53,13 +54,16 @@ __device__ __forceinline__ float softplusf(float a) {
   return fmaxf(a, 0.f) + log1pf(expf(-fabsf(a)));
 }
 
-// out[dst[r], c] += v_s[r, c] for the TE rows of a tile whose weight
-// w_s[r] is not zero: one thread per column adds runs of equal dst and
-// flushes each with one atomicAdd. Right for any dst order; on dst-sorted
-// edges about one atomic per node and column.
+// out[dst[r], c] += v_s[r * ldv + cs * c] (ldv = d unless given) for the
+// TE rows of a tile whose weight w_s[r] is not zero, c < d: one thread per
+// column adds runs of equal dst and flushes each with one atomicAdd. Right
+// for any dst order; on dst-sorted edges about one atomic per node and
+// column.
 template <int TE = kTE>
 __device__ void flush_runs(const float* v_s, int d, const float* w_s,
-                           const int* dst_s, float* __restrict__ out) {
+                           const int* dst_s, float* __restrict__ out,
+                           int ldv = 0, int cs = 1) {
+  if (ldv == 0) ldv = d;
   for (int c = threadIdx.x; c < d; c += kThreads) {
     float acc = 0.f;
     int cur = -1;
@@ -71,7 +75,7 @@ __device__ void flush_runs(const float* v_s, int d, const float* w_s,
         acc = 0.f;
         cur = node;
       }
-      acc += v_s[r * d + c];
+      acc += v_s[r * ldv + cs * c];
     }
     if (cur >= 0) atomicAdd(out + (long long)cur * d + c, acc);
   }

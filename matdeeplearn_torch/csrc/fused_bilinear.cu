@@ -103,6 +103,7 @@
 #include <stdint.h>
 
 #include "edge_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -750,132 +751,6 @@ int launch_wgrad(const float* xj, const float* a, const float* mask,
 
 constexpr int kKS = 8;  // most k-steps (of 8 columns of W) a stage holds
 
-// wgmma in TF32 (sm_90a): d (a warpgroup's 64 rows x 8 NTW columns, f32;
-// lane (g, t) of warp w holds d[j] = {D[16w+g][8j+2t], D[16w+g][8j+2t+1],
-// D[16w+g+8][8j+2t], D[16w+g+8][8j+2t+1]}, mma.sync's m16n8 layout) += A · B
-// over k = 8, with A from registers (m16n8k8's A fragment of the warp's 16
-// rows: {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}) and B (8 NTW x 8,
-// K-major) from shared memory by descriptor; scale_d = 0 drops the old d.
-// The instruction only issues: wgmma_wait retires it.
-template <int NTW> struct WgmmaTf32;
-
-template <> struct WgmmaTf32<8> {
-  __device__ static void mma(float (&d)[8][4], const uint32_t (&a)[4],
-                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-
-template <> struct WgmmaTf32<13> {
-  __device__ static void mma(float (&d)[13][4], const uint32_t (&a)[4],
-                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51"
-        "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-
-template <> struct WgmmaTf32<16> {
-  __device__ static void mma(float (&d)[16][4], const uint32_t (&a)[4],
-                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving a register's reads or writes across an
-// asynchronous wgmma's issue or retirement.
-__device__ __forceinline__ void fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void fence_reg(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-// The descriptor of a K-major B operand without swizzle at p: core
-// matrices of 8 rows x 16 bytes (8 x 4 TF32 words, rows contiguous), the
-// two of a k-step 128 bytes apart (leading byte offset) and successive
-// 8-row groups 256 bytes apart (stride byte offset).
-__device__ __forceinline__ uint64_t b_desc(const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
-}
-
 struct BwdLayout {
   int kt;   // k-steps of U's reduction: round8(K) / 8
   int np;   // W rows of a unit in ws: the n8-tiles of all warpgroups x 8
@@ -884,9 +759,6 @@ struct BwdLayout {
   int ldg;  // row stride of the ge tile (8 mod 16)
   int ldx;  // row stride of the xj tile (8 mod 16)
 };
-
-// Words of one k-step of ws: hi, then lo, each np rows x 8 words.
-__host__ __device__ inline int kstep_words(int np) { return 2 * np * 8; }
 
 // Two W stages, the ge and xj tiles, the d_a partials (two units x WN
 // warpgroup columns) and the mask.
@@ -912,37 +784,19 @@ bool bwd_layout(const Geometry& g, int np, int te, int wn, BwdLayout* b) {
   return false;
 }
 
-// ws = W split once into TF32 hi and lo in the order the backward's B
-// descriptors read it: for unit u, k-step k8, part (hi, lo), 8-row group
-// n8 of the unit's np rows, half kh of the k-step, row r and column c < 4,
-// word ((((u * kt + k8) * 2 + part) * np / 8 + n8) * 2 + kh) * 32 + r * 4
-// + c holds that part of W[u*D + 8 n8 + r][8 k8 + 4 kh + c] (zero past D
-// or K). A stage is then one contiguous range of words.
-__global__ void __launch_bounds__(kThreads)
-split_weight_kernel(const float* __restrict__ w, int d, int k, int h,
-                    int kt, int np, uint32_t* __restrict__ ws) {
-  const long long total = (long long)(h + 1) * kt * np * 8;  // hi/lo pairs
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < total;
-       i += (long long)gridDim.x * kThreads) {
-    // i = ((u * kt + k8) * np + n) * 8 + kk over the unit's row n and the
-    // k-step's column kk
-    const int kk = (int)(i & 7);
-    const long long un = i >> 3;
-    const int n = (int)(un % np);
-    const long long uk = un / np;
-    const int k8 = (int)(uk % kt);
-    const long long u = uk / kt;
-    const int col = 8 * k8 + kk;
-    const float v = n < d && col < k ? w[(u * d + n) * k + col] : 0.f;
-    uint32_t hi, lo;
-    split_tf32(v, hi, lo);
-    const long long base = uk * kstep_words(np);
-    const long long at = ((long long)(n >> 3) * 2 + (kk >> 2)) * 32 +
-                         (n & 7) * 4 + (kk & 3);
-    ws[base + at] = hi;
-    ws[base + np * 8 + at] = lo;
+// W = [W1; b1] as the backward's B operand: unit u = s / kt, k-step
+// s % kt; B row n < np of the unit is W row u*D + n, its columns the
+// k-step's 8 of K (zero past D or K). split_kmajor_kernel (wgmma.cuh) lays
+// it out in the descriptors' order, a unit's k-steps one after another.
+struct BilinearB {
+  const float* w;
+  int d, k, kt;
+  __device__ float operator()(long long s, int n, int c) const {
+    const long long u = s / kt;
+    const int col = 8 * (int)(s - u * kt) + c;
+    return n < d && col < k ? w[(u * d + n) * k + col] : 0.f;
   }
-}
+};
 
 // One tile of TE = 64 * 2 / WN edges, two warpgroups: with WN = 1 each owns
 // 64 of the tile's 128 rows and all of a unit's 8 NTW columns; with WN = 2
@@ -1043,7 +897,7 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
   for (int s = 0; s < stages; ++s) {
     cp_async_wait<0>();
     // the landed stage is read by wgmma (the async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();  // stage s landed; every warp is done with stage s - 1
     load_stage(s + 1);
     const int h = s / b.nk;
@@ -1068,10 +922,7 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
     const float* gk = gs + 8 * c * b.ks;
     const int nks = min(b.ks, b.kt - c * b.ks);
     uint32_t ahi[kKS][4], alo[kKS][4];
-#pragma unroll
-    for (int j = 0; j < NTW; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) fence_reg(u[j][q]);
+    fence_acc(u);
 #pragma unroll
     for (int ks = 0; ks < kKS; ++ks) {
       if (ks < nks) {  // uniform across the block
@@ -1087,9 +938,7 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
         const uint64_t dhi = b_desc(wk + b_hi);
         const uint64_t dlo = b_desc(wk + b_lo);
         wgmma_fence();
-        WgmmaTf32<NTW>::mma(u, alo[ks], dhi, c == 0 && ks == 0 ? 0 : 1);
-        WgmmaTf32<NTW>::mma(u, ahi[ks], dlo, 1);
-        WgmmaTf32<NTW>::mma(u, ahi[ks], dhi, 1);
+        wgmma_3xtf32(u, ahi[ks], alo[ks], dhi, dlo, c == 0 && ks == 0 ? 0 : 1);
       }
     }
     wgmma_commit();
@@ -1104,10 +953,7 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < NTW; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) fence_reg(u[j][q]);
+    fence_acc(u);
 
     if (!last) continue;
     // the epilogue of unit h: lane (gr, tq) holds U[r0][c], U[r0][c + 1],
@@ -1271,13 +1117,10 @@ int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* w,
   const int ntw = bwd_warpgroups(d, &wn);
   BwdLayout b;
   if (!bwd_layout(g, 8 * ntw * wn, 64 * 2 / wn, wn, &b)) return kBadShape;
-  const long long pairs = (long long)(h + 1) * b.kt * b.np * 8;
-  const long long blocks = (pairs + kThreads - 1) / kThreads;
   uint32_t* wsp = static_cast<uint32_t*>(ws);
-  split_weight_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), kThreads,
-                        0, s>>>(static_cast<const float*>(w), d, k, h, b.kt,
-                                b.np, wsp);
-  const int err = (int)cudaGetLastError();
+  const int err = launch_split(
+      BilinearB{static_cast<const float*>(w), d, k, b.kt},
+      (long long)(h + 1) * b.kt, b.np, wsp, s);
   if (err != 0) return err;
   const float* xp = static_cast<const float*>(xj);
   const float* ap = static_cast<const float*>(a);

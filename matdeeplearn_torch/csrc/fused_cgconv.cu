@@ -19,23 +19,44 @@
 // Masked edges add nothing; their d_xj rows are zero.
 //
 // Bound: operations. At CGCNN_demo width (D 100, De 50) each real edge
-// costs 2*251*200 FLOP forward and about 2.8 times that backward, against
-// ~1.2 KB of inputs and outputs a real edge, far above the card's f32
-// operations-per-byte line. Every intermediate stays on chip but dA.
+// costs 2*250*200 FLOP forward and about 2.8 times that backward, against
+// ~1.2 KB of inputs and outputs a real edge, far above the card's
+// operations-per-byte line. At chip_smoke's training batch (45,509 real
+// edges of 80,176) the forward's 4.55e9 FLOP take 0.0276 ms at the 3xTF32
+// rate (495/3 TFLOP/s; 0.068 ms at the FMA pipes' 67). Every intermediate
+// stays on chip but dA.
 //
-// The forward: one block of 256 threads owns a tile of kTE = 32 edges. It
-// builds the z tile in shared memory (x rows gathered by dst, xj rows, the
-// Gaussian basis computed in place, a column of ones for the bias), and
-// streams W through shared memory in chunks of 32 rows.
-// Thread (tx, ty) of the 8 warps accumulates rows ty + 8r (r < 4) and
-// columns tx + 32j (j < CPT) of both af and as in registers, in plain f32
-// FMA. out goes through the run-flush epilogue of edge_tile.cuh (runs of
-// equal dst added in a register, each flushed with one atomicAdd: right
-// for any dst order).
+// Every product runs on the tensor cores in 3xTF32 (each operand split
+// into TF32 hi + lo by split_tf32, lo·hi + hi·lo + hi·hi accumulated in
+// f32: f32 accuracy, as the TPU kernel's hi/lo bf16 split gives its MXU).
 //
-// The backward runs its three products on the tensor cores with the
-// 3xTF32 split of edge_tile.cuh (f32 accuracy; the TPU kernel's hi/lo
-// bf16 split does the same for its MXU):
+// * mdl_fused_cgconv_fwd, on wgmma m64nNk8 (wgmma.cuh): a first kernel
+//   splits W once a call into TF32 hi and lo in the byte order of the
+//   no-swizzle K-major B descriptors, its columns interleaved (af and as
+//   of one feature side by side). A block of two warpgroups owns a tile of
+//   128 edges (each warpgroup 64 rows and all N = 8 NTW >= 2D columns;
+//   past D = 128, 64 edges and a column half each). Stage s brings up to 4
+//   k-steps of the split W (16-byte cp.async) and z chunk s, the stage's
+//   columns of z = [x[dst] | xj | basis | 1] (x and xj by cp.async, 16
+//   bytes where D is a multiple of 4; the basis computed), into two-stage
+//   rings: any De fits, and a stage's copies are issued right after its
+//   predecessor's wgmma, so they land while the tensor cores work. Per
+//   k-step a warp loads its A fragment from the z chunk, splits it, and its
+//   warpgroup issues three wgmma. The epilogue moves the accumulators into
+//   a shared tile in place of the ring, forms mask * sigmoid(af) *
+//   softplus(as) there in a rolled loop (short code, 8 elements a thread
+//   in flight) and adds the tile into out through the run-flush epilogue
+//   of edge_tile.cuh (runs of equal dst added in a register, each flushed
+//   with one atomicAdd: right for any dst order). At D 100: N = 200, 100
+//   accumulators and 163 registers a thread, 143 KB of shared memory (4-k-
+//   step stages of 51 KB, 18 KB z chunks), one block an SM; the split W
+//   (410 KB) is read from L2 once per tile with a real edge. A tile with
+//   no real edge costs one barrier. The backward's mma_tile over the padded
+//   W (64-edge tiles, mma.sync) was the other design timed: 0.2073-0.2077
+//   ms against this one's 0.1453-0.1457 at chip_smoke's batch, in turns on
+//   an H100 80GB HBM3 at 700 W (bench_torch_bwd_rows.py --op cgconv_fwd).
+//
+// The backward, on mma.sync m16n8k8 (edge_tile.cuh):
 //
 // * mdl_fused_cgconv_bwd: one block of 256 threads owns a tile of TE = 64
 //   edges (32 at D > 128, where the accumulators would not fit). It builds
@@ -72,6 +93,7 @@
 #include <stdint.h>
 
 #include "edge_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -81,8 +103,8 @@ struct Geometry {
   int de;       // Gaussian basis size De
   int n;        // node slots
   int k1;       // 2D + De + 1 rows of W
-  int ldz;      // round4(k1): row stride of the forward's z tile
-  int ldn;      // round4(2D): row stride of [af | as]-wide tiles
+  int ldz;      // round4(k1): rows of the weight gradient's micro-tiles
+  int ldn;      // round4(2D): its columns
   int dp;       // round8(D): each half of the padded weight columns
   int kp;       // round8(k1): rows of the padded weight Wp
   int lda;      // row stride of the backward's z / dA tile (4 mod 32)
@@ -142,137 +164,230 @@ __device__ __forceinline__ float basis_or_one(const float* __restrict__ dist,
   return k == g.de ? 1.f : 0.f;
 }
 
-// z tile: [x[dst] | xj | basis(dist) | 1 | zero pad to ldz]; zero rows for
-// masked edges.
-__device__ void load_z(const float* __restrict__ x,
-                       const float* __restrict__ xj,
-                       const float* __restrict__ dist, long long e0,
-                       const Geometry& g, const float* w_s, const int* dst_s,
-                       float* z_s) {
-  for (int i = threadIdx.x; i < kTE * g.ldz; i += kThreads) {
-    const int r = i / g.ldz;
-    const int k = i - r * g.ldz;
-    float v = 0.f;
-    if (w_s[r] != 0.f) {
-      const long long e = e0 + r;
-      if (k < g.d) {
-        v = x[(long long)dst_s[r] * g.d + k];
-      } else if (k < 2 * g.d) {
-        v = xj[e * g.d + (k - g.d)];
-      } else if (k < 2 * g.d + g.de) {
-        const float diff = dist[e] - (float)(k - 2 * g.d) * g.step;
-        v = expf(g.coeff * diff * diff);
-      } else if (k == g.k1 - 1) {
-        v = 1.f;
-      }
-    }
-    z_s[i] = v;
+// ---- the forward: [af | as] = z · W on wgmma --------------------------
+
+constexpr int kFKS = 4;  // most k-steps a forward stage holds
+
+// W as the forward's B operand, its columns interleaved: B row n is W's
+// column (n & 1) * D + n / 2 (af and as of feature n / 2 side by side, so a
+// thread's accumulator pair {d[j][0], d[j][1]} is af and as of one
+// feature), its columns the k-step's 8 rows of W (zero past K1 or D).
+struct CgconvFwdB {
+  const float* w;
+  int d, k1;
+  __device__ float operator()(long long s, int n, int c) const {
+    const int k = 8 * (int)s + c;
+    const int f = n >> 1;
+    return f < d && k < k1 ? w[(long long)k * 2 * d + (n & 1) * d + f] : 0.f;
   }
+};
+
+struct FwdLayout {
+  int ntw;  // n8-tiles of a warpgroup
+  int wn;   // warpgroups across the columns (1, or 2 past D = 128)
+  int te;   // edges of a tile: 128 / wn
+  int np;   // B rows: 8 * ntw * wn >= 2D
+  int kt;   // k-steps: round8(K1) / 8
+  int ks;   // k-steps a stage holds: 4, 2 or 1
+  int ldz;  // row stride of a z chunk (4 mod 32)
+  int ldt;  // row stride of the epilogue's [af | as] tile (8 mod 32)
+};
+
+// Two stages of the split W, or the epilogue's tile in their place; two z
+// chunks; the tile's edge weights, destinations and distances.
+size_t fwd_shared_bytes(const FwdLayout& f) {
+  const size_t ring = 2 * (size_t)f.ks * kstep_words(f.np);
+  const size_t tile = (size_t)f.te * f.ldt;
+  return sizeof(float) * ((ring > tile ? ring : tile) +
+                          2 * (size_t)f.te * f.ldz + 2 * f.te) +
+         sizeof(int) * f.te;
 }
 
-// acc0[r][j] = Σ_k a[row][k] * b[k][c], acc1[r][j] = Σ_k a[row][k] *
-// b[k][half + c], for row = ty + 8r and c = tx + 32j < half. a_s is a
-// kTE x lda tile in shared memory whose columns from ka to round4(ka) are
-// zero; b is a ka x 2*half row-major matrix in device memory, streamed
-// through b_s (kKC x ldn). Starts with a barrier, so the caller's writes
-// to a_s are visible, and leaves b_s in use.
-template <int CPT>
-__device__ void tile_gemm(const float* __restrict__ a_s, int lda, int ka,
-                          const float* __restrict__ b, int half,
-                          float* __restrict__ b_s, int ldn,
-                          float (&acc0)[kRows][CPT],
-                          float (&acc1)[kRows][CPT]) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  const int nb = 2 * half;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      acc0[r][j] = 0.f;
-      acc1[r][j] = 0.f;
-    }
+// The layout for width D: the most k-steps a stage whose shared memory
+// fits. False where none fits or D > 256.
+bool fwd_layout(const Geometry& g, FwdLayout* f) {
+  f->wn = g.d <= 128 ? 1 : 2;
+  f->ntw = ntw_bucket(f->wn == 1 ? (2 * g.d + 7) / 8 : (g.d + 7) / 8);
+  if (f->ntw == 0) return false;
+  f->te = 128 / f->wn;
+  f->np = 8 * f->ntw * f->wn;
+  f->kt = round8(g.k1) / 8;
+  f->ldt = stride_acc(f->np);
+  for (int ks = kFKS; ks >= 1; ks /= 2) {  // 8 ks divides the block
+    f->ks = ks;
+    f->ldz = stride_a(8 * ks);
+    if (fwd_shared_bytes(*f) <= (size_t)kMaxShared) return true;
   }
-  for (int k0 = 0; k0 < ka; k0 += kKC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kKC * ldn; i += kThreads) {
-      const int kk = i / ldn;
-      const int c = i - kk * ldn;
-      b_s[i] = (k0 + kk < ka && c < nb) ? b[(long long)(k0 + kk) * nb + c]
-                                        : 0.f;
-    }
-    __syncthreads();
-    const int kend = min(kKC, round4(ka - k0));
-    for (int kk = 0; kk < kend; kk += 4) {
-      float4 a4[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        a4[r] = *reinterpret_cast<const float4*>(a_s + (ty + 8 * r) * lda +
-                                                 k0 + kk);
+  return false;
+}
+
+// Issues z chunk `s` of the tile (its TE rows x 8 ks columns of [x[dst] |
+// xj | basis | 1 | zero], zero rows for masked edges) into z_s: the x and
+// xj columns by cp.async, so that they land while this stage's wgmma run;
+// the basis (from the distances in di_s), the ones and the zeros by plain
+// stores. A thread keeps V consecutive columns (V = 4, 16-byte copies,
+// where D is a multiple of 4 and so every segment starts on a quad; else
+// V = 1) and walks rows. The caller commits the group.
+template <int TE, int V>
+__device__ void issue_z_chunk(const float* __restrict__ x,
+                              const float* __restrict__ xj, long long e0,
+                              const Geometry& g, const FwdLayout& f, int s,
+                              const float* wt_s, const int* dst_s,
+                              const float* di_s, float* z_s) {
+  const int wv = 8 * f.ks / V;  // threads a row
+  const int p = V * (threadIdx.x % wv);
+  const int k = s * 8 * f.ks + p;
+  for (int r = threadIdx.x / wv; r < TE; r += kThreads / wv) {
+    float* to = z_s + r * f.ldz + p;
+    if (wt_s[r] != 0.f && k < 2 * g.d) {
+      const float* from = k < g.d ? x + (long long)dst_s[r] * g.d + k
+                                  : xj + (e0 + r) * g.d + k - g.d;
+      if (V == 4) {
+        cp_async16(to, from);
+      } else {
+        cp_async4(to, from);
       }
+    } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float* brow = b_s + (kk + q) * ldn;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int c = tx + 32 * j;
-          const float b0 = c < half ? brow[c] : 0.f;
-          const float b1 = c < half ? brow[half + c] : 0.f;
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float av = q == 0 ? a4[r].x
-                           : q == 1 ? a4[r].y
-                           : q == 2 ? a4[r].z
-                                    : a4[r].w;
-            acc0[r][j] = fmaf(av, b0, acc0[r][j]);
-            acc1[r][j] = fmaf(av, b1, acc1[r][j]);
-          }
+      for (int v = 0; v < V; ++v) {
+        const int kv = k + v - 2 * g.d;
+        float val = 0.f;
+        if (wt_s[r] != 0.f && kv < g.de) {
+          const float diff = di_s[r] - (float)kv * g.step;
+          val = expf(g.coeff * diff * diff);
+        } else if (wt_s[r] != 0.f && kv == g.de) {
+          val = 1.f;
         }
+        to[v] = val;
       }
     }
   }
 }
 
-template <int CPT>
-__global__ void __launch_bounds__(kThreads)
+// One tile of TE = 128 / WN edges, two warpgroups: with WN = 1 each owns
+// 64 of the tile's rows and all 8 NTW columns of the interleaved [af | as];
+// with WN = 2 both own the tile's 64 rows, warpgroup wn the columns
+// 8 NTW wn .. . Stage s brings ks k-steps of the split W (16-byte
+// cp.async) and z chunk s into two-stage rings, one stage ahead, one
+// barrier a stage. For each k-step a warp loads and splits its A fragment
+// from the z chunk and its warpgroup issues three wgmma (3xTF32). The
+// epilogue moves the accumulators to a shared tile in place of the ring,
+// forms mask * sigmoid(af) * softplus(as) there in a rolled loop (in place
+// of af) and flushes it (flush_runs).
+template <int NTW, int WN>
+__global__ void __launch_bounds__(kThreads, 1)
 fused_cgconv_fwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ xj,
                         const float* __restrict__ dist,
                         const int* __restrict__ dst,
                         const float* __restrict__ mask,
-                        const float* __restrict__ w,
-                        float* __restrict__ out, Geometry g) {
+                        const uint32_t* __restrict__ ws,
+                        float* __restrict__ out, Geometry g, FwdLayout f) {
+  constexpr int TE = 128 / WN;
+  const int stage_words = f.ks * kstep_words(f.np);
+  const int ring = max(2 * stage_words, TE * f.ldt);
   extern __shared__ float4 smem4[];
-  float* z_s = reinterpret_cast<float*>(smem4);
-  float* b_s = z_s + kTE * g.ldz;
-  float* w_s = b_s + kKC * g.ldn;
-  int* dst_s = reinterpret_cast<int*>(w_s + kTE);
+  uint32_t* w_s = reinterpret_cast<uint32_t*>(smem4);  // 2 stages
+  float* z_s = reinterpret_cast<float*>(w_s + ring);    // 2 chunks
+  float* wt_s = z_s + 2 * TE * f.ldz;                   // edge weights
+  float* di_s = wt_s + TE;                              // distances
+  int* dst_s = reinterpret_cast<int*>(di_s + TE);
 
-  const long long e0 = (long long)blockIdx.x * kTE;
-  if (!load_edges(dst, mask, e0, g, w_s, dst_s)) return;
-  load_z(x, xj, dist, e0, g, w_s, dst_s, z_s);
+  const long long e0 = (long long)blockIdx.x * TE;
+  if (threadIdx.x < TE) {
+    const long long e = e0 + threadIdx.x;
+    di_s[threadIdx.x] = e < g.e ? dist[e] : 0.f;
+  }
+  if (!load_edges<TE>(dst, mask, e0, g, wt_s, dst_s)) return;
+  const int stages = (f.kt + f.ks - 1) / f.ks;
 
-  float af[kRows][CPT], as[kRows][CPT];
-  tile_gemm<CPT>(z_s, g.ldz, g.k1, w, g.d, b_s, g.ldn, af, as);
-  __syncthreads();  // z_s is free: stage the messages there
-
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  float* msg_s = z_s;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = ty + 8 * r;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = tx + 32 * j;
-      if (c < g.d) {
-        msg_s[row * g.d + c] =
-            w_s[row] * sigmoidf(af[r][j]) * softplusf(as[r][j]);
+  // stage s: k-steps of the split W and z chunk s, one cp.async group
+  auto load_stage = [&](int s) {
+    if (s < stages) {
+      const int q = min(f.ks, f.kt - s * f.ks) * kstep_words(f.np) / 4;
+      uint32_t* to = w_s + (s & 1) * stage_words;
+      const uint32_t* from = ws + (long long)s * stage_words;
+      for (int i = threadIdx.x; i < q; i += kThreads) {
+        cp_async16(to + 4 * i, from + 4 * i);
+      }
+      float* zc = z_s + (s & 1) * TE * f.ldz;
+      if (g.d % 4 == 0) {
+        issue_z_chunk<TE, 4>(x, xj, e0, g, f, s, wt_s, dst_s, di_s, zc);
+      } else {
+        issue_z_chunk<TE, 1>(x, xj, e0, g, f, s, wt_s, dst_s, di_s, zc);
       }
     }
+    cp_async_commit();
+  };
+  load_stage(0);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int wn = WN == 1 ? 0 : warp >> 2;
+  const int row0 = 16 * (WN == 1 ? warp : warp & 3);
+  const int col0 = wn * NTW * 8;
+  const int r0 = row0 + gr;
+  const int b_hi = (col0 / 8) * 64;
+  const int b_lo = f.np * 8 + b_hi;
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // stage s landed; every warp is done with stage s - 1
+    const uint32_t* wst = w_s + (s & 1) * stage_words;
+    const float* zk = z_s + (s & 1) * TE * f.ldz + r0 * f.ldz + tq;
+    const int nks = min(f.ks, f.kt - s * f.ks);
+    uint32_t ahi[kFKS][4], alo[kFKS][4];
+    fence_acc(acc);
+#pragma unroll
+    for (int ks = 0; ks < kFKS; ++ks) {
+      if (ks < nks) {  // uniform across the block
+        const float* zr = zk + 8 * ks;
+        split_a(zr[0], zr[8 * f.ldz], zr[4], zr[8 * f.ldz + 4], ahi[ks],
+                alo[ks]);
+        const uint32_t* wk = wst + ks * kstep_words(f.np);
+        wgmma_fence();
+        wgmma_3xtf32(acc, ahi[ks], alo[ks], b_desc(wk + b_hi),
+                     b_desc(wk + b_lo), s == 0 && ks == 0 ? 0 : 1);
+      }
+    }
+    wgmma_commit();
+    load_stage(s + 1);  // while the tensor cores work
+    wgmma_wait();
+#pragma unroll
+    for (int ks = 0; ks < kFKS; ++ks) {
+      if (ks < nks) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          fence_reg(ahi[ks][q]);
+          fence_reg(alo[ks][q]);
+        }
+      }
+    }
+    fence_acc(acc);
+  }
+  __syncthreads();  // every warpgroup is done with the ring
+
+  // the messages, in place of af in the [af | as] tile
+  float* t_s = reinterpret_cast<float*>(w_s);
+  acc_to_tile(acc, t_s, f.ldt, r0, col0, tq);
+  __syncthreads();
+#pragma unroll 8
+  for (int i = threadIdx.x; i < TE * g.d; i += kThreads) {
+    const int r = i / g.d;
+    float* p = t_s + r * f.ldt + 2 * (i - r * g.d);
+    p[0] = wt_s[r] * sigmoidf(p[0]) * softplusf(p[1]);
   }
   __syncthreads();
-  flush_runs(msg_s, g.d, w_s, dst_s, out);
+  flush_runs<TE>(t_s, g.d, wt_s, dst_s, out, f.ldt, 2);
 }
 
 // ---- the backward: edge rows -------------------------------------------
@@ -646,11 +761,6 @@ fused_cgconv_wgrad_kernel(const float* __restrict__ x,
   }
 }
 
-size_t fwd_shared_bytes(const Geometry& g) {
-  return sizeof(float) * ((size_t)kTE * g.ldz + (size_t)kKC * g.ldn + kTE) +
-         sizeof(int) * kTE;
-}
-
 size_t bwd_shared_bytes(const Geometry& g, int te) {
   return sizeof(float) * ((size_t)te * g.lda + 2 * (size_t)kKS * g.ldb + te) +
          sizeof(int) * te;
@@ -672,18 +782,19 @@ void wgrad_tiles(const Geometry& g, int& ntiles_n, int& tiles) {
   tiles = ((g.k1 + kWM - 1) / kWM) * ntiles_n;
 }
 
-template <int CPT>
+template <int NTW, int WN>
 int launch_fwd(const float* x, const float* xj, const float* dist,
-               const int* dst, const float* mask, const float* w, float* out,
-               const Geometry& g, cudaStream_t s) {
-  const size_t smem = fwd_shared_bytes(g);
+               const int* dst, const float* mask, const uint32_t* ws,
+               float* out, const Geometry& g, const FwdLayout& f,
+               cudaStream_t s) {
+  const size_t smem = fwd_shared_bytes(f);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_cgconv_fwd_kernel<CPT>,
+      fused_cgconv_fwd_kernel<NTW, WN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (g.e + kTE - 1) / kTE;
-  fused_cgconv_fwd_kernel<CPT><<<(unsigned)tiles, kThreads, smem, s>>>(
-      x, xj, dist, dst, mask, w, out, g);
+  const long long tiles = (g.e + f.te - 1) / f.te;
+  fused_cgconv_fwd_kernel<NTW, WN><<<(unsigned)tiles, kThreads, smem, s>>>(
+      x, xj, dist, dst, mask, ws, out, g, f);
   return (int)cudaGetLastError();
 }
 
@@ -722,30 +833,48 @@ int mdl_fused_cgconv_wgrad_tiles(int d, int de) {
   return tiles;
 }
 
+// Words of the forward's split weight (its ws argument) for these widths,
+// or -kBadShape for an unsupported one.
+long long mdl_fused_cgconv_fwd_split_words(int d, int de) {
+  const Geometry g = make_geometry(0, d, de, 0, 0.f, 0.f);
+  FwdLayout f;
+  if (d < 1 || !fwd_layout(g, &f)) return -kBadShape;
+  return (long long)f.kt * kstep_words(f.np);
+}
+
 // All pointers are device pointers on the current device. w is the
 // (2D+De+1) x 2D extended weight [[Wfi Wsi]; [Wfj Wsj]; [Wfe Wse]; [bf bs]];
-// out holds n*d zeros; mask may be null (every edge real). Returns 0 or a
-// cudaError_t (kBadShape for an unsupported D or shared-memory size).
+// ws holds mdl_fused_cgconv_fwd_split_words(d, de) words, no initial value
+// needed; out holds n*d zeros; mask may be null (every edge real).
+// Launches the weight split, then the tiles. Returns 0 or a cudaError_t
+// (kBadShape for an unsupported D or shared-memory size).
 int mdl_fused_cgconv_fwd(const void* x, const void* xj, const void* dist,
                          const void* dst, const void* mask, const void* w,
-                         void* out, long long e, int d, int de, int n,
-                         float coeff, float step, void* stream) {
+                         void* ws, void* out, long long e, int d, int de,
+                         int n, float coeff, float step, void* stream) {
   const Geometry g = make_geometry(e, d, de, n, coeff, step);
-  if (fwd_shared_bytes(g) > (size_t)kMaxShared) return kBadShape;
+  FwdLayout f;
+  if (d < 1 || !fwd_layout(g, &f)) return kBadShape;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* wsp = static_cast<uint32_t*>(ws);
+  const int err = launch_split(
+      CgconvFwdB{static_cast<const float*>(w), d, g.k1}, f.kt, f.np, wsp, s);
+  if (err != 0) return err;
   const float* xp = static_cast<const float*>(x);
   const float* xjp = static_cast<const float*>(xj);
   const float* dp = static_cast<const float*>(dist);
   const int* dsp = static_cast<const int*>(dst);
   const float* mp = static_cast<const float*>(mask);
-  const float* wp = static_cast<const float*>(w);
   float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cpt_for(d)) {
-    case 1: return launch_fwd<1>(xp, xjp, dp, dsp, mp, wp, op, g, s);
-    case 2: return launch_fwd<2>(xp, xjp, dp, dsp, mp, wp, op, g, s);
-    case 4: return launch_fwd<4>(xp, xjp, dp, dsp, mp, wp, op, g, s);
-    case 5: return launch_fwd<5>(xp, xjp, dp, dsp, mp, wp, op, g, s);
-    case 8: return launch_fwd<8>(xp, xjp, dp, dsp, mp, wp, op, g, s);
+  switch (f.ntw * 10 + f.wn) {
+    case 41: return launch_fwd<4, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 131: return launch_fwd<13, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 191: return launch_fwd<19, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 251: return launch_fwd<25, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 321: return launch_fwd<32, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 192: return launch_fwd<19, 2>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 252: return launch_fwd<25, 2>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 322: return launch_fwd<32, 2>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
     default: return kBadShape;
   }
 }

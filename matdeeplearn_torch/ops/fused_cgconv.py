@@ -1,5 +1,6 @@
 """Fused CGConv: message MLPs, Gaussian edge basis and sum aggregation in
-one hand-written CUDA kernel, with a fused backward kernel.
+one hand-written CUDA kernel, with a fused backward, all on the tensor
+cores.
 
 The kernels in csrc/fused_cgconv.cu replace the reference package's
 ops/pallas_fused.py:_fwd_kernel and :_bwd_kernel. The function is that
@@ -25,11 +26,16 @@ is zeroed by the wrapper.
 
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts kernel launches. The backward launches three kernels
-(csrc/fused_cgconv.cu says why): the edge rows (`fused_cgconv_bwd_rows`:
-d_x, d_xj and dA = [d_af | d_as]), the weight gradient in slices
-(`fused_cgconv_wgrad`: zᵀ·dA over strided 32-edge chunks) and the
-fixed-order sum of the slices (`wgrad_reduce`).
+`LAUNCHES` counts kernel launches. Every product runs on the tensor cores
+in 3xTF32 (f32 accuracy; csrc/fused_cgconv.cu says how). The forward
+(`fused_cgconv_fwd`) is one call of two launches, a split of the weight
+into TF32 hi/lo in the order of its wgmma B descriptors (`fwd_b` and
+`split_kmajor` say which) and the edge tiles; bound: operations, 4.55e9
+FLOP at chip_smoke's training batch, 0.0276 ms at 495/3 TFLOP/s. The
+backward launches three kernels, on mma.sync: the edge rows
+(`fused_cgconv_bwd_rows`: d_x, d_xj and dA = [d_af | d_as]), the weight
+gradient in slices (`fused_cgconv_wgrad`: zᵀ·dA over strided 32-edge
+chunks) and the fixed-order sum of the slices (`wgrad_reduce`).
 """
 
 from __future__ import annotations
@@ -59,8 +65,10 @@ def _load():
         lib = _build.library("fused_cgconv")
         vp, ci, cl, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-        lib.mdl_fused_cgconv_fwd.argtypes = [vp] * 7 + [cl, ci, ci, ci, cf, cf, vp]
+        lib.mdl_fused_cgconv_fwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, cf, cf, vp]
         lib.mdl_fused_cgconv_fwd.restype = ci
+        lib.mdl_fused_cgconv_fwd_split_words.argtypes = [ci, ci]
+        lib.mdl_fused_cgconv_fwd_split_words.restype = cl
         lib.mdl_fused_cgconv_bwd.argtypes = ([vp] * 11
                                              + [cl, ci, ci, ci, cf, cf, vp])
         lib.mdl_fused_cgconv_bwd.restype = ci
@@ -109,6 +117,48 @@ def unpack_weights(w: torch.Tensor, d: int, bias_shape) -> tuple:
     f, s = w[:, :d], w[:, d:]
     return (f[:d], f[d:2 * d], f[2 * d:-1], f[-1].reshape(bias_shape),
             s[:d], s[d:2 * d], s[2 * d:-1], s[-1].reshape(bias_shape))
+
+
+def ntw_bucket(nt: int) -> int:
+    """The n8-tiles a warpgroup of the wgmma kernels spans for nt needed
+    (csrc/wgmma.cuh:ntw_bucket): the smallest of 4, 13, 19, 25, 32 that is
+    >= nt, or 0 past 32."""
+    return next((b for b in (4, 13, 19, 25, 32) if nt <= b), 0)
+
+
+def fwd_b(w: torch.Tensor, d: int) -> torch.Tensor:
+    """The forward kernel's B operand, (NP, round8(K1)), from pack_weights'
+    w: B[n, k] = w[k, (n % 2)·D + n // 2] for n // 2 < D, zero beyond, with
+    NP = 8·NTW·WN the columns of its warpgroups (one warpgroup of
+    ntw_bucket(⌈2D/8⌉) n8-tiles up to D = 128, two of ntw_bucket(⌈D/8⌉)
+    past it). af and as of one feature are adjacent rows of B, so they land
+    in one thread's accumulator pair."""
+    k1 = w.shape[0]
+    wn = 1 if d <= 128 else 2
+    np_ = 8 * wn * ntw_bucket(-(-2 * d // 8) if wn == 1 else -(-d // 8))
+    b = w.new_zeros(np_, _round(k1, 8))
+    b[:2 * d:2, :k1] = w[:, :d].t()
+    b[1:2 * d:2, :k1] = w[:, d:].t()
+    return b
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: the f32 word rounded to 10 mantissa bits, to
+    nearest with ties away from zero."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_kmajor(b: torch.Tensor) -> torch.Tensor:
+    """What csrc/wgmma.cuh:split_kmajor_kernel writes for a B operand b
+    (NP rows, 8·S columns): int32 words, per k-step s the TF32 hi part, then
+    the lo part (tf32(b - hi)), each NP/8 groups of two 8 x 4 core matrices
+    (the k-step's columns 0-3, then 4-7), rows of 4 contiguous words."""
+    np_, kp = b.shape
+    hi = tf32(b)
+    parts = torch.stack([hi, tf32(b - hi)])             # (2, NP, 8·S)
+    words = parts.view(2, np_ // 8, 8, kp // 8, 2, 4)   # part, n8, r, s, kh, c
+    return words.permute(3, 0, 1, 4, 2, 5).contiguous().view(torch.int32).reshape(-1)
 
 
 def _basis_constants(de: int, edge_width: float) -> tuple[float, float]:
@@ -261,13 +311,18 @@ def fused_cgconv(x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj, wse,
     if e == 0 or d == 0 or num_nodes == 0:
         return out
     lib = _load()
+    words = lib.mdl_fused_cgconv_fwd_split_words(d, de)
+    if words < 0:
+        _raise_on(-words, "mdl_fused_cgconv_fwd_split_words")
+    # the kernel's TF32 hi/lo split of w, in the order its tiles read it
+    ws = torch.empty(words, dtype=torch.int32, device=x.device)
     coeff, step = _basis_constants(de, edge_width)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_fused_cgconv_fwd(
             x.data_ptr(), xj.data_ptr(), dist.data_ptr(), dst.data_ptr(),
-            mask.data_ptr(), w.data_ptr(), out.data_ptr(), e, d, de,
-            num_nodes, coeff, step, stream)
+            mask.data_ptr(), w.data_ptr(), ws.data_ptr(), out.data_ptr(), e,
+            d, de, num_nodes, coeff, step, stream)
     _raise_on(rc, "mdl_fused_cgconv_fwd")
     LAUNCHES["fused_cgconv_fwd"] += 1
     return out

@@ -13,7 +13,10 @@ and cfconv kernels and the bilinear NNConv kernels rtol 1e-4 and atol
 order than the plain version's GEMMs); whole-model outputs and gradients
 1e-4 against the same model on the CPU; a short training run's errors 1e-3
 against the CPU. The bilinear, CGConv and cfconv weight gradients are
-bit-identical between two calls. The windowed sums (fixed order) rtol 1e-5 and atol 1e-5·max|ref|
+bit-identical between two calls. The CGConv forward and the cfconv
+backward are also held to their plain versions at every width bucket of
+their wgmma tiles (D and F 1 to 256) and at edge counts off every tile
+size, an all-pad batch giving exact zeros. The windowed sums (fixed order) rtol 1e-5 and atol 1e-5·max|ref|
 and bit-identical between two calls; the windowed gather bit-exact.
 """
 
@@ -260,6 +263,112 @@ def test_fused_cgconv_raises_instead_of_falling_back(cuda_device):
     wide = _fused_inputs("sorted", 300, device=cuda_device)
     with pytest.raises(ValueError, match="wider"):
         FC.fused_cgconv(*wide[:5], *wide[5], wide[6], 0.2)
+
+
+def _edge_problem(e, n, real, seed):
+    """e edge slots over n nodes: sorted random dst for the first `real`,
+    then pads at dst 0 with mask 0 (real = 0: an all-pad batch)."""
+    rng = np.random.default_rng(seed)
+    dst = np.zeros(e, np.int32)
+    dst[:real] = np.sort(rng.integers(0, n, real))
+    mask = np.zeros(e, np.float32)
+    mask[:real] = 1.0
+    return dst, mask
+
+
+# widths across every n8-tile bucket and the warpgroup split at D = 128;
+# edge counts off the 64- and 128-edge tiles and the 32-edge chunks
+TILING_WIDTHS = [1, 3, 33, 100, 150, 152, 200, 256]
+TILING_EDGES = [(1, 1), (97, 97), (200, 171), (333, 0)]
+
+
+@pytest.mark.parametrize("e,real", TILING_EDGES)
+@pytest.mark.parametrize("d", TILING_WIDTHS)
+def test_fused_cgconv_fwd_matches_plain_at_tiling_edges(cuda_device, d, e,
+                                                        real):
+    dst, mask = _edge_problem(e, 40, real, d * 1000 + e)
+    g = torch.Generator().manual_seed(d + e)
+    t = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(
+        cuda_device)
+    x, xj = t(40, d), t(e, d)
+    dist = torch.rand(e, generator=g).to(cuda_device)
+    ws = [t(d, d, s=0.1), t(d, d, s=0.1), t(50, d, s=0.1), t(d, s=0.1),
+          t(d, d, s=0.1), t(d, d, s=0.1), t(50, d, s=0.1), t(d, s=0.1)]
+    args = (x, xj, dist, torch.as_tensor(dst, device=cuda_device),
+            torch.as_tensor(mask, device=cuda_device), *ws, 40, 0.2)
+    out = FC.fused_cgconv(*args)
+    if real == 0:
+        assert float(out.abs().max()) == 0.0
+    else:
+        _assert_fused_close(out, FC.fused_cgconv_plain(*args), "forward")
+
+
+def _cfconv_tiling(f, e, real, device):
+    dst, mask = _edge_problem(e, 40, real, f * 1000 + e)
+    g = torch.Generator().manual_seed(f + e)
+    t = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(device)
+    xj = t(e, f)
+    dist = torch.rand(e, generator=g).to(device)
+    wraw = (8.0 * torch.rand(e, generator=g)).to(device)
+    ws = [t(50, f, s=0.3), t(f, s=0.3), t(f, f, s=0.3), t(f, s=0.3)]
+    return (xj, dist, wraw, torch.as_tensor(dst, device=device),
+            torch.as_tensor(mask, device=device), *ws, 40, 0.2, 8.0)
+
+
+@pytest.mark.parametrize("e,real", TILING_EDGES)
+@pytest.mark.parametrize("f", TILING_WIDTHS)
+def test_fused_cfconv_bwd_matches_plain_at_tiling_edges(cuda_device, f, e,
+                                                        real):
+    args = _cfconv_tiling(f, e, real, cuda_device)
+    cot = torch.randn(40, f, device=cuda_device)
+    got = FS.fused_cfconv_bwd(cot, *args)
+    ref = FS.fused_cfconv_bwd_plain(cot, *args)
+    if real == 0:
+        assert float(got[0].abs().max()) == 0.0
+        for a in got[1:]:
+            assert float(a.abs().max()) == 0.0
+        return
+    for name, a, b in zip(["xj", "w0", "b0", "w1", "b1"], got, ref):
+        _assert_fused_close(a, b, f"d_{name}")
+    assert not got[0][args[4] == 0].any()
+
+
+@pytest.mark.parametrize("f", [3, 150, 256])
+def test_fused_cfconv_backward_stages_match_plain(cuda_device, f):
+    """Each kernel of the backward against its plain stage: the edge
+    kernel's d_xj and its a, dw and dpre rows of real edges, and every
+    slice of the weight-gradient kernel (scattered mask)."""
+    xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("scattered", f,
+                                                      device=cuda_device)
+    g = torch.randn(n, f, device=cuda_device)
+    args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
+    rows = FS.fused_cfconv_bwd_rows(g, *args)
+    ref = FS.bwd_rows_plain(g, *args)
+    real = FS.edge_scale(wraw, dst, mask, n, 8.0) != 0
+    _assert_fused_close(rows[0], ref[0], "d_xj")
+    for name, a, b in zip(["a", "dw", "dpre"], rows[1:], ref[1:]):
+        _assert_fused_close(a[real], b[real], name)
+    edges = (dist, wraw, dst, mask)
+    partial, slices = FS.fused_cfconv_wgrad(*edges, *rows[1:], n, f, 50, 0.2,
+                                            8.0)
+    want = FS.wgrad_partials_plain(*edges, *ref[1:], n, f, 50, 0.2, 8.0,
+                                   slices)
+    _assert_fused_close(partial, want, "slices")
+
+
+def test_fused_cfconv_wgrad_launch_is_bit_identical(cuda_device):
+    """The weight-gradient kernel writes its slices without atomics: two
+    calls give the same bits."""
+    xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("unsorted", 150,
+                                                      device=cuda_device)
+    g = torch.randn(n, 150, device=cuda_device)
+    args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
+    rows = FS.fused_cfconv_bwd_rows(g, *args)
+    edges = (dist, wraw, dst, mask)
+    first = FS.fused_cfconv_wgrad(*edges, *rows[1:], n, 150, 50, 0.2, 8.0)
+    again = FS.fused_cfconv_wgrad(*edges, *rows[1:], n, 150, 50, 0.2, 8.0)
+    assert first[1] == again[1]
+    assert torch.equal(first[0], again[0])
 
 
 def _toy(tmp_path, n=24):

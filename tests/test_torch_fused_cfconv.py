@@ -13,6 +13,15 @@ package on the CPU.
   d_xj is exactly 0 on every masked edge.
 * The plain weight-gradient reduction against a dense sum of its partial
   layout, and the kernels' weight stack taken apart by split_wgrad.
+* The arithmetic of the tensor-core backward (the edge rows on wgmma and
+  the weight gradient in slices), emulated in torch (3xTF32 as
+  tests/test_torch_fused_bilinear.py emulates it, in the kernels' k-step
+  and chunk order, over the split weights' B operands `bwd_b`), at
+  SchNet_demo width (F 150, De 50, 200 edges): d_xj and all four weight
+  gradients within the chip check's limit of the VJP of JAX's
+  `_reference_compose` (rtol 1e-4, atol 1e-4·max|ref|), and the
+  single-pass TF32 emulation outside it for each. The layout of `bwd_b`,
+  its pair order and its hi/lo split.
 """
 
 import jax
@@ -156,3 +165,165 @@ def test_wgrad_reduce_plain_is_the_dense_sum_of_its_layout(f, de):
     np.testing.assert_array_equal(d_b0.numpy(), got.numpy()[de:de + 1])
     np.testing.assert_array_equal(d_w1.numpy(), got.numpy()[r4(de + 1):][:f])
     np.testing.assert_array_equal(d_b1.numpy(), got.numpy()[r4(de + 1) + f])
+
+
+# ------------------------------- the tensor-core backward's arithmetic
+
+# The 3xTF32 emulation (operands rounded as cvt.rna, lo·hi + hi·lo + hi·hi
+# with f32 accumulation, one 8-deep k-step at a time) and the chip check's
+# limit share, shared with the bilinear kernels' tests (tests/ is on
+# sys.path under pytest).
+from test_torch_fused_bilinear import _limit_share, _mma  # noqa: E402
+
+from matdeeplearn_torch.ops.edge_basis import gaussian_basis  # noqa: E402
+from matdeeplearn_torch.ops.fused_cgconv import split_kmajor, tf32  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def schnet_width():
+    """~200 edges at SchNet_demo width (F 150, De 50) over 40 nodes, dst
+    sorted, a scattered mask and a tail of pads, and JAX's
+    `_reference_compose` output and VJP on the same flat layout."""
+    e, n, f, de, width, cutoff = 200, 40, 150, 50, 0.2, 8.0
+    rng = np.random.default_rng(150)
+    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    mask = (rng.random(e) > 0.3).astype(np.float32)
+    mask[170:] = 0
+    dst[170:] = 0
+    xj = rng.standard_normal((e, f)).astype(np.float32)
+    dist = rng.random(e).astype(np.float32)
+    wraw = (cutoff * rng.random(e)).astype(np.float32)
+    shapes = [(de, f), (1, f), (f, f), (1, f)]
+    params = [(0.1 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    cot = rng.standard_normal((n, f)).astype(np.float32)
+    we = WindowedEdges(order=jnp.asarray(dst), dst=jnp.asarray(dst),
+                       window_id=jnp.zeros(1, jnp.int32),
+                       first_tile=jnp.zeros(1, jnp.int32),
+                       valid=jnp.asarray(mask))
+    out, vjp = jax.vjp(
+        lambda xj_, *p: PFS._reference_compose(
+            xj_, jnp.asarray(dist), jnp.asarray(wraw), we, p, n, de, width,
+            cutoff), jnp.asarray(xj), *map(jnp.asarray, params))
+    grads = [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+    t = [torch.as_tensor(v) for v in (xj, dist, wraw, dst, mask)]
+    return (t, [torch.as_tensor(p) for p in params], torch.as_tensor(cot), n,
+            de, width, cutoff, grads)
+
+
+def _chain(a, b, passes):
+    """a @ bᵀ as the kernels take it: one _mma a k-step of 8 columns."""
+    acc = a.new_zeros(a.shape[0], b.shape[0])
+    for k0 in range(0, a.shape[1], 8):
+        acc = _mma(acc, a[:, k0:k0 + 8], b[:, k0:k0 + 8].t(), passes)
+    return acc
+
+
+def _emulated_cfconv_bwd(xj, dist, wraw, dst, mask, w0, b0, w1, b1, cot, n,
+                         de, width, cutoff, passes: int, slices: int):
+    """The backward's arithmetic in its kernels' order. The edge kernel:
+    pre = b·W0 over ⌈De/8⌉ k-steps, + b0; a = ssp(pre); w = a·W1 and
+    dpre = (dw·W1ᵀ)·σ(pre) over the np columns in k-steps of 8, their A
+    columns and B rows in pair_order (bwd_b); + b1; d_xj = gg·w, dw =
+    gg·xj. The weight gradient: per slice, the chunks slice, slice +
+    slices, ... 8 edges a k-step, [b | 1]ᵀ·dpre and [a | 1]ᵀ·dw; then the
+    slices in order."""
+    e, f = xj.shape
+    np_ = FS.row_width(f)
+    b = FS.bwd_b(w0, w1)
+    k0 = b.shape[1] - 2 * np_
+    s = FS.edge_scale(wraw, dst, mask, n, cutoff)
+    real = (s != 0)[:, None]
+    basis = xj.new_zeros(e, k0)
+    basis[:, :de] = gaussian_basis(dist, 0.0, 1.0, de, width)
+    basis = torch.where(real, basis, 0.0)
+    cols = torch.arange(np_) < f
+    pad = lambda v: torch.cat([v.reshape(-1), v.new_zeros(np_ - f)])
+    pre = _chain(basis, b[:, :k0], passes) + pad(b0)
+    a = torch.where(real & cols, torch.nn.functional.softplus(pre) - FS._LOG2,
+                    0.0)
+    order = FS.pair_order(np_)
+    w = _chain(a[:, order], b[:, k0:k0 + np_], passes) + pad(b1)
+    gg = torch.where(real, cot[torch.where(s != 0, dst, 0).long()], 0.0)
+    gg = torch.cat([gg * s[:, None], gg.new_zeros(e, np_ - f)], 1)
+    d_xj = (gg * w)[:, :f]
+    dw = gg * torch.cat([xj, xj.new_zeros(e, np_ - f)], 1)
+    dpre = _chain(dw[:, order], b[:, k0 + np_:], passes) * torch.sigmoid(pre)
+    z0 = torch.cat([basis[:, :de], real.float()], 1)
+    z1 = torch.cat([a[:, :f], real.float()], 1)
+    chunk = torch.arange(e) // FS.WGRAD_CHUNK
+    dw0 = torch.zeros(de + 1, np_)
+    dw1 = torch.zeros(f + 1, np_)
+    for sl in range(slices):
+        acc0, acc1 = torch.zeros_like(dw0), torch.zeros_like(dw1)
+        for ch in range(sl, int(chunk.max()) + 1, slices):
+            for e0 in range(ch * FS.WGRAD_CHUNK, min(e, (ch + 1) * FS.WGRAD_CHUNK), 8):
+                r = slice(e0, min(e, e0 + 8))
+                acc0 = _mma(acc0, z0[r].t(), dpre[r], passes)
+                acc1 = _mma(acc1, z1[r].t(), dw[r], passes)
+        dw0, dw1 = dw0 + acc0, dw1 + acc1
+    return d_xj, dw0[:de, :f], dw0[de, :f], dw1[:f, :f], dw1[f, :f]
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)],
+                         ids=["3xtf32", "1xtf32"])
+def test_emulated_bwd_against_jax_vjp_at_the_chip_limit(schnet_width, passes,
+                                                        within):
+    """At SchNet_demo width the 3xTF32 emulation of the backward's two
+    kernels falls within the chip check's limit of the VJP of JAX's
+    `_reference_compose` (chip_smoke.py:assert_fused: rtol 1e-4, atol
+    1e-4·max|ref|) for d_xj and all four weight gradients; the single-pass
+    TF32 one (hi·hi alone) falls outside it for each of the five. Masked
+    edges get exactly zero d_xj rows."""
+    (xj, dist, wraw, dst, mask), ws, cot, n, de, width, cutoff, grads = \
+        schnet_width
+    got = _emulated_cfconv_bwd(xj, dist, wraw, dst, mask, *ws, cot, n, de,
+                               width, cutoff, passes, slices=3)
+    assert (got[0][mask == 0] == 0).all()
+    shares = [_limit_share(g.reshape(r.shape), r) for g, r in zip(got, grads)]
+    print(f"backward, {passes}xTF32: worst shares of the limit, d_xj, d_w0, "
+          f"d_b0, d_w1, d_b1: {', '.join(f'{v:.4g}' for v in shares)}")
+    if within:
+        assert max(shares) < 1.0, shares
+    else:
+        assert min(shares) > 1.0, shares
+
+
+@pytest.mark.parametrize("f,de", [(1, 50), (3, 7), (150, 50), (152, 9),
+                                  (256, 50)])
+def test_bwd_b_is_w0_and_w1_in_pair_order(f, de):
+    """bwd_b, the B operands that the backward kernel splits once a call:
+    W0ᵀ, then W1ᵀ and W1 with their columns in pair_order, zeros past De
+    and F, np = row_width(F) >= F rows; split_kmajor's hi + lo gives it
+    back to f32 accuracy."""
+    rng = np.random.default_rng(f)
+    w0 = torch.as_tensor(rng.standard_normal((de, f)), dtype=torch.float32)
+    w1 = torch.as_tensor(rng.standard_normal((f, f)), dtype=torch.float32)
+    b = FS.bwd_b(w0, w1)
+    np_, k0 = FS.row_width(f), -(-de // 8) * 8
+    assert np_ >= f and np_ % 8 == 0
+    assert b.shape == (np_, k0 + 2 * np_)
+    order = FS.pair_order(np_)
+    assert sorted(order.tolist()) == list(range(np_))
+    inv = torch.argsort(order)
+    units = [b[:, :k0].clone(), b[:, k0:k0 + np_][:, inv],
+             b[:, k0 + np_:][:, inv]]
+    for u, want in zip(units, (w0.t(), w1.t(), w1)):
+        assert torch.equal(u[:want.shape[0], :want.shape[1]], want)
+        u[:want.shape[0], :want.shape[1]] = 0
+        assert not u.any()
+    words = split_kmajor(b)
+    parts = words.view(torch.float32).view(b.shape[1] // 8, 2, np_ // 8, 2,
+                                           8, 4)
+    back = parts.permute(1, 2, 4, 0, 3, 5).reshape(2, np_, b.shape[1])
+    assert torch.equal(back[0], tf32(b))
+    torch.testing.assert_close(back[0] + back[1], b, rtol=2e-7, atol=1e-30)
+
+
+def test_pair_order_puts_accumulator_pairs_at_t_and_t_plus_4():
+    """An accumulator fragment holds columns 2t and 2t + 1 of an n8-tile;
+    an A fragment takes columns t and t + 4 of a k-step."""
+    order = FS.pair_order(16).view(2, 8)
+    for j in range(2):
+        for t in range(4):
+            assert order[j, t] == 8 * j + 2 * t
+            assert order[j, t + 4] == 8 * j + 2 * t + 1

@@ -18,6 +18,13 @@ the CPU.
   under kernel fused (windowed batch, interpret mode): per-graph outputs
   and every parameter gradient, rtol 2e-4, atol 2e-4·max|ref|, the
   tolerance of tests/test_csr.py's model parity.
+* The arithmetic of the wgmma forward kernel, emulated in torch (3xTF32
+  as tests/test_torch_fused_bilinear.py emulates it, over the split
+  weight's B operand `fwd_b` in its k-step order), at CGCNN_demo width
+  (D 100, De 50, 200 edges): within the chip check's limit of JAX's
+  `_reference_compose` (rtol 1e-4, atol 1e-4·max|ref|), and the
+  single-pass TF32 emulation outside it. The layout of `fwd_b` and of its
+  hi/lo split (`split_kmajor`) at every width bucket.
 """
 
 import jax
@@ -239,3 +246,101 @@ def test_fused_cgcnn_matches_jax_fused_cgcnn(toy_dataset, ids):
     tgrads = {k: p.grad for k, p in model.named_parameters()}
     for k, ref in params_from_jax(jax.tree.map(np.asarray, jgrads)).items():
         _close(tgrads[k].numpy(), ref.numpy(), 2e-4, k)
+
+
+# ------------------------------------ the wgmma forward kernel's arithmetic
+
+# The 3xTF32 emulation (operands rounded as cvt.rna, lo·hi + hi·lo + hi·hi
+# with f32 accumulation, one 8-deep k-step at a time) and the chip check's
+# limit share, shared with the bilinear kernels' tests (tests/ is on
+# sys.path under pytest).
+from test_torch_fused_bilinear import _limit_share, _mma  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def cgcnn_width():
+    """~200 edges at CGCNN_demo width (D 100, De 50) over 40 nodes, dst
+    sorted, a scattered mask and a tail of pads, and JAX's
+    `_reference_compose` output on the same flat layout."""
+    e, n, d, de, width = 200, 40, 100, 50, 0.2
+    rng = np.random.default_rng(101)
+    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    mask = (rng.random(e) > 0.3).astype(np.float32)
+    mask[170:] = 0
+    dst[170:] = 0
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    xj = rng.standard_normal((e, d)).astype(np.float32)
+    dist = rng.random(e).astype(np.float32)
+    shapes = [(d, d), (d, d), (de, d), (d,), (d, d), (d, d), (de, d), (d,)]
+    params = [(0.1 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+    we = PF.WindowedEdges(order=jnp.asarray(dst), dst=jnp.asarray(dst),
+                          window_id=jnp.zeros(1, jnp.int32),
+                          first_tile=jnp.zeros(1, jnp.int32),
+                          valid=jnp.asarray(mask))
+    out = PF._reference_compose(jnp.asarray(x), jnp.asarray(xj),
+                                jnp.asarray(dist), we,
+                                [jnp.asarray(p) for p in params], n, de, width)
+    t = [torch.as_tensor(v) for v in (x, xj, dist, dst, mask)]
+    return t, [torch.as_tensor(p) for p in params], n, de, width, np.asarray(out)
+
+
+def _emulated_cgconv_fwd(x, xj, dist, dst, mask, ws, n, de, width,
+                         passes: int):
+    """The forward kernel's arithmetic in its order: acc = z·B over
+    round8(K1) in k-steps of 8 (B = fwd_b, af and as of a feature in
+    adjacent columns), then mask·σ(af)·softplus(as) summed at dst."""
+    d = xj.shape[1]
+    b = FC.fwd_b(FC.pack_weights(*ws), d)
+    z, w = FC._edge_terms(x, xj, dist, dst, mask, n, de, width)
+    zp = z.new_zeros(z.shape[0], b.shape[1])
+    zp[:, :z.shape[1]] = z
+    acc = z.new_zeros(z.shape[0], b.shape[0])
+    for k0 in range(0, b.shape[1], 8):
+        acc = _mma(acc, zp[:, k0:k0 + 8], b[:, k0:k0 + 8].t(), passes)
+    msg = w[:, None] * torch.sigmoid(acc[:, 0:2 * d:2]) * \
+        torch.nn.functional.softplus(acc[:, 1:2 * d:2])
+    return torch.zeros(n, d).index_add_(0, dst.long(), msg)
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)],
+                         ids=["3xtf32", "1xtf32"])
+def test_emulated_fwd_against_jax_at_the_chip_limit(cgcnn_width, passes,
+                                                    within):
+    """At CGCNN_demo width the 3xTF32 emulation of the forward kernel falls
+    within the chip check's limit of JAX's `_reference_compose`
+    (chip_smoke.py:assert_fused: rtol 1e-4, atol 1e-4·max|ref|), and the
+    single-pass TF32 one (hi·hi alone) outside it."""
+    (x, xj, dist, dst, mask), ws, n, de, width, ref = cgcnn_width
+    got = _emulated_cgconv_fwd(x, xj, dist, dst, mask, ws, n, de, width,
+                               passes)
+    share = _limit_share(got, ref)
+    print(f"forward, {passes}xTF32: worst share of the limit {share:.4g}")
+    assert (share < 1.0) == within, share
+
+
+@pytest.mark.parametrize("d", [1, 3, 100, 128, 129, 150, 256])
+def test_fwd_b_is_the_packed_weight_interleaved(d):
+    """fwd_b, the B operand that the forward kernel splits once a call:
+    af and as of feature c in rows 2c and 2c + 1, zeros past 2D rows and
+    K1 columns, NP = 8·NTW·WN rows (one warpgroup up to D = 128, two
+    past it); split_kmajor's hi + lo gives it back to f32 accuracy."""
+    de = 7
+    rng = np.random.default_rng(d)
+    w = torch.as_tensor(rng.standard_normal((2 * d + de + 1, 2 * d)),
+                        dtype=torch.float32)
+    b = FC.fwd_b(w, d)
+    wn = 1 if d <= 128 else 2
+    nt = -(-2 * d // 8) if wn == 1 else -(-d // 8)
+    assert b.shape == (8 * wn * FC.ntw_bucket(nt), -(-(2 * d + de + 1) // 8) * 8)
+    assert b.shape[0] >= 2 * d
+    assert torch.equal(b[0:2 * d:2, :w.shape[0]], w[:, :d].t())
+    assert torch.equal(b[1:2 * d:2, :w.shape[0]], w[:, d:].t())
+    assert not b[2 * d:].any() and not b[:, w.shape[0]:].any()
+    words = FC.split_kmajor(b)
+    assert words.numel() == 2 * b.numel()
+    parts = words.view(torch.float32).view(b.shape[1] // 8, 2, b.shape[0] // 8,
+                                           2, 8, 4)
+    # back to (part, NP, columns): k-step s, half kh, column c is 8s + 4kh + c
+    back = parts.permute(1, 2, 4, 0, 3, 5).reshape(2, b.shape[0], b.shape[1])
+    assert torch.equal(back[0], FC.tf32(b))
+    torch.testing.assert_close(back[0] + back[1], b, rtol=2e-7, atol=1e-30)
