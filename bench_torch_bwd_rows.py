@@ -1,5 +1,5 @@
-"""Device time of one of the port's tensor-core kernels on one CUDA card,
-for A/B comparisons of designs.
+"""Device time of one of the port's kernels on one CUDA card, for A/B
+comparisons of designs.
 
     python bench_torch_bwd_rows.py [--op OP] [ROOT ...]
 
@@ -10,9 +10,15 @@ OP names what is timed (default bilinear_bwd_rows):
   and bilinear_wgrad: its forward and weight gradient at the same shapes;
 * cgconv_fwd: `fused_cgconv` (the fused CGConv forward, CGCNN_demo width
   D 100, De 50), with its launch of the weight split where it has one;
+  cgconv_bwd: `fused_cgconv_bwd`, its whole backward at the same shapes;
 * cfconv_bwd: `fused_cfconv_bwd` (the whole SchNet cfconv backward: every
   launch and allocation, F 150, De 50, cutoff 8), and, where the tree has
-  them, its edge-row and weight-gradient launches alone.
+  them, its edge-row and weight-gradient launches alone; cfconv_fwd:
+  `fused_cfconv`, the forward at the same shapes, with its launch of the
+  weight split where it has one;
+* windowed_sum: the windowed `segment_sum` at D 1 (GCN_demo's degree) and
+  D 100 and the windowed `spmm` at D 100, on a windowed batch shaped like
+  chip_smoke's GCN_demo training batch (windowed_batch).
 
 The shapes are those of chip_smoke.py's training batch: 80,176 edge slots,
 the first 45,509 real, 6,168 node slots; the synthetic batch gives the
@@ -35,7 +41,8 @@ import time
 
 E, REAL, N, NODES = 80176, 45509, 6168, 3517
 OPS = ("bilinear_bwd_rows", "bilinear_fwd", "bilinear_wgrad", "cgconv_fwd",
-       "cfconv_bwd")
+       "cgconv_bwd", "cfconv_bwd", "cfconv_fwd", "windowed_sum")
+TW, TE, WTILES = 64, 128, 687  # chip_smoke's windowed training batch
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -67,6 +74,33 @@ def edges(dev, g):
     dist = torch.rand(E, device=dev, generator=g)
     wraw = 8.0 * torch.rand(E, device=dev, generator=g)
     return dst, mask, dist, wraw
+
+
+def windowed_batch(dev, g):
+    """(layout, node slots) of a windowed batch shaped like chip_smoke's
+    GCN_demo training batch: 100 graphs of 8-64 nodes, each in its own
+    window of TW node slots, 12 or 13 edges a node (dst sorted), the
+    edges of each window in tiles of TE slots (windowize_edges), the tiles
+    past the packed extent parked on the last window, WTILES tiles in
+    all."""
+    import torch
+    from matdeeplearn_torch.ops import windowed as WO
+
+    atoms = torch.randint(8, 65, (100,), generator=g)
+    node = torch.cat([TW * i + torch.arange(int(a)) for i, a in enumerate(atoms)])
+    deg = 12 + (torch.rand(len(node), generator=g) < 0.94).long()
+    dst = torch.repeat_interleave(node, deg).to(torch.int32)
+    n = TW * len(atoms)
+    we = WO.windowize_edges(dst, torch.ones(len(dst)), n, TW, TE)
+    extra = WTILES - we.window_id.shape[0]
+    we = WO.WindowedEdges(
+        order=torch.cat([we.order, torch.zeros(extra * TE, dtype=torch.int64)]),
+        dst=torch.cat([we.dst, torch.full((extra * TE,), -1, dtype=torch.int32)]),
+        window_id=torch.cat([we.window_id, we.window_id[-1:].repeat(extra)]),
+        first_tile=torch.cat([we.first_tile,
+                              torch.zeros(extra, dtype=torch.int32)]),
+        valid=torch.cat([we.valid, torch.zeros(extra * TE)]))
+    return WO.WindowedEdges(*(t.to(dev) for t in we)), n
 
 
 def rel_err(got, ref) -> list:
@@ -103,8 +137,24 @@ def cases(op, dev):
             fn = lambda: FB.fused_bilinear_bwd_rows(cot, *args)
             plain = lambda: FB.bwd_rows_plain(cot, *args)
         return [(f"fused_{op}", fn, lambda: rel_err(fn(), plain()))]
+    if op == "windowed_sum":
+        from matdeeplearn_torch.ops import windowed as WO
+
+        we, n = windowed_batch(dev, torch.Generator().manual_seed(9))
+        out = []
+        for what, d, w in (("segment_sum D 1", 1, None),
+                           ("segment_sum D 100", 100, None),
+                           ("spmm D 100", 100, r(we.dst.shape[0]))):
+            msg = r(we.dst.shape[0], d)
+            fn = (lambda m=msg: WO.segment_sum(m, we, n, TW)) if w is None \
+                else (lambda m=msg, w=w: WO.spmm(w, m, we, n, TW))
+            plain = lambda m=msg, w=w: WO.segment_sum_plain(
+                m, we.dst, we.window_id, n, TW, w)
+            out.append((f"windowed {what}", fn,
+                        lambda fn=fn, plain=plain: rel_err(fn(), plain())))
+        return out
     dst, mask, dist, wraw = edges(dev, g)
-    if op == "cgconv_fwd":
+    if op.startswith("cgconv"):
         from matdeeplearn_torch.ops import fused_cgconv as FC
 
         d, de = 100, 50
@@ -113,6 +163,11 @@ def cases(op, dev):
         ws = [r(*s, k=0.1) for s in ((d, d), (d, d), (de, d), (d,),
                                      (d, d), (d, d), (de, d), (d,))]
         args = (x, xj, dist, dst, mask, *ws, N, 0.2)
+        if op == "cgconv_bwd":
+            cot = r(N, d)
+            fn = lambda: FC.fused_cgconv_bwd(cot, *args)
+            return [("fused_cgconv_bwd (whole backward)", fn,
+                     lambda: rel_err(fn(), FC.fused_cgconv_bwd_plain(cot, *args)))]
         fn = lambda: FC.fused_cgconv(*args)
         return [("fused_cgconv (forward)", fn,
                  lambda: rel_err(fn(), FC.fused_cgconv_plain(*args)))]
@@ -122,6 +177,10 @@ def cases(op, dev):
     xj = r(E, f)
     ws = [r(de, f, k=0.1), r(f, k=0.1), r(f, f, k=0.1), r(f, k=0.1)]
     args = (xj, dist, wraw, dst, mask, *ws, N, 0.2, 8.0)
+    if op == "cfconv_fwd":
+        fn = lambda: FS.fused_cfconv(*args)
+        return [("fused_cfconv (forward)", fn,
+                 lambda: rel_err(fn(), FS.fused_cfconv_plain(*args)))]
     cot = r(N, f)
     whole = lambda: FS.fused_cfconv_bwd(cot, *args)
     out = [("fused_cfconv_bwd (whole backward)", whole,

@@ -43,8 +43,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    filter gradients, bit-identical between two calls, zero d_xj on masked
    edges, and each kernel of the backward against its plain stage: the
    edge rows d_xj, a, dw and dpre, every weight-gradient slice, the slice
-   sum; times beside their bounds, the backward's edge rows and weight
-   gradient at the 3xTF32 rate with the FMA rate's beside; the yardstick
+   sum; times beside their bounds, the forward and the backward's edge
+   rows and weight gradient at the 3xTF32 rate with the FMA rate's
+   beside; the yardstick
    is the unfused SchNet composition: basis, 2 F.linear with shifted
    softplus, cutoff, index_select, csr.segment_sum, and its autograd
    backward (to h alone for the edge rows), one torch.bmm of [b | 1]ᵀ·dpre
@@ -98,8 +99,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     pad graph slots (windows that own no tile, tail capacity tiles) and at a
     random windowize_edges layout with an empty window, D in {1, 100, 150},
     NaN in the messages and weights of pad slots: sums to rtol 1e-5 and atol
-    1e-5·max|ref| (a fixed order, not index_add_'s), finite, bit-identical
-    twice, zero on nodes without edges; the gather bit-exact; the gradients
+    1e-5·max|ref| (a fixed order, not index_add_'s; each case prints the
+    sums' worst share of that limit), finite, bit-identical twice, zero on
+    nodes without edges; the gather bit-exact; the gradients
     of the three autograd Functions; then times them at the full training
     batch beside their bound, their plain versions and index_add_ /
     index_select as the library yardsticks (this phase runs right after 6);
@@ -790,11 +792,15 @@ def time_cfconv(batch, dev, f=150, de=50, cutoff=8.0):
     wgrad_bytes = 4 * (3 * e + 3 * e_real * f + pfloats)
     wgrad_flops = 2 * e_real * ((de + 1) * f + (f + 1) * f)
     res = {
+        # pre = b·W0 and w = a·W1 on wgmma in 3xTF32 (with its weight split)
         "fused_cfconv_fwd": {
             "ms": device_ms(lambda: FS.fused_cfconv(*args)),
             "plain_ms": device_ms(lambda: FS.fused_cfconv_plain(*args)),
             "library_ms": device_ms(lambda: unfused(*leaves)),
-            **bound(fwd_bytes, fwd_flops),
+            **bound(fwd_bytes, fwd_flops, TF32X3_FLOPS),
+            # the same operations at the FMA pipes' rate, the bound of the
+            # scalar-FMA design this forward replaced
+            "fma_bound_ms": bound(fwd_bytes, fwd_flops)["bound_ms"],
         },
         # the edge rows on wgmma in 3xTF32 (with its weight split); its
         # yardstick is the unfused autograd backward to h alone
@@ -1013,6 +1019,13 @@ def batch_edges(batch):
     return _windowed_edges(batch)
 
 
+def sum_share(out, ref) -> float:
+    """The worst element's |out - ref| over what assert_sum allows it
+    (1e-5·max|ref| + 1e-5·|ref|): below 1 passes."""
+    allowed = 1e-5 * max(float(ref.abs().max()), 1e-30) + 1e-5 * ref.abs()
+    return float(((out - ref).abs() / allowed).max())
+
+
 def check_windowed(cases, dev):
     """The windowed kernels against their plain versions on the card, for
     each (name, layout, n, tw) case at D = 1, 100 and 150, with NaN in the
@@ -1020,11 +1033,13 @@ def check_windowed(cases, dev):
     1e-5·max|ref|, finite, bit-identical twice, exactly zero on nodes
     without edges (windows that own no tile included); the gather
     bit-exact; the gradients of the three autograd Functions (the SpMM's to
-    both operands). Returns the largest |kernel - plain| of each kernel."""
+    both operands). Prints the sums' worst share of the limit (sum_share).
+    Returns the largest |kernel - plain| of each kernel."""
     from matdeeplearn_torch.ops import windowed as WO
 
     g = torch.Generator(device=dev).manual_seed(10)
     err = {k: 0.0 for k in WO.LAUNCHES}
+    share = {k: 0.0 for k in WO.LAUNCHES}
     for name, we, n, tw in cases:
         e = we.dst.shape[0]
         pad = we.dst < 0
@@ -1053,6 +1068,7 @@ def check_windowed(cases, dev):
                                          "are not zero")
                 ref = WO.segment_sum_plain(msg, we.dst, we.window_id, n, tw, wv)
                 err[key] = max(err[key], assert_sum(out, ref, f"{key}, {what}"))
+                share[key] = max(share[key], sum_share(out, ref))
             gout = WO.gather(x, we, tw)
             if not torch.equal(gout, WO.gather_plain(x, we.dst, we.window_id, tw)):
                 raise AssertionError(f"windowed_gather, {what}: not bit-exact")
@@ -1080,7 +1096,10 @@ def check_windowed(cases, dev):
             print(f"  windowed kernel check ok: {what}: segment_sum max |diff| "
                   f"{err['windowed_segment_sum']:.3e}, spmm "
                   f"{err['windowed_spmm']:.3e}, gather bit-exact; NaN on pad "
-                  f"slots kept out; sums bit-identical twice; gradients ok")
+                  f"slots kept out; sums bit-identical twice; gradients ok; "
+                  f"worst share of the limit: segment_sum "
+                  f"{share['windowed_segment_sum']:.3g}, spmm "
+                  f"{share['windowed_spmm']:.3g}")
     return err
 
 

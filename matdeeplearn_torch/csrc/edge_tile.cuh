@@ -1,7 +1,7 @@
 // Pieces shared by the edge-tile kernels (fused_cgconv.cu, fused_cfconv.cu
-// and fused_bilinear.cu): the tile geometry, the choice of columns a
-// thread owns, the activations, the run-flush epilogue that adds a tile's
-// rows into their destination nodes, the fixed-order sum of the backward
+// and fused_bilinear.cu): the block size and shape limits, the
+// activations, the run-flush epilogue that adds a tile's rows into their
+// destination nodes, the fixed-order sum of the backward
 // kernels' per-block partial weight gradients, and the mma.sync and
 // async-copy primitives of the 3xTF32 kernels (wgmma.cuh holds the wgmma
 // ones). Each .cu file builds into
@@ -16,9 +16,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTE = 32;          // edges per tile
-constexpr int kRows = kTE / 8;   // tile rows per thread (8 warps)
-constexpr int kKC = 32;          // right-operand rows per shared-memory chunk
 constexpr int kMaxShared = 232448;
 constexpr int kBadShape = 1001;  // a width over 256, or too much shared memory
 
@@ -32,18 +29,6 @@ __host__ __device__ inline int stride_a(int v) { return v + (36 - v % 32) % 32; 
 // The smallest stride >= v that is 8 mod 16 (8 or 24 mod 32): a B
 // fragment's 4 rows x 8 columns then fall in 32 distinct banks.
 __host__ __device__ inline int stride_b(int v) { return v + (24 - v % 16) % 16; }
-
-// Columns a thread owns (of 32 * CPT): the smallest instantiated CPT that
-// covers n columns, or 0 when n > 256.
-int cpt_for(int n) {
-  const int need = (n + 31) / 32;
-  if (need <= 1) return 1;
-  if (need <= 2) return 2;
-  if (need <= 4) return 4;
-  if (need <= 5) return 5;
-  if (need <= 8) return 8;
-  return 0;
-}
 
 __device__ __forceinline__ float sigmoidf(float a) {
   return 1.f / (1.f + expf(-a));
@@ -59,7 +44,7 @@ __device__ __forceinline__ float softplusf(float a) {
 // column adds runs of equal dst and flushes each with one atomicAdd. Right
 // for any dst order; on dst-sorted edges about one atomic per node and
 // column.
-template <int TE = kTE>
+template <int TE>
 __device__ void flush_runs(const float* v_s, int d, const float* w_s,
                            const int* dst_s, float* __restrict__ out,
                            int ldv = 0, int cs = 1) {

@@ -27,50 +27,51 @@
 // 2*(50 + 150)*150 = 60k FLOP forward and 2*(2*50 + 3*150)*150 = 165k
 // backward (three row products and two weight-gradient products), against
 // ~0.6 KB of inputs and outputs (the xj row, d_xj, two distances). At
-// chip_smoke's training batch (45,509 real edges of 80,176) the backward's
-// 7.51e9 FLOP take 0.0455 ms at the 3xTF32 rate (495/3 TFLOP/s; 0.112 ms
-// at the FMA pipes' 67).
+// chip_smoke's training batch (45,509 real edges of 80,176) the forward's
+// 2.73e9 FLOP take 0.0166 ms and the backward's 7.51e9 0.0455 ms at the
+// 3xTF32 rate (495/3 TFLOP/s; 0.041 and 0.112 ms at the FMA pipes' 67).
 //
-// * The forward, on the FMA pipes: one block of 256 threads owns a tile of
-//   TE = 32 edges. It computes the basis tile in shared memory, runs the
-//   first GEMM against W0e, writes [ssp(pre) | 1] as the second GEMM's left
-//   operand into shared memory and runs the second GEMM against W1e. Each
-//   GEMM streams its right operand through shared memory in chunks of 32
-//   rows; thread (tx, ty) of the 8 warps accumulates rows ty + 8r (r < 4)
-//   and columns tx + 32j (j < CPT) in registers, reading the left tile as
-//   float4 broadcasts and the right rows as consecutive floats. At F = 150
-//   the threads cover 160 columns (CPT 5) and 10 idle; the largest F is
-//   256. The node sums go through the run-flush epilogue of edge_tile.cuh:
-//   the tile's messages are staged in shared memory, one thread per column
-//   walks the 32 rows, adds runs of equal dst and flushes each run with one
-//   atomicAdd. Right for any dst order. There is no node-side gradient:
-//   messages depend on the source row xj alone.
-// * The backward runs every product on the tensor cores in 3xTF32 (each
-//   operand split into TF32 hi + lo, lo·hi + hi·lo + hi·hi accumulated in
-//   f32: f32 accuracy), split into the edge rows and the weight gradient,
-//   as fused_cgconv.cu splits CGConv's.
-// * mdl_fused_cfconv_bwd, on wgmma m64nNk8 (wgmma.cuh): a first kernel
-//   splits W0 and W1 (twice: as W1 and as W1^T) once a call into TF32 hi
-//   and lo in the byte order of the K-major B descriptors (in place of a
-//   transposed copy of W1 a call). A block of two warpgroups owns a tile
-//   of 128 edges, each warp 16 rows x all np = 8 NTW >= F columns (152 at
-//   F 150), and runs the three row products one after another into one set
-//   of accumulators: pre = b·W0 with the basis computed in registers as A;
-//   w = a·W1 and dw·W1^T with A from a shared tile that holds a, then dw,
-//   laid out as the accumulators left them (two 8-byte loads a k-step; the
-//   B rows of W1 are in the matching pair order). The split weights stream
-//   through a two-stage ring by 16-byte cp.async (4 k-steps a stage where
-//   it fits), a stage's copies issued right after its predecessor's wgmma.
-//   Each epilogue moves the accumulators into the tile and does its
-//   element-wise work there in a rolled loop over whole rows (8 elements a
-//   thread in flight): + b0 and ssp; + b1, d_xj = gg * w and dw = gg * xj;
-//   dpre = that * sigmoid(pre). It writes d_xj and the real rows of a, dw
-//   and dpre (zero past F) for the weight gradient; pre waits in the dpre
-//   row between the first and last epilogue. At F 150: 76 accumulators and
-//   152 registers a thread, 165 KB of shared memory, one block an SM; the
-//   xj rows and (dst sorted) the g rows of a tile are prefetched into L2 at
-//   its start. The rows a, dw, dpre and pre (about 110 MB at chip_smoke's
-//   batch) are written and read again.
+// Every product runs on the tensor cores in 3xTF32 (each operand split
+// into TF32 hi + lo, lo·hi + hi·lo + hi·hi accumulated in f32: f32
+// accuracy).
+//
+// * The row kernels, mdl_fused_cfconv_fwd and mdl_fused_cfconv_bwd (the
+//   backward's edge rows), on wgmma m64nNk8 (wgmma.cuh), share their
+//   machinery (RowProducts): a first kernel splits W0 and W1 once a call
+//   into TF32 hi and lo in the byte order of the K-major B descriptors
+//   (the backward also W1 as W1^T: CfconvB's unit 2, in place of a
+//   transposed copy). A block of two warpgroups owns a tile of 128 edges,
+//   each warp 16 rows x all np = 8 NTW >= F columns (152 at F 150), and
+//   runs the products one after another into one set of accumulators:
+//   pre = b·W0 with the basis computed in registers as A; w = a·W1 (and in
+//   the backward dw·W1^T) with A from a shared tile that holds a (then
+//   dw), laid out as the accumulators left them (two 8-byte loads a
+//   k-step; the B rows of W1 are in the matching pair order). The split
+//   weights stream through a two-stage ring by 16-byte cp.async (4
+//   k-steps a stage where it fits), a stage's copies issued right after
+//   its predecessor's wgmma. At F 150: 76 accumulators, 165 KB of shared
+//   memory, one block an SM; the xj rows of a tile (and in the backward,
+//   dst sorted, its g rows) are prefetched into L2 at its start.
+//   - The forward (254 registers at F 150): pre goes into the tile as the
+//     accumulators left it, and product 2 forms each k-step's A fragment
+//     as ssp(pre + b0) in registers while the tensor cores work on the
+//     k-step before. Its epilogue runs on the accumulators: msg = s * xj *
+//     (w + b1), each of a lane's two rows' 38 xj values loaded at once;
+//     then the tile, by 16-row slices a warp, adds the messages into out
+//     (runs of equal dst summed in a register, each flushed with one
+//     atomicAdd: right for any dst order). It writes out and nothing else.
+//     Timed phase by phase on an H100 80GB HBM3 at 700 W, a tile's first
+//     product, second product with the softplus, epilogue and flush took
+//     4.5, 16.2, 5.3 and 3.8 µs at chip_smoke's batch.
+//   - The backward's edge rows (156 registers): each epilogue moves the
+//     accumulators into the tile and does its element-wise work there in
+//     a rolled loop over whole rows (8 elements a thread in flight), the
+//     biases added there: + b0 and ssp; + b1, d_xj = gg * w and dw =
+//     gg * xj; dpre = that * sigmoid(pre). It writes d_xj and the real
+//     rows of a, dw and dpre (zero past F) for the weight gradient; pre
+//     waits in the dpre row between the first and last epilogue. The rows
+//     a, dw, dpre and pre (about 110 MB at chip_smoke's batch) are written
+//     and read again.
 // * mdl_fused_cfconv_wgrad, on mma.sync m16n8k8 (edge_tile.cuh): [dW0e;
 //   dW1e] = [b | 1]^T · dpre and [a | 1]^T · dw as split-K products over
 //   the edges. Block (tile, slice) owns a 64 x 160 tile of one of the two
@@ -104,9 +105,9 @@ struct Geometry {
   int f;        // filter width F
   int de;       // Gaussian basis size De
   int n;        // node slots
-  int ldz0;     // round4(De + 1): row stride of the basis tile [ek | 1]
-  int ldz1;     // round4(F + 1): row stride of the hidden tile [a | 1]
-  int ldn;      // round4(F): row stride of F-wide tiles
+  int ldz0;     // round4(De + 1): the weight gradient's rows of [dW0; db0]
+  int ldz1;     // round4(F + 1): its rows of [dW1; db1]
+  int ldn;      // round4(F): its columns
   float coeff;  // -0.5 / width^2
   float step;   // 1 / (De - 1): the basis offsets are k * step
   float scale;  // pi / cutoff
@@ -153,7 +154,7 @@ __device__ bool store_edge(const int* __restrict__ dst,
   return s != 0.f;
 }
 
-template <int TE = kTE>
+template <int TE>
 __device__ bool load_edges(const int* __restrict__ dst,
                            const float* __restrict__ mask,
                            const float* __restrict__ wraw, long long e0,
@@ -162,166 +163,17 @@ __device__ bool load_edges(const int* __restrict__ dst,
              store_edge<TE>(dst, mask, wraw, e0, g, sc_s, dst_s)) != 0;
 }
 
-// Basis tile [ek(dist) | 1 | zero pad to ldz0]; zero rows for skipped edges.
-__device__ void load_basis(const float* __restrict__ dist, long long e0,
-                           const Geometry& g, const float* sc_s,
-                           float* e_s) {
-  for (int i = threadIdx.x; i < kTE * g.ldz0; i += kThreads) {
-    const int r = i / g.ldz0;
-    const int k = i - r * g.ldz0;
-    float v = 0.f;
-    if (sc_s[r] != 0.f) {
-      if (k < g.de) {
-        const float diff = dist[e0 + r] - (float)k * g.step;
-        v = expf(g.coeff * diff * diff);
-      } else if (k == g.de) {
-        v = 1.f;
-      }
-    }
-    e_s[i] = v;
-  }
-}
+// ---- the edge rows on wgmma: the forward and the backward's edge kernel
 
-// acc[r][j] = Σ_k a[row][k] * b[k][c] for row = ty + 8r and c = tx + 32j < nb.
-// a_s is a kTE x lda tile in shared memory (lda >= round4(ka)) whose
-// columns from ka to round4(ka) are zero; b is a ka x nb row-major matrix
-// in device memory, streamed through b_s (kKC x ldn, ldn >= nb). Starts
-// with a barrier, so the caller's writes to a_s are visible, and leaves b_s
-// in use.
-template <int CPT>
-__device__ void tile_gemm(const float* __restrict__ a_s, int lda, int ka,
-                          const float* __restrict__ b, int nb,
-                          float* __restrict__ b_s, int ldn,
-                          float (&acc)[kRows][CPT]) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[r][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < ka; k0 += kKC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kKC * ldn; i += kThreads) {
-      const int kk = i / ldn;
-      const int c = i - kk * ldn;
-      b_s[i] = (k0 + kk < ka && c < nb) ? b[(long long)(k0 + kk) * nb + c]
-                                        : 0.f;
-    }
-    __syncthreads();
-    const int kend = min(kKC, round4(ka - k0));
-    for (int kk = 0; kk < kend; kk += 4) {
-      float4 a4[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        a4[r] = *reinterpret_cast<const float4*>(a_s + (ty + 8 * r) * lda +
-                                                 k0 + kk);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float* brow = b_s + (kk + q) * ldn;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int c = tx + 32 * j;
-          const float bv = c < nb ? brow[c] : 0.f;
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float av = q == 0 ? a4[r].x
-                           : q == 1 ? a4[r].y
-                           : q == 2 ? a4[r].z
-                                    : a4[r].w;
-            acc[r][j] = fmaf(av, bv, acc[r][j]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Hidden tile [ssp(pre) | 1 | zero pad to ldz1]; zero rows for skipped
-// edges. The caller's next tile_gemm begins with the barrier that makes it
-// visible.
-template <int CPT>
-__device__ void store_hidden(const float (&pre)[kRows][CPT],
-                             const Geometry& g, const float* sc_s,
-                             float* a_s) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = ty + 8 * r;
-    const bool real = sc_s[row] != 0.f;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = tx + 32 * j;
-      if (c < g.f) a_s[row * g.ldz1 + c] = real ? sspf(pre[r][j]) : 0.f;
-    }
-  }
-  const int tail = g.ldz1 - g.f;  // 1 to 4 columns: the ones, then zeros
-  for (int i = threadIdx.x; i < kTE * tail; i += kThreads) {
-    const int r = i / tail;
-    const int k = i - r * tail;
-    a_s[r * g.ldz1 + g.f + k] = (k == 0 && sc_s[r] != 0.f) ? 1.f : 0.f;
-  }
-}
-
-template <int CPT>
-__global__ void __launch_bounds__(kThreads)
-fused_cfconv_fwd_kernel(const float* __restrict__ xj,
-                        const float* __restrict__ dist,
-                        const float* __restrict__ wraw,
-                        const int* __restrict__ dst,
-                        const float* __restrict__ mask,
-                        const float* __restrict__ w0,
-                        const float* __restrict__ w1,
-                        float* __restrict__ out, Geometry g) {
-  extern __shared__ float4 smem4[];
-  float* e_s = reinterpret_cast<float*>(smem4);
-  float* a_s = e_s + kTE * g.ldz0;
-  float* b_s = a_s + kTE * g.ldz1;
-  float* sc_s = b_s + kKC * g.ldn;
-  int* dst_s = reinterpret_cast<int*>(sc_s + kTE);
-
-  const long long e0 = (long long)blockIdx.x * kTE;
-  if (!load_edges(dst, mask, wraw, e0, g, sc_s, dst_s)) return;
-  load_basis(dist, e0, g, sc_s, e_s);
-
-  float acc[kRows][CPT];
-  tile_gemm<CPT>(e_s, g.ldz0, g.de + 1, w0, g.f, b_s, g.ldn, acc);
-  store_hidden<CPT>(acc, g, sc_s, a_s);
-  tile_gemm<CPT>(a_s, g.ldz1, g.f + 1, w1, g.f, b_s, g.ldn, acc);
-  __syncthreads();  // a_s is free: stage the messages there (ldz1 > F)
-
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  float* msg_s = a_s;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = ty + 8 * r;
-    const float s = sc_s[row];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = tx + 32 * j;
-      if (c < g.f) {
-        msg_s[row * g.f + c] =
-            s != 0.f ? xj[(e0 + row) * g.f + c] * acc[r][j] * s : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-  flush_runs(msg_s, g.f, sc_s, dst_s, out);
-}
-
-// ---- the backward: edge rows on wgmma ---------------------------------
-
-// The backward's B operands, unit after unit in one split buffer: unit 0
-// (kt0 = ceil(De/8) k-steps) is W0 for pre = b·W0, B[n][k] = W0[k][n];
-// unit 1 (NTW k-steps) is W1 for w = a·W1, B[n][k] = W1[k][n]; unit 2 (NTW
-// k-steps) is W1 for dpre = dw·W1^T, B[n][k] = W1[n][k]. In units 1 and 2
-// the k-step's position p holds column 8 s + pair_col(p) (wgmma.cuh), so
-// their A fragments are the previous product's accumulators as they
-// stand. Zero past De or F.
-struct CfconvBwdB {
+// The B operands of the row products, unit after unit in one split
+// buffer: unit 0 (kt0 = ceil(De/8) k-steps) is W0 for pre = b·W0,
+// B[n][k] = W0[k][n]; unit 1 (NTW k-steps) is W1 for w = a·W1, B[n][k] =
+// W1[k][n]; unit 2 (NTW k-steps, the backward's alone) is W1 for dpre =
+// dw·W1^T, B[n][k] = W1[n][k]. In units 1 and 2 the k-step's position p
+// holds column 8 s + pair_col(p) (wgmma.cuh), so their A fragments are the
+// previous product's accumulators as they stand. Zero past De or F. The
+// forward splits units 0 and 1, the backward all three.
+struct CfconvB {
   const float* w0;
   const float* w1;
   int f, de, kt0, ntw;
@@ -338,36 +190,36 @@ struct CfconvBwdB {
   }
 };
 
-constexpr int kBTE = 128;  // edges of a backward tile: two warpgroups of 64
-constexpr int kBKS = 4;    // most k-steps a backward stage holds
+constexpr int kRowTE = 128;  // edges of a row tile: two warpgroups of 64
+constexpr int kRowKS = 4;    // most k-steps a stage holds
 
-struct BwdLayout {
+struct RowLayout {
   int ntw;  // n8-tiles of the F columns: np = 8 ntw (the row buffers' width)
   int np;
   int kt0;  // k-steps of pre = b·W0: ceil(De / 8)
-  int ks;   // k-steps a stage holds (<= kBKS)
+  int ks;   // k-steps a stage holds (<= kRowKS)
   int ldt;  // row stride of the tile of a, dw and the epilogues (8 mod 32)
 };
 
 // Two W stages, the tile, and the tile's row scales, destinations and
 // distances.
-size_t bwd_shared_bytes(const BwdLayout& b) {
+size_t row_shared_bytes(const RowLayout& b) {
   return sizeof(float) * (2 * (size_t)b.ks * kstep_words(b.np) +
-                          (size_t)kBTE * b.ldt + 2 * kBTE) +
-         sizeof(int) * kBTE;
+                          (size_t)kRowTE * b.ldt + 2 * kRowTE) +
+         sizeof(int) * kRowTE;
 }
 
 // The layout for width F: the most k-steps a stage whose shared memory
 // fits. False where none fits or F > 256.
-bool bwd_layout(const Geometry& g, BwdLayout* b) {
+bool row_layout(const Geometry& g, RowLayout* b) {
   b->ntw = ntw_bucket((g.f + 7) / 8);
   if (b->ntw == 0) return false;
   b->np = 8 * b->ntw;
   b->kt0 = (g.de + 7) / 8;
   b->ldt = stride_acc(b->np);
-  for (int ks = kBKS; ks >= 1; --ks) {
+  for (int ks = kRowKS; ks >= 1; --ks) {
     b->ks = ks;
-    if (bwd_shared_bytes(*b) <= (size_t)kMaxShared) return true;
+    if (row_shared_bytes(*b) <= (size_t)kMaxShared) return true;
   }
   return false;
 }
@@ -384,67 +236,58 @@ __device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
   }
 }
 
-// The edge rows of the backward for one tile of 128 edges, two
-// warpgroups of 64 rows, each warp 16 rows x all np columns. The split
-// weights stream through a two-stage ring of ks k-steps (16-byte
-// cp.async, one stage ahead, one barrier a stage); each k-step issues
-// three wgmma (3xTF32). Product 1: pre = b·W0 with A (the Gaussian basis)
-// computed in registers. Products 2 (w = a·W1) and 3 (dw·W1^T) take A
-// from the tile t_s, two 8-byte loads a k-step: a and dw there are laid
-// out as the accumulators left them, and the B rows of W1 in pair order
-// match. Each epilogue moves the accumulators into the tile (two 8-byte
-// stores a pair, short code at any NTW) and does its element-wise work
-// there in a rolled loop, one row of np columns after another, so that
-// its device-memory accesses are whole rows: (1) pre = + b0, a =
-// ssp(pre); the rows a and pre; (2) w = + b1, gg = g[dst] * s, d_xj = gg *
-// w, dw = gg * xj; the rows d_xj and dw; (3) dpre = that * sigmoid(pre),
-// pre read back from the dpre row. Rows of edges whose s is 0 are not
-// written; a tile with no real edge costs one barrier.
+// Where a row product's A comes from: the Gaussian basis of the tile's
+// distances, computed in registers; the tile; or ssp(tile + bias), zero for
+// skipped rows and past F, computed in registers as each k-step's fragment
+// is loaded, so that the shifted softplus runs while the tensor cores work.
+enum ASource { kBasis, kTile, kSspTile };
+
+// The row products of one tile of 128 edges, two warpgroups of 64 rows,
+// each warp 16 rows x all np columns, chained into one set of
+// accumulators. The split weights stream through a two-stage ring of ks
+// k-steps (16-byte cp.async, one stage ahead, one barrier a stage; a
+// stage's copies issued right after the previous stage's wgmma); each
+// k-step issues three wgmma (3xTF32). Unit 0 (pre = b·W0) takes kBasis;
+// units 1 and 2 read their A from the tile t_s (kTile or kSspTile), two
+// 8-byte loads a k-step: to_tile left it there as the accumulators lay,
+// and the B rows of W1 in pair order match. to_tile moves the
+// accumulators into the tile (two 8-byte stores a pair, short code at any
+// NTW), for an epilogue that runs as a rolled loop over whole rows or for
+// the next product's A.
 template <int NTW>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_cfconv_bwd_kernel(const float* __restrict__ xj,
-                        const float* __restrict__ dist,
-                        const float* __restrict__ wraw,
-                        const int* __restrict__ dst,
-                        const float* __restrict__ mask,
-                        const uint32_t* __restrict__ ws,
-                        const float* __restrict__ b0,
-                        const float* __restrict__ b1,
-                        const float* __restrict__ gout,
-                        float* __restrict__ dxj, float* __restrict__ arow,
-                        float* __restrict__ dwrow, float* __restrict__ dprow,
-                        Geometry g, BwdLayout b) {
-  constexpr int NP = 8 * NTW;
-  const int kw = kstep_words(NP);
-  const int stage_words = b.ks * kw;
-  extern __shared__ float4 smem4[];
-  uint32_t* w_s = reinterpret_cast<uint32_t*>(smem4);      // 2 stages
-  float* t_s = reinterpret_cast<float*>(w_s + 2 * stage_words);  // the tile
-  float* sc_s = t_s + kBTE * b.ldt;                        // row scales s
-  float* di_s = sc_s + kBTE;                               // distances
-  int* dst_s = reinterpret_cast<int*>(di_s + kBTE);
+struct RowProducts {
+  const uint32_t* ws;
+  uint32_t* w_s;
+  float* t_s;
+  const Geometry& g;
+  const RowLayout& b;
+  int kw, stage_words, ns0, ns, stages, tq, r0;
+  bool real[2];
+  float dr[2];
 
-  const long long e0 = (long long)blockIdx.x * kBTE;
-  if (threadIdx.x < kBTE) {
-    const long long e = e0 + threadIdx.x;
-    di_s[threadIdx.x] = e < g.e ? dist[e] : 0.f;
+  // units: W1's units after unit 0 (1 forward, 2 backward); sc_s and di_s
+  // hold the tile's row scales and distances
+  __device__ RowProducts(const uint32_t* ws_, uint32_t* w_s_, float* t_s_,
+                         const float* sc_s, const float* di_s,
+                         const Geometry& g_, const RowLayout& b_, int units)
+      : ws(ws_), w_s(w_s_), t_s(t_s_), g(g_), b(b_) {
+    kw = kstep_words(8 * NTW);
+    stage_words = b.ks * kw;
+    ns0 = (b.kt0 + b.ks - 1) / b.ks;
+    ns = (NTW + b.ks - 1) / b.ks;
+    stages = ns0 + units * ns;
+    const int lane = threadIdx.x & 31;
+    tq = lane & 3;
+    r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);  // the lane's rows r0, r0 + 8
+    real[0] = sc_s[r0] != 0.f;
+    real[1] = sc_s[r0 + 8] != 0.f;
+    dr[0] = di_s[r0];
+    dr[1] = di_s[r0 + 8];
   }
-  if (!load_edges<kBTE>(dst, mask, wraw, e0, g, sc_s, dst_s)) return;
-  if (threadIdx.x == 0) {  // the xj rows and, dst sorted, the g rows of epilogue 2
-    const long long rows = min((long long)kBTE, g.e - e0);
-    prefetch_l2(xj + e0 * g.f, rows * g.f * 4);
-    const int lo = dst_s[0], hi = dst_s[rows - 1];
-    if (lo <= hi && hi - lo < 2 * kBTE) {
-      prefetch_l2(gout + (long long)lo * g.f, (long long)(hi - lo + 1) * g.f * 4);
-    }
-  }
-  // stages: ns0 of unit 0, then ns of unit 1 and ns of unit 2
-  const int ns0 = (b.kt0 + b.ks - 1) / b.ks;
-  const int ns = (NTW + b.ks - 1) / b.ks;
-  const int stages = ns0 + 2 * ns;
 
-  // stage s: k-steps [k0, k0 + cnt) of the split buffer
-  auto load_stage = [&](int s) {
+  // stage s (ns0 of unit 0, then ns of each later unit): k-steps
+  // [k0, k0 + cnt) of the split buffer, one cp.async group
+  __device__ __forceinline__ void load_stage(int s) const {
     if (s < stages) {
       int k0, cnt;
       if (s < ns0) {
@@ -465,22 +308,16 @@ fused_cfconv_bwd_kernel(const float* __restrict__ xj,
       }
     }
     cp_async_commit();
-  };
-  load_stage(0);
+  }
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gr = lane >> 2;
-  const int tq = lane & 3;
-  const int r0 = 16 * warp + gr;  // the lane's rows r0 and r0 + 8
-  const bool real[2] = {sc_s[r0] != 0.f, sc_s[r0 + 8] != 0.f};
-  const float dr[2] = {di_s[r0], di_s[r0 + 8]};
-  const float* ta = t_s + r0 * b.ldt + 2 * tq;  // the lane's A pairs
-
-  float acc[NTW][4];
-  // one product: stages [s0, s0 + n); unit 0 computes its A from the
-  // basis, units 1 and 2 read theirs from the tile
-  auto product = [&](int s0, int n, int kt, bool basis) {
+  // one product: stages [s0, s0 + n) over kt k-steps, A from `src` (bias:
+  // the kSspTile source's)
+  template <ASource src>
+  __device__ __forceinline__ void run(int s0, int n, int kt,
+                                      float (&acc)[NTW][4],
+                                      const float* bias = nullptr) const {
+    constexpr int NP = 8 * NTW;
+    const float* ta = t_s + r0 * b.ldt + 2 * tq;  // the lane's A pairs
     for (int s = s0; s < s0 + n; ++s) {
       cp_async_wait<0>();
       fence_proxy_async();
@@ -488,13 +325,13 @@ fused_cfconv_bwd_kernel(const float* __restrict__ xj,
       const uint32_t* wst = w_s + (s & 1) * stage_words;
       const int j0 = (s - s0) * b.ks;
       const int nks = min(b.ks, kt - j0);
-      uint32_t ahi[kBKS][4], alo[kBKS][4];
+      uint32_t ahi[kRowKS][4], alo[kRowKS][4];
       fence_acc(acc);
 #pragma unroll
-      for (int ks = 0; ks < kBKS; ++ks) {
+      for (int ks = 0; ks < kRowKS; ++ks) {
         if (ks < nks) {  // uniform across the block
           const int j = j0 + ks;
-          if (basis) {
+          if (src == kBasis) {
             float v[4];
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
@@ -505,9 +342,18 @@ fused_cfconv_bwd_kernel(const float* __restrict__ xj,
             }
             split_a(v[0], v[1], v[2], v[3], ahi[ks], alo[ks]);
           } else {
-            const float2 p0 = *reinterpret_cast<const float2*>(ta + 8 * j);
-            const float2 p1 =
+            float2 p0 = *reinterpret_cast<const float2*>(ta + 8 * j);
+            float2 p1 =
                 *reinterpret_cast<const float2*>(ta + 8 * b.ldt + 8 * j);
+            if (src == kSspTile) {
+              const int c = 8 * j + 2 * tq;
+              const float u0 = c < g.f ? __ldg(bias + c) : 0.f;
+              const float u1 = c + 1 < g.f ? __ldg(bias + c + 1) : 0.f;
+              p0.x = real[0] && c < g.f ? sspf(p0.x + u0) : 0.f;
+              p0.y = real[0] && c + 1 < g.f ? sspf(p0.y + u1) : 0.f;
+              p1.x = real[1] && c < g.f ? sspf(p1.x + u0) : 0.f;
+              p1.y = real[1] && c + 1 < g.f ? sspf(p1.y + u1) : 0.f;
+            }
             split_a(p0.x, p1.x, p0.y, p1.y, ahi[ks], alo[ks]);
           }
           const uint32_t* wk = wst + ks * kw;
@@ -520,7 +366,7 @@ fused_cfconv_bwd_kernel(const float* __restrict__ xj,
       load_stage(s + 1);  // while the tensor cores work
       wgmma_wait();
 #pragma unroll
-      for (int ks = 0; ks < kBKS; ++ks) {
+      for (int ks = 0; ks < kRowKS; ++ks) {
         if (ks < nks) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
@@ -531,25 +377,194 @@ fused_cfconv_bwd_kernel(const float* __restrict__ xj,
       }
       fence_acc(acc);
     }
-    __syncthreads();  // every warp is done reading the tile
+  }
+
+  // the accumulators into the tile, once every warp is done reading it
+  __device__ __forceinline__ void to_tile(const float (&acc)[NTW][4]) const {
+    __syncthreads();
     acc_to_tile(acc, t_s, b.ldt, r0, 0, tq);
     __syncthreads();
-  };
+  }
+};
+
+// The shared memory of a row kernel (row_shared_bytes): the ring of two W
+// stages, the tile, and the tile's row scales, distances and destinations.
+struct RowShared {
+  uint32_t* w_s;
+  float* t_s;
+  float* sc_s;
+  float* di_s;
+  int* dst_s;
+};
+
+__device__ __forceinline__ RowShared row_shared(const RowLayout& b,
+                                                float4* smem4) {
+  RowShared r;
+  r.w_s = reinterpret_cast<uint32_t*>(smem4);  // 2 stages
+  r.t_s = reinterpret_cast<float*>(r.w_s + 2 * b.ks * kstep_words(b.np));
+  r.sc_s = r.t_s + kRowTE * b.ldt;
+  r.di_s = r.sc_s + kRowTE;
+  r.dst_s = reinterpret_cast<int*>(r.di_s + kRowTE);
+  return r;
+}
+
+// out[dst[r], c] += t_s[r * ldt + c] for the tile's rows whose scale is
+// not zero, c < f: warp w takes rows 16 w .. 16 w + 15 (their scales and
+// destinations held in registers), lane l the columns l, l + 32, ...,
+// loading its 16 values of a column at once; runs of equal dst are summed
+// in a register and flushed with one atomicAdd. Right for any dst order.
+__device__ void flush_slices(const float* t_s, int ldt, int f,
+                             const float* sc_s, const int* dst_s,
+                             float* __restrict__ out) {
+  constexpr int R = kRowTE / (kThreads / 32);
+  const int r0 = R * (threadIdx.x >> 5);
+  int node[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) node[k] = sc_s[r0 + k] != 0.f ? dst_s[r0 + k] : -1;
+  for (int c = threadIdx.x & 31; c < f; c += 32) {
+    float v[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = t_s[(r0 + k) * ldt + c];
+    float acc = 0.f;
+    int cur = -1;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (node[k] < 0) continue;
+      if (node[k] != cur) {
+        if (cur >= 0) atomicAdd(out + (long long)cur * f + c, acc);
+        acc = 0.f;
+        cur = node[k];
+      }
+      acc += v[k];
+    }
+    if (cur >= 0) atomicAdd(out + (long long)cur * f + c, acc);
+  }
+}
+
+// The forward for one tile of 128 edges. Product 1: pre = b·W0, into the
+// tile. Product 2: w = a·W1 with a = ssp(pre + b0) formed fragment by
+// fragment (kSspTile). Epilogue msg = s * xj * (w + b1) on the
+// accumulators, each of the lane's two rows' xj values (prefetched into L2
+// at the tile's start) loaded all at once, then into the tile, which
+// flush_slices adds into out by runs of equal dst (right for any dst
+// order). Nothing but out is written; a tile with no real edge costs one
+// barrier.
+template <int NTW>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_cfconv_fwd_kernel(const float* __restrict__ xj,
+                        const float* __restrict__ dist,
+                        const float* __restrict__ wraw,
+                        const int* __restrict__ dst,
+                        const float* __restrict__ mask,
+                        const uint32_t* __restrict__ ws,
+                        const float* __restrict__ b0,
+                        const float* __restrict__ b1,
+                        float* __restrict__ out, Geometry g, RowLayout b) {
+  extern __shared__ float4 smem4[];
+  const RowShared sh = row_shared(b, smem4);
+  const long long e0 = (long long)blockIdx.x * kRowTE;
+  if (threadIdx.x < kRowTE) {
+    const long long e = e0 + threadIdx.x;
+    sh.di_s[threadIdx.x] = e < g.e ? dist[e] : 0.f;
+  }
+  if (!load_edges<kRowTE>(dst, mask, wraw, e0, g, sh.sc_s, sh.dst_s)) return;
+  if (threadIdx.x == 0) {  // the xj rows of epilogue 2
+    prefetch_l2(xj + e0 * g.f, min((long long)kRowTE, g.e - e0) * g.f * 4);
+  }
+  const RowProducts<NTW> p(ws, sh.w_s, sh.t_s, sh.sc_s, sh.di_s, g, b, 1);
+  p.load_stage(0);
+  float acc[NTW][4];
+
+  p.template run<kBasis>(0, p.ns0, b.kt0, acc);
+  p.to_tile(acc);
+  p.template run<kSspTile>(p.ns0, p.ns, NTW, acc, b0);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // rows r0 and r0 + 8
+    const int r = p.r0 + 8 * h;
+    const float s = sh.sc_s[r];
+    const float* xr = xj + (e0 + r) * g.f;
+    float xv[NTW][2];
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {  // the loads first, all in flight
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = 8 * j + 2 * p.tq + q;
+        xv[j][q] = s != 0.f && c < g.f ? xr[c] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = 8 * j + 2 * p.tq + q;
+        float& v = acc[j][2 * h + q];
+        v = c < g.f ? s * xv[j][q] * (v + __ldg(b1 + c)) : 0.f;
+      }
+    }
+  }
+  p.to_tile(acc);
+  flush_slices(sh.t_s, b.ldt, g.f, sh.sc_s, sh.dst_s, out);
+}
+
+// The backward's edge rows for one tile of 128 edges: products 1 and 2 as
+// the forward's, then dw·W1^T. Epilogues: (1) pre = + b0, a = ssp(pre);
+// the rows a and pre; (2) w = + b1, gg = g[dst] * s, d_xj = gg * w, dw =
+// gg * xj; the rows d_xj and dw; (3) dpre = that * sigmoid(pre), pre read
+// back from the dpre row. Rows of edges whose s is 0 are not written; a
+// tile with no real edge costs one barrier.
+template <int NTW>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_cfconv_bwd_kernel(const float* __restrict__ xj,
+                        const float* __restrict__ dist,
+                        const float* __restrict__ wraw,
+                        const int* __restrict__ dst,
+                        const float* __restrict__ mask,
+                        const uint32_t* __restrict__ ws,
+                        const float* __restrict__ b0,
+                        const float* __restrict__ b1,
+                        const float* __restrict__ gout,
+                        float* __restrict__ dxj, float* __restrict__ arow,
+                        float* __restrict__ dwrow, float* __restrict__ dprow,
+                        Geometry g, RowLayout b) {
+  constexpr int NP = 8 * NTW;
+  constexpr int U = 8;  // tile elements a thread has in flight
+  extern __shared__ float4 smem4[];
+  const RowShared sh = row_shared(b, smem4);
+  float* t_s = sh.t_s;
+  const float* sc_s = sh.sc_s;
+  const int* dst_s = sh.dst_s;
+  const long long e0 = (long long)blockIdx.x * kRowTE;
+  if (threadIdx.x < kRowTE) {
+    const long long e = e0 + threadIdx.x;
+    sh.di_s[threadIdx.x] = e < g.e ? dist[e] : 0.f;
+  }
+  if (!load_edges<kRowTE>(dst, mask, wraw, e0, g, sh.sc_s, sh.dst_s)) return;
+  if (threadIdx.x == 0) {  // the xj rows and, dst sorted, the g rows of epilogue 2
+    const long long rows = min((long long)kRowTE, g.e - e0);
+    prefetch_l2(xj + e0 * g.f, rows * g.f * 4);
+    const int lo = dst_s[0], hi = dst_s[rows - 1];
+    if (lo <= hi && hi - lo < 2 * kRowTE) {
+      prefetch_l2(gout + (long long)lo * g.f, (long long)(hi - lo + 1) * g.f * 4);
+    }
+  }
+  const RowProducts<NTW> p(ws, sh.w_s, t_s, sc_s, sh.di_s, g, b, 2);
+  p.load_stage(0);
+  float acc[NTW][4];
 
   // product 1 and its epilogue: pre = + b0, a = ssp(pre); rows pre (into
   // dprow) and a; a stays in the tile as product 2's A
-  product(0, ns0, b.kt0, true);
-  constexpr int U = 8;  // tile elements a thread has in flight
-  for (int i0 = threadIdx.x; i0 < kBTE * NP; i0 += U * kThreads) {
+  p.template run<kBasis>(0, p.ns0, b.kt0, acc);
+  p.to_tile(acc);
+  for (int i0 = threadIdx.x; i0 < kRowTE * NP; i0 += U * kThreads) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * kThreads;
-      if (i >= kBTE * NP) break;
+      if (i >= kRowTE * NP) break;
       const int r = i / NP;
       const int c = i - r * NP;
-      float* p = t_s + r * b.ldt + c;
+      float* q = t_s + r * b.ldt + c;
       const bool in = c < g.f;
-      const float pre = *p + (in ? __ldg(b0 + c) : 0.f);
+      const float pre = *q + (in ? __ldg(b0 + c) : 0.f);
       const bool on = sc_s[r] != 0.f;
       const float a = on && in ? sspf(pre) : 0.f;
       if (on) {
@@ -557,60 +572,62 @@ fused_cfconv_bwd_kernel(const float* __restrict__ xj,
         arow[at] = a;
         dprow[at] = pre;
       }
-      *p = a;
+      *q = a;
     }
   }
   // product 2 and its epilogue: w = + b1, gg = g[dst] * s, d_xj = gg * w,
   // dw = gg * xj; the row dw; dw stays in the tile as product 3's A
-  product(ns0, ns, NTW, false);
-  for (int i0 = threadIdx.x; i0 < kBTE * NP; i0 += U * kThreads) {
+  p.template run<kTile>(p.ns0, p.ns, NTW, acc);
+  p.to_tile(acc);
+  for (int i0 = threadIdx.x; i0 < kRowTE * NP; i0 += U * kThreads) {
     float gv[U], xv[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {  // the loads first, all in flight
       const int i = i0 + u * kThreads;
       const int r = i / NP;
       const int c = i - r * NP;
-      const bool in = i < kBTE * NP && sc_s[r] != 0.f && c < g.f;
+      const bool in = i < kRowTE * NP && sc_s[r] != 0.f && c < g.f;
       gv[u] = in ? gout[(long long)dst_s[r] * g.f + c] : 0.f;
       xv[u] = in ? xj[(e0 + r) * g.f + c] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * kThreads;
-      if (i >= kBTE * NP) break;
+      if (i >= kRowTE * NP) break;
       const int r = i / NP;
       const int c = i - r * NP;
-      float* p = t_s + r * b.ldt + c;
+      float* q = t_s + r * b.ldt + c;
       const float s = sc_s[r];
       float dw = 0.f;
       if (s != 0.f) {
         const long long e = e0 + r;
         if (c < g.f) {
           const float gg = gv[u] * s;
-          dxj[e * g.f + c] = gg * (*p + __ldg(b1 + c));
+          dxj[e * g.f + c] = gg * (*q + __ldg(b1 + c));
           dw = gg * xv[u];
         }
         dwrow[e * NP + c] = dw;
       }
-      *p = dw;
+      *q = dw;
     }
   }
   // product 3 and its epilogue: dpre = (dw · W1^T) * sigmoid(pre), pre
   // read back from the dpre row
-  product(ns0 + ns, ns, NTW, false);
-  for (int i0 = threadIdx.x; i0 < kBTE * NP; i0 += U * kThreads) {
+  p.template run<kTile>(p.ns0 + p.ns, p.ns, NTW, acc);
+  p.to_tile(acc);
+  for (int i0 = threadIdx.x; i0 < kRowTE * NP; i0 += U * kThreads) {
     float pv[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * kThreads;
       const int r = i / NP;
-      pv[u] = i < kBTE * NP && sc_s[r] != 0.f
+      pv[u] = i < kRowTE * NP && sc_s[r] != 0.f
                   ? dprow[(e0 + r) * NP + i - r * NP] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u * kThreads;
-      if (i >= kBTE * NP) break;
+      if (i >= kRowTE * NP) break;
       const int r = i / NP;
       if (sc_s[r] != 0.f) {
         const int c = i - r * NP;
@@ -819,25 +836,19 @@ fused_cfconv_wgrad_kernel(const float* __restrict__ dist,
   }
 }
 
-size_t fwd_shared_bytes(const Geometry& g) {
-  return sizeof(float) * ((size_t)kTE * g.ldz0 + (size_t)kTE * g.ldz1 +
-                          (size_t)kKC * g.ldn + kTE) +
-         sizeof(int) * kTE;
-}
-
-template <int CPT>
+template <int NTW>
 int launch_fwd(const float* xj, const float* dist, const float* wraw,
-               const int* dst, const float* mask, const float* w0,
-               const float* w1, float* out, const Geometry& g,
-               cudaStream_t s) {
-  const size_t smem = fwd_shared_bytes(g);
+               const int* dst, const float* mask, const uint32_t* ws,
+               const float* b0, const float* b1, float* out,
+               const Geometry& g, const RowLayout& b, cudaStream_t s) {
+  const size_t smem = row_shared_bytes(b);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_cfconv_fwd_kernel<CPT>,
+      fused_cfconv_fwd_kernel<NTW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (g.e + kTE - 1) / kTE;
-  fused_cfconv_fwd_kernel<CPT><<<(unsigned)tiles, kThreads, smem, s>>>(
-      xj, dist, wraw, dst, mask, w0, w1, out, g);
+  const long long tiles = (g.e + kRowTE - 1) / kRowTE;
+  fused_cfconv_fwd_kernel<NTW><<<(unsigned)tiles, kThreads, smem, s>>>(
+      xj, dist, wraw, dst, mask, ws, b0, b1, out, g, b);
   return (int)cudaGetLastError();
 }
 
@@ -846,17 +857,40 @@ int launch_bwd(const float* xj, const float* dist, const float* wraw,
                const int* dst, const float* mask, const uint32_t* ws,
                const float* b0, const float* b1, const float* gout,
                float* dxj, float* arow, float* dwrow, float* dprow,
-               const Geometry& g, const BwdLayout& b, cudaStream_t s) {
-  const size_t smem = bwd_shared_bytes(b);
+               const Geometry& g, const RowLayout& b, cudaStream_t s) {
+  const size_t smem = row_shared_bytes(b);
   cudaError_t err = cudaFuncSetAttribute(
       fused_cfconv_bwd_kernel<NTW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (g.e + kBTE - 1) / kBTE;
+  const long long tiles = (g.e + kRowTE - 1) / kRowTE;
   fused_cfconv_bwd_kernel<NTW><<<(unsigned)tiles, kThreads, smem, s>>>(
       xj, dist, wraw, dst, mask, ws, b0, b1, gout, dxj, arow, dwrow, dprow,
       g, b);
   return (int)cudaGetLastError();
+}
+
+// Words of the split weights of a row kernel whose products read W1 in
+// `units` units after W0 (1: the forward, 2: the backward), or -kBadShape
+// for an unsupported width.
+long long split_words(int f, int de, int units) {
+  if (f < 1 || f > 256 || de < 1) return -kBadShape;
+  RowLayout b;
+  if (!row_layout(make_geometry(0, f, de, 0, 0.f, 0.f, 0.f), &b)) {
+    return -kBadShape;
+  }
+  return (long long)(b.kt0 + units * b.ntw) * kstep_words(b.np);
+}
+
+// Splits units 0 .. units of the row products' B operands (CfconvB) into
+// ws; 0 or a cudaError_t.
+int split_weights(const void* w0, const void* w1, int units,
+                  const Geometry& g, const RowLayout& b, uint32_t* ws,
+                  cudaStream_t s) {
+  return launch_split(
+      CfconvB{static_cast<const float*>(w0), static_cast<const float*>(w1),
+              g.f, g.de, b.kt0, b.ntw},
+      b.kt0 + units * b.ntw, b.np, ws, s);
 }
 
 }  // namespace
@@ -870,32 +904,46 @@ long long mdl_fused_cfconv_partial_floats(int f, int de) {
   return (long long)(g.ldz0 + g.ldz1) * g.ldn;
 }
 
-// All pointers are device pointers on the current device. w0 is the
-// (De+1) x F extended weight [W0; b0], w1 the (F+1) x F [W1; b1]; out holds
-// n*f zeros; mask may be null (every edge real). Returns 0 or a
-// cudaError_t (kBadShape for an unsupported F or shared-memory size).
+// Words of the forward's split weights (its ws argument), or -kBadShape
+// for an unsupported width.
+long long mdl_fused_cfconv_fwd_split_words(int f, int de) {
+  return split_words(f, de, 1);
+}
+
+// All pointers are device pointers on the current device. w0 (De x F) and
+// w1 (F x F) without their biases b0 and b1 (F each); ws holds
+// mdl_fused_cfconv_fwd_split_words(f, de) words, no initial value needed;
+// out holds n*f zeros; mask may be null (every edge real). Launches the
+// weight split, then the tiles. Returns 0 or a cudaError_t (kBadShape for
+// an unsupported F or De).
 int mdl_fused_cfconv_fwd(const void* xj, const void* dist, const void* wraw,
                          const void* dst, const void* mask, const void* w0,
-                         const void* w1, void* out, long long e, int f,
-                         int de, int n, float coeff, float step, float scale,
+                         const void* b0, const void* w1, const void* b1,
+                         void* ws, void* out, long long e, int f, int de,
+                         int n, float coeff, float step, float scale,
                          void* stream) {
+  if (f < 1 || f > 256 || de < 1) return kBadShape;
   const Geometry g = make_geometry(e, f, de, n, coeff, step, scale);
-  if (fwd_shared_bytes(g) > (size_t)kMaxShared) return kBadShape;
+  RowLayout b;
+  if (!row_layout(g, &b)) return kBadShape;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* wsp = static_cast<uint32_t*>(ws);
+  const int err = split_weights(w0, w1, 1, g, b, wsp, s);
+  if (err != 0) return err;
   const float* xp = static_cast<const float*>(xj);
   const float* dp = static_cast<const float*>(dist);
   const float* rp = static_cast<const float*>(wraw);
   const int* dsp = static_cast<const int*>(dst);
   const float* mp = static_cast<const float*>(mask);
-  const float* w0p = static_cast<const float*>(w0);
-  const float* w1p = static_cast<const float*>(w1);
+  const float* b0p = static_cast<const float*>(b0);
+  const float* b1p = static_cast<const float*>(b1);
   float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cpt_for(f)) {
-    case 1: return launch_fwd<1>(xp, dp, rp, dsp, mp, w0p, w1p, op, g, s);
-    case 2: return launch_fwd<2>(xp, dp, rp, dsp, mp, w0p, w1p, op, g, s);
-    case 4: return launch_fwd<4>(xp, dp, rp, dsp, mp, w0p, w1p, op, g, s);
-    case 5: return launch_fwd<5>(xp, dp, rp, dsp, mp, w0p, w1p, op, g, s);
-    case 8: return launch_fwd<8>(xp, dp, rp, dsp, mp, w0p, w1p, op, g, s);
+  switch (b.ntw) {
+    case 4: return launch_fwd<4>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    case 13: return launch_fwd<13>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    case 19: return launch_fwd<19>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    case 25: return launch_fwd<25>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    case 32: return launch_fwd<32>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
     default: return kBadShape;
   }
 }
@@ -907,12 +955,7 @@ int mdl_fused_cfconv_row_width(int f) { return 8 * ntw_bucket((f + 7) / 8); }
 // Words of the backward's split weights (its ws argument), or -kBadShape
 // for an unsupported width.
 long long mdl_fused_cfconv_bwd_split_words(int f, int de) {
-  if (f < 1 || f > 256 || de < 1) return -kBadShape;
-  BwdLayout b;
-  if (!bwd_layout(make_geometry(0, f, de, 0, 0.f, 0.f, 0.f), &b)) {
-    return -kBadShape;
-  }
-  return (long long)(b.kt0 + 2 * b.ntw) * kstep_words(b.np);
+  return split_words(f, de, 2);
 }
 
 // The backward's edge rows. w0 (De x F) and w1 (F x F) without their
@@ -931,14 +974,11 @@ int mdl_fused_cfconv_bwd(const void* xj, const void* dist, const void* wraw,
                          void* stream) {
   if (f < 1 || f > 256 || de < 1) return kBadShape;
   const Geometry g = make_geometry(e, f, de, n, coeff, step, scale);
-  BwdLayout b;
-  if (!bwd_layout(g, &b)) return kBadShape;
+  RowLayout b;
+  if (!row_layout(g, &b)) return kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* wsp = static_cast<uint32_t*>(ws);
-  const int err = launch_split(
-      CfconvBwdB{static_cast<const float*>(w0), static_cast<const float*>(w1),
-                 f, de, b.kt0, b.ntw},
-      b.kt0 + 2 * b.ntw, b.np, wsp, s);
+  const int err = split_weights(w0, w1, 2, g, b, wsp, s);
   if (err != 0) return err;
   const float* xp = static_cast<const float*>(xj);
   const float* dp = static_cast<const float*>(dist);

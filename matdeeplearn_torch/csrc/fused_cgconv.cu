@@ -131,7 +131,7 @@ Geometry make_geometry(long long e, int d, int de, int n, float coeff,
 // Loads the tile's edge weights and destinations into shared memory (a
 // masked edge, or one whose dst lies outside [0, n), gets weight 0) and
 // returns, uniformly across the block, whether any edge of it is real.
-template <int TE = kTE>
+template <int TE>
 __device__ bool load_edges(const int* __restrict__ dst,
                            const float* __restrict__ mask, long long e0,
                            const Geometry& g, float* w_s, int* dst_s) {

@@ -27,16 +27,18 @@ h[src] gather adds nothing into the row pad edges point at.
 
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts kernel launches. The forward is one kernel on the FMA
-pipes (bound: operations, 0.041 ms at chip_smoke's training batch at 67
-TFLOP/s). The backward launches three, every product in 3xTF32 on the
-tensor cores (csrc/fused_cfconv.cu says why; bound: operations, 7.51e9
-FLOP at that batch, 0.0455 ms at 495/3 TFLOP/s): the edge rows
-(`fused_cfconv_bwd`, on wgmma: d_xj, and the rows a, dw and dpre, after a
-split of W0 and W1 into TF32 hi/lo once a call), the weight gradients in
-slices (`fused_cfconv_wgrad`, on mma.sync: [b | 1]ᵀ·dpre and [a | 1]ᵀ·dw
-over strided 32-edge chunks) and the fixed-order sum of the slices
-(`wgrad_reduce`).
+`LAUNCHES` counts kernel launches. Every product runs in 3xTF32 on the
+tensor cores (csrc/fused_cfconv.cu says why). The forward is one kernel on
+wgmma after a split of W0 and W1 into TF32 hi/lo once a call (bound:
+operations, 2.73e9 FLOP at chip_smoke's training batch, 0.0166 ms at
+495/3 TFLOP/s): pre = b·W0, a = ssp(pre + b0) and w = a·W1 one after the
+other in one tile of edges, then s·xj·(w + b1) added at dst. The backward
+launches three (bound: operations, 7.51e9 FLOP at that batch, 0.0455 ms):
+the edge rows (`fused_cfconv_bwd`, on wgmma with the forward's machinery:
+d_xj, and the rows a, dw and dpre, after a split of W0, W1 and W1ᵀ), the
+weight gradients in slices (`fused_cfconv_wgrad`, on mma.sync: [b | 1]ᵀ·dpre
+and [a | 1]ᵀ·dw over strided 32-edge chunks) and the fixed-order sum of the
+slices (`wgrad_reduce`).
 """
 
 from __future__ import annotations
@@ -69,9 +71,11 @@ def _load():
         lib = _build.library("fused_cfconv")
         vp, ci, cl, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-        lib.mdl_fused_cfconv_fwd.argtypes = ([vp] * 8
+        lib.mdl_fused_cfconv_fwd.argtypes = ([vp] * 11
                                              + [cl, ci, ci, ci, cf, cf, cf, vp])
         lib.mdl_fused_cfconv_fwd.restype = ci
+        lib.mdl_fused_cfconv_fwd_split_words.argtypes = [ci, ci]
+        lib.mdl_fused_cfconv_fwd_split_words.restype = cl
         lib.mdl_fused_cfconv_bwd.argtypes = ([vp] * 15
                                              + [cl, ci, ci, ci, cf, cf, cf, vp])
         lib.mdl_fused_cfconv_bwd.restype = ci
@@ -93,11 +97,6 @@ def _load():
 
 def _round4(v: int) -> int:
     return (v + 3) // 4 * 4
-
-
-def _extend(w, b) -> torch.Tensor:
-    """[w; b]: the kernels' weight with its bias as the last row."""
-    return torch.cat([w, b.reshape(1, -1)], 0).contiguous()
 
 
 # ------------------------------------------------------------- plain versions
@@ -141,21 +140,28 @@ def pair_order(k: int) -> torch.Tensor:
     return p - q + torch.where(q < 4, 2 * q, 2 * (q - 4) + 1)
 
 
-def bwd_b(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
-    """The backward kernel's B operands, (NP, 8·(kt0 + 2·NTW)) with NP =
-    row_width(F) = 8·NTW and kt0 = ⌈De/8⌉, unit after unit along the
-    columns: W0ᵀ (pre = b·W0), then W1ᵀ and W1 (w = a·W1, dw·W1ᵀ) with
-    their columns in pair_order; zeros past De and F."""
+def fwd_b(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's B operands (csrc CfconvB, units 0 and 1),
+    (NP, 8·(kt0 + NTW)) with NP = row_width(F) = 8·NTW and kt0 = ⌈De/8⌉,
+    unit after unit along the columns: W0ᵀ (pre = b·W0), then W1ᵀ (w =
+    a·W1) with its columns in pair_order; zeros past De and F."""
     de, f = w0.shape
     np_, k0 = row_width(f), -(-de // 8) * 8
     u0 = w0.new_zeros(np_, k0)
     u0[:f, :de] = w0.t()
     u1 = w0.new_zeros(np_, np_)
     u1[:f, :f] = w1.t()
+    return torch.cat([u0, u1[:, pair_order(np_)]], 1)
+
+
+def bwd_b(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's B operands, (NP, 8·(kt0 + 2·NTW)): fwd_b's,
+    then W1 (dw·W1ᵀ) with its columns in pair_order (CfconvB's unit 2)."""
+    f = w0.shape[1]
+    np_ = row_width(f)
     u2 = w0.new_zeros(np_, np_)
     u2[:f, :f] = w1
-    order = pair_order(np_)
-    return torch.cat([u0, u1[:, order], u2[:, order]], 1)
+    return torch.cat([fwd_b(w0, w1), u2[:, pair_order(np_)]], 1)
 
 
 def edge_scale(wraw, dst, mask, num_nodes: int, cutoff: float):
@@ -271,26 +277,38 @@ def _constants(de: int, edge_width: float, cutoff: float) -> tuple:
     return (*_basis_constants(de, edge_width), math.pi / cutoff)
 
 
+def _split_buffer(lib, fn: str, f: int, de: int, device) -> torch.Tensor:
+    """The scratch of a kernel's TF32 hi/lo split of its weights, in the
+    order its tiles read them (`fn` gives its words)."""
+    words = getattr(lib, fn)(f, de)
+    if words < 0:
+        _raise_on(-words, fn)
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
 def fused_cfconv(xj, dist, wraw, dst, mask, w0, b0, w1, b1, num_nodes: int,
                  edge_width: float, cutoff: float) -> torch.Tensor:
     """(num_nodes, F) f32 sums of the filtered messages at dst."""
     if xj.device.type == "cpu":
         return fused_cfconv_plain(xj, dist, wraw, dst, mask, w0, b0, w1, b1,
                                   num_nodes, edge_width, cutoff)
+    w0, b0, w1, b1 = (t.contiguous() for t in (w0, b0, w1, b1))
     _check_inputs(xj, dist, wraw, dst, mask, w0, b0, w1, b1)
-    w0e, w1e = _extend(w0, b0), _extend(w1, b1)
     e, f = xj.shape
     de = w0.shape[0]
     out = torch.zeros((num_nodes, f), dtype=torch.float32, device=xj.device)
     if e == 0 or f == 0 or num_nodes == 0:
         return out
     lib = _load()
+    ws = _split_buffer(lib, "mdl_fused_cfconv_fwd_split_words", f, de,
+                       xj.device)
     with torch.cuda.device(xj.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_fused_cfconv_fwd(
             xj.data_ptr(), dist.data_ptr(), wraw.data_ptr(), dst.data_ptr(),
-            mask.data_ptr(), w0e.data_ptr(), w1e.data_ptr(), out.data_ptr(),
-            e, f, de, num_nodes, *_constants(de, edge_width, cutoff), stream)
+            mask.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), ws.data_ptr(), out.data_ptr(), e, f, de,
+            num_nodes, *_constants(de, edge_width, cutoff), stream)
     _raise_on(rc, "mdl_fused_cfconv_fwd")
     LAUNCHES["fused_cfconv_fwd"] += 1
     return out
@@ -345,12 +363,7 @@ def fused_cfconv_bwd_rows(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
     if e == 0 or f == 0 or num_nodes == 0 or de == 0:
         return (d_xj, *rows)
     lib = _load()
-    words = lib.mdl_fused_cfconv_bwd_split_words(f, de)
-    if words < 0:
-        _raise_on(-words, "mdl_fused_cfconv_bwd_split_words")
-    # the kernel's TF32 hi/lo split of W0, W1 and W1ᵀ, in the order its
-    # tiles read them
-    ws = torch.empty(words, dtype=torch.int32, device=dev)
+    ws = _split_buffer(lib, "mdl_fused_cfconv_bwd_split_words", f, de, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_fused_cfconv_bwd(

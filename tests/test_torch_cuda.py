@@ -14,10 +14,12 @@ order than the plain version's GEMMs); whole-model outputs and gradients
 1e-4 against the same model on the CPU; a short training run's errors 1e-3
 against the CPU. The bilinear, CGConv and cfconv weight gradients are
 bit-identical between two calls. The CGConv forward and the cfconv
-backward are also held to their plain versions at every width bucket of
-their wgmma tiles (D and F 1 to 256) and at edge counts off every tile
-size, an all-pad batch giving exact zeros. The windowed sums (fixed order) rtol 1e-5 and atol 1e-5·max|ref|
-and bit-identical between two calls; the windowed gather bit-exact.
+forward and backward are also held to their plain versions at every width
+bucket of their wgmma tiles (D and F 1 to 256) and at edge counts off
+every tile size, an all-pad batch giving exact zeros. The windowed sums (fixed order) rtol 1e-5 and atol 1e-5·max|ref|
+and bit-identical between two calls, also at edge counts off every tile,
+with spare tiles on the last window and any dst order inside a tile, D 1
+to 300 and tw 64 and 512; the windowed gather bit-exact.
 """
 
 import numpy as np
@@ -313,6 +315,18 @@ def _cfconv_tiling(f, e, real, device):
     ws = [t(50, f, s=0.3), t(f, s=0.3), t(f, f, s=0.3), t(f, s=0.3)]
     return (xj, dist, wraw, torch.as_tensor(dst, device=device),
             torch.as_tensor(mask, device=device), *ws, 40, 0.2, 8.0)
+
+
+@pytest.mark.parametrize("e,real", TILING_EDGES)
+@pytest.mark.parametrize("f", TILING_WIDTHS)
+def test_fused_cfconv_fwd_matches_plain_at_tiling_edges(cuda_device, f, e,
+                                                        real):
+    args = _cfconv_tiling(f, e, real, cuda_device)
+    out = FS.fused_cfconv(*args)
+    if real == 0:
+        assert float(out.abs().max()) == 0.0
+    else:
+        _assert_fused_close(out, FS.fused_cfconv_plain(*args), "forward")
 
 
 @pytest.mark.parametrize("e,real", TILING_EDGES)
@@ -897,6 +911,70 @@ def test_windowed_kernels_match_plain(cuda_device, d, tw):
     (out * cot_e).sum().backward()
     _assert_sum_close(xt.grad.cpu(), WO.segment_sum_plain(
         cot_e.cpu(), pwe.dst, pwe.window_id, n, tw))
+
+
+def _windowed_tiling(real, tw, d, order, device, n=600, te=128, spare=5):
+    """`real` sorted random edges over n nodes in the windowed layout
+    (windowize_edges, te 128), `spare` more pad tiles parked on the last
+    window (the tail capacity tiles of a batch), the slots of every tile
+    shuffled where order is "shuffled" (any dst order inside a window), NaN
+    in the messages and weights of pad slots."""
+    from matdeeplearn_torch.ops import windowed as WO
+
+    rng = np.random.default_rng(real * 7 + tw + d)
+    dst = np.sort(rng.integers(0, n, max(real, 1))).astype(np.int32)
+    mask = np.zeros(len(dst), np.float32)
+    mask[:real] = 1.0
+    we = WO.windowize_edges(torch.as_tensor(dst), torch.as_tensor(mask), n,
+                            tw, te)
+    wdst = torch.cat([we.dst, torch.full((spare * te,), -1, dtype=torch.int32)])
+    if order == "shuffled":
+        perm = torch.as_tensor(np.argsort(rng.random((len(wdst) // te, te)), 1))
+        wdst = wdst.view(-1, te).gather(1, perm).reshape(-1)
+    we = WO.WindowedEdges(
+        order=torch.zeros(len(wdst), dtype=torch.int64), dst=wdst,
+        window_id=torch.cat([we.window_id, we.window_id[-1:].repeat(spare)]),
+        first_tile=torch.cat([we.first_tile,
+                              torch.zeros(spare, dtype=torch.int32)]),
+        valid=(wdst >= 0).float())
+    g = torch.Generator().manual_seed(d + tw)
+    msg = torch.randn(len(wdst), d, generator=g)
+    w = torch.randn(len(wdst), generator=g)
+    msg[wdst < 0], w[wdst < 0] = float("nan"), float("nan")
+    return WO.WindowedEdges(*(t.to(device) for t in we)), msg.to(device), \
+        w.to(device), n
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("real", [0, 1, 127, 129, 5000])
+@pytest.mark.parametrize("tw", [64, 512])
+@pytest.mark.parametrize("d", [1, 3, 4, 32, 33, 100, 150, 300])
+def test_windowed_sums_match_plain_at_tiling_edges(cuda_device, d, tw, real,
+                                                   order):
+    """The windowed sum and SpMM against their plain versions at edge counts
+    off every tile (0: an all-pad batch), with spare tiles parked on the
+    last window and, shuffled, any dst order inside a tile: rtol 1e-5, atol
+    1e-5·max|ref|, finite, exactly zero on nodes without edges,
+    bit-identical between two calls. 5,000 edges put more counted slots in
+    one window than the kernel lists in one pass."""
+    from matdeeplearn_torch.ops import windowed as WO
+
+    we, msg, w, n = _windowed_tiling(real, tw, d, order, cuda_device)
+    pwe = WO.WindowedEdges(*(v.cpu() for v in we))
+    no_edge = torch.ones(n, dtype=torch.bool)
+    no_edge[pwe.dst[pwe.dst >= 0].long()] = False
+    for fn, wv in ((lambda: WO.segment_sum(msg, we, n, tw), None),
+                   (lambda: WO.spmm(w, msg, we, n, tw), w)):
+        out = fn()
+        assert torch.isfinite(out).all()
+        assert torch.equal(out, fn())
+        ref = WO.segment_sum_plain(msg.cpu(), pwe.dst, pwe.window_id, n, tw,
+                                   None if wv is None else wv.cpu())
+        if real == 0:
+            assert float(out.abs().max()) == 0.0
+        else:
+            _assert_sum_close(out.cpu(), ref)
+        assert (out.cpu()[no_edge] == 0).all()
 
 
 def test_windowed_launch_counts_and_raises(cuda_device):

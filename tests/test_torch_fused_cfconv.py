@@ -13,6 +13,12 @@ package on the CPU.
   d_xj is exactly 0 on every masked edge.
 * The plain weight-gradient reduction against a dense sum of its partial
   layout, and the kernels' weight stack taken apart by split_wgrad.
+* The arithmetic of the wgmma forward, emulated in torch (3xTF32 in its
+  k-step order over the split weights' B operands `fwd_b`, the run flush
+  tile by tile), at SchNet_demo width (F 150, De 50, 200 edges): within
+  the chip check's limit of JAX's `_reference_compose` (rtol 1e-4, atol
+  1e-4·max|ref|), the single-pass TF32 emulation outside it. The layout
+  of `fwd_b` at five widths.
 * The arithmetic of the tensor-core backward (the edge rows on wgmma and
   the weight gradient in slices), emulated in torch (3xTF32 as
   tests/test_torch_fused_bilinear.py emulates it, in the kernels' k-step
@@ -207,7 +213,7 @@ def schnet_width():
     grads = [np.asarray(g) for g in vjp(jnp.asarray(cot))]
     t = [torch.as_tensor(v) for v in (xj, dist, wraw, dst, mask)]
     return (t, [torch.as_tensor(p) for p in params], torch.as_tensor(cot), n,
-            de, width, cutoff, grads)
+            de, width, cutoff, grads, np.asarray(out))
 
 
 def _chain(a, b, passes):
@@ -216,6 +222,62 @@ def _chain(a, b, passes):
     for k0 in range(0, a.shape[1], 8):
         acc = _mma(acc, a[:, k0:k0 + 8], b[:, k0:k0 + 8].t(), passes)
     return acc
+
+
+def _emulated_cfconv_fwd(xj, dist, wraw, dst, mask, w0, b0, w1, b1, n, de,
+                         width, cutoff, passes: int):
+    """The forward kernel's arithmetic in its order: pre = b·W0 over ⌈De/8⌉
+    k-steps, + b0; a = ssp(pre); w = a·W1 over the np columns in k-steps of
+    8, its A columns and B rows in pair_order (fwd_b); msg = (s·xj)·(w +
+    b1); then, tile of 128 edges after tile, each run of equal dst among
+    the tile's real rows summed row by row in f32 and added into out."""
+    e, f = xj.shape
+    np_ = FS.row_width(f)
+    b = FS.fwd_b(w0, w1)
+    k0 = b.shape[1] - np_
+    s = FS.edge_scale(wraw, dst, mask, n, cutoff)
+    real = (s != 0)[:, None]
+    basis = xj.new_zeros(e, k0)
+    basis[:, :de] = gaussian_basis(dist, 0.0, 1.0, de, width)
+    basis = torch.where(real, basis, 0.0)
+    cols = torch.arange(np_) < f
+    pad = lambda v: torch.cat([v.reshape(-1), v.new_zeros(np_ - f)])
+    pre = _chain(basis, b[:, :k0], passes) + pad(b0)
+    a = torch.where(real & cols, torch.nn.functional.softplus(pre) - FS._LOG2,
+                    0.0)
+    w = _chain(a[:, FS.pair_order(np_)], b[:, k0:], passes)[:, :f]
+    msg = (s[:, None] * xj) * (w + b1.reshape(-1))
+    out = torch.zeros(n, f)
+    for t0 in range(0, e, 128):
+        run, node = None, -1
+        for r in range(t0, min(e, t0 + 128)):
+            if s[r] == 0:
+                continue
+            if int(dst[r]) != node:
+                if run is not None:
+                    out[node] += run
+                run, node = torch.zeros(f), int(dst[r])
+            run = run + msg[r]
+        if run is not None:
+            out[node] += run
+    return out
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)],
+                         ids=["3xtf32", "1xtf32"])
+def test_emulated_fwd_against_jax_at_the_chip_limit(schnet_width, passes,
+                                                    within):
+    """At SchNet_demo width the 3xTF32 emulation of the wgmma forward falls
+    within the chip check's limit of JAX's `_reference_compose`
+    (chip_smoke.py:assert_fused: rtol 1e-4, atol 1e-4·max|ref|); the
+    single-pass TF32 one (hi·hi alone) falls outside it."""
+    (xj, dist, wraw, dst, mask), ws, _, n, de, width, cutoff, _, out = \
+        schnet_width
+    got = _emulated_cfconv_fwd(xj, dist, wraw, dst, mask, *ws, n, de, width,
+                               cutoff, passes)
+    share = _limit_share(got, out)
+    print(f"forward, {passes}xTF32: worst share of the limit {share:.4g}")
+    assert (share < 1.0) == within, share
 
 
 def _emulated_cfconv_bwd(xj, dist, wraw, dst, mask, w0, b0, w1, b1, cot, n,
@@ -274,7 +336,7 @@ def test_emulated_bwd_against_jax_vjp_at_the_chip_limit(schnet_width, passes,
     1e-4·max|ref|) for d_xj and all four weight gradients; the single-pass
     TF32 one (hi·hi alone) falls outside it for each of the five. Masked
     edges get exactly zero d_xj rows."""
-    (xj, dist, wraw, dst, mask), ws, cot, n, de, width, cutoff, grads = \
+    (xj, dist, wraw, dst, mask), ws, cot, n, de, width, cutoff, grads, _ = \
         schnet_width
     got = _emulated_cfconv_bwd(xj, dist, wraw, dst, mask, *ws, cot, n, de,
                                width, cutoff, passes, slices=3)
@@ -308,6 +370,33 @@ def test_bwd_b_is_w0_and_w1_in_pair_order(f, de):
     units = [b[:, :k0].clone(), b[:, k0:k0 + np_][:, inv],
              b[:, k0 + np_:][:, inv]]
     for u, want in zip(units, (w0.t(), w1.t(), w1)):
+        assert torch.equal(u[:want.shape[0], :want.shape[1]], want)
+        u[:want.shape[0], :want.shape[1]] = 0
+        assert not u.any()
+    words = split_kmajor(b)
+    parts = words.view(torch.float32).view(b.shape[1] // 8, 2, np_ // 8, 2,
+                                           8, 4)
+    back = parts.permute(1, 2, 4, 0, 3, 5).reshape(2, np_, b.shape[1])
+    assert torch.equal(back[0], tf32(b))
+    torch.testing.assert_close(back[0] + back[1], b, rtol=2e-7, atol=1e-30)
+
+
+@pytest.mark.parametrize("f", [1, 3, 100, 150, 256])
+def test_fwd_b_is_w0_and_w1_in_pair_order(f):
+    """fwd_b, the B operands that the forward kernel splits once a call
+    (CfconvB's units 0 and 1): W0ᵀ, then W1ᵀ with its columns in
+    pair_order, zeros past De and F; the first two units of bwd_b, and
+    split_kmajor's hi + lo gives it back to f32 accuracy."""
+    de = 50
+    rng = np.random.default_rng(f + 1)
+    w0 = torch.as_tensor(rng.standard_normal((de, f)), dtype=torch.float32)
+    w1 = torch.as_tensor(rng.standard_normal((f, f)), dtype=torch.float32)
+    b = FS.fwd_b(w0, w1)
+    np_, k0 = FS.row_width(f), -(-de // 8) * 8
+    assert b.shape == (np_, k0 + np_)
+    assert torch.equal(b, FS.bwd_b(w0, w1)[:, :k0 + np_])
+    units = [b[:, :k0].clone(), b[:, k0:][:, torch.argsort(FS.pair_order(np_))]]
+    for u, want in zip(units, (w0.t(), w1.t())):
         assert torch.equal(u[:want.shape[0], :want.shape[1]], want)
         u[:want.shape[0], :want.shape[1]] = 0
         assert not u.any()
