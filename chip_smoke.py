@@ -9,17 +9,21 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    each, in parallel), and turns TF32 off;
 2. writes 1,000 periodic structures (8-64 atoms, cubic cells of 16 Å^3 per
    atom, numpy seed 0) and featurizes them with config.yml's Processing
-   values; builds CGCNN_demo, SchNet_demo, MPNN_demo and GCN_demo at full
-   width from torch.Generator seed 0, with non-trivial BatchNorm running
-   statistics, and saves each with the port's checkpoint;
+   values; builds CGCNN_demo, SchNet_demo, MPNN_demo, GCN_demo and
+   MEGNet_demo at full width from torch.Generator seed 0, with non-trivial
+   BatchNorm running statistics, and saves each with the port's checkpoint;
 3. checks each CSR kernel against its plain PyTorch version on the card, at
    the shapes of a Predict batch (sorted dst with tail pads, permuted dst,
    scattered mask, D in {1, 3, 150}, one gradient of each autograd pair):
    gather bit-exact, sum to rtol 1e-5 and atol 1e-5·max|ref| (atomics
-   reorder the additions);
+   reorder the additions); then the same at MEGNet_demo's calls on a
+   src-sorted training batch (D 100): edge_src with its tail pads into the
+   nodes, and node_graph[edge_src] into the 100 graph rows, the sum
+   bit-identical between two calls (sorted runs, one owner each);
 4. times each CSR kernel, its plain version and a library yardstick
    (index_add_ / index_select, which the port never calls on the card) with
-   CUDA events, beside the memory bound (bytes over 3.35 TB/s);
+   CUDA events, beside the memory bound (bytes over 3.35 TB/s), at the
+   Predict batch and at both src-sorted shapes;
 5. checks the fused CGConv kernels against their plain versions at the
    shapes of a CGCNN_demo training batch (batch 100, De 50; D 100, 3 and
    150; sorted dst with tail pads, permuted dst, scattered mask): output,
@@ -116,6 +120,25 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     that checkpoint to rtol 1e-4, atol 1e-4; one more profiled); then 3
     warm-timed epochs each under kernels xla, csr and pallas, and one
     profiled warm pallas epoch;
+14a. does 8 for MEGNet_demo under kernel auto (csr on the src order): each
+    CSR kernel >= 3 x 4 blocks x 8 steps x 5 epochs launches (a block a
+    step: 2 gathers and 1 sum forward, 1 gather and 2 sums backward); the
+    CPU comparison (1 epoch each side, all 1,000 structures) without
+    BatchNorm (MEGNET_NOBN says why); MEGNet Predict on the card from the checkpoint Training saved
+    (counters reset just before: gathers >= 2 x 4 x 8, sums >= 5 x 8;
+    1,000 finite predictions within rtol 1e-4, atol 1e-4 of the CPU
+    Predict; one more profiled); then 3 warm-timed epochs each under
+    kernels xla, csr and pallas, and one profiled warm csr epoch;
+14b. prints the packed spec of a training batch (batch 100) beside the
+    padded one and the steps of an epoch; trains CGCNN_demo (kernel auto:
+    fused) and MEGNet_demo (kernel auto: csr) 3 epochs each with batching
+    packed (the fused kernels, and the CSR kernels, each launch at least
+    the packed steps' count times the padded floors' factors), prints each
+    warm epoch beside its padded one, and holds the first epoch's train
+    error to a CPU packed run (1 epoch, rtol 1e-3; MEGNet without
+    BatchNorm, 1 epoch on each side);
+    then CGCNN_demo 3 epochs under packed csr and packed pallas, and one
+    profiled warm packed epoch (kernel fused);
 15. prints the throughput meter's line of 8's card Training (5 epochs of 8
     steps in chunks of one epoch: the first chunk is warmup, 32 steps are
     rated), which must give edges/s > 0 and 0 < MFU <= 100% (against the
@@ -132,11 +155,14 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     torch.use_deterministic_algorithms (index_add_'s ordered path), the
     per-epoch train errors agree to rtol 1e-6; prints the worst gap, the
     gap of the plain runs with and without determinism, and epoch 2's time
-    with and without remat;
+    with and without remat; then the same for MEGNet_demo (kernel auto:
+    csr), whose CSR gather launches 2 more times a recomputed block;
 18. runs `python -m matdeeplearn_torch.bench` as a subprocess and prints
-    its JSON line, whose MAE gate must pass;
-19. prints a {"kernels": [...]} line, the nvidia-smi line and, last,
-    {"ok": true, "device": {...}}.
+    its JSON line, whose MAE gate must pass and which must hold the packed
+    arms' keys;
+19. prints a {"kernels": [...]} line (the CSR rows with their callers,
+    each path's launches and the src-sorted shapes' times), the nvidia-smi
+    line and, last, {"ok": true, "device": {...}}.
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -193,13 +219,16 @@ TRAIN_JOB = {
 }
 TRAIN_SEED = 7
 EPOCHS_CARD, EPOCHS_CPU, EPOCHS_AB = 5, 2, 3
-EPOCHS_CPU_MPNN = 1  # MPNN's plain versions on the CPU take longest
+# epochs of the CPU side of the card/CPU comparisons of MPNN (on the first
+# N_COMPARE structures), MEGNet and the packed runs: their plain versions
+# take longest on the CPU
+EPOCHS_COMPARE = 1
 EPOCHS_REMAT = 2     # epochs of each --profile and remat run
 BENCH_TIMEOUT_S = 600
 # the kernels mdl_fused_cgconv_fwd/_bwd/_wgrad launch, as a trace names them
 PROFILED_KERNELS = ("fused_cgconv_fwd_kernel", "fused_cgconv_bwd_kernel",
                     "fused_cgconv_wgrad_kernel", "wgrad_reduce_kernel")
-N_COMPARE_MPNN = 200  # structures of MPNN's card/CPU training comparison
+N_COMPARE = 200  # structures of MPNN's card/CPU training comparison
 EPOCH_LINE = re.compile(r"Epoch: (\d+), Learning Rate: ([0-9.]+), Training "
                         r"Error: ([0-9.naN]+), Val Error: ([0-9.naN]+), "
                         r"Time per epoch \(s\): ([0-9.]+)")
@@ -234,6 +263,26 @@ GCN_DEMO = {
     "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
                        "min_lr": 0.00001, "threshold": 0.0002},
 }
+MEGNET_DEMO = {
+    "model": "MEGNet", "dim1": 100, "dim2": 100, "dim3": 100,
+    "pre_fc_count": 1, "gc_count": 4, "gc_fc_count": 1, "post_fc_count": 3,
+    "pool": "global_mean_pool", "pool_order": "early", "batch_norm": "True",
+    "batch_track_stats": "True", "act": "relu", "dropout_rate": 0.0,
+    "epochs": 250, "lr": 0.0005, "batch_size": 100, "optimizer": "AdamW",
+    "optimizer_args": {}, "scheduler": "ReduceLROnPlateau",
+    "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
+                       "min_lr": 0.00001, "threshold": 0.0002},
+}
+# MEGNet_demo's card/CPU comparisons run without BatchNorm: its sub-MLPs put
+# biases behind training-mode BatchNorms (ROADMAP §3), whose rounding-noise
+# gradients AdamW turns into steps of the learning rate, so two runs that
+# differ only in summation order part by more than 1e-3 within 8 steps
+# (PERF.md); without BatchNorm they agree.
+MEGNET_NOBN = {**MEGNET_DEMO, "batch_norm": "False"}
+# the bench's keys of the packed arms (matdeeplearn_torch/bench.py)
+BENCH_PACKED_KEYS = ("bulk_epoch_s_csr_packed", "bulk_csr_packed_speedup",
+                     "bulk_mpnn_epoch_s_csr_fused", "bulk_mpnn_epoch_s_xla",
+                     "bulk_mpnn_csr_fused_speedup")
 SCHNET_DEMO = {
     "model": "SchNet", "dim1": 100, "dim2": 100, "dim3": 150, "cutoff": 8,
     "pre_fc_count": 1, "gc_count": 4, "post_fc_count": 3,
@@ -260,7 +309,8 @@ def training_config(data_path: str, model_path: str, job_name: str,
                     device: str, epochs: int, kernel: str = "auto",
                     model: dict = CGCNN_DEMO) -> dict:
     """The config cli.load_config gives for --run_mode=Training of `model`
-    (CGCNN_demo, SchNet_demo, MPNN_demo or GCN_demo), resuming from `model_path`
+    (CGCNN_demo, SchNet_demo, MPNN_demo, GCN_demo or MEGNet_demo, with
+    "batching": "packed" for packed batches), resuming from `model_path`
     (load_model True), with this run's epochs, kernel, device and
     verbosity 1."""
     job = {**TRAIN_JOB, "run_mode": "Training", "job_name": job_name,
@@ -393,6 +443,66 @@ def time_kernels(dst, mask, n, dev, d=100):
         },
     }
     return res, e_real
+
+
+def check_src_kernels(batch, dev, d=100) -> tuple[dict, list]:
+    """The CSR kernels at MEGNet's calls on one src-sorted training batch:
+    edge_src into the N nodes (x[src] gathers, the edge→node means) and
+    node_graph[edge_src] into the B graph rows (the u broadcast, whose
+    backward sums runs of a graph's edges), with the tail pads (index 0,
+    mask 0) the batch gives. Gather bit-exact, sum rtol 1e-5 and atol
+    1e-5·max|ref| and bit-identical between two calls (sorted runs), and
+    the gradient of each autograd pair. Returns the
+    largest |kernel - plain| of each kernel and the (name, index, n)
+    cases."""
+    from matdeeplearn_torch.ops import csr
+
+    mask = batch.edge_mask
+    real = mask > 0
+    edge_graph = batch.node_graph[batch.edge_src.long()].to(torch.int32)
+    cases = [("edge_src", batch.edge_src, batch.num_nodes),
+             ("node_graph[edge_src]", edge_graph, batch.num_graphs)]
+    g = torch.Generator(device=dev).manual_seed(3)
+    err = {"segment_sum": 0.0, "gather": 0.0}
+    for name, idx, n in cases:
+        sorted_real = bool((idx[real][1:] >= idx[real][:-1]).all())
+        tail = int(idx[~real].abs().max()) if bool((~real).any()) else -1
+        if not sorted_real or tail != 0:
+            raise AssertionError(f"{name}: expected sorted real edges and tail "
+                                 f"pads at 0 (sorted {sorted_real}, pad max "
+                                 f"{tail})")
+        x = torch.randn(n, d, device=dev, generator=g, requires_grad=True)
+        msg = torch.randn(idx.shape[0], d, device=dev, generator=g,
+                          requires_grad=True)
+        out = csr.sorted_gather(x, idx, mask)
+        if not torch.equal(out, csr.gather_plain(x.detach(), idx, mask)):
+            raise AssertionError(f"gather, {name}: not bit-exact")
+        cot = torch.randn(out.shape, device=dev, generator=g)
+        (out * cot).sum().backward()
+        ref = csr.segment_sum_plain(cot, idx, mask, n)
+        torch.testing.assert_close(x.grad, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+        diff = float((x.grad - ref).abs().max())
+        s = csr.sorted_segment_sum(msg, idx, mask, n)
+        ref_s = csr.segment_sum_plain(msg.detach(), idx, mask, n)
+        torch.testing.assert_close(s, ref_s, rtol=1e-5,
+                                   atol=1e-5 * float(ref_s.abs().max()))
+        if not torch.equal(s, csr.segment_sum(msg.detach(), idx, mask, n)):
+            raise AssertionError(f"segment_sum, {name}: sorted runs, yet not "
+                                 "the same bits twice")
+        cot_n = torch.randn(s.shape, device=dev, generator=g)
+        (s * cot_n).sum().backward()
+        if not torch.equal(msg.grad, csr.gather_plain(cot_n, idx, mask)):
+            raise AssertionError(f"segment_sum backward, {name}: not bit-exact")
+        diff = max(diff, float((s.detach() - ref_s).abs().max()))
+        err["segment_sum"] = max(err["segment_sum"], diff)
+        runs = torch.unique_consecutive(idx[real], return_counts=True)[1]
+        print(f"  src kernel check ok: {name} (n={n}, {int(real.sum())} real "
+              f"of {idx.shape[0]} edges, runs of up to {int(runs.max())} "
+              f"equal indices): segment_sum and the gather's backward max "
+              f"|diff| {diff:.3e}, the sum bit-identical twice, gather and "
+              f"the sum's backward bit-exact")
+    return err, cases
 
 
 FUSED_GRADS = ["x", "xj", "wfi", "wfj", "wfe", "bf", "wsi", "wsj", "wse", "bs"]
@@ -1267,7 +1377,8 @@ def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14,
         return
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
-    print(f"profiled warm {model['model']} training epoch (kernel {kernel}): "
+    print(f"profiled warm {model['model']} training epoch (kernel {kernel}, "
+          f"{model.get('batching', 'padded')} batches): "
           f"device busy "
           f"{busy_ms:.3f} ms of "
           f"{1e3 * wall:.3f} ms wall ({100 * busy_ms / (1e3 * wall):.1f}%); "
@@ -1346,11 +1457,12 @@ def check_profile_trace(config, prof_dir: str, smi: str):
 
 
 def check_remat(cases, dataset, dev, smi: str) -> dict:
-    """Each (label, demo, checkpoint, kernel, counters, forward key) trained
-    EPOCHS_REMAT epochs (jobs.run_fused_training, TRAIN_SEED's split) from
-    one checkpoint with and without remat, twice: as the trainer runs
-    (epoch times; the forward kernel's launches must grow by exactly the
-    recomputed training forwards, gc_count x steps x epochs), and under
+    """Each (label, demo, checkpoint, kernel, counters, forward key,
+    launches of that key a block's forward) trained EPOCHS_REMAT epochs
+    (jobs.run_fused_training, TRAIN_SEED's split) from one checkpoint with
+    and without remat, twice: as the trainer runs (epoch times; the forward
+    kernel's launches must grow by exactly the recomputed training
+    forwards, per block x gc_count x steps x epochs), and under
     torch.use_deterministic_algorithms, where the per-epoch train errors
     must agree to rtol 1e-6. Without it, index_add_ (the x_j gathers'
     backward) adds in another order each run, and AdamW turns the rounding
@@ -1389,7 +1501,7 @@ def check_remat(cases, dataset, dev, smi: str) -> dict:
         return float(np.max(np.abs(a - b) / np.abs(b)))
 
     out = {}
-    for label, demo, init, kernel, counts, key in cases:
+    for label, demo, init, kernel, counts, key, per_block in cases:
         launches, secs, errs = {}, {}, {}
         for remat in ("False", "True"):
             counts[key] = 0
@@ -1401,7 +1513,7 @@ def check_remat(cases, dataset, dev, smi: str) -> dict:
         gap = rel_gap(det["True"], det["False"])
         noise = rel_gap(errs["False"], det["False"])
         steps = -(-len(train_idx) // int(demo["batch_size"]))
-        recomputed = demo["gc_count"] * steps * EPOCHS_REMAT
+        recomputed = per_block * demo["gc_count"] * steps * EPOCHS_REMAT
         n_p, n_r = launches["False"], launches["True"]
         print(f"remat {label} (kernel {plan}) on {smi}: deterministic train "
               f"errors {det['False'].tolist()} plain, {det['True'].tolist()} "
@@ -1466,8 +1578,11 @@ def main() -> int:
         return 1
     from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
                                                   WindowedDeviceData, assemble,
-                                                  assemble_batch)
-    from matdeeplearn_torch.data.dataset import get_dataset, windowed_layout
+                                                  assemble_batch,
+                                                  packed_id_matrix,
+                                                  packed_steps)
+    from matdeeplearn_torch.data.dataset import (get_dataset, split_data,
+                                                 windowed_layout)
     from matdeeplearn_torch.models import MODEL_FIELDS, build_model
     from matdeeplearn_torch.ops import _build, csr
     from matdeeplearn_torch.ops import fused_bilinear as FB
@@ -1535,6 +1650,10 @@ def main() -> int:
     mpnn_path = initial_checkpoint(MPNN_DEMO,
                                    os.path.join(WORK, "mpnn_demo.ckpt"))
     gcn_path = initial_checkpoint(GCN_DEMO, os.path.join(WORK, "gcn_demo.ckpt"))
+    megnet_path = initial_checkpoint(MEGNET_DEMO,
+                                     os.path.join(WORK, "megnet_demo.ckpt"))
+    megnet_nobn_path = initial_checkpoint(
+        MEGNET_NOBN, os.path.join(WORK, "megnet_demo_nobn.ckpt"))
 
     # ---- CSR kernel checks and times at a Predict batch's shapes ----------
     data = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst")
@@ -1549,10 +1668,31 @@ def main() -> int:
               f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
     del data, batch
 
-    # ---- fused CGConv kernels at a training batch's shapes ----------------
+    # ---- CSR kernels at a src-sorted MEGNet_demo training batch -----------
     train_bs = CGCNN_DEMO["batch_size"]
     tspec = BatchSpec.for_dataset(dataset.node_counts(), dataset.edge_counts(),
                                   train_bs)
+    sdata = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="src")
+    sbatch = assemble_batch(sdata, np.arange(train_bs, dtype=np.int32), tspec)
+    print(f"src kernel checks on {card} (MEGNet_demo training batch, "
+          f"edge_order src: B={tspec.num_graphs}, N={tspec.num_nodes}, "
+          f"E={tspec.num_edges}, D=100):")
+    serr, scases = check_src_kernels(sbatch, dev)
+    for k, v in serr.items():
+        err[k] = max(err[k], v)
+    src_times = []
+    for name, idx, n in scases:
+        st, se_real = time_kernels(idx, sbatch.edge_mask, n, dev)
+        for k, t in st.items():
+            src_times.append({"kernel": k, "index": name, "n": n, **t})
+            print(f"{k} on {smi}, index {name}, E={tspec.num_edges} ({se_real} "
+                  f"real), n={n}, D=100: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                  f"{100 * t['bound_ms'] / t['ms']:.1f}% of it)")
+    del sdata, sbatch
+
+    # ---- fused CGConv kernels at a training batch's shapes ----------------
     tdata = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst",
                                              kernel_fused=True)
     tbatch = assemble_batch(tdata, np.arange(train_bs, dtype=np.int32), tspec)
@@ -1715,6 +1855,24 @@ def main() -> int:
         shutil.copy(init, path)
         return path
 
+    def compare_with_cpu(label, data, demo, init, kernel, card_rows=None):
+        """The first epoch's train error of `demo` on the card (card_rows,
+        or a run of EPOCHS_COMPARE epochs under kernel auto) against
+        EPOCHS_COMPARE epochs on the CPU under `kernel` (plain versions),
+        from one checkpoint: rtol 1e-3. Returns (card, CPU)."""
+        if card_rows is None:
+            _, card_rows = run_training(training_config(
+                data, resume_from_init(f"{label}_cmp_gpu", init),
+                f"chip_{label}_cmp_gpu", "cuda", EPOCHS_COMPARE, model=demo))
+        cpu_wall, cpu_rows = run_training(training_config(
+            data, resume_from_init(f"{label}_cmp_cpu", init),
+            f"chip_{label}_cmp_cpu", "cpu", EPOCHS_COMPARE, kernel,
+            model=demo))
+        print(f"{label} Training on the CPU (plain versions): {cpu_wall:.3f} s "
+              f"wall, the epoch {cpu_rows[0][4]:.3f} s")
+        np.testing.assert_allclose(card_rows[0][2], cpu_rows[0][2], rtol=1e-3)
+        return card_rows[0][2], cpu_rows[0][2]
+
     n_train = int(len(dataset) * TRAINING["train_ratio"])
     train_steps = -(-n_train // train_bs)
     gpu_train = resume_from_init("train_gpu")
@@ -1867,19 +2025,19 @@ def main() -> int:
                              f"{m_rows[0][2]} -> {m_rows[-1][2]}")
     # card against CPU, on the first structures only (PERF.md: one plain
     # MPNN epoch over all 1,000 took 107 s on the card's host)
-    sub_dir = os.path.join(WORK, f"data_first{N_COMPARE_MPNN}")
-    write_structures(sub_dir, n=N_COMPARE_MPNN)
+    sub_dir = os.path.join(WORK, f"data_first{N_COMPARE}")
+    write_structures(sub_dir, n=N_COMPARE)
     sub = {}
     for where in ("cuda", "cpu"):
         sub_wall, sub[where] = run_training(training_config(
             sub_dir, resume_from_init(f"mpnn_first_{where}", mpnn_path),
-            f"chip_mpnn_first_{where}", where, EPOCHS_CPU_MPNN, "fused",
+            f"chip_mpnn_first_{where}", where, EPOCHS_COMPARE, "fused",
             model=MPNN_DEMO))
-        print(f"MPNN Training on the first {N_COMPARE_MPNN} structures, "
+        print(f"MPNN Training on the first {N_COMPARE} structures, "
               f"{'the card' if where == 'cuda' else 'the CPU (plain versions)'}"
               f": {sub_wall:.3f} s wall, the epoch {sub[where][0][4]:.3f} s")
     np.testing.assert_allclose(sub["cuda"][0][2], sub["cpu"][0][2], rtol=1e-3)
-    print(f"MPNN card vs CPU on the first {N_COMPARE_MPNN} structures: epoch 1 "
+    print(f"MPNN card vs CPU on the first {N_COMPARE} structures: epoch 1 "
           f"train error {sub['cuda'][0][2]:.5f} vs {sub['cpu'][0][2]:.5f} "
           f"(rtol 1e-3); on all {N_STRUCTURES}, the card's train error "
           f"{m_rows[0][2]:.5f} -> {m_rows[-1][2]:.5f}")
@@ -2006,6 +2164,151 @@ def main() -> int:
           f"(main path: {g_warm:.5f} s)")
     profile_training(dataset, dev, GCN_DEMO, kernel="pallas")
 
+    # ---- main path 9: MEGNet_demo Training (kernel auto: csr, src order) --
+    gpu_megnet = resume_from_init("megnet_gpu", megnet_path)
+    reset_launches(*all_counts)
+    wall, mg_rows, mg_text = run_training_text(training_config(
+        data_dir, gpu_megnet, "chip_megnet_gpu", "cuda", EPOCHS_CARD,
+        model=MEGNET_DEMO))
+    if "kernel=csr(src)" not in mg_text:
+        raise AssertionError("MEGNet Training did not resolve to csr(src)")
+    megnet_launches = dict(csr.LAUNCHES)
+    print(f"launches in one MEGNet Training run of {EPOCHS_CARD} epochs "
+          f"(kernel auto: csr, src order): {megnet_launches}")
+    # a block a step: 2 gathers and 1 sum forward, 1 gather and 2 sums back
+    mg_need = 3 * MEGNET_DEMO["gc_count"] * train_steps * EPOCHS_CARD
+    for k, v in megnet_launches.items():
+        if v < mg_need:
+            raise AssertionError(f"{k} launched {v} times in MEGNet Training, "
+                                 f"expected >= {mg_need}")
+    mg_warm = warm_epoch_s(mg_rows)
+    print(f"MEGNet Training on {smi}: {wall:.3f} s wall for {EPOCHS_CARD} "
+          f"epochs; epoch 1 (cold) {mg_rows[0][4]:.5f} s, warm epochs "
+          f"{mg_warm:.5f} s on average ({n_train / mg_warm:.1f} train graphs/s)")
+    if not mg_rows[-1][2] < mg_rows[0][2]:
+        raise AssertionError(f"the card's MEGNet train error did not fall: "
+                             f"{mg_rows[0][2]} -> {mg_rows[-1][2]}")
+    mg_cmp = compare_with_cpu("MEGNet", data_dir, MEGNET_NOBN,
+                              megnet_nobn_path, "csr")
+    print(f"MEGNet card vs CPU (without BatchNorm; all {N_STRUCTURES} "
+          f"structures): epoch 1 train error {mg_cmp[0]:.5f} vs "
+          f"{mg_cmp[1]:.5f} (rtol 1e-3); the card's train error with it "
+          f"{mg_rows[0][2]:.5f} -> {mg_rows[-1][2]:.5f}")
+
+    # ---- main path 10: MEGNet_demo Predict on the card, then the CPU ------
+    reset_launches(*all_counts)
+    mg_wall, mg_eval = run_predict(predict_config(
+        data_dir, gpu_megnet, "chip_megnet_predict", "cuda"))
+    mg_predict_launches = dict(csr.LAUNCHES)
+    print(f"launches in one MEGNet Predict: {mg_predict_launches}")
+    want = {"gather": 2 * MEGNET_DEMO["gc_count"] * steps,
+            "segment_sum": (MEGNET_DEMO["gc_count"] + 1) * steps}
+    for k, v in want.items():
+        if mg_predict_launches[k] < v:
+            raise AssertionError(f"{k} launched {mg_predict_launches[k]} times "
+                                 f"in MEGNet Predict, expected >= {v}")
+    mg_warm_wall, mg_warm_eval = run_predict(predict_config(
+        data_dir, gpu_megnet, "chip_megnet_predict", "cuda"))
+    print(f"MEGNet Predict on {smi}: cold {mg_wall:.4f} s wall, {mg_eval:.5f} "
+          f"s evaluation; warm {mg_warm_wall:.4f} s wall, {mg_warm_eval:.5f} s "
+          f"evaluation ({len(dataset) / mg_warm_eval:.1f} graphs/s)")
+    profile_predict(predict_config(data_dir, gpu_megnet, "chip_megnet_predict",
+                                   "cuda"), "MEGNet")
+    mg_cpu_wall, _ = run_predict(predict_config(
+        data_dir, gpu_megnet, "chip_megnet_predict_cpu", "cpu"))
+    print(f"MEGNet Predict on the CPU (plain versions): {mg_cpu_wall:.3f} s "
+          f"wall")
+    ids_g, pred_g = read_predictions("chip_megnet_predict_predicted_outputs.csv")
+    ids_c, pred_c = read_predictions(
+        "chip_megnet_predict_cpu_predicted_outputs.csv")
+    if len(pred_g) != N_STRUCTURES or not np.isfinite(pred_g).all():
+        raise AssertionError(f"MEGNet Predict: expected {N_STRUCTURES} finite "
+                             f"predictions")
+    if ids_g != ids_c:
+        raise AssertionError("MEGNet card and CPU predictions list different "
+                             "ids")
+    np.testing.assert_allclose(pred_g, pred_c, rtol=1e-4, atol=1e-4)
+    predict_gap["MEGNet"] = predict_gap_of(pred_g, pred_c)
+    print(f"MEGNet card vs CPU predictions: max |diff| "
+          f"{float(np.abs(pred_g - pred_c).max()):.3e} (rtol 1e-4, atol 1e-4)")
+
+    # ---- MEGNet: kernels xla, csr and pallas, then a profiled csr epoch ---
+    mg_ab = {}
+    for kernel in ("xla", "csr", "pallas"):
+        _, rows = run_training(training_config(
+            data_dir, resume_from_init(f"megnet_{kernel}", megnet_path),
+            f"chip_megnet_ab_{kernel}", "cuda", EPOCHS_AB, kernel,
+            model=MEGNET_DEMO))
+        mg_ab[kernel] = warm_epoch_s(rows)
+    print(f"MEGNet warm epoch on {smi}: kernel xla {mg_ab['xla']:.5f} s, "
+          f"kernel csr {mg_ab['csr']:.5f} s, kernel pallas "
+          f"{mg_ab['pallas']:.5f} s (main path: {mg_warm:.5f} s)")
+    profile_training(dataset, dev, MEGNET_DEMO, kernel="csr")
+
+    # ---- main path 11: packed batching, CGCNN_demo and MEGNet_demo --------
+    train_idx, _, _ = split_data(dataset, TRAINING["train_ratio"],
+                                 TRAINING["val_ratio"], TRAINING["test_ratio"],
+                                 TRAIN_SEED)
+    nc, ec = dataset.node_counts(), dataset.edge_counts()
+    pspec = BatchSpec.packed_for_dataset(nc, ec, train_bs)
+    p_steps = packed_steps(train_idx, nc, ec, pspec, train_bs)
+    t0 = time.perf_counter()
+    packed_id_matrix(train_idx, nc, ec, pspec, train_bs, True, TRAIN_SEED)
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"packed spec (batch {train_bs}): {pspec.num_graphs} graph slots, "
+          f"{pspec.num_nodes} nodes, {pspec.num_edges} edges, {p_steps} steps "
+          f"an epoch; padded: {tspec.num_graphs} / {tspec.num_nodes} / "
+          f"{tspec.num_edges}, {train_steps} steps; one epoch's bins "
+          f"(packed_id_matrix, numpy on the host) {pack_ms:.1f} ms")
+    packed_launches = {}
+    for label, demo, init, counts, per_step, padded_warm in (
+            ("CGCNN", CGCNN_DEMO, model_path, FC.LAUNCHES,
+             CGCNN_DEMO["gc_count"], warm),
+            ("MEGNet", MEGNET_DEMO, megnet_path, csr.LAUNCHES,
+             3 * MEGNET_DEMO["gc_count"], mg_warm)):
+        packed = {**demo, "batching": "packed"}
+        reset_launches(*all_counts)
+        wall, rows, text = run_training_text(training_config(
+            data_dir, resume_from_init(f"{label}_packed", init),
+            f"chip_{label}_packed", "cuda", EPOCHS_AB, model=packed))
+        if "batching=packed" not in text:
+            raise AssertionError(f"{label} packed: the run did not pack")
+        packed_launches[label] = dict(counts)
+        p_need = per_step * p_steps * EPOCHS_AB
+        print(f"{label} packed (kernel auto) on {smi}: launches "
+              f"{packed_launches[label]} (each >= {p_need}); warm epochs "
+              f"{warm_epoch_s(rows):.5f} s against padded {padded_warm:.5f} s "
+              f"({p_steps} steps an epoch against {train_steps}); train error "
+              f"{rows[0][2]:.5f} -> {rows[-1][2]:.5f}")
+        for k, v in packed_launches[label].items():
+            if v < p_need:
+                raise AssertionError(f"{k} launched {v} times in {label} "
+                                     f"packed Training, expected >= {p_need}")
+        if not rows[-1][2] < rows[0][2]:
+            raise AssertionError(f"the card's {label} packed train error did "
+                                 f"not fall: {rows[0][2]} -> {rows[-1][2]}")
+        if label == "CGCNN":
+            card_cpu = compare_with_cpu(f"{label}_packed", data_dir, packed,
+                                        init, "fused", card_rows=rows)
+        else:  # without BatchNorm, as above
+            card_cpu = compare_with_cpu(
+                f"{label}_packed", data_dir,
+                {**MEGNET_NOBN, "batching": "packed"}, megnet_nobn_path, "csr")
+        print(f"{label} packed card vs CPU"
+              f"{'' if label == 'CGCNN' else ' (without BatchNorm)'}: epoch 1 "
+              f"train error {card_cpu[0]:.5f} vs {card_cpu[1]:.5f} (rtol 1e-3)")
+    p_ab = {}
+    for kernel in ("csr", "pallas"):
+        _, rows, text = run_training_text(training_config(
+            data_dir, resume_from_init(f"packed_{kernel}"),
+            f"chip_packed_ab_{kernel}", "cuda", EPOCHS_AB, kernel,
+            model={**CGCNN_DEMO, "batching": "packed"}))
+        p_ab[kernel] = warm_epoch_s(rows)
+        spec_line = re.search(r"spec=\(.*\)", text).group(0)
+        print(f"CGCNN packed kernel {kernel} on {smi}: {spec_line}, warm "
+              f"epochs {p_ab[kernel]:.5f} s")
+    profile_training(dataset, dev, {**CGCNN_DEMO, "batching": "packed"})
+
     # ---- the meter's neighbours: --profile, remat and the bench ---------
     print("card vs CPU Predict, largest gap by model (max |card - CPU|, "
           "largest |prediction|): " + ", ".join(
@@ -2015,14 +2318,20 @@ def main() -> int:
                         "chip_profile", "cuda", EPOCHS_REMAT),
         os.path.join(WORK, "cgcnn_profile"), smi)
     check_remat([("CGCNN", CGCNN_DEMO, model_path, "auto", FC.LAUNCHES,
-                  "fused_cgconv_fwd"),
+                  "fused_cgconv_fwd", 1),
                  ("SchNet", SCHNET_DEMO, schnet_path, "auto", FS.LAUNCHES,
-                  "fused_cfconv_fwd"),
+                  "fused_cfconv_fwd", 1),
                  ("MPNN", MPNN_DEMO, mpnn_path, "auto", FB.LAUNCHES,
-                  "fused_bilinear_fwd"),
+                  "fused_bilinear_fwd", 1),
                  ("GCN", GCN_DEMO, gcn_path, "pallas", WO.LAUNCHES,
-                  "windowed_spmm")], dataset, dev, smi)
-    run_bench(smi)
+                  "windowed_spmm", 1),
+                 # x[src] and u[g(src)] a block
+                 ("MEGNet", MEGNET_DEMO, megnet_path, "auto", csr.LAUNCHES,
+                  "gather", 2)], dataset, dev, smi)
+    bench = run_bench(smi)
+    missing = [k for k in BENCH_PACKED_KEYS if k not in bench]
+    if missing:
+        raise AssertionError(f"the bench's line lacks the packed keys {missing}")
 
     kernels = []
     for key, name, src, line, count in (
@@ -2062,7 +2371,7 @@ def main() -> int:
             ("windowed_gather", "windowed_gather", "windowed.cu",
              "pallas_segment.py:209", gcn_launches["windowed_gather"])):
         t = times[key]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"matdeeplearn_torch/csrc/{src}",
             "replaces": f"matdeeplearn_tpu/ops/{line}",
@@ -2070,7 +2379,25 @@ def main() -> int:
             "check": "pass", "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-        })
+        }
+        if key in ("segment_sum", "gather"):
+            # the CSR kernels' callers: each path's launches (counters reset
+            # just before it), and the src-sorted shapes MEGNet gives them
+            row["callers"] = (
+                "CGConv x_i gather and mean, cfconv sum, NNConv mean, GCN "
+                "sums (dst order); MEGNet x[src], u[node_graph[src]] and "
+                "edge->node means (src order); their backwards")
+            row["launches_by_path"] = {
+                "CGCNN Predict": launches[key],
+                "MPNN Training": mpnn_csr[key],
+                "GCN Predict": g_predict_launches[key],
+                "MEGNet Training": megnet_launches[key],
+                "MEGNet Predict": mg_predict_launches[key],
+                "MEGNet packed Training": packed_launches["MEGNet"][key]}
+            row["src_order_shapes"] = [
+                {k: v for k, v in st.items() if k != "kernel"}
+                for st in src_times if st["kernel"] == key]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,10 +18,13 @@ The counterpart of the reference package's bench.py:
 * bulk segment (on CUDA only, as the reference's runs on its TPU only):
   2,048 in-memory graphs of 24-96 atoms (data/synthetic.py:
   synthetic_dataset, seed 7), batch 256, 5 epochs warm and 5 timed under
-  each padded arm: fused, pallas and xla.
+  each padded arm (fused, pallas, xla) and CGCNN's csr arm on packed
+  batches (the reference's production path, bench.py:223); then MPNN_demo's
+  widths on packed batches of 64 under csr (its bilinear kernel with the
+  CSR mean, the reference's csr+fused) and xla (bench.py:258-302).
 
 Prints ONE JSON line on stdout; diagnostics go to stderr. Exits 1 when the
-gate fails. Runs on CUDA unless --device names the CPU; a CUDA request
+gate fails; an arm that fails raises, so no line lacks an arm. Runs on CUDA unless --device names the CPU; a CUDA request
 without CUDA fails.
 """
 
@@ -57,8 +60,15 @@ BENCH_MODEL = {                  # bench.py:61-69
     "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
                        "min_lr": 1e-5, "threshold": 2e-4},
 }
-BULK_ARMS = ("fused", "pallas", "xla")
+# (kernel, batching) of the bulk segment's CGCNN arms, and MPNN's arms
+BULK_ARMS = (("fused", "padded"), ("pallas", "padded"), ("xla", "padded"),
+             ("csr", "packed"))
+BULK_MPNN_ARMS = ("csr", "xla")
 BULK = {"n_graphs": 2048, "batch": 256, "epochs": 5, "seed": 7}
+BULK_MPNN = {"model": "MPNN", "dim1": 100, "dim2": 100, "dim3": 100,
+             "pre_fc_count": 1, "gc_count": 4, "post_fc_count": 3,
+             "batch_size": 64, "lr": 0.001, "optimizer": "AdamW",
+             "scheduler": "ReduceLROnPlateau", "batching": "packed"}
 
 
 def log(*a):
@@ -115,11 +125,25 @@ def finish(out: dict, err: float, epochs: int, n: int,
     return 0
 
 
-def _bulk_epoch_times(dev) -> dict:
-    """Warm s/epoch of CGCNN at bulk graph sizes under each padded arm (same
-    data, parameters and seed)."""
-    from matdeeplearn_torch.data.synthetic import synthetic_dataset
+def _warm_epoch_s(ds, mp: dict, tr, va, dev) -> float:
+    """s/epoch of `epochs` timed epochs after as many warm ones."""
     from matdeeplearn_torch.training import jobs as J
+
+    run = J.setup_run(ds, mp, "l1_loss", seed=BULK["seed"], device=dev)
+    kw = dict(train_idx=tr, val_idx=va, epochs=mp["epochs"],
+              verbosity=mp["epochs"])
+    J.run_fused_training(run, seed=BULK["seed"], **kw)  # warm
+    _sync(dev)
+    t0 = time.perf_counter()
+    J.run_fused_training(run, seed=BULK["seed"] + 1, **kw)
+    _sync(dev)
+    return (time.perf_counter() - t0) / mp["epochs"]
+
+
+def _bulk_epoch_times(dev) -> dict:
+    """Warm s/epoch of CGCNN at bulk graph sizes under each arm, then of
+    MPNN under its packed arms (same data, parameters and seed)."""
+    from matdeeplearn_torch.data.synthetic import synthetic_dataset
 
     t0 = time.perf_counter()
     ds = synthetic_dataset(num_graphs=BULK["n_graphs"], seed=BULK["seed"],
@@ -131,29 +155,33 @@ def _bulk_epoch_times(dev) -> dict:
     idx = np.arange(len(ds), dtype=np.int64)
     tr, va = idx[: int(0.9 * len(ds))], idx[int(0.9 * len(ds)):]
     times = {}
-    for kern in BULK_ARMS:
+    for kern, batching in BULK_ARMS:
         mp = {**{k: BENCH_MODEL[k] for k in ("model", "dim1", "dim2",
                                              "pre_fc_count", "gc_count",
                                              "post_fc_count", "lr",
                                              "optimizer", "scheduler")},
-              "batch_size": batch, "epochs": epochs, "kernel": kern}
-        run = J.setup_run(ds, mp, "l1_loss", seed=BULK["seed"], device=dev)
-        kw = dict(train_idx=tr, val_idx=va, epochs=epochs, verbosity=epochs)
-        J.run_fused_training(run, seed=BULK["seed"], **kw)  # warm
-        _sync(dev)
-        t0 = time.perf_counter()
-        J.run_fused_training(run, seed=BULK["seed"] + 1, **kw)
-        _sync(dev)
-        times[kern] = (time.perf_counter() - t0) / epochs
-        log(f"bulk {kern}: {times[kern]:.4f} s/epoch")
-        del run
+              "batch_size": batch, "epochs": epochs, "kernel": kern,
+              "batching": batching}
+        times[kern] = _warm_epoch_s(ds, mp, tr, va, dev)
+        log(f"bulk {kern} ({batching}): {times[kern]:.4f} s/epoch")
+    mtimes = {}
+    for kern in BULK_MPNN_ARMS:
+        mtimes[kern] = _warm_epoch_s(ds, {**BULK_MPNN, "epochs": epochs,
+                                          "kernel": kern}, tr, va, dev)
+        log(f"bulk MPNN {kern} (packed, batch {BULK_MPNN['batch_size']}): "
+            f"{mtimes[kern]:.4f} s/epoch")
     return {
         "bulk_epoch_s_fused": round(times["fused"], 4),
         "bulk_epoch_s_pallas": round(times["pallas"], 4),
         "bulk_epoch_s_xla": round(times["xla"], 4),
+        "bulk_epoch_s_csr_packed": round(times["csr"], 4),
         "bulk_fused_speedup": round(times["xla"] / times["fused"], 3),
         "bulk_pallas_speedup": round(times["xla"] / times["pallas"], 3),
+        "bulk_csr_packed_speedup": round(times["xla"] / times["csr"], 3),
         "bulk_edges_per_batch": round(edges_per_batch),
+        "bulk_mpnn_epoch_s_csr_fused": round(mtimes["csr"], 4),
+        "bulk_mpnn_epoch_s_xla": round(mtimes["xla"], 4),
+        "bulk_mpnn_csr_fused_speedup": round(mtimes["xla"] / mtimes["csr"], 3),
     }
 
 

@@ -8,8 +8,9 @@ device (CUDA unless told otherwise). Training prints the throughput
 meter's line ("Throughput: ... edges/s ..., MFU ...") after training;
 `--profile True` runs the training under torch.profiler and writes a
 Chrome trace (trace.json) to the job's `profile_dir` (default
-`<job_name>_profile`). main.py's `--parallel`, `--ep` and
-`--batching=packed` raise, naming their ROADMAP items.
+`<job_name>_profile`). `--batching=packed` trains on budget-packed
+batches (the bulk setting). main.py's `--parallel` and `--ep` raise,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="conv kernel path (training/jobs.py:resolve_kernel)")
     parser.add_argument("--batching", default=None, type=str,
                         choices=["padded", "packed"],
-                        help="padded (packed is not ported yet)")
+                        help="padded, or packed: bins of about mean·B + max "
+                             "nodes and edges (the bulk setting)")
     parser.add_argument("--parallel", default=None, type=str,
                         help="not ported yet (ROADMAP queue 1, item 16)")
     parser.add_argument("--ep", default=None, type=int,
@@ -79,9 +81,6 @@ def _refuse_unported_flags(args):
         raise NotImplementedError(
             "--parallel/--ep (data and edge parallelism) are not ported yet "
             "(ROADMAP queue 1, item 16)")
-    if args.batching == "packed":
-        raise NotImplementedError(
-            "--batching=packed is not ported yet (ROADMAP queue 1, item 3)")
 
 
 def load_config(args) -> dict:

@@ -7,13 +7,13 @@ the port's state_dicts.
 The reference trees are nested dicts of numpy arrays (or anything np.asarray
 takes). Scope names carry over with "." for "/" (`pre_lin0`,
 `conv{i}.lin_f`, `conv{i}.lin_s`, `bn{i}`, `post_lin{i}`, `lin_out`,
-`edge_nn{i}.lin0`, `gru{i}`, ...):
+`edge_nn{i}.lin0`, `gru{i}`, `conv{i}.edge_mlp.bn0`, `set2set_x.lstm`, ...):
 
   Linear     kernel (in, out) <-> weight (out, in), transposed;  bias <-> bias
   BatchNorm  scale <-> weight, bias <-> bias (params);
              mean <-> running_mean, var <-> running_var (batch_stats)
-  GRUCell    w_ih (in, 3H) <-> weight_ih (3H, in), w_hh <-> weight_hh, both
-             transposed; b_ih <-> bias_ih, b_hh <-> bias_hh
+  GRUCell,   w_ih (in, 3H or 4H) <-> weight_ih (3H or 4H, in), w_hh <->
+  LSTMCell   weight_hh, both transposed; b_ih <-> bias_ih, b_hh <-> bias_hh
   NNConv     root (din, dim) <-> root, as it is
   GCNConv    lin/kernel (no bias) <-> lin.weight, transposed, like any
              Linear; bias <-> bias

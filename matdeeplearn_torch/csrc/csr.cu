@@ -16,13 +16,19 @@
 // segment_sum: one warp walks a contiguous chunk of EDGES_PER_WARP edges;
 // lane l owns columns l, l+32, ... of one 32*C column block (blockIdx.y).
 // The warp adds runs of equal dst in registers, skips masked edges, and at
-// each change of dst (and at the chunk's end) flushes with one atomicAdd
-// per column. On a dst-sorted edge list that is about one atomic per
-// node-column plus one per chunk boundary. Any other order stays correct
-// and only costs more atomics: there is no sortedness certificate and no
-// second code path. Message rows are read with the lanes on consecutive
-// columns, so each row read is coalesced. Accumulation is f32; atomics
-// make the order of the additions vary from run to run.
+// each change of dst flushes with one atomicAdd per column. A run is a
+// maximal sequence of real edges, each with the dst of the edge before it;
+// the warp in whose chunk a run starts owns it: it skips the run that
+// reaches into its chunk from before, and sums its own last run on past
+// its chunk's end, 32 edges at a time (the lanes find with one ballot how
+// far the run goes). So on a sorted edge list each row is summed in edge
+// order by one warp and flushed by one atomicAdd onto the zeroed output:
+// the result is the same bits every run, whatever the run's length (a
+// graph's row, in the sum into B graph rows, takes hundreds of edges). Any
+// other order stays correct and only costs more atomics, whose order then
+// varies: there is no sortedness certificate and no second code path.
+// Message rows are read with the lanes on consecutive columns, so each
+// row read is coalesced. Accumulation is f32.
 //
 // gather: one thread per output element, as float4 where D % 4 == 0 and
 // both pointers are 16-byte aligned (the wrapper decides), scalar
@@ -37,6 +43,38 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kEdgesPerWarp = 32;
+
+// Edge i (> 0) continues the run of edge i - 1: both are real and have the
+// same dst.
+__device__ __forceinline__ bool continues(const int* __restrict__ dst,
+                                          const float* __restrict__ mask,
+                                          long long i) {
+  if (mask != nullptr && (__ldg(mask + i) == 0.f || __ldg(mask + i - 1) == 0.f))
+    return false;
+  return __ldg(dst + i) == __ldg(dst + i - 1);
+}
+
+template <int C>
+__device__ __forceinline__ void add_row(float (&acc)[C],
+                                        const float* __restrict__ src,
+                                        float w, int col0, int d) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int c = col0 + 32 * k;
+    if (c < d) acc[k] += w * __ldg(src + c);
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void flush(float (&acc)[C], float* __restrict__ row,
+                                      int col0, int d) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int c = col0 + 32 * k;
+    if (c < d) atomicAdd(row + c, acc[k]);
+    acc[k] = 0.f;
+  }
+}
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -59,39 +97,64 @@ csr_segment_sum_kernel(const float* __restrict__ msg,
   for (int k = 0; k < C; ++k) acc[k] = 0.f;
   int cur = -1;
 
-  for (long long i = begin; i < end; ++i) {
+  // Skip the run that reaches into the chunk from before: lane l tests
+  // edge begin + l, and the first edge that does not continue its
+  // predecessor starts this warp's work (none: the whole chunk is skipped).
+  const long long t = begin + lane;
+  const unsigned stops = __ballot_sync(
+      0xffffffffu, !(t > 0 && t < end && continues(dst, mask, t)));
+  long long i = stops ? begin + (__ffs(stops) - 1) : end;
+
+  for (; i < end; ++i) {
     // Every lane reads the same dst and mask word: one broadcast load, and
     // the branches below are uniform across the warp.
     const float w = mask != nullptr ? __ldg(mask + i) : 1.f;
     const int node = __ldg(dst + i);
     if (w == 0.f || node < 0 || node >= n) continue;
     if (node != cur) {
-      if (cur >= 0) {
-        float* row = out + (long long)cur * d;
+      if (cur >= 0) flush(acc, out + (long long)cur * d, col0, d);
+      cur = node;
+    }
+    add_row(acc, msg + i * d, w, col0, d);
+  }
+  // The last run goes on past the chunk for as long as its edges continue:
+  // 32 edges a step, the ballot giving how many of them do, each lane
+  // holding one edge's mask, their rows read 8 at a time before the adds
+  // (in edge order) so that the loads overlap.
+  bool open = cur >= 0 && end < e && __ldg(dst + end - 1) == cur;
+  while (open) {
+    const long long j = i + lane;
+    const bool cont = j < e && continues(dst, mask, j);
+    const float wl = j < e && mask != nullptr ? __ldg(mask + j) : 1.f;
+    const unsigned brk = __ballot_sync(0xffffffffu, !cont);
+    const int m = brk ? __ffs(brk) - 1 : 32;
+    int q = 0;
+    for (; q + 8 <= m; q += 8) {
+      float v[8][C];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float* src = msg + (i + q + u) * d;
 #pragma unroll
         for (int k = 0; k < C; ++k) {
           const int c = col0 + 32 * k;
-          if (c < d) atomicAdd(row + c, acc[k]);
-          acc[k] = 0.f;
+          v[u][k] = c < d ? __ldg(src + c) : 0.f;
         }
       }
-      cur = node;
-    }
-    const float* src = msg + i * d;
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int c = col0 + 32 * k;
-      if (c < d) acc[k] += w * __ldg(src + c);
-    }
-  }
-  if (cur >= 0) {
-    float* row = out + (long long)cur * d;
+      for (int u = 0; u < 8; ++u) {
+        const float w = __shfl_sync(0xffffffffu, wl, q + u);
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int c = col0 + 32 * k;
-      if (c < d) atomicAdd(row + c, acc[k]);
+        for (int k = 0; k < C; ++k) acc[k] += w * v[u][k];
+      }
     }
+    for (; q < m; ++q) {
+      add_row(acc, msg + (i + q) * d, __shfl_sync(0xffffffffu, wl, q), col0,
+              d);
+    }
+    i += m;
+    open = m == 32;
   }
+  if (cur >= 0) flush(acc, out + (long long)cur * d, col0, d);
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -12,16 +12,24 @@ edges and builds the masks with tensor ops on the dataset's device:
 
 Under edge_order="dst" each graph's edges are sorted by (local dst, local
 src) once on the host, so the assembled batch's edge_dst is non-decreasing
-over real edges: the layout of the CSR kernels (ops/csr.py). A dataset
-made with kernel_fused=True (dst order only) marks its batches for the
-fused conv kernels (ops/fused_cgconv.py, ops/fused_cfconv.py).
+over real edges: the layout of the CSR kernels (ops/csr.py). Under
+edge_order="src" (MEGNet's csr layout) they are sorted by (local src,
+local dst), so edge_src is non-decreasing over real edges, and so is
+node_graph[edge_src]. A dataset made with kernel_fused=True (dst order
+only) marks its batches for the fused conv kernels (ops/fused_cgconv.py,
+ops/fused_cfconv.py).
 
 A dataset that carries the windowed layout (`WindowedDeviceData`, built from
 data/windowed.py) assembles windowed batches (`assemble_batch_windowed`):
 nodes in window-padded slots, edges in the per-graph windowed order with
 dst = -1 on pad slots, and per-tile window ids for the windowed kernels
 (ops/windowed.py). `assemble` picks the assembler the dataset calls for.
-Packed batches are not ported yet (ROADMAP queue 1, item 3).
+
+Packed batching (`batching: packed`, the bulk setting) keeps the same
+assemblers and changes only the geometry and the ids: a spec of about
+mean·B + max nodes and edges with 1.5·B + 1 graph slots
+(`BatchSpec.packed_for_dataset`), and an id matrix of balanced bins
+(`packed_id_matrix`, numpy on the host) instead of fixed runs of B ids.
 """
 
 from __future__ import annotations
@@ -59,6 +67,100 @@ class BatchSpec:
             round_up(max(e, 1), align_edges or align),
         )
 
+    @classmethod
+    def packed_for_dataset(cls, node_counts, edge_counts, batch_size: int,
+                           align: int = 8, align_edges: int | None = None,
+                           slack: float = 1.08):
+        """Budget-packed spec for size-skewed datasets (`batching: packed`):
+        node and edge capacity ceil(slack·mean·B + max) instead of the sum
+        of the B largest graphs, enough for the balanced greedy bins of
+        packed_id_matrix; ceil(1.5·B) + 1 graph slots, so bins of many
+        small graphs fit. The composition of a batch varies; the
+        sample-weighted loss keeps the epoch objective."""
+        nc = np.asarray(node_counts)
+        ec = np.asarray(edge_counts)
+        b = min(batch_size, len(nc))
+        n = int(np.ceil(slack * float(nc.mean()) * b + nc.max()))
+        e = int(np.ceil(slack * float(ec.mean()) * b + ec.max()))
+        return cls(
+            int(np.ceil(1.5 * batch_size)) + 1,
+            round_up(max(n, 1), align),
+            round_up(max(e, 1), align_edges or align),
+        )
+
+
+def packed_steps(indices, node_counts, edge_counts, spec: BatchSpec,
+                 nominal_batch: int) -> int:
+    """Steps of one packed epoch over `indices`: enough bins that balanced
+    greedy packing (a bin's load stays within the mean load plus the
+    largest graph) fits the spec's node, edge and graph-slot capacities for
+    any shuffle, and never fewer than the padded epoch's."""
+    nc = np.asarray(node_counts)[np.asarray(indices)]
+    ec = np.asarray(edge_counts)[np.asarray(indices)]
+    if len(nc) == 0:
+        return 1
+    n_bound = int(np.ceil(nc.sum() / max(spec.num_nodes - nc.max(), 1)))
+    e_bound = int(np.ceil(ec.sum() / max(spec.num_edges - ec.max(), 1)))
+    g_bound = int(np.ceil(len(nc) / spec.num_graphs))
+    nominal = int(np.ceil(len(nc) / max(nominal_batch, 1)))
+    return max(1, nominal, n_bound, e_bound, g_bound)
+
+
+def packed_id_matrix(indices, node_counts, edge_counts, spec: BatchSpec,
+                     nominal_batch: int, shuffle: bool, seed) -> np.ndarray:
+    """(S, spec.num_graphs) int32 id matrix of packed bins, -1 on empty
+    slots.
+
+    shuffle=True (training): the ids in the order of
+    np.random.default_rng(seed).shuffle go one by one to the eligible bin
+    (free slot, node and edge room) with the least node load, among a fixed
+    S = packed_steps bins, so every epoch has the same number of steps.
+    shuffle=False (eval): a sequential fill in `indices` order, opening a
+    bin where the next graph does not fit (and appending rows past S where
+    the fill trails the bound); outputs read back in `indices` order after
+    the -1 slots are dropped."""
+    indices = np.asarray(indices, np.int64)
+    nc_all = np.asarray(node_counts)
+    ec_all = np.asarray(edge_counts)
+    b_cap, cap_n, cap_e = spec.num_graphs, spec.num_nodes, spec.num_edges
+    if len(indices) == 0:
+        return np.full((1, b_cap), -1, np.int32)
+    order = indices.copy()
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    steps = packed_steps(indices, node_counts, edge_counts, spec, nominal_batch)
+
+    out = np.full((steps, b_cap), -1, np.int32)
+    if not shuffle:
+        j, ln, le, cnt = 0, 0, 0, 0
+        for gid in order:
+            n_i, e_i = int(nc_all[gid]), int(ec_all[gid])
+            if cnt == b_cap or ln + n_i > cap_n or le + e_i > cap_e:
+                j, ln, le, cnt = j + 1, 0, 0, 0
+                if j >= steps:
+                    out = np.vstack([out, np.full((1, b_cap), -1, np.int32)])
+                    steps += 1
+            out[j, cnt] = gid
+            ln, le, cnt = ln + n_i, le + e_i, cnt + 1
+        return out
+
+    loads_n = np.zeros(steps, np.int64)
+    loads_e = np.zeros(steps, np.int64)
+    counts = np.zeros(steps, np.int64)
+    for gid in order:
+        n_i, e_i = int(nc_all[gid]), int(ec_all[gid])
+        ok = (counts < b_cap) & (loads_n + n_i <= cap_n) & (loads_e + e_i <= cap_e)
+        if not ok.any():
+            raise ValueError(f"packed batching overflow: no bin fits graph "
+                             f"{gid} (n={n_i}, e={e_i}); spec {spec} is too "
+                             "tight for this split")
+        j = int(np.argmin(np.where(ok, loads_n, np.iinfo(np.int64).max)))
+        out[j, counts[j]] = gid
+        loads_n[j] += n_i
+        loads_e[j] += e_i
+        counts[j] += 1
+    return out
+
 
 @dataclass
 class DeviceDataset:
@@ -75,11 +177,12 @@ class DeviceDataset:
     edge_dst: torch.Tensor      # (E,) int32 graph-local
     edge_weight: torch.Tensor   # (E,) float32 raw distance
     edge_dist_norm: torch.Tensor  # (E,) float32
-    # "dst": each graph's edges sorted by (local dst, local src); None keeps
-    # the reference edge order.
+    # "dst": each graph's edges sorted by (local dst, local src); "src": by
+    # (local src, local dst); None keeps the reference edge order.
     edge_order: str | None = None
-    # (N,) float32 per-node in-degree under edge_order "dst": a dataset
-    # constant that batches take through the node gather.
+    # (N,) float32 per-node degree at the sorted side (in-degree under
+    # "dst", out-degree under "src"): a dataset constant that batches take
+    # through the node gather.
     node_indeg: torch.Tensor | None = None
     # batches run the conv on its fused kernel (needs edge_order "dst")
     kernel_fused: bool = False
@@ -94,6 +197,10 @@ class DeviceDataset:
     def dst_sorted(self) -> bool:
         return self.edge_order == "dst"
 
+    @property
+    def src_sorted(self) -> bool:
+        return self.edge_order == "src"
+
     @classmethod
     def from_graph_dataset(cls, ds, device: str | torch.device,
                            edge_order: str | None = None,
@@ -106,11 +213,9 @@ class DeviceDataset:
         if kernel_fused and edge_order != "dst":
             raise ValueError("kernel_fused needs edge_order='dst' (the "
                              "in-degree comes with the sorted order)")
-        if edge_order not in (None, "dst"):
-            raise NotImplementedError(
-                f"edge_order={edge_order!r}: only 'dst' is ported (the src "
-                "order comes with MEGNet, ROADMAP queue 1, item 10)"
-            )
+        if edge_order not in (None, "dst", "src"):
+            raise ValueError(f"edge_order={edge_order!r}: expected None, "
+                             "'dst' or 'src'")
         y = ds.targets
         if y.ndim == 1:
             y = y[:, None]
@@ -119,19 +224,22 @@ class DeviceDataset:
         ew = np.asarray(ds.edge_weight, np.float32)
         ed = np.asarray(ds.edge_dist_norm, np.float32)
         node_indeg = None
-        if edge_order == "dst":
+        if edge_order is not None:
             # One host-side lexsort per run: within each graph order edges
-            # by local dst, then local src. Node ids are graph-local, so the
-            # graph id is the major key.
+            # by the sorted side's local id, then the other side's. Node ids
+            # are graph-local, so the graph id is the major key.
             gid = np.repeat(
                 np.arange(len(ds.node_ptr) - 1, dtype=np.int64),
                 np.diff(ds.edge_ptr),
             )
-            perm = np.lexsort((esrc, edst, gid))
+            major, minor = ((edst, esrc) if edge_order == "dst"
+                            else (esrc, edst))
+            perm = np.lexsort((minor, major, gid))
             esrc, edst, ew, ed = esrc[perm], edst[perm], ew[perm], ed[perm]
+            side = edst if edge_order == "dst" else esrc
             nptr = np.asarray(ds.node_ptr, np.int64)
             indeg = np.zeros(int(nptr[-1]), np.float32)
-            np.add.at(indeg, edst.astype(np.int64) + nptr[gid[perm]], 1.0)
+            np.add.at(indeg, side.astype(np.int64) + nptr[gid[perm]], 1.0)
             node_indeg = torch.as_tensor(indeg, device=device)
 
         def t(a, dtype):
@@ -218,8 +326,9 @@ class GraphBatch:
     y: torch.Tensor            # (B, T)
     u: torch.Tensor            # (B, 3)
     n_node: torch.Tensor       # (B,) int64 true node counts
-    # (N_pad,) float32 in-degree of each node (0 on pads); set under
-    # edge_order "dst", and on windowed batches (1.0 on pad node slots).
+    # (N_pad,) float32 degree of each node at the sorted side (0 on pads):
+    # the in-degree under edge_order "dst", the out-degree under "src"; the
+    # in-degree on windowed batches (1.0 on pad node slots).
     in_degree: torch.Tensor | None = None
     edge_order: str | None = None
     kernel_fused: bool = False
@@ -233,6 +342,10 @@ class GraphBatch:
     @property
     def dst_sorted(self) -> bool:
         return self.edge_order == "dst"
+
+    @property
+    def src_sorted(self) -> bool:
+        return self.edge_order == "src"
 
     @property
     def is_windowed(self) -> bool:

@@ -1,7 +1,7 @@
 """Model registry: build a model by its config name.
 
-CGCNN, SchNet, MPNN and GCN are ported; the reference's other names raise
-NotImplementedError that names their ROADMAP item.
+CGCNN, SchNet, MPNN, GCN and MEGNet are ported; the reference's other
+names raise NotImplementedError that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -10,13 +10,15 @@ import torch
 
 from matdeeplearn_torch.models.cgcnn import CGCNN
 from matdeeplearn_torch.models.gcn import GCN
+from matdeeplearn_torch.models.megnet import MEGNet
 from matdeeplearn_torch.models.mpnn import MPNN
 from matdeeplearn_torch.models.schnet import SchNet
 
-MODEL_REGISTRY = {"CGCNN": CGCNN, "SchNet": SchNet, "MPNN": MPNN, "GCN": GCN}
+MODEL_REGISTRY = {"CGCNN": CGCNN, "SchNet": SchNet, "MPNN": MPNN, "GCN": GCN,
+                  "MEGNet": MEGNet}
 
 # ROADMAP queue 1 items of the models still to port.
-NOT_PORTED = {"MEGNet": "item 10", "SM": "item 12", "SOAP": "item 12"}
+NOT_PORTED = {"SM": "item 12", "SOAP": "item 12"}
 
 # Config fields each model takes (other YAML hyperparameters are ignored,
 # as the reference forwards **kwargs, training.py:250-252).
@@ -27,7 +29,8 @@ _COMMON = {
     "precision", "remat",
 }
 MODEL_FIELDS = {"CGCNN": _COMMON, "SchNet": _COMMON | {"dim3", "cutoff"},
-                "MPNN": _COMMON | {"dim3"}, "GCN": _COMMON}
+                "MPNN": _COMMON | {"dim3"}, "GCN": _COMMON,
+                "MEGNet": _COMMON | {"dim3", "gc_fc_count"}}
 
 
 def build_model(name: str, dataset, hyperparams: dict, *,

@@ -2,8 +2,8 @@
 
 Message passing follows PyG's source_to_target flow: edge (src, dst)
 carries a message from src that is aggregated at dst. CGConv, SchNet's
-interaction block, MPNN's NNConv and GCNConv are ported; ROADMAP queue 1
-item 10 holds MEGNet's block.
+interaction block, MPNN's NNConv, GCNConv and MEGNet's block (which
+aggregates at the source node) are ported.
 """
 
 from __future__ import annotations
@@ -14,9 +14,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from matdeeplearn_torch.nn.layers import (Linear, shifted_softplus,
+from matdeeplearn_torch.nn.layers import (Linear, MaskedBatchNorm,
+                                          get_activation, shifted_softplus,
                                           torch_linear_init)
-from matdeeplearn_torch.ops.aggregate import edge_aggregate, gather_dst, gather_src
+from matdeeplearn_torch.ops import segment
+from matdeeplearn_torch.ops.aggregate import (edge_aggregate, gather_dst,
+                                              gather_edge_graph, gather_src,
+                                              src_segment_mean)
 from matdeeplearn_torch.ops.fused_bilinear import FusedBilinear
 from matdeeplearn_torch.ops.fused_cfconv import FusedCFConv
 from matdeeplearn_torch.ops.fused_cgconv import FusedCGConv
@@ -192,3 +196,79 @@ class GCNConv(nn.Module):
         out = edge_aggregate(gather_src(hd, batch), batch, reduce="sum",
                              weights=ew)
         return out * dis[:, None] + self.bias
+
+
+class MEGNetMLP(nn.Module):
+    """MEGNet's sub-MLP: (layers + 1) × [Linear → act → BatchNorm? →
+    dropout], the activation before the BatchNorm (the reference's
+    megnet.py:43-55). `lin{i}` and `bn{i}` as in the reference package."""
+
+    def __init__(self, din: int, dim: int, layers: int, act: str = "relu",
+                 batch_norm: bool = True, track_stats: bool = True, *,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        self.depth, self.batch_norm = layers + 1, batch_norm
+        self.act = get_activation(act)
+        for i in range(self.depth):
+            self.add_module(f"lin{i}", Linear(din if i == 0 else dim, dim,
+                                              generator=generator,
+                                              device=device))
+            if batch_norm:
+                self.add_module(f"bn{i}", MaskedBatchNorm(
+                    dim, track_stats=track_stats, device=device))
+
+    def forward(self, x, mask, dropout):
+        for i in range(self.depth):
+            x = self.act(getattr(self, f"lin{i}")(x))
+            if self.batch_norm:
+                x = getattr(self, f"bn{i}")(
+                    x, mask=mask, use_running_average=not self.training)
+            x = dropout(x)
+        return x
+
+
+class MEGNetBlock(nn.Module):
+    """One MetaLayer step (the reference's megnet.py:16-147):
+
+      e' = φ_e([x_src ‖ x_dst ‖ e ‖ u[g(src)]])
+      x' = φ_v([x ‖ mean over the edges out of i of e' ‖ u[g(i)]])
+      u' = φ_u([mean over g of that edge mean ‖ mean over g of x ‖ u])
+
+    The edge means are at the source node. On a src-sorted batch (MEGNet's
+    csr layout) x[src], the u broadcast at g(src) and the edge→node mean run
+    on the CSR kernels (ops/aggregate.py); x[dst] stays plain. u's edge
+    mean reuses the nodes' edge mean v_e (the same value), so the CSR sum
+    runs once a block. forward takes the model's dropout."""
+
+    def __init__(self, dim: int, fc_layers: int, act: str = "relu",
+                 batch_norm: bool = True, track_stats: bool = True, *,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        kw = dict(layers=fc_layers, act=act, batch_norm=batch_norm,
+                  track_stats=track_stats, generator=generator, device=device)
+        self.edge_mlp = MEGNetMLP(4 * dim, dim, **kw)
+        self.node_mlp = MEGNetMLP(3 * dim, dim, **kw)
+        self.global_mlp = MEGNetMLP(3 * dim, dim, **kw)
+
+    def forward(self, x, e, u, batch, dropout):
+        b = batch.num_graphs
+        node_graph = batch.node_graph
+        edge_graph = node_graph[batch.edge_src.long()]
+        comb_e = torch.cat([gather_src(x, batch), gather_dst(x, batch), e,
+                            gather_edge_graph(u, edge_graph, batch)], dim=-1)
+        e_out = self.edge_mlp(comb_e, batch.edge_mask, dropout)
+
+        v_e = src_segment_mean(e_out, batch)
+        # index_select, not u[idx]: on CUDA the latter's backward sorts and
+        # walks runs serially (ops/aggregate.py:gather_src)
+        u_node = torch.index_select(u, 0, torch.clamp(node_graph, max=b - 1))
+        comb_v = torch.cat([x, v_e, u_node], dim=-1)
+        x_out = self.node_mlp(comb_v, batch.node_mask, dropout)
+
+        u_e = segment.segment_mean(v_e, node_graph, b + 1, batch.node_mask)[:b]
+        u_v = segment.segment_mean(x, node_graph, b + 1, batch.node_mask)[:b]
+        u_out = self.global_mlp(torch.cat([u_e, u_v, u], dim=-1),
+                                batch.graph_mask, dropout)
+        return x_out, e_out, u_out

@@ -8,13 +8,15 @@
     momentum 0.1, and the track_running_stats switch (models/cgcnn.py:84-87),
   * the activation table behind the config's `act` strings
     (models/cgcnn.py:127 getattr(F, act)),
-  * a single-step GRU with torch.nn.GRU's gates and layout (MPNN).
+  * a single-step GRU with torch.nn.GRU's gates and layout (MPNN), and a
+    single-step LSTM with torch.nn.LSTM's (Set2Set),
+  * the plain Linear(+activation) stack of MEGNet's embeddings (MLP).
 
 Parameter names follow the reference package's scopes through convert.py:
 Linear `weight` (out, in) is its `kernel` (in, out) transposed; BatchNorm
 `weight`/`bias`/`running_mean`/`running_var` are `scale`/`bias`/`mean`/`var`;
-GRUCell `weight_ih`/`weight_hh` are `w_ih`/`w_hh` transposed and
-`bias_ih`/`bias_hh` are `b_ih`/`b_hh`.
+GRUCell and LSTMCell `weight_ih`/`weight_hh` are `w_ih`/`w_hh` transposed
+and `bias_ih`/`bias_hh` are `b_ih`/`b_hh`.
 """
 
 from __future__ import annotations
@@ -126,6 +128,8 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
+        # off while a remat recomputation repeats a training forward
+        self.update_stats = True
 
     def forward(self, x, mask=None, use_running_average: bool = False):
         if use_running_average and self.track_stats:
@@ -136,7 +140,8 @@ class MaskedBatchNorm(nn.Module):
             count = torch.clamp(m.sum(), min=1.0)
             mean = (x * m).sum(0) / count
             var = (((x - mean) ** 2) * m).sum(0) / count
-            if self.track_stats and not use_running_average:
+            if (self.track_stats and not use_running_average
+                    and self.update_stats):
                 with torch.no_grad():
                     unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
                     self.running_mean.mul_(1 - self.momentum).add_(
@@ -172,3 +177,56 @@ class GRUCell(nn.Module):
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
         return (1.0 - z) * n + z * h
+
+
+class LSTMCell(nn.Module):
+    """One step of torch.nn.LSTM (Set2Set runs it on sequences of length
+    one): gates i, f, g, o in torch's order, c' = f·c + i·tanh(g),
+    h' = o·tanh(c'). Parameters in torch's layout, weight_ih (4H, in),
+    weight_hh (4H, H), bias_ih and bias_hh (4H,), all drawn from
+    U(-1/√H, 1/√H)."""
+
+    def __init__(self, input_size: int, hidden: int, *,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        shapes = {"weight_ih": (4 * hidden, input_size),
+                  "weight_hh": (4 * hidden, hidden),
+                  "bias_ih": (4 * hidden,), "bias_hh": (4 * hidden,)}
+        for name, shape in shapes.items():
+            p = nn.Parameter(torch.empty(shape, device=device))
+            torch_linear_init(p, hidden, generator)
+            self.register_parameter(name, p)
+
+    def forward(self, x, h, c):
+        g = (F.linear(x, self.weight_ih, self.bias_ih)
+             + F.linear(h, self.weight_hh, self.bias_hh))
+        i, f, gg, o = g.chunk(4, -1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+class MLP(nn.Module):
+    """Linear layers `lin{i}` of widths `features`, each followed by the
+    activation, the last one too when `act_last` (the reference's embed
+    MLPs end in ReLU, models/megnet.py:222-230)."""
+
+    def __init__(self, in_features: int, features, act: str = "relu",
+                 act_last: bool = True, *,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        self.act, self.act_last = get_activation(act), act_last
+        self.depth = len(features)
+        for i, f in enumerate(features):
+            self.add_module(f"lin{i}", Linear(in_features, f,
+                                              generator=generator,
+                                              device=device))
+            in_features = f
+
+    def forward(self, x):
+        for i in range(self.depth):
+            x = getattr(self, f"lin{i}")(x)
+            if i < self.depth - 1 or self.act_last:
+                x = self.act(x)
+        return x

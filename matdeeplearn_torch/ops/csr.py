@@ -9,8 +9,11 @@ other's backward, as in that package's custom_vjp pair:
 
 Both are bound by bytes on the card (one read of each input, one write of
 each output, at most one multiply-add per element); csrc/csr.cu describes
-each design. segment_sum is right for any dst order and any mask: a
-dst-sorted edge list only makes it cheaper (fewer atomics). What the TPU
+each design. segment_sum is right for any index order and any mask; where
+the real edges are sorted and pads follow them (the port's sorted
+batches), each row is summed in edge order by one warp, so the result is
+the same bits every run. An index outside [0, n) adds nothing and gathers
+a zero row, in the kernels and their plain versions alike. What the TPU
 kernels needed and these do not: the one-hot MXU matmul, the hi/lo bf16
 split, the NSUB/EXTRA_W windows and the VMEM budget; the kernels run at
 every N.
@@ -80,17 +83,28 @@ def _raise_on(rc: int, name: str):
 # ------------------------------------------------------------- plain versions
 
 
+def _in_range(dst, n: int):
+    """(dst as int64 clamped into [0, n), 1.0 where dst was in range)."""
+    idx = dst.to(torch.int64)
+    valid = ((idx >= 0) & (idx < n)).to(torch.float32)
+    return idx.clamp(0, max(n - 1, 0)), valid
+
+
 def segment_sum_plain(msg, dst, mask, n: int):
-    """Plain PyTorch segment_sum: masked index_add_."""
-    m = msg if mask is None else msg * mask[:, None]
+    """Plain PyTorch segment_sum: masked index_add_; an edge whose dst lies
+    outside [0, n) adds nothing, as in the kernel."""
+    idx, valid = _in_range(dst, n)
+    w = valid if mask is None else mask * valid
     out = torch.zeros((n, msg.shape[1]), dtype=msg.dtype, device=msg.device)
-    return out.index_add_(0, dst.to(torch.int64), m)
+    return out.index_add_(0, idx, msg * w[:, None])
 
 
 def gather_plain(x, dst, mask):
-    """Plain PyTorch gather: indexing, times the mask."""
-    out = x[dst.to(torch.int64)]
-    return out if mask is None else out * mask[:, None]
+    """Plain PyTorch gather: indexing, times the mask; a zero row where dst
+    lies outside [0, n), as in the kernel."""
+    idx, valid = _in_range(dst, x.shape[0])
+    w = valid if mask is None else mask * valid
+    return x[idx] * w[:, None]
 
 
 # ------------------------------------------------------------------ wrappers

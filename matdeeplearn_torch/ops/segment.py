@@ -1,10 +1,10 @@
 """Masked segment reductions over static-shape padded buffers.
 
 The counterpart of torch_scatter's scatter_add/scatter_mean/scatter_max as
-the reference uses them (models/cgcnn.py:13). Every function takes an
-explicit mask, so padding is a provable no-op; accumulation is f32. The
-pools and the unsorted aggregation path use these; dst-sorted aggregation
-goes through the CSR kernels (ops/csr.py).
+the reference uses them (models/cgcnn.py:13), and the per-segment softmax of
+Set2Set. Every function takes an explicit mask, so padding is a provable
+no-op; accumulation is f32. The pools and the unsorted aggregation path
+use these; sorted aggregation goes through the CSR kernels (ops/csr.py).
 """
 
 from __future__ import annotations
@@ -63,3 +63,15 @@ def segment_max(values: torch.Tensor, segment_ids: torch.Tensor,
                      dtype=values.dtype, device=values.device)
     out = out.scatter_reduce(0, idx, values, reduce="amax", include_self=True)
     return torch.where(torch.isfinite(out), out, 0.0)
+
+
+def segment_softmax(values: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, mask: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """Softmax within each segment (Set2Set's attention), shifted by the
+    segment's max for stability. Masked rows get probability 0; an
+    all-masked segment gives zeros."""
+    vmax = segment_max(values, segment_ids, num_segments, mask)
+    e = _masked(torch.exp(values - vmax[segment_ids]), mask)
+    denom = segment_sum(e, segment_ids, num_segments)
+    return e / torch.clamp(denom[segment_ids], min=1e-16)

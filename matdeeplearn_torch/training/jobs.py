@@ -4,8 +4,8 @@ queue 1, item 13.
 Reference counterparts: train_regular (training/training.py:377-539) and
 predict (:543-583); the reference package's training/jobs.py
 (_resolve_kernel, setup_run, run_fused_training, _final_outputs,
-train_regular, predict), for in-memory datasets and padded (also windowed)
-batches.
+train_regular, predict), for in-memory datasets, padded and packed
+batches, flat or windowed.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import torch
 
 from matdeeplearn_torch.data import dataset as D
 from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
-                                              WindowedDeviceData)
+                                              WindowedDeviceData,
+                                              packed_id_matrix)
 from matdeeplearn_torch.models import MODEL_FIELDS, build_model
 from matdeeplearn_torch.training import train as T
 from matdeeplearn_torch.training.checkpoint import load_checkpoint, save_checkpoint
@@ -35,6 +36,7 @@ from matdeeplearn_torch.utils.results import write_results
 from matdeeplearn_torch.utils.summary import model_summary
 
 KERNELS = ("auto", "xla", "csr", "fused", "pallas")
+BATCHINGS = ("padded", "packed")
 
 
 @dataclass(frozen=True)
@@ -42,42 +44,54 @@ class KernelPlan:
     """What one run's convolutions run on (see resolve_kernel)."""
 
     name: str               # fused | csr | pallas | xla
-    edge_order: str | None  # "dst" for fused and csr, None: reference order
+    # "dst" for fused, the csr order ("dst" or "src") for csr, None: the
+    # reference order
+    edge_order: str | None
     fused: bool             # the conv on its fused kernel
     windowed: bool = False  # windowed batches, the windowed kernels (pallas)
 
 
-TRAINABLE = ("CGCNN", "SchNet", "MPNN", "GCN")  # models whose Training is ported
-# models with a fused kernel of their own (GCN has none)
+# models whose Training is ported
+TRAINABLE = ("CGCNN", "SchNet", "MPNN", "GCN", "MEGNet")
+# models with a fused kernel of their own (GCN and MEGNet have none)
 FUSED_MODELS = ("CGCNN", "SchNet", "MPNN")
+
+
+def csr_side(model_name: str) -> str:
+    """The edge order of a model's csr plan: MEGNet aggregates at the
+    source node (x[src] gathers, u broadcast at node_graph[src], edge→node
+    means), so its batches sort by src; every other model aggregates at
+    dst (the reference package's training/jobs.py:187-193)."""
+    return "src" if model_name == "MEGNet" else "dst"
 
 
 def resolve_kernel(model_name: str, kernel: str, batching: str,
                    device: torch.device, kernel_precision: str = "f32",
                    csr_order: str | None = None) -> KernelPlan:
     """The kernel request of a model config → what the port runs, for
-    in-memory padded batches (the reference package's _resolve_kernel,
-    training/jobs.py:80-199):
+    in-memory batches, padded or packed alike (the reference package's
+    _resolve_kernel, training/jobs.py:80-199):
 
       fused  — the model's conv on its fused kernel, dst-sorted batches
                (CGConv: ops/fused_cgconv.py; SchNet's cfconv:
                ops/fused_cfconv.py; MPNN's NNConv message:
                ops/fused_bilinear.py); the x_j gather stays in torch. GCN
-               has no fused kernel: as in the reference, it runs the pallas
-               plan, with the reference's note. kernel_precision "bf16" is
-               refused for CGCNN and SchNet (the fused kernels sum in f32;
-               the reference runs its single-pass arm there); MPNN's
-               bilinear kernel never reads it, as in the reference;
-      csr    — the unfused conv with the CSR kernels (ops/csr.py) on its
-               dst-side gathers and aggregation, dst-sorted batches (GCN:
-               the edge weights folded into the messages before the sum).
-               MPNN's message runs on the bilinear kernel here too, as the
-               reference composes it with csr (jobs.py:145-146): for MPNN,
-               fused differs from csr only in the batches' kernel_fused
-               flag, which MPNN does not read. csr_order other than "dst"
-               is refused (the src order comes with MEGNet); the other
-               kernels ignore the key, as the reference reads it only for
-               csr;
+               has no fused kernel, nor has MEGNet: as in the reference,
+               they run the pallas plan, with the reference's note.
+               kernel_precision "bf16" is refused for CGCNN and SchNet
+               (the fused kernels sum in f32; the reference runs its
+               single-pass arm there); MPNN's bilinear kernel never reads
+               it, as in the reference;
+      csr    — the unfused conv with the CSR kernels (ops/csr.py) on the
+               gathers and aggregations of the sorted side: csr_order "dst"
+               or "src", by default "src" for MEGNet and "dst" otherwise
+               (csr_side); an unknown order raises. The other kernels
+               ignore the key, as the reference reads it only for csr. On
+               dst-sorted batches GCN folds the edge weights into the
+               messages before the sum, and MPNN's message runs on the
+               bilinear kernel, as the reference composes it with csr
+               (jobs.py:145-146): for MPNN, fused differs from csr only in
+               the batches' kernel_fused flag, which MPNN does not read;
       pallas — windowed batches (data/batching.py:assemble_batch_windowed)
                and every edge aggregation on the windowed kernels
                (ops/windowed.py): the SpMM where the sum is weighted (GCN),
@@ -88,9 +102,10 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
       xla    — masked plain segment ops on the reference edge order (MPNN:
                the einsum over the formed per-edge weights);
       auto   — on a CUDA device fused for CGCNN, SchNet and MPNN and csr for
-               GCN; xla elsewhere (where the kernels' plain versions would
-               run, as the reference keeps auto on XLA off its
-               accelerator). This is the port's choice, not the TPU's
+               GCN and MEGNet, under either batching (the reference picks
+               csr for every packed GNN, a TPU verdict); xla elsewhere
+               (where the kernels' plain versions would run, as the
+               reference keeps auto on XLA off its accelerator). This is the port's choice, not the TPU's
                verdict carried over (the reference's auto never picks its
                fused cfconv, measured slower on its TPU): chip_smoke.py
                times warm training epochs under the other kernels for each
@@ -98,21 +113,21 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                kernel_precision other than "f32" is ignored with a note:
                the kernels auto picks sum in f32.
 
-    A request the port cannot honour raises NotImplementedError naming its
-    ROADMAP item; nothing falls back quietly.
+    `batching` ("padded" or "packed") changes the batch geometry, not the
+    plan. A request the port cannot honour raises NotImplementedError
+    naming its ROADMAP item; nothing falls back quietly.
     """
     f32 = str(kernel_precision).lower() == "f32"
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel '{kernel}' — expected one of "
                          "auto|xla|csr|fused|pallas")
+    if batching not in BATCHINGS:
+        raise ValueError(f"unknown batching {batching!r}: expected padded "
+                         "or packed")
     if model_name not in TRAINABLE:
         raise NotImplementedError(
             f"training {model_name} is not ported yet (ROADMAP queue 1, "
-            "items 10 and 12)")
-    if batching != "padded":
-        raise NotImplementedError(
-            f"batching={batching!r} is not ported yet (ROADMAP queue 1, "
-            "item 3)")
+            "item 12)")
     if kernel == "fused" and model_name not in FUSED_MODELS:
         print("kernel=fused applies to CGCNN, SchNet and MPNN; other models "
               "run the windowed aggregation kernel (kernel=pallas behavior)")
@@ -132,10 +147,12 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
         if device.type == "cuda" and not f32:
             print(f"kernel_precision={kernel_precision!r} is ignored: kernel "
                   f"auto runs {kernel}, whose kernels sum in f32")
-    if kernel == "csr" and str(csr_order or "dst").lower() != "dst":
-        raise NotImplementedError(
-            f"csr_order={csr_order!r}: only the dst order is ported; the src "
-            "order comes with MEGNet (ROADMAP queue 1, item 10)")
+    if kernel == "csr":
+        order = str(csr_order or csr_side(model_name)).lower()
+        if order not in ("dst", "src"):
+            raise ValueError(f"unknown csr_order {csr_order!r}: expected "
+                             "dst or src")
+        return KernelPlan("csr", order, False)
     return KernelPlan(kernel, None if kernel == "xla" else "dst",
                       kernel == "fused")
 
@@ -152,37 +169,55 @@ class Run:
     model_name: str
     model_config: dict
     kernel: str             # the resolved plan's name (KernelPlan.name)
+    edge_order: str | None  # the resolved plan's edge order
     batch_size: int
     lr: float
     loss: str
     scheduler_name: str
     scheduler_args: dict
+    # (indices, shuffle, seed) -> the id matrix of packed bins; None: padded
+    # batches (train.epoch_id_matrix)
+    id_matrix_fn: object = None
 
     @property
     def fused_kernel(self) -> bool:
         """The conv keeps its edge intermediates on chip: kernel fused, and
-        MPNN's message on the bilinear kernel under csr (the reference's
-        csr+fused plan)."""
+        MPNN's message on the bilinear kernel under csr on dst-sorted
+        batches (the reference's csr+fused plan)."""
         return self.kernel == "fused" or (self.model_name == "MPNN"
-                                          and self.kernel == "csr")
+                                          and self.kernel == "csr"
+                                          and self.edge_order == "dst")
+
+    def id_matrix(self, indices, shuffle: bool, seed) -> np.ndarray:
+        """The (steps, slots) id matrix of one epoch over `indices`."""
+        if self.id_matrix_fn is not None:
+            return self.id_matrix_fn(indices, shuffle, seed)
+        return T.epoch_id_matrix(indices, self.batch_size, shuffle, seed)
 
 
 def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
               batch_size: int | None = None, print_model: bool = False,
               device: str | torch.device | None = None) -> Run:
     """Model, optimizer, scheduler, batch geometry and device-resident data
-    (the reference package's setup_run, in-memory padded and windowed
-    branches). Initial weights come from torch.Generator(seed) on the CPU,
-    so every device starts from the same weights; dropout masks from the
-    model's generator seeded with `seed`."""
+    (the reference package's setup_run, its in-memory branches: padded or
+    packed, flat or windowed). Initial weights come from
+    torch.Generator(seed) on the CPU, so every device starts from the same
+    weights; dropout masks from the model's generator seeded with `seed`.
+
+    Packed batching budgets its bins by the counts of the batches' layout:
+    the windowed counts under pallas (align max(8, tw), edges te, so every
+    bin is a windowed batch), the flat counts otherwise, fused included
+    (the port's fused plan runs on flat dst-sorted batches, unlike the
+    reference's windowed fused kernels)."""
     dev = resolve_device(device)
     model_name = model_parameters.get("model", "CGCNN")
     bs = int(batch_size or model_parameters.get("batch_size", 100))
+    batching = str(model_parameters.get("batching", "padded")).lower()
     plan = resolve_kernel(
         model_name, str(model_parameters.get("kernel", "auto")).lower(),
-        str(model_parameters.get("batching", "padded")).lower(), dev,
-        str(model_parameters.get("kernel_precision", "f32")),
+        batching, dev, str(model_parameters.get("kernel_precision", "f32")),
         model_parameters.get("csr_order"))
+    packed = batching == "packed"
     model = build_model(model_name, dataset, model_parameters,
                         generator=torch.Generator().manual_seed(int(seed)),
                         dropout_seed=int(seed), device="cpu").to(dev)
@@ -193,16 +228,24 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
             tw=(int(model_parameters["kernel_tw"])
                 if model_parameters.get("kernel_tw") else None),
             te=int(model_parameters.get("kernel_te", 128) or 128))
-        spec = BatchSpec.for_dataset(layout.node_counts_w, layout.wedge_counts,
-                                     bs, align=max(8, layout.tw),
-                                     align_edges=layout.te)
+        counts = (np.asarray(layout.node_counts_w),
+                  np.asarray(layout.wedge_counts))
+        align = dict(align=max(8, layout.tw), align_edges=layout.te)
         data = DeviceDataset.from_graph_dataset(
             dataset, dev, windowed=WindowedDeviceData.from_layout(layout, dev))
     else:
-        spec = BatchSpec.for_dataset(dataset.node_counts(),
-                                     dataset.edge_counts(), bs)
+        counts = (dataset.node_counts(), dataset.edge_counts())
+        align = {}
         data = DeviceDataset.from_graph_dataset(
             dataset, dev, edge_order=plan.edge_order, kernel_fused=plan.fused)
+    id_matrix_fn = None
+    if packed:
+        spec = BatchSpec.packed_for_dataset(*counts, bs, **align)
+
+        def id_matrix_fn(indices, shuffle, seed):
+            return packed_id_matrix(indices, *counts, spec, bs, shuffle, seed)
+    else:
+        spec = BatchSpec.for_dataset(*counts, bs, **align)
     lr = float(model_parameters.get("lr", 1e-3))
     optimizer = build_optimizer(model_parameters.get("optimizer", "AdamW"),
                                 model.parameters(), lr,
@@ -216,7 +259,7 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
         "spec=(B={},N={},E={})".format(
             model_name,
             f"{plan.name}({plan.edge_order})" if plan.name == "csr" else plan.name,
-            "padded", 1, 1, "n",
+            batching, 1, 1, "n",
             spec.num_graphs, spec.num_nodes, spec.num_edges,
         )
     )
@@ -229,9 +272,10 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
     cfg["edge_resolution"] = dataset.num_edge_features
     return Run(model=model, optimizer=optimizer, scheduler=scheduler,
                spec=spec, data=data, model_name=model_name,
-               model_config=cfg, kernel=plan.name, batch_size=bs, lr=lr,
-               loss=loss, scheduler_name=scheduler_name,
-               scheduler_args=scheduler_args)
+               model_config=cfg, kernel=plan.name,
+               edge_order=plan.edge_order, batch_size=bs, lr=lr, loss=loss,
+               scheduler_name=scheduler_name, scheduler_args=scheduler_args,
+               id_matrix_fn=id_matrix_fn)
 
 
 def _save(path: str, run: Run, state_dict: dict):
@@ -272,7 +316,7 @@ def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
     return fused_trainer(
         model=run.model, optimizer=run.optimizer,
         loss_fn=T.get_loss(run.loss), spec=run.spec, data=run.data,
-        train_idx=train_idx, val_idx=val_idx, batch_size=run.batch_size,
+        train_idx=train_idx, val_idx=val_idx, id_matrix_fn=run.id_matrix,
         epochs=epochs, verbosity=verbosity, lr=run.lr,
         scheduler_kwargs=scheduler_kwargs,
         scheduler_enabled=run.scheduler_name == "ReduceLROnPlateau",
@@ -292,7 +336,8 @@ def _sync_scheduler(run: Run, sched):
 
 def _final_outputs(run: Run, dataset, idx):
     loss, preds, targs = T.evaluate(run.model, run.loss, run.spec, run.data,
-                                    idx, run.batch_size, out=True)
+                                    idx, run.batch_size, out=True,
+                                    id_matrix_fn=run.id_matrix)
     ids = [dataset.structure_ids[i] for i in idx]
     return loss, ids, targs, preds
 
@@ -334,7 +379,9 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
     meter = meter_for_training(dataset, train_idx).start()
     attach_analytic_flops(meter, run.model_name, run.model_config, run.spec,
                           len(train_idx), len(val_idx), run.batch_size,
-                          fused_kernel=run.fused_kernel)
+                          fused_kernel=run.fused_kernel,
+                          steps_per_epoch=run.id_matrix(train_idx, True,
+                                                        seed).shape[0])
     t0 = time.time()
     with trace(job_parameters.get("profile_dir", f"{job_name}_profile"),
                enabled=str(job_parameters.get("profile")) == "True"):
@@ -384,10 +431,12 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
 def predict(dataset, loss: str, job_parameters: dict,
             device: str | torch.device | None = None) -> float:
     """The Predict run mode: rebuild the model from the checkpoint header,
-    batch-128 inference on dst-sorted batches, whatever kernel the model
-    trained with (the CSR kernels carry every CGConv x_i gather and mean,
-    every SchNet cfconv sum, every NNConv mean and every GCN sum; the
-    bilinear kernel every NNConv message), write
+    batch-128 inference on padded batches sorted at the model's csr side
+    (csr_side: dst, src for MEGNet), whatever kernel the model trained with
+    (the CSR kernels carry every CGConv x_i gather and mean, every SchNet
+    cfconv sum, every NNConv mean, every GCN sum and MEGNet's x[src]
+    gathers, u broadcasts and edge→node means; the bilinear kernel every
+    NNConv message), write
     `<job>_predicted_outputs.csv`, report the error. Runs on CUDA unless
     `device` names another device."""
     dev = resolve_device(device)
@@ -408,7 +457,8 @@ def predict(dataset, loss: str, job_parameters: dict,
     spec = BatchSpec.for_dataset(
         dataset.node_counts(), dataset.edge_counts(), batch_size
     )
-    data = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst")
+    data = DeviceDataset.from_graph_dataset(
+        dataset, dev, edge_order=csr_side(meta["model_name"]))
     idx = np.arange(len(dataset))
     t0 = time.time()
     err, preds, targs = T.evaluate(model, loss, spec, data, idx, batch_size,

@@ -136,12 +136,15 @@ def eval_step(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids):
 
 
 def evaluate(model, loss_name: str, spec: BatchSpec, data: DeviceDataset,
-             indices, batch_size: int, out: bool = False):
+             indices, batch_size: int, out: bool = False, id_matrix_fn=None):
     """Mean loss over `indices`, and with `out` the per-graph predictions
-    and targets in `indices` order."""
+    and targets in `indices` order. id_matrix_fn(indices, shuffle, seed)
+    makes the eval id matrix (packed bins, which need not be sequential);
+    by default epoch_id_matrix with batch_size."""
     model.eval()
     loss_fn = get_loss(loss_name)
-    ids = epoch_id_matrix(indices, batch_size, shuffle=False, seed=None)
+    ids = (id_matrix_fn(indices, False, None) if id_matrix_fn is not None
+           else epoch_id_matrix(indices, batch_size, shuffle=False, seed=None))
     loss_sum = torch.zeros((), device=data.device)
     count_sum = torch.zeros((), device=data.device)
     outs = []
@@ -154,7 +157,8 @@ def evaluate(model, loss_name: str, spec: BatchSpec, data: DeviceDataset,
     if not out:
         return loss
     outs = torch.cat(outs).cpu().numpy()
-    # Map flat batch-slot outputs back to `indices` order.
+    # Map flat batch-slot outputs back to `indices` order (the -1 slots
+    # dropped; a packed matrix is not sequential).
     flat_ids = ids.reshape(-1)
     sel = flat_ids >= 0
     fids, fouts = flat_ids[sel], outs[sel]

@@ -6,9 +6,11 @@ on-device program (`make_fused_epochs_fn`, `fused_trainer`). PyTorch runs
 eagerly, so here the same state machine runs as device tensors that the
 host never reads inside a chunk:
 
-  * epoch e (counted from 1) trains on epoch_id_matrix(train_idx,
-    shuffle=True, seed=seed + e); the train error is the sample-weighted
-    mean of the step losses, summed on the device;
+  * epoch e (counted from 1) trains on id_matrix_fn(train_idx,
+    shuffle=True, seed=seed + e) (padded: train.epoch_id_matrix; packed:
+    the run's bins, the same number of steps every epoch); the train error
+    is the sample-weighted mean of the step losses, summed on the device,
+    so it is the epoch objective whatever the bins hold;
   * the val error is computed the same way; a NaN never improves;
   * on improvement a copy of the parameters and BatchNorm statistics
     becomes the best state (torch.where per tensor, no branch on the host);
@@ -92,7 +94,7 @@ def _forward_flops(model, loss_fn, spec, data, row) -> float | None:
 
 
 def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
-                  batch_size: int, epochs: int, verbosity: int, lr: float,
+                  id_matrix_fn, epochs: int, verbosity: int, lr: float,
                   scheduler_kwargs: dict, scheduler_enabled: bool = True,
                   checkpoint_fn=None, shuffle_seed_base: int = 0,
                   meter=None):
@@ -106,11 +108,14 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
     ThroughputMeter), if given, takes each chunk's epochs, steps and seconds
     from its start to after its sync; a chunk shape's first chunk counts as
     warmup (the kernels' build at first use), as the reference package
-    counts compile."""
+    counts compile.
+
+    id_matrix_fn(indices, shuffle, seed) makes the id matrices of the
+    train epochs and of the val split (train.epoch_id_matrix's padded rows,
+    or packed bins)."""
     dev = data.device
     has_val = len(val_idx) > 0
-    val_ids = (torch.as_tensor(T.epoch_id_matrix(val_idx, batch_size, False,
-                                                 None), device=dev)
+    val_ids = (torch.as_tensor(id_matrix_fn(val_idx, False, None), device=dev)
                if has_val else None)
     sched = plateau_init(lr, dev)
     best_val = torch.tensor(float("inf"), device=dev)
@@ -122,8 +127,7 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
     while epoch < epochs:
         k = min(chunk, epochs - epoch)
         ids = torch.as_tensor(np.stack([
-            T.epoch_id_matrix(train_idx, batch_size, True,
-                              shuffle_seed_base + epoch + e + 1)
+            id_matrix_fn(train_idx, True, shuffle_seed_base + epoch + e + 1)
             for e in range(k)
         ]), device=dev)
         metrics = []

@@ -7,7 +7,9 @@
   skipped at other epochs or on another corpus; the committed band leaves
   the mean predictor's MAE outside.
 * A CPU bench at --n 40 and a few epochs prints one JSON line with the
-  bench's keys.
+  bench's keys; the bulk segment, on the CPU at a tiny size, gives every
+  arm's key (the padded arms, CGCNN csr on packed batches, MPNN's packed
+  csr and xla) and raises when an arm fails.
 * The band (bench_band.json) is made here: `slow` reruns the bench's
   procedure with the JAX package on the CPU for each seed of the file and
   compares. To write the file anew:
@@ -227,6 +229,49 @@ def test_bench_on_the_cpu_prints_one_json_line():
     assert np.isfinite(out["test_mae_8_epochs"])
     assert "mfu" not in out  # no peaks off the card
     assert "meter: Throughput:" in proc.stderr
+
+
+def test_bulk_segment_reports_every_arm(monkeypatch):
+    """The bulk segment's arms on the CPU at a tiny size (the bench runs it
+    on the card only): the padded arms, CGCNN's csr arm on packed batches
+    and MPNN's packed csr and xla arms each give their key; an arm that
+    fails raises, so no line goes out without it."""
+    import torch
+
+    from matdeeplearn_torch.training import jobs as J
+
+    monkeypatch.setattr(B, "BULK", {**B.BULK, "n_graphs": 20, "batch": 8,
+                                    "epochs": 1})
+    monkeypatch.setattr(B, "BENCH_MODEL", {**B.BENCH_MODEL, "dim1": 8,
+                                           "dim2": 8, "gc_count": 1})
+    monkeypatch.setattr(B, "BULK_MPNN", {**B.BULK_MPNN, "dim1": 4, "dim2": 4,
+                                         "dim3": 4, "gc_count": 1,
+                                         "batch_size": 4})
+    seen = []
+    setup = J.setup_run
+
+    def spy(ds, mp, *a, **k):
+        seen.append((mp["model"], mp["kernel"], mp.get("batching")))
+        return setup(ds, mp, *a, **k)
+
+    monkeypatch.setattr(J, "setup_run", spy)
+    out = B._bulk_epoch_times(torch.device("cpu"))
+    assert seen == [("CGCNN", "fused", "padded"), ("CGCNN", "pallas", "padded"),
+                    ("CGCNN", "xla", "padded"), ("CGCNN", "csr", "packed"),
+                    ("MPNN", "csr", "packed"), ("MPNN", "xla", "packed")]
+    for key in ("bulk_epoch_s_csr_packed", "bulk_csr_packed_speedup",
+                "bulk_mpnn_epoch_s_csr_fused", "bulk_mpnn_epoch_s_xla",
+                "bulk_mpnn_csr_fused_speedup", "bulk_epoch_s_fused"):
+        assert out[key] > 0, key
+
+    def fail(ds, mp, *a, **k):
+        if mp["model"] == "MPNN":
+            raise RuntimeError("arm failed")
+        return setup(ds, mp, *a, **k)
+
+    monkeypatch.setattr(J, "setup_run", fail)
+    with pytest.raises(RuntimeError, match="arm failed"):
+        B._bulk_epoch_times(torch.device("cpu"))
 
 
 def test_bench_cuda_request_without_cuda_fails():

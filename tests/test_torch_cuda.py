@@ -19,7 +19,10 @@ bucket of their wgmma tiles (D and F 1 to 256) and at edge counts off
 every tile size, an all-pad batch giving exact zeros. The windowed sums (fixed order) rtol 1e-5 and atol 1e-5·max|ref|
 and bit-identical between two calls, also at edge counts off every tile,
 with spare tiles on the last window and any dst order inside a tile, D 1
-to 300 and tw 64 and 512; the windowed gather bit-exact.
+to 300 and tw 64 and 512; the windowed gather bit-exact. The CSR kernels
+are also held on a src-sorted batch's indices (edge_src, and
+node_graph[edge_src] into the graph rows), under a small MEGNet against the
+CPU, and packed training runs against the CPU.
 """
 
 import numpy as np
@@ -1120,3 +1123,148 @@ def test_remat_recomputes_on_the_kernels(cuda_device, tmp_path, name, key):
         torch.testing.assert_close(grads_r[k], g, rtol=1e-5,
                                    atol=1e-5 * layer_max[k.rsplit(".", 1)[0]],
                                    msg=lambda m, k=k: f"{k}: {m}")
+
+
+def _src_batch(ds, dev, bs=10):
+    from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                                  assemble_batch)
+
+    spec = BatchSpec.for_dataset(ds.node_counts(), ds.edge_counts(), bs)
+    ids = np.array([3, 0, 9, 14, 6, 1, 22, 7, -1, -1], np.int32)[:bs]
+    return assemble_batch(DeviceDataset.from_graph_dataset(
+        ds, dev, edge_order="src"), ids, spec)
+
+
+@pytest.mark.parametrize("d", [1, 8, 100, 150])
+def test_csr_kernels_on_src_and_edge_graph_indices(cuda_device, tmp_path, d):
+    """MEGNet's indices on a src-sorted batch with tail pads (index 0, mask
+    0 after the last real edge): edge_src into the N nodes and
+    node_graph[edge_src] into the B graph rows (runs of a graph's edges).
+    Gather bit-exact, sum rtol 1e-5 and bit-identical between two calls,
+    and the gradient of each autograd pair."""
+    ds = _toy(tmp_path)
+    b = _src_batch(ds, cuda_device)
+    em = b.edge_mask > 0
+    assert bool((b.edge_src[em][1:] >= b.edge_src[em][:-1]).all())
+    assert int(b.edge_src[~em].abs().max()) == 0 and bool((~em).any())
+    edge_graph = b.node_graph[b.edge_src.long()].to(torch.int32)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    for idx, n in ((b.edge_src, b.num_nodes), (edge_graph, b.num_graphs)):
+        x = torch.randn(n, d, device=cuda_device, generator=g,
+                        requires_grad=True)
+        msg = torch.randn(len(idx), d, device=cuda_device, generator=g,
+                          requires_grad=True)
+        out = csr.sorted_gather(x, idx, b.edge_mask)
+        assert torch.equal(out, csr.gather_plain(x.detach(), idx, b.edge_mask))
+        cot = torch.randn(out.shape, device=cuda_device, generator=g)
+        (out * cot).sum().backward()
+        _assert_sum_close(x.grad, csr.segment_sum_plain(cot, idx, b.edge_mask,
+                                                        n))
+        s = csr.sorted_segment_sum(msg, idx, b.edge_mask, n)
+        _assert_sum_close(s, csr.segment_sum_plain(msg.detach(), idx,
+                                                   b.edge_mask, n))
+        # sorted: each row summed in edge order by one warp, the same bits
+        # every run, however long its run
+        assert torch.equal(s, csr.segment_sum(msg.detach(), idx,
+                                              b.edge_mask, n))
+        cot_n = torch.randn(s.shape, device=cuda_device, generator=g)
+        (s * cot_n).sum().backward()
+        assert torch.equal(msg.grad, csr.gather_plain(cot_n, idx, b.edge_mask))
+
+
+def test_megnet_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """A small MEGNet on src-sorted batches in training mode: outputs and
+    parameter gradients on the card (CSR kernels: x[src], u[g(src)], the
+    edge means) against the CPU (plain versions), and the launches of one
+    forward and backward."""
+    from matdeeplearn_torch.models import build_model
+
+    ds = _toy(tmp_path)
+    hp = {"dim1": 32, "dim2": 24, "dim3": 16, "gc_count": 3,
+          "gc_fc_count": 1, "post_fc_count": 2}
+    model = build_model("MEGNet", ds, hp, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    results = {}
+    for dev in ("cpu", cuda_device):
+        m = build_model("MEGNet", ds, hp, device=dev)
+        m.load_state_dict(model.state_dict())
+        m.train()
+        batch = _src_batch(ds, dev)
+        before = dict(csr.LAUNCHES)
+        out = m(batch)
+        (out * batch.graph_mask).abs().sum().backward()
+        launches = {k: csr.LAUNCHES[k] - before[k] for k in before}
+        results[str(dev)] = (out.detach().cpu(),
+                             {k: p.grad.cpu() for k, p in m.named_parameters()},
+                             launches)
+    (o_cpu, g_cpu, _), (o_gpu, g_gpu, n) = (results["cpu"],
+                                            results[str(cuda_device)])
+    # a block: 2 gathers and 1 sum forward, 1 gather and 2 sums backward;
+    # the early pool's edge mean 1 sum and its backward 1 gather
+    assert n == {"gather": 3 * 3 + 1, "segment_sum": 3 * 3 + 1}, n
+    torch.testing.assert_close(o_gpu, o_cpu, rtol=1e-4, atol=1e-4)
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_gpu[k], g, rtol=1e-4,
+                                   atol=1e-4 * max(float(g.abs().max()), 1e-6),
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.parametrize("model,kernel", [("CGCNN", "fused"),
+                                          ("MEGNet", "csr"),
+                                          ("CGCNN", "pallas")])
+def test_packed_training_on_cuda_matches_cpu(cuda_device, tmp_path,
+                                             monkeypatch, model, kernel):
+    """train_regular with batching packed on the card and on the CPU (plain
+    versions): the same errors, to 1e-3 (MEGNet without BatchNorm, whose
+    bias gradients cancel behind it: ROADMAP §3)."""
+    from matdeeplearn_torch.training import jobs
+
+    ds = _toy(tmp_path / "data", n=40)
+    monkeypatch.chdir(tmp_path)
+    mp = {"model": model, "dim1": 32, "dim2": 24, "dim3": 16, "gc_count": 2,
+          "gc_fc_count": 1, "post_fc_count": 1, "batch_size": 8, "epochs": 3,
+          "lr": 0.005, "optimizer": "AdamW", "scheduler": "ReduceLROnPlateau",
+          "scheduler_args": {"factor": 0.8, "patience": 0}, "kernel": kernel,
+          "batching": "packed", "print_model": False,
+          "batch_norm": "False" if model == "MEGNet" else "True"}
+    tp = {"loss": "l1_loss", "train_ratio": 0.7, "val_ratio": 0.15,
+          "test_ratio": 0.15, "verbosity": 1}
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        jp = {"job_name": f"p_{dev}", "seed": 4, "save_model": "False",
+              "write_output": "False"}
+        errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
+    for split in ("train", "val", "test"):
+        assert np.isfinite(errs["cuda"][split])
+        np.testing.assert_allclose(errs["cuda"][split], errs["cpu"][split],
+                                   rtol=1e-3, atol=1e-3, err_msg=split)
+
+
+@pytest.mark.parametrize("run", [1, 13, 31, 32, 33, 64, 455, 2000])
+@pytest.mark.parametrize("d", [1, 100, 150])
+def test_segment_sum_is_the_same_bits_on_sorted_runs(cuda_device, run, d):
+    """Sorted runs of every length around the 32-edge chunk, with tail pads
+    (index 0, mask 0) and a masked edge inside one run: the sum equals the
+    plain version (rtol 1e-5) and is bit-identical between calls, and a
+    run split by a masked edge or by unsorted input still sums right."""
+    rng = np.random.default_rng(run * 7 + d)
+    rows = 300
+    lens = rng.integers(max(run // 2, 1), run + 1, rows)
+    dst = np.repeat(np.arange(rows), lens).astype(np.int32)
+    e_real = len(dst)
+    pad = 777
+    mask = np.concatenate([np.ones(e_real, np.float32),
+                           np.zeros(pad, np.float32)])
+    dst = np.concatenate([dst, np.zeros(pad, np.int32)])
+    mask[e_real // 2] = 0.0
+    dv = torch.as_tensor(dst, device=cuda_device)
+    mv = torch.as_tensor(mask, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(run)
+    msg = torch.randn(len(dst), d, device=cuda_device, generator=g)
+    ref = csr.segment_sum_plain(msg, dv, mv, rows)
+    outs = [csr.segment_sum(msg, dv, mv, rows) for _ in range(3)]
+    _assert_sum_close(outs[0], ref)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    perm = torch.randperm(len(dst), device=cuda_device, generator=g)
+    _assert_sum_close(csr.segment_sum(msg[perm].contiguous(), dv[perm].contiguous(),
+                                      mv[perm].contiguous(), rows), ref)

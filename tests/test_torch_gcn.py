@@ -386,8 +386,9 @@ def test_resolve_kernel_pallas_and_gcn(capsys):
         capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         TJ.resolve_kernel("GCN", "pallas", "padded", cpu, "bf16")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TJ.resolve_kernel("GCN", "pallas", "packed", cuda)
+    # packed batching changes the batches' geometry, not the plan
+    assert plan(TJ.resolve_kernel("GCN", "pallas", "packed", cuda)) == (
+        "pallas", None, False, True)
 
 
 @pytest.mark.parametrize("tw,te", [(None, None), (16, 32)])

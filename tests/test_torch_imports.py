@@ -32,7 +32,7 @@ def test_training_slice_modules_are_walked():
                  "training.scheduler", "training.trainer", "training.jobs",
                  "utils.summary", "cli", "ops.fused_cfconv", "models.schnet",
                  "ops.fused_bilinear", "models.mpnn", "data.windowed",
-                 "ops.windowed", "models.gcn"):
+                 "ops.windowed", "models.gcn", "models.megnet"):
         assert f"matdeeplearn_torch.{name}" in mods, name
 
 

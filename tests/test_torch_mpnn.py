@@ -387,8 +387,9 @@ def test_resolve_kernel_for_mpnn():
     got = TJ.resolve_kernel("MPNN", "pallas", "padded", cpu)
     assert (got.name, got.edge_order, got.fused, got.windowed) == (
         "pallas", None, False, True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TJ.resolve_kernel("MPNN", "fused", "packed", cuda)
+    # packed batching changes the batches' geometry, not the plan
+    assert TJ.resolve_kernel("MPNN", "fused", "packed", cuda) == \
+        TJ.resolve_kernel("MPNN", "fused", "padded", cuda)
 
 
 def _read_csv(path):

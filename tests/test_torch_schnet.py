@@ -372,8 +372,9 @@ def test_resolve_kernel_for_schnet():
     got = TJ.resolve_kernel("SchNet", "pallas", "padded", cpu)
     assert (got.name, got.edge_order, got.fused, got.windowed) == (
         "pallas", None, False, True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TJ.resolve_kernel("SchNet", "fused", "packed", cuda)
+    # packed batching changes the batches' geometry, not the plan
+    assert TJ.resolve_kernel("SchNet", "fused", "packed", cuda) == \
+        TJ.resolve_kernel("SchNet", "fused", "padded", cuda)
 
 
 def test_resolve_kernel_for_schnet_refuses_bf16_under_fused(capsys):

@@ -309,10 +309,13 @@ def test_resolve_kernel():
     plan = TJ.resolve_kernel("CGCNN", "pallas", "padded", cpu)
     assert (plan.name, plan.edge_order, plan.fused, plan.windowed) == (
         "pallas", None, False, True)
-    for args, item in ((("CGCNN", "fused", "packed"), "item 3"),
-                       (("MEGNet", "fused", "padded"), "items 10 and 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            TJ.resolve_kernel(*args, cpu)
+    # packed batching changes the batches' geometry, not the plan
+    assert TJ.resolve_kernel("CGCNN", "fused", "packed", cpu) == \
+        TJ.resolve_kernel("CGCNN", "fused", "padded", cpu)
+    with pytest.raises(ValueError, match="unknown batching"):
+        TJ.resolve_kernel("CGCNN", "fused", "bulk", cpu)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        TJ.resolve_kernel("SM", "auto", "padded", cpu)
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
@@ -338,26 +341,37 @@ def test_auto_on_cuda_notes_ignored_kernel_precision(capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("kernel,order,raises", [
-    ("csr", "src", True), ("csr", "SRC", True), ("csr", "dst", False),
-    ("csr", None, False), ("xla", "src", False), ("fused", "src", False),
-    ("pallas", "src", False)])
-def test_resolve_kernel_csr_order(kernel, order, raises):
-    """csr_order is read where the reference reads it, under csr: only the
-    dst order is ported (the src order comes with MEGNet)."""
+@pytest.mark.parametrize("kernel,order,want", [
+    ("csr", "src", "src"), ("csr", "SRC", "src"), ("csr", "dst", "dst"),
+    ("csr", None, "dst"), ("xla", "src", None), ("fused", "src", "dst"),
+    ("pallas", "src", None), ("csr", "both", ValueError),
+    ("xla", "both", None)])
+def test_resolve_kernel_csr_order(kernel, order, want):
+    """csr_order is read where the reference reads it, under csr: "dst" or
+    "src" (any case; CGCNN's default dst), an unknown order raises; the
+    other kernels ignore the key."""
     cpu = torch.device("cpu")
-    if raises:
-        with pytest.raises(NotImplementedError, match="item 10"):
+    if want is ValueError:
+        with pytest.raises(ValueError, match="unknown csr_order"):
             TJ.resolve_kernel("CGCNN", kernel, "padded", cpu, csr_order=order)
     else:
-        assert TJ.resolve_kernel("CGCNN", kernel, "padded", cpu,
-                                 csr_order=order).name == kernel
+        plan = TJ.resolve_kernel("CGCNN", kernel, "padded", cpu,
+                                 csr_order=order)
+        assert (plan.name, plan.edge_order) == (kernel, want)
 
 
 def test_setup_run_reads_csr_order(toy_dataset):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """csr_order "src" under csr: src-sorted batches, the CSR kernels on
+    CGConv's x_j gather, the rest plain (as the reference's helpers fall
+    back per side)."""
+    run = TJ.setup_run(toy_dataset, {**MODEL, "kernel": "csr",
+                                     "csr_order": "src"}, "l1_loss",
+                       device="cpu")
+    assert (run.kernel, run.edge_order) == ("csr", "src")
+    assert run.data.src_sorted and not run.data.dst_sorted
+    with pytest.raises(ValueError, match="unknown csr_order"):
         TJ.setup_run(toy_dataset, {**MODEL, "kernel": "csr",
-                                   "csr_order": "src"}, "l1_loss",
+                                   "csr_order": "window"}, "l1_loss",
                      device="cpu")
 
 
@@ -492,11 +506,18 @@ def test_cuda_request_without_cuda_raises(toy_dataset):
 
 @pytest.mark.parametrize("flag,item", [("--parallel=True", "item 16"),
                                        ("--ep=2", "item 16"),
-                                       ("--batching=packed", "item 3")])
+                                       ("--batching=packed", None)])
 def test_cli_refuses_unported_flags(flag, item):
+    """The flags of the unported items raise naming their item; a ported
+    one (item None) reaches the models' config."""
     from matdeeplearn_torch import cli
 
-    args = cli.build_parser().parse_args(["--run_mode=Training", flag])
+    args = cli.build_parser().parse_args(
+        ["--run_mode=Training", f"--config_path={REPO}/config.yml", flag])
+    if item is None:
+        config = cli.load_config(args)
+        assert config["Models"]["batching"] == "packed"
+        return
     with pytest.raises(NotImplementedError, match=item):
         cli.load_config(args)
 
