@@ -71,7 +71,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    checkpoint), and requires 1,000 finite predictions that agree to
    rtol 1e-4, atol 1e-4;
 8. trains CGCNN_demo through cli.run on the card (--run_mode=Training,
-   kernel auto, 5 epochs, verbosity 1, from that checkpoint) with the
+   kernel auto, 5 epochs, verbosity 1, from that checkpoint; like every
+   card Training run here, on the trainer's CUDA graphs, which its
+   resolved line must say: capture=graphs) with the
    launch counters reset just before and read just after: each fused
    kernel must launch at least 4 layers x 8 steps x 5 epochs times; then
    2 epochs of the same on the CPU (plain versions): the first epoch's
@@ -80,7 +82,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    checkpoint Training saved gives 1,000 finite predictions;
 9. trains 3 epochs under kernel csr and 3 more under kernel fused, and
    prints the warm epoch time of each; profiles one warm training epoch
-   under each of fused and csr (device busy share, top kernels);
+   under each of fused (on CUDA graphs and eager) and csr (device busy
+   share, top kernels); every later profiled model epoch runs both ways
+   too;
 10. does 8 for SchNet_demo (each cfconv kernel >= 4 x 8 x 5 launches), then
     SchNet Predict on the card from the checkpoint Training saved (counters
     reset just before: csr_segment_sum >= 4 x 8 launches; 1,000 finite
@@ -139,6 +143,16 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     BatchNorm, 1 epoch on each side);
     then CGCNN_demo 3 epochs under packed csr and packed pallas, and one
     profiled warm packed epoch (kernel fused);
+14c. trains every model and arm of 9, 13, 14, 14a and 14b (CGCNN csr,
+    fused, pallas and packed fused, csr, pallas; SchNet csr, fused; MPNN
+    xla, fused; GCN xla, csr, pallas; MEGNet xla, csr, pallas and packed
+    csr) from its checkpoint on the trainer's CUDA graphs and on its eager
+    loop (capture=False): 4 epochs each, printing the 3 warm epochs, the
+    peak device memory and the launches, equal both ways; then 3 epochs
+    each under torch.use_deterministic_algorithms, whose per-epoch train
+    and val errors agree to rtol 1e-6, launches equal; then the fastest
+    arm of each model and batching, captured (kernel auto's picks
+    re-checked), and the busy shares of the profiled epochs both ways;
 15. prints the throughput meter's line of 8's card Training (5 epochs of 8
     steps in chunks of one epoch: the first chunk is warmup, 32 steps are
     rated), which must give edges/s > 0 and 0 < MFU <= 100% (against the
@@ -158,8 +172,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     with and without remat; then the same for MEGNet_demo (kernel auto:
     csr), whose CSR gather launches 2 more times a recomputed block;
 18. runs `python -m matdeeplearn_torch.bench` as a subprocess and prints
-    its JSON line, whose MAE gate must pass and which must hold the packed
-    arms' keys;
+    its JSON line, whose MAE gate must pass (trained on CUDA graphs) and
+    which must hold the packed arms' keys and the eager loop's (`*_eager`);
 19. prints a {"kernels": [...]} line (the CSR rows with their callers,
     each path's launches and the src-sorted shapes' times), the nvidia-smi
     line and, last, {"ok": true, "device": {...}}.
@@ -224,6 +238,9 @@ EPOCHS_CARD, EPOCHS_CPU, EPOCHS_AB = 5, 2, 3
 # take longest on the CPU
 EPOCHS_COMPARE = 1
 EPOCHS_REMAT = 2     # epochs of each --profile and remat run
+# epochs of each timed run of the captured-against-eager phase (the first
+# holds the build and the captures; 3 warm) and of each deterministic run
+EPOCHS_CAPTURE, EPOCHS_CAPTURE_DET = 4, 3
 BENCH_TIMEOUT_S = 600
 # the kernels mdl_fused_cgconv_fwd/_bwd/_wgrad launch, as a trace names them
 PROFILED_KERNELS = ("fused_cgconv_fwd_kernel", "fused_cgconv_bwd_kernel",
@@ -283,6 +300,12 @@ MEGNET_NOBN = {**MEGNET_DEMO, "batch_norm": "False"}
 BENCH_PACKED_KEYS = ("bulk_epoch_s_csr_packed", "bulk_csr_packed_speedup",
                      "bulk_mpnn_epoch_s_csr_fused", "bulk_mpnn_epoch_s_xla",
                      "bulk_mpnn_csr_fused_speedup")
+# its keys of the eager loop (every other time is captured)
+BENCH_EAGER_KEYS = ("value_eager", "bulk_epoch_s_fused_eager",
+                    "bulk_epoch_s_pallas_eager", "bulk_epoch_s_xla_eager",
+                    "bulk_epoch_s_csr_packed_eager",
+                    "bulk_mpnn_epoch_s_csr_fused_eager",
+                    "bulk_mpnn_epoch_s_xla_eager")
 SCHNET_DEMO = {
     "model": "SchNet", "dim1": 100, "dim2": 100, "dim3": 150, "cutoff": 8,
     "pre_fc_count": 1, "gc_count": 4, "post_fc_count": 3,
@@ -1313,8 +1336,12 @@ def run_training(config) -> tuple[float, list]:
 
 
 def run_training_text(config) -> tuple[float, list, str]:
-    """run_training, with the captured output as well."""
+    """run_training, with the captured output as well. A card run must
+    train on CUDA graphs (its resolved line says capture=graphs)."""
     wall, text = run_cli(config)
+    if config["Job"]["device"] == "cuda" and "capture=graphs" not in text:
+        raise AssertionError("a card Training run did not resolve to "
+                             "capture=graphs")
     rows = [(int(m.group(1)), *(float(v) for v in m.groups()[1:]))
             for m in EPOCH_LINE.finditer(text)]
     if len(rows) != config["Models"]["epochs"]:
@@ -1347,10 +1374,11 @@ def warm_epoch_s(rows) -> float:
 
 
 def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14,
-                     kernel: str = "fused"):
-    """One warm training epoch of `model` (kernel `kernel`) under
-    torch.profiler: device time by kernel and the device's busy share of
-    the wall time."""
+                     kernel: str = "fused", capture=None) -> float | None:
+    """One warm training epoch of `model` (kernel `kernel`; CUDA graphs,
+    or the eager loop with capture=False) under torch.profiler: device time
+    by kernel and the device's busy share of the wall time, which it
+    returns (None: the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from matdeeplearn_torch.data.dataset import split_data
@@ -1362,8 +1390,8 @@ def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14,
     run = jobs.setup_run(dataset, {**model, "kernel": kernel},
                          "l1_loss", seed=TRAIN_SEED, device=dev)
     kw = dict(train_idx=train_idx, val_idx=val_idx, epochs=1, verbosity=1,
-              seed=TRAIN_SEED)
-    jobs.run_fused_training(run, **kw)  # warm-up epoch
+              seed=TRAIN_SEED, capture=capture)
+    jobs.run_fused_training(run, **kw)  # warm-up epoch (and the captures)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1374,11 +1402,12 @@ def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14,
     if not rows:
         print(f"profiled {model['model']} training epoch: the profiler saw no "
               "device time (not measured)")
-        return
+        return None
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     print(f"profiled warm {model['model']} training epoch (kernel {kernel}, "
-          f"{model.get('batching', 'padded')} batches): "
+          f"{model.get('batching', 'padded')} batches, "
+          f"{'eager' if capture is False else 'CUDA graphs'}): "
           f"device busy "
           f"{busy_ms:.3f} ms of "
           f"{1e3 * wall:.3f} ms wall ({100 * busy_ms / (1e3 * wall):.1f}%); "
@@ -1386,6 +1415,7 @@ def profile_training(dataset, dev, model: dict = CGCNN_DEMO, top: int = 14,
     for key, us, count in rows[:top]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x {100 * us / 1e3 / busy_ms:5.1f}%  "
               f"{key[:100]}")
+    return busy_ms / (1e3 * wall)
 
 
 def run_predict(config) -> tuple[float, float]:
@@ -1456,6 +1486,38 @@ def check_profile_trace(config, prof_dir: str, smi: str):
         raise AssertionError(f"the --profile trace names no {missing}")
 
 
+def train_from_checkpoint(dataset, dev, model: dict, init: str, epochs: int,
+                          deterministic: bool, capture=None):
+    """jobs.run_fused_training of `model` (with its kernel, batching and
+    remat) from the checkpoint `init` on TRAIN_SEED's split, verbosity 1,
+    under torch.use_deterministic_algorithms when `deterministic`; returns
+    (run, the per-epoch history as an array, the epoch lines' seconds, the
+    run's output)."""
+    from matdeeplearn_torch.data.dataset import split_data
+    from matdeeplearn_torch.training import jobs
+    from matdeeplearn_torch.training.checkpoint import load_checkpoint
+
+    train_idx, val_idx, _ = split_data(dataset, TRAINING["train_ratio"],
+                                       TRAINING["val_ratio"],
+                                       TRAINING["test_ratio"], TRAIN_SEED)
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run = jobs.setup_run(dataset, model, "l1_loss", seed=TRAIN_SEED,
+                                 device=dev)
+            run.model.load_state_dict(load_checkpoint(init)[1])
+            _, _, hist = jobs.run_fused_training(
+                run, train_idx=train_idx, val_idx=val_idx, epochs=epochs,
+                verbosity=1, seed=TRAIN_SEED, capture=capture)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    text = buf.getvalue()
+    secs = [float(m.group(5)) for m in EPOCH_LINE.finditer(text)]
+    return run, np.array(hist), secs, text
+
+
 def check_remat(cases, dataset, dev, smi: str) -> dict:
     """Each (label, demo, checkpoint, kernel, counters, forward key,
     launches of that key a block's forward) trained EPOCHS_REMAT epochs
@@ -1472,30 +1534,16 @@ def check_remat(cases, dataset, dev, smi: str) -> dict:
     under determinism, plain runs' gap, launches plain, launches remat,
     last epoch's s plain, with remat)."""
     from matdeeplearn_torch.data.dataset import split_data
-    from matdeeplearn_torch.training import jobs
-    from matdeeplearn_torch.training.checkpoint import load_checkpoint
 
-    train_idx, val_idx, _ = split_data(dataset, TRAINING["train_ratio"],
-                                       TRAINING["val_ratio"],
-                                       TRAINING["test_ratio"], TRAIN_SEED)
+    train_idx, _, _ = split_data(dataset, TRAINING["train_ratio"],
+                                 TRAINING["val_ratio"], TRAINING["test_ratio"],
+                                 TRAIN_SEED)
 
     def train(demo, init, kernel, remat, deterministic):
-        torch.use_deterministic_algorithms(deterministic, warn_only=True)
-        try:
-            run = jobs.setup_run(dataset, {**demo, "kernel": kernel,
-                                           "remat": remat},
-                                 "l1_loss", seed=TRAIN_SEED, device=dev)
-            run.model.load_state_dict(load_checkpoint(init)[1])
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                _, _, hist = jobs.run_fused_training(
-                    run, train_idx=train_idx, val_idx=val_idx,
-                    epochs=EPOCHS_REMAT, verbosity=1, seed=TRAIN_SEED)
-            torch.cuda.synchronize()
-        finally:
-            torch.use_deterministic_algorithms(False)
-        secs = [float(m.group(5)) for m in EPOCH_LINE.finditer(buf.getvalue())]
-        return np.array([h[0] for h in hist]), secs[-1], run.kernel
+        run, hist, secs, _ = train_from_checkpoint(
+            dataset, dev, {**demo, "kernel": kernel, "remat": remat}, init,
+            EPOCHS_REMAT, deterministic)
+        return hist[:, 0], secs[-1], run.kernel
 
     def rel_gap(a, b):
         return float(np.max(np.abs(a - b) / np.abs(b)))
@@ -1532,6 +1580,76 @@ def check_remat(cases, dataset, dev, smi: str) -> dict:
     return out
 
 
+def check_capture(cases, dataset, dev, smi: str) -> dict:
+    """Each (label, demo, checkpoint, kernel, batching) trained from its
+    checkpoint on the trainer's CUDA graphs and on its eager loop
+    (jobs.run_fused_training, capture None and False, TRAIN_SEED's split):
+
+      * timed: EPOCHS_CAPTURE epochs each, the kernels' launch counters
+        reset and the peak memory statistics reset just before; prints the
+        warm epochs (the first holds the captures), the peak device memory
+        (torch.cuda.max_memory_allocated) and the launches, which must be
+        equal;
+      * under torch.use_deterministic_algorithms, EPOCHS_CAPTURE_DET
+        epochs each: the per-epoch train and val errors and rates must
+        agree to rtol 1e-6 (the same operations in the same order) and the
+        launches must be equal.
+
+    Returns (label, kernel, batching) -> (warm epochs captured, eager,
+    peak MiB captured, eager)."""
+    import gc
+
+    from matdeeplearn_torch.training.graphs import launch_counters
+
+    counters = launch_counters()
+
+    def train(demo, init, kernel, batching, capture, epochs, deterministic):
+        gc.collect()  # the graphs and pools of the runs before
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*counters)
+        _, hist, secs, text = train_from_checkpoint(
+            dataset, dev, {**demo, "kernel": kernel, "batching": batching},
+            init, epochs, deterministic, capture)
+        if capture is None and "capture=graphs" not in text:
+            raise AssertionError(f"{demo['model']} {kernel} {batching}: the "
+                                 "run did not resolve to capture=graphs")
+        launches = {k: v for c in counters for k, v in c.items() if v}
+        return (hist, secs[1:], launches,
+                torch.cuda.max_memory_allocated() / 2**20)
+
+    out = {}
+    for label, demo, init, kernel, batching in cases:
+        timed = {mode: train(demo, init, kernel, batching, mode,
+                             EPOCHS_CAPTURE, False) for mode in (False, None)}
+        det = {mode: train(demo, init, kernel, batching, mode,
+                           EPOCHS_CAPTURE_DET, True) for mode in (False, None)}
+        (_, w_e, l_e, m_e), (_, w_g, l_g, m_g) = timed[False], timed[None]
+        h_e, h_g = det[False][0], det[None][0]
+        gap = float(np.max(np.abs(h_g - h_e) / np.abs(h_e)))
+        print(f"captured {label} {kernel} {batching} on {smi}: warm epochs "
+              f"{', '.join(f'{t:.5f}' for t in w_g)} s captured, "
+              f"{', '.join(f'{t:.5f}' for t in w_e)} s eager "
+              f"({np.mean(w_e) / np.mean(w_g):.2f}x); peak device memory "
+              f"{m_g:.1f} MiB captured, {m_e:.1f} MiB eager; deterministic "
+              f"train errors {h_g[:, 0].tolist()} captured, "
+              f"{h_e[:, 0].tolist()} eager, worst relative gap {gap:.3e} "
+              f"(rtol 1e-6); launches {l_g}")
+        if not np.isfinite(h_e[:, :2]).all():
+            raise AssertionError(f"captured {label} {kernel} {batching}: "
+                                 "non-finite errors")
+        np.testing.assert_allclose(h_g, h_e, rtol=1e-6)
+        for what, (a, b) in (("timed", (l_g, l_e)),
+                             ("deterministic", (det[None][2], det[False][2]))):
+            if a != b:
+                raise AssertionError(f"captured {label} {kernel} {batching} "
+                                     f"({what}): launches {a} captured, {b} "
+                                     "eager")
+        out[(label, kernel, batching)] = (float(np.mean(w_g)),
+                                          float(np.mean(w_e)), m_g, m_e)
+    return out
+
+
 def run_bench(smi: str) -> dict:
     """python -m matdeeplearn_torch.bench as a subprocess: its one JSON
     line, whose gate must pass."""
@@ -1542,7 +1660,8 @@ def run_bench(smi: str) -> dict:
     wall = time.perf_counter() - t0
     lines = proc.stdout.strip().splitlines()
     notes = [ln for ln in proc.stderr.splitlines()
-             if ln.startswith(("meter:", "bulk", "warmup", "s/epoch"))]
+             if ln.startswith(("meter:", "bulk", "warmup", "eager",
+                               "s/epoch"))]
     print("\n".join(f"  bench: {ln}" for ln in notes))
     if proc.returncode != 0 or len(lines) != 1:
         print(proc.stderr[-4000:], file=sys.stderr)
@@ -1923,7 +2042,16 @@ def main() -> int:
     print(f"warm epoch on {smi}: kernel csr {ab['csr']:.5f} s, kernel fused "
           f"{ab['fused']:.5f} s, kernel pallas {ab['pallas']:.5f} s (main "
           f"path: {warm:.5f} s)")
-    profile_training(dataset, dev)
+    busy = {}
+
+    def profile_both(label, model=CGCNN_DEMO, kernel="fused"):
+        """A profiled warm epoch on CUDA graphs and one eager: the busy
+        shares (label -> (captured, eager))."""
+        busy[label] = tuple(profile_training(dataset, dev, model,
+                                             kernel=kernel, capture=c)
+                            for c in (None, False))
+
+    profile_both("CGCNN fused")
     profile_training(dataset, dev, kernel="csr")
 
     # ---- main path 3: SchNet_demo Training on the card, then the CPU ------
@@ -1999,7 +2127,7 @@ def main() -> int:
         s_ab[kernel] = warm_epoch_s(rows)
     print(f"SchNet warm epoch on {smi}: kernel csr {s_ab['csr']:.5f} s, kernel "
           f"fused {s_ab['fused']:.5f} s (main path: {s_warm:.5f} s)")
-    profile_training(dataset, dev, SCHNET_DEMO)
+    profile_both("SchNet fused", SCHNET_DEMO)
 
     # ---- main path 5: MPNN_demo Training on the card, then the CPU --------
     gpu_mpnn = resume_from_init("mpnn_gpu", mpnn_path)
@@ -2085,7 +2213,7 @@ def main() -> int:
         m_ab[kernel] = warm_epoch_s(rows)
     print(f"MPNN warm epoch on {smi}: kernel xla (einsum) {m_ab['xla']:.5f} s, "
           f"kernel fused {m_ab['fused']:.5f} s (main path: {m_warm:.5f} s)")
-    profile_training(dataset, dev, MPNN_DEMO)
+    profile_both("MPNN fused", MPNN_DEMO)
 
     # ---- main path 7: GCN_demo Training (kernel pallas), card then CPU ----
     gpu_gcn = resume_from_init("gcn_gpu", gcn_path)
@@ -2162,7 +2290,7 @@ def main() -> int:
     print(f"GCN warm epoch on {smi}: kernel xla {g_ab['xla']:.5f} s, kernel "
           f"csr {g_ab['csr']:.5f} s, kernel pallas {g_ab['pallas']:.5f} s "
           f"(main path: {g_warm:.5f} s)")
-    profile_training(dataset, dev, GCN_DEMO, kernel="pallas")
+    profile_both("GCN pallas", GCN_DEMO, "pallas")
 
     # ---- main path 9: MEGNet_demo Training (kernel auto: csr, src order) --
     gpu_megnet = resume_from_init("megnet_gpu", megnet_path)
@@ -2243,7 +2371,7 @@ def main() -> int:
     print(f"MEGNet warm epoch on {smi}: kernel xla {mg_ab['xla']:.5f} s, "
           f"kernel csr {mg_ab['csr']:.5f} s, kernel pallas "
           f"{mg_ab['pallas']:.5f} s (main path: {mg_warm:.5f} s)")
-    profile_training(dataset, dev, MEGNET_DEMO, kernel="csr")
+    profile_both("MEGNet csr", MEGNET_DEMO, "csr")
 
     # ---- main path 11: packed batching, CGCNN_demo and MEGNet_demo --------
     train_idx, _, _ = split_data(dataset, TRAINING["train_ratio"],
@@ -2304,10 +2432,38 @@ def main() -> int:
             f"chip_packed_ab_{kernel}", "cuda", EPOCHS_AB, kernel,
             model={**CGCNN_DEMO, "batching": "packed"}))
         p_ab[kernel] = warm_epoch_s(rows)
-        spec_line = re.search(r"spec=\(.*\)", text).group(0)
+        spec_line = re.search(r"spec=\([^)]*\)", text).group(0)
         print(f"CGCNN packed kernel {kernel} on {smi}: {spec_line}, warm "
               f"epochs {p_ab[kernel]:.5f} s")
-    profile_training(dataset, dev, {**CGCNN_DEMO, "batching": "packed"})
+    profile_both("CGCNN packed fused", {**CGCNN_DEMO, "batching": "packed"})
+
+    # ---- CUDA graphs against the eager loop, every model and arm ---------
+    capture_times = check_capture(
+        [("CGCNN", CGCNN_DEMO, model_path, k, "padded")
+         for k in ("csr", "fused", "pallas")]
+        + [("CGCNN", CGCNN_DEMO, model_path, k, "packed")
+           for k in ("fused", "csr", "pallas")]
+        + [("SchNet", SCHNET_DEMO, schnet_path, k, "padded")
+           for k in ("csr", "fused")]
+        + [("MPNN", MPNN_DEMO, mpnn_path, k, "padded") for k in ("xla", "fused")]
+        + [("GCN", GCN_DEMO, gcn_path, k, "padded")
+           for k in ("xla", "csr", "pallas")]
+        + [("MEGNet", MEGNET_DEMO, megnet_path, k, "padded")
+           for k in ("xla", "csr", "pallas")]
+        + [("MEGNet", MEGNET_DEMO, megnet_path, "csr", "packed")],
+        dataset, dev, smi)
+    fastest = {}
+    for (label, kernel, batching), (t_g, t_e, _, _) in capture_times.items():
+        best = fastest.get((label, batching))
+        if best is None or t_g < best[1]:
+            fastest[(label, batching)] = (kernel, t_g)
+    print(f"fastest arm captured on {smi} (kernel auto picks fused for "
+          f"CGCNN, SchNet and MPNN, csr for GCN and MEGNet): " + ", ".join(
+              f"{label} {batching} {k} {t:.5f} s"
+              for (label, batching), (k, t) in fastest.items()))
+    print("profiled warm epochs, device busy share captured / eager: "
+          + ", ".join(f"{k} {100 * g:.1f}% / {100 * e:.1f}%"
+                      for k, (g, e) in busy.items() if g and e))
 
     # ---- the meter's neighbours: --profile, remat and the bench ---------
     print("card vs CPU Predict, largest gap by model (max |card - CPU|, "
@@ -2329,9 +2485,10 @@ def main() -> int:
                  ("MEGNet", MEGNET_DEMO, megnet_path, "auto", csr.LAUNCHES,
                   "gather", 2)], dataset, dev, smi)
     bench = run_bench(smi)
-    missing = [k for k in BENCH_PACKED_KEYS if k not in bench]
+    missing = [k for k in BENCH_PACKED_KEYS + BENCH_EAGER_KEYS
+               if k not in bench]
     if missing:
-        raise AssertionError(f"the bench's line lacks the packed keys {missing}")
+        raise AssertionError(f"the bench's line lacks the keys {missing}")
 
     kernels = []
     for key, name, src, line, count in (

@@ -10,18 +10,23 @@ The counterpart of the reference package's bench.py:
   under build/bench/ and featurized with the default processing values;
 * model: CGCNN_demo's parameters (bench.py:61-69), seed 123; split
   0.8/0.05/0.15 at seed 123;
-* warmup: 5 epochs in one chunk of K = 5 (the kernels' build and the
-  allocator's first pass); timing: 50 epochs in chunks of K under a
-  ThroughputMeter (utils/profiling.py) with warmup_chunks=0; accuracy:
-  training goes on to 250 epochs in all, and the best-val model's test MAE
-  goes through the gate (`mae_gate`, the band of bench_band.json);
+* warmup: 5 epochs in one chunk of K = 5 (the kernels' build, the
+  allocator's first pass and, on CUDA, the capture of the trainer's CUDA
+  graphs); timing: 50 epochs in chunks of K under a ThroughputMeter
+  (utils/profiling.py) with warmup_chunks=0; accuracy: training goes on to
+  250 epochs in all, and the best-val model's test MAE goes through the
+  gate (`mae_gate`, the band of bench_band.json). Training runs as the
+  trainer runs by default: CUDA graphs on a card (`value`). On CUDA the
+  eager loop (capture=False) is timed too, on a fresh run of the same
+  model: K warm epochs, then EAGER_EPOCHS timed (`value_eager`);
 * bulk segment (on CUDA only, as the reference's runs on its TPU only):
   2,048 in-memory graphs of 24-96 atoms (data/synthetic.py:
   synthetic_dataset, seed 7), batch 256, 5 epochs warm and 5 timed under
   each padded arm (fused, pallas, xla) and CGCNN's csr arm on packed
   batches (the reference's production path, bench.py:223); then MPNN_demo's
   widths on packed batches of 64 under csr (its bilinear kernel with the
-  CSR mean, the reference's csr+fused) and xla (bench.py:258-302).
+  CSR mean, the reference's csr+fused) and xla (bench.py:258-302); every
+  arm captured (its key) and eager (the key with `_eager`).
 
 Prints ONE JSON line on stdout; diagnostics go to stderr. Exits 1 when the
 gate fails; an arm that fails raises, so no line lacks an arm. Runs on CUDA unless --device names the CPU; a CUDA request
@@ -50,6 +55,7 @@ SPLIT = (0.8, 0.05, 0.15)
 SPLIT_SEED = 123
 K = 5                            # epochs a chunk, and the warmup's epochs
 TIMED_EPOCHS = 50
+EAGER_EPOCHS = 10                # timed epochs of the eager loop (CUDA)
 EPOCHS = 250
 BENCH_MODEL = {                  # bench.py:61-69
     "model": "CGCNN", "dim1": 100, "dim2": 150, "pre_fc_count": 1,
@@ -125,19 +131,26 @@ def finish(out: dict, err: float, epochs: int, n: int,
     return 0
 
 
-def _warm_epoch_s(ds, mp: dict, tr, va, dev) -> float:
-    """s/epoch of `epochs` timed epochs after as many warm ones."""
+def _warm_epoch_s(ds, mp: dict, tr, va, dev, capture=None, seed=None,
+                  timed=None) -> float:
+    """s/epoch of `timed` (default mp["epochs"]) timed epochs after
+    mp["epochs"] warm ones, on the second call of one run (the graphs
+    captured by the first are replayed); `capture` as the trainer takes
+    it."""
     from matdeeplearn_torch.training import jobs as J
 
-    run = J.setup_run(ds, mp, "l1_loss", seed=BULK["seed"], device=dev)
-    kw = dict(train_idx=tr, val_idx=va, epochs=mp["epochs"],
-              verbosity=mp["epochs"])
-    J.run_fused_training(run, seed=BULK["seed"], **kw)  # warm
+    seed = BULK["seed"] if seed is None else seed
+    run = J.setup_run(ds, mp, "l1_loss", seed=seed, device=dev)
+    kw = dict(train_idx=tr, val_idx=va, capture=capture)
+    J.run_fused_training(run, epochs=mp["epochs"], verbosity=mp["epochs"],
+                         seed=seed, **kw)  # warm
     _sync(dev)
+    timed = timed or mp["epochs"]
     t0 = time.perf_counter()
-    J.run_fused_training(run, seed=BULK["seed"] + 1, **kw)
+    J.run_fused_training(run, epochs=timed, verbosity=timed, seed=seed + 1,
+                         **kw)
     _sync(dev)
-    return (time.perf_counter() - t0) / mp["epochs"]
+    return (time.perf_counter() - t0) / timed
 
 
 def _bulk_epoch_times(dev) -> dict:
@@ -154,7 +167,7 @@ def _bulk_epoch_times(dev) -> dict:
         f"{time.perf_counter() - t0:.1f} s, {edges_per_batch:,.0f} edges/batch")
     idx = np.arange(len(ds), dtype=np.int64)
     tr, va = idx[: int(0.9 * len(ds))], idx[int(0.9 * len(ds)):]
-    times = {}
+    times, eager = {}, {}
     for kern, batching in BULK_ARMS:
         mp = {**{k: BENCH_MODEL[k] for k in ("model", "dim1", "dim2",
                                              "pre_fc_count", "gc_count",
@@ -163,13 +176,16 @@ def _bulk_epoch_times(dev) -> dict:
               "batch_size": batch, "epochs": epochs, "kernel": kern,
               "batching": batching}
         times[kern] = _warm_epoch_s(ds, mp, tr, va, dev)
-        log(f"bulk {kern} ({batching}): {times[kern]:.4f} s/epoch")
-    mtimes = {}
+        eager[kern] = _warm_epoch_s(ds, mp, tr, va, dev, capture=False)
+        log(f"bulk {kern} ({batching}): {times[kern]:.4f} s/epoch "
+            f"captured, {eager[kern]:.4f} eager")
+    mtimes, meager = {}, {}
     for kern in BULK_MPNN_ARMS:
-        mtimes[kern] = _warm_epoch_s(ds, {**BULK_MPNN, "epochs": epochs,
-                                          "kernel": kern}, tr, va, dev)
+        mp = {**BULK_MPNN, "epochs": epochs, "kernel": kern}
+        mtimes[kern] = _warm_epoch_s(ds, mp, tr, va, dev)
+        meager[kern] = _warm_epoch_s(ds, mp, tr, va, dev, capture=False)
         log(f"bulk MPNN {kern} (packed, batch {BULK_MPNN['batch_size']}): "
-            f"{mtimes[kern]:.4f} s/epoch")
+            f"{mtimes[kern]:.4f} s/epoch captured, {meager[kern]:.4f} eager")
     return {
         "bulk_epoch_s_fused": round(times["fused"], 4),
         "bulk_epoch_s_pallas": round(times["pallas"], 4),
@@ -182,6 +198,12 @@ def _bulk_epoch_times(dev) -> dict:
         "bulk_mpnn_epoch_s_csr_fused": round(mtimes["csr"], 4),
         "bulk_mpnn_epoch_s_xla": round(mtimes["xla"], 4),
         "bulk_mpnn_csr_fused_speedup": round(mtimes["xla"] / mtimes["csr"], 3),
+        "bulk_epoch_s_fused_eager": round(eager["fused"], 4),
+        "bulk_epoch_s_pallas_eager": round(eager["pallas"], 4),
+        "bulk_epoch_s_xla_eager": round(eager["xla"], 4),
+        "bulk_epoch_s_csr_packed_eager": round(eager["csr"], 4),
+        "bulk_mpnn_epoch_s_csr_fused_eager": round(meager["csr"], 4),
+        "bulk_mpnn_epoch_s_xla_eager": round(meager["xla"], 4),
     }
 
 
@@ -243,10 +265,17 @@ def run_bench(device: str = "cuda", n: int = N_CORPUS,
                      run.batch_size)
 
     if dev.type == "cuda":
-        bulk = _bulk_epoch_times(dev)
+        # the eager loop on a fresh run of the same model: K warm epochs,
+        # EAGER_EPOCHS timed
+        eager_s = _warm_epoch_s(ds, {**BENCH_MODEL, "epochs": K}, train_idx,
+                                val_idx, dev, capture=False, seed=SEED,
+                                timed=EAGER_EPOCHS)
+        log(f"eager: {eager_s:.4f} s/epoch over {EAGER_EPOCHS} epochs")
+        bulk = {"value_eager": round(eager_s, 4), **_bulk_epoch_times(dev)}
     else:
         bulk = {}
-        log("bulk segment: skipped off CUDA")
+        log("eager timing and bulk segment: skipped off CUDA (the CPU runs "
+            "eagerly)")
     log(f"s/epoch={sec_per_epoch:.4f} edges/s={edges_per_sec:.3g} "
         f"test_mae={err:.4f} warmup_s={warmup_s:.1f} "
         f"total_bench_s={time.time() - t_start:.1f} bulk={bulk}")

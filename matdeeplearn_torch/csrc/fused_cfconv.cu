@@ -57,12 +57,16 @@
 //     as ssp(pre + b0) in registers while the tensor cores work on the
 //     k-step before. Its epilogue runs on the accumulators: msg = s * xj *
 //     (w + b1), each of a lane's two rows' 38 xj values loaded at once;
-//     then the tile, by 16-row slices a warp, adds the messages into out
-//     (runs of equal dst summed in a register, each flushed with one
-//     atomicAdd: right for any dst order). It writes out and nothing else.
-//     Timed phase by phase on an H100 80GB HBM3 at 700 W, a tile's first
-//     product, second product with the softplus, epilogue and flush took
-//     4.5, 16.2, 5.3 and 3.8 µs at chip_smoke's batch.
+//     then the tile adds the messages into out, one thread a column over
+//     the tile's rows (runs of equal dst summed in a register, each
+//     flushed with one atomicAdd: right for any dst order, and the same
+//     bits every run on dst-sorted edges, where a node's run meets at most
+//     two tiles; 16-row slices a warp, flushed each, gave a run of more
+//     than 16 edges three or more atomics in no fixed order). It writes
+//     out and nothing else. Timed phase by phase on an H100 80GB HBM3 at
+//     700 W with the 16-row slices, a tile's first product, second
+//     product with the softplus, epilogue and flush took 4.5, 16.2, 5.3
+//     and 3.8 µs at chip_smoke's batch.
 //   - The backward's edge rows (156 registers): each epilogue moves the
 //     accumulators into the tile and does its element-wise work there in
 //     a rolled loop over whole rows (8 elements a thread in flight), the
@@ -408,47 +412,17 @@ __device__ __forceinline__ RowShared row_shared(const RowLayout& b,
   return r;
 }
 
-// out[dst[r], c] += t_s[r * ldt + c] for the tile's rows whose scale is
-// not zero, c < f: warp w takes rows 16 w .. 16 w + 15 (their scales and
-// destinations held in registers), lane l the columns l, l + 32, ...,
-// loading its 16 values of a column at once; runs of equal dst are summed
-// in a register and flushed with one atomicAdd. Right for any dst order.
-__device__ void flush_slices(const float* t_s, int ldt, int f,
-                             const float* sc_s, const int* dst_s,
-                             float* __restrict__ out) {
-  constexpr int R = kRowTE / (kThreads / 32);
-  const int r0 = R * (threadIdx.x >> 5);
-  int node[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) node[k] = sc_s[r0 + k] != 0.f ? dst_s[r0 + k] : -1;
-  for (int c = threadIdx.x & 31; c < f; c += 32) {
-    float v[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = t_s[(r0 + k) * ldt + c];
-    float acc = 0.f;
-    int cur = -1;
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      if (node[k] < 0) continue;
-      if (node[k] != cur) {
-        if (cur >= 0) atomicAdd(out + (long long)cur * f + c, acc);
-        acc = 0.f;
-        cur = node[k];
-      }
-      acc += v[k];
-    }
-    if (cur >= 0) atomicAdd(out + (long long)cur * f + c, acc);
-  }
-}
-
 // The forward for one tile of 128 edges. Product 1: pre = b·W0, into the
 // tile. Product 2: w = a·W1 with a = ssp(pre + b0) formed fragment by
 // fragment (kSspTile). Epilogue msg = s * xj * (w + b1) on the
 // accumulators, each of the lane's two rows' xj values (prefetched into L2
 // at the tile's start) loaded all at once, then into the tile, which
-// flush_slices adds into out by runs of equal dst (right for any dst
-// order). Nothing but out is written; a tile with no real edge costs one
-// barrier.
+// flush_runs (edge_tile.cuh) adds into out by runs of equal dst, one
+// thread a column over all 128 rows: right for any dst order, and on
+// dst-sorted edges a node with at most 129 edges gets at most two adds a
+// column (one from each tile its run touches), which commute on the zeroed
+// out, so a call gives the same bits every run. Nothing but out is
+// written; a tile with no real edge costs one barrier.
 template <int NTW>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_cfconv_fwd_kernel(const float* __restrict__ xj,
@@ -503,7 +477,7 @@ fused_cfconv_fwd_kernel(const float* __restrict__ xj,
     }
   }
   p.to_tile(acc);
-  flush_slices(sh.t_s, b.ldt, g.f, sh.sc_s, sh.dst_s, out);
+  flush_runs<kRowTE>(sh.t_s, g.f, sh.sc_s, sh.dst_s, out, b.ldt);
 }
 
 // The backward's edge rows for one tile of 128 edges: products 1 and 2 as

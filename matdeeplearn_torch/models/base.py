@@ -11,7 +11,9 @@ bf16 activations are not ported yet (ROADMAP queue 1, item 5).
 
 Dropout masks come from the model's own torch.Generator, seeded with
 `dropout_seed` (the job seed), one per device, never from torch's global
-generator: the same seed gives the same masks.
+generator: the same seed gives the same masks, in a CUDA graph of a
+training step too (the graph registers the generator and draws at the
+offset an eager step would).
 
 With `remat`, each conv block runs under torch.utils.checkpoint (the
 reference wraps the same modules in nn.remat): its activations are not
@@ -99,7 +101,12 @@ class GNNBase(nn.Module):
         recomputation replays the dropout generators from where the forward
         started and leaves every running statistic alone."""
         if self.remat and torch.is_grad_enabled():
+            # preserve_rng_state off: the forward draws from no global
+            # generator (dropout draws from the model's, which
+            # _remat_contexts rewinds), and the global CUDA generator's
+            # state cannot be read inside a CUDA graph capture
             return checkpoint(conv, *args, use_reentrant=False,
+                              preserve_rng_state=False,
                               context_fn=self._remat_contexts)
         return conv(*args)
 
@@ -140,6 +147,11 @@ class GNNBase(nn.Module):
         gen = self._dropout_gen(x.device)
         keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.dropout_rate
         return x * keep / (1.0 - self.dropout_rate)
+
+    def dropout_generators(self) -> list:
+        """The model's CUDA dropout generators drawn from so far (a CUDA
+        graph of a training step registers them: training/graphs.py)."""
+        return [g for d, g in self._dropout_gens.items() if d.type == "cuda"]
 
     def _dropout_gen(self, device) -> torch.Generator:
         gen = self._dropout_gens.get(device)

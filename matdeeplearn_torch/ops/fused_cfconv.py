@@ -17,7 +17,9 @@ input); wraw (E,) raw distances (the cutoff input); dst (E,) int32; mask
 (E,) float32 (pad edges 0, and they add nothing); w0 (De, F), w1 (F, F) in
 (in, out) layout, biases (F,) or (1, F). It returns the SUM aggregation.
 Any dst order is right (the forward flushes runs of equal dst with
-atomics); dst-sorted edges are the cheap case. Every output is zeroed by
+atomics); dst-sorted edges are the cheap case, and there the forward gives
+the same bits every call (a node's run meets at most two 128-edge tiles,
+whose two adds onto the zeroed output commute). Every output is zeroed by
 the wrapper, so the reference's window masking has no counterpart.
 
 `dist` and `wraw` are data and are not differentiated (the reference

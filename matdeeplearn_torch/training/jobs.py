@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -23,9 +23,10 @@ from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
                                               packed_id_matrix)
 from matdeeplearn_torch.models import MODEL_FIELDS, build_model
 from matdeeplearn_torch.training import train as T
+from matdeeplearn_torch.training import optimizers
 from matdeeplearn_torch.training.checkpoint import load_checkpoint, save_checkpoint
+from matdeeplearn_torch.training.graphs import capture_plan
 from matdeeplearn_torch.training.optimizers import (build_optimizer,
-                                                    load_optimizer_state,
                                                     optimizer_state)
 from matdeeplearn_torch.training.scheduler import build_scheduler
 from matdeeplearn_torch.training.trainer import fused_trainer
@@ -178,6 +179,10 @@ class Run:
     # (indices, shuffle, seed) -> the id matrix of packed bins; None: padded
     # batches (train.epoch_id_matrix)
     id_matrix_fn: object = None
+    # the trainer's CUDA graphs and their static state, kept across
+    # run_fused_training calls (the reference package's run.fused_fns): they
+    # hold the addresses of the parameters and of the optimizer's state
+    graphs: dict = field(default_factory=dict)
 
     @property
     def fused_kernel(self) -> bool:
@@ -187,6 +192,12 @@ class Run:
         return self.kernel == "fused" or (self.model_name == "MPNN"
                                           and self.kernel == "csr"
                                           and self.edge_order == "dst")
+
+    def load_optimizer_state(self, sd: dict):
+        """optimizers.load_optimizer_state, which replaces the optimizer's
+        state tensors: the cached graphs go with the old ones."""
+        optimizers.load_optimizer_state(self.optimizer, sd)
+        self.graphs.clear()
 
     def id_matrix(self, indices, shuffle: bool, seed) -> np.ndarray:
         """The (steps, slots) id matrix of one epoch over `indices`."""
@@ -256,11 +267,12 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
     scheduler = build_scheduler(scheduler_name, lr, scheduler_args)
     print(
         "resolved: model={} kernel={} batching={} mesh=dp{}xep{} stream={} "
-        "spec=(B={},N={},E={})".format(
+        "spec=(B={},N={},E={}) capture={}".format(
             model_name,
             f"{plan.name}({plan.edge_order})" if plan.name == "csr" else plan.name,
             batching, 1, 1, "n",
             spec.num_graphs, spec.num_nodes, spec.num_edges,
+            capture_plan(dev, optimizer, model),
         )
     )
     if print_model:
@@ -286,10 +298,14 @@ def _save(path: str, run: Run, state_dict: dict):
 
 def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
                        verbosity: int, seed: int,
-                       checkpoint_path: str | None = None, meter=None):
+                       checkpoint_path: str | None = None, meter=None,
+                       capture: bool | None = None):
     """Train `run` (the reference package's run_fused_training). Returns
     (best state_dict, final PlateauState, per-epoch history); the model
-    holds the last state. `meter` (a ThroughputMeter) takes every chunk."""
+    holds the last state. `meter` (a ThroughputMeter) takes every chunk.
+    `capture` (trainer.fused_trainer): None runs CUDA graphs where the
+    capture plan allows (the `resolved:` line prints it), False eagerly;
+    the graphs stay on `run.graphs`, so a later call replays them."""
     sa = run.scheduler_args
     scheduler_kwargs = dict(
         factor=float(sa.get("factor", 0.1)),
@@ -321,6 +337,7 @@ def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
         scheduler_kwargs=scheduler_kwargs,
         scheduler_enabled=run.scheduler_name == "ReduceLROnPlateau",
         checkpoint_fn=checkpoint_fn, shuffle_seed_base=seed, meter=meter,
+        capture=capture, graph_cache=run.graphs,
     )
 
 
@@ -373,7 +390,7 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
                                                    with_optimizer=True)
         run.model.load_state_dict(state_dict)
         if opt_state is not None:
-            load_optimizer_state(run.optimizer, opt_state)
+            run.load_optimizer_state(opt_state)
 
     temp_path = job_parameters.get("temp_checkpoint_path", "my_model_temp.ckpt")
     meter = meter_for_training(dataset, train_idx).start()

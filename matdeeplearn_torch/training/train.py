@@ -113,17 +113,16 @@ def train_step(model, optimizer, loss_fn, spec: BatchSpec, data: DeviceDataset,
 
 
 @torch.no_grad()
-def eval_sums(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids):
-    """Σ loss·count and Σ count over the rows of the (S, B) id matrix `ids`,
-    as device tensors, in eval mode."""
+def eval_sums(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids,
+              loss_sum: torch.Tensor, count_sum: torch.Tensor):
+    """Add Σ loss·count and Σ count over the rows of the (S, B) id matrix
+    `ids` to the device tensors loss_sum and count_sum, in place, in eval
+    mode."""
     model.eval()
-    loss_sum = torch.zeros((), device=data.device)
-    count_sum = torch.zeros((), device=data.device)
     for row in ids:
         loss, count, _ = eval_step(model, loss_fn, spec, data, row)
         loss_sum += loss * count
         count_sum += count
-    return loss_sum, count_sum
 
 
 @torch.no_grad()

@@ -2,27 +2,36 @@
 on the train error, with one host sync per chunk of `verbosity` epochs.
 
 The reference package's training/fused.py runs a chunk of epochs as one
-on-device program (`make_fused_epochs_fn`, `fused_trainer`). PyTorch runs
-eagerly, so here the same state machine runs as device tensors that the
-host never reads inside a chunk:
+on-device program (`make_fused_epochs_fn`, `fused_trainer`). Here the same
+state machine runs as static device tensors (`EpochState`) that the host
+never reads inside a chunk, and on a CUDA device its three parts run as
+CUDA graphs (training/graphs.py): the train step, the eval step and the
+epoch tail, each captured once and replayed. The CPU, and the runs that
+`graphs.capture_plan` keeps eager, call the same three functions eagerly,
+so a captured epoch does the eager epoch's arithmetic:
 
   * epoch e (counted from 1) trains on id_matrix_fn(train_idx,
     shuffle=True, seed=seed + e) (padded: train.epoch_id_matrix; packed:
-    the run's bins, the same number of steps every epoch); the train error
-    is the sample-weighted mean of the step losses, summed on the device,
-    so it is the epoch objective whatever the bins hold;
-  * the val error is computed the same way; a NaN never improves;
-  * on improvement a copy of the parameters and BatchNorm statistics
-    becomes the best state (torch.where per tensor, no branch on the host);
-  * after the best-val decision, `plateau_step` (ReduceLROnPlateau,
-    mode min, branchless) steps on the train error and sets the optimizer's
-    rate (in place on the device for a tensor rate, see optimizers.py);
+    the run's bins, the same number of steps every epoch); `train_into`
+    adds each step's loss·count and count to the static sums, so the train
+    error is the sample-weighted mean of the step losses, the epoch
+    objective whatever the bins hold;
+  * the val error is computed the same way (train.eval_sums); a NaN never
+    improves;
+  * `epoch_tail`: on improvement the parameters and BatchNorm statistics
+    are copied into the best state (torch.where per tensor, in place, no
+    branch on the host); after the best-val decision `plateau_step`
+    (ReduceLROnPlateau, mode min, branchless) steps on the train error and
+    sets the optimizer's rate (in place on the device for a tensor rate,
+    see optimizers.py); the epoch's (train, val, lr before) row goes to a
+    static buffer and the sums are zeroed;
   * once per chunk the host syncs, prints the reference's epoch line for
-    the chunk's last epoch and calls `checkpoint_fn`.
+    the chunk's last epoch and calls `checkpoint_fn`; it makes the next
+    chunk's id matrices before that sync, while the device trains.
 
 The reference package's MDL_MAX_DISPATCH_S segmenting (`_segmented_trainer`)
-works around a TPU runtime that kills long dispatches; eager CUDA launches
-have no such limit, and it is not ported.
+works around a TPU runtime that kills long dispatches; CUDA launches and
+graph replays have no such limit, and it is not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import numpy as np
 import torch
 
 from matdeeplearn_torch.training import train as T
+from matdeeplearn_torch.training.graphs import (CudaGraphs, GraphedStep,
+                                                capture_plan, launch_counters)
 from matdeeplearn_torch.training.optimizers import set_learning_rate
 from matdeeplearn_torch.utils.profiling import op_cost
 
@@ -80,9 +91,124 @@ def plateau_step(state: PlateauState, metric: torch.Tensor, *, factor: float,
     return PlateauState(lr=lr, best=best, num_bad=num_bad, cooldown=cd)
 
 
-def _snapshot(model) -> dict:
-    """Detached copies of the parameters and buffers (the best state)."""
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+class EpochState:
+    """The epoch loop's device tensors, each allocated once and updated in
+    place (a graph holds their addresses): the step sums, the best val
+    error, the best state (a copy of every state_dict entry), the plateau
+    state and the epoch's (train, val, lr before) row."""
+
+    def __init__(self, model, lr: float, device):
+        z = lambda: torch.zeros((), device=device)
+        self.lsum, self.csum, self.vsum, self.vcnt = z(), z(), z(), z()
+        self.best_val = z()
+        self.best = {k: torch.empty_like(v)
+                     for k, v in model.state_dict().items()}
+        self.sched = plateau_init(lr, device)
+        self.row = torch.zeros(3, device=device)
+        self.reset(model, lr)
+
+    def reset(self, model, lr: float):
+        """A trainer call's start: zero sums, best val inf, the model's
+        state as the best, the plateau state at `lr`."""
+        for t in (self.lsum, self.csum, self.vsum, self.vcnt):
+            t.zero_()
+        self.best_val.fill_(float("inf"))
+        for k, v in model.state_dict().items():
+            self.best[k].copy_(v)
+        self.sched.lr.fill_(lr)
+        self.sched.best.fill_(float("inf"))
+        self.sched.num_bad.zero_()
+        self.sched.cooldown.zero_()
+
+
+def train_into(model, optimizer, loss_fn, spec, data, ids, state: EpochState):
+    """One train step on the batch `ids`, its loss·count and count added
+    to the state's train sums."""
+    loss, count = T.train_step(model, optimizer, loss_fn, spec, data, ids)
+    state.lsum += loss * count
+    state.csum += count
+
+
+def epoch_tail(state: EpochState, model, optimizer, *, has_val: bool,
+               scheduler_kwargs: dict, scheduler_enabled: bool):
+    """The end of an epoch, in place on the state: the train and val
+    errors, the best-val decision and the best state's copy, the plateau
+    step on the train error, the optimizer's rate, the row; then the sums
+    are zeroed."""
+    state.row[2].copy_(state.sched.lr)
+    train_error = state.lsum / torch.clamp(state.csum, min=1.0)
+    if has_val:
+        val_error = state.vsum / torch.clamp(state.vcnt, min=1.0)
+        improved = val_error < state.best_val
+    else:  # fills on the device: no host-to-device copy, no sync
+        val_error = torch.full((), float("nan"), device=state.row.device)
+        improved = torch.ones((), dtype=torch.bool, device=state.row.device)
+    state.best_val.copy_(torch.where(improved & ~torch.isnan(val_error),
+                                     val_error, state.best_val))
+    for name, v in model.state_dict().items():
+        best = state.best[name]
+        best.copy_(torch.where(improved, v.detach(), best))
+    # the scheduler steps on the *train* error, after the best-val decision
+    # (reference training.py:193)
+    new = plateau_step(state.sched, train_error, enabled=scheduler_enabled,
+                       **scheduler_kwargs)
+    if new is not state.sched:
+        for old, value in zip(state.sched, new):
+            old.copy_(value)
+    set_learning_rate(optimizer, state.sched.lr)
+    state.row[0].copy_(train_error)
+    state.row[1].copy_(val_error)
+    for t in (state.lsum, state.csum, state.vsum, state.vcnt):
+        t.zero_()
+
+
+class EpochFns:
+    """The epoch's three functions, eager or as CUDA graphs: train(row),
+    evaluate(row) and tail(). Captured, each reads its batch's ids from a
+    static buffer that the host fills by a device-to-device copy."""
+
+    def __init__(self, *, model, optimizer, loss_fn, spec, data,
+                 state: EpochState, tail_kwargs: dict, graphs: bool,
+                 train_width: int = 0, val_width: int = 0):
+        self.state = state
+
+        def train(row):
+            train_into(model, optimizer, loss_fn, spec, data, row, state)
+
+        def evaluate(row):
+            T.eval_sums(model, loss_fn, spec, data, row[None], state.vsum,
+                        state.vcnt)
+
+        def tail():
+            epoch_tail(state, model, optimizer, **tail_kwargs)
+
+        if not graphs:
+            self.train, self.evaluate, self.tail = train, evaluate, tail
+            return
+        dev = data.device
+        train_ids = torch.full((train_width,), -1, dtype=torch.int32,
+                               device=dev)
+        val_ids = torch.full((val_width,), -1, dtype=torch.int32, device=dev)
+        gens = getattr(model, "dropout_generators", list)
+        backend, counters = CudaGraphs(gens), launch_counters()
+        graphed_train = GraphedStep(lambda: train(train_ids), backend,
+                                    counters)
+        graphed_eval = GraphedStep(lambda: evaluate(val_ids), backend,
+                                   counters)
+
+        # closures over the buffers and graphs, never over self: no
+        # reference cycle keeps a dropped run's graph pool alive until a
+        # garbage collection
+        def replay_train(row):
+            train_ids.copy_(row)
+            graphed_train()
+
+        def replay_eval(row):
+            val_ids.copy_(row)
+            graphed_eval()
+
+        self.train, self.evaluate = replay_train, replay_eval
+        self.tail = GraphedStep(tail, backend, counters)
 
 
 def _forward_flops(model, loss_fn, spec, data, row) -> float | None:
@@ -97,75 +223,101 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
                   id_matrix_fn, epochs: int, verbosity: int, lr: float,
                   scheduler_kwargs: dict, scheduler_enabled: bool = True,
                   checkpoint_fn=None, shuffle_seed_base: int = 0,
-                  meter=None):
+                  meter=None, capture: bool | None = None,
+                  graph_cache: dict | None = None):
     """Run `epochs` epochs in chunks of `verbosity`. Returns (best_state,
     final PlateauState, history): best_state a state_dict copy (the model
     itself holds the last state), history one (train, val, lr) row of floats
     per epoch, read at the chunk syncs.
 
+    capture: None runs CUDA graphs where graphs.capture_plan allows it
+    (a CUDA device, a capturable optimizer) and eagerly elsewhere; True
+    captures or raises; False runs eagerly. graph_cache, a dict the caller
+    keeps (jobs.Run.graphs), holds the graphs and their static state
+    across calls, keyed by the shapes and constants a graph bakes in: a
+    later call with the same key replays without capturing again. The
+    caller clears it when it replaces the parameters or the optimizer's
+    state.
+
     checkpoint_fn(best_state, best_val, sched), if given, is called after
     every chunk with best_val as a float. meter (utils/profiling.py's
     ThroughputMeter), if given, takes each chunk's epochs, steps and seconds
     from its start to after its sync; a chunk shape's first chunk counts as
-    warmup (the kernels' build at first use), as the reference package
-    counts compile.
+    warmup (the kernels' build at first use, a capture), as the reference
+    package counts compile. model.training is left as an eager run leaves
+    it: eval mode after a run with a val split, training mode without.
 
     id_matrix_fn(indices, shuffle, seed) makes the id matrices of the
     train epochs and of the val split (train.epoch_id_matrix's padded rows,
     or packed bins)."""
     dev = data.device
+    plan = capture_plan(dev, optimizer, model, capture)
     has_val = len(val_idx) > 0
     val_ids = (torch.as_tensor(id_matrix_fn(val_idx, False, None), device=dev)
                if has_val else None)
-    sched = plateau_init(lr, dev)
-    best_val = torch.tensor(float("inf"), device=dev)
-    best = _snapshot(model)
-    history = []
     chunk = max(1, int(verbosity) or 5)
+    graph_cache = {} if graph_cache is None else graph_cache
+
+    def epoch_fns(train_shape) -> EpochFns:
+        """The run's epoch functions: eager ones on a fresh state, or the
+        cached graphs of these shapes (their state reset), or new ones."""
+        key = (train_shape, None if val_ids is None else tuple(val_ids.shape),
+               spec, loss_fn, tuple(sorted(scheduler_kwargs.items())),
+               scheduler_enabled)
+        if plan.graphs and key in graph_cache:
+            graph_cache[key].state.reset(model, lr)
+            return graph_cache[key]
+        fns = EpochFns(
+            model=model, optimizer=optimizer, loss_fn=loss_fn, spec=spec,
+            data=data, state=EpochState(model, lr, dev), graphs=plan.graphs,
+            tail_kwargs=dict(has_val=has_val, scheduler_kwargs=scheduler_kwargs,
+                             scheduler_enabled=scheduler_enabled),
+            train_width=train_shape[1],
+            val_width=0 if val_ids is None else val_ids.shape[1])
+        if plan.graphs:
+            graph_cache[key] = fns
+        return fns
+
+    def chunk_ids(start: int) -> np.ndarray:
+        """The (k, S, B) id matrices of the chunk of epochs after `start`."""
+        return np.stack([
+            id_matrix_fn(train_idx, True, shuffle_seed_base + start + e + 1)
+            for e in range(min(chunk, epochs - start))])
+
+    fns = None
+    history = []
     epoch = 0
     t0 = time.time()
+    next_ids = chunk_ids(0) if epochs > 0 else None
     while epoch < epochs:
-        k = min(chunk, epochs - epoch)
-        ids = torch.as_tensor(np.stack([
-            id_matrix_fn(train_idx, True, shuffle_seed_base + epoch + e + 1)
-            for e in range(k)
-        ]), device=dev)
-        metrics = []
+        ids = torch.as_tensor(next_ids, device=dev)
+        k = ids.shape[0]
+        if fns is None:
+            fns = epoch_fns(tuple(ids.shape[1:]))
+        state = fns.state
+        hist = torch.empty((k, 3), device=dev)
         for e in range(k):
-            lr_before = sched.lr
-            lsum = torch.zeros((), device=dev)
-            csum = torch.zeros((), device=dev)
             for row in ids[e]:
-                loss, count = T.train_step(model, optimizer, loss_fn, spec,
-                                           data, row)
-                lsum += loss * count
-                csum += count
-            train_error = lsum / torch.clamp(csum, min=1.0)
+                fns.train(row)
             if has_val:
-                vl, vc = T.eval_sums(model, loss_fn, spec, data, val_ids)
-                val_error = vl / torch.clamp(vc, min=1.0)
-                improved = val_error < best_val
-            else:  # fills on the device: no host-to-device copy, no sync
-                val_error = torch.full((), float("nan"), device=dev)
-                improved = torch.ones((), dtype=torch.bool, device=dev)
-            best_val = torch.where(improved & ~torch.isnan(val_error),
-                                   val_error, best_val)
-            for name, v in model.state_dict().items():
-                best[name] = torch.where(improved, v.detach(), best[name])
-            # the scheduler steps on the *train* error, after the best-val
-            # decision (reference training.py:193)
-            sched = plateau_step(sched, train_error, enabled=scheduler_enabled,
-                                 **scheduler_kwargs)
-            set_learning_rate(optimizer, sched.lr)
-            metrics.append(torch.stack([train_error, val_error, lr_before]))
+                for row in val_ids:
+                    fns.evaluate(row)
+            fns.tail()
+            hist[e].copy_(state.row)
+        # the next chunk's batches (packed bins: host numpy) while the
+        # device runs this one
+        next_ids = chunk_ids(epoch + k) if epoch + k < epochs else None
+        if plan.graphs:  # the mode an eager epoch leaves (a replay sets none)
+            model.train(not has_val)
         epoch += k
-        rows = torch.stack(metrics).cpu().numpy().astype(float)  # the sync
+        rows = hist.cpu().numpy().astype(float)  # the sync
         history += [tuple(r) for r in rows]
         dt_chunk = time.time() - t0
         dt = dt_chunk / k
         if meter is not None:
             meter.add_chunk(k, k * ids.shape[1], dt_chunk,
-                            key=("fused", k, ids.shape[1]))
+                            key=("graphs" if plan.graphs else "eager", k,
+                                 ids.shape[1]))
             if meter.flops_per_epoch == 0.0:
                 fwd = _forward_flops(model, loss_fn, spec, data, ids[0, 0])
                 if fwd:
@@ -180,6 +332,9 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
                 )
             )
         if checkpoint_fn is not None:
-            checkpoint_fn(best, float(best_val), sched)
+            checkpoint_fn(state.best, float(state.best_val), state.sched)
         t0 = time.time()
+    state = EpochState(model, lr, dev) if fns is None else fns.state
+    best = {k: v.clone() for k, v in state.best.items()}
+    sched = PlateauState(*(t.clone() for t in state.sched))
     return best, sched, history

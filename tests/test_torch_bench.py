@@ -234,8 +234,9 @@ def test_bench_on_the_cpu_prints_one_json_line():
 def test_bulk_segment_reports_every_arm(monkeypatch):
     """The bulk segment's arms on the CPU at a tiny size (the bench runs it
     on the card only): the padded arms, CGCNN's csr arm on packed batches
-    and MPNN's packed csr and xla arms each give their key; an arm that
-    fails raises, so no line goes out without it."""
+    and MPNN's packed csr and xla arms, each run twice (captured, the
+    default, then the eager loop), each give their key and their `_eager`
+    key; an arm that fails raises, so no line goes out without it."""
     import torch
 
     from matdeeplearn_torch.training import jobs as J
@@ -256,12 +257,17 @@ def test_bulk_segment_reports_every_arm(monkeypatch):
 
     monkeypatch.setattr(J, "setup_run", spy)
     out = B._bulk_epoch_times(torch.device("cpu"))
-    assert seen == [("CGCNN", "fused", "padded"), ("CGCNN", "pallas", "padded"),
-                    ("CGCNN", "xla", "padded"), ("CGCNN", "csr", "packed"),
-                    ("MPNN", "csr", "packed"), ("MPNN", "xla", "packed")]
+    arms = [("CGCNN", "fused", "padded"), ("CGCNN", "pallas", "padded"),
+            ("CGCNN", "xla", "padded"), ("CGCNN", "csr", "packed"),
+            ("MPNN", "csr", "packed"), ("MPNN", "xla", "packed")]
+    assert seen == [arm for arm in arms for _ in ("captured", "eager")]
     for key in ("bulk_epoch_s_csr_packed", "bulk_csr_packed_speedup",
                 "bulk_mpnn_epoch_s_csr_fused", "bulk_mpnn_epoch_s_xla",
-                "bulk_mpnn_csr_fused_speedup", "bulk_epoch_s_fused"):
+                "bulk_mpnn_csr_fused_speedup", "bulk_epoch_s_fused",
+                "bulk_epoch_s_fused_eager", "bulk_epoch_s_pallas_eager",
+                "bulk_epoch_s_xla_eager", "bulk_epoch_s_csr_packed_eager",
+                "bulk_mpnn_epoch_s_csr_fused_eager",
+                "bulk_mpnn_epoch_s_xla_eager"):
         assert out[key] > 0, key
 
     def fail(ds, mp, *a, **k):

@@ -552,6 +552,32 @@ def test_fused_cfconv_wgrad_is_bit_identical(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("run", [1, 16, 17, 40, 129])
+def test_fused_cfconv_fwd_is_the_same_bits_on_sorted_runs(cuda_device, run):
+    """dst-sorted runs of `run` edges a node (17 and more reach past a
+    warp's 16-row slice; 129 past a 128-edge tile): the forward agrees with
+    its plain version and gives the same bits in every call (each run meets
+    at most two tiles, whose two adds onto zero commute)."""
+    g = torch.Generator(device=cuda_device).manual_seed(run)
+    n, f, de = 700, 150, 50
+    e = n * run
+    dst = torch.arange(n, device=cuda_device,
+                       dtype=torch.int32).repeat_interleave(run)
+    mask = torch.ones(e, device=cuda_device)
+    xj = torch.randn(e, f, device=cuda_device, generator=g)
+    dist = torch.rand(e, device=cuda_device, generator=g)
+    wraw = dist * 8.0
+    ws = [torch.randn(de, f, device=cuda_device, generator=g) * 0.2,
+          torch.randn(f, device=cuda_device, generator=g) * 0.1,
+          torch.randn(f, f, device=cuda_device, generator=g) * 0.1,
+          torch.randn(f, device=cuda_device, generator=g) * 0.1]
+    args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
+    out = FS.fused_cfconv(*args)
+    _assert_fused_close(out, FS.fused_cfconv_plain(*args), "output")
+    for _ in range(5):
+        assert torch.equal(FS.fused_cfconv(*args), out)
+
+
 def test_fused_cfconv_raises_instead_of_falling_back(cuda_device):
     xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("sorted", 8,
                                                       device=cuda_device)
@@ -1268,3 +1294,151 @@ def test_segment_sum_is_the_same_bits_on_sorted_runs(cuda_device, run, d):
     perm = torch.randperm(len(dst), device=cuda_device, generator=g)
     _assert_sum_close(csr.segment_sum(msg[perm].contiguous(), dv[perm].contiguous(),
                                       mv[perm].contiguous(), rows), ref)
+
+
+# ------------------------------------------------- CUDA graphs of the epoch
+
+CAPTURE_CASES = [("CGCNN", "fused", "padded"), ("SchNet", "fused", "padded"),
+                 ("MPNN", "fused", "padded"), ("GCN", "pallas", "padded"),
+                 ("MEGNet", "csr", "padded"), ("CGCNN", "fused", "packed"),
+                 ("MEGNet", "csr", "packed")]
+
+
+def _capture_mp(model, kernel, batching, **kw):
+    return {"model": model, "dim1": 32, "dim2": 24, "dim3": 16, "gc_count": 2,
+            "gc_fc_count": 1, "post_fc_count": 1, "batch_size": 6,
+            "lr": 0.005, "optimizer": "AdamW", "scheduler": "ReduceLROnPlateau",
+            "scheduler_args": {"factor": 0.8, "patience": 0},
+            "kernel": kernel, "batching": batching, **kw}
+
+
+def _all_launches():
+    from matdeeplearn_torch.training.graphs import launch_counters
+
+    return launch_counters()
+
+
+def _train_run(ds, mp, capture, epochs=3, run=None, seed=4):
+    """(run, history, launches of this call, resolved line) of a
+    run_fused_training under deterministic algorithms, counters reset
+    just before."""
+    import contextlib
+    import io
+
+    from matdeeplearn_torch.training import jobs
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if run is None:
+            run = jobs.setup_run(ds, mp, "l1_loss", seed=seed, device="cuda")
+    counters = _all_launches()
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, _, hist = jobs.run_fused_training(
+            run, train_idx=np.arange(18), val_idx=np.arange(18, 24),
+            epochs=epochs, verbosity=1, seed=seed, capture=capture)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return run, np.array(hist), [dict(c) for c in counters], out.getvalue()
+
+
+@pytest.mark.parametrize("model,kernel,batching", CAPTURE_CASES)
+def test_captured_training_matches_eager(cuda_device, tmp_path, model, kernel,
+                                         batching):
+    """The trainer's CUDA graphs against its eager loop on the card, under
+    deterministic algorithms: per-epoch train and val errors to rtol 1e-6,
+    the final parameters, BatchNorm statistics and AdamW state equal, the
+    same kernel launches; the resolved line says capture=graphs; a second
+    call on the same Run replays without capturing."""
+    from matdeeplearn_torch.training import graphs as G
+
+    ds = _toy(tmp_path)
+    mp = _capture_mp(model, kernel, batching)
+    captures = []
+    capture = G.CudaGraphs.capture
+
+    def counting(self, fn):
+        captures.append(fn)
+        return capture(self, fn)
+
+    G.CudaGraphs.capture = counting
+    try:
+        r_e, h_e, l_e, _ = _train_run(ds, mp, False)
+        r_g, h_g, l_g, text = _train_run(ds, mp, None)
+        assert "capture=graphs" in text
+        assert len(captures) == 3
+        np.testing.assert_allclose(h_g, h_e, rtol=1e-6)
+        assert l_g == l_e
+        assert sum(v for c in l_g for v in c.values()) > 0 or kernel == "xla"
+        for k, v in r_e.model.state_dict().items():
+            torch.testing.assert_close(r_g.model.state_dict()[k], v, rtol=1e-6,
+                                       atol=0, msg=k)
+        for p_e, p_g in zip(r_e.model.parameters(), r_g.model.parameters()):
+            s_e, s_g = r_e.optimizer.state[p_e], r_g.optimizer.state[p_g]
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                torch.testing.assert_close(s_g[key], s_e[key], rtol=1e-6,
+                                           atol=0)
+        assert r_g.model.training == r_e.model.training
+        # a second call on the same Run: replays, the eager loop's errors
+        _, h_e2, l_e2, _ = _train_run(ds, mp, False, epochs=2, run=r_e,
+                                      seed=5)
+        _, h_g2, l_g2, _ = _train_run(ds, mp, None, epochs=2, run=r_g, seed=5)
+        assert len(captures) == 3
+        np.testing.assert_allclose(h_g2, h_e2, rtol=1e-6)
+        assert l_g2 == l_e2
+    finally:
+        G.CudaGraphs.capture = capture
+
+
+def test_captured_dropout_matches_eager_or_is_refused(cuda_device, tmp_path):
+    """dropout_rate 0.1: the graph registers the model's generator and
+    draws the eager run's masks (errors to rtol 1e-6), or, where this
+    torch cannot, the plan says eager and capture=True raises."""
+    from matdeeplearn_torch.training import graphs as G
+
+    ds = _toy(tmp_path)
+    mp = _capture_mp("CGCNN", "fused", "padded", dropout_rate=0.1)
+    if not G.GENERATOR_API:
+        _, _, _, text = _train_run(ds, mp, None, epochs=1)
+        assert "register_generator_state" in text
+        with pytest.raises(ValueError, match="register_generator_state"):
+            _train_run(ds, mp, True, epochs=1)
+        return
+    _, h_e, _, _ = _train_run(ds, mp, False)
+    _, h_g, _, text = _train_run(ds, mp, True)
+    assert "capture=graphs" in text
+    np.testing.assert_allclose(h_g, h_e, rtol=1e-6)
+    # the masks do depend on the generator: another seed trains otherwise
+    _, h_other, _, _ = _train_run(ds, mp, True, seed=5)
+    assert not np.allclose(h_other, h_g, rtol=1e-6)
+
+
+def test_load_optimizer_state_drops_the_graphs(cuda_device, tmp_path):
+    """A graph holds the optimizer state's addresses: loading a state
+    between two calls drops the cached graphs, and the next call captures
+    anew and trains on the loaded state as the eager loop does."""
+    import copy
+
+    from matdeeplearn_torch.training.optimizers import optimizer_state
+
+    ds = _toy(tmp_path)
+    mp = _capture_mp("CGCNN", "fused", "padded")
+    run, _, _, _ = _train_run(ds, mp, None, epochs=2)
+    assert len(run.graphs) == 1
+    # a copy: load_state_dict keeps the tensors it is given where their
+    # device and dtype fit, and training then updates them in place
+    saved = copy.deepcopy(optimizer_state(run.optimizer))
+    init = {k: v.clone() for k, v in run.model.state_dict().items()}
+    run.load_optimizer_state(copy.deepcopy(saved))
+    assert run.graphs == {}
+    _, h_g, _, _ = _train_run(ds, mp, None, epochs=2, run=run, seed=6)
+    assert len(run.graphs) == 1
+    eager, _, _, _ = _train_run(ds, mp, False, epochs=0)
+    eager.model.load_state_dict(init)
+    eager.load_optimizer_state(copy.deepcopy(saved))
+    _, h_e, _, _ = _train_run(ds, mp, False, epochs=2, run=eager, seed=6)
+    np.testing.assert_allclose(h_g, h_e, rtol=1e-6)
