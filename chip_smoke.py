@@ -174,7 +174,41 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
 18. runs `python -m matdeeplearn_torch.bench` as a subprocess and prints
     its JSON line, whose MAE gate must pass (trained on CUDA graphs) and
     which must hold the packed arms' keys and the eager loop's (`*_eager`);
-19. prints a {"kernels": [...]} line (the CSR rows with their callers,
+19. drives the descriptor models and the other run modes, each phase
+    printing its wall time and warm epoch time beside the nvidia-smi line:
+    a. SM_demo (config.yml's widths) on the 1,000 periodic structures with
+       SM_descriptor: processing must print "Data processed (native)", the
+       native featurizer's edges equal the numpy featurizer's on the first
+       100 structures (indices exact, distances to 1e-12), with both
+       featurize times; 5 epochs on the card on CUDA graphs, the first
+       epoch's train error against 1 CPU epoch to rtol 1e-4, and Predict
+       card vs CPU to rtol 1e-4, atol 1e-4, with its largest gap printed;
+    b. the same for SOAP_demo on 1,000 write_clusters Pt clusters (10 atoms,
+       seed 0) with SOAP_descriptor and config.yml's SOAP values, plus the
+       seconds of soap_features, whose output the processed descriptors
+       equal;
+    c. CV of CGCNN_demo, 3 folds x 3 epochs: the trainer captures its
+       graphs in fold 0 only (2 captures: the train step and the epoch
+       tail, no val split); under torch.use_deterministic_algorithms fold
+       1 on the reused Run (jobs.reset_run) gives a fresh Run's fold 1
+       errors to rtol 1e-6;
+    d. Repeat of CGCNN_demo, 2 trials x 3 epochs on one Run (graphs
+       captured in trial 0 only: 3, the train step, eval step and tail):
+       <job>_all_errorvalues.csv with 2 finite trial rows, the mean and the
+       standard deviation;
+    e. Ensemble of CGCNN_demo and SchNet_demo, 3 epochs each: the
+       ensemble's L1 error on the test outputs is <= the mean of the
+       members' (convexity);
+    f. Analysis: the graph embeddings of 8's trained CGCNN_demo on the
+       card (the CSR kernels, counters reset just before) against the
+       CPU's, rtol 1e-4 and atol 1e-4·max|CPU|; the run mode itself runs
+       t-SNE where sklearn is installed and must raise an ImportError
+       naming scikit-learn where it is not;
+    g. Hyperparameter: CGCNN_demo's search space, 3 trials x 4 epochs,
+       concurrency 1: device memory allocated after trial 3 within 64 MiB
+       of that after trial 1 (each trial's Run and graphs are freed), and a
+       second call resumes and trains no trial;
+20. prints a {"kernels": [...]} line (the CSR rows with their callers,
     each path's launches and the src-sorted shapes' times), the nvidia-smi
     line and, last, {"ok": true, "device": {...}}.
 
@@ -231,6 +265,31 @@ TRAIN_JOB = {
     "load_model": "False", "save_model": "True", "model_path": "my_model.ckpt",
     "write_output": "True", "parallel": "True", "seed": 0,
 }
+# config.yml's Job sections of the other run modes (held to it by
+# tests/test_torch_jobs.py)
+RUN_MODE_JOBS = {
+    "Repeat": {"job_name": "my_repeat_job", "reprocess": "False",
+               "model": "CGCNN_demo", "model_path": "my_model.ckpt",
+               "write_output": "False", "parallel": "True", "seed": 0,
+               "repeat_trials": 5},
+    "CV": {"job_name": "my_CV_job", "reprocess": "False",
+           "model": "CGCNN_demo", "write_output": "True", "parallel": "True",
+           "seed": 0, "cv_folds": 5},
+    "Hyperparameter": {"job_name": "my_hyperparameter_job",
+                       "reprocess": "False", "model": "CGCNN_demo", "seed": 0,
+                       "hyper_trials": 10, "hyper_concurrency": 1,
+                       "max_failures": 4, "hyper_iter": 1,
+                       "hyper_resume": "True",
+                       "hyper_delete_processed": "True"},
+    "Ensemble": {"job_name": "my_ensemble_job", "reprocess": "False",
+                 "save_model": "False", "model_path": "my_model.ckpt",
+                 "write_output": "Partial", "parallel": "True", "seed": 0,
+                 "ensemble_list": "CGCNN_demo,CGCNN_demo,CGCNN_demo,"
+                                  "CGCNN_demo,CGCNN_demo"},
+    "Analysis": {"job_name": "my_job", "reprocess": "False",
+                 "model": "CGCNN_demo", "model_path": "my_model.ckpt",
+                 "write_output": "True", "seed": 0},
+}
 TRAIN_SEED = 7
 EPOCHS_CARD, EPOCHS_CPU, EPOCHS_AB = 5, 2, 3
 # epochs of the CPU side of the card/CPU comparisons of MPNN (on the first
@@ -246,6 +305,19 @@ BENCH_TIMEOUT_S = 600
 PROFILED_KERNELS = ("fused_cgconv_fwd_kernel", "fused_cgconv_bwd_kernel",
                     "fused_cgconv_wgrad_kernel", "wgrad_reduce_kernel")
 N_COMPARE = 200  # structures of MPNN's card/CPU training comparison
+# phase 19: the descriptor models (config.yml's SM_demo and SOAP_demo), the
+# run modes' sizes, and the SOAP corpus (write_clusters' Pt clusters)
+SM_DEMO = {
+    "model": "SM", "dim1": 100, "fc_count": 2, "epochs": 200, "lr": 0.002,
+    "batch_size": 100, "optimizer": "AdamW", "optimizer_args": {},
+    "scheduler": "ReduceLROnPlateau",
+    "scheduler_args": {"mode": "min", "factor": 0.8, "patience": 10,
+                       "min_lr": 0.00001, "threshold": 0.0002},
+}
+SOAP_DEMO = {**SM_DEMO, "model": "SOAP"}
+N_NATIVE_CHECK = 100  # structures whose native and numpy edges are compared
+CV_FOLDS, REPEAT_TRIALS, HYPER_TRIALS, EPOCHS_HYPER = 3, 2, 3, 4
+HYPER_MEMORY_SLACK_MIB = 64
 EPOCH_LINE = re.compile(r"Epoch: (\d+), Learning Rate: ([0-9.]+), Training "
                         r"Error: ([0-9.naN]+), Val Error: ([0-9.naN]+), "
                         r"Time per epoch \(s\): ([0-9.]+)")
@@ -1368,6 +1440,14 @@ def check_throughput(text: str) -> str:
     return lines[0]
 
 
+def throughput_line(text: str) -> str:
+    """The meter's line of a Training run."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("Throughput:")]
+    if len(lines) != 1:
+        raise AssertionError(f"expected one Throughput line, got {lines}")
+    return lines[0]
+
+
 def warm_epoch_s(rows) -> float:
     """Mean time of the epochs after the first."""
     return float(np.mean([r[4] for r in rows[1:]]))
@@ -1688,6 +1768,442 @@ def read_predictions(path: str) -> tuple[list, np.ndarray]:
     ids = [ln.split(",")[0] for ln in lines]
     preds = np.array([float(ln.split(",")[-1]) for ln in lines])
     return ids, preds
+
+
+def run_mode_config(run_mode: str, data_dir: str, job_name: str, device: str,
+                    job: dict, models: dict, processing: dict | None = None
+                    ) -> dict:
+    """The config cli.load_config gives for `run_mode` (config.yml's Job
+    section of that mode, RUN_MODE_JOBS, on one card: parallel False;
+    updated by `job`), with this run's data, job name, device, verbosity 1
+    and Models section `models`."""
+    base = {**RUN_MODE_JOBS[run_mode]}
+    if "parallel" in base:
+        base["parallel"] = "False"
+    return {"Job": {**base, **job, "run_mode": run_mode, "job_name": job_name,
+                    "device": device},
+            "Processing": {**PROCESSING, **(processing or {}),
+                           "data_path": data_dir},
+            "Training": {**TRAINING, "verbosity": 1}, "Models": models}
+
+
+def epoch_seconds(text: str) -> list:
+    """The seconds of every epoch line in a run's output."""
+    return [float(m.group(5)) for m in EPOCH_LINE.finditer(text)]
+
+
+def descriptor_checkpoint(dataset, demo: dict, path: str) -> str:
+    """`demo` (SM or SOAP) from torch.Generator seed 0, saved with the
+    port's checkpoint."""
+    from matdeeplearn_torch.models import MODEL_FIELDS, build_model
+    from matdeeplearn_torch.training.checkpoint import save_checkpoint
+
+    name = demo["model"]
+    model = build_model(name, dataset, demo,
+                        generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    cfg = {k: v for k, v in demo.items() if k in MODEL_FIELDS[name]}
+    cfg["output_dim"] = dataset.output_dim
+    save_checkpoint(path, model.state_dict(), name, cfg)
+    return path
+
+
+def check_native_edges(data_dir: str, n_check: int) -> tuple[float, float]:
+    """The native featurizer's edges against the numpy featurizer's on the
+    first `n_check` structures of `data_dir` (indices exact, distances to
+    1e-12); returns both featurizers' seconds over all the structures."""
+    from matdeeplearn_torch.data import graphs as G
+    from matdeeplearn_torch.data.native import featurize_structures
+    from matdeeplearn_torch.data.structures import read_structure
+
+    with open(os.path.join(data_dir, "targets.csv")) as f:
+        ids = [ln.split(",")[0] for ln in f.read().splitlines() if ln]
+    structs = [read_structure(os.path.join(data_dir, f"{i}.json"), "json", i)
+               for i in ids]
+    radius = float(PROCESSING["graph_max_radius"])
+    nbrs = int(PROCESSING["graph_max_neighbors"])
+    t0 = time.perf_counter()
+    native = featurize_structures(structs, radius, nbrs)
+    native_s = time.perf_counter() - t0
+    if native is None:
+        raise AssertionError("the native featurizer did not build or run")
+    t0 = time.perf_counter()
+    plain = [G.build_graph(s, radius, nbrs) for s in structs]
+    numpy_s = time.perf_counter() - t0
+    for i in range(n_check):
+        src, dst, dist = plain[i]
+        if not (np.array_equal(native[0][i], src)
+                and np.array_equal(native[1][i], dst)):
+            raise AssertionError(f"structure {ids[i]}: native edges differ "
+                                 "from the numpy featurizer's")
+        np.testing.assert_allclose(native[2][i], dist, rtol=0, atol=1e-12)
+    return native_s, numpy_s
+
+
+def check_descriptor_model(label, demo, data_dir, processing, smi,
+                           extra_s: str = "") -> dict:
+    """Phases 19a and 19b: `demo` processed with `processing` (which must
+    print "Data processed (native)"), trained EPOCHS_CARD epochs on the
+    card on CUDA graphs and EPOCHS_COMPARE on the CPU from one checkpoint
+    (first-epoch train error to rtol 1e-4), then Predict on both from the
+    card's checkpoint (largest gap <= 1e-4)."""
+    from matdeeplearn_torch.data.dataset import get_dataset
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ds = get_dataset(data_dir, 0, "True",
+                         {**PROCESSING, **processing, "data_path": data_dir})
+    proc_s = time.perf_counter() - t0
+    if "Data processed (native)" not in buf.getvalue():
+        raise AssertionError(f"{label}: processing did not run the native "
+                             "featurizer")
+    key = demo["model"]
+    width = ds.extra_features[key].shape[1]
+    init = descriptor_checkpoint(ds, demo, os.path.join(WORK, f"{label}.ckpt"))
+    rows = {}
+    for device, epochs in (("cuda", EPOCHS_CARD), ("cpu", EPOCHS_COMPARE)):
+        path = os.path.join(WORK, f"{label}_{device}.ckpt")
+        shutil.copy(init, path)
+        cfg = training_config(data_dir, path, f"chip_{label}_{device}",
+                              device, epochs, model=demo)
+        cfg["Processing"].update(processing)
+        wall, rows[device], text = run_training_text(cfg)
+        if device == "cuda":
+            card_wall, card_text = wall, text
+    np.testing.assert_allclose(rows["cuda"][0][2], rows["cpu"][0][2],
+                               rtol=1e-4)
+    preds = {}
+    for device in ("cuda", "cpu"):
+        cfg = predict_config(data_dir, os.path.join(WORK, f"{label}_cuda.ckpt"),
+                             f"chip_{label}_pred_{device}", device)
+        cfg["Processing"].update(processing)
+        run_predict(cfg)
+        preds[device] = read_predictions(
+            f"chip_{label}_pred_{device}_predicted_outputs.csv")[1]
+    if not (len(preds["cuda"]) == len(ds) and np.isfinite(preds["cuda"]).all()):
+        raise AssertionError(f"{label} Predict: expected {len(ds)} finite "
+                             "predictions")
+    gap, top = predict_gap_of(preds["cuda"], preds["cpu"])
+    np.testing.assert_allclose(preds["cuda"], preds["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    warm = warm_epoch_s(rows["cuda"])
+    print(f"{label} on {smi}: {len(ds)} structures, descriptor width {width}, "
+          f"processing {proc_s:.2f} s{extra_s}; Training {EPOCHS_CARD} epochs "
+          f"in {card_wall:.3f} s wall, warm epochs {warm:.5f} s "
+          f"({throughput_line(card_text)}); epoch 1 train error "
+          f"{rows['cuda'][0][2]:.6f} card vs {rows['cpu'][0][2]:.6f} CPU "
+          f"(rtol 1e-4), {rows['cuda'][0][2]:.5f} -> {rows['cuda'][-1][2]:.5f}"
+          f"; Predict card vs CPU max |diff| {gap:.3e} of {top:.3f} "
+          f"(rtol 1e-4, atol 1e-4)")
+    return {"warm_s": warm, "wall_s": card_wall, "width": width,
+            "predict_gap": gap}
+
+
+def check_cv(dataset, data_dir, dev, smi, counters) -> dict:
+    """Phase 19c: the CV run mode, then fold 1 reused against fresh."""
+    from matdeeplearn_torch.data.dataset import split_data_CV
+    from matdeeplearn_torch.training import graphs, jobs
+
+    reset_launches(*counters)
+    before = graphs.CAPTURES["graphs"]
+    cfg = run_mode_config("CV", data_dir, "chip_cv", "cuda",
+                          {"cv_folds": CV_FOLDS, "seed": TRAIN_SEED},
+                          {**CGCNN_DEMO, "epochs": EPOCHS_AB,
+                           "print_model": False})
+    wall, text = run_cli(cfg)
+    captures = graphs.CAPTURES["graphs"] - before
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    folds = [float(m.group(1))
+             for m in re.finditer(r"Fold \d+ test error: ([0-9.]+)", text)]
+    secs = epoch_seconds(text)
+    if len(folds) != CV_FOLDS or not np.isfinite(folds).all():
+        raise AssertionError(f"CV: expected {CV_FOLDS} finite fold errors, "
+                             f"got {folds}")
+    if captures != 2:
+        raise AssertionError(f"CV: {captures} graph captures, expected 2 "
+                             "(fold 0's train step and epoch tail)")
+    # fold 1 on a reused Run against a fresh Run, deterministic
+    cv_idx = split_data_CV(dataset, CV_FOLDS, TRAIN_SEED)
+    test1 = cv_idx[1]
+    train1 = np.concatenate([cv_idx[j] for j in range(CV_FOLDS) if j != 1])
+    train0 = np.concatenate([cv_idx[j] for j in range(CV_FOLDS) if j != 0])
+    model = {**CGCNN_DEMO, "print_model": False}
+    hist = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = jobs.setup_run(dataset, model, "l1_loss", seed=TRAIN_SEED,
+                                 device=dev)
+            for k, idx in ((0, train0), (1, train1)):
+                jobs.reset_run(run, TRAIN_SEED + k)
+                _, _, h = jobs.run_fused_training(
+                    run, train_idx=idx, val_idx=np.array([], np.int64),
+                    epochs=EPOCHS_AB, verbosity=1, seed=TRAIN_SEED + k)
+            hist["reused"] = np.array(h)
+            fresh = jobs.setup_run(dataset, model, "l1_loss",
+                                   seed=TRAIN_SEED + 1, device=dev)
+            _, _, h = jobs.run_fused_training(
+                fresh, train_idx=train1, val_idx=np.array([], np.int64),
+                epochs=EPOCHS_AB, verbosity=1, seed=TRAIN_SEED + 1)
+            hist["fresh"] = np.array(h)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = hist["reused"][:, 0], hist["fresh"][:, 0]
+    gap = float(np.max(np.abs(a - b) / np.abs(b)))
+    np.testing.assert_allclose(a, b, rtol=1e-6)
+    warm = float(np.mean(secs[1:]))
+    print(f"CV on {smi}: {CV_FOLDS} folds x {EPOCHS_AB} epochs of CGCNN_demo "
+          f"in {wall:.3f} s wall, warm epochs {warm:.5f} s; fold errors "
+          f"{folds}; graph captures {captures} (fold 0 only); launches "
+          f"{launches}; deterministic fold 1 train errors reused "
+          f"{a.tolist()} vs fresh {b.tolist()}, worst relative gap "
+          f"{gap:.3e} (rtol 1e-6)")
+    return {"warm_s": warm, "wall_s": wall, "launches": launches}
+
+
+def check_repeat(data_dir, smi, counters) -> dict:
+    """Phase 19d: the Repeat run mode."""
+    from matdeeplearn_torch.training import graphs
+
+    reset_launches(*counters)
+    before = graphs.CAPTURES["graphs"]
+    np.random.seed(TRAIN_SEED)  # the trials' seeds come from numpy's
+    cfg = run_mode_config("Repeat", data_dir, "chip_repeat", "cuda",
+                          {"repeat_trials": REPEAT_TRIALS},
+                          {**CGCNN_DEMO, "epochs": EPOCHS_AB,
+                           "print_model": False})
+    wall, text = run_cli(cfg)
+    captures = graphs.CAPTURES["graphs"] - before
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    with open("chip_repeat_all_errorvalues.csv") as f:
+        rows = [ln.split(",") for ln in f.read().splitlines()]
+    heads = [r[0] for r in rows]
+    want = ([""] + [f"Trial {t}" for t in range(REPEAT_TRIALS)]
+            + ["Mean", "Std"])
+    if heads != want:
+        raise AssertionError(f"Repeat: the CSV's rows are {heads}")
+    errs = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
+    if not np.isfinite(errs).all():
+        raise AssertionError(f"Repeat: non-finite errors {errs}")
+    if captures != 3:
+        raise AssertionError(f"Repeat: {captures} graph captures, expected 3 "
+                             "(trial 0's train step, eval step and tail)")
+    secs = epoch_seconds(text)
+    warm = float(np.mean(secs[1:]))
+    print(f"Repeat on {smi}: {REPEAT_TRIALS} trials x {EPOCHS_AB} epochs of "
+          f"CGCNN_demo in {wall:.3f} s wall, warm epochs {warm:.5f} s; "
+          f"chip_repeat_all_errorvalues.csv trials "
+          f"{errs[:REPEAT_TRIALS].tolist()}, mean {errs[-2].tolist()}; graph "
+          f"captures {captures}; launches {launches}")
+    return {"warm_s": warm, "wall_s": wall, "launches": launches}
+
+
+def check_ensemble(data_dir, smi, counters) -> dict:
+    """Phase 19e: the Ensemble run mode of CGCNN_demo and SchNet_demo."""
+    reset_launches(*counters)
+    models = {"CGCNN_demo": {**CGCNN_DEMO, "epochs": EPOCHS_AB,
+                             "print_model": False},
+              "SchNet_demo": {**SCHNET_DEMO, "epochs": EPOCHS_AB,
+                              "print_model": False}}
+    cfg = run_mode_config("Ensemble", data_dir, "chip_ensemble", "cuda",
+                          {"ensemble_list": list(models), "seed": TRAIN_SEED},
+                          models)
+    wall, text = run_cli(cfg)
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    with open("chip_ensemble_test_ensemble_outputs.csv") as f:
+        lines = f.read().splitlines()
+    if lines[0] != "ids,target,CGCNN_demo,SchNet_demo,ensemble":
+        raise AssertionError(f"Ensemble: the CSV's header is {lines[0]}")
+    vals = np.array([[float(v) for v in ln.split(",")[1:]] for ln in lines[1:]])
+    t, members, ens = vals[:, 0], vals[:, 1:3], vals[:, 3]
+    member_l1 = np.abs(members - t[:, None]).mean(axis=0)
+    ens_l1 = float(np.abs(ens - t).mean())
+    if not ens_l1 <= member_l1.mean() + 1e-9:
+        raise AssertionError(f"Ensemble: L1 {ens_l1} above the members' mean "
+                             f"{member_l1.mean()}")
+    secs = epoch_seconds(text)
+    warm = float(np.mean(secs[1:EPOCHS_AB] + secs[EPOCHS_AB + 1:]))
+    print(f"Ensemble on {smi}: CGCNN_demo and SchNet_demo, {EPOCHS_AB} epochs "
+          f"each, in {wall:.3f} s wall, warm epochs {warm:.5f} s; test L1 "
+          f"members {member_l1.tolist()}, ensemble {ens_l1:.5f} (<= their "
+          f"mean {member_l1.mean():.5f}); launches {launches}")
+    return {"warm_s": warm, "wall_s": wall, "launches": launches}
+
+
+def check_analysis(dataset, data_dir, trained, dev, smi, counters) -> dict:
+    """Phase 19f: the Analysis mode's embeddings on the card against the
+    CPU's, then the run mode itself."""
+    from matdeeplearn_torch.training import jobs
+
+    emb = {}
+    for device in ("cpu", "cuda"):
+        d = torch.device(device)
+        meta, model = jobs.load_model_for_inference(dataset, trained, d)
+        if device == "cuda":
+            reset_launches(*counters)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb[device] = jobs.graph_embeddings(model, meta["model_name"],
+                                            dataset, d)
+        secs = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    if emb["cuda"].shape != (len(dataset), CGCNN_DEMO["dim1"]):
+        raise AssertionError(f"Analysis: embeddings of shape "
+                             f"{emb['cuda'].shape}")
+    if not launches.get("gather") or not launches.get("segment_sum"):
+        raise AssertionError(f"Analysis: the CSR kernels did not run: "
+                             f"{launches}")
+    top = float(np.abs(emb["cpu"]).max())
+    gap = float(np.abs(emb["cuda"] - emb["cpu"]).max())
+    np.testing.assert_allclose(emb["cuda"], emb["cpu"], rtol=1e-4,
+                               atol=1e-4 * top)
+    cfg = run_mode_config("Analysis", data_dir, "chip_analysis", "cuda",
+                          {"model_path": trained}, {})
+    try:
+        import sklearn  # noqa: F401
+        have_sklearn = True
+    except ImportError:
+        have_sklearn = False
+    t0 = time.perf_counter()
+    if have_sklearn:
+        run_cli(cfg)
+        mode = "t-SNE ran (sklearn installed)"
+    else:
+        try:
+            run_cli(cfg)
+        except ImportError as e:
+            if "scikit-learn" not in str(e):
+                raise
+            mode = f"raised ImportError naming scikit-learn ({e})"
+        else:
+            raise AssertionError("Analysis without sklearn did not raise")
+    print(f"Analysis on {smi}: embeddings of {len(dataset)} structures "
+          f"({emb['cuda'].shape[1]} wide) in {secs:.3f} s on the card, "
+          f"launches {launches}; card vs CPU max |diff| {gap:.3e} of "
+          f"{top:.3f} (rtol 1e-4); the run mode "
+          f"{mode}, {time.perf_counter() - t0:.3f} s")
+    return {"wall_s": secs, "launches": launches}
+
+
+def check_hyperparameter(data_dir, smi, counters) -> dict:
+    """Phase 19g: the Hyperparameter run mode, its memory from trial to
+    trial, then its resume."""
+    import gc
+
+    from matdeeplearn_torch import cli
+    from matdeeplearn_torch.training import hyper
+
+    real = hyper.run_trial
+    memory, peaks, trained = [], [], []
+
+    def recording(*a, **k):
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*a, **k)
+        gc.collect()
+        torch.cuda.synchronize()
+        memory.append(torch.cuda.memory_allocated() / 2**20)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+        trained.append(len(out[1]))
+        return out
+
+    cfg = run_mode_config("Hyperparameter", data_dir, "chip_hyper", "cuda",
+                          {"hyper_trials": HYPER_TRIALS, "seed": TRAIN_SEED},
+                          {**CGCNN_DEMO, "epochs": EPOCHS_HYPER,
+                           "print_model": False})
+    shutil.rmtree(os.path.join("results", "chip_hyper"), ignore_errors=True)
+    hyper.run_trial = recording
+    reset_launches(*counters)
+    try:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.run(cfg)
+        wall = time.perf_counter() - t0
+        launches = {k: v for c in counters for k, v in c.items() if v}
+        text = buf.getvalue()
+        n_first = len(memory)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.run(cfg)
+    finally:
+        hyper.run_trial = real
+    vals = [float(m.group(1))
+            for m in re.finditer(r"Trial \d+: val=([0-9.naN]+)", text)]
+    if n_first != HYPER_TRIALS or len(vals) != HYPER_TRIALS:
+        raise AssertionError(f"Hyperparameter: {n_first} trials ran, "
+                             f"{len(vals)} reported")
+    if len(memory) != n_first:
+        raise AssertionError(f"Hyperparameter: the resumed sweep trained "
+                             f"{len(memory) - n_first} trials, expected 0")
+    if not os.path.exists("chip_hyper_optimized_hyperparameters.json"):
+        raise AssertionError("Hyperparameter: no optimized hyperparameters")
+    drift = memory[-1] - memory[0]
+    if abs(drift) > HYPER_MEMORY_SLACK_MIB:
+        raise AssertionError(f"Hyperparameter: device memory after trial "
+                             f"{HYPER_TRIALS} is {memory[-1]:.1f} MiB, after "
+                             f"trial 1 {memory[0]:.1f} MiB")
+    secs = epoch_seconds(text)
+    warm = [t for i, t in enumerate(secs) if i % EPOCHS_HYPER]
+    print(f"Hyperparameter on {smi}: {HYPER_TRIALS} trials x {EPOCHS_HYPER} "
+          f"epochs of CGCNN_demo's space in {wall:.3f} s wall, warm epochs "
+          f"{float(np.mean(warm)):.5f} s on average; best vals {vals}; "
+          f"device memory allocated after each trial "
+          f"{[round(m, 1) for m in memory]} MiB (drift {drift:+.1f}, limit "
+          f"{HYPER_MEMORY_SLACK_MIB}), peaks {[round(p, 1) for p in peaks]} "
+          f"MiB; launches {launches}; the resumed call trained 0 trials")
+    return {"warm_s": float(np.mean(warm)), "wall_s": wall,
+            "launches": launches, "memory_mib": memory}
+
+
+def check_run_modes(dataset, data_dir, trained, dev, smi, counters) -> dict:
+    """Phase 19: the descriptor models and the run modes CV, Repeat,
+    Ensemble, Analysis and Hyperparameter (the docstring's 19a-g)."""
+    from matdeeplearn_torch.data import descriptors
+    from matdeeplearn_torch.data.structures import read_structure
+    from matdeeplearn_torch.data.synthetic import write_clusters
+
+    t_all = time.perf_counter()
+    out = {}
+    native_s, numpy_s = check_native_edges(data_dir, N_NATIVE_CHECK)
+    print(f"featurizers on the {N_STRUCTURES} periodic structures: native "
+          f"{native_s:.3f} s, numpy {numpy_s:.3f} s (edges equal on the "
+          f"first {N_NATIVE_CHECK})")
+    out["SM"] = check_descriptor_model(
+        "SM_demo", SM_DEMO, data_dir,
+        {"SM_descriptor": "True", "processed_path": "processed_sm"}, smi,
+        f" (native featurizer {native_s:.3f} s, numpy {numpy_s:.3f} s)")
+    soap_dir = os.path.join(WORK, "clusters")
+    write_clusters(soap_dir, N_STRUCTURES, seed=0)
+    soap_proc = {"SOAP_descriptor": "True", "processed_path": "processed_soap"}
+    structs = [read_structure(os.path.join(soap_dir, f"{i}.json"), "json",
+                              str(i)) for i in range(N_STRUCTURES)]
+    t0 = time.perf_counter()
+    feats = descriptors.soap_features(
+        structs, sorted({int(z) for s in structs for z in s.numbers}),
+        rcut=PROCESSING["SOAP_rcut"], nmax=PROCESSING["SOAP_nmax"],
+        lmax=PROCESSING["SOAP_lmax"], sigma=PROCESSING["SOAP_sigma"])
+    soap_s = time.perf_counter() - t0
+    out["SOAP"] = check_descriptor_model(
+        "SOAP_demo", SOAP_DEMO, soap_dir, soap_proc, smi,
+        f" (soap_features alone {soap_s:.3f} s, "
+        f"{os.cpu_count()} host cores)")
+    from matdeeplearn_torch.data.dataset import GraphDataset
+
+    stored = GraphDataset.load(os.path.join(soap_dir, "processed_soap"))
+    if not np.array_equal(stored.extra_features["SOAP"],
+                          feats.astype(np.float32)):
+        raise AssertionError("the processed SOAP descriptors differ from "
+                             "soap_features'")
+    out["CV"] = check_cv(dataset, data_dir, dev, smi, counters)
+    out["Repeat"] = check_repeat(data_dir, smi, counters)
+    out["Ensemble"] = check_ensemble(data_dir, smi, counters)
+    out["Analysis"] = check_analysis(dataset, data_dir, trained, dev, smi,
+                                     counters)
+    out["Hyperparameter"] = check_hyperparameter(data_dir, smi, counters)
+    print(f"phase 19 (descriptor models and run modes) on {smi}: "
+          f"{time.perf_counter() - t_all:.1f} s wall")
+    return out
 
 
 def main() -> int:
@@ -2490,6 +3006,9 @@ def main() -> int:
     if missing:
         raise AssertionError(f"the bench's line lacks the keys {missing}")
 
+    # ---- the descriptor models and the other run modes ---------------------
+    modes = check_run_modes(dataset, data_dir, gpu_train, dev, smi, all_counts)
+
     kernels = []
     for key, name, src, line, count in (
             ("segment_sum", "csr_segment_sum", "csr.cu", "pallas_csr.py:135",
@@ -2550,7 +3069,8 @@ def main() -> int:
                 "GCN Predict": g_predict_launches[key],
                 "MEGNet Training": megnet_launches[key],
                 "MEGNet Predict": mg_predict_launches[key],
-                "MEGNet packed Training": packed_launches["MEGNet"][key]}
+                "MEGNet packed Training": packed_launches["MEGNet"][key],
+                "CGCNN Analysis": modes["Analysis"]["launches"][key]}
             row["src_order_shapes"] = [
                 {k: v for k, v in st.items() if k != "kernel"}
                 for st in src_times if st["kernel"] == key]

@@ -1,10 +1,14 @@
-"""The port's CLI: `python -m matdeeplearn_torch --run_mode=Training|Predict ...`.
+"""The port's CLI: `python -m matdeeplearn_torch --run_mode=<mode> ...`, for
+the seven run modes Training, Predict, Repeat, CV, Ensemble, Analysis and
+Hyperparameter.
 
 Reads the same config.yml as the reference package's main.py (argparse
 flags override YAML; the Job section is keyed by run mode and the Models
-section by Job.model; seed 0 draws a random seed; settings dumped to
-<job>_settings.txt). Training and Predict are ported; `--device` picks the
-device (CUDA unless told otherwise). Training prints the throughput
+section by Job.model, or by every name of Job.ensemble_list for Ensemble;
+seed 0 draws a random seed; settings dumped to <job>_settings.txt).
+`--device` picks the device (CUDA unless told otherwise). Hyperparameter
+writes `<job>_optimized_hyperparameters.json`; Analysis needs
+scikit-learn. Training prints the throughput
 meter's line ("Throughput: ... edges/s ..., MFU ...") after training;
 `--profile True` runs the training under torch.profiler and writes a
 Chrome trace (trace.json) to the job's `profile_dir` (default
@@ -22,20 +26,21 @@ import time
 
 import numpy as np
 
-# ROADMAP queue 1 items of the run modes still to port.
-NOT_PORTED = {
-    "Repeat": "item 13", "CV": "item 13", "Ensemble": "item 13",
-    "Analysis": "item 13", "Hyperparameter": "item 13",
-}
-RUN_MODES = ("Training", "Predict")
+RUN_MODES = ("Training", "Predict", "Repeat", "CV", "Ensemble", "Analysis",
+             "Hyperparameter")
+# the run modes that train on the parallel mesh in the reference package
+MESH_MODES = ("Training", "Repeat", "CV", "Ensemble")
+# the reference's t-SNE arguments of the Analysis mode (main.py:232-238)
+TSNE_ARGS = {"perplexity": 50, "early_exaggeration": 12, "learning_rate": 300,
+             "n_iter": 5000, "verbose": 1, "random_state": 42}
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="MatDeepLearn PyTorch port")
     parser.add_argument("--config_path", default="config.yml", type=str)
     parser.add_argument("--run_mode", default=None, type=str,
-                        help="Training or Predict (other run modes are not "
-                             "ported yet)")
+                        help="Training, Predict, Repeat, CV, Ensemble, "
+                             "Analysis or Hyperparameter")
     parser.add_argument("--job_name", default=None, type=str)
     parser.add_argument("--model", default=None, type=str,
                         help="a Models section of the config, e.g. CGCNN_demo")
@@ -123,6 +128,12 @@ def load_config(args) -> dict:
                 config["Models"][mkey][key] = v
     if run_mode == "Predict":
         config["Models"] = {}
+    elif run_mode == "Ensemble":
+        ens = config["Job"]["ensemble_list"]
+        if isinstance(ens, str):
+            ens = ens.split(",")
+        config["Job"]["ensemble_list"] = ens
+        config["Models"] = {name: config["Models"].get(name) for name in ens}
     elif run_mode in RUN_MODES:
         config["Models"] = config["Models"].get(config["Job"]["model"])
     if config["Job"].get("seed", 0) == 0:
@@ -131,20 +142,18 @@ def load_config(args) -> dict:
 
 
 def run(config: dict):
-    """Run one configured job: Training returns its errors by split,
-    Predict its test error."""
+    """Run one configured job. Returns what its job function returns:
+    Training its errors by split, Predict its test error, CV its mean
+    error, Repeat its (trials, 3) errors, Ensemble its ensemble's error,
+    Analysis the t-SNE coordinates, Hyperparameter the best trial."""
     from matdeeplearn_torch.data.dataset import get_dataset
-    from matdeeplearn_torch.training.jobs import predict, train_regular
+    from matdeeplearn_torch.training import jobs
 
     run_mode = config["Job"]["run_mode"]
-    if run_mode in NOT_PORTED:
-        raise NotImplementedError(
-            f"run mode {run_mode} is not ported yet (ROADMAP queue 1, "
-            f"{NOT_PORTED[run_mode]})")
     if run_mode not in RUN_MODES:
         raise ValueError(f"Invalid run mode {run_mode!r}")
     device = config["Job"].get("device", "cuda")
-    if (run_mode == "Training" and str(config["Job"].get("parallel")) == "True"
+    if (run_mode in MESH_MODES and str(config["Job"].get("parallel")) == "True"
             and str(device).startswith("cuda")):
         import torch
 
@@ -160,6 +169,8 @@ def run(config: dict):
     with open(str(config["Job"]["job_name"]) + "_settings.txt", "w") as log_file:
         pprint.pprint(config, log_file)
 
+    if run_mode == "Hyperparameter":
+        return run_hyperparameter(config)
     t0 = time.time()
     dataset = get_dataset(
         config["Processing"]["data_path"],
@@ -172,13 +183,58 @@ def run(config: dict):
         f" features, {dataset.num_edge_features} edge features"
     )
     print("--- %s seconds for processing ---" % (time.time() - t0))
+    args = (dataset, config["Job"], config["Training"], config["Models"])
     if run_mode == "Training":
         print("Starting regular training")
-        return train_regular(dataset, config["Job"], config["Training"],
-                             config["Models"], device=device)
-    print("Starting prediction from trained model")
-    return predict(dataset, config["Training"]["loss"], config["Job"],
-                   device=device)
+        return jobs.train_regular(*args, device=device)
+    if run_mode == "Predict":
+        print("Starting prediction from trained model")
+        return jobs.predict(dataset, config["Training"]["loss"], config["Job"],
+                            device=device)
+    if run_mode == "Repeat":
+        print(f"Repeat training for {config['Job']['repeat_trials']} trials")
+        return jobs.train_repeat(*args, device=device)
+    if run_mode == "CV":
+        print("Starting cross validation")
+        return jobs.train_CV(*args, device=device)
+    if run_mode == "Ensemble":
+        print("Starting ensemble training")
+        return jobs.train_ensemble(*args, device=device)
+    print("Starting analysis of graph features")
+    return jobs.analysis(dataset, config["Job"]["model_path"], TSNE_ARGS,
+                         device=device)
+
+
+def run_hyperparameter(config: dict) -> dict:
+    """The Hyperparameter run mode (reference main.py:242-268): the model's
+    default search space (training/hyper.py), the sweep, and the best
+    config, rounded to 6 digits, in `<job>_optimized_hyperparameters.json`.
+    The dataset is loaded once here unless reprocess is "True" (then every
+    trial processes it)."""
+    import json
+
+    from matdeeplearn_torch.data.dataset import get_dataset
+    from matdeeplearn_torch.training import hyper as H
+
+    job = config["Job"]
+    print("Starting hyperparameter optimization")
+    print(f"running for {config['Models']['epochs']} epochs on "
+          f"{job['model']} model")
+    data_path = config["Processing"]["data_path"]
+    dataset = None
+    if str(job.get("reprocess", "False")) == "False":
+        dataset = get_dataset(data_path, config["Training"]["target_index"],
+                              "False", config["Processing"])
+    space = H.default_search_space(job["model"], config["Processing"])
+    best = H.tune_setup(space, job, config["Processing"], config["Training"],
+                        config["Models"], data_path=data_path, dataset=dataset)
+    hyperparameters = {k: round(v, 6) if isinstance(v, float) else v
+                       for k, v in best["config"].items()}
+    with open(f"{job['job_name']}_optimized_hyperparameters.json", "w",
+              encoding="utf-8") as f:
+        json.dump(hyperparameters, f, ensure_ascii=False, indent=4)
+    print("Best hyperparameters written")
+    return best
 
 
 def main(argv=None):

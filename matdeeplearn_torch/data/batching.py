@@ -25,6 +25,10 @@ nodes in window-padded slots, edges in the per-graph windowed order with
 dst = -1 on pad slots, and per-tile window ids for the windowed kernels
 (ops/windowed.py). `assemble` picks the assembler the dataset calls for.
 
+A dataset with one whole-structure descriptor (SOAP or SM, its
+extra_features entry) gives every batch its rows as `extra` (B, D), zero
+on pad graph slots: the input of the descriptor models.
+
 Packed batching (`batching: packed`, the bulk setting) keeps the same
 assemblers and changes only the geometry and the ids: a spec of about
 mean·B + max nodes and edges with 1.5·B + 1 graph slots
@@ -188,6 +192,9 @@ class DeviceDataset:
     kernel_fused: bool = False
     # the windowed layout: batches are assembled windowed
     windowed: "WindowedDeviceData | None" = None
+    # (G, D) float32 whole-structure descriptors (SOAP or SM), the
+    # dataset's single extra_features entry; None without one
+    extra: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -219,6 +226,10 @@ class DeviceDataset:
         y = ds.targets
         if y.ndim == 1:
             y = y[:, None]
+        extras = ds.extra_features
+        extra = (torch.as_tensor(np.asarray(next(iter(extras.values())),
+                                            np.float32), device=device)
+                 if len(extras) == 1 else None)
         esrc = np.asarray(ds.edge_src, np.int32)
         edst = np.asarray(ds.edge_dst, np.int32)
         ew = np.asarray(ds.edge_weight, np.float32)
@@ -262,6 +273,7 @@ class DeviceDataset:
             node_indeg=node_indeg,
             kernel_fused=kernel_fused,
             windowed=windowed,
+            extra=extra,
         )
 
 
@@ -338,6 +350,9 @@ class GraphBatch:
     tile_window: torch.Tensor | None = None  # (T,) int32 window id per tile
     tile_first: torch.Tensor | None = None   # (T,) int32 1 = first tile
     window_size: int = 0                     # tw
+    # (B, D) whole-structure descriptors (SOAP or SM), zero rows on pad
+    # graph slots; None when the dataset has none
+    extra: torch.Tensor | None = None
 
     @property
     def dst_sorted(self) -> bool:
@@ -374,6 +389,13 @@ def _slot_to_graph(cum: torch.Tensor, num_slots: int) -> torch.Tensor:
     that padded slot s belongs to (B for slots past the last graph)."""
     slots = torch.arange(num_slots, device=cum.device, dtype=cum.dtype)
     return torch.searchsorted(cum, slots, right=True)
+
+
+def _batch_extra(data: DeviceDataset, ids, gmask):
+    """The batch's descriptor rows, zero on pad graph slots."""
+    if data.extra is None:
+        return None
+    return torch.where(gmask[:, None], data.extra[ids], 0.0)
 
 
 def assemble_batch(data: DeviceDataset, graph_ids, spec: BatchSpec) -> GraphBatch:
@@ -437,6 +459,7 @@ def assemble_batch(data: DeviceDataset, graph_ids, spec: BatchSpec) -> GraphBatc
         in_degree=in_degree,
         edge_order=data.edge_order,
         kernel_fused=data.kernel_fused,
+        extra=_batch_extra(data, ids, gmask),
     )
 
 
@@ -527,6 +550,7 @@ def assemble_batch_windowed(data: DeviceDataset, wdata: WindowedDeviceData,
         tile_window=wid.to(torch.int32),
         tile_first=tfirst.to(torch.int32),
         window_size=tw,
+        extra=_batch_extra(data, ids, gmask),
     )
 
 

@@ -9,10 +9,14 @@ either package can read a cache the other wrote):
   graph arrays (G, ...)
   ptr arrays   (G+1,)           CSR offsets into node/edge arrays
 
-Graphs are built with the numpy featurizer (data/graphs.py:build_graph).
-The train/val/test and CV splits cut one seeded torch.randperm, as the
-reference does. Not yet ported: the C++ featurizer loader, the "large"
-streaming dataset and the SOAP/SM descriptors (ROADMAP queue 1).
+Graphs are built by the C++ featurizer (data/native.py) where g++ builds
+it, and by the numpy featurizer (data/graphs.py:build_graph), which gives
+the same edges, where it does not; process_data prints which ran. With
+SOAP_descriptor or SM_descriptor "True" the whole-structure descriptors
+(data/descriptors.py) go into extra_features ("SOAP" or "SM", float32),
+which the .npz cache keeps. The train/val/test and CV splits cut one
+seeded torch.randperm, as the reference does. The "large" streaming
+dataset is not ported yet (ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from matdeeplearn_torch.data import descriptors
 from matdeeplearn_torch.data import graphs as G
 from matdeeplearn_torch.data import windowed as W
+from matdeeplearn_torch.data.native import featurize_structures
 from matdeeplearn_torch.data.structures import Structure, read_ase_db, read_structure
 
 PROCESSED_DIR_DEFAULT = "processed_tpu"
@@ -209,10 +215,6 @@ DEFAULT_PROCESSING_ARGS = {
 def process_data(data_path: str, processed_path: str, processing_args: dict) -> GraphDataset:
     """Full featurization pipeline (reference process_data, process.py:197-533)."""
     args = {**DEFAULT_PROCESSING_ARGS, **(processing_args or {})}
-    if "True" in (str(args.get("SOAP_descriptor")), str(args.get("SM_descriptor"))):
-        raise NotImplementedError(
-            "SOAP/SM descriptors are not ported yet (ROADMAP queue 1, item 12)"
-        )
     verbose = str(args.get("verbose", "True")) == "True"
     radius = float(args["graph_max_radius"])
     max_neighbors = int(args["graph_max_neighbors"])
@@ -240,14 +242,23 @@ def process_data(data_path: str, processed_path: str, processing_args: dict) -> 
         [[float(v) for v in row[1:]] for row in target_data], dtype=np.float32
     )
 
-    all_src, all_dst, all_dist = [], [], []
-    for i, s in enumerate(structures):
-        src, dst, dist = G.build_graph(s, radius, max_neighbors)
-        all_src.append(src)
-        all_dst.append(dst)
-        all_dist.append(dist)
-        if verbose and ((i + 1) % 500 == 0 or (i + 1) == len(structures)):
-            print(f"Data processed: {i + 1} out of {len(structures)}")
+    # the C++ featurizer (OpenMP over structures) where g++ builds it, the
+    # numpy one, which gives the same edges, where it does not
+    native_out = featurize_structures(structures, radius, max_neighbors)
+    if native_out is not None:
+        all_src, all_dst, all_dist = native_out
+        if verbose:
+            print(f"Data processed (native): {len(structures)} out of "
+                  f"{len(structures)}")
+    else:
+        all_src, all_dst, all_dist = [], [], []
+        for i, s in enumerate(structures):
+            src, dst, dist = G.build_graph(s, radius, max_neighbors)
+            all_src.append(src)
+            all_dst.append(dst)
+            all_dist.append(dist)
+            if verbose and ((i + 1) % 500 == 0 or (i + 1) == len(structures)):
+                print(f"Data processed: {i + 1} out of {len(structures)}")
 
     species = sorted({int(z) for s in structures for z in s.numbers})
     if verbose:
@@ -278,6 +289,22 @@ def process_data(data_path: str, processed_path: str, processing_args: dict) -> 
     node_ptr = np.concatenate([[0], np.cumsum([len(s) for s in structures])]).astype(np.int64)
     edge_ptr = np.concatenate([[0], np.cumsum([len(e) for e in all_src])]).astype(np.int64)
 
+    extra = {}
+    if str(args.get("SOAP_descriptor")) == "True":
+        feats = descriptors.soap_features(
+            structures, species,
+            rcut=float(args["SOAP_rcut"]), nmax=int(args["SOAP_nmax"]),
+            lmax=int(args["SOAP_lmax"]), sigma=float(args["SOAP_sigma"]))
+        extra["SOAP"] = feats.astype(np.float32)
+        if verbose:
+            print("SOAP length: ", feats.shape)
+    elif str(args.get("SM_descriptor")) == "True":
+        feats = descriptors.sm_features(structures,
+                                        max(len(s) for s in structures))
+        extra["SM"] = feats.astype(np.float32)
+        if verbose:
+            print("SM length: ", feats.shape)
+
     ds = GraphDataset(
         node_x=np.concatenate(xs).astype(np.float32),
         node_z=np.concatenate([s.numbers for s in structures]).astype(np.int32),
@@ -292,6 +319,7 @@ def process_data(data_path: str, processed_path: str, processing_args: dict) -> 
         structure_ids=[s.structure_id for s in structures],
         edge_resolution=int(args["graph_edge_length"]),
         edge_width=0.2,
+        extra_features=extra,
         species=species,
     )
     ds.save(os.path.join(data_path, processed_path))

@@ -1,7 +1,8 @@
 """Model registry: build a model by its config name.
 
-CGCNN, SchNet, MPNN, GCN and MEGNet are ported; the reference's other
-names raise NotImplementedError that names their ROADMAP item.
+All seven of the reference's models: the GNNs CGCNN, SchNet, MPNN, GCN
+and MEGNet, and the descriptor MLPs SM and SOAP (models/descriptor_nn.py),
+whose input width is the dataset's descriptor width.
 """
 
 from __future__ import annotations
@@ -9,16 +10,16 @@ from __future__ import annotations
 import torch
 
 from matdeeplearn_torch.models.cgcnn import CGCNN
+from matdeeplearn_torch.models.descriptor_nn import SM, SOAP
 from matdeeplearn_torch.models.gcn import GCN
 from matdeeplearn_torch.models.megnet import MEGNet
 from matdeeplearn_torch.models.mpnn import MPNN
 from matdeeplearn_torch.models.schnet import SchNet
 
 MODEL_REGISTRY = {"CGCNN": CGCNN, "SchNet": SchNet, "MPNN": MPNN, "GCN": GCN,
-                  "MEGNet": MEGNet}
-
-# ROADMAP queue 1 items of the models still to port.
-NOT_PORTED = {"SM": "item 12", "SOAP": "item 12"}
+                  "MEGNet": MEGNet, "SM": SM, "SOAP": SOAP}
+# the models over whole-structure descriptors (batch.extra)
+DESCRIPTOR_MODELS = ("SM", "SOAP")
 
 # Config fields each model takes (other YAML hyperparameters are ignored,
 # as the reference forwards **kwargs, training.py:250-252).
@@ -30,7 +31,19 @@ _COMMON = {
 }
 MODEL_FIELDS = {"CGCNN": _COMMON, "SchNet": _COMMON | {"dim3", "cutoff"},
                 "MPNN": _COMMON | {"dim3"}, "GCN": _COMMON,
-                "MEGNet": _COMMON | {"dim3", "gc_fc_count"}}
+                "MEGNet": _COMMON | {"dim3", "gc_fc_count"},
+                "SM": {"dim1", "fc_count", "output_dim", "precision"},
+                "SOAP": {"dim1", "fc_count", "output_dim", "precision"}}
+
+
+def descriptor_width(dataset) -> int:
+    """The width of the dataset's single descriptor entry (SOAP or SM)."""
+    extras = getattr(dataset, "extra_features", None) or {}
+    if len(extras) != 1:
+        raise ValueError(
+            "descriptor models need extra features; enable SOAP_descriptor/"
+            "SM_descriptor in Processing config")
+    return int(next(iter(extras.values())).shape[1])
 
 
 def build_model(name: str, dataset, hyperparams: dict, *,
@@ -43,11 +56,9 @@ def build_model(name: str, dataset, hyperparams: dict, *,
     seeded with `dropout_seed`. String booleans ("True"/"False") are
     coerced, as in the reference's YAML. `precision` must be "f32": bf16
     is not ported yet. `remat` recomputes each conv block in the backward
-    (models/base.py).
+    (models/base.py). SM and SOAP take their input width from the
+    dataset's descriptors.
     """
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name} is not ported yet (ROADMAP queue 1, {NOT_PORTED[name]})")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model '{name}'; have {sorted(MODEL_REGISTRY)}")
     kwargs = {}
@@ -61,6 +72,10 @@ def build_model(name: str, dataset, hyperparams: dict, *,
         raise NotImplementedError(
             "precision bf16 is not ported yet (ROADMAP queue 1, item 5)")
     kwargs.setdefault("output_dim", dataset.output_dim)
+    if name in DESCRIPTOR_MODELS:
+        return MODEL_REGISTRY[name](descriptor_width(dataset), **kwargs,
+                                    generator=generator,
+                                    dropout_seed=dropout_seed, device=device)
     kwargs.setdefault("num_features", dataset.num_features)
     kwargs.setdefault("edge_resolution", dataset.num_edge_features)
     kwargs.setdefault("edge_width", getattr(dataset, "edge_width", 0.2))

@@ -6,7 +6,9 @@ BatchNorm, early or late pooling, `post_fc_count` dense layers, a final
 `lin_out`, and a squeeze to (B,) for single targets. Subclasses build the
 conv stack. With `pool: set2set` an early pool doubles the width into the
 head, and a late one runs Set2Set(output_dim) after lin_out, then
-`lin_out_2` (the reference package's models/base.py:95-105). f32 only:
+`lin_out_2` (the reference package's models/base.py:95-105). Every
+model's forward takes `embed`: True returns the graph embedding, the input
+of the first post-FC layer (apply_head), for the Analysis run mode. f32 only:
 bf16 activations are not ported yet (ROADMAP queue 1, item 5).
 
 Dropout masks come from the model's own torch.Generator, seeded with
@@ -153,6 +155,13 @@ class GNNBase(nn.Module):
         graph of a training step registers them: training/graphs.py)."""
         return [g for d, g in self._dropout_gens.items() if d.type == "cuda"]
 
+    def reseed_dropout(self, seed: int):
+        """Seed the dropout masks anew, in place: the generators a CUDA
+        graph registered stay the same objects (jobs.reset_run)."""
+        self.dropout_seed = int(seed)
+        for gen in self._dropout_gens.values():
+            gen.manual_seed(int(seed))
+
     def _dropout_gen(self, device) -> torch.Generator:
         gen = self._dropout_gens.get(device)
         if gen is None:
@@ -176,11 +185,21 @@ class GNNBase(nn.Module):
             return getattr(self, self.set2set_name)(out, *args)
         return self.pool(out, *args)
 
-    def apply_head(self, out, batch, pooled: bool = False):
+    def apply_head(self, out, batch, pooled: bool = False,
+                   embed: bool = False):
         """Early/late pooling + post-FC stack + lin_out (+ squeeze).
-        pooled: `out` is already the graph vector of an early pool."""
+        pooled: `out` is already the graph vector of an early pool.
+        embed: return the input of the first post-FC layer instead (the
+        graph embedding of the Analysis run mode: (B, width) after an
+        early pool, the (N, width) node features before a late one, as the
+        reference's hook on post_lin_list[0] reads it)."""
         if self.pool_order == "early":
-            out = self._post_fc(out if pooled else self._pool(out, batch))
+            out = out if pooled else self._pool(out, batch)
+            if embed:
+                return out
+            out = self._post_fc(out)
+        elif embed:
+            return out
         else:
             out = self._pool(self._post_fc(out), batch)
             if self.set2set_name:

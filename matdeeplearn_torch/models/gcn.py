@@ -44,7 +44,7 @@ class GCN(GNNBase):
                 self.add_module(f"bn{i}", MaskedBatchNorm(
                     self.gc_dim, track_stats=batch_track_stats, device=device))
 
-    def forward(self, batch):
+    def forward(self, batch, embed: bool = False):
         out = self.apply_pre_fc(batch.x)
         for i in range(self.gc_count):
             out = self.run_conv(getattr(self, f"conv{i}"), out, batch)
@@ -53,4 +53,4 @@ class GCN(GNNBase):
                     out, mask=batch.node_mask,
                     use_running_average=not self.training)
             out = self.dropout(self.act(out))
-        return self.apply_head(out, batch)
+        return self.apply_head(out, batch, embed=embed)

@@ -69,7 +69,7 @@ class MEGNet(GNNBase):
             self.set2set_x = Set2Set(dim3, **kw)
             self.set2set_e = Set2Set(dim3, **kw)
 
-    def forward(self, batch):
+    def forward(self, batch, embed: bool = False):
         edge_attr = self.edge_features(batch)
         x, e, u = self.apply_pre_fc(batch.x), edge_attr, batch.u
         for i in range(self.gc_count):
@@ -84,7 +84,7 @@ class MEGNet(GNNBase):
             else:
                 x, e, u = x_out + x, e_out + e, u_out + u
         if self.pool_order == "late":
-            return self.apply_head(x, batch)
+            return self.apply_head(x, batch, embed=embed)
         args = (batch.node_graph, batch.node_mask, batch.num_graphs)
         n = batch.num_nodes
         if self.pool_name == "set2set":
@@ -99,4 +99,4 @@ class MEGNet(GNNBase):
                                                batch.edge_mask))
             pooled = [self.pool(x, *args), self.pool(e_node, *args)]
         return self.apply_head(torch.cat(pooled + [u], dim=-1), batch,
-                               pooled=True)
+                               pooled=True, embed=embed)

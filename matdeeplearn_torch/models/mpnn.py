@@ -58,7 +58,7 @@ class MPNN(GNNBase):
         a, w1, b1 = getattr(self, f"edge_nn{i}")(edge_attr)
         return getattr(self, f"conv{i}")(out, batch, a, w1, b1)
 
-    def forward(self, batch):
+    def forward(self, batch, embed: bool = False):
         edge_attr = self.edge_features(batch)
         out = self.apply_pre_fc(batch.x)
         h = out
@@ -71,4 +71,4 @@ class MPNN(GNNBase):
             m = self.dropout(self.act(m))
             h = getattr(self, f"gru{i}")(m, h)
             out = h
-        return self.apply_head(out, batch)
+        return self.apply_head(out, batch, embed=embed)

@@ -47,7 +47,7 @@ class SchNet(GNNBase):
                 self.add_module(f"bn{i}", MaskedBatchNorm(
                     self.gc_dim, track_stats=batch_track_stats, device=device))
 
-    def forward(self, batch):
+    def forward(self, batch, embed: bool = False):
         # the fused cfconv builds the edge basis inside its kernel
         edge_attr = None if batch.kernel_fused else self.edge_features(batch)
         out = self.apply_pre_fc(batch.x)
@@ -59,4 +59,4 @@ class SchNet(GNNBase):
                     out, mask=batch.node_mask,
                     use_running_average=not self.training)
             out = self.dropout(out)
-        return self.apply_head(out, batch)
+        return self.apply_head(out, batch, embed=embed)

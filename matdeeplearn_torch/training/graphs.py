@@ -40,6 +40,10 @@ import torch
 # at a fresh offset every replay, as the eager run would
 GENERATOR_API = hasattr(torch._C._CUDAGraph, "register_generator_state")
 
+# graphs captured so far in this process (GraphedStep): a run that reuses
+# its graphs (a later CV fold or Repeat trial, jobs.reset_run) adds none
+CAPTURES = {"graphs": 0}
+
 
 class CapturePlan(NamedTuple):
     """Whether the trainer runs CUDA graphs, and if not, why."""
@@ -99,9 +103,24 @@ def launch_counters() -> list[dict]:
             fused_bilinear.LAUNCHES, windowed.LAUNCHES]
 
 
+# one warm-up side stream a device for every run: cuBLAS keeps a workspace
+# (32 MiB on an H100) for every stream it has run on, for the life of the
+# process, so a new stream a warm-up grew device memory by about 98 MiB a
+# run (three GraphedSteps), trial after trial of a sweep
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream() -> torch.cuda.Stream:
+    dev = torch.cuda.current_device()
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream()
+    return _SIDE_STREAMS[dev]
+
+
 class CudaGraphs:
     """How GraphedStep runs on a card: the eager call on a side stream (the
-    PyTorch recipe for a warm-up before capture), captures into one memory
+    PyTorch recipe for a warm-up before capture; one stream a device for
+    the process, _side_stream), captures into one memory
     pool shared by every graph of the epoch (they replay one after another
     on one stream, and what must outlive a replay lives outside the pool),
     with the model's dropout generators registered."""
@@ -111,7 +130,7 @@ class CudaGraphs:
         self.generators = generators
 
     def eager(self, fn):
-        side = torch.cuda.Stream()
+        side = _side_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn()
@@ -151,6 +170,7 @@ class GraphedStep:
         before = [dict(c) for c in self.counters]
         try:
             self.graph = self.backend.capture(self.fn)
+            CAPTURES["graphs"] += 1
         finally:  # the capture launched nothing
             self.delta = [{k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
                           for c, b in zip(self.counters, before)]

@@ -1,15 +1,20 @@
-"""Run-mode jobs: Training and Predict. The other run modes wait for ROADMAP
-queue 1, item 13.
+"""Run-mode jobs: Training, Predict, CV, Repeat, Ensemble and Analysis
+(the Hyperparameter mode is training/hyper.py).
 
-Reference counterparts: train_regular (training/training.py:377-539) and
-predict (:543-583); the reference package's training/jobs.py
-(_resolve_kernel, setup_run, run_fused_training, _final_outputs,
-train_regular, predict), for in-memory datasets, padded and packed
-batches, flat or windowed.
+Reference counterparts: train_regular (training/training.py:377-539),
+predict (:543-583), train_CV (:587-715), train_repeat (:719-843),
+train_ensemble (:1069-1196) and analysis (:1199-1290); the reference
+package's training/jobs.py (_resolve_kernel, setup_run, reset_run,
+run_fused_training, _final_outputs, train_regular, predict, train_CV,
+train_repeat, train_ensemble, analysis), for in-memory datasets, padded
+and packed batches, flat or windowed. CV folds and Repeat trials share one
+Run: `reset_run` writes fresh values into its tensors, so the trainer's
+CUDA graphs are captured once and replayed by every later fold or trial.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 import time
 from dataclasses import dataclass, field
@@ -19,15 +24,17 @@ import torch
 
 from matdeeplearn_torch.data import dataset as D
 from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
-                                              WindowedDeviceData,
+                                              WindowedDeviceData, assemble,
                                               packed_id_matrix)
-from matdeeplearn_torch.models import MODEL_FIELDS, build_model
+from matdeeplearn_torch.models import (DESCRIPTOR_MODELS, MODEL_FIELDS,
+                                       build_model, descriptor_width)
 from matdeeplearn_torch.training import train as T
 from matdeeplearn_torch.training import optimizers
 from matdeeplearn_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from matdeeplearn_torch.training.graphs import capture_plan
 from matdeeplearn_torch.training.optimizers import (build_optimizer,
-                                                    optimizer_state)
+                                                    optimizer_state,
+                                                    set_learning_rate)
 from matdeeplearn_torch.training.scheduler import build_scheduler
 from matdeeplearn_torch.training.trainer import fused_trainer
 from matdeeplearn_torch.utils.device import resolve_device
@@ -52,8 +59,8 @@ class KernelPlan:
     windowed: bool = False  # windowed batches, the windowed kernels (pallas)
 
 
-# models whose Training is ported
-TRAINABLE = ("CGCNN", "SchNet", "MPNN", "GCN", "MEGNet")
+# the models the trainer takes: all seven
+TRAINABLE = ("CGCNN", "SchNet", "MPNN", "GCN", "MEGNet", "SM", "SOAP")
 # models with a fused kernel of their own (GCN and MEGNet have none)
 FUSED_MODELS = ("CGCNN", "SchNet", "MPNN")
 
@@ -102,6 +109,8 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                under pallas). kernel_precision "bf16" is refused;
       xla    — masked plain segment ops on the reference edge order (MPNN:
                the einsum over the formed per-edge weights);
+      SM, SOAP — xla whatever the request: the descriptor models have no
+               edge aggregation (a request for a kernel says so);
       auto   — on a CUDA device fused for CGCNN, SchNet and MPNN and csr for
                GCN and MEGNet, under either batching (the reference picks
                csr for every packed GNN, a TPU verdict); xla elsewhere
@@ -126,9 +135,14 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
         raise ValueError(f"unknown batching {batching!r}: expected padded "
                          "or packed")
     if model_name not in TRAINABLE:
-        raise NotImplementedError(
-            f"training {model_name} is not ported yet (ROADMAP queue 1, "
-            "item 12)")
+        raise ValueError(f"unknown model {model_name!r}: expected one of "
+                         f"{', '.join(TRAINABLE)}")
+    if model_name in DESCRIPTOR_MODELS:
+        if kernel in ("pallas", "fused", "csr"):
+            print(f"kernel={kernel} requested but unavailable (descriptor "
+                  "models have no edge aggregation); using the XLA scatter "
+                  "path")
+        return KernelPlan("xla", None, False)
     if kernel == "fused" and model_name not in FUSED_MODELS:
         print("kernel=fused applies to CGCNN, SchNet and MPNN; other models "
               "run the windowed aggregation kernel (kernel=pallas behavior)")
@@ -183,6 +197,11 @@ class Run:
     # run_fused_training calls (the reference package's run.fused_fns): they
     # hold the addresses of the parameters and of the optimizer's state
     graphs: dict = field(default_factory=dict)
+    # seed -> the model's initial draw on the CPU (torch.Generator(seed)),
+    # and the optimizer's name and arguments: reset_run's fresh values
+    init_fn: object = None
+    optimizer_name: str = "AdamW"
+    optimizer_args: dict = field(default_factory=dict)
 
     @property
     def fused_kernel(self) -> bool:
@@ -229,9 +248,13 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
         batching, dev, str(model_parameters.get("kernel_precision", "f32")),
         model_parameters.get("csr_order"))
     packed = batching == "packed"
-    model = build_model(model_name, dataset, model_parameters,
-                        generator=torch.Generator().manual_seed(int(seed)),
-                        dropout_seed=int(seed), device="cpu").to(dev)
+
+    def init_fn(seed):
+        return build_model(model_name, dataset, model_parameters,
+                           generator=torch.Generator().manual_seed(int(seed)),
+                           dropout_seed=int(seed), device="cpu")
+
+    model = init_fn(seed).to(dev)
     if plan.windowed:
         # kernel_tw / kernel_te: the window and tile sizes of the layout
         layout = D.windowed_layout(
@@ -258,10 +281,10 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
     else:
         spec = BatchSpec.for_dataset(*counts, bs, **align)
     lr = float(model_parameters.get("lr", 1e-3))
-    optimizer = build_optimizer(model_parameters.get("optimizer", "AdamW"),
-                                model.parameters(), lr,
-                                model_parameters.get("optimizer_args") or {},
-                                device=dev)
+    optimizer_name = model_parameters.get("optimizer", "AdamW")
+    optimizer_args = dict(model_parameters.get("optimizer_args") or {})
+    optimizer = build_optimizer(optimizer_name, model.parameters(), lr,
+                                optimizer_args, device=dev)
     scheduler_name = model_parameters.get("scheduler", "ReduceLROnPlateau")
     scheduler_args = dict(model_parameters.get("scheduler_args") or {})
     scheduler = build_scheduler(scheduler_name, lr, scheduler_args)
@@ -282,12 +305,61 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
     cfg["num_features"] = dataset.num_features
     cfg["output_dim"] = dataset.output_dim
     cfg["edge_resolution"] = dataset.num_edge_features
+    if model_name in DESCRIPTOR_MODELS:
+        # the input width, for the analytic FLOP count (utils/profiling.py)
+        cfg["in_dim"] = descriptor_width(dataset)
     return Run(model=model, optimizer=optimizer, scheduler=scheduler,
                spec=spec, data=data, model_name=model_name,
                model_config=cfg, kernel=plan.name,
                edge_order=plan.edge_order, batch_size=bs, lr=lr, loss=loss,
                scheduler_name=scheduler_name, scheduler_args=scheduler_args,
-               id_matrix_fn=id_matrix_fn)
+               id_matrix_fn=id_matrix_fn, init_fn=init_fn,
+               optimizer_name=optimizer_name, optimizer_args=optimizer_args)
+
+
+# Adam's and AdamW's state: all tensors, zero on a fresh optimizer's first
+# step (its step count increments from 0)
+_ZEROED_STATE = ("AdamW", "Adam")
+
+
+def reset_run(run: Run, seed: int) -> Run:
+    """Fresh parameters, optimizer and scheduler for a new CV fold or Repeat
+    trial on an existing Run (the reference package's reset_run), written
+    into the tensors that are already there, so the trainer's CUDA graphs
+    (run.graphs) stay valid and a fold after the first captures nothing:
+
+      * parameters and BatchNorm statistics copy_ the initial draw of
+        torch.Generator(seed), and the dropout generators are reseeded;
+      * Adam's and AdamW's state (exp_avg, exp_avg_sq, step) is zeroed in
+        place, which is where a fresh optimizer's first step starts; any
+        other optimizer (eager: its rate is a float) is built anew;
+      * every group's rate is set back to the configured one (in place
+        for a tensor rate); the trainer resets its own device state (the
+        plateau state and its rate) at the start of every call;
+      * the scheduler is built anew.
+
+    The result equals setup_run(..., seed=seed) bit for bit, which
+    tests/test_torch_jobs.py and chip_smoke.py hold."""
+    fresh = run.init_fn(seed).state_dict()
+    with torch.no_grad():
+        for k, v in run.model.state_dict().items():
+            v.copy_(fresh[k])
+    if hasattr(run.model, "reseed_dropout"):  # the GNNs (SM, SOAP: none)
+        run.model.reseed_dropout(seed)
+    if run.optimizer_name in _ZEROED_STATE:
+        for state in run.optimizer.state.values():
+            for t in state.values():
+                if torch.is_tensor(t):
+                    t.zero_()
+        set_learning_rate(run.optimizer, run.lr)
+    else:
+        run.optimizer = build_optimizer(
+            run.optimizer_name, run.model.parameters(), run.lr,
+            run.optimizer_args, device=run.data.device)
+        run.graphs.clear()
+    run.scheduler = build_scheduler(run.scheduler_name, run.lr,
+                                    run.scheduler_args)
+    return run
 
 
 def _save(path: str, run: Run, state_dict: dict):
@@ -299,13 +371,15 @@ def _save(path: str, run: Run, state_dict: dict):
 def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
                        verbosity: int, seed: int,
                        checkpoint_path: str | None = None, meter=None,
-                       capture: bool | None = None):
+                       capture: bool | None = None, **resume):
     """Train `run` (the reference package's run_fused_training). Returns
     (best state_dict, final PlateauState, per-epoch history); the model
     holds the last state. `meter` (a ThroughputMeter) takes every chunk.
     `capture` (trainer.fused_trainer): None runs CUDA graphs where the
     capture plan allows (the `resolved:` line prints it), False eagerly;
-    the graphs stay on `run.graphs`, so a later call replays them."""
+    the graphs stay on `run.graphs`, so a later call replays them. `resume`
+    (start_epoch, plateau_start, chunk_fn) goes to the trainer, for a run
+    resumed mid-training (training/hyper.py)."""
     sa = run.scheduler_args
     scheduler_kwargs = dict(
         factor=float(sa.get("factor", 0.1)),
@@ -337,7 +411,7 @@ def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
         scheduler_kwargs=scheduler_kwargs,
         scheduler_enabled=run.scheduler_name == "ReduceLROnPlateau",
         checkpoint_fn=checkpoint_fn, shuffle_seed_base=seed, meter=meter,
-        capture=capture, graph_cache=run.graphs,
+        capture=capture, graph_cache=run.graphs, **resume,
     )
 
 
@@ -361,7 +435,8 @@ def _final_outputs(run: Run, dataset, idx):
 
 def train_regular(dataset, job_parameters: dict, training_parameters: dict,
                   model_parameters: dict,
-                  device: str | torch.device | None = None) -> dict:
+                  device: str | torch.device | None = None,
+                  run: Run | None = None) -> dict:
     """The Training run mode (reference train_regular, training.py:377-539):
     split, train with the best-val model kept, evaluate each split, save
     the model, write `<job>_{train,val,test}_outputs.csv` and, with
@@ -369,7 +444,8 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
     report after training (utils/profiling.py). With `profile: "True"` the
     training runs under a torch.profiler trace written to `profile_dir`
     (default `<job>_profile`). Runs on CUDA unless `device` names another
-    device."""
+    device. A `run` (Repeat's) is reused: reset_run reseeds it, and its
+    graphs replay."""
     job_name = str(job_parameters.get("job_name", "train_job"))
     seed = int(job_parameters.get("seed") or np.random.randint(1, 1_000_000))
     loss = training_parameters.get("loss", "l1_loss")
@@ -381,9 +457,13 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
         training_parameters.get("test_ratio", 0.15),
         seed=seed,
     )
-    run = setup_run(dataset, model_parameters, loss, seed=seed,
-                    print_model=bool(model_parameters.get("print_model", True)),
-                    device=device)
+    if run is None:
+        run = setup_run(
+            dataset, model_parameters, loss, seed=seed,
+            print_model=bool(model_parameters.get("print_model", True)),
+            device=device)
+    else:
+        reset_run(run, seed)
 
     if str(job_parameters.get("load_model")) == "True":
         _, state_dict, opt_state = load_checkpoint(job_parameters["model_path"],
@@ -391,6 +471,10 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
         run.model.load_state_dict(state_dict)
         if opt_state is not None:
             run.load_optimizer_state(opt_state)
+        else:
+            print("load_model: the checkpoint holds no optimizer state (a "
+                  "reference package checkpoint); resuming the parameters "
+                  "and statistics only")
 
     temp_path = job_parameters.get("temp_checkpoint_path", "my_model_temp.ckpt")
     meter = meter_for_training(dataset, train_idx).start()
@@ -462,13 +546,7 @@ def predict(dataset, loss: str, job_parameters: dict,
         raise FileNotFoundError(f"Saved model not found: {model_path}")
     job_name = str(job_parameters.get("job_name", "predict_job"))
 
-    meta, state_dict = load_checkpoint(model_path)
-    # the initial draw is overwritten by the checkpoint, but comes from an
-    # explicit generator all the same
-    model = build_model(meta["model_name"], dataset, dict(meta["model_config"]),
-                        generator=torch.Generator().manual_seed(0),
-                        device="cpu").to(dev)
-    model.load_state_dict(state_dict)
+    meta, model = load_model_for_inference(dataset, model_path, dev)
 
     batch_size = int(job_parameters.get("batch_size", 128))
     spec = BatchSpec.for_dataset(
@@ -490,3 +568,278 @@ def predict(dataset, loss: str, job_parameters: dict,
         )
     print("Test Error: {:.5f}".format(err))
     return err
+
+
+def train_CV(dataset, job_parameters: dict, training_parameters: dict,
+             model_parameters: dict,
+             device: str | torch.device | None = None) -> float:
+    """The CV run mode (reference train_CV, training.py:587-715): n folds,
+    each trained on the other n-1 with no val split (the final epoch's
+    model) and tested on its own; `<job>_CV_outputs.csv` holds every
+    fold's test outputs. One Run serves every fold (reset_run with seed +
+    k), so its CUDA graphs are captured in fold 0 and replayed after."""
+    job_name = str(job_parameters.get("job_name", "CV_job"))
+    seed = int(job_parameters.get("seed") or np.random.randint(1, 1_000_000))
+    folds = int(job_parameters.get("cv_folds", 5))
+    loss = training_parameters.get("loss", "l1_loss")
+
+    cv_idx = D.split_data_CV(dataset, num_folds=folds, seed=seed)
+    run = setup_run(dataset, model_parameters, loss, seed=seed,
+                    print_model=bool(model_parameters.get("print_model", True)),
+                    device=device)
+    cv_error = 0.0
+    all_ids, all_targs, all_preds = [], [], []
+    for k in range(folds):
+        test_idx = cv_idx[k]
+        train_idx = np.concatenate([cv_idx[j] for j in range(folds) if j != k])
+        reset_run(run, seed + k)
+        # no val split: the model keeps the final epoch's state
+        run_fused_training(
+            run, train_idx=train_idx, val_idx=np.array([], np.int64),
+            epochs=int(model_parameters.get("epochs", 250)),
+            verbosity=int(training_parameters.get("verbosity", 5)),
+            seed=seed + k)
+        err, ids, targs, preds = _final_outputs(run, dataset, test_idx)
+        print("Fold {} test error: {:.5f}".format(k, err))
+        cv_error += err
+        all_ids += ids
+        all_targs.append(targs)
+        all_preds.append(preds)
+    cv_error /= folds
+    print("CV Error: {:.5f}".format(cv_error))
+    if str(job_parameters.get("write_output", "True")) == "True":
+        write_results(all_ids, np.concatenate(all_targs),
+                      np.concatenate(all_preds), f"{job_name}_CV_outputs.csv")
+    return cv_error
+
+
+def train_repeat(dataset, job_parameters: dict, training_parameters: dict,
+                 model_parameters: dict,
+                 device: str | torch.device | None = None) -> np.ndarray:
+    """The Repeat run mode (reference train_repeat, training.py:719-843):
+    `repeat_trials` Training runs, each with a seed drawn from numpy's
+    global generator, on one Run (reset_run per trial); prints the mean
+    and standard deviation of each split's error and writes
+    `<job>_all_errorvalues.csv`. Returns the (trials, 3) errors."""
+    job_name = str(job_parameters.get("job_name", "repeat_job"))
+    trials = int(job_parameters.get("repeat_trials", 5))
+    model_path = job_parameters.get("model_path", "my_model.ckpt")
+    write_output = str(job_parameters.get("write_output", "False"))
+
+    run = setup_run(dataset, model_parameters,
+                    training_parameters.get("loss", "l1_loss"), seed=0,
+                    print_model=bool(model_parameters.get("print_model", True)),
+                    device=device)
+    errs = []
+    for t in range(trials):
+        jp = dict(job_parameters)
+        jp["seed"] = np.random.randint(1, 1_000_000)
+        jp["job_name"] = f"{job_name}_{t}"
+        jp["model_path"] = f"{t}_{model_path}"
+        jp["write_error"] = "True"
+        jp["write_output"] = "True" if write_output != "False" else "False"
+        e = train_regular(dataset, jp, training_parameters, model_parameters,
+                          device=device, run=run)
+        errs.append([e["train"], e["val"], e["test"]])
+        if write_output == "False":
+            for p in (jp["model_path"], "my_model_temp.ckpt"):
+                if os.path.exists(p):
+                    os.remove(p)
+    errs = np.array(errs)
+    mean, std = errs.mean(axis=0), errs.std(axis=0)
+    for label, i in (("Training", 0), ("Val", 1), ("Test", 2)):
+        print("{} Error Avg: {:.3f}, {} Standard Dev: {:.3f}".format(
+            label, mean[i], label, std[i]))
+    with open(f"{job_name}_all_errorvalues.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["", "Training", "Validation", "Test"])
+        for t, row in enumerate(errs):
+            w.writerow([f"Trial {t}"] + [f"{v:.8g}" for v in row])
+        w.writerow(["Mean"] + [f"{v:.8g}" for v in mean])
+        w.writerow(["Std"] + [f"{v:.8g}" for v in std])
+    return errs
+
+
+def ensemble_outputs(member_rows: list, names: list, loss_name: str,
+                     path: str) -> float:
+    """Average the members' test outputs and write the ensemble's CSV.
+
+    member_rows: each member's `<job>_test_outputs.csv` rows without the
+    header, [id, target × n, prediction × n] (utils/results.py). Every
+    prediction column is averaged, so multi-target ensembles work. The CSV
+    is the reference's layout (training.py:1174-1189): ids, target, one
+    prediction column a member, ensemble; n columns each for n targets.
+    Returns the ensemble's error under `loss_name`."""
+    ids = [r[0] for r in member_rows[0]]
+    n_out = (len(member_rows[0][0]) - 1) // 2
+    targets = np.array([[float(v) for v in r[1:1 + n_out]]
+                        for r in member_rows[0]])
+    preds = np.stack([np.array([[float(v) for v in r[1 + n_out:]]
+                                for r in rows])
+                      for rows in member_rows])  # (members, samples, n)
+    ens_pred = preds.mean(axis=0)
+    err = float(T.get_loss(loss_name)(torch.as_tensor(ens_pred),
+                                      torch.as_tensor(targets),
+                                      torch.ones(len(ids), dtype=torch.float64)))
+
+    def cols(name):
+        return [name] if n_out == 1 else [f"{name}_{j}" for j in range(n_out)]
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["ids"] + cols("target")
+                   + [c for name in names for c in cols(name)]
+                   + cols("ensemble"))
+        for i, sid in enumerate(ids):
+            w.writerow([sid] + list(targets[i]) + [p for m in preds for p in m[i]]
+                       + list(ens_pred[i]))
+    return err
+
+
+def train_ensemble(dataset, job_parameters: dict, training_parameters: dict,
+                   models_parameters: dict,
+                   device: str | torch.device | None = None) -> float:
+    """The Ensemble run mode (reference train_ensemble,
+    training.py:1069-1196): train each model of `ensemble_list` (a Models
+    section each) on one split, average their test predictions
+    (ensemble_outputs) and write `<job>_test_ensemble_outputs.csv`. Under
+    write_output Partial or False the members' CSVs, and their
+    checkpoints unless save_model is True, are removed."""
+    job_name = str(job_parameters.get("job_name", "ensemble_job"))
+    ensemble_list = job_parameters["ensemble_list"]
+    if isinstance(ensemble_list, str):
+        ensemble_list = ensemble_list.split(",")
+    write_output = str(job_parameters.get("write_output", "Partial"))
+    loss_name = training_parameters.get("loss", "l1_loss")
+    seed = int(job_parameters.get("seed") or np.random.randint(1, 1_000_000))
+
+    outputs, errors = [], []
+    for i, mname in enumerate(ensemble_list):
+        jp = dict(job_parameters)
+        jp["job_name"] = f"{job_name}_{i}_{mname}"
+        jp["model_path"] = (f"{i}_{mname}_"
+                            f"{job_parameters.get('model_path', 'my_model.ckpt')}")
+        jp["seed"] = seed
+        jp["write_output"] = "True"
+        e = train_regular(dataset, jp, training_parameters,
+                          dict(models_parameters[mname]), device=device)
+        errors.append(e["test"])
+        with open(f"{jp['job_name']}_test_outputs.csv") as f:
+            outputs.append(list(csv.reader(f))[1:])
+        if write_output in ("Partial", "False"):
+            for split in ("train", "val", "test"):
+                p = f"{jp['job_name']}_{split}_outputs.csv"
+                if os.path.exists(p):
+                    os.remove(p)
+            if (str(job_parameters.get("save_model", "False")) != "True"
+                    and os.path.exists(jp["model_path"])):
+                os.remove(jp["model_path"])
+    for mname, err in zip(ensemble_list, errors):
+        print("Test Error, {}: {:.5f}".format(mname, err))
+    ens_err = ensemble_outputs(outputs, ensemble_list, loss_name,
+                               f"{job_name}_test_ensemble_outputs.csv")
+    print("Test Error, Ensemble: {:.5f}".format(ens_err))
+    return ens_err
+
+
+def load_model_for_inference(dataset, model_path: str, dev):
+    """(meta, model in eval mode on `dev`) from a checkpoint of either
+    package (training/checkpoint.py)."""
+    meta, state_dict = load_checkpoint(model_path)
+    # the initial draw is overwritten by the checkpoint, but comes from an
+    # explicit generator all the same
+    model = build_model(meta["model_name"], dataset, dict(meta["model_config"]),
+                        generator=torch.Generator().manual_seed(0),
+                        device="cpu").to(dev)
+    model.load_state_dict(state_dict)
+    return meta, model.eval()
+
+
+@torch.no_grad()
+def graph_embeddings(model, model_name: str, dataset, dev,
+                     batch_size: int = 512) -> np.ndarray:
+    """The Analysis mode's embeddings: each batch's input of the first
+    post-FC layer (model(batch, embed=True)), on Predict's batches and
+    edge order (csr_side: the CSR kernels carry the convs' gathers and
+    sums on a card), over the dataset in order, sequential batches of
+    `batch_size`. As the reference package, each batch keeps its first k
+    rows, k its count of real graphs: the graph rows after an early pool
+    (a late pool's embedding is the node features)."""
+    if model_name in DESCRIPTOR_MODELS:
+        raise ValueError(f"Analysis reads a GNN's post-pool embedding; "
+                         f"{model_name} has none")
+    spec = BatchSpec.for_dataset(dataset.node_counts(), dataset.edge_counts(),
+                                 batch_size)
+    data = DeviceDataset.from_graph_dataset(dataset, dev,
+                                            edge_order=csr_side(model_name))
+    ids = T.epoch_id_matrix(np.arange(len(dataset)), batch_size, shuffle=False,
+                            seed=None)
+    embs = []
+    for row in ids:
+        emb = model(assemble(data, row, spec), embed=True)
+        embs.append(emb[:int((row >= 0).sum())].cpu().numpy())
+    return np.concatenate(embs)
+
+
+def analysis(dataset, model_path: str, tsne_args: dict | None = None,
+             batch_size: int = 512, output_prefix: str = "tsne",
+             device: str | torch.device | None = None) -> np.ndarray:
+    """The Analysis run mode (reference analysis, training.py:1199-1290):
+    the graph embeddings of a trained model (graph_embeddings, on the
+    device), then sklearn's t-SNE of them (`n_iter` is sklearn's
+    `max_iter`; a perplexity not below the sample count, which sklearn
+    refuses, becomes min(30, max(2, n/4))), `<prefix>_output.csv` (id, target, the two t-SNE
+    coordinates) and, with matplotlib, `<prefix>_output.png`. sklearn and
+    matplotlib are imported here only; without sklearn this raises."""
+    if not os.path.exists(model_path):
+        raise FileNotFoundError(f"Saved model not found: {model_path}")
+    dev = resolve_device(device)
+    meta, model = load_model_for_inference(dataset, model_path, dev)
+    model_summary(model, meta["model_name"])
+    embeddings = graph_embeddings(model, meta["model_name"], dataset, dev,
+                                  batch_size)
+    print("Number of samples: ", embeddings.shape[0])
+    print("Number of features: ", embeddings.shape[1])
+    try:
+        from sklearn.manifold import TSNE
+    except ImportError as e:
+        raise ImportError("the Analysis run mode needs scikit-learn "
+                          "(sklearn.manifold.TSNE), which is not "
+                          "installed") from e
+
+    targets = dataset.targets
+    if targets.ndim > 1:
+        targets = targets[:, 0]
+    targs = dict(tsne_args or {})
+    if "n_iter" in targs:  # the reference's sklearn name (main.py:531)
+        targs["max_iter"] = targs.pop("n_iter")
+    fallback = min(30.0, max(2.0, len(dataset) / 4))
+    if targs.setdefault("perplexity", fallback) >= len(embeddings):
+        # sklearn needs a perplexity below the sample count
+        print(f"perplexity {targs['perplexity']} >= {len(embeddings)} "
+              f"samples; using {fallback}")
+        targs["perplexity"] = fallback
+    tsne_out = TSNE(**targs).fit_transform(embeddings)
+    with open(f"{output_prefix}_output.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        for sid, y, a, b in zip(dataset.structure_ids, targets,
+                                tsne_out[:, 0], tsne_out[:, 1]):
+            w.writerow([sid, y, a, b])
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        main = plt.scatter(tsne_out[:, 1], tsne_out[:, 0], c=targets, s=3)
+        ax.set_xticks([])
+        ax.set_yticks([])
+        cbar = plt.colorbar(main, ax=ax)
+        cbar.mappable.set_clim(targets.mean() - 2 * targets.std(),
+                               targets.mean() + 2 * targets.std())
+        plt.savefig(f"{output_prefix}_output.png", format="png", dpi=600)
+        plt.close(fig)
+    except ImportError:
+        print("matplotlib unavailable; skipping tsne_output.png")
+    return tsne_out

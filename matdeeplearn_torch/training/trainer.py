@@ -224,7 +224,8 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
                   scheduler_kwargs: dict, scheduler_enabled: bool = True,
                   checkpoint_fn=None, shuffle_seed_base: int = 0,
                   meter=None, capture: bool | None = None,
-                  graph_cache: dict | None = None):
+                  graph_cache: dict | None = None, start_epoch: int = 0,
+                  plateau_start: tuple | None = None, chunk_fn=None):
     """Run `epochs` epochs in chunks of `verbosity`. Returns (best_state,
     final PlateauState, history): best_state a state_dict copy (the model
     itself holds the last state), history one (train, val, lr) row of floats
@@ -249,7 +250,15 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
 
     id_matrix_fn(indices, shuffle, seed) makes the id matrices of the
     train epochs and of the val split (train.epoch_id_matrix's padded rows,
-    or packed bins)."""
+    or packed bins).
+
+    A run resumed mid-training (training/hyper.py) passes start_epoch, the
+    epochs already trained (this call's epochs are numbered and shuffled
+    from start_epoch + 1), and plateau_start, the scheduler's (lr, best,
+    num_bad, cooldown) to continue from. chunk_fn(epoch, rows, sched), if
+    given, is called after every chunk (and its checkpoint_fn) with the
+    last epoch's number, the chunk's (train, val, lr) rows and the plateau
+    state; a true return ends the training there."""
     dev = data.device
     plan = capture_plan(dev, optimizer, model, capture)
     has_val = len(val_idx) > 0
@@ -281,7 +290,8 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
     def chunk_ids(start: int) -> np.ndarray:
         """The (k, S, B) id matrices of the chunk of epochs after `start`."""
         return np.stack([
-            id_matrix_fn(train_idx, True, shuffle_seed_base + start + e + 1)
+            id_matrix_fn(train_idx, True,
+                         shuffle_seed_base + start_epoch + start + e + 1)
             for e in range(min(chunk, epochs - start))])
 
     fns = None
@@ -294,6 +304,9 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
         k = ids.shape[0]
         if fns is None:
             fns = epoch_fns(tuple(ids.shape[1:]))
+            if plateau_start is not None:
+                for t, v in zip(fns.state.sched, plateau_start):
+                    t.fill_(v)
         state = fns.state
         hist = torch.empty((k, 3), device=dev)
         for e in range(k):
@@ -328,11 +341,14 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
             print(
                 "Epoch: {:04d}, Learning Rate: {:.6f}, Training Error: {:.5f},"
                 " Val Error: {:.5f}, Time per epoch (s): {:.5f}".format(
-                    epoch, lr_now, train_err, val_err, dt
+                    start_epoch + epoch, lr_now, train_err, val_err, dt
                 )
             )
         if checkpoint_fn is not None:
             checkpoint_fn(state.best, float(state.best_val), state.sched)
+        if chunk_fn is not None and chunk_fn(start_epoch + epoch, rows,
+                                             state.sched):
+            break
         t0 = time.time()
     state = EpochState(model, lr, dev) if fns is None else fns.state
     best = {k: v.clone() for k, v in state.best.items()}

@@ -1442,3 +1442,40 @@ def test_load_optimizer_state_drops_the_graphs(cuda_device, tmp_path):
     eager.load_optimizer_state(copy.deepcopy(saved))
     _, h_e, _, _ = _train_run(ds, mp, False, epochs=2, run=eager, seed=6)
     np.testing.assert_allclose(h_g, h_e, rtol=1e-6)
+
+
+def test_reset_run_replays_the_graphs(cuda_device, tmp_path):
+    """A CV fold on a reused Run (jobs.reset_run) replays fold 0's graphs,
+    captures nothing, and gives a fresh Run's fold bit for bit under
+    deterministic algorithms."""
+    from matdeeplearn_torch.training import graphs, jobs
+
+    ds = _toy(tmp_path)
+    mp = _capture_mp("CGCNN", "fused", "padded")
+    run, _, _, _ = _train_run(ds, mp, None, epochs=2, seed=4)
+    before = graphs.CAPTURES["graphs"]
+    jobs.reset_run(run, 5)
+    _, h_reused, _, _ = _train_run(ds, mp, None, epochs=2, run=run, seed=5)
+    assert graphs.CAPTURES["graphs"] == before
+    _, h_fresh, _, _ = _train_run(ds, mp, None, epochs=2, seed=5)
+    np.testing.assert_array_equal(h_reused, h_fresh)
+
+
+def test_dropped_runs_leave_device_memory_flat(cuda_device, tmp_path):
+    """Runs captured and dropped one after another (a sweep's trials) end
+    with the same device memory allocated: nothing of a dropped run's
+    graphs stays, and the warm-up stream (with its cuBLAS workspace) is
+    shared."""
+    import gc
+
+    ds = _toy(tmp_path)
+    mp = _capture_mp("CGCNN", "fused", "padded")
+    after = []
+    for seed in range(3):
+        run, _, _, _ = _train_run(ds, {**mp, "dim1": 16 * (seed + 1)}, None,
+                                  epochs=1, seed=seed)
+        del run
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert abs(after[2] - after[1]) < 2**20, after  # a new stream: 32 MiB

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: every module, and chip_smoke.py, imports
-with jax, flax, yaml and the JAX package blocked, and no port source names
-them."""
+with jax, flax, yaml, msgpack, sklearn, matplotlib and the JAX package
+blocked (the card's Python has none of them; Analysis imports sklearn and
+matplotlib when it runs), and no port source names the reference
+framework."""
 
 import os
 import pkgutil
@@ -12,7 +14,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "matdeeplearn_torch")
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "matdeeplearn_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "msgpack", "sklearn",
+           "matplotlib", "matdeeplearn_tpu")
 
 
 def _port_modules():
@@ -32,7 +35,9 @@ def test_training_slice_modules_are_walked():
                  "training.scheduler", "training.trainer", "training.jobs",
                  "utils.summary", "cli", "ops.fused_cfconv", "models.schnet",
                  "ops.fused_bilinear", "models.mpnn", "data.windowed",
-                 "ops.windowed", "models.gcn", "models.megnet"):
+                 "ops.windowed", "models.gcn", "models.megnet",
+                 "data.descriptors", "data.native", "models.descriptor_nn",
+                 "training.hyper", "training.checkpoint"):
         assert f"matdeeplearn_torch.{name}" in mods, name
 
 
@@ -58,7 +63,7 @@ def _sources():
     out = []
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files
-                if f.endswith((".py", ".cu", ".cuh"))]
+                if f.endswith((".py", ".cu", ".cuh", ".cpp"))]
     return sorted(out)
 
 

@@ -314,8 +314,10 @@ def test_resolve_kernel():
         TJ.resolve_kernel("CGCNN", "fused", "padded", cpu)
     with pytest.raises(ValueError, match="unknown batching"):
         TJ.resolve_kernel("CGCNN", "fused", "bulk", cpu)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TJ.resolve_kernel("SM", "auto", "padded", cpu)
+    # the descriptor models run plain products: xla on every device
+    assert TJ.resolve_kernel("SM", "auto", "padded", cuda).name == "xla"
+    with pytest.raises(ValueError, match="unknown model"):
+        TJ.resolve_kernel("DimeNet", "auto", "padded", cpu)
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
