@@ -65,6 +65,17 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    beside their operations bound (3xTF32 rate, the FMA rate beside it),
    their plain versions and one torch.einsum over the same inputs (and its
    autograd backward to xj and a) as the library yardstick;
+6b. checks the bilinear kernels' bf16 arm (`precision: bf16`: operands
+   rounded to bf16, f32 accumulation) against its plain versions on the
+   same batch, at (100, 100, 100) sorted, permuted and scattered, (3, 7,
+   5) and (150, 100, 150): all five outputs to rtol 1e-4 and atol
+   1e-4·max|ref| (the same rounded operands, exact products, f32 sums in
+   another order), bit-identical between two calls, masked rows zero; the
+   mutation check: the f32 arm on the same inputs (the unrounded 3xTF32
+   path a build without the rounding runs) must fail that check on the
+   forward, d_a and the weight gradient; then times the arm beside its
+   bound at the dense BF16 rate (989.4 TFLOP/s), its plain versions and
+   the same einsum compositions on bf16 tensors as the library yardstick;
 7. runs Predict through cli.run on the card with the launch counters reset
    just before and read just after (each CSR kernel >= 32: 8 batches x 4
    CGConv layers), then the same Predict on the CPU (plain versions, same
@@ -76,7 +87,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    resolved line must say: capture=graphs) with the
    launch counters reset just before and read just after: each fused
    kernel must launch at least 4 layers x 8 steps x 5 epochs times; then
-   2 epochs of the same on the CPU (plain versions): the first epoch's
+   1 epoch of the same on the CPU (plain versions; one epoch, as for 10
+   and 14, keeps the script inside its time limit): the first epoch's
    train error agrees to rtol 1e-3, every error is finite, and the card's
    last train error is below its first; Predict on the card from the
    checkpoint Training saved gives 1,000 finite predictions;
@@ -94,11 +106,12 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     kernels and csr_segment_sum and csr_gather each >= 4 x 8 x 5 launches;
     the comparison with the CPU (kernel fused, plain versions) runs 1 epoch
     on each side on the first 200 structures (a plain epoch over all 1,000
-    takes minutes on the CPU; the Predict comparison keeps all 1,000); then
-    MPNN Predict on the card from the checkpoint Training saved (counters
-    reset just before: the bilinear forward and csr_segment_sum >= 4 x 8
-    launches; 1,000 finite predictions that agree with the CPU Predict of
-    that checkpoint to rtol 1e-4, atol 1e-4; one more profiled); then 3
+    takes minutes on the CPU); then MPNN Predict on the card from the
+    checkpoint Training saved (counters reset just before: the bilinear
+    forward and csr_segment_sum >= 4 x 8 launches; 1,000 finite
+    predictions), and card against CPU Predict of that checkpoint on the
+    first 200 structures to rtol 1e-4, atol 1e-4 (a plain Predict of all
+    1,000 takes over a minute on the CPU; one more profiled); then 3
     warm-timed epochs under kernel xla (the einsum over the formed per-edge
     weights) and 3 under kernel fused, and one profiled warm epoch;
 12. builds the windowed layout of the 1,000 structures and checks the
@@ -117,7 +130,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     fused epochs (the windowed segment-sum at D 100 and its gather);
 14. does 8 for GCN_demo under kernel pallas: the windowed SpMM (every
     message sum), segment-sum (every degree) and gather (the SpMM's
-    backward) each >= 4 x 8 x 5 launches, 2 CPU epochs to compare; then GCN
+    backward) each >= 4 x 8 x 5 launches, 1 CPU epoch to compare; then GCN
     Predict on the card from the checkpoint Training saved (dst-sorted CSR
     plan; counters reset just before: csr_segment_sum >= 2 x 4 x 8
     launches; 1,000 finite predictions that agree with the CPU Predict of
@@ -145,8 +158,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     profiled warm packed epoch (kernel fused);
 14c. trains every model and arm of 9, 13, 14, 14a and 14b (CGCNN csr,
     fused, pallas and packed fused, csr, pallas; SchNet csr, fused; MPNN
-    xla, fused; GCN xla, csr, pallas; MEGNet xla, csr, pallas and packed
-    csr) from its checkpoint on the trainer's CUDA graphs and on its eager
+    xla, fused, and fused under precision bf16; GCN xla, csr, pallas;
+    MEGNet xla, csr, pallas and packed csr) from its checkpoint on the trainer's CUDA graphs and on its eager
     loop (capture=False): 4 epochs each, printing the 3 warm epochs, the
     peak device memory and the launches, equal both ways; then 3 epochs
     each under torch.use_deterministic_algorithms, whose per-epoch train
@@ -173,7 +186,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     csr), whose CSR gather launches 2 more times a recomputed block;
 18. runs `python -m matdeeplearn_torch.bench` as a subprocess and prints
     its JSON line, whose MAE gate must pass (trained on CUDA graphs) and
-    which must hold the packed arms' keys and the eager loop's (`*_eager`);
+    which must hold the packed arms' keys, the bf16 arms' and the eager
+    loop's (`*_eager`);
 19. drives the descriptor models and the other run modes, each phase
     printing its wall time and warm epoch time beside the nvidia-smi line:
     a. SM_demo (config.yml's widths) on the 1,000 periodic structures with
@@ -208,9 +222,24 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
        concurrency 1: device memory allocated after trial 3 within 64 MiB
        of that after trial 1 (each trial's Run and graphs are freed), and a
        second call resumes and trains no trial;
+21. precision bf16: trains MPNN_demo under `precision: bf16` (kernel
+    auto: fused, so every NNConv message and gradient runs on the bilinear
+    kernels' bf16 arm) 5 epochs from its checkpoint, the launch counters
+    reset just before: each bf16 arm >= 4 x 8 x 5 launches, the f32 arm
+    none, the resolved line saying precision=bf16; its warm epoch beside
+    the f32 run's of 11; the first-epoch train error card vs CPU on the
+    first 200 structures (1 epoch each) to rtol 2^-6 (BF16_RTOL says
+    why); Predict from its checkpoint on the card (1,000 finite
+    predictions, the bf16 forward >= 4 x 8 launches) and card vs CPU on
+    the first 200 structures, to 2^-6 of the largest prediction; the busy
+    share of a profiled captured epoch; then CGCNN_demo, SchNet_demo,
+    GCN_demo, MEGNet_demo (kernel auto), SM_demo and SOAP_demo (19's
+    data) under bf16, 3 epochs each on the card: errors finite and the
+    train error falling;
 20. prints a {"kernels": [...]} line (the CSR rows with their callers,
     each path's launches and the src-sorted shapes' times), the nvidia-smi
-    line and, last, {"ok": true, "device": {...}}.
+    line and, last, {"ok": true, "device": {...}}; the three bf16 arm
+    rows' launches are 21's MPNN_demo Training's.
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -239,6 +268,9 @@ F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
 # H100 SXM dense TF32 tensor-core rate (495 TFLOP/s) over the three TF32
 # products (mma.sync or wgmma) that 3xTF32 spends on each f32 product
 TF32X3_FLOPS = 495e12 / 3
+# H100 SXM dense BF16 tensor-core rate: the bilinear kernels' bf16 arm
+# (one pass over bf16 operands) is bounded by it
+BF16_FLOPS = 989.4e12
 N_STRUCTURES = 1000
 
 # config.yml's values, written out because the card's Python has no yaml
@@ -291,7 +323,10 @@ RUN_MODE_JOBS = {
                  "write_output": "True", "seed": 0},
 }
 TRAIN_SEED = 7
-EPOCHS_CARD, EPOCHS_CPU, EPOCHS_AB = 5, 2, 3
+# EPOCHS_CPU: the CPU side of the CGCNN, SchNet and GCN card/CPU
+# comparisons, which hold the first epoch: one epoch keeps the script
+# inside its time limit
+EPOCHS_CARD, EPOCHS_CPU, EPOCHS_AB = 5, 1, 3
 # epochs of the CPU side of the card/CPU comparisons of MPNN (on the first
 # N_COMPARE structures), MEGNet and the packed runs: their plain versions
 # take longest on the CPU
@@ -368,6 +403,17 @@ MEGNET_DEMO = {
 # differ only in summation order part by more than 1e-3 within 8 steps
 # (PERF.md); without BatchNorm they agree.
 MEGNET_NOBN = {**MEGNET_DEMO, "batch_norm": "False"}
+# MPNN_demo under `precision: bf16` (phase 21), and the bf16 limit of its
+# card/CPU comparisons: both run the same operations at the same rounding
+# points, but an f32 sum in another order (cuBLAS's GEMMs, the kernels) can
+# tip a value to the neighbouring bf16 one, 2^-8 of it; 2^-6 allows a few
+# such steps through the model's layers
+MPNN_BF16 = {**MPNN_DEMO, "precision": "bf16"}
+BF16_RTOL = 2.0 ** -6
+# the bench's keys of the bulk segment's bf16 arms
+BENCH_BF16_KEYS = ("bulk_epoch_s_bf16", "bulk_epoch_s_bf16_packed",
+                   "bulk_epoch_s_bf16_packed_fused",
+                   "bulk_mpnn_epoch_s_packed_fused_bf16")
 # the bench's keys of the packed arms (matdeeplearn_torch/bench.py)
 BENCH_PACKED_KEYS = ("bulk_epoch_s_csr_packed", "bulk_csr_packed_speedup",
                      "bulk_mpnn_epoch_s_csr_fused", "bulk_mpnn_epoch_s_xla",
@@ -1217,6 +1263,155 @@ def time_bilinear(batch, dev, d=100, h=100, k=100):
             # X = [a | 1]·xj, then Xᵀ ge
             **bound(fwd_bytes, fwd_flops, TF32X3_FLOPS),
             "fma_bound_ms": bound(fwd_bytes, fwd_flops)["bound_ms"],
+        },
+    }
+    return res, e_real
+
+
+BF16_NAMES = ["output"] + [f"d_{n}" for n in BILINEAR_GRADS]
+
+
+def check_bilinear_bf16(batch, dev) -> tuple[dict, dict]:
+    """The bilinear kernels' bf16 arm (`precision: bf16`) against its plain
+    versions on the card, as check_bilinear holds the f32 arm (rtol 1e-4,
+    atol 1e-4·max|ref|: the same rounded operands, whose products are
+    exact, summed in another f32 order), at (D, H, K) = (100, 100, 100)
+    sorted, permuted and scattered, (3, 7, 5) and (150, 100, 150) sorted;
+    masked rows exactly zero, each kernel bit-identical between two calls.
+    The mutation check: the f32 arm on the same inputs (the unrounded
+    3xTF32 path, which a build without the bf16 rounding would run) must
+    fail that check on the forward, d_a and the weight gradient at MPNN
+    width, by a share of the limit above 1. Returns (the largest |kernel -
+    plain| of each bf16 kernel, the f32 arm's shares)."""
+    from matdeeplearn_torch.ops import fused_bilinear as FB
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    mask = batch.edge_mask
+    e = mask.shape[0]
+    perm = torch.randperm(e, device=dev, generator=g)
+    scattered = mask * (torch.rand(e, device=dev, generator=g) > 0.3).float()
+    err = {k: 0.0 for k in FB.LAUNCHES_BF16}
+    mutant = {}
+    failures = []
+    for d, h, k in ((100, 100, 100), (3, 7, 5), (150, 100, 150)):
+        xj, a, w1, b1 = bilinear_inputs(batch, d, h, k, g, dev)
+        cot = torch.randn(e, k, device=dev, generator=g)
+        p = lambda t: t[perm].contiguous()
+        cases = [("sorted dst, tail pads", xj, a, mask, cot)]
+        if d == 100:
+            cases += [("permuted dst", p(xj), p(a), p(mask), p(cot)),
+                      ("scattered mask", xj, a, scattered, cot)]
+        for name, xjv, av, mv, cv in cases:
+            what = f"bf16 arm, D={d}, H={h}, K={k}, {name}"
+            args = (xjv, av, w1, b1, mv)
+            got = (FB.fused_bilinear(*args, bf16=True),
+                   *FB.fused_bilinear_bwd(cv, *args, bf16=True))
+            again = (FB.fused_bilinear(*args, bf16=True),
+                     *FB.fused_bilinear_bwd(cv, *args, bf16=True))
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"bilinear {what}: two calls differ")
+            ref = (FB.fused_bilinear_plain(*args, bf16=True),
+                   *FB.fused_bilinear_bwd_plain(cv, *args, bf16=True))
+            shares = {}
+            for n, out, r in zip(BF16_NAMES, got, ref):
+                try:
+                    diff = assert_fused(out, r, f"bilinear {what}: {n}")
+                except AssertionError as exc:
+                    failures.append(str(exc))
+                    diff = float((out - r).abs().max())
+                shares[n] = limit_share(out, r)
+                key = ("fused_bilinear_fwd_bf16" if n == "output" else
+                       "fused_bilinear_bwd_bf16" if n in ("d_xj", "d_a") else
+                       "fused_bilinear_wgrad_bf16")
+                err[key] = max(err[key], diff)
+            for t in got[:3]:
+                if float(t[mv == 0].abs().max()) != 0.0:
+                    raise AssertionError(f"bilinear {what}: masked rows are "
+                                         "not exactly zero")
+            print(f"  bilinear kernel check: {what}: worst share of the "
+                  f"limit " + ", ".join(f"{n} {v:.3g}" for n, v in
+                                        shares.items())
+                  + "; bit-identical twice; masked rows zero")
+            if (d, name) == (100, "sorted dst, tail pads"):
+                f32 = (FB.fused_bilinear(*args),
+                       *FB.fused_bilinear_bwd(cv, *args))
+                mutant = {n: limit_share(out, r) for n, out, r in
+                          zip(BF16_NAMES, f32, ref)}
+                print(f"  mutation check, the f32 arm (unrounded 3xTF32) "
+                      f"against the bf16 arm's plain versions: share of the "
+                      f"limit " + ", ".join(f"{n} {v:.3g}"
+                                            for n, v in mutant.items()))
+                for n in ("output", "d_a", "d_w1"):
+                    if not mutant[n] > 1.0:
+                        failures.append(f"the unrounded f32 arm passes the "
+                                        f"bf16 arm's check on {n}: the check "
+                                        "cannot tell the arms apart")
+    if failures:
+        raise AssertionError(f"{len(failures)} bilinear bf16 checks failed; "
+                             f"the first: {failures[0]}")
+    return err, mutant
+
+
+def time_bilinear_bf16(batch, dev, d=100, h=100, k=100):
+    """time_bilinear for the bf16 arm: kernel and plain times at one
+    MPNN_demo training batch, the bound at the dense BF16 rate (the
+    function's operations; the bytes as the f32 arm's, which reads f32
+    rows), and the library yardstick on bf16 tensors: the same
+    torch.einsum compositions over bf16 copies of the inputs (cuBLAS's bf16
+    GEMMs, f32 accumulation), which the port never calls."""
+    from matdeeplearn_torch.ops import fused_bilinear as FB
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    mask = batch.edge_mask
+    e = mask.shape[0]
+    e_real = int((mask > 0).sum())
+    xj, a, w1, b1 = bilinear_inputs(batch, d, h, k, g, dev)
+    cot = torch.randn(e, k, device=dev, generator=g)
+    args = (xj, a, w1, b1, mask)
+    bf = torch.bfloat16
+    xj16, a16, w16, b16, m16, c16 = (t.to(bf) for t in (xj, a, w1, b1, mask,
+                                                        cot))
+    leaves = [t.clone().requires_grad_(True) for t in (xj16, a16)]
+
+    def library(xjv, av):
+        msg = (torch.einsum("eh,ed,hdk->ek", av, xjv, w16.view(h, d, k))
+               + xjv @ b16.view(d, k))
+        return msg * m16[:, None]
+
+    out = library(*leaves)
+    a_ext = torch.cat([a16, torch.ones_like(a16[:, :1])], 1)
+    ge = c16 * m16[:, None]
+    units = h + 1
+    w_floats = units * d * k
+    fwd_bytes = 4 * (e_real * (d + h + k) + e + w_floats)
+    fwd_flops = e_real * h * d + 2 * e_real * units * d * k
+    bwd_bytes = 4 * (e_real * (2 * d + 2 * h + k) + e + w_floats)
+    bwd_flops = 2 * e_real * units * d * k + e_real * (4 * h * d + d)
+    res = {
+        "fused_bilinear_fwd_bf16": {
+            "ms": device_ms(lambda: FB.fused_bilinear(*args, bf16=True), 20),
+            "plain_ms": device_ms(
+                lambda: FB.fused_bilinear_plain(*args, bf16=True), 10),
+            "library_ms": device_ms(lambda: library(xj16, a16), 10),
+            **bound(fwd_bytes, fwd_flops, BF16_FLOPS),
+        },
+        "fused_bilinear_bwd_bf16": {
+            "ms": device_ms(lambda: FB.fused_bilinear_bwd_rows(
+                cot, *args, bf16=True), 20),
+            "plain_ms": device_ms(lambda: FB.bwd_rows_plain(
+                cot, *args, bf16=True), 10),
+            "library_ms": device_ms(lambda: torch.autograd.grad(
+                out, leaves, c16, retain_graph=True), 10),
+            **bound(bwd_bytes, bwd_flops, BF16_FLOPS),
+        },
+        "fused_bilinear_wgrad_bf16": {
+            "ms": device_ms(lambda: FB.fused_bilinear_wgrad(
+                cot, xj, a, mask, bf16=True), 20),
+            "plain_ms": device_ms(lambda: FB.wgrad_plain(
+                cot, xj, a, mask, k, bf16=True), 10),
+            "library_ms": device_ms(lambda: torch.einsum(
+                "eh,ed,ek->hdk", a_ext, xj16, ge), 10),
+            **bound(fwd_bytes, fwd_flops, BF16_FLOPS),
         },
     }
     return res, e_real
@@ -2234,7 +2429,9 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("TF32 off for matmul and cuDNN (full f32)")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print("TF32 off for matmul and cuDNN (full f32); bf16 GEMMs reduce in "
+          "f32")
     srcs = [os.path.relpath(p, REPO) for p in _build.sources()]
     print(f"kernel build of {', '.join(srcs)} (nvcc {' '.join(_build.NVCC_FLAGS)}, "
           f"one process each, in parallel): {_build.build():.2f} s")
@@ -2399,6 +2596,19 @@ def main() -> int:
               f"ms, library {t['library_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of it{fma})")
+    print(f"bilinear bf16 arm checks on {card} (the same training batch):")
+    bf16_err, bf16_mutant = check_bilinear_bf16(tbatch, dev)
+    err.update(bf16_err)
+    b16times, _ = time_bilinear_bf16(tbatch, dev)
+    times.update(b16times)
+    for k, t in b16times.items():
+        f32k = k[:-len("_bf16")]
+        print(f"{k} on {smi}, E={tspec.num_edges} ({be_real} real), "
+              f"D=H=K=100: kernel {t['ms']:.4f} ms (the f32 arm "
+              f"{btimes[f32k]['ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+              f"library (bf16 einsum) {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']} at the BF16 rate, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of it)")
     del tdata, tbatch
 
     # ---- windowed kernels at a GCN_demo training batch's layout ----------
@@ -2537,8 +2747,7 @@ def main() -> int:
         raise AssertionError(f"the card's train error did not fall: "
                              f"{card_rows[0][2]} -> {card_rows[-1][2]}")
     print(f"card vs CPU: epoch 1 train error {card_rows[0][2]:.5f} vs "
-          f"{cpu_rows[0][2]:.5f} (rtol 1e-3); epoch 2 {card_rows[1][2]:.5f} "
-          f"vs {cpu_rows[1][2]:.5f}; the card's train error "
+          f"{cpu_rows[0][2]:.5f} (rtol 1e-3); the card's train error "
           f"{card_rows[0][2]:.5f} -> {card_rows[-1][2]:.5f}")
     run_predict(predict_config(data_dir, gpu_train, "chip_trained", "cuda"))
     _, pred_t = read_predictions("chip_trained_predicted_outputs.csv")
@@ -2597,8 +2806,7 @@ def main() -> int:
         raise AssertionError(f"the card's SchNet train error did not fall: "
                              f"{s_rows[0][2]} -> {s_rows[-1][2]}")
     print(f"SchNet card vs CPU: epoch 1 train error {s_rows[0][2]:.5f} vs "
-          f"{s_cpu_rows[0][2]:.5f} (rtol 1e-3); epoch 2 {s_rows[1][2]:.5f} vs "
-          f"{s_cpu_rows[1][2]:.5f}; the card's train error "
+          f"{s_cpu_rows[0][2]:.5f} (rtol 1e-3); the card's train error "
           f"{s_rows[0][2]:.5f} -> {s_rows[-1][2]:.5f}")
 
     # ---- main path 4: SchNet_demo Predict on the card, then the CPU -------
@@ -2703,15 +2911,22 @@ def main() -> int:
           f"evaluation ({len(dataset) / m_warm_eval:.1f} graphs/s)")
     profile_predict(predict_config(data_dir, gpu_mpnn, "chip_mpnn_predict",
                                    "cuda"), "MPNN")
-    m_cpu_wall, _ = run_predict(predict_config(
-        data_dir, gpu_mpnn, "chip_mpnn_predict_cpu", "cpu"))
-    print(f"MPNN Predict on the CPU (plain versions): {m_cpu_wall:.3f} s wall")
-    ids_g, pred_g = read_predictions("chip_mpnn_predict_predicted_outputs.csv")
-    ids_c, pred_c = read_predictions(
-        "chip_mpnn_predict_cpu_predicted_outputs.csv")
+    _, pred_g = read_predictions("chip_mpnn_predict_predicted_outputs.csv")
     if len(pred_g) != N_STRUCTURES or not np.isfinite(pred_g).all():
         raise AssertionError(f"MPNN Predict: expected {N_STRUCTURES} finite "
                              f"predictions")
+    # card against CPU on the first N_COMPARE structures (a plain Predict
+    # over all 1,000 takes over a minute on the card's host)
+    run_predict(predict_config(sub_dir, gpu_mpnn, "chip_mpnn_predict_sub",
+                               "cuda"))
+    m_cpu_wall, _ = run_predict(predict_config(
+        sub_dir, gpu_mpnn, "chip_mpnn_predict_cpu", "cpu"))
+    print(f"MPNN Predict on the CPU (plain versions), the first {N_COMPARE} "
+          f"structures: {m_cpu_wall:.3f} s wall")
+    ids_g, pred_g = read_predictions(
+        "chip_mpnn_predict_sub_predicted_outputs.csv")
+    ids_c, pred_c = read_predictions(
+        "chip_mpnn_predict_cpu_predicted_outputs.csv")
     if ids_g != ids_c:
         raise AssertionError("MPNN card and CPU predictions list different ids")
     np.testing.assert_allclose(pred_g, pred_c, rtol=1e-4, atol=1e-4)
@@ -2758,8 +2973,7 @@ def main() -> int:
         raise AssertionError(f"the card's GCN train error did not fall: "
                              f"{g_rows[0][2]} -> {g_rows[-1][2]}")
     print(f"GCN card vs CPU: epoch 1 train error {g_rows[0][2]:.5f} vs "
-          f"{g_cpu_rows[0][2]:.5f} (rtol 1e-3); epoch 2 {g_rows[1][2]:.5f} vs "
-          f"{g_cpu_rows[1][2]:.5f}; the card's train error "
+          f"{g_cpu_rows[0][2]:.5f} (rtol 1e-3); the card's train error "
           f"{g_rows[0][2]:.5f} -> {g_rows[-1][2]:.5f}")
 
     # ---- main path 8: GCN_demo Predict on the card, then the CPU ----------
@@ -2962,6 +3176,7 @@ def main() -> int:
         + [("SchNet", SCHNET_DEMO, schnet_path, k, "padded")
            for k in ("csr", "fused")]
         + [("MPNN", MPNN_DEMO, mpnn_path, k, "padded") for k in ("xla", "fused")]
+        + [("MPNN bf16", MPNN_BF16, mpnn_path, "fused", "padded")]
         + [("GCN", GCN_DEMO, gcn_path, k, "padded")
            for k in ("xla", "csr", "pallas")]
         + [("MEGNet", MEGNET_DEMO, megnet_path, k, "padded")
@@ -3003,11 +3218,123 @@ def main() -> int:
     bench = run_bench(smi)
     missing = [k for k in BENCH_PACKED_KEYS + BENCH_EAGER_KEYS
                if k not in bench]
+    missing += [k for k in BENCH_BF16_KEYS if k not in bench]
     if missing:
         raise AssertionError(f"the bench's line lacks the keys {missing}")
 
     # ---- the descriptor models and the other run modes ---------------------
     modes = check_run_modes(dataset, data_dir, gpu_train, dev, smi, all_counts)
+
+    # ---- precision bf16: MPNN_demo on the bilinear kernels' bf16 arm ------
+    t_bf = time.perf_counter()
+    gpu_bf16 = resume_from_init("mpnn_bf16_gpu", mpnn_path)
+    reset_launches(*all_counts, FB.LAUNCHES_BF16)
+    wall, b_rows, b_text = run_training_text(training_config(
+        data_dir, gpu_bf16, "chip_mpnn_bf16_gpu", "cuda", EPOCHS_CARD,
+        model=MPNN_BF16))
+    bf16_launches = dict(FB.LAUNCHES_BF16)
+    print(f"launches in one MPNN bf16 Training run of {EPOCHS_CARD} epochs: "
+          f"{bf16_launches}; the f32 arm {dict(FB.LAUNCHES)}; CSR "
+          f"{dict(csr.LAUNCHES)}")
+    if "precision=bf16" not in b_text:
+        raise AssertionError("the bf16 run's resolved line names no "
+                             "precision=bf16")
+    for k, v in bf16_launches.items():
+        if v < need:
+            raise AssertionError(f"{k} launched {v} times in MPNN bf16 "
+                                 f"Training, expected >= {need}")
+    if any(FB.LAUNCHES.values()):
+        raise AssertionError(f"the f32 bilinear arm launched under bf16: "
+                             f"{dict(FB.LAUNCHES)}")
+    b_warm = warm_epoch_s(b_rows)
+    print(f"MPNN bf16 Training on {smi}: {wall:.3f} s wall for {EPOCHS_CARD} "
+          f"epochs; epoch 1 (cold) {b_rows[0][4]:.5f} s, warm epochs "
+          f"{b_warm:.5f} s on average (f32, main path 5: {m_warm:.5f} s; "
+          f"{m_warm / b_warm:.2f}x); {throughput_line(b_text)}")
+    if not b_rows[-1][2] < b_rows[0][2]:
+        raise AssertionError(f"the card's MPNN bf16 train error did not "
+                             f"fall: {b_rows[0][2]} -> {b_rows[-1][2]}")
+    bsub = {}
+    for where in ("cuda", "cpu"):
+        sub_wall, bsub[where] = run_training(training_config(
+            sub_dir, resume_from_init(f"mpnn_bf16_first_{where}", mpnn_path),
+            f"chip_mpnn_bf16_first_{where}", where, EPOCHS_COMPARE, "fused",
+            model=MPNN_BF16))
+        print(f"MPNN bf16 Training on the first {N_COMPARE} structures, "
+              f"{'the card' if where == 'cuda' else 'the CPU (plain versions)'}"
+              f": {sub_wall:.3f} s wall")
+    b_gap = abs(bsub["cuda"][0][2] - bsub["cpu"][0][2]) / bsub["cpu"][0][2]
+    print(f"MPNN bf16 card vs CPU on the first {N_COMPARE} structures: epoch "
+          f"1 train error {bsub['cuda'][0][2]:.6f} vs {bsub['cpu'][0][2]:.6f}"
+          f", relative gap {b_gap:.3e} (limit {BF16_RTOL:g}); f32 in main "
+          f"path 5: {sub['cuda'][0][2]:.6f} vs {sub['cpu'][0][2]:.6f}")
+    np.testing.assert_allclose(bsub["cuda"][0][2], bsub["cpu"][0][2],
+                               rtol=BF16_RTOL)
+    reset_launches(*all_counts, FB.LAUNCHES_BF16)
+    bp_wall, bp_eval = run_predict(predict_config(
+        data_dir, gpu_bf16, "chip_mpnn_bf16_predict", "cuda"))
+    bf16_predict_launches = {**FB.LAUNCHES_BF16, **csr.LAUNCHES}
+    if (bf16_predict_launches["fused_bilinear_fwd_bf16"] < 4 * steps
+            or any(FB.LAUNCHES.values())):
+        raise AssertionError(f"MPNN bf16 Predict launched "
+                             f"{bf16_predict_launches}, the f32 arm "
+                             f"{dict(FB.LAUNCHES)}")
+    _, pred_b = read_predictions("chip_mpnn_bf16_predict_predicted_outputs.csv")
+    if len(pred_b) != N_STRUCTURES or not np.isfinite(pred_b).all():
+        raise AssertionError(f"MPNN bf16 Predict: expected {N_STRUCTURES} "
+                             "finite predictions")
+    for where in ("cuda", "cpu"):
+        run_predict(predict_config(sub_dir, gpu_bf16,
+                                   f"chip_mpnn_bf16_sub_{where}", where))
+    ids_g, pred_g = read_predictions(
+        "chip_mpnn_bf16_sub_cuda_predicted_outputs.csv")
+    ids_c, pred_c = read_predictions(
+        "chip_mpnn_bf16_sub_cpu_predicted_outputs.csv")
+    if ids_g != ids_c:
+        raise AssertionError("MPNN bf16 card and CPU predictions list "
+                             "different ids")
+    bp_gap, bp_top = predict_gap_of(pred_g, pred_c)
+    print(f"MPNN bf16 Predict on {smi}: {N_STRUCTURES} finite predictions, "
+          f"{bp_wall:.4f} s wall, {bp_eval:.5f} s evaluation; launches "
+          f"{bf16_predict_launches}; card vs CPU on the first {N_COMPARE} "
+          f"structures: max |diff| {bp_gap:.3e} of {bp_top:.3f} (limit "
+          f"{BF16_RTOL:g} of the largest)")
+    np.testing.assert_allclose(pred_g, pred_c, rtol=0,
+                               atol=BF16_RTOL * bp_top)
+    busy["MPNN fused bf16"] = (profile_training(
+        dataset, dev, MPNN_BF16, kernel="fused", capture=None), None)
+    others = {}
+    for label, demo, init, ddir, processing in (
+            ("CGCNN", CGCNN_DEMO, model_path, data_dir, {}),
+            ("SchNet", SCHNET_DEMO, schnet_path, data_dir, {}),
+            ("GCN", GCN_DEMO, gcn_path, data_dir, {}),
+            ("MEGNet", MEGNET_DEMO, megnet_path, data_dir, {}),
+            ("SM", SM_DEMO, os.path.join(WORK, "SM_demo.ckpt"), data_dir,
+             {"SM_descriptor": "True", "processed_path": "processed_sm"}),
+            ("SOAP", SOAP_DEMO, os.path.join(WORK, "SOAP_demo.ckpt"),
+             os.path.join(WORK, "clusters"),
+             {"SOAP_descriptor": "True", "processed_path": "processed_soap"})):
+        cfg = training_config(ddir, resume_from_init(f"{label}_bf16", init),
+                              f"chip_{label}_bf16", "cuda", EPOCHS_AB,
+                              model={**demo, "precision": "bf16"})
+        cfg["Processing"].update(processing)
+        _, rows, text = run_training_text(cfg)
+        plan = re.search(r"kernel=(\S+)", text).group(1)
+        if "precision=bf16" not in text:
+            raise AssertionError(f"{label} bf16: no precision=bf16 in its "
+                                 "resolved line")
+        if not rows[-1][2] < rows[0][2]:
+            raise AssertionError(f"{label} bf16: the train error did not "
+                                 f"fall: {rows[0][2]} -> {rows[-1][2]}")
+        others[label] = (plan, [r[2] for r in rows], warm_epoch_s(rows))
+    print(f"bf16, {EPOCHS_AB} epochs each on {smi} (kernel auto): " + "; ".join(
+        f"{k} ({p}) train errors {', '.join(f'{e:.5f}' for e in errs)}, warm "
+        f"epochs {w:.5f} s" for k, (p, errs, w) in others.items()))
+    print(f"phase 21 (precision bf16) on {smi}: "
+          f"{time.perf_counter() - t_bf:.1f} s wall; MPNN bf16 warm epoch "
+          f"{b_warm:.5f} s against f32 {m_warm:.5f} s, busy "
+          f"{100 * busy['MPNN fused bf16'][0]:.1f}% of a profiled captured "
+          f"epoch")
 
     kernels = []
     for key, name, src, line, count in (
@@ -3040,6 +3367,15 @@ def main() -> int:
             ("fused_bilinear_wgrad", "fused_bilinear_wgrad", "fused_bilinear.cu",
              "pallas_bilinear.py:83, :134",
              mpnn_launches["fused_bilinear_wgrad"]),
+            ("fused_bilinear_fwd_bf16", "fused_bilinear_fwd_bf16",
+             "fused_bilinear.cu", "pallas_bilinear.py:235, :63 (mxu_bf16)",
+             bf16_launches["fused_bilinear_fwd_bf16"]),
+            ("fused_bilinear_bwd_bf16", "fused_bilinear_bwd_bf16",
+             "fused_bilinear.cu", "pallas_bilinear.py:134, :83 (mxu_bf16)",
+             bf16_launches["fused_bilinear_bwd_bf16"]),
+            ("fused_bilinear_wgrad_bf16", "fused_bilinear_wgrad_bf16",
+             "fused_bilinear.cu", "pallas_bilinear.py:134, :83 (mxu_bf16)",
+             bf16_launches["fused_bilinear_wgrad_bf16"]),
             ("windowed_segment_sum", "windowed_segment_sum", "windowed.cu",
              "pallas_segment.py:144", gcn_launches["windowed_segment_sum"]),
             ("windowed_spmm", "windowed_spmm", "windowed.cu",

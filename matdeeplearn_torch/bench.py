@@ -25,8 +25,12 @@ The counterpart of the reference package's bench.py:
   each padded arm (fused, pallas, xla) and CGCNN's csr arm on packed
   batches (the reference's production path, bench.py:223); then MPNN_demo's
   widths on packed batches of 64 under csr (its bilinear kernel with the
-  CSR mean, the reference's csr+fused) and xla (bench.py:258-302); every
-  arm captured (its key) and eager (the key with `_eager`).
+  CSR mean, the reference's csr+fused) and xla (bench.py:258-302); then
+  the `precision: bf16` arms of bench_bulk.py:294-319: CGCNN xla padded
+  (`bf16`), xla packed (`bf16_packed`) and fused packed
+  (`bf16_packed_fused`), and MPNN fused packed (`packed_fused_bf16`, the
+  bilinear kernels' bf16 arm); every arm captured (its key) and eager (the
+  key with `_eager`). The main line and its gate stay f32.
 
 Prints ONE JSON line on stdout; diagnostics go to stderr. Exits 1 when the
 gate fails; an arm that fails raises, so no line lacks an arm. Runs on CUDA unless --device names the CPU; a CUDA request
@@ -70,6 +74,11 @@ BENCH_MODEL = {                  # bench.py:61-69
 BULK_ARMS = (("fused", "padded"), ("pallas", "padded"), ("xla", "padded"),
              ("csr", "packed"))
 BULK_MPNN_ARMS = ("csr", "xla")
+# the bf16 arms: key suffix -> (model, kernel, batching)
+BULK_BF16_ARMS = {"bf16": ("CGCNN", "xla", "padded"),
+                  "bf16_packed": ("CGCNN", "xla", "packed"),
+                  "bf16_packed_fused": ("CGCNN", "fused", "packed"),
+                  "packed_fused_bf16": ("MPNN", "fused", "packed")}
 BULK = {"n_graphs": 2048, "batch": 256, "epochs": 5, "seed": 7}
 BULK_MPNN = {"model": "MPNN", "dim1": 100, "dim2": 100, "dim3": 100,
              "pre_fc_count": 1, "gc_count": 4, "post_fc_count": 3,
@@ -168,13 +177,13 @@ def _bulk_epoch_times(dev) -> dict:
     idx = np.arange(len(ds), dtype=np.int64)
     tr, va = idx[: int(0.9 * len(ds))], idx[int(0.9 * len(ds)):]
     times, eager = {}, {}
+    cgcnn = {**{k: BENCH_MODEL[k] for k in ("model", "dim1", "dim2",
+                                            "pre_fc_count", "gc_count",
+                                            "post_fc_count", "lr",
+                                            "optimizer", "scheduler")},
+             "batch_size": batch, "epochs": epochs}
     for kern, batching in BULK_ARMS:
-        mp = {**{k: BENCH_MODEL[k] for k in ("model", "dim1", "dim2",
-                                             "pre_fc_count", "gc_count",
-                                             "post_fc_count", "lr",
-                                             "optimizer", "scheduler")},
-              "batch_size": batch, "epochs": epochs, "kernel": kern,
-              "batching": batching}
+        mp = {**cgcnn, "kernel": kern, "batching": batching}
         times[kern] = _warm_epoch_s(ds, mp, tr, va, dev)
         eager[kern] = _warm_epoch_s(ds, mp, tr, va, dev, capture=False)
         log(f"bulk {kern} ({batching}): {times[kern]:.4f} s/epoch "
@@ -186,6 +195,19 @@ def _bulk_epoch_times(dev) -> dict:
         meager[kern] = _warm_epoch_s(ds, mp, tr, va, dev, capture=False)
         log(f"bulk MPNN {kern} (packed, batch {BULK_MPNN['batch_size']}): "
             f"{mtimes[kern]:.4f} s/epoch captured, {meager[kern]:.4f} eager")
+    bf16 = {}
+    for name, (model, kern, batching) in BULK_BF16_ARMS.items():
+        base = cgcnn if model == "CGCNN" else {**BULK_MPNN, "epochs": epochs}
+        mp = {**base, "kernel": kern, "batching": batching,
+              "precision": "bf16"}
+        key = (f"bulk_epoch_s_{name}" if model == "CGCNN"
+               else f"bulk_mpnn_epoch_s_{name}")
+        bf16[key] = round(_warm_epoch_s(ds, mp, tr, va, dev), 4)
+        bf16[f"{key}_eager"] = round(
+            _warm_epoch_s(ds, mp, tr, va, dev, capture=False), 4)
+        log(f"bulk {model} {kern} ({batching}, precision bf16): "
+            f"{bf16[key]:.4f} s/epoch captured, {bf16[key + '_eager']:.4f} "
+            "eager")
     return {
         "bulk_epoch_s_fused": round(times["fused"], 4),
         "bulk_epoch_s_pallas": round(times["pallas"], 4),
@@ -204,6 +226,7 @@ def _bulk_epoch_times(dev) -> dict:
         "bulk_epoch_s_csr_packed_eager": round(eager["csr"], 4),
         "bulk_mpnn_epoch_s_csr_fused_eager": round(meager["csr"], 4),
         "bulk_mpnn_epoch_s_xla_eager": round(meager["xla"], 4),
+        **bf16,
     }
 
 

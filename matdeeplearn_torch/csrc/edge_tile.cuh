@@ -189,6 +189,18 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ahi, bhi[0], bhi[1]);
 }
 
+// acc[mt][i] += A[mt] · B[i] in one TF32 pass, hi·hi: exact where both
+// operands are TF32 values already (bf16 ones are).
+template <int MT, int NTW>
+__device__ __forceinline__ void mma_tf32_tile(float (&acc)[MT][NTW][4],
+                                              const uint32_t (&ahi)[MT][4],
+                                              const uint32_t (&bhi)[NTW][2]) {
+#pragma unroll
+  for (int i = 0; i < NTW; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][i], ahi[mt], bhi[i][0], bhi[i][1]);
+}
+
 // acc[mt][i] += A[mt] · B[i] in 3xTF32, pass by pass over all fragments
 // (lo·hi, then hi·lo, then hi·hi): each accumulator takes its three
 // products in mma_3xtf32's order, and no mma.sync waits on the one issued

@@ -96,9 +96,31 @@
 //   real edge costs one barrier. No atomics: d_xj and d_a are
 //   bit-identical from run to run.
 //
+// The bf16 arm (the last argument of each entry point; `precision: bf16`
+// runs it, the reference's mxu_bf16) takes the heavy products' operands
+// rounded to bf16, to nearest with ties to even (round_bf16), with f32
+// accumulation, at the rounding points of the reference's chunked
+// schedules (:_fwd_kernel_chunked, :_bwd_kernel_chunked): the forward
+// bf16(a·xj) @ bf16(W1) plus xj @ b1 unrounded, the weight gradient
+// bf16(X)^T bf16(ge) (the bias unit's xj rounded too), d_a[e, h] =
+// bf16(xj) · (ge @ bf16(W_h)^T) with ge unrounded. One point differs, by
+// design: the reference rounds each unit's a_h·g before its product with
+// W1[h]^T; this backward never forms a·g (one U_h serves d_xj and d_a), so
+// d_xj = Σ_h a_h (ge @ bf16(W_h)^T) + ge @ b1^T, with a·g exact. The
+// callers round W1 (ops/fused_bilinear.py:arm_weight); the kernels round
+// X, ge and xj as they build their tiles. A product of bf16 values is
+// exact in TF32, so the arm drops the passes whose operand has no lo part:
+// one pass (hi·hi) in the forward's chunks below the bias unit and in the
+// whole weight gradient, two (lo·hi, hi·hi) for the backward's units h <
+// H; the bias unit keeps three. Bounds of the arm at the dense BF16 rate
+// (989.4 TFLOP/s) at chip_smoke's training batch: 9.24e10 operations ≈
+// 0.0934 ms for the forward and the weight gradient, ≈ 0.0947 ms for the
+// backward to the rows.
+//
 // The caller zeroes out, d_xj and d_a, and allocates everything; the
 // kernels never synchronise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,6 +135,13 @@ struct Geometry {
   int k;        // message width K
   int h;        // hidden units H (W holds H + 1 units)
 };
+
+// v rounded to bf16, to nearest with ties to even (cvt.rn.bf16.f32), as
+// the reference's astype(jnp.bfloat16) and torch's .to(torch.bfloat16)
+// round; back in f32, where it is exact (and exact in TF32 too).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // sc_s[r] = mask of edge e0 + r (0 past the end) for the tile's TE rows;
 // returns, uniformly across the block, whether any of them is real.
@@ -214,9 +243,10 @@ __device__ __forceinline__ void unit_of(int c, const FwdLayout& f, int dd,
 
 // X chunk ch (TE x kFK at row stride kLdX): X[e, c] = [a | 1][e, c / D] *
 // xj[e, c % D] over the flat columns c of the chunk, zero past the last
-// unit (column H + 1 of a_s). Producer warp pw (of NPW) builds rows pw,
-// pw + NPW, ..., lane l column l.
-template <int TE, int NPW>
+// unit (column H + 1 of a_s); the bf16 arm rounds the products of the
+// units h < H (the bias unit's xj stays as it is). Producer warp pw (of
+// NPW) builds rows pw, pw + NPW, ..., lane l column l.
+template <int TE, int NPW, bool kBf16>
 __device__ __forceinline__ void build_x(int ch, int pw, const float* x_s,
                                         const float* a_s, const FwdLayout& f,
                                         const Geometry& g, float* xc_s) {
@@ -224,9 +254,11 @@ __device__ __forceinline__ void build_x(int ch, int pw, const float* x_s,
   int u, d;
   unit_of(ch * kFK + lane, f, g.d, u, d);
   const int oa = min(u, g.h + 1);
+  const bool round = kBf16 && u < g.h;
 #pragma unroll 4
   for (int r = pw; r < TE; r += NPW) {
-    xc_s[r * kLdX + lane] = a_s[r * f.lda + oa] * x_s[r * f.ldx + d];
+    const float v = a_s[r * f.lda + oa] * x_s[r * f.ldx + d];
+    xc_s[r * kLdX + lane] = round ? round_bf16(v) : v;
   }
 }
 
@@ -238,7 +270,13 @@ __device__ __forceinline__ void build_x(int ch, int pw, const float* x_s,
 // multiply chunk c, they load W chunk c + 1, split it into the free W
 // buffer and build X chunk c + 1; one barrier a chunk. wp is [W1; b1]
 // zero-padded to a multiple of kFK rows and to kp columns.
-template <int MT, int WM, int WN, int NTW>
+//
+// The bf16 arm (kBf16; wp's W1 rows rounded by the caller, b1's not):
+// build_x rounds X's products of the units h < H, and a chunk whose flat
+// rows all lie below the bias unit multiplies in one TF32 pass (hi·hi:
+// its operands are bf16 values, exact in TF32); the chunks that hold bias
+// rows keep the three passes, so xj @ b1 stays f32-accurate.
+template <int MT, int WM, int WN, int NTW, bool kBf16>
 __global__ void __launch_bounds__(32 * (WM * WN + kPW), 1)
 bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
                     const float* __restrict__ wp,
@@ -283,7 +321,7 @@ bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
   __syncthreads();
   if (producer) {
     store_w<NPT, PF>(st, pt, w_s);
-    build_x<TE, kPW>(0, warp - NC, x_s, a_s, f, g, xc_s);
+    build_x<TE, kPW, kBf16>(0, warp - NC, x_s, a_s, f, g, xc_s);
   }
   __syncthreads();
 
@@ -305,8 +343,32 @@ bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
       if (ch + 1 < chunks) {
         stage_w<NPT, PF>(wp, ch + 1, f.kp, NTT, pt, st);
         store_w<NPT, PF>(st, pt, w_s + (buf ^ 1) * WCH);
-        build_x<TE, kPW>(ch + 1, warp - NC, x_s, a_s, f, g,
-                        xc_s + (buf ^ 1) * TE * kLdX);
+        build_x<TE, kPW, kBf16>(ch + 1, warp - NC, x_s, a_s, f, g,
+                                xc_s + (buf ^ 1) * TE * kLdX);
+      }
+    } else if (kBf16 && (ch + 1) * kFK <= g.h * g.d) {
+      // a chunk of bf16 products only: one pass
+      const uint4* ws = w_s + buf * WCH;
+      const float* xs = xc_s + buf * TE * kLdX + (row0 + gr) * kLdX + tq;
+#pragma unroll
+      for (int ks = 0; ks < kFK / 8; ++ks) {
+        uint32_t ahi[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* xr = xs + 16 * mt * kLdX + 8 * ks;
+          ahi[mt][0] = tf32_rna(xr[0]);
+          ahi[mt][1] = tf32_rna(xr[8 * kLdX]);
+          ahi[mt][2] = tf32_rna(xr[4]);
+          ahi[mt][3] = tf32_rna(xr[8 * kLdX + 4]);
+        }
+        uint32_t bhi[NTW][2];
+#pragma unroll
+        for (int i = 0; i < NTW; ++i) {
+          const uint4 q = ws[(ks * NTT + wn + WN * i) * 32 + lane];
+          bhi[i][0] = q.x;
+          bhi[i][1] = q.y;
+        }
+        mma_tf32_tile<MT, NTW>(acc, ahi, bhi);
       }
     } else {
       const uint4* ws = w_s + buf * WCH;
@@ -353,23 +415,32 @@ bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
   }
 }
 
-template <int MT, int WM, int WN, int NTW>
-int launch_fwd(const float* xj, const float* a, const float* wp,
-               const float* mask, float* out, const Geometry& g,
-               cudaStream_t s) {
+template <int MT, int WM, int WN, int NTW, bool kBf16>
+int launch_fwd_arm(const float* xj, const float* a, const float* wp,
+                   const float* mask, float* out, const Geometry& g,
+                   cudaStream_t s) {
   constexpr int TE = WM * 16 * MT;
   const FwdLayout f = fwd_layout(g, NTW * WN);
   const size_t smem = fwd_shared_bytes(f, TE);
   if (smem > (size_t)kMaxShared) return kBadShape;
   cudaError_t err = cudaFuncSetAttribute(
-      bilinear_fwd_kernel<MT, WM, WN, NTW>,
+      bilinear_fwd_kernel<MT, WM, WN, NTW, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (g.e + TE - 1) / TE;
-  bilinear_fwd_kernel<MT, WM, WN, NTW>
+  bilinear_fwd_kernel<MT, WM, WN, NTW, kBf16>
       <<<(unsigned)tiles, 32 * (WM * WN + kPW), smem, s>>>(xj, a, wp, mask,
                                                            out, g, f);
   return (int)cudaGetLastError();
+}
+
+template <int MT, int WM, int WN, int NTW>
+int launch_fwd(const float* xj, const float* a, const float* wp,
+               const float* mask, float* out, const Geometry& g, bool bf16,
+               cudaStream_t s) {
+  return bf16
+             ? launch_fwd_arm<MT, WM, WN, NTW, true>(xj, a, wp, mask, out, g, s)
+             : launch_fwd_arm<MT, WM, WN, NTW, false>(xj, a, wp, mask, out, g, s);
 }
 
 // The forward's tile for these widths: 128 edges in 4 multiplying warps (2
@@ -379,7 +450,7 @@ int launch_fwd(const float* xj, const float* a, const float* wp,
 // instantiated count; kPW producing warps besides. Returns kBadShape where
 // none fits.
 int fwd_dispatch(const float* xj, const float* a, const float* wp,
-                 const float* mask, float* out, const Geometry& g,
+                 const float* mask, float* out, const Geometry& g, bool bf16,
                  cudaStream_t s) {
   const int ntiles = round8(g.k) / 8;
   auto fits = [&](int te, int ntt) {
@@ -388,30 +459,30 @@ int fwd_dispatch(const float* xj, const float* a, const float* wp,
   const int half = (ntiles + 1) / 2;
   if (ntiles <= 16 && fits(128, 2 * half)) {
     switch (half) {
-      case 1: return launch_fwd<4, 2, 2, 1>(xj, a, wp, mask, out, g, s);
-      case 2: return launch_fwd<4, 2, 2, 2>(xj, a, wp, mask, out, g, s);
-      case 3: return launch_fwd<4, 2, 2, 3>(xj, a, wp, mask, out, g, s);
-      case 4: return launch_fwd<4, 2, 2, 4>(xj, a, wp, mask, out, g, s);
-      case 5: return launch_fwd<4, 2, 2, 5>(xj, a, wp, mask, out, g, s);
-      case 6: return launch_fwd<4, 2, 2, 6>(xj, a, wp, mask, out, g, s);
-      case 7: return launch_fwd<4, 2, 2, 7>(xj, a, wp, mask, out, g, s);
-      default: return launch_fwd<4, 2, 2, 8>(xj, a, wp, mask, out, g, s);
+      case 1: return launch_fwd<4, 2, 2, 1>(xj, a, wp, mask, out, g, bf16, s);
+      case 2: return launch_fwd<4, 2, 2, 2>(xj, a, wp, mask, out, g, bf16, s);
+      case 3: return launch_fwd<4, 2, 2, 3>(xj, a, wp, mask, out, g, bf16, s);
+      case 4: return launch_fwd<4, 2, 2, 4>(xj, a, wp, mask, out, g, bf16, s);
+      case 5: return launch_fwd<4, 2, 2, 5>(xj, a, wp, mask, out, g, bf16, s);
+      case 6: return launch_fwd<4, 2, 2, 6>(xj, a, wp, mask, out, g, bf16, s);
+      case 7: return launch_fwd<4, 2, 2, 7>(xj, a, wp, mask, out, g, bf16, s);
+      default: return launch_fwd<4, 2, 2, 8>(xj, a, wp, mask, out, g, bf16, s);
     }
   }
   const int ntw = half <= 4 ? 4 : half <= 8 ? 8 : half <= 12 ? 12 : 16;
   if (fits(64, 2 * ntw)) {
     switch (ntw) {
-      case 4: return launch_fwd<2, 2, 2, 4>(xj, a, wp, mask, out, g, s);
-      case 8: return launch_fwd<2, 2, 2, 8>(xj, a, wp, mask, out, g, s);
-      case 12: return launch_fwd<2, 2, 2, 12>(xj, a, wp, mask, out, g, s);
-      default: return launch_fwd<2, 2, 2, 16>(xj, a, wp, mask, out, g, s);
+      case 4: return launch_fwd<2, 2, 2, 4>(xj, a, wp, mask, out, g, bf16, s);
+      case 8: return launch_fwd<2, 2, 2, 8>(xj, a, wp, mask, out, g, bf16, s);
+      case 12: return launch_fwd<2, 2, 2, 12>(xj, a, wp, mask, out, g, bf16, s);
+      default: return launch_fwd<2, 2, 2, 16>(xj, a, wp, mask, out, g, bf16, s);
     }
   }
   switch (ntw) {
-    case 4: return launch_fwd<1, 2, 2, 4>(xj, a, wp, mask, out, g, s);
-    case 8: return launch_fwd<1, 2, 2, 8>(xj, a, wp, mask, out, g, s);
-    case 12: return launch_fwd<1, 2, 2, 12>(xj, a, wp, mask, out, g, s);
-    default: return launch_fwd<1, 2, 2, 16>(xj, a, wp, mask, out, g, s);
+    case 4: return launch_fwd<1, 2, 2, 4>(xj, a, wp, mask, out, g, bf16, s);
+    case 8: return launch_fwd<1, 2, 2, 8>(xj, a, wp, mask, out, g, bf16, s);
+    case 12: return launch_fwd<1, 2, 2, 12>(xj, a, wp, mask, out, g, bf16, s);
+    default: return launch_fwd<1, 2, 2, 16>(xj, a, wp, mask, out, g, bf16, s);
   }
 }
 
@@ -510,8 +581,10 @@ live_chunks_kernel(const float* __restrict__ mask, long long e,
 // product; one chunk ahead, every thread builds its share of the chunk's
 // X^T and of mask * g split into TF32 hi and lo, once for the block. 8
 // warps in 4 (32 rows) x 2 (n8-tiles wn, wn + 2, ...). The block writes its
-// tile into its split's partial in wgrad_reduce_kernel's layout.
-template <int NTW>
+// tile into its split's partial in wgrad_reduce_kernel's layout. The bf16
+// arm (kBf16) rounds every X^T entry (the bias unit's xj too) and mask * g
+// to bf16 as it builds them, and multiplies in one TF32 pass (hi·hi).
+template <int NTW, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 bilinear_wgrad_kernel(const float* __restrict__ xj,
                       const float* __restrict__ a,
@@ -604,7 +677,8 @@ bilinear_wgrad_kernel(const float* __restrict__ xj,
 #pragma unroll
       for (int kb = 0; kb < kWK / 4; ++kb) {
         const int k = 4 * kb + tq;
-        xr[4 * kb] = a_s[k * w.lda + oa[q]] * x_s[k * w.ldx + ox[q]];
+        const float v = a_s[k * w.lda + oa[q]] * x_s[k * w.ldx + ox[q]];
+        xr[4 * kb] = kBf16 ? round_bf16(v) : v;
       }
     }
 #pragma unroll
@@ -614,7 +688,10 @@ bilinear_wgrad_kernel(const float* __restrict__ xj,
       const int ks = tile / NTT;
       const int k = 8 * ks + (slot_b & 3);
       const float* gr0 = g_s + k * w.ldg + 8 * (tile - ks * NTT) + ((slot_b & 31) >> 2);
-      bq[slot_b] = split_pair(sc_s[k] * gr0[0], sc_s[k + 4] * gr0[4 * w.ldg]);
+      const float g0 = sc_s[k] * gr0[0];
+      const float g1 = sc_s[k + 4] * gr0[4 * w.ldg];
+      bq[slot_b] = kBf16 ? split_pair(round_bf16(g0), round_bf16(g1))
+                         : split_pair(g0, g1);
     }
   };
 
@@ -654,6 +731,25 @@ bilinear_wgrad_kernel(const float* __restrict__ xj,
     const float* xs = xt_s + (wm + gr) * kLdX + tq;
 #pragma unroll
     for (int ks = 0; ks < kWK / 8; ++ks) {
+      if (kBf16) {
+        uint32_t ahi[2][4], bhi[NTW][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* xr = xs + 16 * mt * kLdX + 8 * ks;
+          ahi[mt][0] = tf32_rna(xr[0]);
+          ahi[mt][1] = tf32_rna(xr[8 * kLdX]);
+          ahi[mt][2] = tf32_rna(xr[4]);
+          ahi[mt][3] = tf32_rna(xr[8 * kLdX + 4]);
+        }
+#pragma unroll
+        for (int i = 0; i < NTW; ++i) {
+          const uint4 q = b_s[(ks * NTT + wn + 2 * i) * 32 + lane];
+          bhi[i][0] = q.x;
+          bhi[i][1] = q.y;
+        }
+        mma_tf32_tile<2, NTW>(acc, ahi, bhi);
+        continue;
+      }
       // A = X^T: row m, column (edge) k; B = mask * g: row k, column n
       uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
@@ -701,50 +797,67 @@ bilinear_wgrad_kernel(const float* __restrict__ xj,
 
 // Sets the kernel's shared-memory size and returns the blocks the card
 // holds at once in *slots.
-template <int NTW>
+template <int NTW, bool kBf16>
 int wgrad_slots(const WgradLayout& w, int* slots) {
   const size_t smem = wgrad_shared_bytes(w);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      bilinear_wgrad_kernel<NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      bilinear_wgrad_kernel<NTW, kBf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bilinear_wgrad_kernel<NTW>, kThreads, smem);
+        &per_sm, bilinear_wgrad_kernel<NTW, kBf16>, kThreads, smem);
   }
   *slots = sms * per_sm;
   return (int)err;
 }
 
-int wgrad_slots_for(const WgradLayout& w, int* slots) {
+template <bool kBf16>
+int wgrad_slots_arm(const WgradLayout& w, int* slots) {
   switch (w.ntw) {
-    case 1: return wgrad_slots<1>(w, slots);
-    case 2: return wgrad_slots<2>(w, slots);
-    case 3: return wgrad_slots<3>(w, slots);
-    case 4: return wgrad_slots<4>(w, slots);
-    case 5: return wgrad_slots<5>(w, slots);
-    case 6: return wgrad_slots<6>(w, slots);
-    case 7: return wgrad_slots<7>(w, slots);
-    default: return wgrad_slots<8>(w, slots);
+    case 1: return wgrad_slots<1, kBf16>(w, slots);
+    case 2: return wgrad_slots<2, kBf16>(w, slots);
+    case 3: return wgrad_slots<3, kBf16>(w, slots);
+    case 4: return wgrad_slots<4, kBf16>(w, slots);
+    case 5: return wgrad_slots<5, kBf16>(w, slots);
+    case 6: return wgrad_slots<6, kBf16>(w, slots);
+    case 7: return wgrad_slots<7, kBf16>(w, slots);
+    default: return wgrad_slots<8, kBf16>(w, slots);
   }
+}
+
+int wgrad_slots_for(const WgradLayout& w, bool bf16, int* slots) {
+  return bf16 ? wgrad_slots_arm<true>(w, slots)
+              : wgrad_slots_arm<false>(w, slots);
+}
+
+template <int NTW, bool kBf16>
+int launch_wgrad_arm(const float* xj, const float* a, const float* mask,
+                     const float* gout, const int* live, float* partial,
+                     const Geometry& g, const WgradLayout& w, int splits,
+                     cudaStream_t s) {
+  int slots = 0;
+  const int err = wgrad_slots<NTW, kBf16>(w, &slots);  // sets the shared size
+  if (err != 0) return err;
+  bilinear_wgrad_kernel<NTW, kBf16>
+      <<<(unsigned)(w.tiles * splits), kThreads, wgrad_shared_bytes(w), s>>>(
+          xj, a, mask, gout, live, partial, g, w, splits);
+  return (int)cudaGetLastError();
 }
 
 template <int NTW>
 int launch_wgrad(const float* xj, const float* a, const float* mask,
                  const float* gout, const int* live, float* partial,
                  const Geometry& g, const WgradLayout& w, int splits,
-                 cudaStream_t s) {
-  int slots = 0;
-  const int err = wgrad_slots<NTW>(w, &slots);  // sets the shared size
-  if (err != 0) return err;
-  bilinear_wgrad_kernel<NTW>
-      <<<(unsigned)(w.tiles * splits), kThreads, wgrad_shared_bytes(w), s>>>(
-          xj, a, mask, gout, live, partial, g, w, splits);
-  return (int)cudaGetLastError();
+                 bool bf16, cudaStream_t s) {
+  return bf16 ? launch_wgrad_arm<NTW, true>(xj, a, mask, gout, live, partial,
+                                            g, w, splits, s)
+              : launch_wgrad_arm<NTW, false>(xj, a, mask, gout, live, partial,
+                                             g, w, splits, s);
 }
 
 // ---- the backward to the rows: U = ge @ W^T, then d_xj and d_a ----------
@@ -814,7 +927,13 @@ struct BilinearB {
 // wgmma of the next unit drops U. The first TE threads add a unit's WN
 // partials in warpgroup order and write d_a one stage later. Real rows
 // only are written.
-template <int NTW, int WN>
+//
+// The bf16 arm (kBf16; the caller's W holds W1 rounded to bf16, b1 as it
+// is): the xj tile is rounded to bf16 (it feeds d_a alone), ge is not, and
+// the units h < H take two passes, lo·hi and hi·hi (their B has no lo
+// part); the bias unit keeps three. So d_a[e, h] = bf16(xj) · (ge @
+// bf16(W_h)^T) and d_xj = Σ_h a[e, h] (ge @ bf16(W_h)^T) + ge @ b1^T.
+template <int NTW, int WN, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
                     const uint32_t* __restrict__ ws,
@@ -866,8 +985,8 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
   for (int i = threadIdx.x; i < TE * b.np; i += kThreads) {
     const int r = i / b.np;
     const int c = i - r * b.np;
-    x_s[r * b.ldx + c] =
-        sc_s[r] != 0.f && c < g.d ? xj[(e0 + r) * g.d + c] : 0.f;
+    const float v = sc_s[r] != 0.f && c < g.d ? xj[(e0 + r) * g.d + c] : 0.f;
+    x_s[r * b.ldx + c] = kBf16 ? round_bf16(v) : v;
   }
 
   const int lane = threadIdx.x & 31;
@@ -938,7 +1057,13 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
         const uint64_t dhi = b_desc(wk + b_hi);
         const uint64_t dlo = b_desc(wk + b_lo);
         wgmma_fence();
-        wgmma_3xtf32(u, ahi[ks], alo[ks], dhi, dlo, c == 0 && ks == 0 ? 0 : 1);
+        const int scale = c == 0 && ks == 0 ? 0 : 1;
+        if (kBf16 && !bias) {  // B is bf16: no lo part
+          WgmmaTf32<NTW>::mma(u, alo[ks], dhi, scale);
+          WgmmaTf32<NTW>::mma(u, ahi[ks], dhi, 1);
+        } else {
+          wgmma_3xtf32(u, ahi[ks], alo[ks], dhi, dlo, scale);
+        }
       }
     }
     wgmma_commit();
@@ -1015,20 +1140,31 @@ int bwd_warpgroups(int d, int* wn) {
   return 16;
 }
 
-template <int NTW, int WN>
-int launch_bwd(const float* xj, const float* a, const uint32_t* ws,
-               const float* mask, const float* gout, float* dxj, float* da,
-               const Geometry& g, const BwdLayout& b, cudaStream_t s) {
+template <int NTW, int WN, bool kBf16>
+int launch_bwd_arm(const float* xj, const float* a, const uint32_t* ws,
+                   const float* mask, const float* gout, float* dxj, float* da,
+                   const Geometry& g, const BwdLayout& b, cudaStream_t s) {
   constexpr int TE = 64 * 2 / WN;
   const size_t smem = bwd_shared_bytes(b, TE, WN);
   cudaError_t err = cudaFuncSetAttribute(
-      bilinear_bwd_kernel<NTW, WN>,
+      bilinear_bwd_kernel<NTW, WN, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (g.e + TE - 1) / TE;
-  bilinear_bwd_kernel<NTW, WN><<<(unsigned)tiles, kThreads, smem, s>>>(
+  bilinear_bwd_kernel<NTW, WN, kBf16><<<(unsigned)tiles, kThreads, smem, s>>>(
       xj, a, ws, mask, gout, dxj, da, g, b);
   return (int)cudaGetLastError();
+}
+
+template <int NTW, int WN>
+int launch_bwd(const float* xj, const float* a, const uint32_t* ws,
+               const float* mask, const float* gout, float* dxj, float* da,
+               const Geometry& g, const BwdLayout& b, bool bf16,
+               cudaStream_t s) {
+  return bf16 ? launch_bwd_arm<NTW, WN, true>(xj, a, ws, mask, gout, dxj, da,
+                                              g, b, s)
+              : launch_bwd_arm<NTW, WN, false>(xj, a, ws, mask, gout, dxj, da,
+                                               g, b, s);
 }
 
 Geometry make_geometry(long long e, int d, int k, int h) {
@@ -1047,17 +1183,19 @@ long long mdl_fused_bilinear_partial_floats(int d, int k, int h) {
   return wgrad_layout(make_geometry(0, d, k, h)).plane;
 }
 
-// Edge splits S of the weight gradient for these shapes on the current
-// device: of S = 1 .. max(16, slots / tiles) (at most one split per chunk),
-// the one whose tiles x S blocks fill their last wave of the card's
-// resident blocks best, the smaller on a tie. Returns S >= 1, or minus a
+// Edge splits S of the weight gradient for these shapes and arm (bf16 !=
+// 0: the bf16 one) on the current device: of S = 1 .. max(16, slots /
+// tiles) (at most one split per chunk), the one whose tiles x S blocks
+// fill their last wave of the card's resident blocks best, the smaller on
+// a tie. Returns S >= 1, or minus a
 // cudaError_t (kBadShape for an unsupported width).
-int mdl_fused_bilinear_wgrad_splits(long long e, int d, int k, int h) {
+int mdl_fused_bilinear_wgrad_splits(long long e, int d, int k, int h,
+                                    int bf16) {
   if (d < 1 || d > 256 || k < 1 || k > 256) return -kBadShape;
   const WgradLayout w = wgrad_layout(make_geometry(e, d, k, h));
   if (wgrad_shared_bytes(w) > (size_t)kMaxShared) return -kBadShape;
   int slots = 0;
-  const int err = wgrad_slots_for(w, &slots);
+  const int err = wgrad_slots_for(w, bf16 != 0, &slots);
   if (err != 0) return -err;
   if (slots < 1) return -kBadShape;
   const long long chunks = (e + kWK - 1) / kWK;
@@ -1078,18 +1216,19 @@ int mdl_fused_bilinear_wgrad_splits(long long e, int d, int k, int h) {
 
 // All pointers are device pointers on the current device. xj (e x d), a
 // (e x h), mask (e); wp is [W1; b1] ((h+1)*d x k, W1 as (h*d x k))
-// zero-padded to a multiple of 32 rows and to round8(k) columns; out
-// (e x k) holds zeros. Returns 0 or a cudaError_t (kBadShape for an
-// unsupported width or shared-memory size).
+// zero-padded to a multiple of 32 rows and to round8(k) columns, its W1
+// rows rounded to bf16 for the bf16 arm (bf16 != 0); out (e x k) holds
+// zeros. Returns 0 or a cudaError_t (kBadShape for an unsupported width or
+// shared-memory size).
 int mdl_fused_bilinear_fwd(const void* xj, const void* a, const void* wp,
                            const void* mask, void* out, long long e, int d,
-                           int k, int h, void* stream) {
+                           int k, int h, int bf16, void* stream) {
   if (d < 1 || d > 256 || k < 1 || k > 256) return kBadShape;
   return fwd_dispatch(static_cast<const float*>(xj),
                       static_cast<const float*>(a),
                       static_cast<const float*>(wp),
                       static_cast<const float*>(mask), static_cast<float*>(out),
-                      make_geometry(e, d, k, h),
+                      make_geometry(e, d, k, h), bf16 != 0,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -1102,14 +1241,15 @@ long long mdl_fused_bilinear_split_words(int d, int k, int h) {
   return (long long)(h + 1) * (round8(k) / 8) * kstep_words(np);
 }
 
-// w ((h+1)*d x k) is [W1; b1] (W1 as (h*d x k)); ws holds
+// w ((h+1)*d x k) is [W1; b1] (W1 as (h*d x k)), its W1 rows rounded to
+// bf16 for the bf16 arm (bf16 != 0); ws holds
 // mdl_fused_bilinear_split_words(d, k, h) words, no initial value needed;
 // gout (e x k); dxj (e x d) and da (e x h) hold zeros. Launches the weight
 // split, then the tiles.
 int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* w,
                            void* ws, const void* mask, const void* gout,
                            void* dxj, void* da, long long e, int d, int k,
-                           int h, void* stream) {
+                           int h, int bf16, void* stream) {
   if (d < 1 || d > 256 || k < 1 || k > 256 || h < 1) return kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry g = make_geometry(e, d, k, h);
@@ -1128,24 +1268,29 @@ int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* w,
   const float* gp = static_cast<const float*>(gout);
   float* dxp = static_cast<float*>(dxj);
   float* dap = static_cast<float*>(da);
+  const bool arm = bf16 != 0;
   switch (ntw * wn) {
-    case 8: return launch_bwd<8, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
-    case 13: return launch_bwd<13, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
-    case 26: return launch_bwd<13, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
-    default: return launch_bwd<16, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
+    case 8:
+      return launch_bwd<8, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, arm, s);
+    case 13:
+      return launch_bwd<13, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, arm, s);
+    case 26:
+      return launch_bwd<13, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, arm, s);
+    default:
+      return launch_bwd<16, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, arm, s);
   }
 }
 
 // dw ((h+1)*d x k) = [dW1; db1]. partial holds splits *
 // mdl_fused_bilinear_partial_floats(d, k, h) floats and live 1 + ceil(e /
 // 32) ints (neither needs an initial value); splits as
-// mdl_fused_bilinear_wgrad_splits gives it (any splits >= 1 is right).
-// Launches the live-chunk list, the split kernel, then the fixed-order sum
-// of the splits.
+// mdl_fused_bilinear_wgrad_splits gives it for the same arm (any splits >=
+// 1 is right); bf16 != 0 runs the bf16 arm. Launches the live-chunk list,
+// the split kernel, then the fixed-order sum of the splits.
 int mdl_fused_bilinear_wgrad(const void* xj, const void* a, const void* mask,
                              const void* gout, void* live, void* partial,
                              void* dw, long long e, int d, int k, int h,
-                             int splits, void* stream) {
+                             int splits, int bf16, void* stream) {
   if (d < 1 || d > 256 || k < 1 || k > 256 || splits < 1) return kBadShape;
   const Geometry g = make_geometry(e, d, k, h);
   const WgradLayout w = wgrad_layout(g);
@@ -1157,18 +1302,35 @@ int mdl_fused_bilinear_wgrad(const void* xj, const void* a, const void* mask,
   float* pp = static_cast<float*>(partial);
   int* lp = static_cast<int*>(live);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool arm = bf16 != 0;
   live_chunks_kernel<<<1, 1024, 0, s>>>(mp, e, lp);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   switch (w.ntw) {
-    case 1: err = launch_wgrad<1>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
-    case 2: err = launch_wgrad<2>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
-    case 3: err = launch_wgrad<3>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
-    case 4: err = launch_wgrad<4>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
-    case 5: err = launch_wgrad<5>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
-    case 6: err = launch_wgrad<6>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
-    case 7: err = launch_wgrad<7>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
-    default: err = launch_wgrad<8>(xp, ap, mp, gp, lp, pp, g, w, splits, s); break;
+    case 1:
+      err = launch_wgrad<1>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      break;
+    case 2:
+      err = launch_wgrad<2>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      break;
+    case 3:
+      err = launch_wgrad<3>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      break;
+    case 4:
+      err = launch_wgrad<4>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      break;
+    case 5:
+      err = launch_wgrad<5>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      break;
+    case 6:
+      err = launch_wgrad<6>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      break;
+    case 7:
+      err = launch_wgrad<7>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      break;
+    default:
+      err = launch_wgrad<8>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      break;
   }
   if (err != 0) return err;
   return launch_wgrad_reduce(partial, dw, splits, (int)(w.plane / 16), w.cg,

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from matdeeplearn_torch.models.base import check_precision
 from matdeeplearn_torch.models.cgcnn import CGCNN
 from matdeeplearn_torch.models.descriptor_nn import SM, SOAP
 from matdeeplearn_torch.models.gcn import GCN
@@ -54,8 +55,9 @@ def build_model(name: str, dataset, hyperparams: dict, *,
 
     Initial weights come from `generator`, dropout masks from a generator
     seeded with `dropout_seed`. String booleans ("True"/"False") are
-    coerced, as in the reference's YAML. `precision` must be "f32": bf16
-    is not ported yet. `remat` recomputes each conv block in the backward
+    coerced, as in the reference's YAML. `precision` is "f32" or "bf16"
+    (bf16 activations over f32 masters, models/base.py); another value
+    raises. `remat` recomputes each conv block in the backward
     (models/base.py). SM and SOAP take their input width from the
     dataset's descriptors.
     """
@@ -67,10 +69,9 @@ def build_model(name: str, dataset, hyperparams: dict, *,
             continue
         if k in ("batch_norm", "batch_track_stats", "remat") and isinstance(v, str):
             v = v == "True"
+        if k == "precision":
+            v = check_precision(v)
         kwargs[k] = v
-    if str(kwargs.pop("precision", "f32")).lower() != "f32":
-        raise NotImplementedError(
-            "precision bf16 is not ported yet (ROADMAP queue 1, item 5)")
     kwargs.setdefault("output_dim", dataset.output_dim)
     if name in DESCRIPTOR_MODELS:
         return MODEL_REGISTRY[name](descriptor_width(dataset), **kwargs,

@@ -8,8 +8,16 @@ conv stack. With `pool: set2set` an early pool doubles the width into the
 head, and a late one runs Set2Set(output_dim) after lin_out, then
 `lin_out_2` (the reference package's models/base.py:95-105). Every
 model's forward takes `embed`: True returns the graph embedding, the input
-of the first post-FC layer (apply_head), for the Analysis run mode. f32 only:
-bf16 activations are not ported yet (ROADMAP queue 1, item 5).
+of the first post-FC layer (apply_head), for the Analysis run mode.
+
+`precision` "bf16" is the reference package's mixed precision
+(models/base.py:34-48): the parameters stay f32 masters, the activations
+are bf16 from the pre-FC input through the conv stack and the head
+(compute_dtype), the Gaussian edge basis is computed in f32 and then cast,
+and the predictions come out f32 (apply_head), so the loss is f32 too.
+The layers keep the reference's cast points (nn/layers.py, nn/conv.py,
+ops/segment.py, ops/aggregate.py); torch.autocast, which picks its own,
+is not used.
 
 Dropout masks come from the model's own torch.Generator, seeded with
 `dropout_seed` (the job seed), one per device, never from torch's global
@@ -40,6 +48,22 @@ from matdeeplearn_torch.nn.pool import Set2Set, get_pool
 from matdeeplearn_torch.ops.edge_basis import gaussian_basis
 
 
+PRECISIONS = ("f32", "bf16")
+
+
+def check_precision(precision) -> str:
+    """The config's `precision`, lower-cased; anything but "f32" or "bf16"
+    raises, as in the reference package (models/__init__.py:64-68)."""
+    p = str(precision).lower()
+    if p not in PRECISIONS:
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {p!r}")
+    return p
+
+
+def compute_dtype(precision: str) -> torch.dtype:
+    return torch.bfloat16 if precision == "bf16" else torch.float32
+
+
 class GNNBase(nn.Module):
     """Pre-FC and head layers; subclasses add the conv stack and forward."""
 
@@ -50,15 +74,17 @@ class GNNBase(nn.Module):
                  dropout_rate: float = 0.0, dropout_seed: int = 0,
                  remat: bool = False, head_width: int | None = None,
                  pooled_width: int | None = None,
-                 set2set_name: str = "set2set",
+                 set2set_name: str = "set2set", precision: str = "f32",
                  generator: torch.Generator | None = None,
                  device: str | torch.device | None = None):
         """head_width: the node features' width into the head (default
         gc_dim). pooled_width: for a subclass that pools early by itself
         (MEGNet), the width of its graph vector; the head then builds no
-        early pool. set2set_name: the Set2Set module's name."""
+        early pool. set2set_name: the Set2Set module's name. precision:
+        "f32" or "bf16" (compute_dtype)."""
         super().__init__()
         self.remat = remat
+        self.precision = check_precision(precision)
         if pool_order not in ("early", "late"):
             raise ValueError(f"pool_order must be 'early' or 'late', got {pool_order!r}")
         self.num_features, self.dim1, self.dim2 = num_features, dim1, dim2
@@ -90,6 +116,11 @@ class GNNBase(nn.Module):
         if pool_order == "late" and self.set2set_name:
             self.add_module(self.set2set_name, Set2Set(output_dim, **kw))
             self.lin_out_2 = Linear(2 * output_dim, output_dim, **kw)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The activations' dtype: bf16 under precision "bf16", else f32."""
+        return compute_dtype(self.precision)
 
     @property
     def gc_dim(self) -> int:
@@ -138,9 +169,11 @@ class GNNBase(nn.Module):
         return contextlib.nullcontext(), recompute()
 
     def edge_features(self, batch):
-        """On-device Gaussian expansion of stored normalized distances."""
+        """On-device Gaussian expansion of stored normalized distances,
+        computed in f32 and cast to the activations' dtype."""
         return gaussian_basis(batch.edge_dist_norm, 0.0, 1.0,
-                              self.edge_resolution, self.edge_width)
+                              self.edge_resolution,
+                              self.edge_width).to(self.compute_dtype)
 
     def dropout(self, x):
         """Inverted dropout with a mask drawn from the model's generator."""
@@ -148,7 +181,10 @@ class GNNBase(nn.Module):
             return x
         gen = self._dropout_gen(x.device)
         keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.dropout_rate
-        return x * keep / (1.0 - self.dropout_rate)
+        scale = 1.0 - self.dropout_rate
+        if x.dtype != torch.float32:  # the reference's constant in x's dtype
+            scale = float(torch.tensor(scale).to(x.dtype))
+        return x * keep / scale
 
     def dropout_generators(self) -> list:
         """The model's CUDA dropout generators drawn from so far (a CUDA
@@ -170,6 +206,7 @@ class GNNBase(nn.Module):
         return gen
 
     def apply_pre_fc(self, x):
+        x = x.to(self.compute_dtype)
         for i in range(self.pre_fc_count):
             x = self.act(getattr(self, f"pre_lin{i}")(x))
         return x
@@ -192,7 +229,8 @@ class GNNBase(nn.Module):
         embed: return the input of the first post-FC layer instead (the
         graph embedding of the Analysis run mode: (B, width) after an
         early pool, the (N, width) node features before a late one, as the
-        reference's hook on post_lin_list[0] reads it)."""
+        reference's hook on post_lin_list[0] reads it), in the activations'
+        dtype. The predictions are f32 whatever the precision."""
         if self.pool_order == "early":
             out = out if pooled else self._pool(out, batch)
             if embed:
@@ -204,6 +242,7 @@ class GNNBase(nn.Module):
             out = self._pool(self._post_fc(out), batch)
             if self.set2set_name:
                 out = self.lin_out_2(out)
+        out = out.float()
         if out.shape[-1] == 1:
             return out.reshape(-1)
         return out

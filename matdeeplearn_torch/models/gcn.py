@@ -23,7 +23,7 @@ class GCN(GNNBase):
                  act: str = "relu", dropout_rate: float = 0.0,
                  output_dim: int = 1, edge_resolution: int = 50,
                  edge_width: float = 0.2,
-                 remat: bool = False, *,
+                 remat: bool = False, precision: str = "f32", *,
                  generator: torch.Generator | None = None,
                  dropout_seed: int = 0,
                  device: str | torch.device | None = None):
@@ -33,7 +33,8 @@ class GCN(GNNBase):
             pool_order=pool_order, act=act, output_dim=output_dim,
             edge_resolution=edge_resolution, edge_width=edge_width,
             dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-            remat=remat, generator=generator, device=device,
+            remat=remat, precision=precision, generator=generator,
+            device=device,
         )
         self.gc_count = gc_count
         self.batch_norm = batch_norm

@@ -40,7 +40,8 @@ class MEGNet(GNNBase):
                  batch_norm: bool = True, batch_track_stats: bool = True,
                  act: str = "relu", dropout_rate: float = 0.0,
                  output_dim: int = 1, edge_resolution: int = 50,
-                 edge_width: float = 0.2, remat: bool = False, *,
+                 edge_width: float = 0.2, remat: bool = False,
+                 precision: str = "f32", *,
                  generator: torch.Generator | None = None,
                  dropout_seed: int = 0,
                  device: str | torch.device | None = None):
@@ -50,7 +51,7 @@ class MEGNet(GNNBase):
             pool_order=pool_order, act=act, output_dim=output_dim,
             edge_resolution=edge_resolution, edge_width=edge_width,
             dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-            remat=remat, head_width=dim3,
+            remat=remat, precision=precision, head_width=dim3,
             pooled_width=(5 if pool == "set2set" else 3) * dim3,
             set2set_name="set2set_x", generator=generator, device=device,
         )
@@ -71,7 +72,8 @@ class MEGNet(GNNBase):
 
     def forward(self, batch, embed: bool = False):
         edge_attr = self.edge_features(batch)
-        x, e, u = self.apply_pre_fc(batch.x), edge_attr, batch.u
+        x, e = self.apply_pre_fc(batch.x), edge_attr
+        u = batch.u.to(self.compute_dtype)
         for i in range(self.gc_count):
             e_temp = getattr(self, f"e_embed{i}")(e)
             x_temp = getattr(self, f"x_embed{i}")(x)

@@ -4,6 +4,13 @@ Message passing follows PyG's source_to_target flow: edge (src, dst)
 carries a message from src that is aggregated at dst. CGConv, SchNet's
 interaction block, MPNN's NNConv, GCNConv and MEGNet's block (which
 aggregates at the source node) are ported.
+
+Each conv runs in the dtype of its input x: f32, or bf16 under `precision:
+bf16` (models/base.py). The fused CGConv and cfconv kernels sum in f32 and
+see f32 inputs, their results cast back to x's dtype (the reference
+package's nn/conv.py:93-111, :227-248); NNConv's bilinear kernel runs its
+bf16 arm for bf16 activations (:171-176); parameters used outside a Linear
+are cast to x's dtype where they are used.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from torch import nn
 
 from matdeeplearn_torch.nn.layers import (Linear, MaskedBatchNorm,
                                           get_activation, shifted_softplus,
-                                          torch_linear_init)
+                                          sigmoid, softplus, torch_linear_init)
 from matdeeplearn_torch.ops import segment
 from matdeeplearn_torch.ops.aggregate import (edge_aggregate, gather_dst,
                                               gather_edge_graph, gather_src,
@@ -50,12 +57,12 @@ class CGConv(nn.Module):
 
     def forward(self, x, batch, edge_attr):
         if batch.kernel_fused:
-            return x + self._fused_mean(x, batch)
+            return x + self._fused_mean(x.float(), batch).to(x.dtype)
         # [x_i, x_j, e]: PyG CGConv's concat order
         z = torch.cat([gather_dst(x, batch), gather_src(x, batch), edge_attr],
                       dim=-1)
-        gate = torch.sigmoid(self.lin_f(z))
-        core = F.softplus(self.lin_s(z))
+        gate = sigmoid(self.lin_f(z))
+        core = softplus(self.lin_s(z))
         return x + edge_aggregate(gate * core, batch, reduce="mean")
 
     def _fused_mean(self, x, batch):
@@ -99,20 +106,26 @@ class SchNetInteraction(nn.Module):
         self.lin = Linear(dim, dim, **kw)
 
     def forward(self, x, batch, edge_attr):
-        xj = gather_src(self.lin1(x), batch)
+        h = self.lin1(x)
         if batch.kernel_fused:
+            # the kernel reads f32 rows: gathered in f32, their gradient
+            # sums in f32 (a bf16 gather's index_add_ adds in bf16)
+            xj = gather_src(h.float(), batch)
             agg = FusedCFConv.apply(
-                xj, batch.edge_dist_norm, batch.edge_weight, batch.edge_dst,
-                batch.edge_mask, self.mlp0.weight.t(), self.mlp0.bias,
-                self.mlp1.weight.t(), self.mlp1.bias, batch.num_nodes,
-                self.edge_width, self.cutoff)
-            agg = torch.where(batch.node_mask[:, None] > 0, agg, 0.0)
+                xj, batch.edge_dist_norm, batch.edge_weight,
+                batch.edge_dst, batch.edge_mask, self.mlp0.weight.t(),
+                self.mlp0.bias, self.mlp1.weight.t(), self.mlp1.bias,
+                batch.num_nodes, self.edge_width, self.cutoff)
+            agg = torch.where(batch.node_mask[:, None] > 0, agg,
+                              0.0).to(x.dtype)
         else:
+            xj = gather_src(h, batch)
             w = self.mlp1(shifted_softplus(self.mlp0(edge_attr)))
             c = 0.5 * (torch.cos(batch.edge_weight * math.pi / self.cutoff)
                        + 1.0)
-            agg = edge_aggregate(xj * w * (c * batch.edge_mask)[:, None],
-                                 batch, reduce="sum")
+            # the reference's order: the cutoff into the filters, then xj
+            w = w * (c * batch.edge_mask).to(w.dtype)[:, None]
+            agg = edge_aggregate(xj * w, batch, reduce="sum")
         return self.lin(shifted_softplus(self.lin2(agg)))
 
 
@@ -144,7 +157,12 @@ class NNConv(nn.Module):
     bilinear kernel (ops/fused_bilinear.py), which never forms the (E, D, K)
     per-edge weights, and the mean on the CSR kernels; on the reference
     order it is the einsum over the formed weights. Both branches keep one
-    parameter tree.
+    parameter tree. Under bf16 activations the kernel runs its bf16 arm on
+    f32 copies of xj and a (ops/fused_bilinear.py), its message cast back,
+    and the einsum takes the per-edge weights formed in bf16 (the reference
+    package's nn/conv.py:171-183). The kernel's xj is gathered from the f32
+    copy of x (the same values as the reference's cast after the gather),
+    so its gradient into x sums in f32 before the one cast to bf16.
     """
 
     def __init__(self, din: int, dim: int, *,
@@ -157,13 +175,19 @@ class NNConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x, batch, a, w1, b1):
-        xj = gather_src(x, batch)
+        dt = x.dtype
         if batch.dst_sorted:
-            msg = FusedBilinear.apply(xj, a, w1, b1, batch.edge_mask)
+            # the kernel reads f32 rows: gathered in f32, their gradient
+            # sums in f32 (a bf16 gather's index_add_ adds in bf16)
+            msg = FusedBilinear.apply(gather_src(x.float(), batch), a.float(),
+                                      w1, b1, batch.edge_mask,
+                                      dt == torch.bfloat16).to(dt)
         else:
-            w_e = (a @ w1 + b1).reshape(-1, x.shape[1], self.dim)
+            xj = gather_src(x, batch)
+            w_e = (a @ w1.to(dt) + b1.to(dt)).reshape(-1, x.shape[1], self.dim)
             msg = torch.einsum("ed,edk->ek", xj, w_e)
-        return edge_aggregate(msg, batch, reduce="mean") + x @ self.root + self.bias
+        return (edge_aggregate(msg, batch, reduce="mean")
+                + x @ self.root.to(dt) + self.bias.to(dt))
 
 
 class GCNConv(nn.Module):
@@ -192,10 +216,11 @@ class GCNConv(nn.Module):
         ew = batch.edge_weight * batch.edge_mask
         deg = edge_aggregate(ew[:, None], batch, reduce="sum")[:, 0]
         dis = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-30)), 0.0)
-        hd = self.lin(x) * dis[:, None]
+        dt = x.dtype
+        hd = self.lin(x) * dis[:, None].to(dt)
         out = edge_aggregate(gather_src(hd, batch), batch, reduce="sum",
                              weights=ew)
-        return out * dis[:, None] + self.bias
+        return out * dis[:, None].to(dt) + self.bias.to(dt)
 
 
 class MEGNetMLP(nn.Module):

@@ -12,6 +12,15 @@
     single-step LSTM with torch.nn.LSTM's (Set2Set),
   * the plain Linear(+activation) stack of MEGNet's embeddings (MLP).
 
+Mixed precision (`precision: bf16`, models/base.py) follows the reference
+package's nn/layers.py: parameters stay f32 masters and are cast to the
+activations' dtype where they are used (Linear, GRUCell, LSTMCell), so
+their gradients reach them as f32 through the cast; each product
+accumulates in f32 and is rounded to the activation dtype once, and a bias
+is added after that rounding, as a second rounding (`dense`); BatchNorm
+computes in f32 and casts its output back. An f32 input runs the f32 code
+of before, bit for bit.
+
 Parameter names follow the reference package's scopes through convert.py:
 Linear `weight` (out, in) is its `kernel` (in, out) transposed; BatchNorm
 `weight`/`bias`/`running_mean`/`running_var` are `scale`/`bias`/`mean`/`var`;
@@ -47,9 +56,39 @@ def xavier_uniform_init(tensor: torch.Tensor, fan_in: int, fan_out: int,
         return tensor.uniform_(-bound, bound, generator=generator)
 
 
+# Under bf16 activations the reference package's activations lower to
+# chains of bf16 operations, each rounding to bf16: sigmoid as
+# 1 / (1 + exp(-x)), softplus as max(x, 0) + log1p(exp(-|x|)), silu as
+# x · sigmoid(x), and a Python constant is rounded to bf16 before it is
+# used. torch's fused bf16 kernels compute in f32 and round once, which
+# parts from those in about a third of the values by one bf16 unit, so for
+# bf16 inputs these follow the reference's chains; f32 inputs take torch's
+# functions.
+LN2 = 0.6931471805599453
+LN2_BF16 = 0.69140625  # LN2 rounded to bf16
+
+
+def sigmoid(x):
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softplus(x):
+    if x.dtype == torch.float32:
+        return F.softplus(x)
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def silu(x):
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * sigmoid(x)
+
+
 def shifted_softplus(x):
     """softplus(x) - log(2) — PyG SchNet's ShiftedSoftplus."""
-    return F.softplus(x) - 0.6931471805599453
+    return softplus(x) - (LN2 if x.dtype == torch.float32 else LN2_BF16)
 
 
 # F.softplus returns x above x = 20, where log1p(exp(x)) differs from x by
@@ -57,10 +96,10 @@ def shifted_softplus(x):
 # approximation, the reference package's default.
 ACTIVATIONS: dict[str, Callable] = {
     "relu": F.relu,
-    "silu": F.silu,
-    "sigmoid": torch.sigmoid,
+    "silu": silu,
+    "sigmoid": sigmoid,
     "tanh": torch.tanh,
-    "softplus": F.softplus,
+    "softplus": softplus,
     "leaky_relu": F.leaky_relu,
     "elu": F.elu,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -76,6 +115,18 @@ def get_activation(name: str) -> Callable:
     if name not in ACTIVATIONS:
         raise ValueError(f"Unknown activation '{name}'")
     return ACTIVATIONS[name]
+
+
+def dense(x, weight, bias=None):
+    """x @ weightᵀ + bias. For an f32 x, F.linear. For a bf16 x, weight and
+    bias cast to bf16, the product rounded to bf16 once (f32 accumulation)
+    and the bias added after it, each step rounding once, as the reference
+    package's Linear does (nn/layers.py:109-113); F.linear would round the
+    product and the bias sum together."""
+    if x.dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    y = torch.matmul(x, weight.to(x.dtype).t())
+    return y if bias is None else y + bias.to(x.dtype)
 
 
 class Linear(nn.Module):
@@ -104,7 +155,7 @@ class Linear(nn.Module):
             torch_linear_init(self.bias, in_features, generator)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return dense(x, self.weight, self.bias)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -115,6 +166,10 @@ class MaskedBatchNorm(nn.Module):
       track_stats.
     * eval: running statistics if track_stats, else batch statistics
       (torch's track_running_stats=False behaviour).
+
+    Statistics, running buffers and the normalisation are f32 whatever the
+    input's dtype; the output takes the input's dtype (the reference
+    package's nn/layers.py:155-187).
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
@@ -132,6 +187,8 @@ class MaskedBatchNorm(nn.Module):
         self.update_stats = True
 
     def forward(self, x, mask=None, use_running_average: bool = False):
+        in_dtype = x.dtype
+        x = x.float()
         if use_running_average and self.track_stats:
             mean, var = self.running_mean, self.running_var
         else:
@@ -149,14 +206,16 @@ class MaskedBatchNorm(nn.Module):
                     self.running_var.mul_(1 - self.momentum).add_(
                         self.momentum * unbiased)
         inv = torch.rsqrt(var + self.epsilon)
-        return (x - mean) * inv * self.weight + self.bias
+        return ((x - mean) * inv * self.weight + self.bias).to(in_dtype)
 
 
 class GRUCell(nn.Module):
     """One step of torch.nn.GRU (MPNN runs it on sequences of length one):
     gates r, z, n in torch's order, n = tanh(i_n + r·h_n), h' = (1-z)·n + z·h.
     Parameters in torch's layout, weight_ih (3H, in), weight_hh (3H, H),
-    bias_ih and bias_hh (3H,), all drawn from U(-1/√H, 1/√H)."""
+    bias_ih and bias_hh (3H,), all drawn from U(-1/√H, 1/√H). Under bf16
+    activations each product rounds before its bias add, and h is cast to
+    x's dtype (the reference package's nn/layers.py:203-217)."""
 
     def __init__(self, input_size: int, hidden: int, *,
                  generator: torch.Generator | None = None,
@@ -171,10 +230,11 @@ class GRUCell(nn.Module):
             self.register_parameter(name, p)
 
     def forward(self, x, h):
-        i_r, i_z, i_n = F.linear(x, self.weight_ih, self.bias_ih).chunk(3, -1)
-        h_r, h_z, h_n = F.linear(h, self.weight_hh, self.bias_hh).chunk(3, -1)
-        r = torch.sigmoid(i_r + h_r)
-        z = torch.sigmoid(i_z + h_z)
+        i_r, i_z, i_n = dense(x, self.weight_ih, self.bias_ih).chunk(3, -1)
+        h_r, h_z, h_n = dense(h.to(x.dtype), self.weight_hh,
+                              self.bias_hh).chunk(3, -1)
+        r = sigmoid(i_r + h_r)
+        z = sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
         return (1.0 - z) * n + z * h
 
@@ -184,7 +244,9 @@ class LSTMCell(nn.Module):
     one): gates i, f, g, o in torch's order, c' = f·c + i·tanh(g),
     h' = o·tanh(c'). Parameters in torch's layout, weight_ih (4H, in),
     weight_hh (4H, H), bias_ih and bias_hh (4H,), all drawn from
-    U(-1/√H, 1/√H)."""
+    U(-1/√H, 1/√H). The gates sum as the reference package's do
+    (nn/layers.py:234-240), left to right, each term rounded under bf16
+    activations: ((x W_ihᵀ + b_ih) + h W_hhᵀ) + b_hh."""
 
     def __init__(self, input_size: int, hidden: int, *,
                  generator: torch.Generator | None = None,
@@ -199,11 +261,12 @@ class LSTMCell(nn.Module):
             self.register_parameter(name, p)
 
     def forward(self, x, h, c):
-        g = (F.linear(x, self.weight_ih, self.bias_ih)
-             + F.linear(h, self.weight_hh, self.bias_hh))
+        g = (dense(x, self.weight_ih, self.bias_ih)
+             + dense(h.to(x.dtype), self.weight_hh)
+             + self.bias_hh.to(x.dtype))
         i, f, gg, o = g.chunk(4, -1)
-        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
-        return torch.sigmoid(o) * torch.tanh(c_new), c_new
+        c_new = sigmoid(f) * c + sigmoid(i) * torch.tanh(gg)
+        return sigmoid(o) * torch.tanh(c_new), c_new
 
 
 class MLP(nn.Module):

@@ -20,6 +20,13 @@ gather_src and gather_edge_graph return row-0 values on pad edges and rely
 on their callers' masks: every aggregation multiplies by edge_mask or
 skips pad slots, and the fused kernels give masked edges zero gradients.
 
+Under bf16 activations (`precision: bf16`) the kernels still see f32: a
+bf16 input is cast up before each CSR or windowed kernel and its result
+cast back, as in the reference package (ops/aggregate.py:67-71, :109,
+:118-132, :196-201). The plain paths stay in bf16 (their sums accumulate
+in f32: ops/segment.py), with the per-edge weights and the mask cast to
+the messages' dtype as there (:134-135).
+
 The reference's edge-parallel branches (a halo exchange of partial sums
 when the edges are sharded) wait for ROADMAP queue 1, item 16.
 """
@@ -55,25 +62,30 @@ def edge_aggregate(messages: torch.Tensor, batch, reduce: str = "sum",
     if reduce not in ("sum", "mean"):
         raise ValueError(f"unknown reduce {reduce!r}")
     n = batch.num_nodes
+    dtype = messages.dtype
     if batch.is_windowed:
         we = _windowed_edges(batch)
+        m32 = messages.float()
         if weights is not None:
-            out = WO.windowed_spmm(weights, messages, we, n, batch.window_size)
+            out = WO.windowed_spmm(weights, m32, we, n, batch.window_size)
         else:
-            out = WO.windowed_segment_sum(messages, we, n, batch.window_size)
+            out = WO.windowed_segment_sum(m32, we, n, batch.window_size)
         # the kernels zero windows that own no tile; node slots past a
         # graph's atoms are masked as in the reference
         out = torch.where(batch.node_mask[:, None] > 0, out, 0.0)
         if reduce == "mean":
             out = out / torch.clamp(batch.in_degree, min=1.0)[:, None]
-        return out
-    if weights is not None:
-        messages = messages * weights[:, None]
+        return out.to(dtype)
     if batch.dst_sorted:
-        out = csr.sorted_segment_sum(messages, batch.edge_dst, batch.edge_mask, n)
+        m32 = messages.float()
+        if weights is not None:
+            m32 = m32 * weights[:, None]
+        out = csr.sorted_segment_sum(m32, batch.edge_dst, batch.edge_mask, n)
         if reduce == "mean":
             out = out / torch.clamp(batch.in_degree, min=1.0)[:, None]
-        return out
+        return out.to(dtype)
+    if weights is not None:
+        messages = messages * weights.to(dtype)[:, None]
     fn = segment.segment_mean if reduce == "mean" else segment.segment_sum
     return fn(messages, batch.edge_dst.long(), n, batch.edge_mask)
 
@@ -84,8 +96,10 @@ def gather_dst(x: torch.Tensor, batch) -> torch.Tensor:
     clamped dst (a windowed batch's pad slots hold -1) times the mask, whose
     backward is index_add_ (see gather_src). Zero rows on pad edges."""
     if batch.dst_sorted:
-        return csr.sorted_gather(x, batch.edge_dst, batch.edge_mask)
-    return torch.index_select(x, 0, batch.edge_dst_safe) * batch.edge_mask[:, None]
+        return csr.sorted_gather(x.float(), batch.edge_dst,
+                                 batch.edge_mask).to(x.dtype)
+    return (torch.index_select(x, 0, batch.edge_dst_safe)
+            * batch.edge_mask.to(x.dtype)[:, None])
 
 
 def gather_src(x: torch.Tensor, batch) -> torch.Tensor:
@@ -99,7 +113,8 @@ def gather_src(x: torch.Tensor, batch) -> torch.Tensor:
     NVIDIA H100 80GB HBM3, 700 W). Pad edges point at node 0; every caller
     masks them out of the aggregation."""
     if batch.src_sorted:
-        return csr.sorted_gather(x, batch.edge_src, batch.edge_mask)
+        return csr.sorted_gather(x.float(), batch.edge_src,
+                                 batch.edge_mask).to(x.dtype)
     return torch.index_select(x, 0, batch.edge_src)
 
 
@@ -116,7 +131,8 @@ def gather_edge_graph(u: torch.Tensor, edge_graph: torch.Tensor, batch
     callers mask them)."""
     idx = torch.clamp(edge_graph, max=u.shape[0] - 1)
     if batch.src_sorted:
-        return csr.sorted_gather(u, idx.to(torch.int32), batch.edge_mask)
+        return csr.sorted_gather(u.float(), idx.to(torch.int32),
+                                 batch.edge_mask).to(u.dtype)
     return torch.index_select(u, 0, idx)
 
 
@@ -147,6 +163,8 @@ def src_segment_mean(values: torch.Tensor, batch) -> torch.Tensor:
     masked segment mean."""
     n = batch.num_nodes
     if batch.src_sorted:
-        out = csr.sorted_segment_sum(values, batch.edge_src, batch.edge_mask, n)
-        return out / torch.clamp(batch.in_degree, min=1.0)[:, None]
+        out = csr.sorted_segment_sum(values.float(), batch.edge_src,
+                                     batch.edge_mask, n)
+        return (out / torch.clamp(batch.in_degree, min=1.0)[:, None]
+                ).to(values.dtype)
     return edge_segment_mean(values, batch.edge_src, n, batch.edge_mask)

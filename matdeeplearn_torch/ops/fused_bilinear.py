@@ -36,9 +36,31 @@ as it leaves the tensor cores. No atomics: d_xj, d_a, d_w1 and d_b1 are
 bit-identical from run to run.
 csrc/fused_bilinear.cu gives the tile sizes and bounds.
 
+`bf16=True` is the arm `precision: bf16` runs (the reference's
+`mxu_bf16`, which its NNConv turns on for bf16 activations): the heavy
+products take operands rounded to bf16, to nearest with ties to even, and
+accumulate in f32, at the rounding points of the reference's chunked
+schedules (:_fwd_kernel_chunked, :_bwd_kernel_chunked), which are what its
+TPU compiles, except one:
+
+  * forward: bf16(a·xj) @ bf16(W1), plus xj @ b1 unrounded (:255, :272);
+  * weight gradient: bf16(X)ᵀ bf16(mask·g), the bias unit too: d_b1 =
+    bf16(xj)ᵀ bf16(mask·g) (:161, :207);
+  * d_a[:, h] = bf16(xj) · (g @ bf16(W1[h])ᵀ), g unrounded (:191-197);
+  * d_xj = Σ_h a_h·(g @ bf16(W1[h])ᵀ) + g @ b1ᵀ: the one point not
+    followed. The reference rounds each unit's product a_h·g to bf16
+    before its contraction (:216); the backward here folds one U_h =
+    (mask·g) @ W_hᵀ into both d_xj and d_a, so a·g is never formed, and
+    it takes the exact a_h·U_h instead. tests/test_torch_fused_bilinear.py
+    pins every point and the size of this deviation.
+
+Products of bf16 values are exact in f32 (and in TF32), so each arm is
+exact up to the order of its f32 sums; the arms' plain versions compute
+them in f32 over the rounded operands.
+
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts kernel launches. The backward launches two wrappers:
+`LAUNCHES` counts kernel launches, `LAUNCHES_BF16` those of the bf16 arm. The backward launches two wrappers:
 `fused_bilinear_bwd` (d_xj and d_a) and `fused_bilinear_wgrad` (d_w1 and
 d_b1). FusedBilinear saves its inputs alone and recomputes in the
 backward.
@@ -55,6 +77,9 @@ from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on
 
 LAUNCHES = {"fused_bilinear_fwd": 0, "fused_bilinear_bwd": 0,
             "fused_bilinear_wgrad": 0}
+# the bf16 arm's launches, counted apart
+LAUNCHES_BF16 = {"fused_bilinear_fwd_bf16": 0, "fused_bilinear_bwd_bf16": 0,
+                 "fused_bilinear_wgrad_bf16": 0}
 MAX_WIDTH = 256  # the kernels' largest D and K
 FWD_CHUNK = 32   # flat rows of [W1; b1] a forward chunk stages (csrc kFK)
 WGRAD_CHUNK = 32  # edges of a weight-gradient chunk (csrc kWK)
@@ -67,26 +92,37 @@ _lib = None
 
 
 def _load():
-    """The bound library of csrc/fused_bilinear.cu (ops/_build.py)."""
+    """The bound library of csrc/fused_bilinear.cu (ops/_build.py); the
+    last int of the three kernels and of the splits query selects the bf16
+    arm."""
     global _lib
     if _lib is None:
         lib = _build.library("fused_bilinear")
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mdl_fused_bilinear_fwd.argtypes = [vp] * 5 + [cl, ci, ci, ci, vp]
+        lib.mdl_fused_bilinear_fwd.argtypes = [vp] * 5 + [cl, ci, ci, ci, ci,
+                                                          vp]
         lib.mdl_fused_bilinear_fwd.restype = ci
-        lib.mdl_fused_bilinear_bwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, vp]
+        lib.mdl_fused_bilinear_bwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, ci,
+                                                          vp]
         lib.mdl_fused_bilinear_bwd.restype = ci
         lib.mdl_fused_bilinear_wgrad.argtypes = ([vp] * 7
-                                                 + [cl, ci, ci, ci, ci, vp])
+                                                 + [cl, ci, ci, ci, ci, ci, vp])
         lib.mdl_fused_bilinear_wgrad.restype = ci
         lib.mdl_fused_bilinear_split_words.argtypes = [ci, ci, ci]
         lib.mdl_fused_bilinear_split_words.restype = cl
         lib.mdl_fused_bilinear_partial_floats.argtypes = [ci, ci, ci]
         lib.mdl_fused_bilinear_partial_floats.restype = cl
-        lib.mdl_fused_bilinear_wgrad_splits.argtypes = [cl, ci, ci, ci]
+        lib.mdl_fused_bilinear_wgrad_splits.argtypes = [cl, ci, ci, ci, ci]
         lib.mdl_fused_bilinear_wgrad_splits.restype = ci
         _lib = lib
     return _lib
+
+
+def _count(name: str, bf16: bool):
+    if bf16:
+        LAUNCHES_BF16[name + "_bf16"] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _dims(xj, a, b1) -> tuple[int, int, int, int]:
@@ -130,52 +166,78 @@ def _with_bias_unit(a) -> torch.Tensor:
     return torch.cat([a, torch.ones_like(a[:, :1])], 1)
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest, ties to even), kept in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def arm_weight(w1, bf16: bool) -> torch.Tensor:
+    """W1 as the bf16 arm reads it (rounded to bf16; b1 never is), or
+    W1 itself."""
+    return round_bf16(w1) if bf16 else w1
+
+
 # ------------------------------------------------------------- plain versions
 
 
-def fused_bilinear_plain(xj, a, w1, b1, mask):
+def fused_bilinear_plain(xj, a, w1, b1, mask, bf16: bool = False):
     """Plain PyTorch version: the reference's `_reference_compose` times
-    the mask, in chunks of edges."""
-    e, d, _, k = _dims(xj, a, b1)
+    the mask, in chunks of edges; the bf16 arm as X @ [W1; b1] over the
+    rounded products bf16(a·xj) and bf16(W1), the bias unit unrounded."""
+    e, d, h, k = _dims(xj, a, b1)
     out = torch.empty((e, k), dtype=xj.dtype, device=xj.device)
+    if bf16:
+        w1r = round_bf16(w1).reshape(h * d, k)
+        for sl in _chunks(e, h * d):
+            x = round_bf16(a[sl][:, :, None] * xj[sl][:, None, :])
+            out[sl] = x.reshape(-1, h * d) @ w1r + xj[sl] @ b1.reshape(d, k)
+        return out * mask[:, None]
     for sl in _chunks(e, d * k):
         w_e = (a[sl] @ w1 + b1.reshape(-1)).reshape(-1, d, k)
         out[sl] = torch.einsum("ed,edk->ek", xj[sl], w_e)
     return out * mask[:, None]
 
 
-def bwd_rows_plain(g, xj, a, w1, b1, mask) -> tuple:
+def bwd_rows_plain(g, xj, a, w1, b1, mask, bf16: bool = False) -> tuple:
     """Plain (d_xj, d_a): with ge = mask·g and U[e, h] = ge[e] @ W[h]ᵀ
     over the units of [W1; b1], d_xj = Σ_h [a | 1][e, h]·U[e, h] and
-    d_a[e, h] = xj[e] · U[e, h]."""
+    d_a[e, h] = xj[e] · U[e, h]. The bf16 arm takes W1 and, in d_a, xj
+    rounded to bf16 (ge and the bias unit unrounded)."""
     e, d, h, _ = _dims(xj, a, b1)
     ge = g * mask[:, None]
-    wt = extend_weight(w1, b1, d).t()
+    wt = extend_weight(arm_weight(w1, bf16), b1, d).t()
+    xd = round_bf16(xj) if bf16 else xj
     d_xj, d_a = torch.empty_like(xj), torch.empty_like(a)
     for sl in _chunks(e, (h + 1) * d):
         u = (ge[sl] @ wt).reshape(-1, h + 1, d)
         d_xj[sl] = torch.einsum("eh,ehd->ed", _with_bias_unit(a[sl]), u)
-        d_a[sl] = torch.einsum("ed,ehd->eh", xj[sl], u[:, :h])
+        d_a[sl] = torch.einsum("ed,ehd->eh", xd[sl], u[:, :h])
     return d_xj, d_a
 
 
-def wgrad_plain(g, xj, a, mask, k: int) -> torch.Tensor:
+def wgrad_plain(g, xj, a, mask, k: int, bf16: bool = False) -> torch.Tensor:
     """Plain gradient of [W1; b1], ((H+1)·D, K): Xᵀ (mask·g) with
-    X[e, h·D + d] = [a | 1][e, h]·xj[e, d]."""
+    X[e, h·D + d] = [a | 1][e, h]·xj[e, d]; the bf16 arm rounds X (the
+    bias unit too) and mask·g to bf16."""
     e, d = xj.shape
     h = a.shape[1]
     ge = g * mask[:, None]
+    if bf16:
+        ge = round_bf16(ge)
     dw = torch.zeros(((h + 1) * d, k), dtype=xj.dtype, device=xj.device)
     for sl in _chunks(e, (h + 1) * d):
         x = (_with_bias_unit(a[sl])[:, :, None] * xj[sl][:, None, :])
+        if bf16:
+            x = round_bf16(x)
         dw += x.reshape(-1, (h + 1) * d).t() @ ge[sl]
     return dw
 
 
-def fused_bilinear_bwd_plain(g, xj, a, w1, b1, mask) -> tuple:
+def fused_bilinear_bwd_plain(g, xj, a, w1, b1, mask, bf16: bool = False
+                             ) -> tuple:
     """Plain backward: (d_xj, d_a, d_w1, d_b1)."""
-    d_xj, d_a = bwd_rows_plain(g, xj, a, w1, b1, mask)
-    dw = wgrad_plain(g, xj, a, mask, b1.numel() // xj.shape[1])
+    d_xj, d_a = bwd_rows_plain(g, xj, a, w1, b1, mask, bf16)
+    dw = wgrad_plain(g, xj, a, mask, b1.numel() // xj.shape[1], bf16)
     return (d_xj, d_a, *split_wgrad(dw, w1.shape, b1.shape))
 
 
@@ -218,32 +280,36 @@ def _check_widths(d: int, k: int):
                          f"kernels' {MAX_WIDTH}")
 
 
-def fused_bilinear(xj, a, w1, b1, mask) -> torch.Tensor:
-    """(E, K) f32 messages mask[e]·xj[e] @ reshape(a[e] @ w1 + b1, (D, K))."""
+def fused_bilinear(xj, a, w1, b1, mask, bf16: bool = False) -> torch.Tensor:
+    """(E, K) f32 messages mask[e]·xj[e] @ reshape(a[e] @ w1 + b1, (D, K));
+    bf16 runs the bf16 arm."""
     if xj.device.type == "cpu":
-        return fused_bilinear_plain(xj, a, w1, b1, mask)
+        return fused_bilinear_plain(xj, a, w1, b1, mask, bf16)
     _check_inputs(xj, a, mask, w1, b1)
     e, d, h, k = _dims(xj, a, b1)
     _check_widths(d, k)
     out = torch.zeros((e, k), dtype=torch.float32, device=xj.device)
     if e == 0 or k == 0:
         return out
-    w = padded_weight(w1, b1, d)
+    w = padded_weight(arm_weight(w1, bf16), b1, d)
     lib = _load()
     with torch.cuda.device(xj.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_fused_bilinear_fwd(xj.data_ptr(), a.data_ptr(),
                                         w.data_ptr(), mask.data_ptr(),
-                                        out.data_ptr(), e, d, k, h, stream)
+                                        out.data_ptr(), e, d, k, h, int(bf16),
+                                        stream)
     _raise_on(rc, "mdl_fused_bilinear_fwd")
-    LAUNCHES["fused_bilinear_fwd"] += 1
+    _count("fused_bilinear_fwd", bf16)
     return out
 
 
-def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask) -> tuple:
-    """(d_xj, d_a) for the cotangent g: the backward kernel."""
+def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask, bf16: bool = False
+                            ) -> tuple:
+    """(d_xj, d_a) for the cotangent g: the backward kernel (its bf16 arm
+    with bf16)."""
     if xj.device.type == "cpu":
-        return bwd_rows_plain(g, xj, a, w1, b1, mask)
+        return bwd_rows_plain(g, xj, a, w1, b1, mask, bf16)
     _check_inputs(xj, a, mask, w1, b1, g)
     e, d, h, k = _dims(xj, a, b1)
     _check_widths(d, k)
@@ -254,7 +320,7 @@ def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask) -> tuple:
     d_a = torch.zeros_like(a)
     if e == 0 or k == 0:
         return d_xj, d_a
-    w = extend_weight(w1, b1, d)
+    w = extend_weight(arm_weight(w1, bf16), b1, d)
     lib = _load()
     # the kernel's TF32 hi/lo split of w, in the order its tiles read it
     ws = torch.empty(lib.mdl_fused_bilinear_split_words(d, k, h),
@@ -265,18 +331,19 @@ def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask) -> tuple:
                                         w.data_ptr(), ws.data_ptr(),
                                         mask.data_ptr(), g.data_ptr(),
                                         d_xj.data_ptr(), d_a.data_ptr(), e, d,
-                                        k, h, stream)
+                                        k, h, int(bf16), stream)
     _raise_on(rc, "mdl_fused_bilinear_bwd")
-    LAUNCHES["fused_bilinear_bwd"] += 1
+    _count("fused_bilinear_bwd", bf16)
     return d_xj, d_a
 
 
-def fused_bilinear_wgrad(g, xj, a, mask) -> torch.Tensor:
+def fused_bilinear_wgrad(g, xj, a, mask, bf16: bool = False) -> torch.Tensor:
     """The ((H+1)·D, K) gradient of [W1; b1] for the cotangent g (E, K):
-    the weight-gradient kernel and its fixed-order sum of the splits,
-    bit-identical from run to run on one card."""
+    the weight-gradient kernel (its bf16 arm with bf16) and its
+    fixed-order sum of the splits, bit-identical from run to run on one
+    card."""
     if xj.device.type == "cpu":
-        return wgrad_plain(g, xj, a, mask, g.shape[1])
+        return wgrad_plain(g, xj, a, mask, g.shape[1], bf16)
     _check_inputs(xj, a, mask, g=g)
     e, d = xj.shape
     h, k = a.shape[1], g.shape[1]
@@ -286,7 +353,7 @@ def fused_bilinear_wgrad(g, xj, a, mask) -> torch.Tensor:
         return torch.zeros(((h + 1) * d, k), dtype=torch.float32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
-        splits = lib.mdl_fused_bilinear_wgrad_splits(e, d, k, h)
+        splits = lib.mdl_fused_bilinear_wgrad_splits(e, d, k, h, int(bf16))
     if splits < 1:
         _raise_on(-splits, "mdl_fused_bilinear_wgrad_splits")
     partial = torch.empty(splits * lib.mdl_fused_bilinear_partial_floats(d, k, h),
@@ -298,17 +365,17 @@ def fused_bilinear_wgrad(g, xj, a, mask) -> torch.Tensor:
         rc = lib.mdl_fused_bilinear_wgrad(
             xj.data_ptr(), a.data_ptr(), mask.data_ptr(), g.data_ptr(),
             live.data_ptr(), partial.data_ptr(), dw.data_ptr(), e, d, k, h,
-            splits, stream)
+            splits, int(bf16), stream)
     _raise_on(rc, "mdl_fused_bilinear_wgrad")
-    LAUNCHES["fused_bilinear_wgrad"] += 1
+    _count("fused_bilinear_wgrad", bf16)
     return dw
 
 
-def fused_bilinear_bwd(g, xj, a, w1, b1, mask) -> tuple:
+def fused_bilinear_bwd(g, xj, a, w1, b1, mask, bf16: bool = False) -> tuple:
     """Gradients of fused_bilinear for the output cotangent g: (d_xj, d_a,
     d_w1, d_b1). Each of the two wrappers it calls dispatches by device."""
-    d_xj, d_a = fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask)
-    dw = fused_bilinear_wgrad(g, xj, a, mask)
+    d_xj, d_a = fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask, bf16)
+    dw = fused_bilinear_wgrad(g, xj, a, mask, bf16)
     return (d_xj, d_a, *split_wgrad(dw, w1.shape, b1.shape))
 
 
@@ -317,16 +384,18 @@ def fused_bilinear_bwd(g, xj, a, w1, b1, mask) -> tuple:
 
 class FusedBilinear(torch.autograd.Function):
     """fused_bilinear with the backward kernels as its backward; no
-    gradient for the mask."""
+    gradient for the mask. apply(xj, a, w1, b1, mask, bf16=False)."""
 
     @staticmethod
-    def forward(ctx, xj, a, w1, b1, mask):
+    def forward(ctx, xj, a, w1, b1, mask, bf16=False):
         ctx.save_for_backward(xj, a, w1, b1, mask)
-        return fused_bilinear(xj.contiguous(), a.contiguous(), w1, b1, mask)
+        ctx.bf16 = bool(bf16)
+        return fused_bilinear(xj.contiguous(), a.contiguous(), w1, b1, mask,
+                              ctx.bf16)
 
     @staticmethod
     def backward(ctx, g):
         xj, a, w1, b1, mask = ctx.saved_tensors
         grads = fused_bilinear_bwd(g.contiguous(), xj.contiguous(),
-                                   a.contiguous(), w1, b1, mask)
-        return (*grads, None)
+                                   a.contiguous(), w1, b1, mask, ctx.bf16)
+        return (*grads, None, None)

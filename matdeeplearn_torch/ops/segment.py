@@ -3,13 +3,21 @@
 The counterpart of torch_scatter's scatter_add/scatter_mean/scatter_max as
 the reference uses them (models/cgcnn.py:13), and the per-segment softmax of
 Set2Set. Every function takes an explicit mask, so padding is a provable
-no-op; accumulation is f32. The pools and the unsorted aggregation path
-use these; sorted aggregation goes through the CSR kernels (ops/csr.py).
+no-op; accumulation is f32, bf16 values included (the reference package's
+ops/segment.py:35-42): a bf16 sum accumulates in f32 and rounds once, and a
+bf16 mean divides the rounded sum by the count in f32, then rounds again.
+The pools and the unsorted aggregation path use these; sorted aggregation
+goes through the CSR kernels (ops/csr.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a sum of `dtype` values accumulates in: f32 for bf16."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def _masked(values: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -22,11 +30,14 @@ def _masked(values: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, mask: torch.Tensor | None = None
                 ) -> torch.Tensor:
-    """Sum of `values` rows per segment; masked rows contribute zero."""
+    """Sum of `values` rows per segment; masked rows contribute zero. A
+    bf16 input accumulates in f32 (a bf16 accumulator loses low bits after
+    ~256 addends) and the sum is cast back."""
     v = _masked(values, mask)
-    out = torch.zeros((num_segments,) + tuple(v.shape[1:]), dtype=v.dtype,
+    acc = _acc_dtype(v.dtype)
+    out = torch.zeros((num_segments,) + tuple(v.shape[1:]), dtype=acc,
                       device=v.device)
-    return out.index_add_(0, segment_ids, v)
+    return out.index_add_(0, segment_ids, v.to(acc)).to(v.dtype)
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,
@@ -45,7 +56,9 @@ def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor,
     total = segment_sum(values, segment_ids, num_segments, mask)
     count = segment_count(segment_ids, num_segments, mask)
     count = count.reshape(count.shape + (1,) * (total.ndim - count.ndim))
-    return total / torch.clamp(count, min=1.0)
+    # the division in f32 (bf16 cannot hold counts above 256 exactly)
+    return (total.to(_acc_dtype(total.dtype))
+            / torch.clamp(count, min=1.0)).to(total.dtype)
 
 
 def segment_max(values: torch.Tensor, segment_ids: torch.Tensor,

@@ -95,12 +95,14 @@ def capture_plan(device, optimizer, model, request: bool | None = None, *,
 
 
 def launch_counters() -> list[dict]:
-    """The hand kernels' launch counters (the ops modules' LAUNCHES)."""
+    """The hand kernels' launch counters (the ops modules' LAUNCHES, and
+    the bilinear kernels' bf16 arm's LAUNCHES_BF16)."""
     from matdeeplearn_torch.ops import (csr, fused_bilinear, fused_cfconv,
                                         fused_cgconv, windowed)
 
     return [csr.LAUNCHES, fused_cgconv.LAUNCHES, fused_cfconv.LAUNCHES,
-            fused_bilinear.LAUNCHES, windowed.LAUNCHES]
+            fused_bilinear.LAUNCHES, fused_bilinear.LAUNCHES_BF16,
+            windowed.LAUNCHES]
 
 
 # one warm-up side stream a device for every run: cuBLAS keeps a workspace

@@ -289,11 +289,11 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
     scheduler_args = dict(model_parameters.get("scheduler_args") or {})
     scheduler = build_scheduler(scheduler_name, lr, scheduler_args)
     print(
-        "resolved: model={} kernel={} batching={} mesh=dp{}xep{} stream={} "
-        "spec=(B={},N={},E={}) capture={}".format(
+        "resolved: model={} kernel={} batching={} precision={} mesh=dp{}xep{} "
+        "stream={} spec=(B={},N={},E={}) capture={}".format(
             model_name,
             f"{plan.name}({plan.edge_order})" if plan.name == "csr" else plan.name,
-            batching, 1, 1, "n",
+            batching, model.precision, 1, 1, "n",
             spec.num_graphs, spec.num_nodes, spec.num_edges,
             capture_plan(dev, optimizer, model),
         )
@@ -477,7 +477,8 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
                   "and statistics only")
 
     temp_path = job_parameters.get("temp_checkpoint_path", "my_model_temp.ckpt")
-    meter = meter_for_training(dataset, train_idx).start()
+    meter = meter_for_training(dataset, train_idx,
+                               precision=run.model.precision).start()
     attach_analytic_flops(meter, run.model_name, run.model_config, run.spec,
                           len(train_idx), len(val_idx), run.batch_size,
                           fused_kernel=run.fused_kernel,
@@ -777,7 +778,7 @@ def graph_embeddings(model, model_name: str, dataset, dev,
     embs = []
     for row in ids:
         emb = model(assemble(data, row, spec), embed=True)
-        embs.append(emb[:int((row >= 0).sum())].cpu().numpy())
+        embs.append(emb[:int((row >= 0).sum())].float().cpu().numpy())
     return np.concatenate(embs)
 
 

@@ -9,8 +9,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The entry points' device: CUDA unless the caller names another.
 
     A CUDA request on a host without CUDA raises: nothing moves to the CPU
-    on its own.
+    on its own. It also turns off cuBLAS's reduced-precision reductions
+    of bf16 GEMMs (on by default in torch), so that a bf16 product
+    accumulates in f32 as the reference package's `preferred_element_type`
+    does (`precision: bf16`).
     """
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

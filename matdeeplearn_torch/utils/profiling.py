@@ -93,6 +93,7 @@ class ThroughputMeter:
     warmup_chunks: int = 1
     flops_per_epoch: float = 0.0  # model FLOPs (all devices)
     bytes_per_epoch: float = 0.0  # model HBM bytes (all devices)
+    precision: str = "f32"  # the model's; report() names it when not f32
     steps: int = 0
     warmup_s: float = 0.0
     _t0: float = field(default_factory=time.perf_counter)
@@ -198,6 +199,8 @@ class ThroughputMeter:
             msg += ", MFU {mfu_pct:.1f}%".format(**r)
             if "hbm_util_pct" in r:
                 msg += " / HBM {hbm_util_pct:.1f}%".format(**r)
+        if self.precision != "f32":
+            msg += f", precision {self.precision}"
         return msg
 
 
@@ -369,11 +372,13 @@ def trace(log_dir: str | None, enabled: bool = True):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def meter_for_training(dataset, train_idx) -> ThroughputMeter:
+def meter_for_training(dataset, train_idx,
+                       precision: str = "f32") -> ThroughputMeter:
     """Meter sized to one training epoch over train_idx."""
     idx = np.asarray(train_idx)
     return ThroughputMeter(
         num_devices=1,
         edges_per_epoch=float(dataset.edge_counts()[idx].sum()),
         graphs_per_epoch=float(len(idx)),
+        precision=precision,
     )

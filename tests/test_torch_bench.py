@@ -233,10 +233,12 @@ def test_bench_on_the_cpu_prints_one_json_line():
 
 def test_bulk_segment_reports_every_arm(monkeypatch):
     """The bulk segment's arms on the CPU at a tiny size (the bench runs it
-    on the card only): the padded arms, CGCNN's csr arm on packed batches
-    and MPNN's packed csr and xla arms, each run twice (captured, the
-    default, then the eager loop), each give their key and their `_eager`
-    key; an arm that fails raises, so no line goes out without it."""
+    on the card only): the padded arms, CGCNN's csr arm on packed batches,
+    MPNN's packed csr and xla arms, and the precision bf16 arms (CGCNN xla
+    padded and packed, fused packed; MPNN fused packed), each run twice
+    (captured, the default, then the eager loop), each give their key and
+    their `_eager` key; an arm that fails raises, so no line goes out
+    without it."""
     import torch
 
     from matdeeplearn_torch.training import jobs as J
@@ -252,14 +254,20 @@ def test_bulk_segment_reports_every_arm(monkeypatch):
     setup = J.setup_run
 
     def spy(ds, mp, *a, **k):
-        seen.append((mp["model"], mp["kernel"], mp.get("batching")))
+        seen.append((mp["model"], mp["kernel"], mp.get("batching"),
+                     mp.get("precision", "f32")))
         return setup(ds, mp, *a, **k)
 
     monkeypatch.setattr(J, "setup_run", spy)
     out = B._bulk_epoch_times(torch.device("cpu"))
-    arms = [("CGCNN", "fused", "padded"), ("CGCNN", "pallas", "padded"),
-            ("CGCNN", "xla", "padded"), ("CGCNN", "csr", "packed"),
-            ("MPNN", "csr", "packed"), ("MPNN", "xla", "packed")]
+    arms = [("CGCNN", "fused", "padded", "f32"),
+            ("CGCNN", "pallas", "padded", "f32"),
+            ("CGCNN", "xla", "padded", "f32"), ("CGCNN", "csr", "packed", "f32"),
+            ("MPNN", "csr", "packed", "f32"), ("MPNN", "xla", "packed", "f32"),
+            ("CGCNN", "xla", "padded", "bf16"),
+            ("CGCNN", "xla", "packed", "bf16"),
+            ("CGCNN", "fused", "packed", "bf16"),
+            ("MPNN", "fused", "packed", "bf16")]
     assert seen == [arm for arm in arms for _ in ("captured", "eager")]
     for key in ("bulk_epoch_s_csr_packed", "bulk_csr_packed_speedup",
                 "bulk_mpnn_epoch_s_csr_fused", "bulk_mpnn_epoch_s_xla",
@@ -267,7 +275,12 @@ def test_bulk_segment_reports_every_arm(monkeypatch):
                 "bulk_epoch_s_fused_eager", "bulk_epoch_s_pallas_eager",
                 "bulk_epoch_s_xla_eager", "bulk_epoch_s_csr_packed_eager",
                 "bulk_mpnn_epoch_s_csr_fused_eager",
-                "bulk_mpnn_epoch_s_xla_eager"):
+                "bulk_mpnn_epoch_s_xla_eager", "bulk_epoch_s_bf16",
+                "bulk_epoch_s_bf16_packed", "bulk_epoch_s_bf16_packed_fused",
+                "bulk_mpnn_epoch_s_packed_fused_bf16",
+                "bulk_epoch_s_bf16_eager", "bulk_epoch_s_bf16_packed_eager",
+                "bulk_epoch_s_bf16_packed_fused_eager",
+                "bulk_mpnn_epoch_s_packed_fused_bf16_eager"):
         assert out[key] > 0, key
 
     def fail(ds, mp, *a, **k):

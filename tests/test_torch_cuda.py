@@ -22,7 +22,13 @@ with spare tiles on the last window and any dst order inside a tile, D 1
 to 300 and tw 64 and 512; the windowed gather bit-exact. The CSR kernels
 are also held on a src-sorted batch's indices (edge_src, and
 node_graph[edge_src] into the graph rows), under a small MEGNet against the
-CPU, and packed training runs against the CPU.
+CPU, and packed training runs against the CPU. The bilinear kernels' bf16
+arm (`precision: bf16`) is held to its plain versions at the f32 arm's
+tolerance (the same rounded operands, exact products, f32 sums in another
+order), its rounding to bf16 to nearest-even exactly, and the f32 arm on the
+same inputs must fall outside that tolerance; bf16 models and training runs
+card against CPU to rtol 2^-6 (BF16_RTOL says why), and bf16 training on
+CUDA graphs equals its eager loop bit for bit.
 """
 
 import numpy as np
@@ -790,6 +796,106 @@ def test_fused_bilinear_raises_instead_of_falling_back(cuda_device):
         FB.fused_bilinear(*wide)
 
 
+# ------------------------------------- the bilinear kernels' bf16 arm
+
+
+def _limit_share(out, ref) -> float:
+    """The worst |out - ref| over what _assert_fused_close allows; below 1
+    passes."""
+    out, ref = out.double(), ref.double()
+    allowed = 1e-4 * max(float(ref.abs().max()), 1e-30) + 1e-4 * ref.abs()
+    return float(((out - ref).abs() / allowed).max())
+
+
+def _bf16_arm(args, g, bf16=True):
+    """(msg, d_xj, d_a, d_w1, d_b1) of the kernels' arm."""
+    return (FB.fused_bilinear(*args, bf16=bf16),
+            *FB.fused_bilinear_bwd(g, *args, bf16=bf16))
+
+
+@pytest.mark.parametrize("case,d,h,k", [
+    ("sorted", 100, 100, 100), ("scattered", 100, 100, 100),
+    ("unsorted", 3, 7, 5), ("scattered", 150, 100, 150),
+    ("sorted", 256, 9, 256), ("scattered", 64, 20, 33),
+    ("sorted", 33, 1, 9)])
+def test_fused_bilinear_bf16_arm_matches_plain(cuda_device, case, d, h, k):
+    """The bf16 arm of the three kernels against its plain versions at the
+    f32 kernels' tolerance (rtol 1e-4, atol 1e-4·max|ref|): both take the
+    same rounded operands, whose products are exact, and differ only in
+    the order of f32 sums. The f32 arm on the same inputs, the unrounded
+    3xTF32 path, fails that check on the outputs that round: the forward,
+    d_a and the weight gradient (d_xj follows no rounding of the arm's own
+    but W1's, so its share is reported, not held)."""
+    args = _bilinear_inputs(case, d, h, k, device=cuda_device)
+    mask = args[-1]
+    g = torch.randn(len(mask), k, device=cuda_device)
+    got = _bf16_arm(args, g)
+    ref = (FB.fused_bilinear_plain(*args, bf16=True),
+           *FB.fused_bilinear_bwd_plain(g, *args, bf16=True))
+    names = ["msg", "d_xj", "d_a", "d_w1", "d_b1"]
+    for name, a, b in zip(names, got, ref):
+        assert a.shape == b.shape, name
+        _assert_fused_close(a, b, name)
+    off = mask == 0
+    for a in got[:3]:
+        assert float(a[off].abs().max()) == 0.0
+    unrounded = _bf16_arm(args, g, bf16=False)
+    for name, a, b in zip(names, unrounded, ref):
+        if name in ("msg", "d_a", "d_w1"):
+            assert _limit_share(a, b) > 1.0, name
+
+
+@pytest.mark.parametrize("case,d,h,k", [("sorted", 100, 100, 100),
+                                        ("scattered", 150, 100, 150)])
+def test_fused_bilinear_bf16_arm_is_bit_identical(cuda_device, case, d, h, k):
+    args = _bilinear_inputs(case, d, h, k, device=cuda_device)
+    g = torch.randn(len(args[-1]), k, device=cuda_device)
+    first = _bf16_arm(args, g)
+    for a, b in zip(_bf16_arm(args, g), first):
+        assert torch.equal(a, b)
+
+
+def test_fused_bilinear_bf16_arm_rounds_to_nearest_even(cuda_device):
+    """With H = 1, a = 1, W1 the identity and b1 = 0 the forward returns
+    bf16(xj) itself: ties go to the even neighbour (torch's rounding), not
+    away from zero as TF32's cvt.rna does."""
+    d = 8
+    one = 1.0 + 2.0 ** -7  # one bf16 unit above 1
+    vals = [1.0 + 2.0 ** -8, one + 2.0 ** -8, -(1.0 + 2.0 ** -8),
+            1.0 + 2.0 ** -9, 3.0 + 2.0 ** -6, 2.0 ** -100 * (1 + 2.0 ** -8),
+            1e30, -7.25]
+    xj = torch.tensor([vals] * 40, device=cuda_device)
+    e = xj.shape[0]
+    a = torch.ones(e, 1, device=cuda_device)
+    w1 = torch.eye(d, device=cuda_device).reshape(1, d * d)
+    b1 = torch.zeros(d * d, device=cuda_device)
+    mask = torch.ones(e, device=cuda_device)
+    out = FB.fused_bilinear(xj, a, w1, b1, mask, bf16=True)
+    want = xj.to(torch.bfloat16).float()
+    assert torch.equal(out, want)
+    assert want[0, 0] == 1.0 and want[0, 1] == one + 2.0 ** -7
+    assert want[0, 2] == -1.0
+
+
+def test_fused_bilinear_bf16_autograd_and_launch_counts(cuda_device):
+    xj, a, w1, b1, mask = _bilinear_inputs("sorted", 16, 12, 8,
+                                           device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (xj, a, w1, b1)]
+    before, before_bf16 = dict(FB.LAUNCHES), dict(FB.LAUNCHES_BF16)
+    out = FB.FusedBilinear.apply(*leaves, mask, True)
+    cot = torch.randn_like(out)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert FB.LAUNCHES == before  # the f32 arm's counts stay
+    for key in FB.LAUNCHES_BF16:
+        assert FB.LAUNCHES_BF16[key] == before_bf16[key] + 1, key
+    _assert_fused_close(out, FB.fused_bilinear_plain(xj, a, w1, b1, mask,
+                                                     bf16=True), "msg")
+    ref = FB.fused_bilinear_bwd_plain(cot, xj, a, w1, b1, mask, bf16=True)
+    for leaf, r in zip(leaves, ref):
+        _assert_fused_close(leaf.grad, r, "autograd")
+
+
 def _mpnn_hp(**kw):
     return {"dim1": 24, "dim2": 16, "dim3": 20, "gc_count": 3,
             "post_fc_count": 2, **kw}
@@ -863,6 +969,81 @@ def test_mpnn_training_on_cuda_matches_cpu(cuda_device, tmp_path, monkeypatch,
         assert np.isfinite(errs["cuda"][split])
         np.testing.assert_allclose(errs["cuda"][split], errs["cpu"][split],
                                    rtol=1e-3, atol=1e-3, err_msg=split)
+
+
+# bf16 limit of the card/CPU comparisons under precision bf16: the same
+# operations at the same rounding points, but an f32 sum taken in another
+# order (cuBLAS's, the kernels') can tip a value to its bf16 neighbour,
+# 2^-8 of it; 2^-6 allows a few such steps through the layers
+BF16_RTOL = 2.0 ** -6
+
+
+def test_mpnn_bf16_on_cuda_matches_cpu(cuda_device, tmp_path):
+    """A small MPNN under precision bf16 on dst-sorted batches, training
+    mode: outputs card (the bilinear kernels' bf16 arm, cuBLAS bf16 GEMMs)
+    against the CPU (plain versions) to BF16_RTOL of the largest; every
+    gradient f32 and finite on both; only the bf16 arm launches."""
+    from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
+                                                  assemble_batch)
+    from matdeeplearn_torch.models import build_model
+
+    ds = _toy(tmp_path)
+    spec = BatchSpec.for_dataset(ds.node_counts(), ds.edge_counts(), 10)
+    ids = np.array([3, 0, 9, 14, 6, 1, 22, 7, -1, -1], np.int32)
+    hp = _mpnn_hp(precision="bf16")
+    model = build_model("MPNN", ds, hp, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        m = build_model("MPNN", ds, hp, device=dev)
+        m.load_state_dict(model.state_dict())
+        m.train()
+        batch = assemble_batch(DeviceDataset.from_graph_dataset(
+            ds, dev, edge_order="dst", kernel_fused=True), ids, spec)
+        before, before16 = dict(FB.LAUNCHES), dict(FB.LAUNCHES_BF16)
+        out = m(batch)
+        (out * batch.graph_mask).abs().sum().backward()
+        assert out.dtype == torch.float32
+        for k, p in m.named_parameters():
+            assert p.grad.dtype == torch.float32 and torch.isfinite(
+                p.grad).all(), k
+        if dev != "cpu":
+            assert FB.LAUNCHES == before
+            for key in FB.LAUNCHES_BF16:
+                assert FB.LAUNCHES_BF16[key] == before16[key] + 3, key
+        outs[str(dev)] = out.detach().cpu()
+    ref = outs["cpu"]
+    torch.testing.assert_close(outs[str(cuda_device)], ref, rtol=0,
+                               atol=BF16_RTOL * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("model,kernel", [("MPNN", "fused"), ("CGCNN", "fused"),
+                                          ("GCN", "csr")])
+def test_bf16_training_on_cuda_matches_cpu(cuda_device, tmp_path, monkeypatch,
+                                           model, kernel):
+    """train_regular under precision bf16 on the card and on the CPU (plain
+    versions), without BatchNorm (see the SchNet run above): errors to
+    rtol BF16_RTOL, and finite."""
+    from matdeeplearn_torch.training import jobs
+
+    ds = _toy(tmp_path / "data", n=40)
+    monkeypatch.chdir(tmp_path)
+    mp = {"model": model, **_mpnn_hp(gc_count=2, post_fc_count=1),
+          "batch_norm": "False", "batch_size": 8, "epochs": 3, "lr": 0.005,
+          "optimizer": "AdamW", "scheduler": "ReduceLROnPlateau",
+          "scheduler_args": {"factor": 0.8, "patience": 0}, "kernel": kernel,
+          "print_model": False, "precision": "bf16"}
+    tp = {"loss": "l1_loss", "train_ratio": 0.7, "val_ratio": 0.15,
+          "test_ratio": 0.15, "verbosity": 1}
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        jp = {"job_name": f"b_{dev}", "seed": 4, "save_model": "False",
+              "write_output": "False"}
+        errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
+    for split in ("train", "val", "test"):
+        assert np.isfinite(errs["cuda"][split])
+        np.testing.assert_allclose(errs["cuda"][split], errs["cpu"][split],
+                                   rtol=BF16_RTOL, err_msg=split)
 
 
 # ------------------------------------------------------- windowed kernels
@@ -1354,10 +1535,27 @@ def test_captured_training_matches_eager(cuda_device, tmp_path, model, kernel,
     the final parameters, BatchNorm statistics and AdamW state equal, the
     same kernel launches; the resolved line says capture=graphs; a second
     call on the same Run replays without capturing."""
+    _check_captured_matches_eager(_toy(tmp_path),
+                                  _capture_mp(model, kernel, batching), kernel)
+
+
+@pytest.mark.parametrize("model,kernel", [("MPNN", "fused"),
+                                          ("CGCNN", "fused"),
+                                          ("MEGNet", "csr")])
+def test_captured_bf16_training_matches_eager(cuda_device, tmp_path, model,
+                                              kernel):
+    """test_captured_training_matches_eager under precision bf16 (MPNN on
+    the bilinear kernels' bf16 arm): the casts of the f32 masters inside
+    the captured step read the live parameters, so every replay gives the
+    eager loop's bits; the bf16 arm's launches counted alike."""
+    _check_captured_matches_eager(
+        _toy(tmp_path), _capture_mp(model, kernel, "padded",
+                                    precision="bf16"), kernel)
+
+
+def _check_captured_matches_eager(ds, mp, kernel):
     from matdeeplearn_torch.training import graphs as G
 
-    ds = _toy(tmp_path)
-    mp = _capture_mp(model, kernel, batching)
     captures = []
     capture = G.CudaGraphs.capture
 

@@ -33,6 +33,26 @@ JAX package on the CPU.
   over its columns, added over the 4 lanes of a row's quad. At D = H = K =
   100 the 3xTF32 emulation falls within the chip limit of JAX's chunked
   VJP, and the 1xTF32 one outside it (at a reduction of K = 100).
+* The bf16 arm (`bf16=True`, what `precision: bf16` runs) against the JAX
+  `fused_bilinear_msg((te, True, True, True), ...)`, the chunked schedule
+  with mxu_bf16, and its VJP. Where the port keeps the chunked schedule's
+  rounding points (the forward, d_a, d_w1, d_b1) it agrees to the f32
+  tolerances above: the rounded products are exact, only f32 sums differ
+  in order. The point it does not keep is pinned on its own: d_xj takes
+  a_h·(ge @ bf16(W_h)ᵀ) with a·g exact, where the chunked kernel rounds
+  a_h·g to bf16 first; each side equals its own formula in f64 to 1e-5,
+  and the two part by more than 1e-5 and less than 2⁻⁸ (one bf16 rounding)
+  of max|d_xj|. The forward's bias term stays unrounded as in the chunked
+  schedule, unlike the unit-loop one (which JAX's model tests run on the
+  CPU): a test with a = 0 tells them apart. torch's bf16 rounding is to
+  nearest with ties to even, not away as TF32's cvt.rna.
+* The bf16 arm's kernel arithmetic emulated at MPNN_demo width (operands
+  rounded, products exact, one TF32 pass where neither operand has a lo
+  part, three for the bias unit; the kernels' orders as above) falls
+  within the chip check's limit of the JAX chunked bf16 arm, and the f32
+  arm on the same inputs (the unrounded 3xTF32 path, which a build that
+  skipped the rounding would run) falls outside it on the forward, d_a
+  and the weight gradient: the limit tells the arms apart.
 """
 
 import jax
@@ -357,3 +377,189 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     want = torch.tensor([1.0, one, 1.0, -one, one + 2.0 ** -10],
                         dtype=torch.float32)
     assert torch.equal(_tf32(x), want)
+
+
+# ---------------------------------------------------------- the bf16 arm
+
+
+def _jax_chunked_bf16(args, mask, cot, te):
+    """JAX's chunked mxu_bf16 kernel (interpret mode) times the mask: the
+    message and the VJP (d_xj, d_a, d_w1, d_b1), as numpy."""
+    jm = jnp.asarray(mask)[:, None]
+    out, vjp = jax.vjp(
+        lambda *p: jm * fused_bilinear_msg((te, True, True, True), *p),
+        *map(jnp.asarray, args))
+    return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["ones", "scattered"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_arm_matches_jax_chunked_where_it_keeps_its_points(case, masked):
+    args, mask, cot = _inputs(case, masked)
+    jout, _, jda, jdw1, jdb1 = _jax_chunked_bf16(args, mask, cot,
+                                                  CASES[case][4])
+    t = [torch.as_tensor(v) for v in args]
+    m, g = torch.as_tensor(mask), torch.as_tensor(cot)
+    _close_fwd(FB.fused_bilinear(*t, m, bf16=True).numpy(), jout, "forward")
+    _, d_a, d_w1, d_b1 = FB.fused_bilinear_bwd(g, *t, m, bf16=True)
+    for name, got, want in (("d_a", d_a, jda), ("d_w1", d_w1, jdw1),
+                            ("d_b1", d_b1, jdb1)):
+        _close_grad(got.numpy(), want, name)
+    # and the autograd Function carries the flag
+    leaves = [v.clone().requires_grad_(True) for v in t]
+    out = FB.FusedBilinear.apply(*leaves, m, True)
+    (out * g).sum().backward()
+    torch.testing.assert_close(out.detach(), FB.fused_bilinear_plain(
+        *t, m, bf16=True), rtol=0, atol=0)
+    torch.testing.assert_close(leaves[1].grad, d_a, rtol=0, atol=0)
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    return np.asarray(jnp.asarray(x, jnp.float32).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+@pytest.mark.parametrize("case", ["e300", "d_ne_k"])
+def test_bf16_arm_d_xj_takes_a_times_g_unrounded(case):
+    """The one rounding point of the chunked schedule the port does not
+    keep, and the size of the deviation."""
+    (xj, a, w1, b1), mask, cot = _inputs(case, True)
+    e, d, h, k, te = CASES[case]
+    _, jdxj, *_ = _jax_chunked_bf16((xj, a, w1, b1), mask, cot, te)
+    t = [torch.as_tensor(v) for v in (xj, a, w1, b1)]
+    d_xj, _ = FB.fused_bilinear_bwd_rows(torch.as_tensor(cot), *t,
+                                         torch.as_tensor(mask), bf16=True)
+    ge = (mask[:, None] * cot).astype(np.float64)
+    w3 = _bf16(w1).reshape(h, d, k).astype(np.float64)
+    bias = ge @ b1.reshape(d, k).T.astype(np.float64)
+    port = np.einsum("eh,ehd->ed", a, np.einsum("ek,hdk->ehd", ge, w3)) + bias
+    ag = _bf16((a[:, :, None] * (mask[:, None] * cot)[:, None, :])
+               .astype(np.float32)).astype(np.float64)
+    chunked = np.einsum("ehk,hdk->ed", ag, w3) + bias
+    scale = float(np.abs(jdxj).max())
+    np.testing.assert_allclose(d_xj.numpy(), port, rtol=1e-5,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(jdxj, chunked, rtol=1e-5, atol=1e-5 * scale)
+    gap = float(np.abs(d_xj.numpy() - jdxj).max()) / scale
+    assert 1e-5 < gap < 2.0 ** -8, gap
+
+
+def test_bf16_arm_leaves_the_bias_term_unrounded_as_the_chunked_schedule():
+    """With a = 0 the message is xj @ b1 alone: unrounded in the chunked
+    schedule and in the port, bf16(xj) @ bf16(b1) in the unit loop."""
+    (xj, a, w1, b1), mask, _ = _inputs("e300", False)
+    a = np.zeros_like(a)
+    chunked = np.asarray(fused_bilinear_msg((128, True, True, True),
+                                            *map(jnp.asarray, (xj, a, w1, b1))))
+    unit = np.asarray(fused_bilinear_msg((128, True, True),
+                                         *map(jnp.asarray, (xj, a, w1, b1))))
+    t = [torch.as_tensor(v) for v in (xj, a, w1, b1)]
+    got = FB.fused_bilinear(*t, torch.as_tensor(mask), bf16=True).numpy()
+    _close_fwd(got, chunked, "chunked")
+    assert np.abs(got - unit).max() > 1e-3 * np.abs(unit).max()
+
+
+def test_bf16_rounding_is_round_to_nearest_ties_to_even():
+    one = 1.0 + 2.0 ** -7  # one bf16 unit above 1
+    x = torch.tensor([1.0 + 2.0 ** -8, one + 2.0 ** -8, -(1.0 + 2.0 ** -8),
+                      1.0 + 2.0 ** -9, 1.0 + 3 * 2.0 ** -9],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0, one + 2.0 ** -7, -1.0, 1.0, one],
+                        dtype=torch.float32)
+    assert torch.equal(FB.round_bf16(x), want)
+    # ties away from zero (TF32's cvt.rna at bf16's width) would differ
+    u = x.view(torch.int32)
+    away = ((u + 0x8000) & ~0xFFFF).view(torch.float32)
+    assert not torch.equal(away, want)
+    np.testing.assert_array_equal(_bf16(x.numpy()), want.numpy())
+
+
+def _rows_bf16(xj, a, h):
+    """X of the bf16 arm's forward: the products of units h < H rounded,
+    the bias unit's xj as it is."""
+    x = _x_rows(xj, a)
+    d = xj.shape[1]
+    x[:, :h * d] = FB.round_bf16(x[:, :h * d])
+    return x
+
+
+def _emulated_forward_bf16(xj, a, w1, b1, mask):
+    """The forward kernel's bf16 arm: X and W1 rounded, one TF32 pass for
+    the 32-row chunks below the bias unit, three for the rest."""
+    e, d = xj.shape
+    h = a.shape[1]
+    x = _rows_bf16(xj, a, h)
+    wp = FB.padded_weight(FB.arm_weight(w1, True), b1, d)
+    x = torch.cat([x, x.new_zeros(e, wp.shape[0] - x.shape[1])], 1)
+    acc = x.new_zeros(e, wp.shape[1])
+    for r in range(0, wp.shape[0], 8):
+        chunk = r // FB.FWD_CHUNK
+        passes = 1 if (chunk + 1) * FB.FWD_CHUNK <= h * d else 3
+        acc = _mma(acc, x[:, r:r + 8], wp[r:r + 8], passes)
+    return mask[:, None] * acc[:, :b1.numel() // d]
+
+
+def _emulated_wgrad_bf16(g, xj, a, mask, splits: int):
+    """The weight-gradient kernel's bf16 arm: X (the bias unit too) and
+    mask·g rounded, one pass; its chunk and split order."""
+    x = FB.round_bf16(_x_rows(xj, a))
+    ge = FB.round_bf16(mask[:, None] * g)
+    e = len(x)
+    chunks = -(-e // FB.WGRAD_CHUNK)
+    pad = chunks * FB.WGRAD_CHUNK - e
+    x = torch.cat([x, x.new_zeros(pad, x.shape[1])])
+    ge = torch.cat([ge, ge.new_zeros(pad, ge.shape[1])])
+    live = [ch for ch in range(chunks)
+            if mask[ch * FB.WGRAD_CHUNK:(ch + 1) * FB.WGRAD_CHUNK].any()]
+    total = x.new_zeros(x.shape[1], g.shape[1])
+    for s in range(splits):
+        acc = torch.zeros_like(total)
+        for ch in live[s::splits]:
+            for e0 in range(ch * FB.WGRAD_CHUNK, (ch + 1) * FB.WGRAD_CHUNK, 8):
+                acc = _mma(acc, x[e0:e0 + 8].t(), ge[e0:e0 + 8], 1)
+        total = total + acc
+    return total
+
+
+@pytest.fixture(scope="module")
+def mpnn_width_bf16(mpnn_width):
+    """mpnn_width's inputs through the JAX chunked kernel's bf16 arm."""
+    (xj, a, w1, b1, mask, cot), *_ = mpnn_width
+    ref = _jax_chunked_bf16([v.numpy() for v in (xj, a, w1, b1)],
+                            mask.numpy(), cot.numpy(), 128)
+    return (xj, a, w1, b1, mask, cot), ref
+
+
+def test_emulated_bf16_forward_within_the_chip_limit_and_f32_outside(
+        mpnn_width_bf16):
+    (xj, a, w1, b1, mask, _), (out, *_) = mpnn_width_bf16
+    got = _emulated_forward_bf16(xj, a, w1, b1, mask)
+    assert (got[mask == 0] == 0).all()
+    assert _limit_share(got, out) < 1.0
+    assert _limit_share(FB.fused_bilinear_plain(xj, a, w1, b1, mask), out) > 1.0
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_emulated_bf16_wgrad_within_the_chip_limit_and_f32_outside(
+        mpnn_width_bf16, splits):
+    (xj, a, w1, b1, mask, cot), (_, _, _, d_w1, d_b1) = mpnn_width_bf16
+    dw = _emulated_wgrad_bf16(cot, xj, a, mask, splits)
+    got = FB.split_wgrad(dw, w1.shape, b1.shape)
+    assert all(_limit_share(x, r) < 1.0 for x, r in zip(got, (d_w1, d_b1)))
+    f32 = FB.split_wgrad(FB.wgrad_plain(cot, xj, a, mask, 100),
+                         w1.shape, b1.shape)
+    assert all(_limit_share(x, r) > 1.0 for x, r in zip(f32, (d_w1, d_b1)))
+
+
+def test_emulated_bf16_bwd_rows_within_the_chip_limit_and_f32_outside(
+        mpnn_width_bf16):
+    """The backward to the rows' bf16 arm: its f32 emulation with W1 and,
+    in d_a, xj rounded (ge keeps its lo part: 3xTF32 on unrounded ge is
+    the two passes the arm runs, B having no lo part). d_a within the
+    limit of the chunked arm; d_xj follows the port's own point (above)."""
+    (xj, a, w1, b1, mask, cot), (_, _, d_a, *_) = mpnn_width_bf16
+    _, got = _emulated_bwd_rows(cot, FB.round_bf16(xj), a,
+                                FB.arm_weight(w1, True), b1, mask, 3)
+    assert _limit_share(got, d_a) < 1.0
+    _, f32 = FB.bwd_rows_plain(cot, xj, a, w1, b1, mask)
+    assert _limit_share(f32, d_a) > 1.0
