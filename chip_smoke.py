@@ -186,8 +186,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     csr), whose CSR gather launches 2 more times a recomputed block;
 18. runs `python -m matdeeplearn_torch.bench` as a subprocess and prints
     its JSON line, whose MAE gate must pass (trained on CUDA graphs) and
-    which must hold the packed arms' keys, the bf16 arms' and the eager
-    loop's (`*_eager`);
+    which must hold the packed arms' keys, the bf16 arms' (kernel_precision
+    bf16 under csr among them) and the eager loop's (`*_eager`);
 19. drives the descriptor models and the other run modes, each phase
     printing its wall time and warm epoch time beside the nvidia-smi line:
     a. SM_demo (config.yml's widths) on the 1,000 periodic structures with
@@ -236,10 +236,34 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     GCN_demo, MEGNet_demo (kernel auto), SM_demo and SOAP_demo (19's
     data) under bf16, 3 epochs each on the card: errors finite and the
     train error falling;
+22. kernel_precision bf16, the single-pass arms (the data operands of the
+    reference's one-hot products rounded to bf16, f32 sums): checks each
+    arm against its plain twin on the card (the fused CGConv at D 100 and
+    cfconv at F 150 on a training batch, sorted and with a scattered mask:
+    forward and every gradient to SP_MEDIAN and SP_LARGEST, which say why,
+    bit-identical twice on sorted edges; the windowed arms on the GCN_demo
+    windowed batch with pad graph slots and the CSR arms on a Predict
+    batch, D 1 and 100: sums to rtol 1e-5, atol 1e-5·max|ref|,
+    bit-identical twice, gathers bit-exact) with the mutation check (the
+    f32 arm on the same inputs misses each limit by 10x or more); times
+    each arm beside its f32 arm in the same call, its plain twin, its
+    bound (the f32 arm's: the same bytes and operations) and, for the
+    windowed and CSR arms, index_add_ / index_select over operands rounded
+    beforehand; then trains CGCNN_demo under kernel_precision bf16 (kernel
+    auto: fused, the CGConv kernels' arm, on CUDA graphs) 5 epochs from its
+    checkpoint, the counters reset just before: each arm >= 4 x 8 x 5
+    launches, the f32 CGConv arm none; its warm epoch beside main path 2's,
+    the first epoch against 1 CPU epoch of the twins (rtol 2^-6), Predict
+    from its checkpoint card vs CPU to 2^-6 of the largest prediction, the
+    busy share of a profiled captured epoch; then SchNet_demo under fused
+    and GCN_demo and CGCNN_demo under pallas, 3 epochs each with the key:
+    each arm of the path launched, its f32 arm not, the errors falling;
 20. prints a {"kernels": [...]} line (the CSR rows with their callers,
-    each path's launches and the src-sorted shapes' times), the nvidia-smi
-    line and, last, {"ok": true, "device": {...}}; the three bf16 arm
-    rows' launches are 21's MPNN_demo Training's.
+    each path's launches and the src-sorted shapes' times; each
+    single-pass arm's row with `f32_ms`, its f32 arm's time in the same
+    call), the nvidia-smi line and, last, {"ok": true, "device": {...}};
+    the three bf16 arm rows' launches are 21's MPNN_demo Training's, the
+    single-pass rows' 22's (the CSR arm is on no path: 0).
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -410,10 +434,35 @@ MEGNET_NOBN = {**MEGNET_DEMO, "batch_norm": "False"}
 # such steps through the model's layers
 MPNN_BF16 = {**MPNN_DEMO, "precision": "bf16"}
 BF16_RTOL = 2.0 ** -6
+# phase 22: `kernel_precision: bf16`, the fused, windowed and CSR kernels'
+# single-pass arms. The fused arms round a message (and d_x_i) that the
+# kernel forms in 3xTF32 and its plain twin with f32 GEMMs, an ulp apart:
+# where such a value lies within an ulp of a bf16 midpoint, the two sides
+# round it to neighbouring bf16 values (2^-8 of it apart). So they are held
+# by the median of |kernel - twin| over the median of |twin| (SP_MEDIAN: f32
+# order alone) and by the largest gap (SP_LARGEST of max|twin|: a few tipped
+# roundings, not a missing arm); the f32 arm on the same inputs must miss
+# SP_MEDIAN by SP_MUTATION or more. The windowed and CSR arms round exactly
+# what their twins round and keep the f32 arms' limits.
+SP_MEDIAN, SP_LARGEST, SP_MUTATION = 1e-5, 2.0 ** -7, 10.0
+CGCNN_SP = {**CGCNN_DEMO, "kernel_precision": "bf16"}
+# the arms' rows of the kernels line: key, kernel, source, what it replaces
+SP_ROWS = (
+    ("fused_cgconv_fwd_sp", "fused_cgconv.cu", "pallas_fused.py:112"),
+    ("fused_cgconv_bwd_sp", "fused_cgconv.cu", "pallas_fused.py:137"),
+    ("fused_cgconv_wgrad_sp", "fused_cgconv.cu", "pallas_fused.py:137"),
+    ("fused_cfconv_fwd_sp", "fused_cfconv.cu", "pallas_fused_schnet.py:66"),
+    ("fused_cfconv_bwd_sp", "fused_cfconv.cu", "pallas_fused_schnet.py:86"),
+    ("windowed_segment_sum_sp", "windowed.cu", "pallas_segment.py:144"),
+    ("windowed_spmm_sp", "windowed.cu", "pallas_segment.py:174"),
+    ("windowed_gather_sp", "windowed.cu", "pallas_segment.py:209"),
+    ("segment_sum_sp", "csr.cu", "pallas_csr.py:135"),
+    ("gather_sp", "csr.cu", "pallas_csr.py:159"))
 # the bench's keys of the bulk segment's bf16 arms
 BENCH_BF16_KEYS = ("bulk_epoch_s_bf16", "bulk_epoch_s_bf16_packed",
                    "bulk_epoch_s_bf16_packed_fused",
-                   "bulk_mpnn_epoch_s_packed_fused_bf16")
+                   "bulk_mpnn_epoch_s_packed_fused_bf16",
+                   "bulk_epoch_s_bf16_packed_csr")
 # the bench's keys of the packed arms (matdeeplearn_torch/bench.py)
 BENCH_PACKED_KEYS = ("bulk_epoch_s_csr_packed", "bulk_csr_packed_speedup",
                      "bulk_mpnn_epoch_s_csr_fused", "bulk_mpnn_epoch_s_xla",
@@ -1575,6 +1624,300 @@ def time_windowed(batch, dev, d=100):
         "d": d,
     }
     return res, e_real
+
+
+def sp_shares(out, ref) -> tuple[float, float]:
+    """(median |out - ref| over median |ref|, both over the entries that
+    are not zero on both sides (masked rows are exactly zero), and max
+    |out - ref| over max |ref|): the fused single-pass arms' statistics
+    (SP_MEDIAN)."""
+    out, ref = out.double(), ref.double()
+    diff = (out - ref).abs()
+    nz = (out != 0) | (ref != 0)
+    if not bool(nz.any()):
+        return 0.0, 0.0
+    return (float(diff[nz].median()
+                  / max(float(ref[nz].abs().median()), 1e-30)),
+            float(diff.max() / max(float(ref.abs().max()), 1e-30)))
+
+
+def check_single_pass(fbatch, wbatch, cbatch, dev) -> tuple[dict, dict]:
+    """Phase 22's kernel checks: each single-pass arm against its plain twin
+    (single_pass=True) on the card. The fused CGConv (D 100, De 50) and
+    cfconv (F 150) arms on a training batch, sorted and with a scattered
+    mask: forward and every gradient of the fused backward, to SP_MEDIAN
+    and SP_LARGEST, bit-identical twice on sorted edges, d_xj zero on
+    masked edges. The windowed arms on a GCN_demo windowed batch with pad
+    graph slots and NaN on pad slots, D 1 and 100: the sum and SpMM to
+    rtol 1e-5, atol 1e-5·max|ref|, bit-identical twice, the gather
+    bit-exact. The CSR arms on a Predict batch, D 1 and 100: likewise. The
+    mutation check: the f32 arm on the same inputs misses each limit by
+    SP_MUTATION or more (the fused arms on the forward, d_x (d_xj) and the
+    first weight block; the sums by their share of the limit; the gathers
+    are not bit-equal). Returns (the largest |kernel - twin| of each arm,
+    the f32 arm's worst ratio to the limit)."""
+    from matdeeplearn_torch.ops import csr
+    from matdeeplearn_torch.ops import fused_cfconv as FS
+    from matdeeplearn_torch.ops import fused_cgconv as FC
+    from matdeeplearn_torch.ops import windowed as WO
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    err = {row[0]: 0.0 for row in SP_ROWS}
+    mutant = {}
+    failures = []
+
+    def fused_case(label, keys, got, ref, f32, mutate, masked, dxj):
+        shares = []
+        for i, (a, b) in enumerate(zip(got, ref)):
+            med, big = sp_shares(a, b)
+            shares.append((med, big))
+            if not (med <= SP_MEDIAN and big <= SP_LARGEST):
+                failures.append(f"{label} output {i}: median {med:.3g}, "
+                                f"largest {big:.3g}")
+            err[keys[i]] = max(err[keys[i]], float((a - b).abs().max()))
+        for i in mutate:
+            ratio = sp_shares(f32[i], ref[i])[0] / SP_MEDIAN
+            mutant[f"{label} output {i}"] = ratio
+            if ratio < SP_MUTATION:
+                failures.append(f"{label}: the f32 arm's output {i} is "
+                                f"{ratio:.3g}x the median limit from the "
+                                "single-pass twin")
+        if float(got[dxj][masked].abs().max()) != 0.0:
+            failures.append(f"{label}: d_xj is not zero on masked edges")
+        print(f"  single-pass check: {label}: median / largest share "
+              + ", ".join(f"{m / SP_MEDIAN:.3g} / {b / SP_LARGEST:.3g}"
+                          for m, b in shares[:4])
+              + "; the f32 arm " + ", ".join(
+                  f"{mutant[f'{label} output {i}']:.3g}x" for i in mutate))
+
+    mask = fbatch.edge_mask
+    scattered = mask * (torch.rand(mask.shape[0], device=dev,
+                                   generator=g) > 0.3).float()
+    n = fbatch.num_nodes
+    for case, mv in (("sorted", mask), ("scattered mask", scattered)):
+        x, xj, ws = fused_inputs(fbatch, 100, 50, g, dev)
+        args = (x, xj, fbatch.edge_dist_norm, fbatch.edge_dst, mv, *ws, n, 0.2)
+        cot = torch.randn(n, 100, device=dev, generator=g)
+
+        def cg(sp):
+            return (FC.fused_cgconv(*args, single_pass=sp),
+                    *FC.fused_cgconv_bwd(cot, *args, single_pass=sp))
+        got = cg(True)
+        if case == "sorted" and not all(
+                torch.equal(a, b) for a, b in zip(got, cg(True))):
+            failures.append("CGConv single-pass arm: two calls differ")
+        ref = (FC.fused_cgconv_plain(*args, single_pass=True),
+               *FC.fused_cgconv_bwd_plain(cot, *args, single_pass=True))
+        # the forward, the edge rows' d_x and d_xj, the weight gradient's
+        # eight blocks
+        fused_case(f"CGConv, {case}", ["fused_cgconv_fwd_sp"]
+                   + ["fused_cgconv_bwd_sp"] * 2
+                   + ["fused_cgconv_wgrad_sp"] * 8,
+                   got, ref, cg(False), (0, 1, 3), mv == 0, 2)
+        h, xj, ws = cfconv_inputs(fbatch, 150, 50, g, dev)
+        args = (xj, fbatch.edge_dist_norm, fbatch.edge_weight,
+                fbatch.edge_dst, mv, *ws, n, 0.2, 8.0)
+        cot = torch.randn(n, 150, device=dev, generator=g)
+
+        def cf(sp):
+            return (FS.fused_cfconv(*args, single_pass=sp),
+                    *FS.fused_cfconv_bwd(cot, *args, single_pass=sp))
+        got = cf(True)
+        if case == "sorted" and not all(
+                torch.equal(a, b) for a, b in zip(got, cf(True))):
+            failures.append("cfconv single-pass arm: two calls differ")
+        ref = (FS.fused_cfconv_plain(*args, single_pass=True),
+               *FS.fused_cfconv_bwd_plain(cot, *args, single_pass=True))
+        # the forward; d_xj and the weight gradients, which the f32 weight
+        # gradient kernel forms from the arm's edge rows
+        fused_case(f"cfconv, {case}", ["fused_cfconv_fwd_sp"]
+                   + ["fused_cfconv_bwd_sp"] * 5,
+                   got, ref, cf(False), (0, 1), mv == 0, 1)
+
+    we, nw, tw = batch_edges(wbatch), wbatch.num_nodes, wbatch.window_size
+    pad = we.dst < 0
+    cdst, cmask, nc = cbatch.edge_dst, cbatch.edge_mask, cbatch.num_nodes
+    for d in (1, 100):
+        msg = torch.randn(we.dst.shape[0], d, device=dev, generator=g)
+        w = torch.randn(we.dst.shape[0], device=dev, generator=g)
+        msg[pad], w[pad] = float("nan"), float("nan")
+        x = torch.randn(nw, d, device=dev, generator=g)
+        cmsg = torch.randn(cdst.shape[0], d, device=dev, generator=g)
+        cx = torch.randn(nc, d, device=dev, generator=g)
+        sums = (("windowed_segment_sum_sp",
+                 lambda sp: WO.segment_sum(msg, we, nw, tw, sp),
+                 WO.segment_sum_plain(msg, we.dst, we.window_id, nw, tw,
+                                      None, True)),
+                ("windowed_spmm_sp",
+                 lambda sp: WO.spmm(w, msg, we, nw, tw, sp),
+                 WO.segment_sum_plain(msg, we.dst, we.window_id, nw, tw, w,
+                                      True)),
+                ("segment_sum_sp",
+                 lambda sp: csr.segment_sum(cmsg, cdst, cmask, nc, sp),
+                 csr.segment_sum_plain(cmsg, cdst, cmask, nc, True)))
+        for key, fn, ref in sums:
+            out = fn(True)
+            try:
+                err[key] = max(err[key], assert_sum(out, ref, f"{key}, D={d}"))
+            except AssertionError as exc:
+                failures.append(str(exc))
+            if not torch.equal(out, fn(True)):
+                failures.append(f"{key}, D={d}: two calls differ")
+            mutant[f"{key}, D={d}"] = sum_share(fn(False), ref)
+            if mutant[f"{key}, D={d}"] < SP_MUTATION:
+                failures.append(f"{key}, D={d}: the f32 arm is within "
+                                f"{SP_MUTATION}x the limit")
+        gathers = (("windowed_gather_sp",
+                    lambda sp: WO.gather(x, we, tw, sp),
+                    WO.gather_plain(x, we.dst, we.window_id, tw, True)),
+                   ("gather_sp", lambda sp: csr.gather(cx, cdst, cmask, sp),
+                    csr.gather_plain(cx, cdst, cmask, True)))
+        for key, fn, ref in gathers:
+            if not torch.equal(fn(True), ref):
+                failures.append(f"{key}, D={d}: not bit-exact")
+            if torch.equal(fn(False), ref):
+                failures.append(f"{key}, D={d}: the f32 arm equals the "
+                                "single-pass twin")
+        print(f"  single-pass check: windowed and CSR arms, D={d}: sums "
+              f"within the f32 limit, bit-identical twice, gathers bit-exact;"
+              f" the f32 arm's sums at " + ", ".join(
+                  f"{mutant[f'{k}, D={d}']:.3g}x" for k, _, _ in sums)
+              + " the limit, its gathers not bit-equal")
+    if failures:
+        raise AssertionError(f"{len(failures)} single-pass checks failed; "
+                             f"the first: {failures[0]}")
+    return err, mutant
+
+
+def time_single_pass(fbatch, wbatch, cbatch, dev) -> dict:
+    """Phase 22's times: each single-pass arm, its f32 arm in the same call,
+    its plain twin and, where one PyTorch call computes the same function,
+    that call on operands rounded beforehand (index_add_ over the rounded
+    messages, index_select over the rounded rows; the fused arms have none),
+    at the shapes of PERF.md's table: the fused arms at a training batch
+    (CGConv D 100, De 50; cfconv F 150), the windowed arms at a GCN_demo
+    windowed batch (the sum at D 1, the SpMM and gather at D 100), the CSR
+    arms at a Predict batch (D 100). The bound is the f32 arm's: the arm
+    reads the same f32 operands, moves the same bytes and does the same
+    operations (on the tensor cores in 3xTF32 for the fused arms)."""
+    from matdeeplearn_torch.ops import csr
+    from matdeeplearn_torch.ops import fused_cfconv as FS
+    from matdeeplearn_torch.ops import fused_cgconv as FC
+    from matdeeplearn_torch.ops import windowed as WO
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rb = lambda t: t.to(torch.bfloat16).float()
+    res = {}
+
+    def row(key, arm, f32, plain, library, nbytes, flops, rate=F32_FLOPS,
+            reps=100):
+        res[key] = {"ms": device_ms(lambda: arm(), reps),
+                    "f32_ms": device_ms(lambda: f32(), reps),
+                    "plain_ms": device_ms(lambda: plain(), 10),
+                    "library_ms": (None if library is None
+                                   else device_ms(lambda: library(), reps)),
+                    **bound(nbytes, flops, rate)}
+
+    dst, mask, dist, n = (fbatch.edge_dst, fbatch.edge_mask,
+                          fbatch.edge_dist_norm, fbatch.num_nodes)
+    e = dst.shape[0]
+    e_real = int((mask > 0).sum())
+    d, de = 100, 50
+    x, xj, ws = fused_inputs(fbatch, d, de, g, dev)
+    cot = torch.randn(n, d, device=dev, generator=g)
+    args = (x, xj, dist, dst, mask, *ws, n, 0.2)
+    k, nb = 2 * d + de, 2 * d
+    k1 = k + 1
+    da = FC.fused_cgconv_bwd_rows(cot, *args, single_pass=True)[2]
+    wg = (x, xj, dist, dst, mask, da, n, de, 0.2)
+    partial, blocks = FC.fused_cgconv_wgrad(*wg, single_pass=True)
+    row("fused_cgconv_fwd_sp",
+        lambda: FC.fused_cgconv(*args, single_pass=True),
+        lambda: FC.fused_cgconv(*args),
+        lambda: FC.fused_cgconv_plain(*args, single_pass=True), None,
+        4 * (2 * n * d + e_real * d + 3 * e + k1 * nb), 2 * e_real * k * nb,
+        TF32X3_FLOPS)
+    row("fused_cgconv_bwd_sp",
+        lambda: FC.fused_cgconv_bwd_rows(cot, *args, single_pass=True),
+        lambda: FC.fused_cgconv_bwd_rows(cot, *args),
+        lambda: FC.bwd_rows_plain(cot, *args, single_pass=True), None,
+        4 * (3 * n * d + e_real * d + 3 * e + k1 * nb + nb * nb + e * d
+             + e_real * nb),
+        2 * e_real * (k * nb + nb * nb), TF32X3_FLOPS)
+    row("fused_cgconv_wgrad_sp",
+        lambda: FC.fused_cgconv_wgrad(*wg, single_pass=True),
+        lambda: FC.fused_cgconv_wgrad(*wg),
+        lambda: FC.wgrad_partials_plain(*wg, blocks, single_pass=True), None,
+        4 * (n * d + e_real * d + 3 * e + e_real * nb + partial.numel()),
+        2 * e_real * k1 * nb, TF32X3_FLOPS)
+    f = 150
+    _, xj, ws = cfconv_inputs(fbatch, f, de, g, dev)
+    cot = torch.randn(n, f, device=dev, generator=g)
+    args = (xj, dist, fbatch.edge_weight, dst, mask, *ws, n, 0.2, 8.0)
+    weights = (de + 1) * f + (f + 1) * f
+    row("fused_cfconv_fwd_sp",
+        lambda: FS.fused_cfconv(*args, single_pass=True),
+        lambda: FS.fused_cfconv(*args),
+        lambda: FS.fused_cfconv_plain(*args, single_pass=True), None,
+        4 * (n * f + e_real * f + 4 * e + weights),
+        2 * e_real * (de * f + f * f), TF32X3_FLOPS)
+    row("fused_cfconv_bwd_sp",
+        lambda: FS.fused_cfconv_bwd_rows(cot, *args, single_pass=True),
+        lambda: FS.fused_cfconv_bwd_rows(cot, *args),
+        lambda: FS.bwd_rows_plain(cot, *args, single_pass=True), None,
+        4 * (n * f + e_real * f + 4 * e + weights + e * f + 3 * e_real * f),
+        2 * e_real * (de * f + 2 * f * f), TF32X3_FLOPS)
+
+    we, nw, tw = batch_edges(wbatch), wbatch.num_nodes, wbatch.window_size
+    ew, t = we.dst.shape[0], we.window_id.shape[0]
+    real = WO.slot_valid(we.dst, we.window_id, tw, nw)
+    w_real = int(real.sum())
+    rows = int(torch.unique(we.dst[real]).numel())
+    dst_safe = torch.clamp(we.dst, min=0)
+    layout_bytes = 4 * (ew + 2 * t)
+    w = torch.rand(ew, device=dev, generator=g)
+    for key, dd in (("windowed_segment_sum_sp", 1), ("windowed_spmm_sp", 100)):
+        msg = torch.randn(ew, dd, device=dev, generator=g)
+        acc = torch.zeros(nw, dd, device=dev)
+        wv = None if key == "windowed_segment_sum_sp" else w
+        scaled = msg if wv is None else msg * wv[:, None]
+        msg_r = torch.where(real[:, None], rb(scaled), 0.0)
+        row(key, lambda: WO._sum(msg, wv, we, nw, tw, key[:-3], True),
+            lambda: WO._sum(msg, wv, we, nw, tw, key[:-3], False),
+            lambda: WO.segment_sum_plain(msg, we.dst, we.window_id, nw, tw,
+                                         wv, True),
+            lambda: acc.index_add_(0, dst_safe, msg_r),
+            4 * (w_real * (dd + (wv is not None)) + nw * dd) + layout_bytes,
+            (1 + (wv is not None)) * w_real * dd)
+        res[key]["d"] = dd
+    xw = torch.randn(nw, 100, device=dev, generator=g)
+    xw_r = rb(xw)
+    row("windowed_gather_sp", lambda: WO.gather(xw, we, tw, True),
+        lambda: WO.gather(xw, we, tw),
+        lambda: WO.gather_plain(xw, we.dst, we.window_id, tw, True),
+        lambda: torch.index_select(xw_r, 0, dst_safe),
+        4 * (rows * 100 + ew * 100) + layout_bytes, 0)
+    res["windowed_gather_sp"]["d"] = 100
+
+    cdst, cmask, nc = cbatch.edge_dst, cbatch.edge_mask, cbatch.num_nodes
+    ce = cdst.shape[0]
+    c_real = int((cmask > 0).sum())
+    c_rows = int(torch.unique(cdst[cmask > 0]).numel())
+    cmsg = torch.randn(ce, 100, device=dev, generator=g)
+    cx = torch.randn(nc, 100, device=dev, generator=g)
+    cmsg_r, cx_r = rb(cmsg * cmask[:, None]), rb(cx)
+    cacc = torch.zeros(nc, 100, device=dev)
+    row("segment_sum_sp", lambda: csr.segment_sum(cmsg, cdst, cmask, nc, True),
+        lambda: csr.segment_sum(cmsg, cdst, cmask, nc),
+        lambda: csr.segment_sum_plain(cmsg, cdst, cmask, nc, True),
+        lambda: cacc.index_add_(0, cdst, cmsg_r),
+        4 * (c_real * 100 + 2 * ce + nc * 100), 2 * c_real * 100)
+    row("gather_sp", lambda: csr.gather(cx, cdst, cmask, True),
+        lambda: csr.gather(cx, cdst, cmask),
+        lambda: csr.gather_plain(cx, cdst, cmask, True),
+        lambda: torch.index_select(cx_r, 0, cdst),
+        4 * (c_rows * 100 + 2 * ce + ce * 100), c_real * 100)
+    return res
 
 
 def run_cli(config) -> tuple[float, str]:
@@ -3336,6 +3679,147 @@ def main() -> int:
           f"{100 * busy['MPNN fused bf16'][0]:.1f}% of a profiled captured "
           f"epoch")
 
+    # ---- kernel_precision bf16: the single-pass arms ----------------------
+    t_sp = time.perf_counter()
+    sp_counts = (csr.LAUNCHES_SP, FC.LAUNCHES_SP, FS.LAUNCHES_SP,
+                 WO.LAUNCHES_SP)
+    fdata = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst",
+                                             kernel_fused=True)
+    fbatch = assemble_batch(fdata, np.arange(train_bs, dtype=np.int32), tspec)
+    cdata = DeviceDataset.from_graph_dataset(dataset, dev, edge_order="dst")
+    cbatch = assemble_batch(cdata, np.arange(batch_size, dtype=np.int32), spec)
+    wdata = DeviceDataset.from_graph_dataset(
+        dataset, dev, windowed=WindowedDeviceData.from_layout(layout, dev))
+    wbatch = assemble(wdata, pad_ids, wspec)
+    print(f"single-pass arm checks on {card} (CGConv and cfconv at a "
+          f"training batch, the windowed arms at a GCN_demo windowed batch "
+          f"with 10 pad graph slots, the CSR arms at a Predict batch):")
+    sp_err, sp_mutant = check_single_pass(fbatch, wbatch, cbatch, dev)
+    err.update(sp_err)
+    wtbatch = assemble(wdata, np.arange(train_bs, dtype=np.int32), wspec)
+    sp_times = time_single_pass(fbatch, wtbatch, cbatch, dev)
+    times.update(sp_times)
+    for k, t in sp_times.items():
+        lib = ("none (no one call computes it)" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        print(f"{k} on {smi}: kernel {t['ms']:.4f} ms (the f32 arm "
+              f"{t['f32_ms']:.4f} ms in this call), plain {t['plain_ms']:.4f} "
+              f"ms, library {lib}, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it)")
+    del fdata, fbatch, cdata, cbatch, wdata, wbatch, wtbatch
+
+    # CGCNN_demo at full width under kernel_precision bf16, kernel auto
+    # (fused on the card: the CGConv kernels' single-pass arm)
+    gpu_sp = resume_from_init("cgcnn_sp_gpu")
+    reset_launches(*all_counts, *sp_counts, FB.LAUNCHES_BF16)
+    wall, sp_rows, sp_text = run_training_text(training_config(
+        data_dir, gpu_sp, "chip_cgcnn_sp_gpu", "cuda", EPOCHS_CARD,
+        model=CGCNN_SP))
+    sp_cgcnn = dict(FC.LAUNCHES_SP)
+    print(f"launches in one CGCNN kernel_precision bf16 Training run of "
+          f"{EPOCHS_CARD} epochs: {sp_cgcnn}; the f32 arm {dict(FC.LAUNCHES)}")
+    if "kernel=fused(single-pass)" not in sp_text \
+            or "capture=graphs" not in sp_text:
+        raise AssertionError("the kernel_precision bf16 run's resolved line "
+                             "names no kernel=fused(single-pass) on CUDA "
+                             "graphs")
+    for k, v in sp_cgcnn.items():
+        if v < need:
+            raise AssertionError(f"{k} launched {v} times in CGCNN "
+                                 f"kernel_precision bf16 Training, expected "
+                                 f">= {need}")
+    if any(FC.LAUNCHES[k] for k in ("fused_cgconv_fwd", "fused_cgconv_bwd",
+                                    "fused_cgconv_wgrad")):
+        raise AssertionError(f"the f32 CGConv arm launched under "
+                             f"kernel_precision bf16: {dict(FC.LAUNCHES)}")
+    sp_warm = warm_epoch_s(sp_rows)
+    if not sp_rows[-1][2] < sp_rows[0][2]:
+        raise AssertionError(f"the single-pass CGCNN train error did not "
+                             f"fall: {sp_rows[0][2]} -> {sp_rows[-1][2]}")
+    _, sp_cpu = run_training(training_config(
+        data_dir, resume_from_init("cgcnn_sp_cpu"), "chip_cgcnn_sp_cpu",
+        "cpu", EPOCHS_CPU, "fused", model=CGCNN_SP))
+    sp_gap = abs(sp_rows[0][2] - sp_cpu[0][2]) / sp_cpu[0][2]
+    print(f"CGCNN kernel_precision bf16 Training on {smi}: {wall:.3f} s wall "
+          f"for {EPOCHS_CARD} epochs; epoch 1 (cold) {sp_rows[0][4]:.5f} s, "
+          f"warm epochs {sp_warm:.5f} s (f32, main path 2: {warm:.5f} s); "
+          f"train error {sp_rows[0][2]:.5f} -> {sp_rows[-1][2]:.5f}; card vs "
+          f"CPU (plain twins) epoch 1 {sp_rows[0][2]:.6f} vs "
+          f"{sp_cpu[0][2]:.6f}, relative gap {sp_gap:.3e} (limit "
+          f"{BF16_RTOL:g}); {throughput_line(sp_text)}")
+    np.testing.assert_allclose(sp_rows[0][2], sp_cpu[0][2], rtol=BF16_RTOL)
+    reset_launches(*all_counts, *sp_counts)
+    spp_wall, spp_eval = run_predict(predict_config(
+        data_dir, gpu_sp, "chip_cgcnn_sp_predict", "cuda"))
+    if csr.LAUNCHES["gather"] < 4 * steps or any(
+            v for c in sp_counts for v in c.values()):
+        raise AssertionError(f"Predict from the single-pass checkpoint "
+                             f"launched CSR {dict(csr.LAUNCHES)}, single-pass "
+                             f"{[dict(c) for c in sp_counts]}")
+    run_predict(predict_config(data_dir, gpu_sp, "chip_cgcnn_sp_predict_cpu",
+                               "cpu"))
+    ids_g, pred_g = read_predictions(
+        "chip_cgcnn_sp_predict_predicted_outputs.csv")
+    ids_c, pred_c = read_predictions(
+        "chip_cgcnn_sp_predict_cpu_predicted_outputs.csv")
+    if (ids_g != ids_c or len(pred_g) != N_STRUCTURES
+            or not np.isfinite(pred_g).all()):
+        raise AssertionError(f"Predict from the single-pass checkpoint: "
+                             f"expected {N_STRUCTURES} finite predictions "
+                             "with the CPU's ids")
+    spp_gap, spp_top = predict_gap_of(pred_g, pred_c)
+    print(f"Predict from the kernel_precision bf16 checkpoint on {smi}: "
+          f"{N_STRUCTURES} finite predictions, {spp_wall:.4f} s wall, "
+          f"{spp_eval:.5f} s evaluation (the CSR plan, f32 kernels); card vs "
+          f"CPU max |diff| {spp_gap:.3e} of {spp_top:.3f} (limit "
+          f"{BF16_RTOL:g} of the largest)")
+    np.testing.assert_allclose(pred_g, pred_c, rtol=0,
+                               atol=BF16_RTOL * spp_top)
+    busy["CGCNN fused single-pass"] = (profile_training(
+        dataset, dev, CGCNN_SP, kernel="auto", capture=None), None)
+    # the same key at a smaller depth: SchNet under fused (the cfconv arm),
+    # GCN and CGCNN under pallas (the windowed arms)
+    sp_other, sp_launch = {}, {"CGCNN": sp_cgcnn}
+    for label, demo, init, kernel, counts, f32_counts, needed in (
+            ("SchNet", SCHNET_DEMO, schnet_path, "fused", FS.LAUNCHES_SP,
+             FS.LAUNCHES, tuple(FS.LAUNCHES_SP)),
+            ("GCN", GCN_DEMO, gcn_path, "pallas", WO.LAUNCHES_SP,
+             WO.LAUNCHES, tuple(WO.LAUNCHES_SP)),
+            # CGConv's mean: the sum, and the gather as its backward
+            ("CGCNN pallas", CGCNN_DEMO, model_path, "pallas", WO.LAUNCHES_SP,
+             WO.LAUNCHES, ("windowed_segment_sum_sp", "windowed_gather_sp"))):
+        reset_launches(*all_counts, *sp_counts)
+        _, rows, text = run_training_text(training_config(
+            data_dir, resume_from_init(f"{label.replace(' ', '_')}_sp", init),
+            f"chip_{label.replace(' ', '_')}_sp", "cuda", EPOCHS_AB, kernel,
+            model={**demo, "kernel_precision": "bf16"}))
+        sp_launch[label] = dict(counts)
+        if f"kernel={kernel}(single-pass)" not in text:
+            raise AssertionError(f"{label} kernel_precision bf16: no "
+                                 f"kernel={kernel}(single-pass) in its "
+                                 "resolved line")
+        if not all(counts[k] for k in needed) or any(
+                f32_counts[k[:-len("_sp")]] for k in counts):
+            raise AssertionError(f"{label} kernel_precision bf16 launched "
+                                 f"the arm {dict(counts)}, the f32 arm "
+                                 f"{dict(f32_counts)}")
+        if not (np.isfinite([r[2] for r in rows]).all()
+                and rows[-1][2] < rows[0][2]):
+            raise AssertionError(f"{label} kernel_precision bf16: the train "
+                                 f"error did not fall: {rows[0][2]} -> "
+                                 f"{rows[-1][2]}")
+        sp_other[label] = ([r[2] for r in rows], warm_epoch_s(rows))
+    print(f"kernel_precision bf16, {EPOCHS_AB} epochs each on {smi}: " + "; ".join(
+        f"{k} train errors {', '.join(f'{e:.5f}' for e in errs)}, warm epochs "
+        f"{w:.5f} s, launches {sp_launch[k]}"
+        for k, (errs, w) in sp_other.items()))
+    print(f"phase 22 (kernel_precision bf16) on {smi}: "
+          f"{time.perf_counter() - t_sp:.1f} s wall; CGCNN_demo single-pass "
+          f"warm epoch {sp_warm:.5f} s against f32 {warm:.5f} s, busy "
+          f"{100 * busy['CGCNN fused single-pass'][0]:.1f}% of a profiled "
+          f"captured epoch; the f32 arm's worst miss of a single-pass limit "
+          f"{min(sp_mutant.values()):.3g}x")
+
     kernels = []
     for key, name, src, line, count in (
             ("segment_sum", "csr_segment_sum", "csr.cu", "pallas_csr.py:135",
@@ -3381,7 +3865,15 @@ def main() -> int:
             ("windowed_spmm", "windowed_spmm", "windowed.cu",
              "pallas_segment.py:174", gcn_launches["windowed_spmm"]),
             ("windowed_gather", "windowed_gather", "windowed.cu",
-             "pallas_segment.py:209", gcn_launches["windowed_gather"])):
+             "pallas_segment.py:209", gcn_launches["windowed_gather"])) + tuple(
+            # the single-pass arms: launches of phase 22's runs (the CGConv
+            # arm's CGCNN_demo, the cfconv arm's SchNet_demo, the windowed
+            # arms' GCN_demo); the CSR arm is on no path
+            (key, f"{'csr_' if src == 'csr.cu' else ''}{key}", src,
+             f"{line} (hilo=False)",
+             sp_launch["CGCNN"].get(key, sp_launch["SchNet"].get(
+                 key, sp_launch["GCN"].get(key, 0))))
+            for key, src, line in SP_ROWS):
         t = times[key]
         row = {
             "name": name, "route": "cuda",
@@ -3392,6 +3884,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         }
+        if "f32_ms" in t:
+            row["f32_ms"] = t["f32_ms"]  # the f32 arm, timed in the same call
         if key in ("segment_sum", "gather"):
             # the CSR kernels' callers: each path's launches (counters reset
             # just before it), and the src-sorted shapes MEGNet gives them

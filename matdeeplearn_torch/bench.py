@@ -29,8 +29,12 @@ The counterpart of the reference package's bench.py:
   the `precision: bf16` arms of bench_bulk.py:294-319: CGCNN xla padded
   (`bf16`), xla packed (`bf16_packed`) and fused packed
   (`bf16_packed_fused`), and MPNN fused packed (`packed_fused_bf16`, the
-  bilinear kernels' bf16 arm); every arm captured (its key) and eager (the
-  key with `_eager`). The main line and its gate stay f32.
+  bilinear kernels' bf16 arm); and bench_bulk.py:263-266's
+  `bf16-packed-csr`, CGCNN csr packed under `precision: bf16` and
+  `kernel_precision: bf16` (`bf16_packed_csr`: the CSR kernels run f32, as
+  the reference's CSR batches never carry the single-pass mark); every arm
+  captured (its key) and eager (the key with `_eager`). The main line and
+  its gate stay f32.
 
 Prints ONE JSON line on stdout; diagnostics go to stderr. Exits 1 when the
 gate fails; an arm that fails raises, so no line lacks an arm. Runs on CUDA unless --device names the CPU; a CUDA request
@@ -74,11 +78,12 @@ BENCH_MODEL = {                  # bench.py:61-69
 BULK_ARMS = (("fused", "padded"), ("pallas", "padded"), ("xla", "padded"),
              ("csr", "packed"))
 BULK_MPNN_ARMS = ("csr", "xla")
-# the bf16 arms: key suffix -> (model, kernel, batching)
-BULK_BF16_ARMS = {"bf16": ("CGCNN", "xla", "padded"),
-                  "bf16_packed": ("CGCNN", "xla", "packed"),
-                  "bf16_packed_fused": ("CGCNN", "fused", "packed"),
-                  "packed_fused_bf16": ("MPNN", "fused", "packed")}
+# the bf16 arms: key suffix -> (model, kernel, batching, kernel_precision)
+BULK_BF16_ARMS = {"bf16": ("CGCNN", "xla", "padded", "f32"),
+                  "bf16_packed": ("CGCNN", "xla", "packed", "f32"),
+                  "bf16_packed_fused": ("CGCNN", "fused", "packed", "f32"),
+                  "packed_fused_bf16": ("MPNN", "fused", "packed", "f32"),
+                  "bf16_packed_csr": ("CGCNN", "csr", "packed", "bf16")}
 BULK = {"n_graphs": 2048, "batch": 256, "epochs": 5, "seed": 7}
 BULK_MPNN = {"model": "MPNN", "dim1": 100, "dim2": 100, "dim3": 100,
              "pre_fc_count": 1, "gc_count": 4, "post_fc_count": 3,
@@ -196,16 +201,17 @@ def _bulk_epoch_times(dev) -> dict:
         log(f"bulk MPNN {kern} (packed, batch {BULK_MPNN['batch_size']}): "
             f"{mtimes[kern]:.4f} s/epoch captured, {meager[kern]:.4f} eager")
     bf16 = {}
-    for name, (model, kern, batching) in BULK_BF16_ARMS.items():
+    for name, (model, kern, batching, kprec) in BULK_BF16_ARMS.items():
         base = cgcnn if model == "CGCNN" else {**BULK_MPNN, "epochs": epochs}
         mp = {**base, "kernel": kern, "batching": batching,
-              "precision": "bf16"}
+              "precision": "bf16", "kernel_precision": kprec}
         key = (f"bulk_epoch_s_{name}" if model == "CGCNN"
                else f"bulk_mpnn_epoch_s_{name}")
         bf16[key] = round(_warm_epoch_s(ds, mp, tr, va, dev), 4)
         bf16[f"{key}_eager"] = round(
             _warm_epoch_s(ds, mp, tr, va, dev, capture=False), 4)
-        log(f"bulk {model} {kern} ({batching}, precision bf16): "
+        log(f"bulk {model} {kern} ({batching}, precision bf16, "
+            f"kernel_precision {kprec}): "
             f"{bf16[key]:.4f} s/epoch captured, {bf16[key + '_eager']:.4f} "
             "eager")
     return {

@@ -35,11 +35,31 @@
 // otherwise. Pad edges (mask 0) write zeros without reading x.
 //
 // Edges whose dst lies outside [0, n) add nothing and gather a zero row.
+//
+// The single-pass arm (kSP, the reference's hilo=False): the data operand
+// rounded to bf16, to nearest with ties to even, as that package's MXU
+// pass rounds it: the sum adds bf16(mask[e] * msg[e, c]) in f32, the
+// gather writes mask[e] * bf16(x[dst[e], c]). Everything else is the f32
+// arm's, so its bound is the f32 arm's: the same bytes move.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// v rounded to bf16, to nearest with ties to even (cvt.rn.bf16.f32), as
+// the reference's astype(jnp.bfloat16) and torch's .to(torch.bfloat16)
+// round; back in f32, where it is exact.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The term edge weight w adds for value v in arm SP.
+template <bool SP>
+__device__ __forceinline__ float term(float w, float v) {
+  return SP ? round_bf16(w * v) : w * v;
+}
 
 constexpr int kThreads = 256;
 constexpr int kEdgesPerWarp = 32;
@@ -54,14 +74,14 @@ __device__ __forceinline__ bool continues(const int* __restrict__ dst,
   return __ldg(dst + i) == __ldg(dst + i - 1);
 }
 
-template <int C>
+template <int C, bool SP>
 __device__ __forceinline__ void add_row(float (&acc)[C],
                                         const float* __restrict__ src,
                                         float w, int col0, int d) {
 #pragma unroll
   for (int k = 0; k < C; ++k) {
     const int c = col0 + 32 * k;
-    if (c < d) acc[k] += w * __ldg(src + c);
+    if (c < d) acc[k] += term<SP>(w, __ldg(src + c));
   }
 }
 
@@ -76,7 +96,7 @@ __device__ __forceinline__ void flush(float (&acc)[C], float* __restrict__ row,
   }
 }
 
-template <int C>
+template <int C, bool SP>
 __global__ void __launch_bounds__(kThreads)
 csr_segment_sum_kernel(const float* __restrict__ msg,
                        const int* __restrict__ dst,
@@ -115,7 +135,7 @@ csr_segment_sum_kernel(const float* __restrict__ msg,
       if (cur >= 0) flush(acc, out + (long long)cur * d, col0, d);
       cur = node;
     }
-    add_row(acc, msg + i * d, w, col0, d);
+    add_row<C, SP>(acc, msg + i * d, w, col0, d);
   }
   // The last run goes on past the chunk for as long as its edges continue:
   // 32 edges a step, the ballot giving how many of them do, each lane
@@ -144,11 +164,11 @@ csr_segment_sum_kernel(const float* __restrict__ msg,
       for (int u = 0; u < 8; ++u) {
         const float w = __shfl_sync(0xffffffffu, wl, q + u);
 #pragma unroll
-        for (int k = 0; k < C; ++k) acc[k] += w * v[u][k];
+        for (int k = 0; k < C; ++k) acc[k] += term<SP>(w, v[u][k]);
       }
     }
     for (; q < m; ++q) {
-      add_row(acc, msg + (i + q) * d, __shfl_sync(0xffffffffu, wl, q), col0,
+      add_row<C, SP>(acc, msg + (i + q) * d, __shfl_sync(0xffffffffu, wl, q), col0,
               d);
     }
     i += m;
@@ -157,6 +177,7 @@ csr_segment_sum_kernel(const float* __restrict__ msg,
   if (cur >= 0) flush(acc, out + (long long)cur * d, col0, d);
 }
 
+template <bool SP>
 __global__ void __launch_bounds__(kThreads)
 csr_gather_kernel_f4(const float4* __restrict__ x,
                      const int* __restrict__ dst,
@@ -173,13 +194,18 @@ csr_gather_kernel_f4(const float4* __restrict__ x,
     const int node = __ldg(dst + edge);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (w != 0.f && node >= 0 && node < n) {
-      const float4 s = __ldg(x + (long long)node * d4 + q);
+      float4 s = __ldg(x + (long long)node * d4 + q);
+      if (SP) {
+        s = make_float4(round_bf16(s.x), round_bf16(s.y), round_bf16(s.z),
+                        round_bf16(s.w));
+      }
       v = make_float4(w * s.x, w * s.y, w * s.z, w * s.w);
     }
     out[i] = v;
   }
 }
 
+template <bool SP>
 __global__ void __launch_bounds__(kThreads)
 csr_gather_kernel_f1(const float* __restrict__ x,
                      const int* __restrict__ dst,
@@ -196,21 +222,33 @@ csr_gather_kernel_f1(const float* __restrict__ x,
     const int node = __ldg(dst + edge);
     float v = 0.f;
     if (w != 0.f && node >= 0 && node < n) {
-      v = w * __ldg(x + (long long)node * d + c);
+      const float s = __ldg(x + (long long)node * d + c);
+      v = w * (SP ? round_bf16(s) : s);
     }
     out[i] = v;
   }
 }
 
-template <int C>
-void launch_segment_sum(const float* msg, const int* dst, const float* mask,
+template <int C, bool SP>
+void launch_sum_arm(const float* msg, const int* dst, const float* mask,
                         float* out, int e, int d, int n, cudaStream_t stream) {
   const long long warps = ((long long)e + kEdgesPerWarp - 1) / kEdgesPerWarp;
   const int warps_per_block = kThreads / 32;
   const dim3 grid((unsigned)((warps + warps_per_block - 1) / warps_per_block),
                   (unsigned)((d + 32 * C - 1) / (32 * C)));
-  csr_segment_sum_kernel<C><<<grid, kThreads, 0, stream>>>(
+  csr_segment_sum_kernel<C, SP><<<grid, kThreads, 0, stream>>>(
       msg, dst, mask, out, e, d, n);
+}
+
+template <int C>
+void launch_segment_sum(const float* msg, const int* dst, const float* mask,
+                        float* out, int e, int d, int n, bool sp,
+                        cudaStream_t stream) {
+  if (sp) {
+    launch_sum_arm<C, true>(msg, dst, mask, out, e, d, n, stream);
+  } else {
+    launch_sum_arm<C, false>(msg, dst, mask, out, e, d, n, stream);
+  }
 }
 
 unsigned gather_blocks(long long total) {
@@ -221,46 +259,63 @@ unsigned gather_blocks(long long total) {
   return (unsigned)(blocks < cap ? blocks : cap);
 }
 
+template <bool SP>
+void launch_gather(const void* x, const void* dst, const void* mask,
+                   void* out, int e, int d, int n, int vec4,
+                   cudaStream_t s) {
+  if (vec4) {
+    const int d4 = d / 4;
+    csr_gather_kernel_f4<SP><<<gather_blocks((long long)e * d4), kThreads, 0,
+                               s>>>(
+        static_cast<const float4*>(x), static_cast<const int*>(dst),
+        static_cast<const float*>(mask), static_cast<float4*>(out), e, d4, n);
+  } else {
+    csr_gather_kernel_f1<SP><<<gather_blocks((long long)e * d), kThreads, 0,
+                               s>>>(
+        static_cast<const float*>(x), static_cast<const int*>(dst),
+        static_cast<const float*>(mask), static_cast<float*>(out), e, d, n);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // All pointers are device pointers on the current device; mask may be
-// null (every edge real). out must hold n*d zeros. Returns the launch's
-// cudaError_t (0 on success). The caller launches nothing when e or d is 0.
+// null (every edge real). out must hold n*d zeros. single_pass != 0 runs
+// the single-pass arm. Returns the launch's cudaError_t (0 on success).
+// The caller launches nothing when e or d is 0.
 int mdl_csr_segment_sum(const void* msg, const void* dst, const void* mask,
-                        void* out, int e, int d, int n, void* stream) {
+                        void* out, int e, int d, int n, int single_pass,
+                        void* stream) {
   const float* m = static_cast<const float*>(msg);
   const int* ds = static_cast<const int*>(dst);
   const float* mk = static_cast<const float*>(mask);
   float* o = static_cast<float*>(out);
+  const bool sp = single_pass != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 32) {
-    launch_segment_sum<1>(m, ds, mk, o, e, d, n, s);
+    launch_segment_sum<1>(m, ds, mk, o, e, d, n, sp, s);
   } else if (d <= 64) {
-    launch_segment_sum<2>(m, ds, mk, o, e, d, n, s);
+    launch_segment_sum<2>(m, ds, mk, o, e, d, n, sp, s);
   } else if (d <= 128) {
-    launch_segment_sum<4>(m, ds, mk, o, e, d, n, s);
+    launch_segment_sum<4>(m, ds, mk, o, e, d, n, sp, s);
   } else {
-    launch_segment_sum<8>(m, ds, mk, o, e, d, n, s);
+    launch_segment_sum<8>(m, ds, mk, o, e, d, n, sp, s);
   }
   return (int)cudaGetLastError();
 }
 
 // vec4 != 0 selects the float4 kernel: the caller guarantees d % 4 == 0 and
-// 16-byte aligned x and out.
+// 16-byte aligned x and out. single_pass != 0 runs the single-pass arm.
 int mdl_csr_gather(const void* x, const void* dst, const void* mask,
-                   void* out, int e, int d, int n, int vec4, void* stream) {
+                   void* out, int e, int d, int n, int vec4, int single_pass,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    const int d4 = d / 4;
-    csr_gather_kernel_f4<<<gather_blocks((long long)e * d4), kThreads, 0, s>>>(
-        static_cast<const float4*>(x), static_cast<const int*>(dst),
-        static_cast<const float*>(mask), static_cast<float4*>(out), e, d4, n);
+  if (single_pass) {
+    launch_gather<true>(x, dst, mask, out, e, d, n, vec4, s);
   } else {
-    csr_gather_kernel_f1<<<gather_blocks((long long)e * d), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int*>(dst),
-        static_cast<const float*>(mask), static_cast<float*>(out), e, d, n);
+    launch_gather<false>(x, dst, mask, out, e, d, n, vec4, s);
   }
   return (int)cudaGetLastError();
 }

@@ -4,12 +4,13 @@
 // destination nodes, the fixed-order sum of the backward
 // kernels' per-block partial weight gradients, and the mma.sync and
 // async-copy primitives of the 3xTF32 kernels (wgmma.cuh holds the wgmma
-// ones). Each .cu file builds into
+// ones), and the bf16 rounding of the single-pass arms. Each .cu file builds into
 // its own library, so the anonymous namespace gives every library its own
 // copy.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,6 +30,13 @@ __host__ __device__ inline int stride_a(int v) { return v + (36 - v % 32) % 32; 
 // The smallest stride >= v that is 8 mod 16 (8 or 24 mod 32): a B
 // fragment's 4 rows x 8 columns then fall in 32 distinct banks.
 __host__ __device__ inline int stride_b(int v) { return v + (24 - v % 16) % 16; }
+
+// v rounded to bf16, to nearest with ties to even (cvt.rn.bf16.f32), as
+// the reference's astype(jnp.bfloat16) and torch's .to(torch.bfloat16)
+// round; back in f32, where it is exact (and exact in TF32 too).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 __device__ __forceinline__ float sigmoidf(float a) {
   return 1.f / (1.f + expf(-a));

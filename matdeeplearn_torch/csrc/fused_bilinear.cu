@@ -136,13 +136,6 @@ struct Geometry {
   int h;        // hidden units H (W holds H + 1 units)
 };
 
-// v rounded to bf16, to nearest with ties to even (cvt.rn.bf16.f32), as
-// the reference's astype(jnp.bfloat16) and torch's .to(torch.bfloat16)
-// round; back in f32, where it is exact (and exact in TF32 too).
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // sc_s[r] = mask of edge e0 + r (0 past the end) for the tile's TE rows;
 // returns, uniformly across the block, whether any of them is real.
 template <int TE>

@@ -23,6 +23,16 @@
 // adds nothing to any output, so its row is skipped: d_xj keeps the
 // caller's zeros on every such edge.
 //
+// The single-pass arm (kSP, the reference's hilo=False, which
+// kernel_precision bf16 selects): the data operands of the reference's
+// one-hot products rounded to bf16, to nearest with ties to even, as its
+// MXU pass rounds them (ops/pallas_fused_schnet.py:83, :107): the message
+// bf16(xj[e] * (w * s[e])) (the reference's association; s is the cutoff
+// on a real edge, whose mask is 1) before the flush, and gg = bf16(g[i]) *
+// s[e]. The weight gradients read the rows a, dw and dpre, formed from
+// that gg, and need no arm of their own. Every load and store is the f32
+// arm's, and so is the bound.
+//
 // Bound: operations. At SchNet_demo width (F 150, De 50) a real edge costs
 // 2*(50 + 150)*150 = 60k FLOP forward and 2*(2*50 + 3*150)*150 = 165k
 // backward (three row products and two weight-gradient products), against
@@ -423,7 +433,7 @@ __device__ __forceinline__ RowShared row_shared(const RowLayout& b,
 // column (one from each tile its run touches), which commute on the zeroed
 // out, so a call gives the same bits every run. Nothing but out is
 // written; a tile with no real edge costs one barrier.
-template <int NTW>
+template <int NTW, bool SP>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_cfconv_fwd_kernel(const float* __restrict__ xj,
                         const float* __restrict__ dist,
@@ -472,7 +482,12 @@ fused_cfconv_fwd_kernel(const float* __restrict__ xj,
       for (int q = 0; q < 2; ++q) {
         const int c = 8 * j + 2 * p.tq + q;
         float& v = acc[j][2 * h + q];
-        v = c < g.f ? s * xv[j][q] * (v + __ldg(b1 + c)) : 0.f;
+        if (SP) {
+          v = c < g.f ? round_bf16(xv[j][q] * ((v + __ldg(b1 + c)) * s))
+                      : 0.f;
+        } else {
+          v = c < g.f ? s * xv[j][q] * (v + __ldg(b1 + c)) : 0.f;
+        }
       }
     }
   }
@@ -486,7 +501,7 @@ fused_cfconv_fwd_kernel(const float* __restrict__ xj,
 // gg * xj; the rows d_xj and dw; (3) dpre = that * sigmoid(pre), pre read
 // back from the dpre row. Rows of edges whose s is 0 are not written; a
 // tile with no real edge costs one barrier.
-template <int NTW>
+template <int NTW, bool SP>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_cfconv_bwd_kernel(const float* __restrict__ xj,
                         const float* __restrict__ dist,
@@ -576,7 +591,7 @@ fused_cfconv_bwd_kernel(const float* __restrict__ xj,
       if (s != 0.f) {
         const long long e = e0 + r;
         if (c < g.f) {
-          const float gg = gv[u] * s;
+          const float gg = (SP ? round_bf16(gv[u]) : gv[u]) * s;
           dxj[e * g.f + c] = gg * (*q + __ldg(b1 + c));
           dw = gg * xv[u];
         }
@@ -810,23 +825,39 @@ fused_cfconv_wgrad_kernel(const float* __restrict__ dist,
   }
 }
 
-template <int NTW>
+template <int NTW, bool SP>
 int launch_fwd(const float* xj, const float* dist, const float* wraw,
                const int* dst, const float* mask, const uint32_t* ws,
                const float* b0, const float* b1, float* out,
                const Geometry& g, const RowLayout& b, cudaStream_t s) {
   const size_t smem = row_shared_bytes(b);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_cfconv_fwd_kernel<NTW>,
+      fused_cfconv_fwd_kernel<NTW, SP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (g.e + kRowTE - 1) / kRowTE;
-  fused_cfconv_fwd_kernel<NTW><<<(unsigned)tiles, kThreads, smem, s>>>(
+  fused_cfconv_fwd_kernel<NTW, SP><<<(unsigned)tiles, kThreads, smem, s>>>(
       xj, dist, wraw, dst, mask, ws, b0, b1, out, g, b);
   return (int)cudaGetLastError();
 }
 
-template <int NTW>
+// The forward's tiles for the layout's width bucket.
+template <bool SP>
+int launch_fwd_arm(const float* xp, const float* dp, const float* rp,
+                   const int* dsp, const float* mp, const uint32_t* wsp,
+                   const float* b0p, const float* b1p, float* op,
+                   const Geometry& g, const RowLayout& b, cudaStream_t s) {
+  switch (b.ntw) {
+    case 4: return launch_fwd<4, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    case 13: return launch_fwd<13, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    case 19: return launch_fwd<19, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    case 25: return launch_fwd<25, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    case 32: return launch_fwd<32, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
+    default: return kBadShape;
+  }
+}
+
+template <int NTW, bool SP>
 int launch_bwd(const float* xj, const float* dist, const float* wraw,
                const int* dst, const float* mask, const uint32_t* ws,
                const float* b0, const float* b1, const float* gout,
@@ -834,14 +865,31 @@ int launch_bwd(const float* xj, const float* dist, const float* wraw,
                const Geometry& g, const RowLayout& b, cudaStream_t s) {
   const size_t smem = row_shared_bytes(b);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_cfconv_bwd_kernel<NTW>,
+      fused_cfconv_bwd_kernel<NTW, SP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (g.e + kRowTE - 1) / kRowTE;
-  fused_cfconv_bwd_kernel<NTW><<<(unsigned)tiles, kThreads, smem, s>>>(
+  fused_cfconv_bwd_kernel<NTW, SP><<<(unsigned)tiles, kThreads, smem, s>>>(
       xj, dist, wraw, dst, mask, ws, b0, b1, gout, dxj, arow, dwrow, dprow,
       g, b);
   return (int)cudaGetLastError();
+}
+
+// The backward's edge rows for the layout's width bucket.
+template <bool SP>
+int launch_bwd_arm(const float* xp, const float* dp, const float* rp,
+                   const int* dsp, const float* mp, const uint32_t* wsp,
+                   const float* b0p, const float* b1p, const float* gp,
+                   float* dxp, float* ap, float* wp, float* pp,
+                   const Geometry& g, const RowLayout& b, cudaStream_t s) {
+  switch (b.ntw) {
+    case 4: return launch_bwd<4, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
+    case 13: return launch_bwd<13, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
+    case 19: return launch_bwd<19, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
+    case 25: return launch_bwd<25, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
+    case 32: return launch_bwd<32, SP>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
+    default: return kBadShape;
+  }
 }
 
 // Words of the split weights of a row kernel whose products read W1 in
@@ -887,15 +935,15 @@ long long mdl_fused_cfconv_fwd_split_words(int f, int de) {
 // All pointers are device pointers on the current device. w0 (De x F) and
 // w1 (F x F) without their biases b0 and b1 (F each); ws holds
 // mdl_fused_cfconv_fwd_split_words(f, de) words, no initial value needed;
-// out holds n*f zeros; mask may be null (every edge real). Launches the
-// weight split, then the tiles. Returns 0 or a cudaError_t (kBadShape for
-// an unsupported F or De).
+// out holds n*f zeros; mask may be null (every edge real); single_pass !=
+// 0 runs the single-pass arm. Launches the weight split, then the tiles.
+// Returns 0 or a cudaError_t (kBadShape for an unsupported F or De).
 int mdl_fused_cfconv_fwd(const void* xj, const void* dist, const void* wraw,
                          const void* dst, const void* mask, const void* w0,
                          const void* b0, const void* w1, const void* b1,
                          void* ws, void* out, long long e, int f, int de,
                          int n, float coeff, float step, float scale,
-                         void* stream) {
+                         int single_pass, void* stream) {
   if (f < 1 || f > 256 || de < 1) return kBadShape;
   const Geometry g = make_geometry(e, f, de, n, coeff, step, scale);
   RowLayout b;
@@ -912,14 +960,12 @@ int mdl_fused_cfconv_fwd(const void* xj, const void* dist, const void* wraw,
   const float* b0p = static_cast<const float*>(b0);
   const float* b1p = static_cast<const float*>(b1);
   float* op = static_cast<float*>(out);
-  switch (b.ntw) {
-    case 4: return launch_fwd<4>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
-    case 13: return launch_fwd<13>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
-    case 19: return launch_fwd<19>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
-    case 25: return launch_fwd<25>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
-    case 32: return launch_fwd<32>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b, s);
-    default: return kBadShape;
+  if (single_pass) {
+    return launch_fwd_arm<true>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b,
+                                s);
   }
+  return launch_fwd_arm<false>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, op, g, b,
+                               s);
 }
 
 // Width of the backward's row buffers (a, dw, dpre): 8 ntw_bucket(ceil(F /
@@ -937,15 +983,15 @@ long long mdl_fused_cfconv_bwd_split_words(int f, int de) {
 // de) words, no initial value needed; gout (n x f); dxj (e x f) holds
 // zeros; arow, dwrow and dprow (e x mdl_fused_cfconv_row_width(f)) need no
 // initial value: the rows of real edges are written (a = ssp(pre), dw =
-// g[dst] * s * xj and dpre, zero past F). Launches the weight split, then
-// the tiles.
+// g[dst] * s * xj and dpre, zero past F). single_pass != 0 runs the
+// single-pass arm. Launches the weight split, then the tiles.
 int mdl_fused_cfconv_bwd(const void* xj, const void* dist, const void* wraw,
                          const void* dst, const void* mask, const void* w0,
                          const void* b0, const void* w1, const void* b1,
                          void* ws, const void* gout, void* dxj, void* arow,
                          void* dwrow, void* dprow, long long e, int f, int de,
                          int n, float coeff, float step, float scale,
-                         void* stream) {
+                         int single_pass, void* stream) {
   if (f < 1 || f > 256 || de < 1) return kBadShape;
   const Geometry g = make_geometry(e, f, de, n, coeff, step, scale);
   RowLayout b;
@@ -966,14 +1012,12 @@ int mdl_fused_cfconv_bwd(const void* xj, const void* dist, const void* wraw,
   float* ap = static_cast<float*>(arow);
   float* wp = static_cast<float*>(dwrow);
   float* pp = static_cast<float*>(dprow);
-  switch (b.ntw) {
-    case 4: return launch_bwd<4>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
-    case 13: return launch_bwd<13>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
-    case 19: return launch_bwd<19>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
-    case 25: return launch_bwd<25>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
-    case 32: return launch_bwd<32>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp, ap, wp, pp, g, b, s);
-    default: return kBadShape;
+  if (single_pass) {
+    return launch_bwd_arm<true>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp,
+                                ap, wp, pp, g, b, s);
   }
+  return launch_bwd_arm<false>(xp, dp, rp, dsp, mp, wsp, b0p, b1p, gp, dxp,
+                               ap, wp, pp, g, b, s);
 }
 
 // Blocks of mdl_fused_cfconv_wgrad per slice.

@@ -86,6 +86,17 @@
 //   of wgrad_reduce_kernel; no atomics touch dW, so it is bit-identical
 //   from run to run.
 //
+// The single-pass arm (kSP, the reference's hilo=False, which
+// kernel_precision bf16 selects): the data operands of the reference's
+// one-hot products rounded to bf16, to nearest with ties to even, as its
+// MXU pass rounds them (ops/pallas_fused.py:62-90): x_i = bf16(x[dst])
+// where z is formed (the forward's A fragments, the backward's z tile, the
+// weight gradient's z columns), the message bf16(sigmoid(af) *
+// softplus(as)) before the flush, gg = mask * bf16(g[dst]), and d_xi
+// rounded before its flush. x_j is not rounded. bf16 values are exact in
+// TF32, so the 3xTF32 products over them are the reference's function;
+// every load and store is the f32 arm's, and so is the bound.
+//
 // The caller zeroes out and d_x, and allocates everything; the kernels
 // never synchronise.
 
@@ -274,7 +285,7 @@ __device__ void issue_z_chunk(const float* __restrict__ x,
 // epilogue moves the accumulators to a shared tile in place of the ring,
 // forms mask * sigmoid(af) * softplus(as) there in a rolled loop (in place
 // of af) and flushes it (flush_runs).
-template <int NTW, int WN>
+template <int NTW, int WN, bool SP>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_cgconv_fwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ xj,
@@ -351,8 +362,19 @@ fused_cgconv_fwd_kernel(const float* __restrict__ x,
     for (int ks = 0; ks < kFKS; ++ks) {
       if (ks < nks) {  // uniform across the block
         const float* zr = zk + 8 * ks;
-        split_a(zr[0], zr[8 * f.ldz], zr[4], zr[8 * f.ldz + 4], ahi[ks],
-                alo[ks]);
+        float a0 = zr[0], a1 = zr[8 * f.ldz], a2 = zr[4], a3 = zr[8 * f.ldz + 4];
+        if (SP) {  // x_i: the columns below D
+          const int kc = 8 * (s * f.ks + ks) + tq;
+          if (kc < g.d) {
+            a0 = round_bf16(a0);
+            a1 = round_bf16(a1);
+          }
+          if (kc + 4 < g.d) {
+            a2 = round_bf16(a2);
+            a3 = round_bf16(a3);
+          }
+        }
+        split_a(a0, a1, a2, a3, ahi[ks], alo[ks]);
         const uint32_t* wk = wst + ks * kstep_words(f.np);
         wgmma_fence();
         wgmma_3xtf32(acc, ahi[ks], alo[ks], b_desc(wk + b_hi),
@@ -384,7 +406,8 @@ fused_cgconv_fwd_kernel(const float* __restrict__ x,
   for (int i = threadIdx.x; i < TE * g.d; i += kThreads) {
     const int r = i / g.d;
     float* p = t_s + r * f.ldt + 2 * (i - r * g.d);
-    p[0] = wt_s[r] * sigmoidf(p[0]) * softplusf(p[1]);
+    p[0] = SP ? wt_s[r] * round_bf16(sigmoidf(p[0]) * softplusf(p[1]))
+              : wt_s[r] * sigmoidf(p[0]) * softplusf(p[1]);
   }
   __syncthreads();
   flush_runs<TE>(t_s, g.d, wt_s, dst_s, out, f.ldt, 2);
@@ -397,7 +420,8 @@ constexpr int kKS = 16;  // weight rows per cp.async chunk (two k-steps)
 // The backward's z tile of TE rows: [x[dst] | xj | basis | 1 | zero to kp]
 // at row stride lda, zero rows for masked edges. Warp w takes rows w,
 // w + 8, ...; a lane issues the loads of all its rows before it stores.
-template <int TE>
+// SP: the x[dst] columns rounded to bf16.
+template <int TE, bool SP>
 __device__ void build_z(const float* __restrict__ x,
                         const float* __restrict__ xj,
                         const float* __restrict__ dist, long long e0,
@@ -413,6 +437,7 @@ __device__ void build_z(const float* __restrict__ x,
       const int r = warp + 8 * q;
       const bool real = w_s[r] != 0.f;
       xv[q] = real ? x[(long long)dst_s[r] * g.d + c] : 0.f;
+      if (SP) xv[q] = round_bf16(xv[q]);
       jv[q] = real ? xj[(e0 + r) * g.d + c] : 0.f;
     }
 #pragma unroll
@@ -523,7 +548,7 @@ __device__ void mma_tile(const float* a_s, int kp,
 // The edge rows of the backward for one tile of TE = 32 * MT edges: d_x
 // (atomically flushed runs), d_xj (every slot of the tile), and dA for
 // the weight-gradient kernel (real rows of da, E x 2*dp).
-template <int MT, int NTW>
+template <int MT, int NTW, bool SP>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_cgconv_bwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ xj,
@@ -549,7 +574,7 @@ fused_cgconv_bwd_kernel(const float* __restrict__ x,
     for (int i = threadIdx.x; i < span; i += kThreads) dxj_tile[i] = 0.f;
     return;
   }
-  build_z<TE>(x, xj, dist, e0, g, w_s, dst_s, a_s);
+  build_z<TE, SP>(x, xj, dist, e0, g, w_s, dst_s, a_s);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -574,9 +599,11 @@ fused_cgconv_bwd_kernel(const float* __restrict__ x,
         const int row = row0 + 16 * mt + gr + 8 * (q >> 1);
         const int c = 8 * nt + 2 * tq + (q & 1);
         const float wr = w_s[row];
-        const float gg = wr != 0.f && c < g.d
-                             ? wr * gout[(long long)dst_s[row] * g.d + c]
-                             : 0.f;
+        float gg = 0.f;
+        if (wr != 0.f && c < g.d) {
+          const float gv = gout[(long long)dst_s[row] * g.d + c];
+          gg = wr * (SP ? round_bf16(gv) : gv);
+        }
         const float af = acc[mt][i][0][q];
         const float as = acc[mt][i][1][q];
         const float sf = sigmoidf(af);
@@ -611,7 +638,8 @@ fused_cgconv_bwd_kernel(const float* __restrict__ x,
         const int row = row0 + 16 * mt + gr + 8 * (q >> 1);
         const int c = 8 * nt + 2 * tq + (q & 1);
         if (c < g.d) {
-          di_s[row * g.d + c] = acc[mt][i][0][q];
+          di_s[row * g.d + c] = SP ? round_bf16(acc[mt][i][0][q])
+                                   : acc[mt][i][0][q];
           dj_s[row * g.d + c] = acc[mt][i][1][q];
         }
       }
@@ -634,7 +662,9 @@ constexpr int kLdD = kWN + 8;   // 24 mod 32: conflict-free B fragments
 
 // Slice `slice` of dW = Σ over chunks slice, slice + slices, ... of
 // z[chunk]^T · dA[chunk], for this block's 128 x 112 tile; 8 warps in
-// 4 (32 rows) x 2 (56 columns), each 2 x 7 m16n8 fragments.
+// 4 (32 rows) x 2 (56 columns), each 2 x 7 m16n8 fragments. SP: the x[dst]
+// columns of z rounded to bf16.
+template <bool SP>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_cgconv_wgrad_kernel(const float* __restrict__ x,
                           const float* __restrict__ xj,
@@ -692,6 +722,7 @@ fused_cgconv_wgrad_kernel(const float* __restrict__ x,
       for (int q = 0; q < R; ++q) {
         const int r = r0 + 2 * q;
         v[q] = w_s[r] != 0.f ? x[(long long)dst_s[r] * g.d + k] : 0.f;
+        if (SP) v[q] = round_bf16(v[q]);
       }
     } else if (k < 2 * g.d) {
 #pragma unroll
@@ -782,36 +813,72 @@ void wgrad_tiles(const Geometry& g, int& ntiles_n, int& tiles) {
   tiles = ((g.k1 + kWM - 1) / kWM) * ntiles_n;
 }
 
-template <int NTW, int WN>
+template <int NTW, int WN, bool SP>
 int launch_fwd(const float* x, const float* xj, const float* dist,
                const int* dst, const float* mask, const uint32_t* ws,
                float* out, const Geometry& g, const FwdLayout& f,
                cudaStream_t s) {
   const size_t smem = fwd_shared_bytes(f);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_cgconv_fwd_kernel<NTW, WN>,
+      fused_cgconv_fwd_kernel<NTW, WN, SP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (g.e + f.te - 1) / f.te;
-  fused_cgconv_fwd_kernel<NTW, WN><<<(unsigned)tiles, kThreads, smem, s>>>(
+  fused_cgconv_fwd_kernel<NTW, WN, SP><<<(unsigned)tiles, kThreads, smem, s>>>(
       x, xj, dist, dst, mask, ws, out, g, f);
   return (int)cudaGetLastError();
 }
 
-template <int MT, int NTW>
+// The forward's tiles for the layout's width bucket.
+template <bool SP>
+int launch_fwd_arm(const float* xp, const float* xjp, const float* dp,
+                   const int* dsp, const float* mp, const uint32_t* wsp,
+                   float* op, const Geometry& g, const FwdLayout& f,
+                   cudaStream_t s) {
+  switch (f.ntw * 10 + f.wn) {
+    case 41: return launch_fwd<4, 1, SP>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 131: return launch_fwd<13, 1, SP>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 191: return launch_fwd<19, 1, SP>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 251: return launch_fwd<25, 1, SP>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 321: return launch_fwd<32, 1, SP>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 192: return launch_fwd<19, 2, SP>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 252: return launch_fwd<25, 2, SP>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    case 322: return launch_fwd<32, 2, SP>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
+    default: return kBadShape;
+  }
+}
+
+template <int MT, int NTW, bool SP>
 int launch_bwd(const float* x, const float* xj, const float* dist,
                const int* dst, const float* mask, const float* wp,
                const float* wtp, const float* gout, float* dx, float* dxj,
                float* da, const Geometry& g, cudaStream_t s) {
   const size_t smem = bwd_shared_bytes(g, 32 * MT);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_cgconv_bwd_kernel<MT, NTW>,
+      fused_cgconv_bwd_kernel<MT, NTW, SP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (g.e + 32 * MT - 1) / (32 * MT);
-  fused_cgconv_bwd_kernel<MT, NTW><<<(unsigned)tiles, kThreads, smem, s>>>(
+  fused_cgconv_bwd_kernel<MT, NTW, SP><<<(unsigned)tiles, kThreads, smem, s>>>(
       x, xj, dist, dst, mask, wp, wtp, gout, dx, dxj, da, g);
   return (int)cudaGetLastError();
+}
+
+// The backward's edge rows for the width's tile shape (bwd_shape).
+template <bool SP>
+int launch_bwd_arm(int mt, int ntw, const float* xp, const float* xjp,
+                   const float* dsp, const int* dtp, const float* mp,
+                   const float* wpp, const float* wtpp, const float* gp,
+                   float* dxp, float* dxjp, float* dap, const Geometry& g,
+                   cudaStream_t s) {
+  switch (mt * 100 + ntw) {
+    case 201: return launch_bwd<2, 1, SP>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    case 202: return launch_bwd<2, 2, SP>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    case 204: return launch_bwd<2, 4, SP>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    case 106: return launch_bwd<1, 6, SP>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    case 108: return launch_bwd<1, 8, SP>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
+    default: return kBadShape;
+  }
 }
 
 }  // namespace
@@ -845,13 +912,15 @@ long long mdl_fused_cgconv_fwd_split_words(int d, int de) {
 // All pointers are device pointers on the current device. w is the
 // (2D+De+1) x 2D extended weight [[Wfi Wsi]; [Wfj Wsj]; [Wfe Wse]; [bf bs]];
 // ws holds mdl_fused_cgconv_fwd_split_words(d, de) words, no initial value
-// needed; out holds n*d zeros; mask may be null (every edge real).
-// Launches the weight split, then the tiles. Returns 0 or a cudaError_t
-// (kBadShape for an unsupported D or shared-memory size).
+// needed; out holds n*d zeros; mask may be null (every edge real);
+// single_pass != 0 runs the single-pass arm. Launches the weight split,
+// then the tiles. Returns 0 or a cudaError_t (kBadShape for an
+// unsupported D or shared-memory size).
 int mdl_fused_cgconv_fwd(const void* x, const void* xj, const void* dist,
                          const void* dst, const void* mask, const void* w,
                          void* ws, void* out, long long e, int d, int de,
-                         int n, float coeff, float step, void* stream) {
+                         int n, float coeff, float step, int single_pass,
+                         void* stream) {
   const Geometry g = make_geometry(e, d, de, n, coeff, step);
   FwdLayout f;
   if (d < 1 || !fwd_layout(g, &f)) return kBadShape;
@@ -866,17 +935,10 @@ int mdl_fused_cgconv_fwd(const void* x, const void* xj, const void* dist,
   const int* dsp = static_cast<const int*>(dst);
   const float* mp = static_cast<const float*>(mask);
   float* op = static_cast<float*>(out);
-  switch (f.ntw * 10 + f.wn) {
-    case 41: return launch_fwd<4, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
-    case 131: return launch_fwd<13, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
-    case 191: return launch_fwd<19, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
-    case 251: return launch_fwd<25, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
-    case 321: return launch_fwd<32, 1>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
-    case 192: return launch_fwd<19, 2>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
-    case 252: return launch_fwd<25, 2>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
-    case 322: return launch_fwd<32, 2>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
-    default: return kBadShape;
+  if (single_pass) {
+    return launch_fwd_arm<true>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
   }
+  return launch_fwd_arm<false>(xp, xjp, dp, dsp, mp, wsp, op, g, f, s);
 }
 
 // The backward's edge rows. wp is W padded to round8(K1) x 2*round8(D)
@@ -884,11 +946,13 @@ int mdl_fused_cgconv_fwd(const void* x, const void* xj, const void* dist,
 // padded layout (2*round8(D) square); gout (n x d); dx (n x d) holds
 // zeros; dxj (e x d) and da (e x 2*round8(D)) need no initial value:
 // every row of dxj is written, and the rows of da of real edges.
+// single_pass != 0 runs the single-pass arm.
 int mdl_fused_cgconv_bwd(const void* x, const void* xj, const void* dist,
                          const void* dst, const void* mask, const void* wp,
                          const void* wtp, const void* gout, void* dx,
                          void* dxj, void* da, long long e, int d, int de,
-                         int n, float coeff, float step, void* stream) {
+                         int n, float coeff, float step, int single_pass,
+                         void* stream) {
   const Geometry g = make_geometry(e, d, de, n, coeff, step);
   int mt, ntw;
   bwd_shape(d, mt, ntw);
@@ -907,35 +971,44 @@ int mdl_fused_cgconv_bwd(const void* x, const void* xj, const void* dist,
   float* dxjp = static_cast<float*>(dxj);
   float* dap = static_cast<float*>(da);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mt * 100 + ntw) {
-    case 201: return launch_bwd<2, 1>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
-    case 202: return launch_bwd<2, 2>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
-    case 204: return launch_bwd<2, 4>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
-    case 106: return launch_bwd<1, 6>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
-    case 108: return launch_bwd<1, 8>(xp, xjp, dsp, dtp, mp, wpp, wtpp, gp, dxp, dxjp, dap, g, s);
-    default: return kBadShape;
+  if (single_pass) {
+    return launch_bwd_arm<true>(mt, ntw, xp, xjp, dsp, dtp, mp, wpp, wtpp, gp,
+                                dxp, dxjp, dap, g, s);
   }
+  return launch_bwd_arm<false>(mt, ntw, xp, xjp, dsp, dtp, mp, wpp, wtpp, gp,
+                               dxp, dxjp, dap, g, s);
 }
 
 // The weight gradient in `slices` slices: partial holds slices *
 // mdl_fused_cgconv_partial_floats(d, de) floats, every one of a micro-tile
 // within the gradient written (no initial value needed); da is the edge
 // kernel's. Launches slices * mdl_fused_cgconv_wgrad_tiles(d, de) blocks.
+// single_pass != 0 runs the single-pass arm.
 int mdl_fused_cgconv_wgrad(const void* x, const void* xj, const void* dist,
                            const void* dst, const void* mask, const void* da,
                            void* partial, long long e, int d, int de, int n,
                            float coeff, float step, int slices,
-                           void* stream) {
+                           int single_pass, void* stream) {
   const Geometry g = make_geometry(e, d, de, n, coeff, step);
   if (slices < 1 || d > 256) return kBadShape;
   int ntiles_n, tiles;
   wgrad_tiles(g, ntiles_n, tiles);
-  fused_cgconv_wgrad_kernel<<<(unsigned)(tiles * slices), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(xj),
-      static_cast<const float*>(dist), static_cast<const int*>(dst),
-      static_cast<const float*>(mask), static_cast<const float*>(da),
-      static_cast<float*>(partial), g, ntiles_n, tiles, slices);
+  const dim3 grid((unsigned)(tiles * slices));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  const float* xjp = static_cast<const float*>(xj);
+  const float* dsp = static_cast<const float*>(dist);
+  const int* dtp = static_cast<const int*>(dst);
+  const float* mp = static_cast<const float*>(mask);
+  const float* dap = static_cast<const float*>(da);
+  float* pp = static_cast<float*>(partial);
+  if (single_pass) {
+    fused_cgconv_wgrad_kernel<true><<<grid, kThreads, 0, s>>>(
+        xp, xjp, dsp, dtp, mp, dap, pp, g, ntiles_n, tiles, slices);
+  } else {
+    fused_cgconv_wgrad_kernel<false><<<grid, kThreads, 0, s>>>(
+        xp, xjp, dsp, dtp, mp, dap, pp, g, ntiles_n, tiles, slices);
+  }
   return (int)cudaGetLastError();
 }
 

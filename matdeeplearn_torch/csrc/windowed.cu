@@ -63,6 +63,13 @@
 // scalar otherwise. The x rows are read through L2. Skipped slots get zero
 // rows, written explicitly.
 //
+// The single-pass arm (kSP, the reference's hilo=False): the data operand
+// of the reference's one-hot product rounded to bf16, to nearest with ties
+// to even, as its MXU pass rounds it, the sums still in f32: the sum adds
+// bf16(msg[e, c]), the SpMM bf16(w[e] * msg[e, c]) (the f32 product
+// rounded), the gather writes bf16(x[dst[e], c]). Every load, store and
+// order of addition is the f32 arm's, so the bound is the f32 arm's.
+//
 // Shapes the host checks (kBadShape): tw, te and d positive, te dividing e,
 // the accumulators of 4 columns (1 where D % 4 != 0) of one window inside
 // the shared memory. Tiles whose window lies outside [0, ceil(n / tw)) are
@@ -189,6 +196,7 @@ template <> struct Cols<1> {
   __device__ static T zero() { return 0.f; }
   __device__ static T load(const float* p) { return __ldg(p); }
   __device__ static T scale(T v, float s) { return v * s; }
+  __device__ static T round(T v) { return round_bf16(v); }
   __device__ static void add(T& a, T v) { a += v; }
   __device__ static void add_to(float* p, T v) { *p += v; }
 };
@@ -200,6 +208,10 @@ template <> struct Cols<4> {
   }
   __device__ static T scale(T v, float s) {
     return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+  }
+  __device__ static T round(T v) {
+    return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                       round_bf16(v.w));
   }
   __device__ static void add(T& a, T v) {
     a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
@@ -216,8 +228,8 @@ template <> struct Cols<4> {
 // list (own >= 0: only those whose node is own mod kWarps), lane l owning
 // columns V l, V (l + 32), ... of the block's nc; kGroup entries' values
 // loaded at once, runs of equal node added in a register and flushed into
-// acc (row stride cw).
-template <int V>
+// acc (row stride cw). SP: each (weighted) value rounded to bf16.
+template <int V, bool SP>
 __device__ void walk_columns(const float* __restrict__ msg,
                              const float* __restrict__ w, long long e0,
                              const int* ent_slot, const int* ent_node, int lo,
@@ -241,6 +253,7 @@ __device__ void walk_columns(const float* __restrict__ msg,
         const long long e = e0 + ent_slot[i < hi ? i : hi - 1];
         v[j] = C::load(msg + e * d + c0 + cc);
         if (w != nullptr) v[j] = C::scale(v[j], __ldg(w + e));
+        if (SP) v[j] = C::round(v[j]);
       }
 #pragma unroll
       for (int j = 0; j < kGroup; ++j) {
@@ -260,7 +273,8 @@ __device__ void walk_columns(const float* __restrict__ msg,
 // The walk with lanes over slots, for nc <= kNarrow columns and a sorted
 // slice [lo, hi) of the list: 32 entries at once, runs of equal node
 // summed by a segmented inclusive scan in a fixed order, the last lane of
-// each run adding it into acc.
+// each run adding it into acc. SP: each (weighted) value rounded to bf16.
+template <bool SP>
 __device__ void walk_slots(const float* __restrict__ msg,
                            const float* __restrict__ w, long long e0,
                            const int* ent_slot, const int* ent_node, int lo,
@@ -277,6 +291,7 @@ __device__ void walk_slots(const float* __restrict__ msg,
 #pragma unroll
     for (int c = 0; c < kNarrow; ++c) {
       v[c] = valid && c < nc ? __ldg(msg + e * d + c0 + c) * s : 0.f;
+      if (SP) v[c] = round_bf16(v[c]);
     }
     const int prev = __shfl_up_sync(0xffffffffu, node, 1);
     const int next = __shfl_down_sync(0xffffffffu, node, 1);
@@ -305,7 +320,7 @@ __device__ void walk_slots(const float* __restrict__ msg,
 // Block (window, column block): the window's sums over columns [c0, c0 +
 // nc) of out, nc = min(cw, d - c0). Shared memory: the accumulators (tw x
 // cw), then the list (kCap slots, kCap nodes).
-template <int V>
+template <int V, bool SP>
 __global__ void __launch_bounds__(kSumThreads, 1)
 windowed_sum_kernel(const float* __restrict__ msg, const float* __restrict__ w,
                     const int* __restrict__ dst,
@@ -387,9 +402,10 @@ windowed_sum_kernel(const float* __restrict__ msg, const float* __restrict__ w,
       const int lo = sorted ? cut_s[warp] : 0;
       const int hi = sorted ? cut_s[warp + 1] : m;
       if (sorted && nc <= kNarrow) {
-        walk_slots(msg, w, e0, ent_slot, ent_node, lo, hi, d, c0, nc, cw, acc);
+        walk_slots<SP>(msg, w, e0, ent_slot, ent_node, lo, hi, d, c0, nc, cw,
+                       acc);
       } else {
-        walk_columns<V>(msg, w, e0, ent_slot, ent_node, lo, hi,
+        walk_columns<V, SP>(msg, w, e0, ent_slot, ent_node, lo, hi,
                         sorted ? -1 : warp, d, c0, nc, cw, acc);
       }
     }
@@ -416,7 +432,7 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <int V>
+template <int V, bool SP>
 int launch_sum(const float* msg, const float* w, const int* dst,
                const int* tile_window, const int* tile_first, float* out,
                int e, int d, int n, int tw, int te, cudaStream_t s) {
@@ -432,16 +448,17 @@ int launch_sum(const float* msg, const float* w, const int* dst,
   cw = (cw + V - 1) / V * V;
   const size_t smem = (size_t)tw * cw * sizeof(float) + list;
   cudaError_t err = cudaFuncSetAttribute(
-      windowed_sum_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      windowed_sum_kernel<V, SP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + tw - 1) / tw), (unsigned)blocks_y);
-  windowed_sum_kernel<V><<<grid, kSumThreads, smem, s>>>(
+  windowed_sum_kernel<V, SP><<<grid, kSumThreads, smem, s>>>(
       msg, w, dst, tile_window, tile_first, out, d, n, tw, te, e / te, cw,
       te % 4 == 0 && aligned16(dst));
   return (int)cudaGetLastError();
 }
 
+template <bool SP>
 __global__ void __launch_bounds__(kThreads)
 windowed_gather_kernel_f4(const float4* __restrict__ x,
                           const int* __restrict__ dst,
@@ -458,11 +475,16 @@ windowed_gather_kernel_f4(const float4* __restrict__ x,
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (counted(node, __ldg(tile_window + edge / te), n, tw)) {
       v = __ldg(x + (long long)node * d4 + q);
+      if (SP) {
+        v = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                        round_bf16(v.w));
+      }
     }
     out[i] = v;
   }
 }
 
+template <bool SP>
 __global__ void __launch_bounds__(kThreads)
 windowed_gather_kernel_f1(const float* __restrict__ x,
                           const int* __restrict__ dst,
@@ -479,6 +501,7 @@ windowed_gather_kernel_f1(const float* __restrict__ x,
     float v = 0.f;
     if (counted(node, __ldg(tile_window + edge / te), n, tw)) {
       v = __ldg(x + (long long)node * d + c);
+      if (SP) v = round_bf16(v);
     }
     out[i] = v;
   }
@@ -492,17 +515,50 @@ unsigned gather_blocks(long long total) {
   return (unsigned)(blocks < cap ? blocks : cap);
 }
 
+template <bool SP>
+int launch_sum_arm(const float* msg, const float* w, const int* dst,
+                   const int* tile_window, const int* tile_first, float* out,
+                   int e, int d, int n, int tw, int te, cudaStream_t s) {
+  if (d % 4 == 0 && aligned16(msg) && aligned16(out)) {
+    return launch_sum<4, SP>(msg, w, dst, tile_window, tile_first, out, e, d,
+                             n, tw, te, s);
+  }
+  return launch_sum<1, SP>(msg, w, dst, tile_window, tile_first, out, e, d, n,
+                           tw, te, s);
+}
+
+template <bool SP>
+void launch_gather(const void* x, const void* dst, const void* tile_window,
+                   void* out, int e, int d, int n, int tw, int te, int vec4,
+                   cudaStream_t s) {
+  if (vec4) {
+    const int d4 = d / 4;
+    windowed_gather_kernel_f4<SP><<<gather_blocks((long long)e * d4),
+                                    kThreads, 0, s>>>(
+        static_cast<const float4*>(x), static_cast<const int*>(dst),
+        static_cast<const int*>(tile_window), static_cast<float4*>(out), e, d4,
+        n, tw, te);
+  } else {
+    windowed_gather_kernel_f1<SP><<<gather_blocks((long long)e * d), kThreads,
+                                    0, s>>>(
+        static_cast<const float*>(x), static_cast<const int*>(dst),
+        static_cast<const int*>(tile_window), static_cast<float*>(out), e, d,
+        n, tw, te);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // All pointers are device pointers on the current device; w may be null
-// (every weight 1). out must hold n*d zeros. Returns 0 or a cudaError_t
-// (kBadShape for a shape the kernel does not take).
+// (every weight 1). out must hold n*d zeros. single_pass != 0 runs the
+// single-pass arm. Returns 0 or a cudaError_t (kBadShape for a shape the
+// kernel does not take).
 int mdl_windowed_segment_sum(const void* msg, const void* w, const void* dst,
                              const void* tile_window, const void* tile_first,
                              void* out, int e, int d, int n, int tw, int te,
-                             void* stream) {
+                             int single_pass, void* stream) {
   if (tw <= 0 || te <= 0 || d <= 0 || n <= 0 || e <= 0 || e % te != 0) {
     return kBadShape;
   }
@@ -513,32 +569,25 @@ int mdl_windowed_segment_sum(const void* msg, const void* w, const void* dst,
   const int* tfp = static_cast<const int*>(tile_first);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 4 == 0 && aligned16(msg) && aligned16(out)) {
-    return launch_sum<4>(mp, wp, dp, twp, tfp, op, e, d, n, tw, te, s);
+  if (single_pass) {
+    return launch_sum_arm<true>(mp, wp, dp, twp, tfp, op, e, d, n, tw, te, s);
   }
-  return launch_sum<1>(mp, wp, dp, twp, tfp, op, e, d, n, tw, te, s);
+  return launch_sum_arm<false>(mp, wp, dp, twp, tfp, op, e, d, n, tw, te, s);
 }
 
 // vec4 != 0 selects the float4 kernel: the caller guarantees d % 4 == 0 and
 // 16-byte aligned x and out. Every element of out is written.
+// single_pass != 0 runs the single-pass arm.
 int mdl_windowed_gather(const void* x, const void* dst,
                         const void* tile_window, void* out, int e, int d,
-                        int n, int tw, int te, int vec4, void* stream) {
+                        int n, int tw, int te, int vec4, int single_pass,
+                        void* stream) {
   if (tw <= 0 || te <= 0 || d <= 0 || e <= 0 || e % te != 0) return kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    const int d4 = d / 4;
-    windowed_gather_kernel_f4<<<gather_blocks((long long)e * d4), kThreads, 0,
-                                s>>>(
-        static_cast<const float4*>(x), static_cast<const int*>(dst),
-        static_cast<const int*>(tile_window), static_cast<float4*>(out), e, d4,
-        n, tw, te);
+  if (single_pass) {
+    launch_gather<true>(x, dst, tile_window, out, e, d, n, tw, te, vec4, s);
   } else {
-    windowed_gather_kernel_f1<<<gather_blocks((long long)e * d), kThreads, 0,
-                                s>>>(
-        static_cast<const float*>(x), static_cast<const int*>(dst),
-        static_cast<const int*>(tile_window), static_cast<float*>(out), e, d,
-        n, tw, te);
+    launch_gather<false>(x, dst, tile_window, out, e, d, n, tw, te, vec4, s);
   }
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,10 @@ edge_order="src" (MEGNet's csr layout) they are sorted by (local src,
 local dst), so edge_src is non-decreasing over real edges, and so is
 node_graph[edge_src]. A dataset made with kernel_fused=True (dst order
 only) marks its batches for the fused conv kernels (ops/fused_cgconv.py,
-ops/fused_cfconv.py).
+ops/fused_cfconv.py); one made with kernel_bf16=True (kernel_precision
+bf16 under the fused or pallas plan) marks them for those kernels' and the
+windowed kernels' single-pass arm, as the reference's assembler sets
+GraphBatch.kernel_bf16.
 
 A dataset that carries the windowed layout (`WindowedDeviceData`, built from
 data/windowed.py) assembles windowed batches (`assemble_batch_windowed`):
@@ -190,6 +193,9 @@ class DeviceDataset:
     node_indeg: torch.Tensor | None = None
     # batches run the conv on its fused kernel (needs edge_order "dst")
     kernel_fused: bool = False
+    # batches run the fused and windowed kernels' single-pass arm
+    # (kernel_precision bf16; the reference's GraphBatch.kernel_bf16)
+    kernel_bf16: bool = False
     # the windowed layout: batches are assembled windowed
     windowed: "WindowedDeviceData | None" = None
     # (G, D) float32 whole-structure descriptors (SOAP or SM), the
@@ -212,8 +218,8 @@ class DeviceDataset:
     def from_graph_dataset(cls, ds, device: str | torch.device,
                            edge_order: str | None = None,
                            kernel_fused: bool = False,
-                           windowed: "WindowedDeviceData | None" = None
-                           ) -> "DeviceDataset":
+                           windowed: "WindowedDeviceData | None" = None,
+                           kernel_bf16: bool = False) -> "DeviceDataset":
         if windowed is not None and edge_order is not None:
             raise ValueError("a windowed dataset keeps the reference edge "
                              "order (the layout sorts each graph's edges)")
@@ -272,6 +278,7 @@ class DeviceDataset:
             edge_order=edge_order,
             node_indeg=node_indeg,
             kernel_fused=kernel_fused,
+            kernel_bf16=kernel_bf16,
             windowed=windowed,
             extra=extra,
         )
@@ -344,6 +351,8 @@ class GraphBatch:
     in_degree: torch.Tensor | None = None
     edge_order: str | None = None
     kernel_fused: bool = False
+    # the single-pass arm of the fused and windowed kernels (the dataset's)
+    kernel_bf16: bool = False
     # Windowed batches (assemble_batch_windowed): edge_dst is -1 on pad
     # slots (edge_dst_safe clamps it for index ops), and edges are ordered
     # by (window, dst) in tiles of num_edges / len(tile_window) slots.
@@ -459,6 +468,7 @@ def assemble_batch(data: DeviceDataset, graph_ids, spec: BatchSpec) -> GraphBatc
         in_degree=in_degree,
         edge_order=data.edge_order,
         kernel_fused=data.kernel_fused,
+        kernel_bf16=data.kernel_bf16,
         extra=_batch_extra(data, ids, gmask),
     )
 
@@ -550,6 +560,7 @@ def assemble_batch_windowed(data: DeviceDataset, wdata: WindowedDeviceData,
         tile_window=wid.to(torch.int32),
         tile_first=tfirst.to(torch.int32),
         window_size=tw,
+        kernel_bf16=data.kernel_bf16,
         extra=_batch_extra(data, ids, gmask),
     )
 

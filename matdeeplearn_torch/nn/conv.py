@@ -8,9 +8,12 @@ aggregates at the source node) are ported.
 Each conv runs in the dtype of its input x: f32, or bf16 under `precision:
 bf16` (models/base.py). The fused CGConv and cfconv kernels sum in f32 and
 see f32 inputs, their results cast back to x's dtype (the reference
-package's nn/conv.py:93-111, :227-248); NNConv's bilinear kernel runs its
-bf16 arm for bf16 activations (:171-176); parameters used outside a Linear
-are cast to x's dtype where they are used.
+package's nn/conv.py:93-111, :227-248); on a batch marked kernel_bf16
+(`kernel_precision: bf16`) they run their single-pass arm, which rounds
+their one-hot products' data operands to bf16 (:104, :240), whatever the
+activations' dtype. NNConv's bilinear kernel runs its bf16 arm for bf16
+activations (:171-176) and never reads kernel_bf16; parameters used outside
+a Linear are cast to x's dtype where they are used.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ class CGConv(nn.Module):
             x, xj, batch.edge_dist_norm, batch.edge_dst, batch.edge_mask,
             kf[:d], kf[d:2 * d], kf[2 * d:], self.lin_f.bias,
             ks[:d], ks[d:2 * d], ks[2 * d:], self.lin_s.bias,
-            batch.num_nodes, self.edge_width)
+            batch.num_nodes, self.edge_width, batch.kernel_bf16)
         return agg / torch.clamp(batch.in_degree, min=1.0)[:, None]
 
 
@@ -115,7 +118,8 @@ class SchNetInteraction(nn.Module):
                 xj, batch.edge_dist_norm, batch.edge_weight,
                 batch.edge_dst, batch.edge_mask, self.mlp0.weight.t(),
                 self.mlp0.bias, self.mlp1.weight.t(), self.mlp1.bias,
-                batch.num_nodes, self.edge_width, self.cutoff)
+                batch.num_nodes, self.edge_width, self.cutoff,
+                batch.kernel_bf16)
             agg = torch.where(batch.node_mask[:, None] > 0, agg,
                               0.0).to(x.dtype)
         else:

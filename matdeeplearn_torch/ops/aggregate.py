@@ -23,7 +23,11 @@ skips pad slots, and the fused kernels give masked edges zero gradients.
 Under bf16 activations (`precision: bf16`) the kernels still see f32: a
 bf16 input is cast up before each CSR or windowed kernel and its result
 cast back, as in the reference package (ops/aggregate.py:67-71, :109,
-:118-132, :196-201). The plain paths stay in bf16 (their sums accumulate
+:118-132, :196-201). A windowed batch marked kernel_bf16
+(`kernel_precision: bf16`) runs the windowed kernels' single-pass arm,
+which rounds that f32 operand to bf16 (the reference's hilo=False,
+:94-102); the CSR kernels never see the mark, as the reference's CSR
+batches never carry it. The plain paths stay in bf16 (their sums accumulate
 in f32: ops/segment.py), with the per-edge weights and the mask cast to
 the messages' dtype as there (:134-135).
 
@@ -66,10 +70,11 @@ def edge_aggregate(messages: torch.Tensor, batch, reduce: str = "sum",
     if batch.is_windowed:
         we = _windowed_edges(batch)
         m32 = messages.float()
+        sp = batch.kernel_bf16
         if weights is not None:
-            out = WO.windowed_spmm(weights, m32, we, n, batch.window_size)
+            out = WO.windowed_spmm(weights, m32, we, n, batch.window_size, sp)
         else:
-            out = WO.windowed_segment_sum(m32, we, n, batch.window_size)
+            out = WO.windowed_segment_sum(m32, we, n, batch.window_size, sp)
         # the kernels zero windows that own no tile; node slots past a
         # graph's atoms are masked as in the reference
         out = torch.where(batch.node_mask[:, None] > 0, out, 0.0)

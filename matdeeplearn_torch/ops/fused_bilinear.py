@@ -73,7 +73,7 @@ import ctypes
 import torch
 
 from matdeeplearn_torch.ops import _build
-from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on
+from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on, round_bf16
 
 LAUNCHES = {"fused_bilinear_fwd": 0, "fused_bilinear_bwd": 0,
             "fused_bilinear_wgrad": 0}
@@ -164,11 +164,6 @@ def _chunks(e: int, width: int) -> list[slice]:
 def _with_bias_unit(a) -> torch.Tensor:
     """[a | 1]: the bias as unit H."""
     return torch.cat([a, torch.ones_like(a[:, :1])], 1)
-
-
-def round_bf16(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bf16 (to nearest, ties to even), kept in t's dtype."""
-    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def arm_weight(w1, bf16: bool) -> torch.Tensor:

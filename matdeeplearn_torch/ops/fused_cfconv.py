@@ -41,6 +41,16 @@ d_xj, and the rows a, dw and dpre, after a split of W0, W1 and W1ᵀ), the
 weight gradients in slices (`fused_cfconv_wgrad`, on mma.sync: [b | 1]ᵀ·dpre
 and [a | 1]ᵀ·dw over strided 32-edge chunks) and the fixed-order sum of the
 slices (`wgrad_reduce`).
+
+`single_pass=True` is the reference's single-pass MXU arm (`hilo=False`,
+which `kernel_precision: bf16` selects): the data operands of its one-hot
+products are rounded to bf16, to nearest with ties to even
+(ops/pallas_fused_schnet.py:83, :107): the message xj·(w·c) before the sum,
+and g[dst] before d_xj and dw. The weight gradients read the rows a, dw
+and dpre the edge kernel forms from that rounded g[dst], so
+`fused_cfconv_wgrad` and the slice sum have no arm of their own and count
+in `LAUNCHES` either way; the arm's forward and edge rows count in
+`LAUNCHES_SP`.
 """
 
 from __future__ import annotations
@@ -52,12 +62,15 @@ import torch
 import torch.nn.functional as F
 
 from matdeeplearn_torch.ops import _build
-from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on, segment_sum_plain
+from matdeeplearn_torch.ops.csr import (_check_cuda, _raise_on, count,
+                                        round_bf16, segment_sum_plain)
 from matdeeplearn_torch.ops.edge_basis import gaussian_basis
 from matdeeplearn_torch.ops.fused_cgconv import _basis_constants, ntw_bucket
 
 LAUNCHES = {"fused_cfconv_fwd": 0, "fused_cfconv_bwd": 0,
             "fused_cfconv_wgrad": 0, "fused_cfconv_wgrad_reduce": 0}
+# the single-pass arm's launches, counted apart
+LAUNCHES_SP = {"fused_cfconv_fwd_sp": 0, "fused_cfconv_bwd_sp": 0}
 MAX_WIDTH = 256  # the kernels' largest F
 WGRAD_CHUNK = 32  # edges of a weight-gradient chunk (csrc kWK)
 BLOCKS_PER_SM = 2  # weight-gradient blocks per SM the slice count aims at
@@ -74,12 +87,14 @@ def _load():
         vp, ci, cl, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
         lib.mdl_fused_cfconv_fwd.argtypes = ([vp] * 11
-                                             + [cl, ci, ci, ci, cf, cf, cf, vp])
+                                             + [cl, ci, ci, ci, cf, cf, cf, ci,
+                                                vp])
         lib.mdl_fused_cfconv_fwd.restype = ci
         lib.mdl_fused_cfconv_fwd_split_words.argtypes = [ci, ci]
         lib.mdl_fused_cfconv_fwd_split_words.restype = cl
         lib.mdl_fused_cfconv_bwd.argtypes = ([vp] * 15
-                                             + [cl, ci, ci, ci, cf, cf, cf, vp])
+                                             + [cl, ci, ci, ci, cf, cf, cf, ci,
+                                                vp])
         lib.mdl_fused_cfconv_bwd.restype = ci
         lib.mdl_fused_cfconv_bwd_split_words.argtypes = [ci, ci]
         lib.mdl_fused_cfconv_bwd_split_words.restype = cl
@@ -105,24 +120,32 @@ def _round4(v: int) -> int:
 
 
 def fused_cfconv_plain(xj, dist, wraw, dst, mask, w0, b0, w1, b1,
-                       num_nodes: int, edge_width: float, cutoff: float):
-    """Plain PyTorch version (the reference's `_reference_compose`)."""
+                       num_nodes: int, edge_width: float, cutoff: float,
+                       single_pass: bool = False):
+    """Plain PyTorch version (the reference's `_reference_compose`; with
+    single_pass, the reference kernel's message xj·(w·c) rounded to bf16,
+    whose autograd backward rounds g[dst] as its `_bwd_kernel` does)."""
     e = gaussian_basis(dist, 0.0, 1.0, w0.shape[0], edge_width)
     a = F.softplus(e @ w0 + b0.reshape(-1)) - _LOG2
     w = a @ w1 + b1.reshape(-1)
     c = 0.5 * (torch.cos(wraw * (math.pi / cutoff)) + 1.0)
-    return segment_sum_plain(xj * w * c[:, None], dst, mask, num_nodes)
+    if single_pass:
+        msg = round_bf16(xj * (w * c[:, None]))
+    else:
+        msg = xj * w * c[:, None]
+    return segment_sum_plain(msg, dst, mask, num_nodes)
 
 
 def fused_cfconv_bwd_plain(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
-                           num_nodes: int, edge_width: float, cutoff: float):
+                           num_nodes: int, edge_width: float, cutoff: float,
+                           single_pass: bool = False):
     """Plain backward: autograd through the plain version. Returns (d_xj,
     d_w0, d_b0, d_w1, d_b1)."""
     diff = [t.detach().requires_grad_(True) for t in (xj, w0, b0, w1, b1)]
     with torch.enable_grad():
         xjv, *ws = diff
         out = fused_cfconv_plain(xjv, dist, wraw, dst, mask, *ws, num_nodes,
-                                 edge_width, cutoff)
+                                 edge_width, cutoff, single_pass)
         return torch.autograd.grad(out, diff, g)
 
 
@@ -175,11 +198,13 @@ def edge_scale(wraw, dst, mask, num_nodes: int, cutoff: float):
 
 
 def bwd_rows_plain(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
-                   num_nodes: int, edge_width: float, cutoff: float) -> tuple:
+                   num_nodes: int, edge_width: float, cutoff: float,
+                   single_pass: bool = False) -> tuple:
     """Plain version of the backward's edge kernel: (d_xj, a, dw, dpre),
     the last three (E, row_width(F)) rows ssp(pre), g[dst]·s·xj and
     (dw·W1ᵀ)·sigmoid(pre), zero past F and on edges whose s is 0 (the
-    kernel leaves those rows unwritten)."""
+    kernel leaves those rows unwritten). single_pass: g[dst] rounded to
+    bf16."""
     e, f = xj.shape
     s = edge_scale(wraw, dst, mask, num_nodes, cutoff)
     basis = gaussian_basis(dist, 0.0, 1.0, w0.shape[0], edge_width)
@@ -187,7 +212,8 @@ def bwd_rows_plain(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
     a = F.softplus(pre) - _LOG2
     w = a @ w1 + b1.reshape(-1)
     idx = torch.where(s != 0, dst, 0).to(torch.int64)
-    gg = g[idx] * s[:, None]
+    gr = g[idx]
+    gg = (round_bf16(gr) if single_pass else gr) * s[:, None]
     dw = gg * xj
     dpre = (dw @ w1.t()) * torch.sigmoid(pre)
     real = (s != 0)[:, None]
@@ -289,11 +315,12 @@ def _split_buffer(lib, fn: str, f: int, de: int, device) -> torch.Tensor:
 
 
 def fused_cfconv(xj, dist, wraw, dst, mask, w0, b0, w1, b1, num_nodes: int,
-                 edge_width: float, cutoff: float) -> torch.Tensor:
+                 edge_width: float, cutoff: float, single_pass: bool = False
+                 ) -> torch.Tensor:
     """(num_nodes, F) f32 sums of the filtered messages at dst."""
     if xj.device.type == "cpu":
         return fused_cfconv_plain(xj, dist, wraw, dst, mask, w0, b0, w1, b1,
-                                  num_nodes, edge_width, cutoff)
+                                  num_nodes, edge_width, cutoff, single_pass)
     w0, b0, w1, b1 = (t.contiguous() for t in (w0, b0, w1, b1))
     _check_inputs(xj, dist, wraw, dst, mask, w0, b0, w1, b1)
     e, f = xj.shape
@@ -310,9 +337,10 @@ def fused_cfconv(xj, dist, wraw, dst, mask, w0, b0, w1, b1, num_nodes: int,
             xj.data_ptr(), dist.data_ptr(), wraw.data_ptr(), dst.data_ptr(),
             mask.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), ws.data_ptr(), out.data_ptr(), e, f, de,
-            num_nodes, *_constants(de, edge_width, cutoff), stream)
+            num_nodes, *_constants(de, edge_width, cutoff), int(single_pass),
+            stream)
     _raise_on(rc, "mdl_fused_cfconv_fwd")
-    LAUNCHES["fused_cfconv_fwd"] += 1
+    count(LAUNCHES, LAUNCHES_SP, "fused_cfconv_fwd", single_pass)
     return out
 
 
@@ -341,15 +369,15 @@ def wgrad_reduce(partial: torch.Tensor, blocks: int, f: int, de: int
 
 
 def fused_cfconv_bwd_rows(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
-                          num_nodes: int, edge_width: float, cutoff: float
-                          ) -> tuple:
+                          num_nodes: int, edge_width: float, cutoff: float,
+                          single_pass: bool = False) -> tuple:
     """The backward's edge kernel: (d_xj, a, dw, dpre), the last three the
     (E, row_width(F)) rows of real edges for fused_cfconv_wgrad
     (bwd_rows_plain says the layout; rows of other edges are not written
     on the card)."""
     if xj.device.type == "cpu":
         return bwd_rows_plain(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
-                              num_nodes, edge_width, cutoff)
+                              num_nodes, edge_width, cutoff, single_pass)
     w0, b0, w1, b1 = (t.contiguous() for t in (w0, b0, w1, b1))
     _check_inputs(xj, dist, wraw, dst, mask, w0, b0, w1, b1)
     _check_cuda("g", g, torch.float32, 2)
@@ -373,9 +401,9 @@ def fused_cfconv_bwd_rows(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
             mask.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), ws.data_ptr(), g.data_ptr(), d_xj.data_ptr(),
             *(r.data_ptr() for r in rows), e, f, de, num_nodes,
-            *_constants(de, edge_width, cutoff), stream)
+            *_constants(de, edge_width, cutoff), int(single_pass), stream)
     _raise_on(rc, "mdl_fused_cfconv_bwd")
-    LAUNCHES["fused_cfconv_bwd"] += 1
+    count(LAUNCHES, LAUNCHES_SP, "fused_cfconv_bwd", single_pass)
     return (d_xj, *rows)
 
 
@@ -427,17 +455,18 @@ def fused_cfconv_wgrad(dist, wraw, dst, mask, a, dw, dpre, num_nodes: int,
 
 
 def fused_cfconv_bwd(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
-                     num_nodes: int, edge_width: float, cutoff: float
-                     ) -> tuple:
+                     num_nodes: int, edge_width: float, cutoff: float,
+                     single_pass: bool = False) -> tuple:
     """Gradients of fused_cfconv for the output cotangent g: (d_xj, d_w0,
     d_b0, d_w1, d_b1)."""
     if xj.device.type == "cpu":
         return fused_cfconv_bwd_plain(g, xj, dist, wraw, dst, mask, w0, b0,
-                                      w1, b1, num_nodes, edge_width, cutoff)
+                                      w1, b1, num_nodes, edge_width, cutoff,
+                                      single_pass)
     f, de = xj.shape[1], w0.shape[0]
     d_xj, a, dw, dpre = fused_cfconv_bwd_rows(
         g, xj, dist, wraw, dst, mask, w0, b0, w1, b1, num_nodes, edge_width,
-        cutoff)
+        cutoff, single_pass)
     partial, slices = fused_cfconv_wgrad(dist, wraw, dst, mask, a, dw, dpre,
                                          num_nodes, f, de, edge_width, cutoff)
     dwr = wgrad_reduce(partial, slices, f, de)
@@ -448,20 +477,21 @@ def fused_cfconv_bwd(g, xj, dist, wraw, dst, mask, w0, b0, w1, b1,
 
 
 class FusedCFConv(torch.autograd.Function):
-    """fused_cfconv with the fused backward kernel as its backward; no
-    gradient for dist, wraw, dst, mask, num_nodes, edge_width or cutoff."""
+    """fused_cfconv with the fused backward kernel as its backward, in the
+    same arm; no gradient for dist, wraw, dst, mask, num_nodes, edge_width,
+    cutoff or single_pass."""
 
     @staticmethod
     def forward(ctx, xj, dist, wraw, dst, mask, w0, b0, w1, b1, num_nodes,
-                edge_width, cutoff):
+                edge_width, cutoff, single_pass=False):
         ctx.save_for_backward(xj, dist, wraw, dst, mask, w0, b0, w1, b1)
-        ctx.args = (num_nodes, edge_width, cutoff)
+        ctx.args = (num_nodes, edge_width, cutoff, single_pass)
         return fused_cfconv(xj.contiguous(), dist, wraw, dst, mask, w0, b0,
-                            w1, b1, num_nodes, edge_width, cutoff)
+                            w1, b1, num_nodes, edge_width, cutoff, single_pass)
 
     @staticmethod
     def backward(ctx, g):
         xj, dist, wraw, dst, mask, *ws = ctx.saved_tensors
         d_xj, *d_ws = fused_cfconv_bwd(g.contiguous(), xj.contiguous(), dist,
                                        wraw, dst, mask, *ws, *ctx.args)
-        return (d_xj, None, None, None, None, *d_ws, None, None, None)
+        return (d_xj, None, None, None, None, *d_ws, None, None, None, None)

@@ -36,6 +36,18 @@ backward launches three kernels, on mma.sync: the edge rows
 (`fused_cgconv_bwd_rows`: d_x, d_xj and dA = [d_af | d_as]), the weight
 gradient in slices (`fused_cgconv_wgrad`: zᵀ·dA over strided 32-edge
 chunks) and the fixed-order sum of the slices (`wgrad_reduce`).
+
+`single_pass=True` is the reference's single-pass MXU arm (`hilo=False`,
+which `kernel_precision: bf16` selects): the data operands of its one-hot
+products are rounded to bf16, to nearest with ties to even, at its
+rounding points (ops/pallas_fused.py:62-90, :126, :134, :166, :177, :183):
+x_i = bf16(x[dst]) wherever z is formed (the forward, the edge rows, and
+the weight gradient, whose dW_fi is x_iᵀ·d_af), the message before the sum,
+g[dst] before the activations' derivatives, and d_xi before its sum. x_j
+is not rounded. bf16 values are exact in TF32, so the kernels' 3xTF32
+products over them are the reference's function; the arm launches count in
+`LAUNCHES_SP` (the slice sum has no arm: it counts in `LAUNCHES` either
+way).
 """
 
 from __future__ import annotations
@@ -46,11 +58,15 @@ import torch
 import torch.nn.functional as F
 
 from matdeeplearn_torch.ops import _build
-from matdeeplearn_torch.ops.csr import _check_cuda, _raise_on, segment_sum_plain
+from matdeeplearn_torch.ops.csr import (_check_cuda, _raise_on, count,
+                                        round_bf16, segment_sum_plain)
 from matdeeplearn_torch.ops.edge_basis import gaussian_basis
 
 LAUNCHES = {"fused_cgconv_fwd": 0, "fused_cgconv_bwd": 0,
             "fused_cgconv_wgrad": 0, "fused_cgconv_wgrad_reduce": 0}
+# the single-pass arm's launches, counted apart
+LAUNCHES_SP = {"fused_cgconv_fwd_sp": 0, "fused_cgconv_bwd_sp": 0,
+               "fused_cgconv_wgrad_sp": 0}
 MAX_WIDTH = 256      # the kernels' largest D
 WGRAD_CHUNK = 32     # edges of a weight-gradient chunk (csrc kWK)
 BLOCKS_PER_SM = 2    # weight-gradient blocks per SM the slice count aims at
@@ -65,15 +81,17 @@ def _load():
         lib = _build.library("fused_cgconv")
         vp, ci, cl, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-        lib.mdl_fused_cgconv_fwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, cf, cf, vp]
+        lib.mdl_fused_cgconv_fwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, cf, cf,
+                                                        ci, vp]
         lib.mdl_fused_cgconv_fwd.restype = ci
         lib.mdl_fused_cgconv_fwd_split_words.argtypes = [ci, ci]
         lib.mdl_fused_cgconv_fwd_split_words.restype = cl
         lib.mdl_fused_cgconv_bwd.argtypes = ([vp] * 11
-                                             + [cl, ci, ci, ci, cf, cf, vp])
+                                             + [cl, ci, ci, ci, cf, cf, ci, vp])
         lib.mdl_fused_cgconv_bwd.restype = ci
         lib.mdl_fused_cgconv_wgrad.argtypes = ([vp] * 7
-                                               + [cl, ci, ci, ci, cf, cf, ci, vp])
+                                               + [cl, ci, ci, ci, cf, cf, ci, ci,
+                                                  vp])
         lib.mdl_fused_cgconv_wgrad.restype = ci
         lib.mdl_fused_cgconv_wgrad_reduce.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.mdl_fused_cgconv_wgrad_reduce.restype = ci
@@ -170,18 +188,27 @@ def _basis_constants(de: int, edge_width: float) -> tuple[float, float]:
 
 
 def fused_cgconv_plain(x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj,
-                       wse, bs, num_nodes: int, edge_width: float):
-    """Plain PyTorch version (the reference's `_reference_compose`)."""
+                       wse, bs, num_nodes: int, edge_width: float,
+                       single_pass: bool = False):
+    """Plain PyTorch version (the reference's `_reference_compose`; with
+    single_pass, x_i and the message rounded to bf16, whose autograd
+    backward rounds g[dst] and d_xi as the reference's `_bwd_kernel`
+    does)."""
     xi = x[dst.to(torch.int64)]
+    if single_pass:
+        xi = round_bf16(xi)
     e = gaussian_basis(dist, 0.0, 1.0, wfe.shape[0], edge_width)
     af = xi @ wfi + xj @ wfj + e @ wfe + bf
     as_ = xi @ wsi + xj @ wsj + e @ wse + bs
     msg = torch.sigmoid(af) * F.softplus(as_)
+    if single_pass:
+        msg = round_bf16(msg)
     return segment_sum_plain(msg, dst, mask, num_nodes)
 
 
 def fused_cgconv_bwd_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi,
-                           wsj, wse, bs, num_nodes: int, edge_width: float):
+                           wsj, wse, bs, num_nodes: int, edge_width: float,
+                           single_pass: bool = False):
     """Plain backward: autograd through the plain version. Returns (d_x,
     d_xj, d_wfi, d_wfj, d_wfe, d_bf, d_wsi, d_wsj, d_wse, d_bs)."""
     diff = [t.detach().requires_grad_(True)
@@ -189,54 +216,63 @@ def fused_cgconv_bwd_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi,
     with torch.enable_grad():
         xv, xjv, *ws = diff
         out = fused_cgconv_plain(xv, xjv, dist, dst, mask, *ws, num_nodes,
-                                 edge_width)
+                                 edge_width, single_pass)
         return torch.autograd.grad(out, diff, g)
 
 
 def _edge_terms(x, xj, dist, dst, mask, num_nodes: int, de: int,
-                edge_width: float) -> tuple:
+                edge_width: float, single_pass: bool = False) -> tuple:
     """(z, w): the (E, 2D+De+1) rows [x[dst] | xj | basis | 1] and each
     edge's weight (mask, 0 where dst lies outside [0, num_nodes)), with z
-    zero on edges of weight 0, as the kernels see them."""
+    zero on edges of weight 0, as the kernels see them; single_pass: x[dst]
+    rounded to bf16."""
     real = (dst >= 0) & (dst < num_nodes)
     w = torch.where(real, mask, torch.zeros_like(mask))
     xi = x[torch.where(real, dst, 0).to(torch.int64)]
+    if single_pass:
+        xi = round_bf16(xi)
     z = torch.cat([xi, xj, gaussian_basis(dist, 0.0, 1.0, de, edge_width),
                    torch.ones_like(dist)[:, None]], 1)
     return torch.where((w != 0)[:, None], z, torch.zeros_like(z)), w
 
 
 def bwd_rows_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj,
-                   wse, bs, num_nodes: int, edge_width: float) -> tuple:
+                   wse, bs, num_nodes: int, edge_width: float,
+                   single_pass: bool = False) -> tuple:
     """Plain version of the backward's edge kernel: (d_x, d_xj, da), da
     the (E, 2·DP) rows [d_af | d_as], each half zero-padded to DP =
     round8(D), zero on masked edges (the kernel leaves those rows
-    unwritten)."""
+    unwritten). single_pass: x_i, g[dst] and d_xi rounded to bf16."""
     d, de = xj.shape[1], wfe.shape[0]
     w = pack_weights(wfi, wfj, wfe, bf, wsi, wsj, wse, bs)
-    z, we = _edge_terms(x, xj, dist, dst, mask, num_nodes, de, edge_width)
+    z, we = _edge_terms(x, xj, dist, dst, mask, num_nodes, de, edge_width,
+                        single_pass)
     a = z @ w
     af, as_ = a[:, :d], a[:, d:]
     idx = torch.where(we != 0, dst, 0).to(torch.int64)
-    gg = g[idx] * we[:, None]
+    gr = g[idx]
+    gg = (round_bf16(gr) if single_pass else gr) * we[:, None]
     sf = torch.sigmoid(af)
     dan = torch.cat([gg * F.softplus(as_) * sf * (1 - sf),
                      gg * sf * torch.sigmoid(as_)], 1)
     dz = dan @ w[:2 * d].t()
-    d_x = torch.zeros_like(x).index_add_(0, idx, dz[:, :d])
+    dxi = round_bf16(dz[:, :d]) if single_pass else dz[:, :d]
+    d_x = torch.zeros_like(x).index_add_(0, idx, dxi)
     da = dan.new_zeros(dan.shape[0], 2, _round(d, 8))
     da[..., :d] = dan.view(-1, 2, d)
     return d_x, dz[:, d:].contiguous(), da.view(dan.shape[0], -1)
 
 
 def wgrad_partials_plain(x, xj, dist, dst, mask, da, num_nodes: int,
-                         de: int, edge_width: float, slices: int
-                         ) -> torch.Tensor:
+                         de: int, edge_width: float, slices: int,
+                         single_pass: bool = False) -> torch.Tensor:
     """Plain version of the weight-gradient kernel: slice s holds the sum
     over the 32-edge chunks s, s + slices, ... of zᵀ·[d_af | d_as], in
-    wgrad_reduce's micro-tile layout (zeros in its pads)."""
+    wgrad_reduce's micro-tile layout (zeros in its pads); single_pass: z's
+    x[dst] rounded to bf16."""
     d = xj.shape[1]
-    z, w = _edge_terms(x, xj, dist, dst, mask, num_nodes, de, edge_width)
+    z, w = _edge_terms(x, xj, dist, dst, mask, num_nodes, de, edge_width,
+                       single_pass)
     dan = da.view(-1, 2, _round(d, 8))[..., :d].reshape(-1, 2 * d)
     dan = torch.where((w != 0)[:, None], dan, torch.zeros_like(dan))
     chunk = torch.arange(z.shape[0], device=z.device) // WGRAD_CHUNK
@@ -295,11 +331,13 @@ def _check_inputs(x, xj, dist, dst, mask, w):
 
 
 def fused_cgconv(x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj, wse,
-                 bs, num_nodes: int, edge_width: float) -> torch.Tensor:
+                 bs, num_nodes: int, edge_width: float,
+                 single_pass: bool = False) -> torch.Tensor:
     """(num_nodes, D) f32 sums of the gated messages at dst."""
     if x.device.type == "cpu":
         return fused_cgconv_plain(x, xj, dist, dst, mask, wfi, wfj, wfe, bf,
-                                  wsi, wsj, wse, bs, num_nodes, edge_width)
+                                  wsi, wsj, wse, bs, num_nodes, edge_width,
+                                  single_pass)
     w = pack_weights(wfi, wfj, wfe, bf, wsi, wsj, wse, bs)
     _check_inputs(x, xj, dist, dst, mask, w)
     e, d = xj.shape
@@ -322,9 +360,9 @@ def fused_cgconv(x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj, wse,
         rc = lib.mdl_fused_cgconv_fwd(
             x.data_ptr(), xj.data_ptr(), dist.data_ptr(), dst.data_ptr(),
             mask.data_ptr(), w.data_ptr(), ws.data_ptr(), out.data_ptr(), e,
-            d, de, num_nodes, coeff, step, stream)
+            d, de, num_nodes, coeff, step, int(single_pass), stream)
     _raise_on(rc, "mdl_fused_cgconv_fwd")
-    LAUNCHES["fused_cgconv_fwd"] += 1
+    count(LAUNCHES, LAUNCHES_SP, "fused_cgconv_fwd", single_pass)
     return out
 
 
@@ -353,13 +391,15 @@ def wgrad_reduce(partial: torch.Tensor, blocks: int, d: int, de: int
 
 def fused_cgconv_bwd_rows(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf,
                           wsi, wsj, wse, bs, num_nodes: int,
-                          edge_width: float) -> tuple:
+                          edge_width: float, single_pass: bool = False
+                          ) -> tuple:
     """The backward's edge kernel: (d_x, d_xj, da), da the (E, 2·DP) rows
     [d_af | d_as] of real edges for fused_cgconv_wgrad (bwd_rows_plain
     says the layout; rows of masked edges are not written on the card)."""
     if x.device.type == "cpu":
         return bwd_rows_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf,
-                              wsi, wsj, wse, bs, num_nodes, edge_width)
+                              wsi, wsj, wse, bs, num_nodes, edge_width,
+                              single_pass)
     w = pack_weights(wfi, wfj, wfe, bf, wsi, wsj, wse, bs)
     _check_inputs(x, xj, dist, dst, mask, w)
     _check_cuda("g", g, torch.float32, 2)
@@ -383,9 +423,9 @@ def fused_cgconv_bwd_rows(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf,
             x.data_ptr(), xj.data_ptr(), dist.data_ptr(), dst.data_ptr(),
             mask.data_ptr(), wp.data_ptr(), wtp.data_ptr(), g.data_ptr(),
             d_x.data_ptr(), d_xj.data_ptr(), da.data_ptr(), e, d, de,
-            num_nodes, coeff, step, stream)
+            num_nodes, coeff, step, int(single_pass), stream)
     _raise_on(rc, "mdl_fused_cgconv_bwd")
-    LAUNCHES["fused_cgconv_bwd"] += 1
+    count(LAUNCHES, LAUNCHES_SP, "fused_cgconv_bwd", single_pass)
     return d_x, d_xj, da
 
 
@@ -398,7 +438,8 @@ def wgrad_slices(e: int, d: int, de: int, device) -> int:
 
 
 def fused_cgconv_wgrad(x, xj, dist, dst, mask, da, num_nodes: int, de: int,
-                       edge_width: float, slices: int | None = None) -> tuple:
+                       edge_width: float, slices: int | None = None,
+                       single_pass: bool = False) -> tuple:
     """The backward's weight-gradient kernel: (partial, slices), the slices
     of zᵀ·[d_af | d_as] over strided 32-edge chunks in wgrad_reduce's
     layout. `slices` defaults to wgrad_slices on the card and 1 on the
@@ -406,7 +447,7 @@ def fused_cgconv_wgrad(x, xj, dist, dst, mask, da, num_nodes: int, de: int,
     if x.device.type == "cpu":
         s = slices or 1
         return wgrad_partials_plain(x, xj, dist, dst, mask, da, num_nodes, de,
-                                    edge_width, s), s
+                                    edge_width, s, single_pass), s
     _check_inputs(x, xj, dist, dst, mask, da)
     _check_cuda("da", da, torch.float32, 2)
     e, d = xj.shape
@@ -425,26 +466,28 @@ def fused_cgconv_wgrad(x, xj, dist, dst, mask, da, num_nodes: int, de: int,
         rc = lib.mdl_fused_cgconv_wgrad(
             x.data_ptr(), xj.data_ptr(), dist.data_ptr(), dst.data_ptr(),
             mask.data_ptr(), da.data_ptr(), partial.data_ptr(), e, d, de,
-            num_nodes, coeff, step, s, stream)
+            num_nodes, coeff, step, s, int(single_pass), stream)
     _raise_on(rc, "mdl_fused_cgconv_wgrad")
-    LAUNCHES["fused_cgconv_wgrad"] += 1
+    count(LAUNCHES, LAUNCHES_SP, "fused_cgconv_wgrad", single_pass)
     return partial, s
 
 
 def fused_cgconv_bwd(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj,
-                     wse, bs, num_nodes: int, edge_width: float) -> tuple:
+                     wse, bs, num_nodes: int, edge_width: float,
+                     single_pass: bool = False) -> tuple:
     """Gradients of fused_cgconv for the output cotangent g: (d_x, d_xj,
     d_wfi, d_wfj, d_wfe, d_bf, d_wsi, d_wsj, d_wse, d_bs)."""
     if x.device.type == "cpu":
         return fused_cgconv_bwd_plain(g, x, xj, dist, dst, mask, wfi, wfj, wfe,
                                       bf, wsi, wsj, wse, bs, num_nodes,
-                                      edge_width)
+                                      edge_width, single_pass)
     d, de = xj.shape[1], wfe.shape[0]
     d_x, d_xj, da = fused_cgconv_bwd_rows(
         g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj, wse, bs,
-        num_nodes, edge_width)
+        num_nodes, edge_width, single_pass)
     partial, slices = fused_cgconv_wgrad(x, xj, dist, dst, mask, da,
-                                         num_nodes, de, edge_width)
+                                         num_nodes, de, edge_width,
+                                         single_pass=single_pass)
     dw = wgrad_reduce(partial, slices, d, de)
     return (d_x, d_xj) + unpack_weights(dw, d, bf.shape)
 
@@ -453,23 +496,24 @@ def fused_cgconv_bwd(g, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj,
 
 
 class FusedCGConv(torch.autograd.Function):
-    """fused_cgconv with the fused backward kernel as its backward; no
-    gradient for dist, dst, mask, num_nodes or edge_width."""
+    """fused_cgconv with the fused backward kernel as its backward, in the
+    same arm; no gradient for dist, dst, mask, num_nodes, edge_width or
+    single_pass."""
 
     @staticmethod
     def forward(ctx, x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi, wsj, wse,
-                bs, num_nodes, edge_width):
+                bs, num_nodes, edge_width, single_pass=False):
         ctx.save_for_backward(x, xj, dist, dst, mask, wfi, wfj, wfe, bf, wsi,
                               wsj, wse, bs)
-        ctx.num_nodes, ctx.edge_width = num_nodes, edge_width
+        ctx.args = (num_nodes, edge_width, single_pass)
         return fused_cgconv(x.contiguous(), xj.contiguous(), dist, dst, mask,
                             wfi, wfj, wfe, bf, wsi, wsj, wse, bs, num_nodes,
-                            edge_width)
+                            edge_width, single_pass)
 
     @staticmethod
     def backward(ctx, g):
         x, xj, dist, dst, mask, *ws = ctx.saved_tensors
         d_x, d_xj, *d_ws = fused_cgconv_bwd(
             g.contiguous(), x.contiguous(), xj.contiguous(), dist, dst, mask,
-            *ws, ctx.num_nodes, ctx.edge_width)
-        return (d_x, d_xj, None, None, None, *d_ws, None, None)
+            *ws, *ctx.args)
+        return (d_x, d_xj, None, None, None, *d_ws, None, None, None)

@@ -19,18 +19,24 @@ sums. Windows that own no tile sum to zero.
 
 What the TPU kernels needed and these do not: the one-hot (TE, TW) MXU
 matmul and the hi/lo bf16 split; the sums run in f32 on the CUDA cores.
-kernel_precision "bf16" (the reference's single-pass MXU arm) is refused by
-training/jobs.py.
 
-The autograd Functions carry the reference's custom VJPs: the sum's
-backward is the gather; the SpMM's backward is the gather, then
-d_msg = gg·w and d_w = Σ_d msg·gg in torch, as the reference computes them
-outside its kernel; the gather's backward is the sum.
+`single_pass=True` is the reference's single-pass MXU arm (`hilo=False`,
+which `kernel_precision: bf16` selects, ops/pallas_segment.py:132-167):
+the data operand of each one-hot product is rounded to bf16, to nearest
+with ties to even, and the sum stays f32. The sum rounds msg, the SpMM
+rounds w·msg after the f32 product, the gather rounds the gathered rows;
+the kernels are the f32 ones with that rounding (csrc/windowed.cu, kSP).
+
+The autograd Functions carry the reference's custom VJPs, in the forward's
+arm: the sum's backward is the gather; the SpMM's backward is the gather,
+then d_msg = gg·w and d_w = Σ_d msg·gg in f32 torch, as the reference
+computes them outside its kernel; the gather's backward is the sum.
 
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts kernel launches (plain calls are not counted). The
-library is built with nvcc at first use (ops/_build.py).
+`LAUNCHES` counts kernel launches (plain calls are not counted),
+`LAUNCHES_SP` those of the single-pass arm. The library is built with nvcc
+at first use (ops/_build.py).
 """
 
 from __future__ import annotations
@@ -42,9 +48,13 @@ import torch
 
 from matdeeplearn_torch.data.windowed import round_up
 from matdeeplearn_torch.ops import _build
-from matdeeplearn_torch.ops.csr import _check_cuda, _ptr, _raise_on
+from matdeeplearn_torch.ops.csr import (_check_cuda, _ptr, _raise_on, count,
+                                        round_bf16)
 
 LAUNCHES = {"windowed_segment_sum": 0, "windowed_spmm": 0, "windowed_gather": 0}
+# the single-pass arm's launches, counted apart
+LAUNCHES_SP = {"windowed_segment_sum_sp": 0, "windowed_spmm_sp": 0,
+               "windowed_gather_sp": 0}
 
 _lib = None
 
@@ -117,22 +127,28 @@ def slot_valid(dst, window_id, tw: int, n: int):
     return (d >= 0) & (d < n) & (d // tw == win)
 
 
-def segment_sum_plain(msg, dst, window_id, n: int, tw: int, w=None):
+def segment_sum_plain(msg, dst, window_id, n: int, tw: int, w=None,
+                      single_pass: bool = False):
     """Plain PyTorch windowed sum (and SpMM with weights `w`): index_add_ on
     the clamped dst, with invalid slots replaced by zeros (not multiplied,
-    so a NaN on a pad slot stays out)."""
+    so a NaN on a pad slot stays out). single_pass: msg (w·msg) rounded to
+    bf16 before the sum."""
     valid = slot_valid(dst, window_id, tw, n)[:, None]
     m = msg if w is None else msg * w[:, None]
+    if single_pass:
+        m = round_bf16(m)
     m = torch.where(valid, m, torch.zeros((), dtype=msg.dtype, device=msg.device))
     out = torch.zeros((n, msg.shape[1]), dtype=msg.dtype, device=msg.device)
     return out.index_add_(0, torch.clamp(dst.long(), min=0), m)
 
 
-def gather_plain(x, dst, window_id, tw: int):
+def gather_plain(x, dst, window_id, tw: int, single_pass: bool = False):
     """Plain PyTorch windowed gather: index_select on the clamped dst,
-    zero rows on invalid slots."""
+    zero rows on invalid slots. single_pass: the rows rounded to bf16."""
     valid = slot_valid(dst, window_id, tw, x.shape[0])[:, None]
     out = torch.index_select(x, 0, torch.clamp(dst.long(), min=0))
+    if single_pass:
+        out = round_bf16(out)
     return torch.where(valid, out, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -146,10 +162,10 @@ def _load():
         lib = _build.library("windowed")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.mdl_windowed_segment_sum.argtypes = [vp, vp, vp, vp, vp, vp,
-                                                 ci, ci, ci, ci, ci, vp]
+                                                 ci, ci, ci, ci, ci, ci, vp]
         lib.mdl_windowed_segment_sum.restype = ci
         lib.mdl_windowed_gather.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                            ci, ci, vp]
+                                            ci, ci, ci, vp]
         lib.mdl_windowed_gather.restype = ci
         _lib = lib
     return _lib
@@ -172,11 +188,13 @@ def _check_layout(dst, window_id, first_tile, e, device):
     return e // t
 
 
-def _sum(msg, w, we: WindowedEdges, n: int, tw: int, key: str):
+def _sum(msg, w, we: WindowedEdges, n: int, tw: int, key: str,
+         single_pass: bool):
     """The sum or, with weights w, the SpMM: plain on the CPU, the kernel on
     the card."""
     if msg.device.type == "cpu":
-        return segment_sum_plain(msg, we.dst, we.window_id, n, tw, w)
+        return segment_sum_plain(msg, we.dst, we.window_id, n, tw, w,
+                                 single_pass)
     _check_cuda("msg", msg, torch.float32, 2)
     e, d = msg.shape
     te = _check_layout(we.dst, we.window_id, we.first_tile, e, msg.device)
@@ -193,28 +211,30 @@ def _sum(msg, w, we: WindowedEdges, n: int, tw: int, key: str):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_windowed_segment_sum(
             msg.data_ptr(), _ptr(w), we.dst.data_ptr(), we.window_id.data_ptr(),
-            we.first_tile.data_ptr(), out.data_ptr(), e, d, n, tw, te, stream)
+            we.first_tile.data_ptr(), out.data_ptr(), e, d, n, tw, te,
+            int(single_pass), stream)
     _raise_on(rc, "mdl_windowed_segment_sum")
-    LAUNCHES[key] += 1
+    count(LAUNCHES, LAUNCHES_SP, key, single_pass)
     return out
 
 
-def segment_sum(msg: torch.Tensor, we: WindowedEdges, n: int, tw: int
-                ) -> torch.Tensor:
+def segment_sum(msg: torch.Tensor, we: WindowedEdges, n: int, tw: int,
+                single_pass: bool = False) -> torch.Tensor:
     """(EW, D) f32 messages in windowed order → (n, D) f32 sums at dst."""
-    return _sum(msg, None, we, n, tw, "windowed_segment_sum")
+    return _sum(msg, None, we, n, tw, "windowed_segment_sum", single_pass)
 
 
 def spmm(w: torch.Tensor, msg: torch.Tensor, we: WindowedEdges, n: int,
-         tw: int) -> torch.Tensor:
+         tw: int, single_pass: bool = False) -> torch.Tensor:
     """(EW,) f32 weights and (EW, D) f32 messages → (n, D) f32 weighted sums."""
-    return _sum(msg, w, we, n, tw, "windowed_spmm")
+    return _sum(msg, w, we, n, tw, "windowed_spmm", single_pass)
 
 
-def gather(x: torch.Tensor, we: WindowedEdges, tw: int) -> torch.Tensor:
+def gather(x: torch.Tensor, we: WindowedEdges, tw: int,
+           single_pass: bool = False) -> torch.Tensor:
     """(N, D) f32 rows → (EW, D) f32 rows x[dst], zero on invalid slots."""
     if x.device.type == "cpu":
-        return gather_plain(x, we.dst, we.window_id, tw)
+        return gather_plain(x, we.dst, we.window_id, tw, single_pass)
     _check_cuda("x", x, torch.float32, 2)
     n, d = x.shape
     e = we.dst.shape[0]
@@ -228,9 +248,9 @@ def gather(x: torch.Tensor, we: WindowedEdges, tw: int) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_windowed_gather(
             x.data_ptr(), we.dst.data_ptr(), we.window_id.data_ptr(),
-            out.data_ptr(), e, d, n, tw, te, vec4, stream)
+            out.data_ptr(), e, d, n, tw, te, vec4, int(single_pass), stream)
     _raise_on(rc, "mdl_windowed_gather")
-    LAUNCHES["windowed_gather"] += 1
+    count(LAUNCHES, LAUNCHES_SP, "windowed_gather", single_pass)
     return out
 
 
@@ -238,66 +258,72 @@ def gather(x: torch.Tensor, we: WindowedEdges, tw: int) -> torch.Tensor:
 
 
 class WindowedSegmentSum(torch.autograd.Function):
-    """segment_sum with the gather as its backward."""
+    """segment_sum with the gather as its backward, in the same arm."""
 
     @staticmethod
-    def forward(ctx, msg, we, n, tw):
-        ctx.we, ctx.tw = we, tw
-        return segment_sum(msg.contiguous(), we, n, tw)
+    def forward(ctx, msg, we, n, tw, single_pass=False):
+        ctx.we, ctx.tw, ctx.single_pass = we, tw, single_pass
+        return segment_sum(msg.contiguous(), we, n, tw, single_pass)
 
     @staticmethod
     def backward(ctx, g):
-        return gather(g.contiguous(), ctx.we, ctx.tw), None, None, None
+        return (gather(g.contiguous(), ctx.we, ctx.tw, ctx.single_pass), None,
+                None, None, None)
 
 
 class WindowedSpmm(torch.autograd.Function):
-    """spmm with the reference's VJP: gg = gather(g), d_msg = gg·w,
-    d_w = Σ_d msg·gg; only the gradients asked for are formed."""
+    """spmm with the reference's VJP: gg = gather(g) in the same arm,
+    d_msg = gg·w, d_w = Σ_d msg·gg; only the gradients asked for are
+    formed."""
 
     @staticmethod
-    def forward(ctx, w, msg, we, n, tw):
+    def forward(ctx, w, msg, we, n, tw, single_pass=False):
         ctx.save_for_backward(w, msg)
-        ctx.we, ctx.tw = we, tw
-        return spmm(w.contiguous(), msg.contiguous(), we, n, tw)
+        ctx.we, ctx.tw, ctx.single_pass = we, tw, single_pass
+        return spmm(w.contiguous(), msg.contiguous(), we, n, tw, single_pass)
 
     @staticmethod
     def backward(ctx, g):
         w, msg = ctx.saved_tensors
         need_w, need_msg = ctx.needs_input_grad[:2]
         if not (need_w or need_msg):
-            return None, None, None, None, None
-        gg = gather(g.contiguous(), ctx.we, ctx.tw)
+            return None, None, None, None, None, None
+        gg = gather(g.contiguous(), ctx.we, ctx.tw, ctx.single_pass)
         d_w = torch.sum(msg * gg, dim=-1) if need_w else None
         d_msg = gg * w[:, None] if need_msg else None
-        return d_w, d_msg, None, None, None
+        return d_w, d_msg, None, None, None, None
 
 
 class WindowedGather(torch.autograd.Function):
-    """gather with segment_sum as its backward."""
+    """gather with segment_sum as its backward, in the same arm."""
 
     @staticmethod
-    def forward(ctx, x, we, tw):
+    def forward(ctx, x, we, tw, single_pass=False):
         ctx.we, ctx.tw, ctx.n = we, tw, x.shape[0]
-        return gather(x.contiguous(), we, tw)
+        ctx.single_pass = single_pass
+        return gather(x.contiguous(), we, tw, single_pass)
 
     @staticmethod
     def backward(ctx, g):
-        return segment_sum(g.contiguous(), ctx.we, ctx.n, ctx.tw), None, None
+        return (segment_sum(g.contiguous(), ctx.we, ctx.n, ctx.tw,
+                            ctx.single_pass), None, None, None)
 
 
-def windowed_segment_sum(msg, we: WindowedEdges, n: int, tw: int):
+def windowed_segment_sum(msg, we: WindowedEdges, n: int, tw: int,
+                         single_pass: bool = False):
     """Differentiable windowed segment-sum (the reference's
     windowed_segment_sum); (EW, D) → (n, D)."""
-    return WindowedSegmentSum.apply(msg, we, n, tw)
+    return WindowedSegmentSum.apply(msg, we, n, tw, single_pass)
 
 
-def windowed_spmm(w, msg, we: WindowedEdges, n: int, tw: int):
+def windowed_spmm(w, msg, we: WindowedEdges, n: int, tw: int,
+                  single_pass: bool = False):
     """Differentiable windowed SpMM (the reference's windowed_spmm), in
     both operands; (EW,), (EW, D) → (n, D)."""
-    return WindowedSpmm.apply(w, msg, we, n, tw)
+    return WindowedSpmm.apply(w, msg, we, n, tw, single_pass)
 
 
-def windowed_gather(x, we: WindowedEdges, tw: int):
+def windowed_gather(x, we: WindowedEdges, tw: int, single_pass: bool = False):
     """Differentiable windowed gather (the reference's windowed_gather);
     (N, D) → (EW, D)."""
-    return WindowedGather.apply(x, we, tw)
+    return WindowedGather.apply(x, we, tw, single_pass)

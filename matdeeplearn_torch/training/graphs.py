@@ -95,14 +95,16 @@ def capture_plan(device, optimizer, model, request: bool | None = None, *,
 
 
 def launch_counters() -> list[dict]:
-    """The hand kernels' launch counters (the ops modules' LAUNCHES, and
-    the bilinear kernels' bf16 arm's LAUNCHES_BF16)."""
+    """The hand kernels' launch counters (the ops modules' LAUNCHES, the
+    bilinear kernels' bf16 arm's LAUNCHES_BF16 and the single-pass arms'
+    LAUNCHES_SP)."""
     from matdeeplearn_torch.ops import (csr, fused_bilinear, fused_cfconv,
                                         fused_cgconv, windowed)
 
     return [csr.LAUNCHES, fused_cgconv.LAUNCHES, fused_cfconv.LAUNCHES,
             fused_bilinear.LAUNCHES, fused_bilinear.LAUNCHES_BF16,
-            windowed.LAUNCHES]
+            windowed.LAUNCHES, csr.LAUNCHES_SP, fused_cgconv.LAUNCHES_SP,
+            fused_cfconv.LAUNCHES_SP, windowed.LAUNCHES_SP]
 
 
 # one warm-up side stream a device for every run: cuBLAS keeps a workspace

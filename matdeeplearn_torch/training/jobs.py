@@ -57,12 +57,18 @@ class KernelPlan:
     edge_order: str | None
     fused: bool             # the conv on its fused kernel
     windowed: bool = False  # windowed batches, the windowed kernels (pallas)
+    # the fused and windowed kernels' single-pass arm (kernel_precision
+    # bf16 where the reference reads it): the batches' kernel_bf16
+    single_pass: bool = False
 
 
 # the models the trainer takes: all seven
 TRAINABLE = ("CGCNN", "SchNet", "MPNN", "GCN", "MEGNet", "SM", "SOAP")
 # models with a fused kernel of their own (GCN and MEGNet have none)
 FUSED_MODELS = ("CGCNN", "SchNet", "MPNN")
+# the fused kernels with a single-pass arm (MPNN's bilinear kernel has none)
+SINGLE_PASS_FUSED = ("CGCNN", "SchNet")
+KERNEL_PRECISIONS = ("f32", "bf16")
 
 
 def csr_side(model_name: str) -> str:
@@ -86,10 +92,11 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                ops/fused_bilinear.py); the x_j gather stays in torch. GCN
                has no fused kernel, nor has MEGNet: as in the reference,
                they run the pallas plan, with the reference's note.
-               kernel_precision "bf16" is refused for CGCNN and SchNet
-               (the fused kernels sum in f32; the reference runs its
-               single-pass arm there); MPNN's bilinear kernel never reads
-               it, as in the reference;
+               kernel_precision "bf16" runs the CGConv and cfconv kernels'
+               single-pass arm (single_pass: the data operands of the
+               reference's one-hot products rounded to bf16, f32 sums), as
+               the reference's windowed fused batches do; MPNN's bilinear
+               kernel never reads it, as in the reference;
       csr    — the unfused conv with the CSR kernels (ops/csr.py) on the
                gathers and aggregations of the sorted side: csr_order "dst"
                or "src", by default "src" for MEGNet and "dst" otherwise
@@ -106,7 +113,8 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                the segment-sum otherwise, the gather as their backward. The
                convs run unfused (MPNN: the einsum over the formed per-edge
                weights, as the reference turns its bilinear kernel off
-               under pallas). kernel_precision "bf16" is refused;
+               under pallas). kernel_precision "bf16" runs the windowed
+               kernels' single-pass arm, for every GNN;
       xla    — masked plain segment ops on the reference edge order (MPNN:
                the einsum over the formed per-edge weights);
       SM, SOAP — xla whatever the request: the descriptor models have no
@@ -119,15 +127,24 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                verdict carried over (the reference's auto never picks its
                fused cfconv, measured slower on its TPU): chip_smoke.py
                times warm training epochs under the other kernels for each
-               model, and PERF.md records what it found. On a CUDA device a
-               kernel_precision other than "f32" is ignored with a note:
-               the kernels auto picks sum in f32.
+               model, and PERF.md records what it found. On a CUDA device
+               kernel_precision "bf16" runs the fused kernels' single-pass
+               arm for CGCNN and SchNet, as the reference's auto on its
+               accelerator honours it for CGCNN; for MPNN (the bilinear
+               kernel), GCN and MEGNet (csr) it is ignored with a note.
 
-    `batching` ("padded" or "packed") changes the batch geometry, not the
-    plan. A request the port cannot honour raises NotImplementedError
-    naming its ROADMAP item; nothing falls back quietly.
+    kernel_precision is "f32" or "bf16" (any case); another value raises.
+    Under csr and xla it is not read, as the reference's CSR and XLA
+    batches never carry kernel_bf16. `batching` ("padded" or "packed")
+    changes the batch geometry, not the plan. A request the port cannot
+    honour raises NotImplementedError naming its ROADMAP item; nothing
+    falls back quietly.
     """
-    f32 = str(kernel_precision).lower() == "f32"
+    precision = str(kernel_precision).lower()
+    if precision not in KERNEL_PRECISIONS:
+        raise ValueError(f"unknown kernel_precision {kernel_precision!r}: "
+                         "expected f32 or bf16")
+    bf16 = precision == "bf16"
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel '{kernel}' — expected one of "
                          "auto|xla|csr|fused|pallas")
@@ -147,29 +164,26 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
         print("kernel=fused applies to CGCNN, SchNet and MPNN; other models "
               "run the windowed aggregation kernel (kernel=pallas behavior)")
         kernel = "pallas"
-    if not f32 and (kernel == "pallas"
-                    or kernel == "fused" and model_name != "MPNN"):
-        which = "windowed" if kernel == "pallas" else "fused"
-        raise NotImplementedError(
-            f"kernel_precision={kernel_precision!r}: the single-pass bf16 "
-            f"arm of the {which} kernels is not ported (ROADMAP queue 1, "
-            f"item 5); the {which} kernels sum in f32")
     if kernel == "pallas":
-        return KernelPlan("pallas", None, False, True)
+        return KernelPlan("pallas", None, False, True, single_pass=bf16)
     if kernel == "auto":
         kernel = ("xla" if device.type != "cuda"
                   else "fused" if model_name in FUSED_MODELS else "csr")
-        if device.type == "cuda" and not f32:
+        if (device.type == "cuda" and bf16
+                and not (kernel == "fused" and model_name in SINGLE_PASS_FUSED)):
             print(f"kernel_precision={kernel_precision!r} is ignored: kernel "
-                  f"auto runs {kernel}, whose kernels sum in f32")
+                  f"auto runs {kernel}, whose kernels sum in f32 and do not "
+                  "read it (as in the reference)")
     if kernel == "csr":
         order = str(csr_order or csr_side(model_name)).lower()
         if order not in ("dst", "src"):
             raise ValueError(f"unknown csr_order {csr_order!r}: expected "
                              "dst or src")
         return KernelPlan("csr", order, False)
-    return KernelPlan(kernel, None if kernel == "xla" else "dst",
-                      kernel == "fused")
+    fused = kernel == "fused"
+    return KernelPlan(kernel, None if kernel == "xla" else "dst", fused,
+                      single_pass=fused and bf16
+                      and model_name in SINGLE_PASS_FUSED)
 
 
 @dataclass
@@ -266,12 +280,14 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
                   np.asarray(layout.wedge_counts))
         align = dict(align=max(8, layout.tw), align_edges=layout.te)
         data = DeviceDataset.from_graph_dataset(
-            dataset, dev, windowed=WindowedDeviceData.from_layout(layout, dev))
+            dataset, dev, windowed=WindowedDeviceData.from_layout(layout, dev),
+            kernel_bf16=plan.single_pass)
     else:
         counts = (dataset.node_counts(), dataset.edge_counts())
         align = {}
         data = DeviceDataset.from_graph_dataset(
-            dataset, dev, edge_order=plan.edge_order, kernel_fused=plan.fused)
+            dataset, dev, edge_order=plan.edge_order, kernel_fused=plan.fused,
+            kernel_bf16=plan.single_pass)
     id_matrix_fn = None
     if packed:
         spec = BatchSpec.packed_for_dataset(*counts, bs, **align)
@@ -292,7 +308,9 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
         "resolved: model={} kernel={} batching={} precision={} mesh=dp{}xep{} "
         "stream={} spec=(B={},N={},E={}) capture={}".format(
             model_name,
-            f"{plan.name}({plan.edge_order})" if plan.name == "csr" else plan.name,
+            f"{plan.name}({plan.edge_order})" if plan.name == "csr"
+            else f"{plan.name}(single-pass)" if plan.single_pass
+            else plan.name,
             batching, model.precision, 1, 1, "n",
             spec.num_graphs, spec.num_nodes, spec.num_edges,
             capture_plan(dev, optimizer, model),

@@ -255,19 +255,24 @@ def test_bulk_segment_reports_every_arm(monkeypatch):
 
     def spy(ds, mp, *a, **k):
         seen.append((mp["model"], mp["kernel"], mp.get("batching"),
-                     mp.get("precision", "f32")))
+                     mp.get("precision", "f32"),
+                     mp.get("kernel_precision", "f32")))
         return setup(ds, mp, *a, **k)
 
     monkeypatch.setattr(J, "setup_run", spy)
     out = B._bulk_epoch_times(torch.device("cpu"))
-    arms = [("CGCNN", "fused", "padded", "f32"),
-            ("CGCNN", "pallas", "padded", "f32"),
-            ("CGCNN", "xla", "padded", "f32"), ("CGCNN", "csr", "packed", "f32"),
-            ("MPNN", "csr", "packed", "f32"), ("MPNN", "xla", "packed", "f32"),
-            ("CGCNN", "xla", "padded", "bf16"),
-            ("CGCNN", "xla", "packed", "bf16"),
-            ("CGCNN", "fused", "packed", "bf16"),
-            ("MPNN", "fused", "packed", "bf16")]
+    arms = [("CGCNN", "fused", "padded", "f32", "f32"),
+            ("CGCNN", "pallas", "padded", "f32", "f32"),
+            ("CGCNN", "xla", "padded", "f32", "f32"),
+            ("CGCNN", "csr", "packed", "f32", "f32"),
+            ("MPNN", "csr", "packed", "f32", "f32"),
+            ("MPNN", "xla", "packed", "f32", "f32"),
+            ("CGCNN", "xla", "padded", "bf16", "f32"),
+            ("CGCNN", "xla", "packed", "bf16", "f32"),
+            ("CGCNN", "fused", "packed", "bf16", "f32"),
+            ("MPNN", "fused", "packed", "bf16", "f32"),
+            # bench_bulk.py's bf16-packed-csr: kernel_precision bf16 too
+            ("CGCNN", "csr", "packed", "bf16", "bf16")]
     assert seen == [arm for arm in arms for _ in ("captured", "eager")]
     for key in ("bulk_epoch_s_csr_packed", "bulk_csr_packed_speedup",
                 "bulk_mpnn_epoch_s_csr_fused", "bulk_mpnn_epoch_s_xla",
@@ -280,7 +285,9 @@ def test_bulk_segment_reports_every_arm(monkeypatch):
                 "bulk_mpnn_epoch_s_packed_fused_bf16",
                 "bulk_epoch_s_bf16_eager", "bulk_epoch_s_bf16_packed_eager",
                 "bulk_epoch_s_bf16_packed_fused_eager",
-                "bulk_mpnn_epoch_s_packed_fused_bf16_eager"):
+                "bulk_mpnn_epoch_s_packed_fused_bf16_eager",
+                "bulk_epoch_s_bf16_packed_csr",
+                "bulk_epoch_s_bf16_packed_csr_eager"):
         assert out[key] > 0, key
 
     def fail(ds, mp, *a, **k):

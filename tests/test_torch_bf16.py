@@ -39,9 +39,11 @@ predictions, loss and gradients.
   errors: up to 1.5e-3 apart on these runs, where the bf16 and the f32
   trajectories of the same runs part by up to 6.7e-3. The f32 runs of the
   same procedure agree to 1e-5.
-* (e) What stays refused: kernel_precision bf16 under pallas and under
-  fused for CGCNN and SchNet, with precision bf16 too; precision values
-  other than f32 and bf16.
+* (e) kernel_precision bf16 with precision bf16 under pallas and under
+  fused for CGCNN and SchNet: the run's batches carry the single-pass mark
+  and train (the arm's numerics: tests/test_torch_single_pass.py and
+  tests/test_torch_kernel_precision.py); precision values other than f32
+  and bf16 stay refused.
 * (f) A JAX checkpoint trained under bf16, Predict through the port:
   the same ids and predictions to 1e-6 (the same forward; its input and
   output are f32).
@@ -474,7 +476,7 @@ def test_bf16_trainer_matches_jax_three_epochs(toy_dataset, jax_bf16_training,
                                    err_msg=f"epoch {e + 1} lr")
 
 
-# ------------------------------------------------- (e) what stays refused
+# ---------------------- (e) kernel_precision bf16 runs; what stays refused
 
 
 @pytest.mark.parametrize("model,kernel", [("CGCNN", "pallas"),
@@ -483,10 +485,21 @@ def test_bf16_trainer_matches_jax_three_epochs(toy_dataset, jax_bf16_training,
                                           ("CGCNN", "fused"),
                                           ("SchNet", "fused")])
 def test_kernel_precision_bf16_stays_refused(toy_dataset, model, kernel):
+    """Once refused, now run: kernel_precision bf16 with bf16 activations
+    under pallas (every GNN) and fused (CGCNN, SchNet) marks the run's
+    batches for the single-pass arm, and a training step's loss and
+    gradients are finite."""
     hp = {**WIDTH, "model": model, "kernel": kernel, "precision": "bf16",
           "kernel_precision": "bf16", "batch_size": 4}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TJ.setup_run(toy_dataset, hp, "l1_loss", seed=0, device="cpu")
+    run = TJ.setup_run(toy_dataset, hp, "l1_loss", seed=0, device="cpu")
+    assert run.model.precision == "bf16"
+    batch = TB.assemble(run.data, np.arange(4), run.spec)
+    assert batch.kernel_bf16 and batch.is_windowed == (kernel == "pallas")
+    loss = F.l1_loss(run.model(batch).float().reshape(batch.y.shape), batch.y)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(p.grad).all() for p in run.model.parameters()
+               if p.grad is not None)
 
 
 def test_precision_validation(toy_dataset):

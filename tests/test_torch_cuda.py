@@ -28,7 +28,12 @@ tolerance (the same rounded operands, exact products, f32 sums in another
 order), its rounding to bf16 to nearest-even exactly, and the f32 arm on the
 same inputs must fall outside that tolerance; bf16 models and training runs
 card against CPU to rtol 2^-6 (BF16_RTOL says why), and bf16 training on
-CUDA graphs equals its eager loop bit for bit.
+CUDA graphs equals its eager loop bit for bit. The single-pass arms
+(`kernel_precision: bf16`) are held to their plain twins (the windowed and
+CSR arms at the f32 arms' tolerances, the fused arms by SP_MEDIAN and
+SP_LARGEST, which say why), bit-identical twice on sorted edges, the f32
+arm on the same inputs 10x outside; kernel_precision bf16 training runs
+card against CPU to rtol 2^-6.
 """
 
 import numpy as np
@@ -1677,3 +1682,210 @@ def test_dropped_runs_leave_device_memory_flat(cuda_device, tmp_path):
         torch.cuda.synchronize()
         after.append(torch.cuda.memory_allocated())
     assert abs(after[2] - after[1]) < 2**20, after  # a new stream: 32 MiB
+
+
+# ------------------------------------------------ the single-pass arms
+
+# The windowed and CSR arms round exactly the values their plain twins
+# round (the inputs, or w·msg formed by one f32 multiply on both sides), so
+# they keep the f32 arms' tolerances. The fused arms round a message (and,
+# backward, d_x_i) that the kernel forms in 3xTF32 and its twin with f32
+# GEMMs: an ulp apart, a value within an ulp of a bf16 midpoint rounds to
+# neighbouring bf16 values on the two sides, 2⁻⁸ of it apart. So the fused
+# arms are held by the median of |kernel - twin| over the median of |twin|
+# (SP_MEDIAN; f32 order alone) and by the largest gap (SP_LARGEST of
+# max|twin|: a few tipped roundings, not a missing arm).
+SP_MEDIAN, SP_LARGEST, SP_MUTATION = 1e-5, 2.0 ** -7, 10.0
+
+
+def _sp_median(out, ref) -> float:
+    """median |out - ref| over median |ref|, both over the entries that are
+    not zero on both sides (masked rows are exactly zero)."""
+    out, ref = out.double(), ref.double()
+    nz = (out != 0) | (ref != 0)
+    if not bool(nz.any()):
+        return 0.0
+    return float((out - ref)[nz].abs().median()
+                 / max(float(ref[nz].abs().median()), 1e-30))
+
+
+def _assert_sp_close(out, ref, name):
+    med = _sp_median(out, ref)
+    big = float((out.double() - ref.double()).abs().max()
+                / max(float(ref.abs().max()), 1e-30))
+    assert med <= SP_MEDIAN and big <= SP_LARGEST, (
+        f"{name}: median share {med:.3g}, largest {big:.3g} of max|ref|")
+
+
+def _sum_share(out, ref) -> float:
+    """|out - ref| over _assert_sum_close's allowance; below 1 passes."""
+    out, ref = out.double(), ref.double()
+    allowed = 1e-5 * max(float(ref.abs().max()), 1e-30) + 1e-5 * ref.abs()
+    return float(((out - ref).abs() / allowed).max())
+
+
+@pytest.mark.parametrize("d", [1, 3, 100, 150])
+def test_windowed_single_pass_arm_matches_plain(cuda_device, d):
+    """The windowed kernels' single-pass arm against its plain twins: the
+    sum and SpMM to the f32 tolerance and bit-identical twice, the gather
+    bit-exact, the autograd Functions' backwards in the same arm; the f32
+    arm misses the twins by 10x the limit (the mutation check)."""
+    from matdeeplearn_torch.ops import windowed as WO
+
+    tw = 64
+    we, msg, w, x, cot_n, _, n = _windowed_problem(np.random.default_rng(d),
+                                                   d, tw)
+    pwe = WO.WindowedEdges(*(v.cpu() for v in we))
+    plain = lambda m, wt=None: WO.segment_sum_plain(
+        m.cpu(), pwe.dst, pwe.window_id, n, tw, wt, True)
+    before = dict(WO.LAUNCHES)
+    for wt in (None, w):
+        run = ((lambda sp: WO.segment_sum(msg, we, n, tw, sp)) if wt is None
+               else (lambda sp, wt=wt: WO.spmm(wt, msg, we, n, tw, sp)))
+        out = run(True)
+        ref = plain(msg, None if wt is None else wt.cpu())
+        _assert_sum_close(out.cpu(), ref)
+        assert torch.equal(out, run(True))
+        assert _sum_share(run(False).cpu(), ref) >= SP_MUTATION
+    out = WO.gather(x, we, tw, True)
+    assert torch.equal(out.cpu(), WO.gather_plain(x.cpu(), pwe.dst,
+                                                  pwe.window_id, tw, True))
+    assert not torch.equal(WO.gather(x, we, tw), out)
+    xt = x.clone().requires_grad_(True)
+    (WO.windowed_segment_sum(WO.windowed_gather(xt, we, tw, True), we, n, tw,
+                             True) * cot_n).sum().backward()
+    xr = x.cpu().clone().requires_grad_(True)
+    (plain(WO.gather_plain(xr, pwe.dst, pwe.window_id, tw, True))
+     * cot_n.cpu()).sum().backward()
+    _assert_sum_close(xt.grad.cpu(), xr.grad)
+    assert WO.LAUNCHES["windowed_gather"] == before["windowed_gather"] + 1
+
+
+@pytest.mark.parametrize("d", [1, 24, 100, 150])
+def test_csr_single_pass_arm_matches_plain(cuda_device, d):
+    """The CSR kernels' single-pass arm (on no plan's path) against its
+    plain twins: the sum to the f32 tolerance and bit-identical twice on a
+    sorted index, the gather bit-exact; the f32 arm misses by 10x."""
+    dst, mask, n = _problem(np.random.default_rng(d), "scattered")
+    e = len(dst)
+    dst_t = torch.as_tensor(dst, device=cuda_device)
+    mask_t = torch.as_tensor(mask, device=cuda_device)
+    msg = torch.randn(e, d, device=cuda_device)
+    x = torch.randn(n, d, device=cuda_device)
+    before = dict(csr.LAUNCHES_SP)
+    out = csr.segment_sum(msg, dst_t, mask_t, n, True)
+    ref = csr.segment_sum_plain(msg.cpu(), dst_t.cpu(), mask_t.cpu(), n, True)
+    _assert_sum_close(out.cpu(), ref)
+    assert torch.equal(out, csr.segment_sum(msg, dst_t, mask_t, n, True))
+    assert _sum_share(csr.segment_sum(msg, dst_t, mask_t, n).cpu(),
+                      ref) >= SP_MUTATION
+    got = csr.gather(x, dst_t, mask_t, True)
+    assert torch.equal(got.cpu(), csr.gather_plain(x.cpu(), dst_t.cpu(),
+                                                   mask_t.cpu(), True))
+    assert not torch.equal(csr.gather(x, dst_t, mask_t), got)
+    assert csr.LAUNCHES_SP["segment_sum_sp"] == before["segment_sum_sp"] + 2
+    assert csr.LAUNCHES_SP["gather_sp"] == before["gather_sp"] + 1
+
+
+def _cgconv_sp(args, g, sp):
+    return (FC.fused_cgconv(*args, single_pass=sp),
+            *FC.fused_cgconv_bwd(g, *args, single_pass=sp))
+
+
+@pytest.mark.parametrize("case", ["sorted", "scattered"])
+@pytest.mark.parametrize("d", [3, 100, 150])
+def test_fused_cgconv_single_pass_arm_matches_plain(cuda_device, case, d):
+    """The CGConv kernels' single-pass arm (forward, edge rows, weight
+    gradient) against the twins' autograd, to the fused arms' median and
+    largest limits; bit-identical twice on sorted edges; the f32 arm misses
+    the median limit by 10x on the forward, d_x and dW_fi, dW_si (the
+    outputs a rounded x_i or message reaches most)."""
+    x, xj, dist, dst, mask, ws, n = _fused_inputs(case, d, device=cuda_device)
+    args = (x, xj, dist, dst, mask, *ws, n, 0.2)
+    g = torch.randn(n, d, device=cuda_device)
+    before, before_sp = dict(FC.LAUNCHES), dict(FC.LAUNCHES_SP)
+    got = _cgconv_sp(args, g, True)
+    assert FC.LAUNCHES_SP == {k: v + 1 for k, v in before_sp.items()}
+    assert all(FC.LAUNCHES[k] == before[k] for k in
+               ("fused_cgconv_fwd", "fused_cgconv_bwd", "fused_cgconv_wgrad"))
+    ref = (FC.fused_cgconv_plain(*args, single_pass=True),
+           *FC.fused_cgconv_bwd_plain(g, *args, single_pass=True))
+    names = ["out", "x", "xj", "wfi", "wfj", "wfe", "bf", "wsi", "wsj", "wse",
+             "bs"]
+    for name, a, b in zip(names, got, ref):
+        _assert_sp_close(a, b, name)
+    assert float(got[2][mask == 0].abs().max()) == 0.0
+    if case == "sorted":
+        for a, b in zip(_cgconv_sp(args, g, True), got):
+            assert torch.equal(a, b)
+    f32 = _cgconv_sp(args, g, False)
+    for i in (0, 1, 3, 7):
+        assert _sp_median(f32[i], ref[i]) >= SP_MUTATION * SP_MEDIAN, names[i]
+
+
+def _cfconv_sp(args, g, sp):
+    return (FS.fused_cfconv(*args, single_pass=sp),
+            *FS.fused_cfconv_bwd(g, *args, single_pass=sp))
+
+
+@pytest.mark.parametrize("case", ["sorted", "scattered"])
+@pytest.mark.parametrize("f", [3, 150])
+def test_fused_cfconv_single_pass_arm_matches_plain(cuda_device, case, f):
+    """The cfconv kernels' single-pass arm (forward, edge rows; the weight
+    gradient reads the rows) against the twins' autograd, to the fused
+    arms' limits; bit-identical twice on sorted edges; the f32 arm misses
+    the median limit by 10x on the forward and d_xj."""
+    xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs(case, f,
+                                                      device=cuda_device)
+    args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
+    g = torch.randn(n, f, device=cuda_device)
+    before_sp = dict(FS.LAUNCHES_SP)
+    got = _cfconv_sp(args, g, True)
+    assert FS.LAUNCHES_SP == {k: v + 1 for k, v in before_sp.items()}
+    ref = (FS.fused_cfconv_plain(*args, single_pass=True),
+           *FS.fused_cfconv_bwd_plain(g, *args, single_pass=True))
+    for name, a, b in zip(["out", "xj", "w0", "b0", "w1", "b1"], got, ref):
+        _assert_sp_close(a, b, name)
+    if case == "sorted":
+        for a, b in zip(_cfconv_sp(args, g, True), got):
+            assert torch.equal(a, b)
+    f32 = _cfconv_sp(args, g, False)
+    for i, name in ((0, "out"), (1, "xj")):
+        assert _sp_median(f32[i], ref[i]) >= SP_MUTATION * SP_MEDIAN, name
+
+
+@pytest.mark.parametrize("model,kernel", [("CGCNN", "fused"),
+                                          ("SchNet", "fused"),
+                                          ("GCN", "pallas")])
+def test_kernel_precision_training_on_cuda_matches_cpu(cuda_device, tmp_path,
+                                                       monkeypatch, model,
+                                                       kernel):
+    """train_regular under kernel_precision bf16 on the card (the arms'
+    kernels, counted by LAUNCHES_SP) and on the CPU (their twins), without
+    BatchNorm: errors to rtol BF16_RTOL (tipped roundings, as above), and
+    finite."""
+    from matdeeplearn_torch.ops import windowed as WO
+    from matdeeplearn_torch.training import jobs
+
+    ds = _toy(tmp_path / "data", n=40)
+    monkeypatch.chdir(tmp_path)
+    mp = {"model": model, **_mpnn_hp(gc_count=2, post_fc_count=1),
+          "batch_norm": "False", "batch_size": 8, "epochs": 3, "lr": 0.005,
+          "optimizer": "AdamW", "scheduler": "ReduceLROnPlateau",
+          "scheduler_args": {"factor": 0.8, "patience": 0}, "kernel": kernel,
+          "print_model": False, "kernel_precision": "bf16"}
+    tp = {"loss": "l1_loss", "train_ratio": 0.7, "val_ratio": 0.15,
+          "test_ratio": 0.15, "verbosity": 1}
+    counters = {"CGCNN": FC.LAUNCHES_SP, "SchNet": FS.LAUNCHES_SP,
+                "GCN": WO.LAUNCHES_SP}[model]
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        before = sum(counters.values())
+        jp = {"job_name": f"k_{dev}", "seed": 4, "save_model": "False",
+              "write_output": "False"}
+        errs[dev] = jobs.train_regular(ds, jp, tp, mp, device=dev)
+        assert (sum(counters.values()) > before) == (dev == "cuda")
+    for split in ("train", "val", "test"):
+        assert np.isfinite(errs["cuda"][split])
+        np.testing.assert_allclose(errs["cuda"][split], errs["cpu"][split],
+                                   rtol=BF16_RTOL, err_msg=split)

@@ -384,8 +384,9 @@ def test_resolve_kernel_pallas_and_gcn(capsys):
         "pallas", None, False, True)
     assert "other models run the windowed aggregation kernel" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        TJ.resolve_kernel("GCN", "pallas", "padded", cpu, "bf16")
+    # kernel_precision bf16: the windowed kernels' single-pass arm
+    assert TJ.resolve_kernel("GCN", "pallas", "padded", cpu,
+                             "bf16").single_pass
     # packed batching changes the batches' geometry, not the plan
     assert plan(TJ.resolve_kernel("GCN", "pallas", "packed", cuda)) == (
         "pallas", None, False, True)

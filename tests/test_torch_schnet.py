@@ -378,13 +378,16 @@ def test_resolve_kernel_for_schnet():
 
 
 def test_resolve_kernel_for_schnet_refuses_bf16_under_fused(capsys):
-    """The fused cfconv kernels sum in f32: an explicit fused request for
-    the single-pass bf16 arm raises; auto on the card notes the key."""
+    """Once refused, now honoured: the fused cfconv kernels have their
+    single-pass arm, so an explicit fused request and auto on the card run
+    it, with no note; the f32 request does not."""
     cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TJ.resolve_kernel("SchNet", "fused", "padded", cuda, "bf16")
-    assert TJ.resolve_kernel("SchNet", "auto", "padded", cuda, "bf16").fused
-    assert "kernel_precision='bf16' is ignored" in capsys.readouterr().out
+    for kernel in ("fused", "auto"):
+        plan = TJ.resolve_kernel("SchNet", kernel, "padded", cuda, "bf16")
+        assert plan.fused and plan.single_pass, kernel
+    assert not TJ.resolve_kernel("SchNet", "fused", "padded", cuda,
+                                 "f32").single_pass
+    assert capsys.readouterr().out == ""
 
 
 def _read_csv(path):

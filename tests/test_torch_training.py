@@ -322,24 +322,39 @@ def test_resolve_kernel():
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_resolve_kernel_refuses_bf16_under_fused(device):
-    """The fused CGConv kernels sum in f32: a request for the reference's
-    single-pass bf16 arm raises instead of running f32 quietly. MPNN's
-    bilinear kernel never reads the key (as in the reference)."""
+    """Once refused, now honoured: a fused request for the reference's
+    single-pass bf16 arm runs the CGConv kernels' arm (their plain twins on
+    the CPU). MPNN's bilinear kernel never reads the key (as in the
+    reference); an unknown precision raises."""
     dev = torch.device(device)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TJ.resolve_kernel("CGCNN", "fused", "padded", dev, "bf16")
-    assert TJ.resolve_kernel("CGCNN", "fused", "padded", dev, "F32").fused
-    assert TJ.resolve_kernel("MPNN", "fused", "padded", dev, "bf16").fused
+    plan = TJ.resolve_kernel("CGCNN", "fused", "padded", dev, "bf16")
+    assert plan.fused and plan.single_pass
+    plan = TJ.resolve_kernel("CGCNN", "fused", "padded", dev, "F32")
+    assert plan.fused and not plan.single_pass
+    plan = TJ.resolve_kernel("MPNN", "fused", "padded", dev, "bf16")
+    assert plan.fused and not plan.single_pass
+    with pytest.raises(ValueError, match="unknown kernel_precision"):
+        TJ.resolve_kernel("CGCNN", "fused", "padded", dev, "fp8")
 
 
 def test_auto_on_cuda_notes_ignored_kernel_precision(capsys):
+    """auto on the card notes the key where its kernel has no single-pass
+    arm (MPNN's bilinear kernel, the csr plan of GCN and MEGNet), and runs
+    the arm for CGCNN and SchNet (fused), silently; off the card auto is
+    xla, which never reads it."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    plan = TJ.resolve_kernel("CGCNN", "auto", "padded", cuda, "bf16")
-    note = capsys.readouterr().out
-    assert "kernel_precision='bf16' is ignored" in note
-    assert f"runs {plan.name}" in note and "sum in f32" in note
+    for model in ("MPNN", "GCN", "MEGNet"):
+        plan = TJ.resolve_kernel(model, "auto", "padded", cuda, "bf16")
+        note = capsys.readouterr().out
+        assert not plan.single_pass, model
+        assert "kernel_precision='bf16' is ignored" in note
+        assert f"runs {plan.name}" in note and "sum in f32" in note
+    for model in ("CGCNN", "SchNet"):
+        assert TJ.resolve_kernel(model, "auto", "padded", cuda,
+                                 "bf16").single_pass
     TJ.resolve_kernel("CGCNN", "auto", "padded", cuda, "f32")
-    TJ.resolve_kernel("CGCNN", "auto", "padded", cpu, "bf16")  # xla: unread
+    assert not TJ.resolve_kernel("CGCNN", "auto", "padded", cpu,
+                                 "bf16").single_pass  # xla: unread
     assert capsys.readouterr().out == ""
 
 
