@@ -1,13 +1,15 @@
 """Device time of one of the port's kernels on one CUDA card, for A/B
 comparisons of designs.
 
-    python bench_torch_bwd_rows.py [--op OP] [ROOT ...]
+    python bench_torch_bwd_rows.py [--op OP] [--bf16] [ROOT ...]
 
 OP names what is timed (default bilinear_bwd_rows):
 
 * bilinear_bwd_rows: `fused_bilinear_bwd_rows` (MPNN_demo's NNConv
   backward to the rows, d_xj and d_a) at D = H = K = 100; bilinear_fwd
   and bilinear_wgrad: its forward and weight gradient at the same shapes;
+  with --bf16, the three time the bilinear kernels' bf16 arm (`precision:
+  bf16`) against its plain versions;
 * cgconv_fwd: `fused_cgconv` (the fused CGConv forward, CGCNN_demo width
   D 100, De 50), with its launch of the weight split where it has one;
   cgconv_bwd: `fused_cgconv_bwd`, its whole backward at the same shapes;
@@ -111,9 +113,10 @@ def rel_err(got, ref) -> list:
             for x, y in zip(got, ref)]
 
 
-def cases(op, dev):
+def cases(op, dev, bf16=False):
     """(what, timed fn, check) of `op`: check() gives rel_err of the
-    kernel's outputs against the plain version's."""
+    kernel's outputs against the plain version's; bf16 takes the bilinear
+    kernels' bf16 arm."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(9)
@@ -128,15 +131,16 @@ def cases(op, dev):
         args = (xj, a, r(h, d * k, k=0.1), r(d * k, k=0.1), mask)
         cot = r(E, k)
         if op == "bilinear_fwd":
-            fn = lambda: FB.fused_bilinear(*args)
-            plain = lambda: FB.fused_bilinear_plain(*args)
+            fn = lambda: FB.fused_bilinear(*args, bf16=bf16)
+            plain = lambda: FB.fused_bilinear_plain(*args, bf16=bf16)
         elif op == "bilinear_wgrad":
-            fn = lambda: FB.fused_bilinear_wgrad(cot, xj, a, mask)
-            plain = lambda: FB.wgrad_plain(cot, xj, a, mask, k)
+            fn = lambda: FB.fused_bilinear_wgrad(cot, xj, a, mask, bf16=bf16)
+            plain = lambda: FB.wgrad_plain(cot, xj, a, mask, k, bf16=bf16)
         else:
-            fn = lambda: FB.fused_bilinear_bwd_rows(cot, *args)
-            plain = lambda: FB.bwd_rows_plain(cot, *args)
-        return [(f"fused_{op}", fn, lambda: rel_err(fn(), plain()))]
+            fn = lambda: FB.fused_bilinear_bwd_rows(cot, *args, bf16=bf16)
+            plain = lambda: FB.bwd_rows_plain(cot, *args, bf16=bf16)
+        return [(f"fused_{op}{' (bf16 arm)' if bf16 else ''}", fn,
+                 lambda: rel_err(fn(), plain()))]
     if op == "windowed_sum":
         from matdeeplearn_torch.ops import windowed as WO
 
@@ -202,7 +206,7 @@ def cases(op, dev):
     return out
 
 
-def run_one(op: str, root: str) -> None:
+def run_one(op: str, root: str, bf16: bool) -> None:
     sys.path.insert(0, root)
     import torch
     from matdeeplearn_torch.ops import _build
@@ -212,7 +216,7 @@ def run_one(op: str, root: str) -> None:
     t0 = time.perf_counter()
     _build.build()
     dev = torch.device("cuda")
-    for what, fn, check in cases(op, dev):
+    for what, fn, check in cases(op, dev, bf16):
         rel = check()
         ms = [device_ms(fn) for _ in range(3)]
         print(f"{root}: {torch.cuda.get_device_name(0)}, build "
@@ -223,18 +227,21 @@ def run_one(op: str, root: str) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
+    bf16 = "--bf16" in args
+    args = [v for v in args if v != "--bf16"]
     op = OPS[0]
     if len(args) >= 2 and args[0] == "--op":
         op, args = args[1], args[2:]
         if op not in OPS:
             raise SystemExit(f"--op must be one of {', '.join(OPS)}")
     if len(args) == 2 and args[0] == "--one":
-        run_one(op, os.path.abspath(args[1]))
+        run_one(op, os.path.abspath(args[1]), bf16)
         return 0
     roots = args or [os.path.dirname(os.path.abspath(__file__))]
     for root in roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--op", op,
-                        "--one", root], check=True)
+                        *(["--bf16"] if bf16 else []), "--one", root],
+                       check=True)
     return 0
 
 

@@ -73,9 +73,13 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    another order), bit-identical between two calls, masked rows zero; the
    mutation check: the f32 arm on the same inputs (the unrounded 3xTF32
    path a build without the rounding runs) must fail that check on the
-   forward, d_a and the weight gradient; then times the arm beside its
-   bound at the dense BF16 rate (989.4 TFLOP/s), its plain versions and
-   the same einsum compositions on bf16 tensors as the library yardstick;
+   forward, d_a and the weight gradient; the forward's weight image (its
+   layout kernels, csrc/fused_bilinear_bf16.cu, whose bf16 tensor-core
+   kernels run the arm's forward and weight gradient) byte for byte
+   against weight_image_plain; then times the arm beside its bound at the
+   dense BF16 rate (989.4 TFLOP/s), the f32 arm's time in the same call,
+   its plain versions and the same einsum compositions on bf16 tensors as
+   the library yardstick;
 7. runs Predict through cli.run on the card with the launch counters reset
    just before and read just after (each CSR kernel >= 32: 8 batches x 4
    CGConv layers), then the same Predict on the CPU (plain versions, same
@@ -260,8 +264,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     each arm of the path launched, its f32 arm not, the errors falling;
 20. prints a {"kernels": [...]} line (the CSR rows with their callers,
     each path's launches and the src-sorted shapes' times; each
-    single-pass arm's row with `f32_ms`, its f32 arm's time in the same
-    call), the nvidia-smi line and, last, {"ok": true, "device": {...}};
+    single-pass arm's row and each bilinear bf16 arm's row with `f32_ms`,
+    its f32 arm's time in the same call), the nvidia-smi line and, last,
+    {"ok": true, "device": {...}};
     the three bf16 arm rows' launches are 21's MPNN_demo Training's, the
     single-pass rows' 22's (the CSR arm is on no path: 0).
 
@@ -1381,6 +1386,8 @@ def check_bilinear_bf16(batch, dev) -> tuple[dict, dict]:
                   f"limit " + ", ".join(f"{n} {v:.3g}" for n, v in
                                         shares.items())
                   + "; bit-identical twice; masked rows zero")
+            if name == "sorted dst, tail pads":
+                check_weight_image(w1, b1, d, what)
             if (d, name) == (100, "sorted dst, tail pads"):
                 f32 = (FB.fused_bilinear(*args),
                        *FB.fused_bilinear_bwd(cv, *args))
@@ -1399,6 +1406,30 @@ def check_bilinear_bf16(batch, dev) -> tuple[dict, dict]:
         raise AssertionError(f"{len(failures)} bilinear bf16 checks failed; "
                              f"the first: {failures[0]}")
     return err, mutant
+
+
+def check_weight_image(w1, b1, d, what):
+    """The bf16 forward's layout kernels against weight_image_plain: the
+    bf16 tiles (and the zero k16-steps that pad the image to whole ring
+    stages) byte for byte, b1's TF32 words in their 19 bits (cvt.rna leaves
+    the low 13 unspecified)."""
+    from matdeeplearn_torch.ops import fused_bilinear as FB
+
+    got = FB.weight_image(w1, b1, d).cpu()
+    k = b1.numel() // d
+    kd, np_ = -(-d // 16), 8 * FB.wgmma_width(k)
+    steps = (got.numel() - kd * np_ * 128) // (np_ * 32)
+    ref = FB.weight_image_plain(w1.cpu(), b1.cpu(), d, steps)
+    nb = steps * np_ * 32
+    same = got.numel() == ref.numel() and torch.equal(got[:nb], ref[:nb])
+    same = same and torch.equal(got[nb:].view(torch.int32) & ~0x1FFF,
+                                ref[nb:].view(torch.int32) & ~0x1FFF)
+    if not same:
+        raise AssertionError(f"bilinear {what}: the bf16 forward's weight "
+                             "image differs from weight_image_plain")
+    print(f"  bilinear {what}: weight image ({got.numel()} bytes, "
+          f"{steps - w1.shape[0] * kd} padding k16-steps) equals "
+          "weight_image_plain")
 
 
 def time_bilinear_bf16(batch, dev, d=100, h=100, k=100):
@@ -2946,6 +2977,7 @@ def main() -> int:
     times.update(b16times)
     for k, t in b16times.items():
         f32k = k[:-len("_bf16")]
+        t["f32_ms"] = btimes[f32k]["ms"]
         print(f"{k} on {smi}, E={tspec.num_edges} ({be_real} real), "
               f"D=H=K=100: kernel {t['ms']:.4f} ms (the f32 arm "
               f"{btimes[f32k]['ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
@@ -3852,13 +3884,13 @@ def main() -> int:
              "pallas_bilinear.py:83, :134",
              mpnn_launches["fused_bilinear_wgrad"]),
             ("fused_bilinear_fwd_bf16", "fused_bilinear_fwd_bf16",
-             "fused_bilinear.cu", "pallas_bilinear.py:235, :63 (mxu_bf16)",
+             "fused_bilinear_bf16.cu", "pallas_bilinear.py:235, :63 (mxu_bf16)",
              bf16_launches["fused_bilinear_fwd_bf16"]),
             ("fused_bilinear_bwd_bf16", "fused_bilinear_bwd_bf16",
              "fused_bilinear.cu", "pallas_bilinear.py:134, :83 (mxu_bf16)",
              bf16_launches["fused_bilinear_bwd_bf16"]),
             ("fused_bilinear_wgrad_bf16", "fused_bilinear_wgrad_bf16",
-             "fused_bilinear.cu", "pallas_bilinear.py:134, :83 (mxu_bf16)",
+             "fused_bilinear_bf16.cu", "pallas_bilinear.py:134, :83 (mxu_bf16)",
              bf16_launches["fused_bilinear_wgrad_bf16"]),
             ("windowed_segment_sum", "windowed_segment_sum", "windowed.cu",
              "pallas_segment.py:144", gcn_launches["windowed_segment_sum"]),

@@ -1,8 +1,10 @@
-// Pieces shared by the edge-tile kernels (fused_cgconv.cu, fused_cfconv.cu
-// and fused_bilinear.cu): the block size and shape limits, the
-// activations, the run-flush epilogue that adds a tile's rows into their
-// destination nodes, the fixed-order sum of the backward
-// kernels' per-block partial weight gradients, and the mma.sync and
+// Pieces shared by the edge-tile kernels (fused_cgconv.cu, fused_cfconv.cu,
+// fused_bilinear.cu and fused_bilinear_bf16.cu): the block size and shape
+// limits, the activations, the run-flush epilogue that adds a tile's rows
+// into their destination nodes, a tile's mask (load_scale), the
+// fixed-order sum of the backward kernels' per-block partial weight
+// gradients, the list of the edge chunks that hold a real edge (the
+// bilinear weight gradients' split-K), and the mma.sync and
 // async-copy primitives of the 3xTF32 kernels (wgmma.cuh holds the wgmma
 // ones), and the bf16 rounding of the single-pass arms. Each .cu file builds into
 // its own library, so the anonymous namespace gives every library its own
@@ -72,6 +74,21 @@ __device__ void flush_runs(const float* v_s, int d, const float* w_s,
     }
     if (cur >= 0) atomicAdd(out + (long long)cur * d + c, acc);
   }
+}
+
+// sc_s[r] = mask of edge e0 + r (0 past the end) for the tile's TE rows;
+// returns, uniformly across the block, whether any of them is real.
+template <int TE>
+__device__ bool load_scale(const float* __restrict__ mask, long long e0,
+                           long long e, float* sc_s) {
+  bool real = false;
+  if (threadIdx.x < TE) {
+    const long long i = e0 + threadIdx.x;
+    const float m = i < e ? mask[i] : 0.f;
+    sc_s[threadIdx.x] = m;
+    real = m != 0.f;
+  }
+  return __syncthreads_or(real) != 0;
 }
 
 // The partials hold, per slice, tiles_w 4 x 4 micro-tiles; micro-tile m
@@ -151,6 +168,46 @@ int launch_wgrad_reduce(const void* partial, void* dw, int blocks,
   return (int)cudaGetLastError();
 }
 
+// live[0] = the number of CH-edge chunks with a real edge, live[1 ..]
+// their indices in increasing order: one block walks the chunks 1024 at a time,
+// a thread a chunk, and places them by a prefix sum of the flags.
+template <int CH>
+__global__ void __launch_bounds__(1024)
+live_chunks_kernel(const float* __restrict__ mask, long long e,
+                   int* __restrict__ live) {
+  __shared__ int warp_s[32];
+  __shared__ int base_s;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long chunks = (e + CH - 1) / CH;
+  if (threadIdx.x == 0) base_s = 0;
+  for (long long c0 = 0; c0 < chunks; c0 += 1024) {
+    const long long ch = c0 + threadIdx.x;
+    bool real = false;
+    if ((ch + 1) * CH <= e) {
+      const float4* m4 = reinterpret_cast<const float4*>(mask + ch * CH);
+#pragma unroll
+      for (int q = 0; q < CH / 4; ++q) {
+        const float4 v = m4[q];
+        real |= v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+      }
+    } else {
+      for (long long i = ch * CH; i < e; ++i) real |= mask[i] != 0.f;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, real);
+    if (lane == 0) warp_s[warp] = __popc(ballot);
+    __syncthreads();
+    int before = base_s;
+    for (int w = 0; w < warp; ++w) before += warp_s[w];
+    before += __popc(ballot & ((1u << lane) - 1u));
+    if (real) live[1 + before] = (int)ch;
+    __syncthreads();
+    if (threadIdx.x == 1023) base_s = before + (real ? 1 : 0);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) live[0] = base_s;
+}
+
 // ---- 3xTF32 tensor-core products (mma.sync m16n8k8) and cp.async --------
 //
 // a = hi + lo, each rounded to TF32 (cvt.rna); a·b is taken as
@@ -195,18 +252,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, alo, bhi[0], bhi[1]);
   mma_tf32(d, ahi, blo[0], blo[1]);
   mma_tf32(d, ahi, bhi[0], bhi[1]);
-}
-
-// acc[mt][i] += A[mt] · B[i] in one TF32 pass, hi·hi: exact where both
-// operands are TF32 values already (bf16 ones are).
-template <int MT, int NTW>
-__device__ __forceinline__ void mma_tf32_tile(float (&acc)[MT][NTW][4],
-                                              const uint32_t (&ahi)[MT][4],
-                                              const uint32_t (&bhi)[NTW][2]) {
-#pragma unroll
-  for (int i = 0; i < NTW; ++i)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][i], ahi[mt], bhi[i][0], bhi[i][1]);
 }
 
 // acc[mt][i] += A[mt] · B[i] in 3xTF32, pass by pass over all fragments

@@ -96,26 +96,19 @@
 //   real edge costs one barrier. No atomics: d_xj and d_a are
 //   bit-identical from run to run.
 //
-// The bf16 arm (the last argument of each entry point; `precision: bf16`
-// runs it, the reference's mxu_bf16) takes the heavy products' operands
-// rounded to bf16, to nearest with ties to even (round_bf16), with f32
-// accumulation, at the rounding points of the reference's chunked
-// schedules (:_fwd_kernel_chunked, :_bwd_kernel_chunked): the forward
-// bf16(a·xj) @ bf16(W1) plus xj @ b1 unrounded, the weight gradient
-// bf16(X)^T bf16(ge) (the bias unit's xj rounded too), d_a[e, h] =
-// bf16(xj) · (ge @ bf16(W_h)^T) with ge unrounded. One point differs, by
-// design: the reference rounds each unit's a_h·g before its product with
-// W1[h]^T; this backward never forms a·g (one U_h serves d_xj and d_a), so
-// d_xj = Σ_h a_h (ge @ bf16(W_h)^T) + ge @ b1^T, with a·g exact. The
-// callers round W1 (ops/fused_bilinear.py:arm_weight); the kernels round
-// X, ge and xj as they build their tiles. A product of bf16 values is
-// exact in TF32, so the arm drops the passes whose operand has no lo part:
-// one pass (hi·hi) in the forward's chunks below the bias unit and in the
-// whole weight gradient, two (lo·hi, hi·hi) for the backward's units h <
-// H; the bias unit keeps three. Bounds of the arm at the dense BF16 rate
-// (989.4 TFLOP/s) at chip_smoke's training batch: 9.24e10 operations ≈
-// 0.0934 ms for the forward and the weight gradient, ≈ 0.0947 ms for the
-// backward to the rows.
+// The bf16 arm of the backward to the rows (its last argument; `precision:
+// bf16` runs it, the reference's mxu_bf16) takes W1 rounded to bf16 by the
+// caller (ops/fused_bilinear.py:arm_weight) and xj rounded in its d_a,
+// with f32 accumulation: d_a[e, h] = bf16(xj) · (ge @ bf16(W_h)^T) with ge
+// unrounded, as the reference's chunked schedule (:_bwd_kernel_chunked).
+// One point differs, by design: the reference rounds each unit's a_h·g
+// before its product with W1[h]^T; this backward never forms a·g (one U_h
+// serves d_xj and d_a), so d_xj = Σ_h a_h (ge @ bf16(W_h)^T) + ge @ b1^T,
+// with a·g exact. B has no lo part below the bias unit, so those units
+// take two passes (lo·hi, hi·hi); the bias unit keeps three. Bound at the
+// dense BF16 rate (989.4 TFLOP/s) at chip_smoke's training batch: ≈ 0.0947
+// ms. The bf16 arm of the forward and the weight gradient has kernels of
+// its own on the bf16 tensor cores (fused_bilinear_bf16.cu).
 //
 // The caller zeroes out, d_xj and d_a, and allocates everything; the
 // kernels never synchronise.
@@ -135,21 +128,6 @@ struct Geometry {
   int k;        // message width K
   int h;        // hidden units H (W holds H + 1 units)
 };
-
-// sc_s[r] = mask of edge e0 + r (0 past the end) for the tile's TE rows;
-// returns, uniformly across the block, whether any of them is real.
-template <int TE>
-__device__ bool load_scale(const float* __restrict__ mask, long long e0,
-                           long long e, float* sc_s) {
-  bool real = false;
-  if (threadIdx.x < TE) {
-    const long long i = e0 + threadIdx.x;
-    const float m = i < e ? mask[i] : 0.f;
-    sc_s[threadIdx.x] = m;
-    real = m != 0.f;
-  }
-  return __syncthreads_or(real) != 0;
-}
 
 // ---- the forward: msg = mask * (X @ W) on the tensor cores ---------------
 
@@ -236,10 +214,9 @@ __device__ __forceinline__ void unit_of(int c, const FwdLayout& f, int dd,
 
 // X chunk ch (TE x kFK at row stride kLdX): X[e, c] = [a | 1][e, c / D] *
 // xj[e, c % D] over the flat columns c of the chunk, zero past the last
-// unit (column H + 1 of a_s); the bf16 arm rounds the products of the
-// units h < H (the bias unit's xj stays as it is). Producer warp pw (of
-// NPW) builds rows pw, pw + NPW, ..., lane l column l.
-template <int TE, int NPW, bool kBf16>
+// unit (column H + 1 of a_s). Producer warp pw (of NPW) builds rows pw, pw
+// + NPW, ..., lane l column l.
+template <int TE, int NPW>
 __device__ __forceinline__ void build_x(int ch, int pw, const float* x_s,
                                         const float* a_s, const FwdLayout& f,
                                         const Geometry& g, float* xc_s) {
@@ -247,11 +224,9 @@ __device__ __forceinline__ void build_x(int ch, int pw, const float* x_s,
   int u, d;
   unit_of(ch * kFK + lane, f, g.d, u, d);
   const int oa = min(u, g.h + 1);
-  const bool round = kBf16 && u < g.h;
 #pragma unroll 4
   for (int r = pw; r < TE; r += NPW) {
-    const float v = a_s[r * f.lda + oa] * x_s[r * f.ldx + d];
-    xc_s[r * kLdX + lane] = round ? round_bf16(v) : v;
+    xc_s[r * kLdX + lane] = a_s[r * f.lda + oa] * x_s[r * f.ldx + d];
   }
 }
 
@@ -263,13 +238,7 @@ __device__ __forceinline__ void build_x(int ch, int pw, const float* x_s,
 // multiply chunk c, they load W chunk c + 1, split it into the free W
 // buffer and build X chunk c + 1; one barrier a chunk. wp is [W1; b1]
 // zero-padded to a multiple of kFK rows and to kp columns.
-//
-// The bf16 arm (kBf16; wp's W1 rows rounded by the caller, b1's not):
-// build_x rounds X's products of the units h < H, and a chunk whose flat
-// rows all lie below the bias unit multiplies in one TF32 pass (hi·hi:
-// its operands are bf16 values, exact in TF32); the chunks that hold bias
-// rows keep the three passes, so xj @ b1 stays f32-accurate.
-template <int MT, int WM, int WN, int NTW, bool kBf16>
+template <int MT, int WM, int WN, int NTW>
 __global__ void __launch_bounds__(32 * (WM * WN + kPW), 1)
 bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
                     const float* __restrict__ wp,
@@ -314,7 +283,7 @@ bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
   __syncthreads();
   if (producer) {
     store_w<NPT, PF>(st, pt, w_s);
-    build_x<TE, kPW, kBf16>(0, warp - NC, x_s, a_s, f, g, xc_s);
+    build_x<TE, kPW>(0, warp - NC, x_s, a_s, f, g, xc_s);
   }
   __syncthreads();
 
@@ -336,32 +305,8 @@ bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
       if (ch + 1 < chunks) {
         stage_w<NPT, PF>(wp, ch + 1, f.kp, NTT, pt, st);
         store_w<NPT, PF>(st, pt, w_s + (buf ^ 1) * WCH);
-        build_x<TE, kPW, kBf16>(ch + 1, warp - NC, x_s, a_s, f, g,
-                                xc_s + (buf ^ 1) * TE * kLdX);
-      }
-    } else if (kBf16 && (ch + 1) * kFK <= g.h * g.d) {
-      // a chunk of bf16 products only: one pass
-      const uint4* ws = w_s + buf * WCH;
-      const float* xs = xc_s + buf * TE * kLdX + (row0 + gr) * kLdX + tq;
-#pragma unroll
-      for (int ks = 0; ks < kFK / 8; ++ks) {
-        uint32_t ahi[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const float* xr = xs + 16 * mt * kLdX + 8 * ks;
-          ahi[mt][0] = tf32_rna(xr[0]);
-          ahi[mt][1] = tf32_rna(xr[8 * kLdX]);
-          ahi[mt][2] = tf32_rna(xr[4]);
-          ahi[mt][3] = tf32_rna(xr[8 * kLdX + 4]);
-        }
-        uint32_t bhi[NTW][2];
-#pragma unroll
-        for (int i = 0; i < NTW; ++i) {
-          const uint4 q = ws[(ks * NTT + wn + WN * i) * 32 + lane];
-          bhi[i][0] = q.x;
-          bhi[i][1] = q.y;
-        }
-        mma_tf32_tile<MT, NTW>(acc, ahi, bhi);
+        build_x<TE, kPW>(ch + 1, warp - NC, x_s, a_s, f, g,
+                         xc_s + (buf ^ 1) * TE * kLdX);
       }
     } else {
       const uint4* ws = w_s + buf * WCH;
@@ -408,32 +353,23 @@ bilinear_fwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
   }
 }
 
-template <int MT, int WM, int WN, int NTW, bool kBf16>
-int launch_fwd_arm(const float* xj, const float* a, const float* wp,
-                   const float* mask, float* out, const Geometry& g,
-                   cudaStream_t s) {
+template <int MT, int WM, int WN, int NTW>
+int launch_fwd(const float* xj, const float* a, const float* wp,
+               const float* mask, float* out, const Geometry& g,
+               cudaStream_t s) {
   constexpr int TE = WM * 16 * MT;
   const FwdLayout f = fwd_layout(g, NTW * WN);
   const size_t smem = fwd_shared_bytes(f, TE);
   if (smem > (size_t)kMaxShared) return kBadShape;
   cudaError_t err = cudaFuncSetAttribute(
-      bilinear_fwd_kernel<MT, WM, WN, NTW, kBf16>,
+      bilinear_fwd_kernel<MT, WM, WN, NTW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (g.e + TE - 1) / TE;
-  bilinear_fwd_kernel<MT, WM, WN, NTW, kBf16>
+  bilinear_fwd_kernel<MT, WM, WN, NTW>
       <<<(unsigned)tiles, 32 * (WM * WN + kPW), smem, s>>>(xj, a, wp, mask,
                                                            out, g, f);
   return (int)cudaGetLastError();
-}
-
-template <int MT, int WM, int WN, int NTW>
-int launch_fwd(const float* xj, const float* a, const float* wp,
-               const float* mask, float* out, const Geometry& g, bool bf16,
-               cudaStream_t s) {
-  return bf16
-             ? launch_fwd_arm<MT, WM, WN, NTW, true>(xj, a, wp, mask, out, g, s)
-             : launch_fwd_arm<MT, WM, WN, NTW, false>(xj, a, wp, mask, out, g, s);
 }
 
 // The forward's tile for these widths: 128 edges in 4 multiplying warps (2
@@ -443,7 +379,7 @@ int launch_fwd(const float* xj, const float* a, const float* wp,
 // instantiated count; kPW producing warps besides. Returns kBadShape where
 // none fits.
 int fwd_dispatch(const float* xj, const float* a, const float* wp,
-                 const float* mask, float* out, const Geometry& g, bool bf16,
+                 const float* mask, float* out, const Geometry& g,
                  cudaStream_t s) {
   const int ntiles = round8(g.k) / 8;
   auto fits = [&](int te, int ntt) {
@@ -452,30 +388,30 @@ int fwd_dispatch(const float* xj, const float* a, const float* wp,
   const int half = (ntiles + 1) / 2;
   if (ntiles <= 16 && fits(128, 2 * half)) {
     switch (half) {
-      case 1: return launch_fwd<4, 2, 2, 1>(xj, a, wp, mask, out, g, bf16, s);
-      case 2: return launch_fwd<4, 2, 2, 2>(xj, a, wp, mask, out, g, bf16, s);
-      case 3: return launch_fwd<4, 2, 2, 3>(xj, a, wp, mask, out, g, bf16, s);
-      case 4: return launch_fwd<4, 2, 2, 4>(xj, a, wp, mask, out, g, bf16, s);
-      case 5: return launch_fwd<4, 2, 2, 5>(xj, a, wp, mask, out, g, bf16, s);
-      case 6: return launch_fwd<4, 2, 2, 6>(xj, a, wp, mask, out, g, bf16, s);
-      case 7: return launch_fwd<4, 2, 2, 7>(xj, a, wp, mask, out, g, bf16, s);
-      default: return launch_fwd<4, 2, 2, 8>(xj, a, wp, mask, out, g, bf16, s);
+      case 1: return launch_fwd<4, 2, 2, 1>(xj, a, wp, mask, out, g, s);
+      case 2: return launch_fwd<4, 2, 2, 2>(xj, a, wp, mask, out, g, s);
+      case 3: return launch_fwd<4, 2, 2, 3>(xj, a, wp, mask, out, g, s);
+      case 4: return launch_fwd<4, 2, 2, 4>(xj, a, wp, mask, out, g, s);
+      case 5: return launch_fwd<4, 2, 2, 5>(xj, a, wp, mask, out, g, s);
+      case 6: return launch_fwd<4, 2, 2, 6>(xj, a, wp, mask, out, g, s);
+      case 7: return launch_fwd<4, 2, 2, 7>(xj, a, wp, mask, out, g, s);
+      default: return launch_fwd<4, 2, 2, 8>(xj, a, wp, mask, out, g, s);
     }
   }
   const int ntw = half <= 4 ? 4 : half <= 8 ? 8 : half <= 12 ? 12 : 16;
   if (fits(64, 2 * ntw)) {
     switch (ntw) {
-      case 4: return launch_fwd<2, 2, 2, 4>(xj, a, wp, mask, out, g, bf16, s);
-      case 8: return launch_fwd<2, 2, 2, 8>(xj, a, wp, mask, out, g, bf16, s);
-      case 12: return launch_fwd<2, 2, 2, 12>(xj, a, wp, mask, out, g, bf16, s);
-      default: return launch_fwd<2, 2, 2, 16>(xj, a, wp, mask, out, g, bf16, s);
+      case 4: return launch_fwd<2, 2, 2, 4>(xj, a, wp, mask, out, g, s);
+      case 8: return launch_fwd<2, 2, 2, 8>(xj, a, wp, mask, out, g, s);
+      case 12: return launch_fwd<2, 2, 2, 12>(xj, a, wp, mask, out, g, s);
+      default: return launch_fwd<2, 2, 2, 16>(xj, a, wp, mask, out, g, s);
     }
   }
   switch (ntw) {
-    case 4: return launch_fwd<1, 2, 2, 4>(xj, a, wp, mask, out, g, bf16, s);
-    case 8: return launch_fwd<1, 2, 2, 8>(xj, a, wp, mask, out, g, bf16, s);
-    case 12: return launch_fwd<1, 2, 2, 12>(xj, a, wp, mask, out, g, bf16, s);
-    default: return launch_fwd<1, 2, 2, 16>(xj, a, wp, mask, out, g, bf16, s);
+    case 4: return launch_fwd<1, 2, 2, 4>(xj, a, wp, mask, out, g, s);
+    case 8: return launch_fwd<1, 2, 2, 8>(xj, a, wp, mask, out, g, s);
+    case 12: return launch_fwd<1, 2, 2, 12>(xj, a, wp, mask, out, g, s);
+    default: return launch_fwd<1, 2, 2, 16>(xj, a, wp, mask, out, g, s);
   }
 }
 
@@ -526,45 +462,6 @@ size_t wgrad_shared_bytes(const WgradLayout& w) {
          (2 * (size_t)w.stage + (size_t)kWM * kLdX + (size_t)kWK * 32 * w.ntw);
 }
 
-// live[0] = the number of 32-edge chunks with a real edge, live[1 ..] their
-// indices in increasing order: one block walks the chunks 1024 at a time,
-// a thread a chunk, and places them by a prefix sum of the flags.
-__global__ void __launch_bounds__(1024)
-live_chunks_kernel(const float* __restrict__ mask, long long e,
-                   int* __restrict__ live) {
-  __shared__ int warp_s[32];
-  __shared__ int base_s;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long chunks = (e + kWK - 1) / kWK;
-  if (threadIdx.x == 0) base_s = 0;
-  for (long long c0 = 0; c0 < chunks; c0 += 1024) {
-    const long long ch = c0 + threadIdx.x;
-    bool real = false;
-    if ((ch + 1) * kWK <= e) {
-      const float4* m4 = reinterpret_cast<const float4*>(mask + ch * kWK);
-#pragma unroll
-      for (int q = 0; q < kWK / 4; ++q) {
-        const float4 v = m4[q];
-        real |= v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
-      }
-    } else {
-      for (long long i = ch * kWK; i < e; ++i) real |= mask[i] != 0.f;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, real);
-    if (lane == 0) warp_s[warp] = __popc(ballot);
-    __syncthreads();
-    int before = base_s;
-    for (int w = 0; w < warp; ++w) before += warp_s[w];
-    before += __popc(ballot & ((1u << lane) - 1u));
-    if (real) live[1 + before] = (int)ch;
-    __syncthreads();
-    if (threadIdx.x == 1023) base_s = before + (real ? 1 : 0);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) live[0] = base_s;
-}
-
 // Block (split, tile): tile = blockIdx % tiles owns flat dW rows m0 ..
 // m0 + 127 and columns n0 .. n0 + bn - 1; split = blockIdx / tiles walks
 // the chunks of the live list (live_chunks_kernel) at split, split + S, ...
@@ -574,10 +471,8 @@ live_chunks_kernel(const float* __restrict__ mask, long long e,
 // product; one chunk ahead, every thread builds its share of the chunk's
 // X^T and of mask * g split into TF32 hi and lo, once for the block. 8
 // warps in 4 (32 rows) x 2 (n8-tiles wn, wn + 2, ...). The block writes its
-// tile into its split's partial in wgrad_reduce_kernel's layout. The bf16
-// arm (kBf16) rounds every X^T entry (the bias unit's xj too) and mask * g
-// to bf16 as it builds them, and multiplies in one TF32 pass (hi·hi).
-template <int NTW, bool kBf16>
+// tile into its split's partial in wgrad_reduce_kernel's layout.
+template <int NTW>
 __global__ void __launch_bounds__(kThreads, 2)
 bilinear_wgrad_kernel(const float* __restrict__ xj,
                       const float* __restrict__ a,
@@ -670,8 +565,7 @@ bilinear_wgrad_kernel(const float* __restrict__ xj,
 #pragma unroll
       for (int kb = 0; kb < kWK / 4; ++kb) {
         const int k = 4 * kb + tq;
-        const float v = a_s[k * w.lda + oa[q]] * x_s[k * w.ldx + ox[q]];
-        xr[4 * kb] = kBf16 ? round_bf16(v) : v;
+        xr[4 * kb] = a_s[k * w.lda + oa[q]] * x_s[k * w.ldx + ox[q]];
       }
     }
 #pragma unroll
@@ -681,10 +575,7 @@ bilinear_wgrad_kernel(const float* __restrict__ xj,
       const int ks = tile / NTT;
       const int k = 8 * ks + (slot_b & 3);
       const float* gr0 = g_s + k * w.ldg + 8 * (tile - ks * NTT) + ((slot_b & 31) >> 2);
-      const float g0 = sc_s[k] * gr0[0];
-      const float g1 = sc_s[k + 4] * gr0[4 * w.ldg];
-      bq[slot_b] = kBf16 ? split_pair(round_bf16(g0), round_bf16(g1))
-                         : split_pair(g0, g1);
+      bq[slot_b] = split_pair(sc_s[k] * gr0[0], sc_s[k + 4] * gr0[4 * w.ldg]);
     }
   };
 
@@ -724,25 +615,6 @@ bilinear_wgrad_kernel(const float* __restrict__ xj,
     const float* xs = xt_s + (wm + gr) * kLdX + tq;
 #pragma unroll
     for (int ks = 0; ks < kWK / 8; ++ks) {
-      if (kBf16) {
-        uint32_t ahi[2][4], bhi[NTW][2];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float* xr = xs + 16 * mt * kLdX + 8 * ks;
-          ahi[mt][0] = tf32_rna(xr[0]);
-          ahi[mt][1] = tf32_rna(xr[8 * kLdX]);
-          ahi[mt][2] = tf32_rna(xr[4]);
-          ahi[mt][3] = tf32_rna(xr[8 * kLdX + 4]);
-        }
-#pragma unroll
-        for (int i = 0; i < NTW; ++i) {
-          const uint4 q = b_s[(ks * NTT + wn + 2 * i) * 32 + lane];
-          bhi[i][0] = q.x;
-          bhi[i][1] = q.y;
-        }
-        mma_tf32_tile<2, NTW>(acc, ahi, bhi);
-        continue;
-      }
       // A = X^T: row m, column (edge) k; B = mask * g: row k, column n
       uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
@@ -790,12 +662,12 @@ bilinear_wgrad_kernel(const float* __restrict__ xj,
 
 // Sets the kernel's shared-memory size and returns the blocks the card
 // holds at once in *slots.
-template <int NTW, bool kBf16>
+template <int NTW>
 int wgrad_slots(const WgradLayout& w, int* slots) {
   const size_t smem = wgrad_shared_bytes(w);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      bilinear_wgrad_kernel<NTW, kBf16>,
+      bilinear_wgrad_kernel<NTW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -803,54 +675,37 @@ int wgrad_slots(const WgradLayout& w, int* slots) {
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bilinear_wgrad_kernel<NTW, kBf16>, kThreads, smem);
+        &per_sm, bilinear_wgrad_kernel<NTW>, kThreads, smem);
   }
   *slots = sms * per_sm;
   return (int)err;
 }
 
-template <bool kBf16>
-int wgrad_slots_arm(const WgradLayout& w, int* slots) {
+int wgrad_slots_for(const WgradLayout& w, int* slots) {
   switch (w.ntw) {
-    case 1: return wgrad_slots<1, kBf16>(w, slots);
-    case 2: return wgrad_slots<2, kBf16>(w, slots);
-    case 3: return wgrad_slots<3, kBf16>(w, slots);
-    case 4: return wgrad_slots<4, kBf16>(w, slots);
-    case 5: return wgrad_slots<5, kBf16>(w, slots);
-    case 6: return wgrad_slots<6, kBf16>(w, slots);
-    case 7: return wgrad_slots<7, kBf16>(w, slots);
-    default: return wgrad_slots<8, kBf16>(w, slots);
+    case 1: return wgrad_slots<1>(w, slots);
+    case 2: return wgrad_slots<2>(w, slots);
+    case 3: return wgrad_slots<3>(w, slots);
+    case 4: return wgrad_slots<4>(w, slots);
+    case 5: return wgrad_slots<5>(w, slots);
+    case 6: return wgrad_slots<6>(w, slots);
+    case 7: return wgrad_slots<7>(w, slots);
+    default: return wgrad_slots<8>(w, slots);
   }
-}
-
-int wgrad_slots_for(const WgradLayout& w, bool bf16, int* slots) {
-  return bf16 ? wgrad_slots_arm<true>(w, slots)
-              : wgrad_slots_arm<false>(w, slots);
-}
-
-template <int NTW, bool kBf16>
-int launch_wgrad_arm(const float* xj, const float* a, const float* mask,
-                     const float* gout, const int* live, float* partial,
-                     const Geometry& g, const WgradLayout& w, int splits,
-                     cudaStream_t s) {
-  int slots = 0;
-  const int err = wgrad_slots<NTW, kBf16>(w, &slots);  // sets the shared size
-  if (err != 0) return err;
-  bilinear_wgrad_kernel<NTW, kBf16>
-      <<<(unsigned)(w.tiles * splits), kThreads, wgrad_shared_bytes(w), s>>>(
-          xj, a, mask, gout, live, partial, g, w, splits);
-  return (int)cudaGetLastError();
 }
 
 template <int NTW>
 int launch_wgrad(const float* xj, const float* a, const float* mask,
                  const float* gout, const int* live, float* partial,
                  const Geometry& g, const WgradLayout& w, int splits,
-                 bool bf16, cudaStream_t s) {
-  return bf16 ? launch_wgrad_arm<NTW, true>(xj, a, mask, gout, live, partial,
-                                            g, w, splits, s)
-              : launch_wgrad_arm<NTW, false>(xj, a, mask, gout, live, partial,
-                                             g, w, splits, s);
+                 cudaStream_t s) {
+  int slots = 0;
+  const int err = wgrad_slots<NTW>(w, &slots);  // sets the shared size
+  if (err != 0) return err;
+  bilinear_wgrad_kernel<NTW>
+      <<<(unsigned)(w.tiles * splits), kThreads, wgrad_shared_bytes(w), s>>>(
+          xj, a, mask, gout, live, partial, g, w, splits);
+  return (int)cudaGetLastError();
 }
 
 // ---- the backward to the rows: U = ge @ W^T, then d_xj and d_a ----------
@@ -1176,19 +1031,18 @@ long long mdl_fused_bilinear_partial_floats(int d, int k, int h) {
   return wgrad_layout(make_geometry(0, d, k, h)).plane;
 }
 
-// Edge splits S of the weight gradient for these shapes and arm (bf16 !=
-// 0: the bf16 one) on the current device: of S = 1 .. max(16, slots /
+// Edge splits S of the weight gradient for these shapes on the current
+// device: of S = 1 .. max(16, slots /
 // tiles) (at most one split per chunk), the one whose tiles x S blocks
 // fill their last wave of the card's resident blocks best, the smaller on
 // a tie. Returns S >= 1, or minus a
 // cudaError_t (kBadShape for an unsupported width).
-int mdl_fused_bilinear_wgrad_splits(long long e, int d, int k, int h,
-                                    int bf16) {
+int mdl_fused_bilinear_wgrad_splits(long long e, int d, int k, int h) {
   if (d < 1 || d > 256 || k < 1 || k > 256) return -kBadShape;
   const WgradLayout w = wgrad_layout(make_geometry(e, d, k, h));
   if (wgrad_shared_bytes(w) > (size_t)kMaxShared) return -kBadShape;
   int slots = 0;
-  const int err = wgrad_slots_for(w, bf16 != 0, &slots);
+  const int err = wgrad_slots_for(w, &slots);
   if (err != 0) return -err;
   if (slots < 1) return -kBadShape;
   const long long chunks = (e + kWK - 1) / kWK;
@@ -1209,19 +1063,18 @@ int mdl_fused_bilinear_wgrad_splits(long long e, int d, int k, int h,
 
 // All pointers are device pointers on the current device. xj (e x d), a
 // (e x h), mask (e); wp is [W1; b1] ((h+1)*d x k, W1 as (h*d x k))
-// zero-padded to a multiple of 32 rows and to round8(k) columns, its W1
-// rows rounded to bf16 for the bf16 arm (bf16 != 0); out (e x k) holds
-// zeros. Returns 0 or a cudaError_t (kBadShape for an unsupported width or
-// shared-memory size).
+// zero-padded to a multiple of 32 rows and to round8(k) columns; out (e x
+// k) holds zeros. Returns 0 or a cudaError_t (kBadShape for an unsupported
+// width or shared-memory size).
 int mdl_fused_bilinear_fwd(const void* xj, const void* a, const void* wp,
                            const void* mask, void* out, long long e, int d,
-                           int k, int h, int bf16, void* stream) {
+                           int k, int h, void* stream) {
   if (d < 1 || d > 256 || k < 1 || k > 256) return kBadShape;
   return fwd_dispatch(static_cast<const float*>(xj),
                       static_cast<const float*>(a),
                       static_cast<const float*>(wp),
                       static_cast<const float*>(mask), static_cast<float*>(out),
-                      make_geometry(e, d, k, h), bf16 != 0,
+                      make_geometry(e, d, k, h),
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -1277,13 +1130,13 @@ int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* w,
 // dw ((h+1)*d x k) = [dW1; db1]. partial holds splits *
 // mdl_fused_bilinear_partial_floats(d, k, h) floats and live 1 + ceil(e /
 // 32) ints (neither needs an initial value); splits as
-// mdl_fused_bilinear_wgrad_splits gives it for the same arm (any splits >=
-// 1 is right); bf16 != 0 runs the bf16 arm. Launches the live-chunk list,
+// mdl_fused_bilinear_wgrad_splits gives it (any splits >= 1 is right).
+// Launches the live-chunk list,
 // the split kernel, then the fixed-order sum of the splits.
 int mdl_fused_bilinear_wgrad(const void* xj, const void* a, const void* mask,
                              const void* gout, void* live, void* partial,
                              void* dw, long long e, int d, int k, int h,
-                             int splits, int bf16, void* stream) {
+                             int splits, void* stream) {
   if (d < 1 || d > 256 || k < 1 || k > 256 || splits < 1) return kBadShape;
   const Geometry g = make_geometry(e, d, k, h);
   const WgradLayout w = wgrad_layout(g);
@@ -1295,34 +1148,33 @@ int mdl_fused_bilinear_wgrad(const void* xj, const void* a, const void* mask,
   float* pp = static_cast<float*>(partial);
   int* lp = static_cast<int*>(live);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool arm = bf16 != 0;
-  live_chunks_kernel<<<1, 1024, 0, s>>>(mp, e, lp);
+  live_chunks_kernel<kWK><<<1, 1024, 0, s>>>(mp, e, lp);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   switch (w.ntw) {
     case 1:
-      err = launch_wgrad<1>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      err = launch_wgrad<1>(xp, ap, mp, gp, lp, pp, g, w, splits, s);
       break;
     case 2:
-      err = launch_wgrad<2>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      err = launch_wgrad<2>(xp, ap, mp, gp, lp, pp, g, w, splits, s);
       break;
     case 3:
-      err = launch_wgrad<3>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      err = launch_wgrad<3>(xp, ap, mp, gp, lp, pp, g, w, splits, s);
       break;
     case 4:
-      err = launch_wgrad<4>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      err = launch_wgrad<4>(xp, ap, mp, gp, lp, pp, g, w, splits, s);
       break;
     case 5:
-      err = launch_wgrad<5>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      err = launch_wgrad<5>(xp, ap, mp, gp, lp, pp, g, w, splits, s);
       break;
     case 6:
-      err = launch_wgrad<6>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      err = launch_wgrad<6>(xp, ap, mp, gp, lp, pp, g, w, splits, s);
       break;
     case 7:
-      err = launch_wgrad<7>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      err = launch_wgrad<7>(xp, ap, mp, gp, lp, pp, g, w, splits, s);
       break;
     default:
-      err = launch_wgrad<8>(xp, ap, mp, gp, lp, pp, g, w, splits, arm, s);
+      err = launch_wgrad<8>(xp, ap, mp, gp, lp, pp, g, w, splits, s);
       break;
   }
   if (err != 0) return err;

@@ -3,7 +3,8 @@
 // registers and B from shared memory by descriptor, its fences, the
 // descriptor of a K-major B operand without swizzle, and the kernel that
 // splits a weight once a call into TF32 hi and lo in the byte order those
-// descriptors read. sm_90a only. Each .cu file builds into its own
+// descriptors read; and the bf16 product, the mbarrier and the bulk copy
+// of the bf16 kernels (fused_bilinear_bf16.cu). sm_90a only. Each .cu file builds into its own
 // library, so the anonymous namespace gives every library its own copy.
 //
 // A kernel streams the split weight through shared memory a stage of
@@ -206,6 +207,137 @@ template <> struct WgmmaTf32<32> {
   }
 };
 
+// wgmma in bf16 (fused_bilinear_bf16.cu): d (64 x 8 NTW, f32, the layout
+// above) += A · B over k = 16, A (64 x 16 bf16) from registers: warp w's
+// 16 rows as mma.sync m16n8k16's A fragment, four bf16 pairs {A[g][2t, 2t+1],
+// A[g+8][2t, 2t+1], A[g][2t+8, 2t+9], A[g+8][2t+8, 2t+9]} (the lower
+// column in the lower half); B (8 NTW x 16, K-major, no transpose) from
+// shared memory by b_desc, whose core matrices of 8 rows x 16 bytes hold 8
+// bf16 where the TF32 ones hold 4. Instantiated for NTW 4, 13, 19, 25, 32.
+template <int NTW> struct WgmmaBf16;
+
+template <> struct WgmmaBf16<4> {
+  __device__ static void mma(float (&d)[4][4], const uint32_t (&a)[4],
+                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : MDL_F4(0), MDL_F4(1), MDL_F4(2), MDL_F4(3)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaBf16<13> {
+  __device__ static void mma(float (&d)[13][4], const uint32_t (&a)[4],
+                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51"
+        "}, {%52, %53, %54, %55}, %56, p, 1, 1, 0;\n}\n"
+        : MDL_F4(0), MDL_F4(1), MDL_F4(2), MDL_F4(3), MDL_F4(4), MDL_F4(5),
+          MDL_F4(6), MDL_F4(7), MDL_F4(8), MDL_F4(9), MDL_F4(10), MDL_F4(11),
+          MDL_F4(12)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaBf16<19> {
+  __device__ static void mma(float (&d)[19][4], const uint32_t (&a)[4],
+                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %81, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n152k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75"
+        "}, {%76, %77, %78, %79}, %80, p, 1, 1, 0;\n}\n"
+        : MDL_F4(0), MDL_F4(1), MDL_F4(2), MDL_F4(3), MDL_F4(4), MDL_F4(5),
+          MDL_F4(6), MDL_F4(7), MDL_F4(8), MDL_F4(9), MDL_F4(10), MDL_F4(11),
+          MDL_F4(12), MDL_F4(13), MDL_F4(14), MDL_F4(15), MDL_F4(16),
+          MDL_F4(17), MDL_F4(18)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaBf16<25> {
+  __device__ static void mma(float (&d)[25][4], const uint32_t (&a)[4],
+                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %105, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n200k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99"
+        "}, {%100, %101, %102, %103}, %104, p, 1, 1, 0;\n}\n"
+        : MDL_F4(0), MDL_F4(1), MDL_F4(2), MDL_F4(3), MDL_F4(4), MDL_F4(5),
+          MDL_F4(6), MDL_F4(7), MDL_F4(8), MDL_F4(9), MDL_F4(10), MDL_F4(11),
+          MDL_F4(12), MDL_F4(13), MDL_F4(14), MDL_F4(15), MDL_F4(16),
+          MDL_F4(17), MDL_F4(18), MDL_F4(19), MDL_F4(20), MDL_F4(21),
+          MDL_F4(22), MDL_F4(23), MDL_F4(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaBf16<32> {
+  __device__ static void mma(float (&d)[32][4], const uint32_t (&a)[4],
+                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : MDL_F4(0), MDL_F4(1), MDL_F4(2), MDL_F4(3), MDL_F4(4), MDL_F4(5),
+          MDL_F4(6), MDL_F4(7), MDL_F4(8), MDL_F4(9), MDL_F4(10), MDL_F4(11),
+          MDL_F4(12), MDL_F4(13), MDL_F4(14), MDL_F4(15), MDL_F4(16),
+          MDL_F4(17), MDL_F4(18), MDL_F4(19), MDL_F4(20), MDL_F4(21),
+          MDL_F4(22), MDL_F4(23), MDL_F4(24), MDL_F4(25), MDL_F4(26),
+          MDL_F4(27), MDL_F4(28), MDL_F4(29), MDL_F4(30), MDL_F4(31)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
 #undef MDL_F4
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -236,6 +368,57 @@ __device__ __forceinline__ void fence_acc(float (&d)[NTW][4]) {
 // proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- mbarrier and the 1-D bulk copy (fused_bilinear_bf16.cu's rings) ----
+//
+// A stage of a ring lands by one cp.async.bulk (one thread issues it, the
+// copy engine moves it and counts its bytes on the stage's `full`
+// barrier); its readers wait on `full` and give the slot back by
+// arriving on its `empty` barrier. A wait passes once the phase of the
+// given parity has completed (a barrier starts in phase 0).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// Makes the initialised barriers visible to the other threads and to the
+// copy engine (before the block barrier that follows the inits).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// One arrival that also adds `bytes` to the bytes the phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nMDL_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra MDL_WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// bytes (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory, completing on bar.
+__device__ __forceinline__ void bulk_g2s(void* smem, const void* gmem,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // The descriptor of a K-major B operand without swizzle at p: core

@@ -58,6 +58,20 @@ Products of bf16 values are exact in f32 (and in TF32), so each arm is
 exact up to the order of its f32 sums; the arms' plain versions compute
 them in f32 over the rounded operands.
 
+The bf16 arm of the forward and the weight gradient runs on kernels of its
+own (csrc/fused_bilinear_bf16.cu), on the bf16 tensor cores (`wgmma`
+m64nNk16, bf16 operands, f32 sums), bound by their operations at 989.4
+TFLOP/s and held back by the shared-memory reads that form X and by each
+warpgroup's chain of dependent products (PERF.md §6). The forward
+takes W as a bf16 image laid out once a call as the tensor cores' B tiles
+read it (`weight_image`; its plain twin `weight_image_plain`), streamed
+into shared memory by bulk copies through a ring of mbarrier-guarded
+stages, with bf16(a·xj) formed in registers; the bias unit stays 3xTF32.
+The weight gradient takes bf16(mask·g) as one such image per 64-edge chunk
+(BF16_CHUNK) and forms bf16(X)ᵀ in registers from the chunk's f32 rows,
+split over the chunks with a real edge and summed in a fixed order.
+Shapes whose tiles do not fit raise.
+
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
 `LAUNCHES` counts kernel launches, `LAUNCHES_BF16` those of the bf16 arm. The backward launches two wrappers:
@@ -83,39 +97,75 @@ LAUNCHES_BF16 = {"fused_bilinear_fwd_bf16": 0, "fused_bilinear_bwd_bf16": 0,
 MAX_WIDTH = 256  # the kernels' largest D and K
 FWD_CHUNK = 32   # flat rows of [W1; b1] a forward chunk stages (csrc kFK)
 WGRAD_CHUNK = 32  # edges of a weight-gradient chunk (csrc kWK)
+BF16_CHUNK = 64  # edges of a bf16 weight-gradient chunk (csrc kChunk)
+WGMMA_WIDTHS = (4, 13, 19, 25, 32)  # the bf16 kernels' n8-tiles (wgmma N / 8)
 # The plain versions' largest per-edge intermediate ((rows, D·K) or
 # (rows, (H+1)·D)): 2^26 floats, 256 MB. A training batch's whole (E, D, K)
 # tensor at MPNN_demo width would be 3.2 GB.
 _CHUNK_FLOATS = 1 << 26
 
 _lib = None
+_lib_bf16 = None
 
 
 def _load():
     """The bound library of csrc/fused_bilinear.cu (ops/_build.py); the
-    last int of the three kernels and of the splits query selects the bf16
-    arm."""
+    last int of the backward to the rows selects its bf16 arm."""
     global _lib
     if _lib is None:
         lib = _build.library("fused_bilinear")
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mdl_fused_bilinear_fwd.argtypes = [vp] * 5 + [cl, ci, ci, ci, ci,
-                                                          vp]
+        lib.mdl_fused_bilinear_fwd.argtypes = [vp] * 5 + [cl, ci, ci, ci, vp]
         lib.mdl_fused_bilinear_fwd.restype = ci
         lib.mdl_fused_bilinear_bwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, ci,
                                                           vp]
         lib.mdl_fused_bilinear_bwd.restype = ci
         lib.mdl_fused_bilinear_wgrad.argtypes = ([vp] * 7
-                                                 + [cl, ci, ci, ci, ci, ci, vp])
+                                                 + [cl, ci, ci, ci, ci, vp])
         lib.mdl_fused_bilinear_wgrad.restype = ci
         lib.mdl_fused_bilinear_split_words.argtypes = [ci, ci, ci]
         lib.mdl_fused_bilinear_split_words.restype = cl
         lib.mdl_fused_bilinear_partial_floats.argtypes = [ci, ci, ci]
         lib.mdl_fused_bilinear_partial_floats.restype = cl
-        lib.mdl_fused_bilinear_wgrad_splits.argtypes = [cl, ci, ci, ci, ci]
+        lib.mdl_fused_bilinear_wgrad_splits.argtypes = [cl, ci, ci, ci]
         lib.mdl_fused_bilinear_wgrad_splits.restype = ci
         _lib = lib
     return _lib
+
+
+def _load_bf16():
+    """The bound library of csrc/fused_bilinear_bf16.cu: the bf16 arm of
+    the forward and the weight gradient."""
+    global _lib_bf16
+    if _lib_bf16 is None:
+        lib = _build.library("fused_bilinear_bf16")
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mdl_fused_bilinear_bf16_image_bytes.argtypes = [ci, ci, ci]
+        lib.mdl_fused_bilinear_bf16_image_bytes.restype = cl
+        lib.mdl_fused_bilinear_bf16_weight_image.argtypes = [vp] * 3 + [ci, ci,
+                                                                        ci, vp]
+        lib.mdl_fused_bilinear_bf16_weight_image.restype = ci
+        lib.mdl_fused_bilinear_bf16_fwd.argtypes = [vp] * 7 + [cl, ci, ci, ci,
+                                                               vp]
+        lib.mdl_fused_bilinear_bf16_fwd.restype = ci
+        lib.mdl_fused_bilinear_bf16_gimg_bytes.argtypes = [cl, ci, ci, ci]
+        lib.mdl_fused_bilinear_bf16_gimg_bytes.restype = cl
+        lib.mdl_fused_bilinear_bf16_partial_floats.argtypes = [ci, ci, ci]
+        lib.mdl_fused_bilinear_bf16_partial_floats.restype = cl
+        lib.mdl_fused_bilinear_bf16_wgrad_splits.argtypes = [cl, ci, ci, ci]
+        lib.mdl_fused_bilinear_bf16_wgrad_splits.restype = ci
+        lib.mdl_fused_bilinear_bf16_wgrad.argtypes = ([vp] * 8
+                                                      + [cl, ci, ci, ci, ci, vp])
+        lib.mdl_fused_bilinear_bf16_wgrad.restype = ci
+        _lib_bf16 = lib
+    return _lib_bf16
+
+
+def _size(n: int, name: str) -> int:
+    """A size query's answer, or raise on its minus error code."""
+    if n < 0:
+        _raise_on(-n, name)
+    return n
 
 
 def _count(name: str, bf16: bool):
@@ -170,6 +220,77 @@ def arm_weight(w1, bf16: bool) -> torch.Tensor:
     """W1 as the bf16 arm reads it (rounded to bf16; b1 never is), or
     W1 itself."""
     return round_bf16(w1) if bf16 else w1
+
+
+def wgmma_width(k: int) -> int:
+    """The bf16 kernels' n8-tiles for K columns: the smallest of
+    WGMMA_WIDTHS that holds round8(K)."""
+    nt = -(-k // 8)
+    for w in WGMMA_WIDTHS:
+        if nt <= w:
+            return w
+    raise ValueError(f"fused_bilinear: K={k} is wider than the kernels' "
+                     f"{8 * WGMMA_WIDTHS[-1]}")
+
+
+def _tf32_split(v: torch.Tensor) -> tuple:
+    """(hi, lo) int32 words of v: cvt.rna.tf32.f32 (to nearest, ties away
+    from zero) and the rest rounded the same way, as csrc split_tf32."""
+    hi = (v.view(torch.int32) + 0x1000) & ~0x1FFF
+    rest = (v - hi.view(torch.float32)).contiguous()
+    return hi, (rest.view(torch.int32) + 0x1000) & ~0x1FFF
+
+
+def weight_image_plain(w1, b1, d: int, steps: int | None = None
+                       ) -> torch.Tensor:
+    """The bf16 forward's weight image as bytes (uint8), as its layout
+    kernels write it: for each unit h < H and k16-step s of its D rows
+    (zero-padded to whole k16-steps), the B tile of wgmma m64nNk16 in
+    K-major core matrices of 8 rows x 16 bytes (np = 8·wgmma_width(K)
+    rows, zero past K): 16 bytes at ((n8·2 + kh)·8 + r) hold bf16(W1[h·D +
+    16s + 8kh + c, 8n8 + r]) for c < 8; then zero k16-steps up to `steps`
+    (the kernel pads to whole ring stages; default none). Then b1 split
+    into TF32 hi and lo words for the bias unit's 3xTF32 k8-steps t:
+    position c of a k8-step is b1 row 8t + (2c if c < 4 else 2c - 7), the
+    column order of the A fragments the kernel takes from its xj pairs."""
+    h = w1.shape[0]
+    k = b1.numel() // d
+    kd, n8 = -(-d // 16), wgmma_width(k)
+    np_ = 8 * n8
+    steps = h * kd if steps is None else steps
+    w = torch.zeros(steps * 16, np_, dtype=torch.float32, device=w1.device)
+    w[:h * kd * 16].view(h, 16 * kd, np_)[:, :d, :k] = w1.reshape(h, d, k)
+    bits = w.to(torch.bfloat16).view(torch.int16)
+    # (step, kh, c, n8, r) -> (step, n8, kh, r, c)
+    tiles = bits.reshape(steps, 2, 8, n8, 8).permute(0, 3, 1, 4, 2)
+    b = torch.zeros(16 * kd, np_, dtype=torch.float32, device=w1.device)
+    b[:d, :k] = b1.reshape(d, k)
+    order = [0, 2, 4, 6, 1, 3, 5, 7]
+    bt = b.reshape(2 * kd, 8, np_)[:, order].contiguous()
+    # (t, kh, c, n8, r) -> (t, n8, kh, r, c), hi then lo a k8-step
+    words = torch.stack([x.reshape(2 * kd, 2, 4, n8, 8).permute(0, 3, 1, 4, 2)
+                         for x in _tf32_split(bt)], 1)
+    return torch.cat([tiles.contiguous().view(torch.uint8).reshape(-1),
+                      words.contiguous().view(torch.uint8).reshape(-1)])
+
+
+def weight_image(w1, b1, d: int) -> torch.Tensor:
+    """weight_image_plain on a CPU tensor; on a CUDA tensor what the bf16
+    forward's layout kernels write (the kernels alone, uncounted)."""
+    if w1.device.type == "cpu":
+        return weight_image_plain(w1, b1, d)
+    k = b1.numel() // d
+    h = w1.shape[0]
+    lib = _load_bf16()
+    img = torch.empty(_size(lib.mdl_fused_bilinear_bf16_image_bytes(d, k, h),
+                            "mdl_fused_bilinear_bf16_image_bytes"),
+                      dtype=torch.uint8, device=w1.device)
+    with torch.cuda.device(w1.device):
+        rc = lib.mdl_fused_bilinear_bf16_weight_image(
+            w1.contiguous().data_ptr(), b1.contiguous().data_ptr(),
+            img.data_ptr(), d, k, h, torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "mdl_fused_bilinear_bf16_weight_image")
+    return img
 
 
 # ------------------------------------------------------------- plain versions
@@ -286,14 +407,28 @@ def fused_bilinear(xj, a, w1, b1, mask, bf16: bool = False) -> torch.Tensor:
     out = torch.zeros((e, k), dtype=torch.float32, device=xj.device)
     if e == 0 or k == 0:
         return out
-    w = padded_weight(arm_weight(w1, bf16), b1, d)
+    if bf16:
+        lib = _load_bf16()
+        img = torch.empty(
+            _size(lib.mdl_fused_bilinear_bf16_image_bytes(d, k, h),
+                  "mdl_fused_bilinear_bf16_image_bytes"),
+            dtype=torch.uint8, device=xj.device)
+        with torch.cuda.device(xj.device):
+            rc = lib.mdl_fused_bilinear_bf16_fwd(
+                xj.data_ptr(), a.data_ptr(), w1.contiguous().data_ptr(),
+                b1.contiguous().data_ptr(), img.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), e, d, k, h,
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(rc, "mdl_fused_bilinear_bf16_fwd")
+        _count("fused_bilinear_fwd", bf16)
+        return out
+    w = padded_weight(w1, b1, d)
     lib = _load()
     with torch.cuda.device(xj.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mdl_fused_bilinear_fwd(xj.data_ptr(), a.data_ptr(),
                                         w.data_ptr(), mask.data_ptr(),
-                                        out.data_ptr(), e, d, k, h, int(bf16),
-                                        stream)
+                                        out.data_ptr(), e, d, k, h, stream)
     _raise_on(rc, "mdl_fused_bilinear_fwd")
     _count("fused_bilinear_fwd", bf16)
     return out
@@ -346,9 +481,11 @@ def fused_bilinear_wgrad(g, xj, a, mask, bf16: bool = False) -> torch.Tensor:
     dev = xj.device
     if e == 0 or k == 0:
         return torch.zeros(((h + 1) * d, k), dtype=torch.float32, device=dev)
+    if bf16:
+        return _wgrad_bf16(g, xj, a, mask)
     lib = _load()
     with torch.cuda.device(dev):
-        splits = lib.mdl_fused_bilinear_wgrad_splits(e, d, k, h, int(bf16))
+        splits = lib.mdl_fused_bilinear_wgrad_splits(e, d, k, h)
     if splits < 1:
         _raise_on(-splits, "mdl_fused_bilinear_wgrad_splits")
     partial = torch.empty(splits * lib.mdl_fused_bilinear_partial_floats(d, k, h),
@@ -360,9 +497,40 @@ def fused_bilinear_wgrad(g, xj, a, mask, bf16: bool = False) -> torch.Tensor:
         rc = lib.mdl_fused_bilinear_wgrad(
             xj.data_ptr(), a.data_ptr(), mask.data_ptr(), g.data_ptr(),
             live.data_ptr(), partial.data_ptr(), dw.data_ptr(), e, d, k, h,
-            splits, int(bf16), stream)
+            splits, stream)
     _raise_on(rc, "mdl_fused_bilinear_wgrad")
     _count("fused_bilinear_wgrad", bf16)
+    return dw
+
+
+def _wgrad_bf16(g, xj, a, mask) -> torch.Tensor:
+    """fused_bilinear_wgrad's bf16 arm on the card (checked inputs)."""
+    e, d = xj.shape
+    h, k = a.shape[1], g.shape[1]
+    dev = xj.device
+    if xj.data_ptr() % 16:  # its chunks land by 16-byte bulk copies
+        xj = xj.clone()
+    lib = _load_bf16()
+    with torch.cuda.device(dev):
+        splits = _size(lib.mdl_fused_bilinear_bf16_wgrad_splits(e, d, k, h),
+                       "mdl_fused_bilinear_bf16_wgrad_splits")
+    partial = torch.empty(
+        splits * _size(lib.mdl_fused_bilinear_bf16_partial_floats(d, k, h),
+                       "mdl_fused_bilinear_bf16_partial_floats"),
+        dtype=torch.float32, device=dev)
+    gimg = torch.empty(_size(lib.mdl_fused_bilinear_bf16_gimg_bytes(e, d, k, h),
+                             "mdl_fused_bilinear_bf16_gimg_bytes"),
+                       dtype=torch.uint8, device=dev)
+    live = torch.empty(1 + -(-e // BF16_CHUNK), dtype=torch.int32, device=dev)
+    dw = torch.empty(((h + 1) * d, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mdl_fused_bilinear_bf16_wgrad(
+            xj.data_ptr(), a.data_ptr(), mask.data_ptr(), g.data_ptr(),
+            live.data_ptr(), gimg.data_ptr(), partial.data_ptr(),
+            dw.data_ptr(), e, d, k, h, splits,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "mdl_fused_bilinear_bf16_wgrad")
+    _count("fused_bilinear_wgrad", True)
     return dw
 
 

@@ -25,8 +25,10 @@ node_graph[edge_src] into the graph rows), under a small MEGNet against the
 CPU, and packed training runs against the CPU. The bilinear kernels' bf16
 arm (`precision: bf16`) is held to its plain versions at the f32 arm's
 tolerance (the same rounded operands, exact products, f32 sums in another
-order), its rounding to bf16 to nearest-even exactly, and the f32 arm on the
-same inputs must fall outside that tolerance; bf16 models and training runs
+order), also at the edges of its bf16 tensor-core kernels' tiling and on an
+all-pad batch, its forward's weight image byte for byte, its rounding to
+bf16 to nearest-even exactly, and the f32 arm on the same inputs must fall
+outside that tolerance; bf16 models and training runs
 card against CPU to rtol 2^-6 (BF16_RTOL says why), and bf16 training on
 CUDA graphs equals its eager loop bit for bit. The single-pass arms
 (`kernel_precision: bf16`) are held to their plain twins (the windowed and
@@ -735,12 +737,17 @@ def test_fused_bilinear_bwd_rows_is_bit_identical(cuda_device, case, d, h, k):
 # a multiple of 8, D > 128 (the forward's 64-edge tile; the backward to
 # the rows' 64-edge tile past D 104, its 32-edge one past 208), H = 1, and
 # edge counts that are not a multiple of the 128-edge tile or the 32-edge
-# chunk
+# chunk. The bf16 arm's kernels (bf16): D and K not multiples of 16 (3 and
+# 5, 33 and 9, 1 and 12), K > 128 (129: two warpgroups, batches of 4
+# k16-steps), H = 1, E not a multiple of their 192-edge tile or 64-edge
+# chunk, held to the bf16 plain versions at the same tolerance.
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("e,d,h,k", [(1000, 3, 7, 5), (777, 33, 1, 9),
                                      (1001, 1, 3, 12), (515, 200, 12, 20),
                                      (129, 64, 1, 100), (4099, 100, 100, 100),
                                      (333, 130, 5, 129)])
-def test_fused_bilinear_tiling_edges_match_plain(cuda_device, e, d, h, k):
+def test_fused_bilinear_tiling_edges_match_plain(cuda_device, e, d, h, k,
+                                                 bf16):
     rng = np.random.default_rng(e + d + h + k)
     t = lambda *shape, s=1.0: torch.tensor(
         s * rng.standard_normal(shape), dtype=torch.float32, device=cuda_device)
@@ -748,29 +755,57 @@ def test_fused_bilinear_tiling_edges_match_plain(cuda_device, e, d, h, k):
                         device=cuda_device)
     args = (t(e, d), torch.relu(t(e, h)), t(h, d * k, s=0.1), t(d * k, s=0.1),
             mask)
-    _assert_fused_close(FB.fused_bilinear(*args),
-                        FB.fused_bilinear_plain(*args), "forward")
+    out = FB.fused_bilinear(*args, bf16=bf16)
+    _assert_fused_close(out, FB.fused_bilinear_plain(*args, bf16=bf16),
+                        "forward")
+    assert torch.equal(FB.fused_bilinear(*args, bf16=bf16), out)
     g = t(e, k)
-    dw = FB.fused_bilinear_wgrad(g, *args[:2], mask)
-    _assert_fused_close(dw, FB.wgrad_plain(g, *args[:2], mask, k), "dW")
-    assert torch.equal(FB.fused_bilinear_wgrad(g, *args[:2], mask), dw)
-    rows = FB.fused_bilinear_bwd_rows(g, *args)
+    dw = FB.fused_bilinear_wgrad(g, *args[:2], mask, bf16=bf16)
+    _assert_fused_close(dw, FB.wgrad_plain(g, *args[:2], mask, k, bf16=bf16),
+                        "dW")
+    assert torch.equal(FB.fused_bilinear_wgrad(g, *args[:2], mask, bf16=bf16),
+                       dw)
+    rows = FB.fused_bilinear_bwd_rows(g, *args, bf16=bf16)
     for name, got, ref in zip(["d_xj", "d_a"], rows,
-                              FB.bwd_rows_plain(g, *args)):
+                              FB.bwd_rows_plain(g, *args, bf16=bf16)):
         _assert_fused_close(got, ref, name)
-    for t in (FB.fused_bilinear(*args), *rows):
+    for t in (out, *rows):
         assert float(t[mask == 0].abs().max()) == 0.0
 
 
-def test_fused_bilinear_all_pad_batch_gives_zeros(cuda_device):
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_fused_bilinear_all_pad_batch_gives_zeros(cuda_device, bf16):
     xj, a, w1, b1, mask = _bilinear_inputs("sorted", 100, 100, 100,
                                            device=cuda_device)
     pad = torch.zeros_like(mask)
     g = torch.randn(len(mask), 100, device=cuda_device)
-    assert not FB.fused_bilinear(xj, a, w1, b1, pad).any()
-    assert not FB.fused_bilinear_wgrad(g, xj, a, pad).any()
-    d_xj, d_a = FB.fused_bilinear_bwd_rows(g, xj, a, w1, b1, pad)
+    assert not FB.fused_bilinear(xj, a, w1, b1, pad, bf16=bf16).any()
+    assert not FB.fused_bilinear_wgrad(g, xj, a, pad, bf16=bf16).any()
+    d_xj, d_a = FB.fused_bilinear_bwd_rows(g, xj, a, w1, b1, pad, bf16=bf16)
     assert not d_xj.any() and not d_a.any()
+
+
+@pytest.mark.parametrize("h,d,k", [(7, 3, 5), (100, 100, 100), (1, 33, 9),
+                                   (100, 150, 150), (9, 256, 256)])
+def test_fused_bilinear_bf16_weight_image_matches_plain(cuda_device, h, d, k):
+    """The bf16 forward's layout kernels write weight_image_plain byte for
+    byte, with the zero k16-steps that pad the image to whole ring stages;
+    the TF32 words of b1 compared in their 19 bits (cvt.rna leaves the low
+    13 unspecified)."""
+    g = torch.Generator().manual_seed(h + d + k)
+    w1 = torch.randn(h, d * k, generator=g)
+    b1 = torch.randn(d * k, generator=g)
+    got = FB.weight_image(w1.to(cuda_device), b1.to(cuda_device), d).cpu()
+    kd, np_ = -(-d // 16), 8 * FB.wgmma_width(k)
+    steps = (got.numel() - kd * np_ * 128) // (np_ * 32)
+    assert steps >= h * kd
+    ref = FB.weight_image_plain(w1, b1, d, steps)
+    assert got.numel() == ref.numel()
+    nb = steps * np_ * 32
+    assert torch.equal(got[:nb], ref[:nb])
+    mask = ~0x1FFF
+    assert torch.equal(got[nb:].view(torch.int32) & mask,
+                       ref[nb:].view(torch.int32) & mask)
 
 
 def test_fused_bilinear_autograd_and_launch_counts(cuda_device):

@@ -46,13 +46,19 @@ JAX package on the CPU.
   schedule, unlike the unit-loop one (which JAX's model tests run on the
   CPU): a test with a = 0 tells them apart. torch's bf16 rounding is to
   nearest with ties to even, not away as TF32's cvt.rna.
-* The bf16 arm's kernel arithmetic emulated at MPNN_demo width (operands
-  rounded, products exact, one TF32 pass where neither operand has a lo
-  part, three for the bias unit; the kernels' orders as above) falls
-  within the chip check's limit of the JAX chunked bf16 arm, and the f32
-  arm on the same inputs (the unrounded 3xTF32 path, which a build that
-  skipped the rounding would run) falls outside it on the forward, d_a
-  and the weight gradient: the limit tells the arms apart.
+* The bf16 arm's kernel arithmetic emulated at MPNN_demo width, in the
+  order of its bf16 tensor-core kernels: the forward unit after unit, each
+  unit's D rows in k16-steps (zero-padded), sixteen exact bf16 products a
+  step added to the f32 accumulator, then the bias unit in 3xTF32 over its
+  k8-steps; the weight gradient over the 64-edge chunks (BF16_CHUNK) that
+  hold a real edge, dealt to its splits (3 at this size on 132 SMs, and 1),
+  four k16-steps a chunk; the backward to the rows as above with W1
+  rounded. It falls within the chip check's limit of the JAX chunked bf16
+  arm, and the f32 arm on the same inputs (the unrounded 3xTF32 path, which
+  a build that skipped the rounding would run) falls outside it on the
+  forward, d_a and the weight gradient: the limit tells the arms apart.
+  The forward kernel's weight image (`weight_image_plain`, the layout
+  kernels' plain twin) reads back to bf16(W1) and b1.
 """
 
 import jax
@@ -474,51 +480,97 @@ def test_bf16_rounding_is_round_to_nearest_ties_to_even():
     np.testing.assert_array_equal(_bf16(x.numpy()), want.numpy())
 
 
-def _rows_bf16(xj, a, h):
-    """X of the bf16 arm's forward: the products of units h < H rounded,
-    the bias unit's xj as it is."""
-    x = _x_rows(xj, a)
-    d = xj.shape[1]
-    x[:, :h * d] = FB.round_bf16(x[:, :h * d])
-    return x
+def _mma_bf16(acc, a, b):
+    """acc (f32) += a @ b for one wgmma k16-step of bf16 values: the 16
+    products of each sum are exact, and the sum is added to the f32
+    accumulator."""
+    return (acc.double() + a.double() @ b.double()).float()
 
 
 def _emulated_forward_bf16(xj, a, w1, b1, mask):
-    """The forward kernel's bf16 arm: X and W1 rounded, one TF32 pass for
-    the 32-row chunks below the bias unit, three for the rest."""
+    """The bf16 forward kernel: unit after unit, each unit's D rows
+    zero-padded to whole k16-steps, bf16(a_h·xj) @ bf16(W1[h]) one k16-step
+    at a time into the f32 accumulator; then the bias unit xj @ b1 in
+    3xTF32 over its k8-steps."""
     e, d = xj.shape
     h = a.shape[1]
-    x = _rows_bf16(xj, a, h)
-    wp = FB.padded_weight(FB.arm_weight(w1, True), b1, d)
-    x = torch.cat([x, x.new_zeros(e, wp.shape[0] - x.shape[1])], 1)
-    acc = x.new_zeros(e, wp.shape[1])
-    for r in range(0, wp.shape[0], 8):
-        chunk = r // FB.FWD_CHUNK
-        passes = 1 if (chunk + 1) * FB.FWD_CHUNK <= h * d else 3
-        acc = _mma(acc, x[:, r:r + 8], wp[r:r + 8], passes)
-    return mask[:, None] * acc[:, :b1.numel() // d]
+    k = b1.numel() // d
+    dp = 16 * -(-d // 16)
+    xp = torch.zeros(e, dp)
+    xp[:, :d] = xj
+    w = torch.zeros(h, dp, k)
+    w[:, :d] = FB.round_bf16(w1).reshape(h, d, k)
+    bias = torch.zeros(dp, k)
+    bias[:d] = b1.reshape(d, k)
+    acc = torch.zeros(e, k)
+    for u in range(h):
+        x = FB.round_bf16(a[:, u:u + 1] * xp)
+        for s0 in range(0, dp, 16):
+            acc = _mma_bf16(acc, x[:, s0:s0 + 16], w[u, s0:s0 + 16])
+    for s0 in range(0, dp, 8):
+        acc = _mma(acc, xp[:, s0:s0 + 8], bias[s0:s0 + 8], 3)
+    return mask[:, None] * acc
 
 
 def _emulated_wgrad_bf16(g, xj, a, mask, splits: int):
-    """The weight-gradient kernel's bf16 arm: X (the bias unit too) and
-    mask·g rounded, one pass; its chunk and split order."""
+    """The bf16 weight-gradient kernel: X (the bias unit too) and mask·g
+    rounded; the BF16_CHUNK-edge chunks that hold a real edge dealt to the
+    splits in turn, each chunk four k16-steps into the split's f32
+    accumulator, then the splits added in order."""
     x = FB.round_bf16(_x_rows(xj, a))
     ge = FB.round_bf16(mask[:, None] * g)
     e = len(x)
-    chunks = -(-e // FB.WGRAD_CHUNK)
-    pad = chunks * FB.WGRAD_CHUNK - e
+    c = FB.BF16_CHUNK
+    chunks = -(-e // c)
+    pad = chunks * c - e
     x = torch.cat([x, x.new_zeros(pad, x.shape[1])])
     ge = torch.cat([ge, ge.new_zeros(pad, ge.shape[1])])
-    live = [ch for ch in range(chunks)
-            if mask[ch * FB.WGRAD_CHUNK:(ch + 1) * FB.WGRAD_CHUNK].any()]
+    live = [ch for ch in range(chunks) if mask[ch * c:(ch + 1) * c].any()]
     total = x.new_zeros(x.shape[1], g.shape[1])
     for s in range(splits):
         acc = torch.zeros_like(total)
         for ch in live[s::splits]:
-            for e0 in range(ch * FB.WGRAD_CHUNK, (ch + 1) * FB.WGRAD_CHUNK, 8):
-                acc = _mma(acc, x[e0:e0 + 8].t(), ge[e0:e0 + 8], 1)
+            for e0 in range(ch * c, (ch + 1) * c, 16):
+                acc = _mma_bf16(acc, x[e0:e0 + 16].t(), ge[e0:e0 + 16])
         total = total + acc
     return total
+
+
+@pytest.mark.parametrize("h,d,k,pad", [(3, 4, 5, 0), (7, 3, 8, 9),
+                                       (1, 33, 9, 1), (2, 100, 100, 2)])
+def test_bf16_weight_image_rebuilds_w(h, d, k, pad):
+    """The bf16 forward's weight image (weight_image_plain, the plain twin
+    of its layout kernels): read back through the core-matrix permutation,
+    its bf16 tiles give bf16(W1) exactly, zeros past D and K and in `pad`
+    padding k16-steps, and its TF32 hi + lo words give b1 to 2^-20 of
+    max|b1|."""
+    rng = np.random.default_rng(h + d + k)
+    w1 = torch.tensor(rng.standard_normal((h, d * k)), dtype=torch.float32)
+    b1 = torch.tensor(rng.standard_normal(d * k), dtype=torch.float32)
+    kd, n8 = -(-d // 16), FB.wgmma_width(k)
+    np_, steps = 8 * n8, h * kd + pad
+    img = FB.weight_image_plain(w1, b1, d, steps)
+    assert img.dtype == torch.uint8
+    assert img.numel() == steps * np_ * 32 + kd * np_ * 128
+    tiles = img[:steps * np_ * 32].view(torch.int16).reshape(steps, n8, 2, 8, 8)
+    # (step, n8, kh, r, c) -> (step, kh, c, n8, r): rows d, columns n
+    w = tiles.permute(0, 2, 4, 1, 3).reshape(steps * 16, np_)
+    w = w.view(torch.bfloat16).float()
+    units = w[:h * kd * 16].reshape(h, 16 * kd, np_)
+    assert torch.equal(units[:, :d, :k], FB.round_bf16(w1).reshape(h, d, k))
+    assert not units[:, d:].any() and not units[:, :, k:].any()
+    assert not w[h * kd * 16:].any()
+    words = img[steps * np_ * 32:].view(torch.int32).reshape(2 * kd, 2, n8, 2,
+                                                            8, 4)
+    hi, lo = (words[:, i].view(torch.float32).double() for i in (0, 1))
+    # (t, n8, kh, r, c) -> (t, kh, c, n8, r): positions, columns
+    part = (hi + lo).permute(0, 2, 4, 1, 3).reshape(2 * kd, 8, np_)
+    cols = torch.zeros_like(part)
+    cols[:, [0, 2, 4, 6, 1, 3, 5, 7]] = part  # position c holds row pair_col(c)
+    bias = cols.reshape(16 * kd, np_)
+    ref = b1.reshape(d, k).double()
+    assert (bias[:d, :k] - ref).abs().max() <= 2.0 ** -20 * ref.abs().max()
+    assert not bias[d:].any() and not bias[:, k:].any()
 
 
 @pytest.fixture(scope="module")
