@@ -66,20 +66,21 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
    their plain versions and one torch.einsum over the same inputs (and its
    autograd backward to xj and a) as the library yardstick;
 6b. checks the bilinear kernels' bf16 arm (`precision: bf16`: operands
-   rounded to bf16, f32 accumulation) against its plain versions on the
-   same batch, at (100, 100, 100) sorted, permuted and scattered, (3, 7,
-   5) and (150, 100, 150): all five outputs to rtol 1e-4 and atol
-   1e-4·max|ref| (the same rounded operands, exact products, f32 sums in
-   another order), bit-identical between two calls, masked rows zero; the
-   mutation check: the f32 arm on the same inputs (the unrounded 3xTF32
-   path a build without the rounding runs) must fail that check on the
-   forward, d_a and the weight gradient; the forward's weight image (its
-   layout kernels, csrc/fused_bilinear_bf16.cu, whose bf16 tensor-core
-   kernels run the arm's forward and weight gradient) byte for byte
-   against weight_image_plain; then times the arm beside its bound at the
-   dense BF16 rate (989.4 TFLOP/s), the f32 arm's time in the same call,
-   its plain versions and the same einsum compositions on bf16 tensors as
-   the library yardstick;
+   rounded to bf16, f32 accumulation; csrc/fused_bilinear_bf16.cu: the
+   forward, d_xj on the forward's tiles over W1ᵀ, d_a, the weight
+   gradient) against its plain versions on the same batch, at (100, 100,
+   100) sorted, permuted and scattered, (3, 7, 5) and (150, 100, 150): all
+   five outputs to rtol 1e-4 and atol 1e-4·max|ref| (the same rounded
+   operands, exact products, f32 sums in another order), bit-identical
+   between two calls, masked rows zero; the mutation check: the f32 arm on
+   the same inputs (the unrounded 3xTF32 path a build without the rounding
+   runs) must fail that check on the forward, d_xj, d_a and the weight
+   gradient; the forward's weight image and its transposed image (the
+   layout kernels) byte for byte against weight_image_plain; then times
+   the arm beside its bound at the dense BF16 rate (989.4 TFLOP/s), the f32
+   arm's time in the same call, its plain versions and the same einsum
+   compositions on bf16 tensors as the library yardstick, and the backward
+   to the rows' d_xj and d_a launches alone;
 7. runs Predict through cli.run on the card with the launch counters reset
    just before and read just after (each CSR kernel >= 32: 8 batches x 4
    CGConv layers), then the same Predict on the CPU (plain versions, same
@@ -1334,9 +1335,9 @@ def check_bilinear_bf16(batch, dev) -> tuple[dict, dict]:
     masked rows exactly zero, each kernel bit-identical between two calls.
     The mutation check: the f32 arm on the same inputs (the unrounded
     3xTF32 path, which a build without the bf16 rounding would run) must
-    fail that check on the forward, d_a and the weight gradient at MPNN
-    width, by a share of the limit above 1. Returns (the largest |kernel -
-    plain| of each bf16 kernel, the f32 arm's shares)."""
+    fail that check on the forward, d_xj, d_a and the weight gradient at
+    MPNN width, by a share of the limit above 1. Returns (the largest
+    |kernel - plain| of each bf16 kernel, the f32 arm's shares)."""
     from matdeeplearn_torch.ops import fused_bilinear as FB
 
     g = torch.Generator(device=dev).manual_seed(18)
@@ -1388,6 +1389,7 @@ def check_bilinear_bf16(batch, dev) -> tuple[dict, dict]:
                   + "; bit-identical twice; masked rows zero")
             if name == "sorted dst, tail pads":
                 check_weight_image(w1, b1, d, what)
+                check_weight_image(w1, b1, d, what, transposed=True)
             if (d, name) == (100, "sorted dst, tail pads"):
                 f32 = (FB.fused_bilinear(*args),
                        *FB.fused_bilinear_bwd(cv, *args))
@@ -1397,7 +1399,7 @@ def check_bilinear_bf16(batch, dev) -> tuple[dict, dict]:
                       f"against the bf16 arm's plain versions: share of the "
                       f"limit " + ", ".join(f"{n} {v:.3g}"
                                             for n, v in mutant.items()))
-                for n in ("output", "d_a", "d_w1"):
+                for n in ("output", "d_xj", "d_a", "d_w1"):
                     if not mutant[n] > 1.0:
                         failures.append(f"the unrounded f32 arm passes the "
                                         f"bf16 arm's check on {n}: the check "
@@ -1408,28 +1410,31 @@ def check_bilinear_bf16(batch, dev) -> tuple[dict, dict]:
     return err, mutant
 
 
-def check_weight_image(w1, b1, d, what):
+def check_weight_image(w1, b1, d, what, transposed=False):
     """The bf16 forward's layout kernels against weight_image_plain: the
     bf16 tiles (and the zero k16-steps that pad the image to whole ring
     stages) byte for byte, b1's TF32 words in their 19 bits (cvt.rna leaves
-    the low 13 unspecified)."""
+    the low 13 unspecified); with `transposed`, the image of W1ᵀ and b1ᵀ
+    that d_xj runs on."""
     from matdeeplearn_torch.ops import fused_bilinear as FB
 
-    got = FB.weight_image(w1, b1, d).cpu()
+    got = FB.weight_image(w1, b1, d, transposed).cpu()
     k = b1.numel() // d
-    kd, np_ = -(-d // 16), 8 * FB.wgmma_width(k)
+    wd, wk = (k, d) if transposed else (d, k)
+    kd, np_ = -(-wd // 16), 8 * FB.wgmma_width(wk)
     steps = (got.numel() - kd * np_ * 128) // (np_ * 32)
-    ref = FB.weight_image_plain(w1.cpu(), b1.cpu(), d, steps)
+    ref = FB.weight_image_plain(w1.cpu(), b1.cpu(), d, steps, transposed)
     nb = steps * np_ * 32
     same = got.numel() == ref.numel() and torch.equal(got[:nb], ref[:nb])
     same = same and torch.equal(got[nb:].view(torch.int32) & ~0x1FFF,
                                 ref[nb:].view(torch.int32) & ~0x1FFF)
     if not same:
-        raise AssertionError(f"bilinear {what}: the bf16 forward's weight "
+        raise AssertionError(f"bilinear {what}: the bf16 forward's "
+                             f"{'transposed ' if transposed else ''}weight "
                              "image differs from weight_image_plain")
-    print(f"  bilinear {what}: weight image ({got.numel()} bytes, "
-          f"{steps - w1.shape[0] * kd} padding k16-steps) equals "
-          "weight_image_plain")
+    print(f"  bilinear {what}: {'transposed ' if transposed else ''}weight "
+          f"image ({got.numel()} bytes, {steps - w1.shape[0] * kd} padding "
+          "k16-steps) equals weight_image_plain")
 
 
 def time_bilinear_bf16(batch, dev, d=100, h=100, k=100):
@@ -1438,7 +1443,10 @@ def time_bilinear_bf16(batch, dev, d=100, h=100, k=100):
     function's operations; the bytes as the f32 arm's, which reads f32
     rows), and the library yardstick on bf16 tensors: the same
     torch.einsum compositions over bf16 copies of the inputs (cuBLAS's bf16
-    GEMMs, f32 accumulation), which the port never calls."""
+    GEMMs, f32 accumulation), which the port never calls. The backward to
+    the rows' parts too (`parts_ms`): its d_xj launch (the forward's tiles
+    over the transposed image) and d_a launch on ready images, and its two
+    layout kernels."""
     from matdeeplearn_torch.ops import fused_bilinear as FB
 
     g = torch.Generator(device=dev).manual_seed(19)
@@ -1493,6 +1501,29 @@ def time_bilinear_bf16(batch, dev, d=100, h=100, k=100):
                 "eh,ed,ek->hdk", a_ext, xj16, ge), 10),
             **bound(fwd_bytes, fwd_flops, BF16_FLOPS),
         },
+    }
+    lib = FB._load_bf16()
+    img_t = FB.weight_image(w1, b1, d, transposed=True)
+    img = FB.weight_image(w1, b1, d)
+    d_xj, d_a = torch.zeros_like(xj), torch.zeros_like(a)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(name, *args):
+        rc = getattr(lib, name)(*args)
+        if rc != 0:
+            raise AssertionError(f"{name} returned {rc}")
+
+    res["fused_bilinear_bwd_bf16"]["parts_ms"] = {
+        "d_xj": device_ms(lambda: launch(
+            "mdl_fused_bilinear_bf16_fwd_image", cot.data_ptr(), a.data_ptr(),
+            img_t.data_ptr(), mask.data_ptr(), d_xj.data_ptr(), e, k, d, h,
+            stream), 20),
+        "d_a": device_ms(lambda: launch(
+            "mdl_fused_bilinear_bf16_bwd_a", xj.data_ptr(), img.data_ptr(),
+            mask.data_ptr(), cot.data_ptr(), d_a.data_ptr(), e, d, k, h,
+            stream), 20),
+        "layouts": device_ms(lambda: (FB.weight_image(w1, b1, d, True),
+                                      FB.weight_image(w1, b1, d)), 20),
     }
     return res, e_real
 
@@ -2776,6 +2807,7 @@ def check_run_modes(dataset, data_dir, trained, dev, smi, counters) -> dict:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -2978,11 +3010,14 @@ def main() -> int:
     for k, t in b16times.items():
         f32k = k[:-len("_bf16")]
         t["f32_ms"] = btimes[f32k]["ms"]
+        parts = "".join(f", {n} {v:.4f} ms" for n, v in
+                        t.get("parts_ms", {}).items())
         print(f"{k} on {smi}, E={tspec.num_edges} ({be_real} real), "
               f"D=H=K=100: kernel {t['ms']:.4f} ms (the f32 arm "
-              f"{btimes[f32k]['ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
-              f"library (bf16 einsum) {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']} at the BF16 rate, "
+              f"{btimes[f32k]['ms']:.4f} ms{parts}), plain "
+              f"{t['plain_ms']:.4f} ms, library (bf16 einsum) "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']} at the BF16 rate, "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of it)")
     del tdata, tbatch
 
@@ -3887,7 +3922,7 @@ def main() -> int:
              "fused_bilinear_bf16.cu", "pallas_bilinear.py:235, :63 (mxu_bf16)",
              bf16_launches["fused_bilinear_fwd_bf16"]),
             ("fused_bilinear_bwd_bf16", "fused_bilinear_bwd_bf16",
-             "fused_bilinear.cu", "pallas_bilinear.py:134, :83 (mxu_bf16)",
+             "fused_bilinear_bf16.cu", "pallas_bilinear.py:134, :83 (mxu_bf16)",
              bf16_launches["fused_bilinear_bwd_bf16"]),
             ("fused_bilinear_wgrad_bf16", "fused_bilinear_wgrad_bf16",
              "fused_bilinear_bf16.cu", "pallas_bilinear.py:134, :83 (mxu_bf16)",
@@ -3918,6 +3953,8 @@ def main() -> int:
         }
         if "f32_ms" in t:
             row["f32_ms"] = t["f32_ms"]  # the f32 arm, timed in the same call
+        if "parts_ms" in t:
+            row["parts_ms"] = t["parts_ms"]  # its launches alone
         if key in ("segment_sum", "gather"):
             # the CSR kernels' callers: each path's launches (counters reset
             # just before it), and the src-sorted shapes MEGNet gives them
@@ -3937,6 +3974,8 @@ def main() -> int:
                 {k: v for k, v in st.items() if k != "kernel"}
                 for st in src_times if st["kernel"] == key]
         kernels.append(row)
+    print(f"chip_smoke on {smi}: {time.perf_counter() - t_script:.1f} s in "
+          "all, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

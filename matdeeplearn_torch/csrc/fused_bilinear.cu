@@ -96,24 +96,12 @@
 //   real edge costs one barrier. No atomics: d_xj and d_a are
 //   bit-identical from run to run.
 //
-// The bf16 arm of the backward to the rows (its last argument; `precision:
-// bf16` runs it, the reference's mxu_bf16) takes W1 rounded to bf16 by the
-// caller (ops/fused_bilinear.py:arm_weight) and xj rounded in its d_a,
-// with f32 accumulation: d_a[e, h] = bf16(xj) · (ge @ bf16(W_h)^T) with ge
-// unrounded, as the reference's chunked schedule (:_bwd_kernel_chunked).
-// One point differs, by design: the reference rounds each unit's a_h·g
-// before its product with W1[h]^T; this backward never forms a·g (one U_h
-// serves d_xj and d_a), so d_xj = Σ_h a_h (ge @ bf16(W_h)^T) + ge @ b1^T,
-// with a·g exact. B has no lo part below the bias unit, so those units
-// take two passes (lo·hi, hi·hi); the bias unit keeps three. Bound at the
-// dense BF16 rate (989.4 TFLOP/s) at chip_smoke's training batch: ≈ 0.0947
-// ms. The bf16 arm of the forward and the weight gradient has kernels of
-// its own on the bf16 tensor cores (fused_bilinear_bf16.cu).
+// The bf16 arm (`precision: bf16`, the reference's mxu_bf16) of all three
+// has kernels of its own on the bf16 tensor cores (fused_bilinear_bf16.cu).
 //
 // The caller zeroes out, d_xj and d_a, and allocates everything; the
 // kernels never synchronise.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -775,13 +763,7 @@ struct BilinearB {
 // wgmma of the next unit drops U. The first TE threads add a unit's WN
 // partials in warpgroup order and write d_a one stage later. Real rows
 // only are written.
-//
-// The bf16 arm (kBf16; the caller's W holds W1 rounded to bf16, b1 as it
-// is): the xj tile is rounded to bf16 (it feeds d_a alone), ge is not, and
-// the units h < H take two passes, lo·hi and hi·hi (their B has no lo
-// part); the bias unit keeps three. So d_a[e, h] = bf16(xj) · (ge @
-// bf16(W_h)^T) and d_xj = Σ_h a[e, h] (ge @ bf16(W_h)^T) + ge @ b1^T.
-template <int NTW, int WN, bool kBf16>
+template <int NTW, int WN>
 __global__ void __launch_bounds__(kThreads, 1)
 bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
                     const uint32_t* __restrict__ ws,
@@ -833,8 +815,8 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
   for (int i = threadIdx.x; i < TE * b.np; i += kThreads) {
     const int r = i / b.np;
     const int c = i - r * b.np;
-    const float v = sc_s[r] != 0.f && c < g.d ? xj[(e0 + r) * g.d + c] : 0.f;
-    x_s[r * b.ldx + c] = kBf16 ? round_bf16(v) : v;
+    x_s[r * b.ldx + c] =
+        sc_s[r] != 0.f && c < g.d ? xj[(e0 + r) * g.d + c] : 0.f;
   }
 
   const int lane = threadIdx.x & 31;
@@ -905,13 +887,8 @@ bilinear_bwd_kernel(const float* __restrict__ xj, const float* __restrict__ a,
         const uint64_t dhi = b_desc(wk + b_hi);
         const uint64_t dlo = b_desc(wk + b_lo);
         wgmma_fence();
-        const int scale = c == 0 && ks == 0 ? 0 : 1;
-        if (kBf16 && !bias) {  // B is bf16: no lo part
-          WgmmaTf32<NTW>::mma(u, alo[ks], dhi, scale);
-          WgmmaTf32<NTW>::mma(u, ahi[ks], dhi, 1);
-        } else {
-          wgmma_3xtf32(u, ahi[ks], alo[ks], dhi, dlo, scale);
-        }
+        wgmma_3xtf32(u, ahi[ks], alo[ks], dhi, dlo,
+                     c == 0 && ks == 0 ? 0 : 1);
       }
     }
     wgmma_commit();
@@ -988,31 +965,20 @@ int bwd_warpgroups(int d, int* wn) {
   return 16;
 }
 
-template <int NTW, int WN, bool kBf16>
-int launch_bwd_arm(const float* xj, const float* a, const uint32_t* ws,
-                   const float* mask, const float* gout, float* dxj, float* da,
-                   const Geometry& g, const BwdLayout& b, cudaStream_t s) {
-  constexpr int TE = 64 * 2 / WN;
-  const size_t smem = bwd_shared_bytes(b, TE, WN);
-  cudaError_t err = cudaFuncSetAttribute(
-      bilinear_bwd_kernel<NTW, WN, kBf16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (g.e + TE - 1) / TE;
-  bilinear_bwd_kernel<NTW, WN, kBf16><<<(unsigned)tiles, kThreads, smem, s>>>(
-      xj, a, ws, mask, gout, dxj, da, g, b);
-  return (int)cudaGetLastError();
-}
-
 template <int NTW, int WN>
 int launch_bwd(const float* xj, const float* a, const uint32_t* ws,
                const float* mask, const float* gout, float* dxj, float* da,
-               const Geometry& g, const BwdLayout& b, bool bf16,
-               cudaStream_t s) {
-  return bf16 ? launch_bwd_arm<NTW, WN, true>(xj, a, ws, mask, gout, dxj, da,
-                                              g, b, s)
-              : launch_bwd_arm<NTW, WN, false>(xj, a, ws, mask, gout, dxj, da,
-                                               g, b, s);
+               const Geometry& g, const BwdLayout& b, cudaStream_t s) {
+  constexpr int TE = 64 * 2 / WN;
+  const size_t smem = bwd_shared_bytes(b, TE, WN);
+  cudaError_t err = cudaFuncSetAttribute(
+      bilinear_bwd_kernel<NTW, WN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (g.e + TE - 1) / TE;
+  bilinear_bwd_kernel<NTW, WN><<<(unsigned)tiles, kThreads, smem, s>>>(
+      xj, a, ws, mask, gout, dxj, da, g, b);
+  return (int)cudaGetLastError();
 }
 
 Geometry make_geometry(long long e, int d, int k, int h) {
@@ -1087,15 +1053,14 @@ long long mdl_fused_bilinear_split_words(int d, int k, int h) {
   return (long long)(h + 1) * (round8(k) / 8) * kstep_words(np);
 }
 
-// w ((h+1)*d x k) is [W1; b1] (W1 as (h*d x k)), its W1 rows rounded to
-// bf16 for the bf16 arm (bf16 != 0); ws holds
+// w ((h+1)*d x k) is [W1; b1] (W1 as (h*d x k)); ws holds
 // mdl_fused_bilinear_split_words(d, k, h) words, no initial value needed;
 // gout (e x k); dxj (e x d) and da (e x h) hold zeros. Launches the weight
 // split, then the tiles.
 int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* w,
                            void* ws, const void* mask, const void* gout,
                            void* dxj, void* da, long long e, int d, int k,
-                           int h, int bf16, void* stream) {
+                           int h, void* stream) {
   if (d < 1 || d > 256 || k < 1 || k > 256 || h < 1) return kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry g = make_geometry(e, d, k, h);
@@ -1114,16 +1079,11 @@ int mdl_fused_bilinear_bwd(const void* xj, const void* a, const void* w,
   const float* gp = static_cast<const float*>(gout);
   float* dxp = static_cast<float*>(dxj);
   float* dap = static_cast<float*>(da);
-  const bool arm = bf16 != 0;
   switch (ntw * wn) {
-    case 8:
-      return launch_bwd<8, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, arm, s);
-    case 13:
-      return launch_bwd<13, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, arm, s);
-    case 26:
-      return launch_bwd<13, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, arm, s);
-    default:
-      return launch_bwd<16, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, arm, s);
+    case 8: return launch_bwd<8, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
+    case 13: return launch_bwd<13, 1>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
+    case 26: return launch_bwd<13, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
+    default: return launch_bwd<16, 2>(xp, ap, wsp, mp, gp, dxp, dap, g, b, s);
   }
 }
 

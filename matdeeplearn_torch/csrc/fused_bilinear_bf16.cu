@@ -1,28 +1,36 @@
 // NNConv's bilinear edge message: the bf16 arm (`precision: bf16`) of its
-// forward and of its weight gradient on Hopper's bf16 tensor cores
-// (sm_90a), with a plain C interface for ctypes (bound in
+// forward, its backward to the rows and its weight gradient on Hopper's
+// bf16 tensor cores (sm_90a), with a plain C interface for ctypes (bound in
 // matdeeplearn_torch/ops/fused_bilinear.py).
 //
 // For the arm the reference package calls mxu_bf16,
 // mdl_fused_bilinear_bf16_fwd replaces ops/pallas_bilinear.py:
-// _fwd_kernel_chunked and :_fwd_kernel, and mdl_fused_bilinear_bf16_wgrad
-// the weight gradient of :_bwd_kernel_chunked and :_bwd_kernel (the
-// backward to the rows stays in fused_bilinear.cu, which gives the
-// notation). The function and its rounding points are the chunked
-// schedule's, with X[e, h D + d] = [a | 1][e, h] * xj[e, d]:
-//   msg = mask * (bf16(X_{h<H}) @ bf16(W1) + xj @ b1)
-//   dW  = bf16(X)^T bf16(mask * g)           (the bias unit's rows too)
-// A product of two bf16 values is exact in f32, so `wgmma ...
-// .f32.bf16.bf16` forms exactly the products of the arm's plain versions
-// (ops/fused_bilinear.py); only the order of the f32 sums differs.
+// _fwd_kernel_chunked and :_fwd_kernel; mdl_fused_bilinear_bf16_fwd_image
+// (on the cotangent) and mdl_fused_bilinear_bf16_bwd_a replace the backward
+// to the rows (d_xj, d_a) of :_bwd_kernel_chunked and :_bwd_kernel, and
+// mdl_fused_bilinear_bf16_wgrad their weight gradient (fused_bilinear.cu,
+// the f32 arm, gives the notation). The function and its rounding points
+// are the chunked schedule's, with X[e, h D + d] = [a | 1][e, h] * xj[e, d]
+// and ge = mask * g:
+//   msg      = mask * (bf16(X_{h<H}) @ bf16(W1) + xj @ b1)
+//   d_xj     = mask * (Σ_{h<H} bf16(a_h ge) @ bf16(W1[h])^T + ge @ b1^T)
+//   d_a[:,h] = rowsum((bf16(xj) @ bf16(W1[h])) * ge)
+//   dW       = bf16(X)^T bf16(ge)            (the bias unit's rows too)
+// (:194-197, :215-217 and the wrapper's g @ b1^T, :406). A product of two
+// bf16 values is exact in f32, so `wgmma ... .f32.bf16.bf16` forms exactly
+// the products of the arm's plain versions (ops/fused_bilinear.py); only
+// the order of the f32 sums differs.
 //
 // Bound: operations. At chip_smoke's training batch (45,509 real edges,
-// D = H = K = 100) each kernel does 9.24e10 operations, 0.0934 ms at the
-// dense BF16 rate (989.4 TFLOP/s). What holds them back (PERF.md §6):
-// forming X (an f32 multiply and half a cvt.rn.bf16x2.f32 an entry, its
-// f32 operands read from shared memory, 4 bytes an entry in the weight
-// gradient), the B tiles' shared-memory reads, and each warpgroup's chain
-// of wgmma into one accumulator, each waiting on the one before.
+// D = H = K = 100) the forward and the weight gradient each do 9.24e10
+// operations, 0.0934 ms at the dense BF16 rate (989.4 TFLOP/s), the
+// backward to the rows twice as many tensor products (d_xj's and d_a's):
+// 0.0948 ms counts the function as the f32 arm's U = ge @ W^T once. What
+// holds them back (PERF.md §6): forming X (an f32 multiply and half a
+// cvt.rn.bf16x2.f32 an entry, its f32 operands read from shared memory, 4
+// bytes an entry in the weight gradient), the B tiles' shared-memory reads,
+// and each warpgroup's chain of wgmma into one accumulator, each waiting on
+// the one before.
 //
 // * mdl_fused_bilinear_bf16_fwd. A layout kernel writes W once a call as the
 //   exact shared-memory image of the wgmma B operand (K-major core matrices of
@@ -53,6 +61,35 @@
 //   batch, against 1.4 GB of f32 W and its split for the f32 kernel). A tile
 //   with no real edge returns at once; the epilogue scales by the mask and
 //   writes real rows only; no atomics.
+// * the backward to the rows: two layout kernels write the forward's image
+//   of W1 (for d_a) and of each unit's transpose W1[h]^T with b1^T (for
+//   d_xj), then two kernels. d_xj is the forward's own function with D and
+//   K exchanged: mdl_fused_bilinear_bf16_fwd_image runs the forward's tiles
+//   on xj := g over the transposed image (the mask is 0 or 1, so masking
+//   the output masks ge), bf16(a_h g) formed in registers as the forward
+//   forms bf16(a_h xj), the bias unit g @ b1^T in 3xTF32. d_a runs on
+//   mdl_fused_bilinear_bf16_bwd_a: a tile of 128 edges in two consumer
+//   warpgroups (one m64 tile each) and a producer warp whose lane 0 streams
+//   the forward's image a whole unit a stage (kd k16-steps of np rows, 23.3
+//   KB at D = K = 100) through a ring of up to 4 slots by cp.async.bulk on
+//   mbarriers; the d_a tile has no bias unit. Its A, bf16(xj), is the same
+//   for every unit: each consumer thread packs its rows' k16-steps
+//   (cvt.rn.bf16x2.f32) into registers once a tile (28 at D = 100, the
+//   steps rounded up to 4, 7, 10 or 16 with zeros, so that no wgmma sits
+//   in a branch), and none of them is written again. Per unit the
+//   warpgroup issues its wgmma m64nNk16 into T_h (52 registers at K =
+//   100), waits, gives the slot back and reduces each row: the fmaf chain
+//   of T_h against f32 mask * g at the same positions (kept in 52
+//   registers while they fit beside A and T, else read from L1), then the 4
+//   lanes of the quad. The other warpgroup's products can run while one
+//   reduces. Per unit and tile at D = K = 100, counted from the shapes:
+//   ~728 cycles of tensor work, the two warpgroups' B reads of 46.6 KB
+//   from shared memory (~364 cycles at 128 B a cycle; g stays out of
+//   shared memory), and the unit's 23.3 KB streamed from L2 into every SM
+//   (the whole 2.33 MB image once per tile: ~0.83 GB a call at chip_smoke's
+//   batch). PERF.md §6 gives what it measures against these. No atomics:
+//   d_xj and d_a are the same bits from run to run; masked rows stay the
+//   caller's zeros; a tile with no real edge returns at once.
 // * mdl_fused_bilinear_bf16_wgrad: dW = bf16(X)^T bf16(mask * g) as a split-K
 //   GEMM over the 64-edge chunks that hold a real edge
 //   (live_chunks_kernel<64>). A prologue writes bf16(mask * g) of each listed
@@ -78,10 +115,13 @@
 // accumulators take 52 at K = 100 and a batch's A fragments 32 (three
 // warpgroups); the weight gradient's 104 (two m64 tiles a warpgroup, so
 // that each chunk of xj is read from L2 by half as many row tiles) and a
-// chunk's A fragments 32.
+// chunk's A fragments 32; d_a's A 28, T 52 and mask * g 52 (two
+// warpgroups). Past K = 200, or past D = 160 with K > 152, d_a's A and T
+// do not fit beside the addresses and ptxas spills or serialises: right,
+// slow, off the main path.
 //
-// The caller allocates everything, the images and out (zeros) too; the
-// kernels never synchronise.
+// The caller allocates everything, the images and out, d_xj and d_a
+// (zeros) too; the kernels never synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -231,10 +271,15 @@ int fwd_choose(const Geometry& g, FwdPlan* p) {
 // row q = (n8 * 2 + kh) * 8 + r of the step, the 16 bytes of row j * 2 np +
 // q hold bf16(W1[h D + 16 s + 8 kh + c][8 n8 + r]) for c < 8 (zero past D,
 // K and the last unit): b_desc's layout, 2 np rows of 16 bytes a
-// k16-step. One thread writes one row.
+// k16-step. With `transposed` the caller's w1 holds each unit as a K x D
+// matrix (the weight of widths (K, D)) and the image is of its transpose:
+// element (row d, column n) of unit h is w1[h D K + n D + d]. One thread
+// writes one row.
 __global__ void __launch_bounds__(kThreads)
 w_image_kernel(const float* __restrict__ w1, Geometry g, int kd, int np,
-               long long rows, uint4* __restrict__ img) {
+               long long rows, int transposed, uint4* __restrict__ img) {
+  const long long rs = transposed ? 1 : g.k;  // strides of a row, a column
+  const long long cs = transposed ? g.d : 1;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < rows;
        i += (long long)gridDim.x * kThreads) {
     const int r = (int)(i & 7);
@@ -245,12 +290,11 @@ w_image_kernel(const float* __restrict__ w1, Geometry g, int kd, int np,
     const int h = (int)(j / kd);
     const int d0 = 16 * (int)(j - (long long)h * kd) + 8 * kh;
     const int n = 8 * n8 + r;
-    const float* src = w1 + (long long)h * g.d * g.k + n;
+    const float* src = w1 + (long long)h * g.d * g.k + n * cs;
     float v[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      v[c] = h < g.h && d0 + c < g.d && n < g.k ? src[(long long)(d0 + c) * g.k]
-                                                : 0.f;
+      v[c] = h < g.h && d0 + c < g.d && n < g.k ? src[(d0 + c) * rs] : 0.f;
     }
     img[i] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
                         pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
@@ -262,27 +306,33 @@ w_image_kernel(const float* __restrict__ w1, Geometry g, int kd, int np,
 // c and c + 4 of a k8-step hold the columns 2c and 2c + 1 because the A
 // fragment of k8-step t is the lane's xj pair of k16-step t / 2, half t %
 // 2 (columns 2 tq and 2 tq + 1 at positions tq and tq + 4).
+// With `transposed`, b1 holds the bias of widths (K, D) and this is its
+// transpose: b1[n D + dd].
 struct BiasB {
   const float* b1;
-  int d, k;
+  int d, k, transposed;
   __device__ float operator()(long long t, int n, int c) const {
     const int dd = 8 * (int)t + pair_col(c);
-    return dd < d && n < k ? b1[(long long)dd * k + n] : 0.f;
+    if (dd >= d || n >= k) return 0.f;
+    return transposed ? b1[(long long)n * d + dd] : b1[(long long)dd * k + n];
   }
 };
 
-// Launches the two layout kernels: bf16(W1) at img, b1's split after it.
+// Launches the two layout kernels: bf16(W1) at img, b1's split after it
+// (of each unit's transpose and b1's with `transposed`).
 int launch_image(const float* w1, const float* b1, uint8_t* img,
-                 const Geometry& g, const FwdPlan& p, cudaStream_t s) {
+                 const Geometry& g, const FwdPlan& p, int transposed,
+                 cudaStream_t s) {
   const long long rows = (long long)p.steps * p.np * 2;
   if (rows > 0) {
     const long long blocks = (rows + kThreads - 1) / kThreads;
     w_image_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), kThreads, 0,
-                     s>>>(w1, g, p.kd, p.np, rows, reinterpret_cast<uint4*>(img));
+                     s>>>(w1, g, p.kd, p.np, rows, transposed,
+                          reinterpret_cast<uint4*>(img));
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
-  return launch_split(BiasB{b1, g.d, g.k}, 2LL * p.kd, p.np,
+  return launch_split(BiasB{b1, g.d, g.k, transposed}, 2LL * p.kd, p.np,
                       reinterpret_cast<uint32_t*>(img + p.bias_off), s);
 }
 
@@ -499,6 +549,244 @@ int launch_fwd(const float* xj, const float* a, const uint8_t* img,
   bilinear_bf16_fwd_kernel<NTW>
       <<<(unsigned)tiles, 128 * NCW + 32, smem, s>>>(xj, a, img, mask, out, g, p);
   return (int)cudaGetLastError();
+}
+
+// The forward's tiles for these widths on an image laid out already.
+int launch_fwd_any(const float* xj, const float* a, const uint8_t* img,
+                   const float* mask, float* out, const Geometry& g,
+                   const FwdPlan& p, cudaStream_t s) {
+  switch (ntw_bucket(round8(g.k) / 8)) {
+    case 4: return launch_fwd<4>(xj, a, img, mask, out, g, p, s);
+    case 13: return launch_fwd<13>(xj, a, img, mask, out, g, p, s);
+    case 19: return launch_fwd<19>(xj, a, img, mask, out, g, p, s);
+    case 25: return launch_fwd<25>(xj, a, img, mask, out, g, p, s);
+    default: return launch_fwd<32>(xj, a, img, mask, out, g, p, s);
+  }
+}
+
+// ---- d_a of the backward to the rows: (bf16(xj) @ bf16(W_h)) . (mask * g) --
+
+constexpr int kAEdges = 16 * kCW;  // edges of a d_a tile: two warpgroups
+
+// k16-steps of a unit that a d_a kernel keeps in registers: round16(D) / 16
+// rounded up to 4, 7, 10 or 16 (0 past D = 256). The steps past the unit's
+// are zeros in A and in the ring's slots.
+__host__ __device__ constexpr int bwd_a_steps(int kd) {
+  return kd <= 4 ? 4 : kd <= 7 ? 7 : kd <= 10 ? 10 : kd <= 16 ? 16 : 0;
+}
+
+// Whether the thread's mask * g values stay in registers beside A (4 KD)
+// and the accumulator (4 NTW): within 168 registers with room for the
+// addresses. Else the epilogue reads them from global memory (L1) each
+// unit.
+__host__ __device__ constexpr bool bwd_a_g_in_registers(int kd, int ntw) {
+  return 4 * kd + 8 * ntw <= 136;
+}
+
+struct BwdAPlan {
+  int kd;           // k16-steps of a unit in the forward's image
+  int np;           // its B rows: 8 NTW
+  int unit_bytes;   // a unit of the image: kd k16-steps, one bulk copy
+  int stage_bytes;  // a slot of the ring: bwd_a_steps(kd) k16-steps
+  int ring;         // slots: 4 where they fit, down to 1
+};
+
+size_t bwd_a_shared_bytes(const BwdAPlan& b) {
+  return (size_t)b.ring * b.stage_bytes + kAEdges * 4 + 2 * b.ring * 8;
+}
+
+// The plan of the forward's image for these widths (its kd and np), with
+// the deepest ring of whole units that fits; kBadShape where none does.
+int bwd_a_choose(const Geometry& g, BwdAPlan* b) {
+  FwdPlan p;
+  if (fwd_choose(g, &p) != 0 || bwd_a_steps(p.kd) == 0) return kBadShape;
+  b->kd = p.kd;
+  b->np = p.np;
+  b->unit_bytes = p.kd * p.np * 32;
+  b->stage_bytes = bwd_a_steps(p.kd) * p.np * 32;
+  for (b->ring = 4; b->ring >= 1; --b->ring) {
+    if (bwd_a_shared_bytes(*b) <= (size_t)kMaxShared) return 0;
+  }
+  return kBadShape;
+}
+
+// One tile of 128 edges: consumer warp w (of two warpgroups) owns rows 16 w
+// .. 16 w + 15, lane (gr, tq) rows r0 = 16 w + gr and r0 + 8; warp kCW is
+// the producer, whose lane 0 streams unit h of the forward's image
+// (bf16(W_h), D rows padded to kd k16-steps by np columns) into slot h %
+// ring by one bulk copy. A = bf16(xj) of the lane's rows in registers, KD
+// k16-steps, built once: no register a wgmma reads is ever written again.
+// For each unit the warpgroup issues KD wgmma m64nNk16 into acc = T_h (the
+// steps past kd multiply zeros), waits, gives the slot back, and reduces
+// its row: d_a[e, h] = the fmaf chain of the lane's T_h values against
+// mask * g at the same positions (columns 8 j + 2 tq, 8 j + 2 tq + 1 for j
+// < NTW), then over the 4 lanes of the quad as (v0 + v1) + (v2 + v3). A
+// warpgroup holds whole rows, so no sum crosses warps. Real rows only are
+// written.
+template <int KD, int NTW>
+__global__ void __launch_bounds__(kBlock, 1)
+bilinear_bf16_bwd_a_kernel(const float* __restrict__ xj,
+                           const uint8_t* __restrict__ img,
+                           const float* __restrict__ mask,
+                           const float* __restrict__ gout,
+                           float* __restrict__ da, Geometry g, BwdAPlan b) {
+  constexpr bool kGReg = bwd_a_g_in_registers(KD, NTW);
+  extern __shared__ __align__(128) uint8_t smem_b[];
+  uint8_t* ring = smem_b;
+  float* sc_s = reinterpret_cast<float*>(ring + (size_t)b.ring * b.stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sc_s + kAEdges);
+  uint64_t* empty = full + b.ring;
+
+  const long long e0 = (long long)blockIdx.x * kAEdges;
+  if (!load_scale<kAEdges>(mask, e0, g.e, sc_s)) return;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < b.ring; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kCW);
+    }
+    mbar_fence_init();
+  }
+  // the k16-steps of each slot past a unit's stay zero: the copies fill kd
+  const int tail = (b.stage_bytes - b.unit_bytes) / 16;
+  for (int i = threadIdx.x; i < b.ring * tail; i += kBlock) {
+    const int slot = i / tail;
+    uint4* z = reinterpret_cast<uint4*>(ring + (size_t)slot * b.stage_bytes +
+                                        b.unit_bytes);
+    z[i - slot * tail] = make_uint4(0, 0, 0, 0);
+  }
+  fence_proxy_async();  // those zeros are read by wgmma (the async proxy)
+  __syncthreads();
+
+  if (warp == kCW) {  // the producer: one bulk copy a unit
+    if (lane == 0) {
+      for (int h = 0; h < g.h; ++h) {
+        const int slot = h % b.ring;
+        if (h >= b.ring) mbar_wait(empty + slot, ((h / b.ring) - 1) & 1);
+        mbar_arrive_tx(full + slot, (uint32_t)b.unit_bytes);
+        bulk_g2s(ring + (size_t)slot * b.stage_bytes,
+                 img + (long long)h * b.unit_bytes, (uint32_t)b.unit_bytes,
+                 full + slot);
+      }
+    }
+    return;
+  }
+
+  const int r0 = 16 * warp + (lane >> 2);
+  const int tq = lane & 3;
+  const float sc0 = sc_s[r0], sc1 = sc_s[r0 + 8];
+  const bool real0 = sc0 != 0.f, real1 = sc1 != 0.f;
+  const float* x0 = xj + (e0 + r0) * g.d;
+  const float* x1 = x0 + 8 * g.d;
+  auto x_at = [&](bool real, const float* xr, int c) {
+    return real && c < g.d ? __ldg(xr + c) : 0.f;
+  };
+  uint32_t af[KD][4];
+#pragma unroll
+  for (int s = 0; s < KD; ++s) {
+    const int c = 16 * s + 2 * tq;
+    af[s][0] = pack_bf16(x_at(real0, x0, c), x_at(real0, x0, c + 1));
+    af[s][1] = pack_bf16(x_at(real1, x1, c), x_at(real1, x1, c + 1));
+    af[s][2] = pack_bf16(x_at(real0, x0, c + 8), x_at(real0, x0, c + 9));
+    af[s][3] = pack_bf16(x_at(real1, x1, c + 8), x_at(real1, x1, c + 9));
+  }
+  // mask * g at the accumulator's positions (zero past K, masked rows)
+  const float* g0 = gout + (e0 + r0) * g.k;
+  const float* g1 = g0 + 8 * g.k;
+  auto g_at = [&](float sc, const float* gr, int c) {
+    if (sc == 0.f || c >= g.k) return 0.f;
+    return sc * __ldg(gr + c);
+  };
+  float gv[kGReg ? NTW : 1][4];
+  if constexpr (kGReg) {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int c = 8 * j + 2 * tq;
+      gv[j][0] = g_at(sc0, g0, c);
+      gv[j][1] = g_at(sc0, g0, c + 1);
+      gv[j][2] = g_at(sc1, g1, c);
+      gv[j][3] = g_at(sc1, g1, c + 1);
+    }
+  }
+  float* da0 = da + (e0 + r0) * g.h;
+  float* da1 = da0 + 8 * g.h;
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  for (int h = 0; h < g.h; ++h) {
+    const int slot = h % b.ring;
+    mbar_wait(full + slot, (h / b.ring) & 1);
+    const uint8_t* st = ring + (size_t)slot * b.stage_bytes;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KD; ++s) {
+      WgmmaBf16<NTW>::mma(acc, af[s], b_desc(st + s * b.np * 32), s > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);
+    float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      float v[4];
+      if constexpr (kGReg) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = gv[j][q];
+      } else {
+        const int c = 8 * j + 2 * tq;
+        v[0] = g_at(sc0, g0, c);
+        v[1] = g_at(sc0, g0, c + 1);
+        v[2] = g_at(sc1, g1, c);
+        v[3] = g_at(sc1, g1, c + 1);
+      }
+      dot0 = fmaf(acc[j][0], v[0], dot0);
+      dot0 = fmaf(acc[j][1], v[1], dot0);
+      dot1 = fmaf(acc[j][2], v[2], dot1);
+      dot1 = fmaf(acc[j][3], v[3], dot1);
+    }
+    dot0 += __shfl_xor_sync(0xffffffffu, dot0, 1);
+    dot0 += __shfl_xor_sync(0xffffffffu, dot0, 2);
+    dot1 += __shfl_xor_sync(0xffffffffu, dot1, 1);
+    dot1 += __shfl_xor_sync(0xffffffffu, dot1, 2);
+    if (tq == 0) {
+      if (real0) da0[h] = dot0;
+      if (real1) da1[h] = dot1;
+    }
+  }
+}
+
+template <int KD, int NTW>
+int launch_bwd_a(const float* xj, const uint8_t* img, const float* mask,
+                 const float* gout, float* da, const Geometry& g,
+                 const BwdAPlan& b, cudaStream_t s) {
+  const size_t smem = bwd_a_shared_bytes(b);
+  const cudaError_t err = cudaFuncSetAttribute(
+      bilinear_bf16_bwd_a_kernel<KD, NTW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (g.e + kAEdges - 1) / kAEdges;
+  bilinear_bf16_bwd_a_kernel<KD, NTW><<<(unsigned)tiles, kBlock, smem, s>>>(
+      xj, img, mask, gout, da, g, b);
+  return (int)cudaGetLastError();
+}
+
+template <int NTW>
+int launch_bwd_a_steps(const float* xj, const uint8_t* img, const float* mask,
+                       const float* gout, float* da, const Geometry& g,
+                       const BwdAPlan& b, cudaStream_t s) {
+  switch (bwd_a_steps(b.kd)) {
+    case 4: return launch_bwd_a<4, NTW>(xj, img, mask, gout, da, g, b, s);
+    case 7: return launch_bwd_a<7, NTW>(xj, img, mask, gout, da, g, b, s);
+    case 10: return launch_bwd_a<10, NTW>(xj, img, mask, gout, da, g, b, s);
+    default: return launch_bwd_a<16, NTW>(xj, img, mask, gout, da, g, b, s);
+  }
 }
 
 // ---- the weight gradient: dW = bf16(X)^T bf16(mask * g) -------------------
@@ -809,16 +1097,68 @@ long long mdl_fused_bilinear_bf16_image_bytes(int d, int k, int h) {
 
 // Writes the forward's weight image of w1 (h x d*k) and b1 (d*k) into img
 // (mdl_fused_bilinear_bf16_image_bytes bytes): the layout kernels alone.
+// With transposed != 0, w1 (h x k*d) and b1 (k*d) are the weight of
+// widths (k, d), and the image is of each unit's transpose and of b1's:
+// the forward's B for d_xj (mdl_fused_bilinear_bf16_fwd_image on g).
 int mdl_fused_bilinear_bf16_weight_image(const void* w1, const void* b1,
                                          void* img, int d, int k, int h,
-                                         void* stream) {
+                                         int transposed, void* stream) {
   if (bad_widths(d, k, h)) return kBadShape;
   const Geometry g = make_geometry(0, d, k, h);
   FwdPlan p;
   if (fwd_choose(g, &p) != 0) return kBadShape;
   return launch_image(static_cast<const float*>(w1),
                       static_cast<const float*>(b1), static_cast<uint8_t*>(img),
-                      g, p, static_cast<cudaStream_t>(stream));
+                      g, p, transposed, static_cast<cudaStream_t>(stream));
+}
+
+// The forward's tiles alone on an image that
+// mdl_fused_bilinear_bf16_weight_image wrote for (d, k, h): out (e x k,
+// zeros) = mask * (Σ_h bf16(a_h xj) @ bf16(W_h) + xj @ b1). On g (e x k)
+// with the image of W1's transpose (d and k exchanged) this is the
+// backward's d_xj = mask * (Σ_h bf16(a_h g) @ bf16(W_h)^T + g @ b1^T).
+int mdl_fused_bilinear_bf16_fwd_image(const void* xj, const void* a,
+                                      const void* img, const void* mask,
+                                      void* out, long long e, int d, int k,
+                                      int h, void* stream) {
+  if (bad_widths(d, k, h)) return kBadShape;
+  const Geometry g = make_geometry(e, d, k, h);
+  FwdPlan p;
+  if (fwd_choose(g, &p) != 0) return kBadShape;
+  return launch_fwd_any(
+      static_cast<const float*>(xj), static_cast<const float*>(a),
+      static_cast<const uint8_t*>(img), static_cast<const float*>(mask),
+      static_cast<float*>(out), g, p, static_cast<cudaStream_t>(stream));
+}
+
+// d_a (e x h, zeros) of the backward to the rows: d_a[e, h] = Σ_n
+// (bf16(xj) @ bf16(W_h))[e, n] * mask[e] * gout[e, n], with img the
+// forward's weight image of (d, k, h) (mdl_fused_bilinear_bf16_weight_image,
+// transposed 0; its units alone are read). xj (e x d), mask (e), gout (e x
+// k), f32. Returns 0 or a cudaError_t (kBadShape for widths the tiling
+// cannot take).
+int mdl_fused_bilinear_bf16_bwd_a(const void* xj, const void* img,
+                                  const void* mask, const void* gout,
+                                  void* da, long long e, int d, int k, int h,
+                                  void* stream) {
+  if (bad_widths(d, k, h)) return kBadShape;
+  const Geometry g = make_geometry(e, d, k, h);
+  BwdAPlan b;
+  if (bwd_a_choose(g, &b) != 0) return kBadShape;
+  if (h == 0 || e == 0) return 0;
+  const float* xp = static_cast<const float*>(xj);
+  const uint8_t* im = static_cast<const uint8_t*>(img);
+  const float* mp = static_cast<const float*>(mask);
+  const float* gp = static_cast<const float*>(gout);
+  float* dp = static_cast<float*>(da);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ntw_bucket(round8(k) / 8)) {
+    case 4: return launch_bwd_a_steps<4>(xp, im, mp, gp, dp, g, b, s);
+    case 13: return launch_bwd_a_steps<13>(xp, im, mp, gp, dp, g, b, s);
+    case 19: return launch_bwd_a_steps<19>(xp, im, mp, gp, dp, g, b, s);
+    case 25: return launch_bwd_a_steps<25>(xp, im, mp, gp, dp, g, b, s);
+    default: return launch_bwd_a_steps<32>(xp, im, mp, gp, dp, g, b, s);
+  }
 }
 
 // All pointers are device pointers on the current device: xj (e x d), a
@@ -837,20 +1177,13 @@ int mdl_fused_bilinear_bf16_fwd(const void* xj, const void* a, const void* w1,
   if (fwd_choose(g, &p) != 0) return kBadShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint8_t* im = static_cast<uint8_t*>(img);
-  int err = launch_image(static_cast<const float*>(w1),
-                         static_cast<const float*>(b1), im, g, p, s);
+  const int err = launch_image(static_cast<const float*>(w1),
+                               static_cast<const float*>(b1), im, g, p, 0, s);
   if (err != 0) return err;
-  const float* xp = static_cast<const float*>(xj);
-  const float* ap = static_cast<const float*>(a);
-  const float* mp = static_cast<const float*>(mask);
-  float* op = static_cast<float*>(out);
-  switch (ntw_bucket(round8(k) / 8)) {
-    case 4: return launch_fwd<4>(xp, ap, im, mp, op, g, p, s);
-    case 13: return launch_fwd<13>(xp, ap, im, mp, op, g, p, s);
-    case 19: return launch_fwd<19>(xp, ap, im, mp, op, g, p, s);
-    case 25: return launch_fwd<25>(xp, ap, im, mp, op, g, p, s);
-    default: return launch_fwd<32>(xp, ap, im, mp, op, g, p, s);
-  }
+  return launch_fwd_any(static_cast<const float*>(xj),
+                        static_cast<const float*>(a), im,
+                        static_cast<const float*>(mask),
+                        static_cast<float*>(out), g, p, s);
 }
 
 // Bytes of the weight gradient's B image (its gimg argument): every 64-edge

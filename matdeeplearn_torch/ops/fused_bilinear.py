@@ -41,36 +41,35 @@ csrc/fused_bilinear.cu gives the tile sizes and bounds.
 products take operands rounded to bf16, to nearest with ties to even, and
 accumulate in f32, at the rounding points of the reference's chunked
 schedules (:_fwd_kernel_chunked, :_bwd_kernel_chunked), which are what its
-TPU compiles, except one:
+TPU compiles:
 
   * forward: bf16(a·xj) @ bf16(W1), plus xj @ b1 unrounded (:255, :272);
   * weight gradient: bf16(X)ᵀ bf16(mask·g), the bias unit too: d_b1 =
     bf16(xj)ᵀ bf16(mask·g) (:161, :207);
-  * d_a[:, h] = bf16(xj) · (g @ bf16(W1[h])ᵀ), g unrounded (:191-197);
-  * d_xj = Σ_h a_h·(g @ bf16(W1[h])ᵀ) + g @ b1ᵀ: the one point not
-    followed. The reference rounds each unit's product a_h·g to bf16
-    before its contraction (:216); the backward here folds one U_h =
-    (mask·g) @ W_hᵀ into both d_xj and d_a, so a·g is never formed, and
-    it takes the exact a_h·U_h instead. tests/test_torch_fused_bilinear.py
-    pins every point and the size of this deviation.
+  * d_a[:, h] = rowsum((bf16(xj) @ bf16(W1[h]))·g), g unrounded
+    (:194-197);
+  * d_xj = Σ_h bf16(a_h·g) @ bf16(W1[h])ᵀ + g @ b1ᵀ, the bias term
+    unrounded (:215-217, :406): the forward's function over (g, a, W1ᵀ,
+    b1ᵀ) with D and K exchanged.
 
 Products of bf16 values are exact in f32 (and in TF32), so each arm is
 exact up to the order of its f32 sums; the arms' plain versions compute
 them in f32 over the rounded operands.
 
-The bf16 arm of the forward and the weight gradient runs on kernels of its
-own (csrc/fused_bilinear_bf16.cu), on the bf16 tensor cores (`wgmma`
-m64nNk16, bf16 operands, f32 sums), bound by their operations at 989.4
-TFLOP/s and held back by the shared-memory reads that form X and by each
-warpgroup's chain of dependent products (PERF.md §6). The forward
-takes W as a bf16 image laid out once a call as the tensor cores' B tiles
-read it (`weight_image`; its plain twin `weight_image_plain`), streamed
-into shared memory by bulk copies through a ring of mbarrier-guarded
-stages, with bf16(a·xj) formed in registers; the bias unit stays 3xTF32.
-The weight gradient takes bf16(mask·g) as one such image per 64-edge chunk
-(BF16_CHUNK) and forms bf16(X)ᵀ in registers from the chunk's f32 rows,
-split over the chunks with a real edge and summed in a fixed order.
-Shapes whose tiles do not fit raise.
+The bf16 arm runs on kernels of its own (csrc/fused_bilinear_bf16.cu), on
+the bf16 tensor cores (`wgmma` m64nNk16, bf16 operands, f32 sums), bound by
+their operations at 989.4 TFLOP/s (PERF.md §6). The forward takes W as a
+bf16 image laid out once a call as the tensor cores' B tiles read it
+(`weight_image`; its plain twin `weight_image_plain`), streamed into shared
+memory by bulk copies through a ring of mbarrier-guarded stages, with
+bf16(a·xj) formed in registers; the bias unit stays 3xTF32. The backward to
+the rows runs d_xj on the forward's kernel over the image of each unit's
+transpose (`weight_image(..., transposed=True)`), and d_a on a kernel of
+its own over the forward's image, a unit a stage, with bf16(xj) built once
+a tile in registers. The weight gradient takes bf16(mask·g) as one such
+image per 64-edge chunk (BF16_CHUNK) and forms bf16(X)ᵀ in registers from
+the chunk's f32 rows, split over the chunks with a real edge and summed in
+a fixed order. Shapes whose tiles do not fit raise.
 
 Dispatch goes by the tensor's device alone: a CPU tensor takes the plain
 PyTorch version (`*_plain`); a CUDA tensor launches the kernel or raises.
@@ -109,16 +108,14 @@ _lib_bf16 = None
 
 
 def _load():
-    """The bound library of csrc/fused_bilinear.cu (ops/_build.py); the
-    last int of the backward to the rows selects its bf16 arm."""
+    """The bound library of csrc/fused_bilinear.cu (ops/_build.py)."""
     global _lib
     if _lib is None:
         lib = _build.library("fused_bilinear")
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mdl_fused_bilinear_fwd.argtypes = [vp] * 5 + [cl, ci, ci, ci, vp]
         lib.mdl_fused_bilinear_fwd.restype = ci
-        lib.mdl_fused_bilinear_bwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, ci,
-                                                          vp]
+        lib.mdl_fused_bilinear_bwd.argtypes = [vp] * 8 + [cl, ci, ci, ci, vp]
         lib.mdl_fused_bilinear_bwd.restype = ci
         lib.mdl_fused_bilinear_wgrad.argtypes = ([vp] * 7
                                                  + [cl, ci, ci, ci, ci, vp])
@@ -134,20 +131,23 @@ def _load():
 
 
 def _load_bf16():
-    """The bound library of csrc/fused_bilinear_bf16.cu: the bf16 arm of
-    the forward and the weight gradient."""
+    """The bound library of csrc/fused_bilinear_bf16.cu: the bf16 arm."""
     global _lib_bf16
     if _lib_bf16 is None:
         lib = _build.library("fused_bilinear_bf16")
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mdl_fused_bilinear_bf16_image_bytes.argtypes = [ci, ci, ci]
         lib.mdl_fused_bilinear_bf16_image_bytes.restype = cl
-        lib.mdl_fused_bilinear_bf16_weight_image.argtypes = [vp] * 3 + [ci, ci,
-                                                                        ci, vp]
+        lib.mdl_fused_bilinear_bf16_weight_image.argtypes = (
+            [vp] * 3 + [ci] * 4 + [vp])
         lib.mdl_fused_bilinear_bf16_weight_image.restype = ci
         lib.mdl_fused_bilinear_bf16_fwd.argtypes = [vp] * 7 + [cl, ci, ci, ci,
                                                                vp]
         lib.mdl_fused_bilinear_bf16_fwd.restype = ci
+        for fn in (lib.mdl_fused_bilinear_bf16_fwd_image,
+                   lib.mdl_fused_bilinear_bf16_bwd_a):
+            fn.argtypes = [vp] * 5 + [cl, ci, ci, ci, vp]
+            fn.restype = ci
         lib.mdl_fused_bilinear_bf16_gimg_bytes.argtypes = [cl, ci, ci, ci]
         lib.mdl_fused_bilinear_bf16_gimg_bytes.restype = cl
         lib.mdl_fused_bilinear_bf16_partial_floats.argtypes = [ci, ci, ci]
@@ -216,12 +216,6 @@ def _with_bias_unit(a) -> torch.Tensor:
     return torch.cat([a, torch.ones_like(a[:, :1])], 1)
 
 
-def arm_weight(w1, bf16: bool) -> torch.Tensor:
-    """W1 as the bf16 arm reads it (rounded to bf16; b1 never is), or
-    W1 itself."""
-    return round_bf16(w1) if bf16 else w1
-
-
 def wgmma_width(k: int) -> int:
     """The bf16 kernels' n8-tiles for K columns: the smallest of
     WGMMA_WIDTHS that holds round8(K)."""
@@ -241,8 +235,16 @@ def _tf32_split(v: torch.Tensor) -> tuple:
     return hi, (rest.view(torch.int32) + 0x1000) & ~0x1FFF
 
 
-def weight_image_plain(w1, b1, d: int, steps: int | None = None
-                       ) -> torch.Tensor:
+def transposed_weight(w1, b1, d: int) -> tuple:
+    """(W1ᵀ, b1ᵀ): each unit's (D, K) matrix and the bias transposed, the
+    weight of widths (K, D) whose forward over g is d_xj."""
+    h, k = w1.shape[0], b1.numel() // d
+    return (w1.reshape(h, d, k).transpose(1, 2).reshape(h, k * d),
+            b1.reshape(d, k).t().reshape(-1))
+
+
+def weight_image_plain(w1, b1, d: int, steps: int | None = None,
+                       transposed: bool = False) -> torch.Tensor:
     """The bf16 forward's weight image as bytes (uint8), as its layout
     kernels write it: for each unit h < H and k16-step s of its D rows
     (zero-padded to whole k16-steps), the B tile of wgmma m64nNk16 in
@@ -252,7 +254,13 @@ def weight_image_plain(w1, b1, d: int, steps: int | None = None
     (the kernel pads to whole ring stages; default none). Then b1 split
     into TF32 hi and lo words for the bias unit's 3xTF32 k8-steps t:
     position c of a k8-step is b1 row 8t + (2c if c < 4 else 2c - 7), the
-    column order of the A fragments the kernel takes from its xj pairs."""
+    column order of the A fragments the kernel takes from its xj pairs.
+    transposed: the image of transposed_weight(w1, b1, d), of widths
+    (K, D)."""
+    if transposed:
+        k = b1.numel() // d
+        w1, b1 = transposed_weight(w1, b1, d)
+        d = k
     h = w1.shape[0]
     k = b1.numel() // d
     kd, n8 = -(-d // 16), wgmma_width(k)
@@ -274,21 +282,24 @@ def weight_image_plain(w1, b1, d: int, steps: int | None = None
                       words.contiguous().view(torch.uint8).reshape(-1)])
 
 
-def weight_image(w1, b1, d: int) -> torch.Tensor:
+def weight_image(w1, b1, d: int, transposed: bool = False) -> torch.Tensor:
     """weight_image_plain on a CPU tensor; on a CUDA tensor what the bf16
-    forward's layout kernels write (the kernels alone, uncounted)."""
+    forward's layout kernels write (the kernels alone, uncounted), reading
+    W1 and b1 transposed in place with `transposed`."""
     if w1.device.type == "cpu":
-        return weight_image_plain(w1, b1, d)
+        return weight_image_plain(w1, b1, d, transposed=transposed)
     k = b1.numel() // d
     h = w1.shape[0]
+    wd, wk = (k, d) if transposed else (d, k)  # the image's widths
     lib = _load_bf16()
-    img = torch.empty(_size(lib.mdl_fused_bilinear_bf16_image_bytes(d, k, h),
+    img = torch.empty(_size(lib.mdl_fused_bilinear_bf16_image_bytes(wd, wk, h),
                             "mdl_fused_bilinear_bf16_image_bytes"),
                       dtype=torch.uint8, device=w1.device)
     with torch.cuda.device(w1.device):
         rc = lib.mdl_fused_bilinear_bf16_weight_image(
             w1.contiguous().data_ptr(), b1.contiguous().data_ptr(),
-            img.data_ptr(), d, k, h, torch.cuda.current_stream().cuda_stream)
+            img.data_ptr(), wd, wk, h, int(transposed),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "mdl_fused_bilinear_bf16_weight_image")
     return img
 
@@ -317,17 +328,29 @@ def fused_bilinear_plain(xj, a, w1, b1, mask, bf16: bool = False):
 def bwd_rows_plain(g, xj, a, w1, b1, mask, bf16: bool = False) -> tuple:
     """Plain (d_xj, d_a): with ge = mask·g and U[e, h] = ge[e] @ W[h]ᵀ
     over the units of [W1; b1], d_xj = Σ_h [a | 1][e, h]·U[e, h] and
-    d_a[e, h] = xj[e] · U[e, h]. The bf16 arm takes W1 and, in d_a, xj
-    rounded to bf16 (ge and the bias unit unrounded)."""
-    e, d, h, _ = _dims(xj, a, b1)
+    d_a[e, h] = xj[e] · U[e, h]. The bf16 arm at the chunked schedule's
+    points: d_xj = fused_bilinear_plain(ge, a, W1ᵀ, b1ᵀ, mask, bf16) (the
+    forward with D and K exchanged) and d_a[e, h] = (bf16(xj) @
+    bf16(W1[h]))[e] · ge[e]."""
+    e, d, h, k = _dims(xj, a, b1)
     ge = g * mask[:, None]
-    wt = extend_weight(arm_weight(w1, bf16), b1, d).t()
-    xd = round_bf16(xj) if bf16 else xj
+    if bf16:
+        d_xj = fused_bilinear_plain(ge, a, *transposed_weight(w1, b1, d), mask,
+                                    bf16=True)
+        # (D, H·K): column h·K + n is bf16(W1[h])[:, n]
+        w = round_bf16(w1).reshape(h, d, k).transpose(0, 1).reshape(d, h * k)
+        xd = round_bf16(xj)
+        d_a = torch.empty_like(a)
+        for sl in _chunks(e, h * k):
+            t = (xd[sl] @ w).reshape(-1, h, k)
+            d_a[sl] = (t * ge[sl, None, :]).sum(-1)
+        return d_xj, d_a
+    wt = extend_weight(w1, b1, d).t()
     d_xj, d_a = torch.empty_like(xj), torch.empty_like(a)
     for sl in _chunks(e, (h + 1) * d):
         u = (ge[sl] @ wt).reshape(-1, h + 1, d)
         d_xj[sl] = torch.einsum("eh,ehd->ed", _with_bias_unit(a[sl]), u)
-        d_a[sl] = torch.einsum("ed,ehd->eh", xd[sl], u[:, :h])
+        d_a[sl] = torch.einsum("ed,ehd->eh", xj[sl], u[:, :h])
     return d_xj, d_a
 
 
@@ -436,8 +459,8 @@ def fused_bilinear(xj, a, w1, b1, mask, bf16: bool = False) -> torch.Tensor:
 
 def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask, bf16: bool = False
                             ) -> tuple:
-    """(d_xj, d_a) for the cotangent g: the backward kernel (its bf16 arm
-    with bf16)."""
+    """(d_xj, d_a) for the cotangent g: the backward kernel, or with bf16
+    the bf16 arm's two (_bwd_rows_bf16)."""
     if xj.device.type == "cpu":
         return bwd_rows_plain(g, xj, a, w1, b1, mask, bf16)
     _check_inputs(xj, a, mask, w1, b1, g)
@@ -450,7 +473,9 @@ def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask, bf16: bool = False
     d_a = torch.zeros_like(a)
     if e == 0 or k == 0:
         return d_xj, d_a
-    w = extend_weight(arm_weight(w1, bf16), b1, d)
+    if bf16:
+        return _bwd_rows_bf16(g, xj, a, w1, b1, mask, d_xj, d_a)
+    w = extend_weight(w1, b1, d)
     lib = _load()
     # the kernel's TF32 hi/lo split of w, in the order its tiles read it
     ws = torch.empty(lib.mdl_fused_bilinear_split_words(d, k, h),
@@ -461,9 +486,32 @@ def fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask, bf16: bool = False
                                         w.data_ptr(), ws.data_ptr(),
                                         mask.data_ptr(), g.data_ptr(),
                                         d_xj.data_ptr(), d_a.data_ptr(), e, d,
-                                        k, h, int(bf16), stream)
+                                        k, h, stream)
     _raise_on(rc, "mdl_fused_bilinear_bwd")
-    _count("fused_bilinear_bwd", bf16)
+    _count("fused_bilinear_bwd", False)
+    return d_xj, d_a
+
+
+def _bwd_rows_bf16(g, xj, a, w1, b1, mask, d_xj, d_a) -> tuple:
+    """fused_bilinear_bwd_rows's bf16 arm on the card (checked inputs,
+    zeroed outputs): the layout kernels of W1ᵀ and W1, then d_xj on the
+    forward's tiles over (g, a, W1ᵀ, b1ᵀ) and d_a on its own kernel; one
+    count."""
+    e, d, h, k = _dims(xj, a, b1)
+    img_t = weight_image(w1, b1, d, transposed=True)
+    img = weight_image(w1, b1, d)
+    lib = _load_bf16()
+    with torch.cuda.device(xj.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mdl_fused_bilinear_bf16_fwd_image(
+            g.data_ptr(), a.data_ptr(), img_t.data_ptr(), mask.data_ptr(),
+            d_xj.data_ptr(), e, k, d, h, stream)
+        _raise_on(rc, "mdl_fused_bilinear_bf16_fwd_image")
+        rc = lib.mdl_fused_bilinear_bf16_bwd_a(
+            xj.data_ptr(), img.data_ptr(), mask.data_ptr(), g.data_ptr(),
+            d_a.data_ptr(), e, d, k, h, stream)
+    _raise_on(rc, "mdl_fused_bilinear_bf16_bwd_a")
+    _count("fused_bilinear_bwd", True)
     return d_xj, d_a
 
 

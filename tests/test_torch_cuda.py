@@ -27,8 +27,10 @@ arm (`precision: bf16`) is held to its plain versions at the f32 arm's
 tolerance (the same rounded operands, exact products, f32 sums in another
 order), also at the edges of its bf16 tensor-core kernels' tiling and on an
 all-pad batch, its forward's weight image byte for byte, its rounding to
-bf16 to nearest-even exactly, and the f32 arm on the same inputs must fall
-outside that tolerance; bf16 models and training runs
+bf16 to nearest-even exactly, its backward to the rows' two kernels (d_xj
+on the forward's tiles over the transposed weight image, d_a on its own)
+each against its plain formula, and the f32 arm on the same inputs must
+fall outside that tolerance; bf16 models and training runs
 card against CPU to rtol 2^-6 (BF16_RTOL says why), and bf16 training on
 CUDA graphs equals its eager loop bit for bit. The single-pass arms
 (`kernel_precision: bf16`) are held to their plain twins (the windowed and
@@ -785,21 +787,28 @@ def test_fused_bilinear_all_pad_batch_gives_zeros(cuda_device, bf16):
     assert not d_xj.any() and not d_a.any()
 
 
+@pytest.mark.parametrize("transposed", [False, True],
+                         ids=["w1", "w1_transposed"])
 @pytest.mark.parametrize("h,d,k", [(7, 3, 5), (100, 100, 100), (1, 33, 9),
-                                   (100, 150, 150), (9, 256, 256)])
-def test_fused_bilinear_bf16_weight_image_matches_plain(cuda_device, h, d, k):
+                                   (100, 150, 150), (9, 256, 256),
+                                   (4, 150, 40)])
+def test_fused_bilinear_bf16_weight_image_matches_plain(cuda_device, h, d, k,
+                                                        transposed):
     """The bf16 forward's layout kernels write weight_image_plain byte for
     byte, with the zero k16-steps that pad the image to whole ring stages;
     the TF32 words of b1 compared in their 19 bits (cvt.rna leaves the low
-    13 unspecified)."""
+    13 unspecified). Transposed: the image of W1ᵀ and b1ᵀ that the
+    backward's d_xj runs on, read from W1 and b1 in place."""
     g = torch.Generator().manual_seed(h + d + k)
     w1 = torch.randn(h, d * k, generator=g)
     b1 = torch.randn(d * k, generator=g)
-    got = FB.weight_image(w1.to(cuda_device), b1.to(cuda_device), d).cpu()
-    kd, np_ = -(-d // 16), 8 * FB.wgmma_width(k)
+    got = FB.weight_image(w1.to(cuda_device), b1.to(cuda_device), d,
+                          transposed).cpu()
+    wd, wk = (k, d) if transposed else (d, k)
+    kd, np_ = -(-wd // 16), 8 * FB.wgmma_width(wk)
     steps = (got.numel() - kd * np_ * 128) // (np_ * 32)
     assert steps >= h * kd
-    ref = FB.weight_image_plain(w1, b1, d, steps)
+    ref = FB.weight_image_plain(w1, b1, d, steps, transposed)
     assert got.numel() == ref.numel()
     nb = steps * np_ * 32
     assert torch.equal(got[:nb], ref[:nb])
@@ -864,8 +873,7 @@ def test_fused_bilinear_bf16_arm_matches_plain(cuda_device, case, d, h, k):
     same rounded operands, whose products are exact, and differ only in
     the order of f32 sums. The f32 arm on the same inputs, the unrounded
     3xTF32 path, fails that check on the outputs that round: the forward,
-    d_a and the weight gradient (d_xj follows no rounding of the arm's own
-    but W1's, so its share is reported, not held)."""
+    d_xj, d_a and the weight gradient."""
     args = _bilinear_inputs(case, d, h, k, device=cuda_device)
     mask = args[-1]
     g = torch.randn(len(mask), k, device=cuda_device)
@@ -881,7 +889,7 @@ def test_fused_bilinear_bf16_arm_matches_plain(cuda_device, case, d, h, k):
         assert float(a[off].abs().max()) == 0.0
     unrounded = _bf16_arm(args, g, bf16=False)
     for name, a, b in zip(names, unrounded, ref):
-        if name in ("msg", "d_a", "d_w1"):
+        if name in ("msg", "d_xj", "d_a", "d_w1"):
             assert _limit_share(a, b) > 1.0, name
 
 
@@ -893,6 +901,42 @@ def test_fused_bilinear_bf16_arm_is_bit_identical(cuda_device, case, d, h, k):
     first = _bf16_arm(args, g)
     for a, b in zip(_bf16_arm(args, g), first):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "scattered"])
+@pytest.mark.parametrize("d,h,k", [(100, 100, 100), (3, 7, 5),
+                                   (150, 100, 150)])
+def test_fused_bilinear_bf16_bwd_rows_kernels_match_plain(cuda_device, case,
+                                                          d, h, k):
+    """The bf16 backward to the rows: d_xj (the forward's tiles over the
+    transposed image) against fused_bilinear_plain over (mask·g, a, W1ᵀ,
+    b1ᵀ) and d_a (its own kernel) against (bf16(xj) @ bf16(W_h))·(mask·g)
+    summed over K, at the f32 kernels' tolerance; the same bits from two
+    calls; masked rows exactly zero; one count of the backward, none of
+    the forward."""
+    xj, a, w1, b1, mask = _bilinear_inputs(case, d, h, k, device=cuda_device)
+    g = torch.randn(len(mask), k, device=cuda_device)
+    before = dict(FB.LAUNCHES_BF16)
+    d_xj, d_a = FB.fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask, bf16=True)
+    torch.cuda.synchronize()
+    assert FB.LAUNCHES_BF16["fused_bilinear_bwd_bf16"] == (
+        before["fused_bilinear_bwd_bf16"] + 1)
+    assert FB.LAUNCHES_BF16["fused_bilinear_fwd_bf16"] == (
+        before["fused_bilinear_fwd_bf16"])
+    ge = g * mask[:, None]
+    want_xj = FB.fused_bilinear_plain(ge, a, *FB.transposed_weight(w1, b1, d),
+                                      mask, bf16=True)
+    wr = FB.round_bf16(w1).view(h, d, k)
+    want_a = torch.einsum("ehk,ek->eh", torch.einsum(
+        "ed,hdk->ehk", FB.round_bf16(xj), wr), ge)
+    _assert_fused_close(d_xj, want_xj, "d_xj")
+    _assert_fused_close(d_a, want_a, "d_a")
+    again = FB.fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask, bf16=True)
+    assert torch.equal(again[0], d_xj) and torch.equal(again[1], d_a)
+    off = mask == 0
+    assert off.any()
+    assert float(d_xj[off].abs().max()) == 0.0
+    assert float(d_a[off].abs().max()) == 0.0
 
 
 def test_fused_bilinear_bf16_arm_rounds_to_nearest_even(cuda_device):

@@ -35,14 +35,14 @@ JAX package on the CPU.
   VJP, and the 1xTF32 one outside it (at a reduction of K = 100).
 * The bf16 arm (`bf16=True`, what `precision: bf16` runs) against the JAX
   `fused_bilinear_msg((te, True, True, True), ...)`, the chunked schedule
-  with mxu_bf16, and its VJP. Where the port keeps the chunked schedule's
-  rounding points (the forward, d_a, d_w1, d_b1) it agrees to the f32
-  tolerances above: the rounded products are exact, only f32 sums differ
-  in order. The point it does not keep is pinned on its own: d_xj takes
-  a_h·(ge @ bf16(W_h)ᵀ) with a·g exact, where the chunked kernel rounds
-  a_h·g to bf16 first; each side equals its own formula in f64 to 1e-5,
-  and the two part by more than 1e-5 and less than 2⁻⁸ (one bf16 rounding)
-  of max|d_xj|. The forward's bias term stays unrounded as in the chunked
+  with mxu_bf16, and its VJP. The port keeps every rounding point of the
+  chunked schedule (the forward, d_xj, d_a, d_w1, d_b1) and agrees to the
+  f32 tolerances above: the rounded products are exact, only f32 sums
+  differ in order. d_xj rounds each unit's a_h·g to bf16 before its
+  product with bf16(W_h)ᵀ, as the chunked kernel does; the formula the
+  port took before (a·g exact) parts from it by more than 1e-5 and less
+  than 2⁻⁸ (one bf16 rounding) of max|d_xj|, so the tolerance tells the
+  two apart. The forward's bias term stays unrounded as in the chunked
   schedule, unlike the unit-loop one (which JAX's model tests run on the
   CPU): a test with a = 0 tells them apart. torch's bf16 rounding is to
   nearest with ties to even, not away as TF32's cvt.rna.
@@ -52,13 +52,15 @@ JAX package on the CPU.
   step added to the f32 accumulator, then the bias unit in 3xTF32 over its
   k8-steps; the weight gradient over the 64-edge chunks (BF16_CHUNK) that
   hold a real edge, dealt to its splits (3 at this size on 132 SMs, and 1),
-  four k16-steps a chunk; the backward to the rows as above with W1
-  rounded. It falls within the chip check's limit of the JAX chunked bf16
-  arm, and the f32 arm on the same inputs (the unrounded 3xTF32 path, which
-  a build that skipped the rounding would run) falls outside it on the
-  forward, d_a and the weight gradient: the limit tells the arms apart.
-  The forward kernel's weight image (`weight_image_plain`, the layout
-  kernels' plain twin) reads back to bf16(W1) and b1.
+  four k16-steps a chunk; d_xj in the forward's order over (mask·g, a,
+  W1ᵀ, b1ᵀ), and d_a as T_h = bf16(xj) @ bf16(W_h) in k16-steps, then each
+  lane's fmaf chain of T_h against mask·g over its columns and the 4 lanes
+  of a quad. It falls within the chip check's limit of the JAX chunked
+  bf16 arm, and the f32 arm on the same inputs (the unrounded 3xTF32 path,
+  which a build that skipped the rounding would run) falls outside it on
+  every output: the limit tells the arms apart. The forward kernel's
+  weight image (`weight_image_plain`, the layout kernels' plain twin) reads
+  back to bf16(W1) and b1, and its transposed image to bf16(W1ᵀ) and b1ᵀ.
 """
 
 import jax
@@ -402,14 +404,14 @@ def _jax_chunked_bf16(args, mask, cot, te):
 @pytest.mark.parametrize("case", list(CASES))
 def test_bf16_arm_matches_jax_chunked_where_it_keeps_its_points(case, masked):
     args, mask, cot = _inputs(case, masked)
-    jout, _, jda, jdw1, jdb1 = _jax_chunked_bf16(args, mask, cot,
-                                                  CASES[case][4])
+    jout, jdxj, jda, jdw1, jdb1 = _jax_chunked_bf16(args, mask, cot,
+                                                     CASES[case][4])
     t = [torch.as_tensor(v) for v in args]
     m, g = torch.as_tensor(mask), torch.as_tensor(cot)
     _close_fwd(FB.fused_bilinear(*t, m, bf16=True).numpy(), jout, "forward")
-    _, d_a, d_w1, d_b1 = FB.fused_bilinear_bwd(g, *t, m, bf16=True)
-    for name, got, want in (("d_a", d_a, jda), ("d_w1", d_w1, jdw1),
-                            ("d_b1", d_b1, jdb1)):
+    d_xj, d_a, d_w1, d_b1 = FB.fused_bilinear_bwd(g, *t, m, bf16=True)
+    for name, got, want in (("d_xj", d_xj, jdxj), ("d_a", d_a, jda),
+                            ("d_w1", d_w1, jdw1), ("d_b1", d_b1, jdb1)):
         _close_grad(got.numpy(), want, name)
     # and the autograd Function carries the flag
     leaves = [v.clone().requires_grad_(True) for v in t]
@@ -427,26 +429,32 @@ def _bf16(x: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("case", ["e300", "d_ne_k"])
 def test_bf16_arm_d_xj_takes_a_times_g_unrounded(case):
-    """The one rounding point of the chunked schedule the port does not
-    keep, and the size of the deviation."""
+    """d_xj at the chunked schedule's point: the port's equals the JAX
+    chunked VJP (which rounds a_h·g to bf16 before its product with
+    bf16(W_h)ᵀ) to the gradient tolerance, and equals that formula in f64
+    to 1e-5; the formula the port took before, a_h·g unrounded, parts from
+    both by more than 1e-5 and less than 2⁻⁸ (one bf16 rounding) of
+    max|d_xj|, so the tolerance tells the two apart."""
     (xj, a, w1, b1), mask, cot = _inputs(case, True)
     e, d, h, k, te = CASES[case]
     _, jdxj, *_ = _jax_chunked_bf16((xj, a, w1, b1), mask, cot, te)
     t = [torch.as_tensor(v) for v in (xj, a, w1, b1)]
     d_xj, _ = FB.fused_bilinear_bwd_rows(torch.as_tensor(cot), *t,
                                          torch.as_tensor(mask), bf16=True)
+    _close_grad(d_xj.numpy(), jdxj, "d_xj")
     ge = (mask[:, None] * cot).astype(np.float64)
     w3 = _bf16(w1).reshape(h, d, k).astype(np.float64)
     bias = ge @ b1.reshape(d, k).T.astype(np.float64)
-    port = np.einsum("eh,ehd->ed", a, np.einsum("ek,hdk->ehd", ge, w3)) + bias
+    unrounded = np.einsum("eh,ehd->ed", a,
+                          np.einsum("ek,hdk->ehd", ge, w3)) + bias
     ag = _bf16((a[:, :, None] * (mask[:, None] * cot)[:, None, :])
                .astype(np.float32)).astype(np.float64)
     chunked = np.einsum("ehk,hdk->ed", ag, w3) + bias
     scale = float(np.abs(jdxj).max())
-    np.testing.assert_allclose(d_xj.numpy(), port, rtol=1e-5,
+    np.testing.assert_allclose(d_xj.numpy(), chunked, rtol=1e-5,
                                atol=1e-5 * scale)
     np.testing.assert_allclose(jdxj, chunked, rtol=1e-5, atol=1e-5 * scale)
-    gap = float(np.abs(d_xj.numpy() - jdxj).max()) / scale
+    gap = float(np.abs(unrounded - jdxj).max()) / scale
     assert 1e-5 < gap < 2.0 ** -8, gap
 
 
@@ -573,6 +581,25 @@ def test_bf16_weight_image_rebuilds_w(h, d, k, pad):
     assert not bias[d:].any() and not bias[:, k:].any()
 
 
+@pytest.mark.parametrize("h,d,k", [(3, 4, 5), (2, 100, 100), (1, 33, 9)])
+def test_transposed_weight_swaps_each_units_rows_and_columns(h, d, k):
+    """W1ᵀ[h, n·D + d] = W1[h, d·K + n] and b1ᵀ[n·D + d] = b1[d·K + n]: the
+    weight of widths (K, D) whose forward over g is d_xj; its image
+    (transposed=True, what the layout kernels write reading W1 in place) is
+    the image of that weight."""
+    rng = np.random.default_rng(h * d + k)
+    w1 = torch.tensor(rng.standard_normal((h, d * k)), dtype=torch.float32)
+    b1 = torch.tensor(rng.standard_normal(d * k), dtype=torch.float32)
+    w1t, b1t = FB.transposed_weight(w1, b1, d)
+    assert w1t.shape == (h, k * d) and b1t.shape == (k * d,)
+    for dd in range(d):
+        for n in range(k):
+            assert torch.equal(w1t[:, n * d + dd], w1[:, dd * k + n])
+            assert b1t[n * d + dd] == b1[dd * k + n]
+    assert torch.equal(FB.weight_image_plain(w1, b1, d, transposed=True),
+                       FB.weight_image_plain(w1t, b1t, k))
+
+
 @pytest.fixture(scope="module")
 def mpnn_width_bf16(mpnn_width):
     """mpnn_width's inputs through the JAX chunked kernel's bf16 arm."""
@@ -603,15 +630,53 @@ def test_emulated_bf16_wgrad_within_the_chip_limit_and_f32_outside(
     assert all(_limit_share(x, r) > 1.0 for x, r in zip(f32, (d_w1, d_b1)))
 
 
+def _emulated_bwd_a_bf16(g, xj, w1, mask):
+    """The bf16 d_a kernel: T_h = bf16(xj) @ bf16(W_h) one k16-step at a
+    time into the f32 accumulator (D zero-padded to whole steps, K to the
+    wgmma width), then each lane's fmaf chain of T_h against mask·g over
+    its columns 8 j + 2 t and 8 j + 2 t + 1 (t = lane % 4), and the quad's
+    4 lanes as (v0 + v1) + (v2 + v3). Masked rows stay zero."""
+    e, d = xj.shape
+    h = w1.shape[0]
+    k = w1.shape[1] // d
+    dp, kp = 16 * -(-d // 16), 8 * FB.wgmma_width(k)
+    xd = torch.zeros(e, dp)
+    xd[:, :d] = FB.round_bf16(xj)
+    w = torch.zeros(h, dp, kp)
+    w[:, :d, :k] = FB.round_bf16(w1).reshape(h, d, k)
+    ge = torch.zeros(e, kp)
+    ge[:, :k] = mask[:, None] * g
+    lanes = [[c for j in range(kp // 8) for c in (8 * j + 2 * t, 8 * j + 2 * t + 1)]
+             for t in range(4)]
+    d_a = torch.zeros(e, h)
+    for u in range(h):
+        acc = torch.zeros(e, kp)
+        for s0 in range(0, dp, 16):
+            acc = _mma_bf16(acc, xd[:, s0:s0 + 16], w[u, s0:s0 + 16])
+        v = []
+        for cols in lanes:
+            dot = torch.zeros(e)
+            for c in cols:
+                dot = _fma(acc[:, c], ge[:, c], dot)
+            v.append(dot)
+        d_a[:, u] = (v[0] + v[1]) + (v[2] + v[3])
+    d_a[mask == 0] = 0
+    return d_a
+
+
 def test_emulated_bf16_bwd_rows_within_the_chip_limit_and_f32_outside(
         mpnn_width_bf16):
-    """The backward to the rows' bf16 arm: its f32 emulation with W1 and,
-    in d_a, xj rounded (ge keeps its lo part: 3xTF32 on unrounded ge is
-    the two passes the arm runs, B having no lo part). d_a within the
-    limit of the chunked arm; d_xj follows the port's own point (above)."""
-    (xj, a, w1, b1, mask, cot), (_, _, d_a, *_) = mpnn_width_bf16
-    _, got = _emulated_bwd_rows(cot, FB.round_bf16(xj), a,
-                                FB.arm_weight(w1, True), b1, mask, 3)
-    assert _limit_share(got, d_a) < 1.0
-    _, f32 = FB.bwd_rows_plain(cot, xj, a, w1, b1, mask)
-    assert _limit_share(f32, d_a) > 1.0
+    """The backward to the rows' bf16 arm in its kernels' order: d_xj as
+    the bf16 forward over (mask·g, a, W1ᵀ, b1ᵀ), d_a as
+    _emulated_bwd_a_bf16. Both within the limit of the chunked arm; the
+    f32 arm on the same inputs outside it."""
+    (xj, a, w1, b1, mask, cot), (_, d_xj, d_a, *_) = mpnn_width_bf16
+    got = (_emulated_forward_bf16(cot * mask[:, None], a,
+                                  *FB.transposed_weight(w1, b1, 100), mask),
+           _emulated_bwd_a_bf16(cot, xj, w1, mask))
+    for x, r in zip(got, (d_xj, d_a)):
+        assert x.shape == r.shape
+        assert (x[mask == 0] == 0).all()
+        assert _limit_share(x, r) < 1.0
+    f32 = FB.bwd_rows_plain(cot, xj, a, w1, b1, mask)
+    assert all(_limit_share(x, r) > 1.0 for x, r in zip(f32, (d_xj, d_a)))
