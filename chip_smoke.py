@@ -111,7 +111,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     kernels and csr_segment_sum and csr_gather each >= 4 x 8 x 5 launches;
     the comparison with the CPU (kernel fused, plain versions) runs 1 epoch
     on each side on the first 200 structures (a plain epoch over all 1,000
-    takes minutes on the CPU); then MPNN Predict on the card from the
+    takes minutes on the CPU; the CPU side trains the epoch alone,
+    first_epoch_error, without the split outputs that a Training run
+    writes after it); then MPNN Predict on the card from the
     checkpoint Training saved (counters reset just before: the bilinear
     forward and csr_segment_sum >= 4 x 8 launches; 1,000 finite
     predictions), and card against CPU Predict of that checkpoint on the
@@ -233,8 +235,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     reset just before: each bf16 arm >= 4 x 8 x 5 launches, the f32 arm
     none, the resolved line saying precision=bf16; its warm epoch beside
     the f32 run's of 11; the first-epoch train error card vs CPU on the
-    first 200 structures (1 epoch each) to rtol 2^-6 (BF16_RTOL says
-    why); Predict from its checkpoint on the card (1,000 finite
+    first 200 structures (1 epoch each, the CPU's alone as in 11) to rtol
+    2^-6 (BF16_RTOL says why); Predict from its checkpoint on the card (1,000 finite
     predictions, the bf16 forward >= 4 x 8 launches) and card vs CPU on
     the first 200 structures, to 2^-6 of the largest prediction; the busy
     share of a profiled captured epoch; then CGCNN_demo, SchNet_demo,
@@ -263,13 +265,28 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     busy share of a profiled captured epoch; then SchNet_demo under fused
     and GCN_demo and CGCNN_demo under pallas, 3 epochs each with the key:
     each arm of the path launched, its f32 arm not, the errors falling;
+23. disk streaming (`dataset_type: large`, check_streaming says what it
+    holds): the 1,000 structures in 16 shards of 64 against the LRU's 8;
+    the shard write and the link bytes of a training batch, wire and full;
+    MPNN_demo streamed 4 epochs through cli.run on CUDA graphs (kernel
+    auto: every message on the bilinear kernels over the reference edge
+    order; each >= 4 x 8 x 4 launches, no other kernel), its warm epoch
+    beside main path 5's, the host's assembly a batch, the busy share of a
+    profiled warm streamed epoch, the peak memory beside phase 14c's and
+    the Throughput line; card vs CPU on the first 200 (rtol 1e-3, bf16
+    2^-6); CGCNN_demo captured with the prefetch ring against eager with a
+    synchronous assembler (rtol 1e-6, deterministic); streamed Predict
+    against in-memory Predict (wire off rtol 1e-4, atol 1e-4; wire on
+    WIRE_RTOL);
 20. prints a {"kernels": [...]} line (the CSR rows with their callers,
     each path's launches and the src-sorted shapes' times; each
     single-pass arm's row and each bilinear bf16 arm's row with `f32_ms`,
     its f32 arm's time in the same call), the nvidia-smi line and, last,
     {"ok": true, "device": {...}};
     the three bf16 arm rows' launches are 21's MPNN_demo Training's, the
-    single-pass rows' 22's (the CSR arm is on no path: 0).
+    single-pass rows' 22's (the CSR arm is on no path: 0); the f32
+    bilinear rows add `launches_by_path`, 5's and 23's streamed Training
+    and Predict.
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -370,6 +387,16 @@ BENCH_TIMEOUT_S = 600
 PROFILED_KERNELS = ("fused_cgconv_fwd_kernel", "fused_cgconv_bwd_kernel",
                     "fused_cgconv_wgrad_kernel", "wgrad_reduce_kernel")
 N_COMPARE = 200  # structures of MPNN's card/CPU training comparison
+# phase 23: disk streaming. The 1,000 structures in shards of 64 graphs (16
+# shards against the LRU's 8, so every epoch evicts); the streamed MPNN_demo
+# run's epochs (3 warm: the meter's 20 steady-state steps); the epochs of
+# each run of the captured-against-synchronous check; and the limit of
+# streamed Predict with the wire on (f16 features and distances) against
+# in-memory f32 Predict, the JAX package's wire tolerance
+# (tests/test_streaming.py:test_wire_format_roundtrip)
+N_SHARD_GRAPHS = 64
+EPOCHS_STREAM, EPOCHS_STREAM_RACE = 4, 2
+WIRE_RTOL = 1e-3
 # phase 19: the descriptor models (config.yml's SM_demo and SOAP_demo), the
 # run modes' sizes, and the SOAP corpus (write_clusters' Pt clusters)
 SM_DEMO = {
@@ -2167,12 +2194,14 @@ def check_profile_trace(config, prof_dir: str, smi: str):
 
 
 def train_from_checkpoint(dataset, dev, model: dict, init: str, epochs: int,
-                          deterministic: bool, capture=None):
+                          deterministic: bool, capture=None,
+                          stream_depth: int | None = None):
     """jobs.run_fused_training of `model` (with its kernel, batching and
     remat) from the checkpoint `init` on TRAIN_SEED's split, verbosity 1,
     under torch.use_deterministic_algorithms when `deterministic`; returns
     (run, the per-epoch history as an array, the epoch lines' seconds, the
-    run's output)."""
+    run's output). stream_depth sets a streamed run's prefetch depth (0:
+    assembled in the main thread)."""
     from matdeeplearn_torch.data.dataset import split_data
     from matdeeplearn_torch.training import jobs
     from matdeeplearn_torch.training.checkpoint import load_checkpoint
@@ -2187,6 +2216,8 @@ def train_from_checkpoint(dataset, dev, model: dict, init: str, epochs: int,
             run = jobs.setup_run(dataset, model, "l1_loss", seed=TRAIN_SEED,
                                  device=dev)
             run.model.load_state_dict(load_checkpoint(init)[1])
+            if stream_depth is not None:
+                run.feed.depth = stream_depth
             _, _, hist = jobs.run_fused_training(
                 run, train_idx=train_idx, val_idx=val_idx, epochs=epochs,
                 verbosity=1, seed=TRAIN_SEED, capture=capture)
@@ -2328,6 +2359,242 @@ def check_capture(cases, dataset, dev, smi: str) -> dict:
         out[(label, kernel, batching)] = (float(np.mean(w_g)),
                                           float(np.mean(w_e)), m_g, m_e)
     return out
+
+
+def stream_processing(data_dir: str) -> dict:
+    """Processing of a `dataset_type: large` run of phase 23: data_dir in
+    shards of N_SHARD_GRAPHS graphs."""
+    return {**PROCESSING, "data_path": data_dir, "dataset_type": "large",
+            "large_shard_graphs": N_SHARD_GRAPHS}
+
+
+def first_epoch_error(ds, device: str, model: dict, init: str,
+                      kernel: str) -> tuple[float, float]:
+    """(epoch 1's train error, wall seconds) of `model` under `kernel` from
+    the checkpoint `init` on TRAIN_SEED's train split of `ds`, without the
+    val split (which the train error does not read) and without the split
+    outputs that a Training run writes after it."""
+    from matdeeplearn_torch.data.dataset import split_data
+    from matdeeplearn_torch.training import jobs
+    from matdeeplearn_torch.training.checkpoint import load_checkpoint
+
+    train_idx, _, _ = split_data(ds, TRAINING["train_ratio"],
+                                 TRAINING["val_ratio"],
+                                 TRAINING["test_ratio"], TRAIN_SEED)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = jobs.setup_run(ds, {**model, "kernel": kernel}, "l1_loss",
+                             seed=TRAIN_SEED, device=device)
+        run.model.load_state_dict(load_checkpoint(init)[1])
+        _, _, hist = jobs.run_fused_training(
+            run, train_idx=train_idx, val_idx=np.array([], np.int64),
+            epochs=1, verbosity=1, seed=TRAIN_SEED)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return float(hist[0][0]), time.perf_counter() - t0
+
+
+def check_streaming(dataset, data_dir, sub_dir, mpnn_path, model_path, dev,
+                    smi, m_warm, mem_peak_mib, resume) -> dict:
+    """Phase 23: disk streaming (dataset_type large, data/streaming.py and
+    training/stream.py) on the 1,000 structures in shards of
+    N_SHARD_GRAPHS graphs, more shards than the LRU holds:
+
+      a. the shard write (seconds, bytes on disk) and the bytes of one
+         training batch over the link, wire against full, from the spec;
+      b. MPNN_demo streamed through cli.run, EPOCHS_STREAM epochs, kernel
+         auto (fused: the bilinear kernels over the reference edge order),
+         the wire on, on CUDA graphs: each bilinear kernel >= epochs x
+         train steps x gc_count launches, no CSR, CGConv, cfconv or
+         windowed launch; the warm streamed epoch beside main path 5's
+         in-memory one; the host's assembly per batch, wire and full; the
+         busy share of a profiled warm streamed epoch; the peak device
+         memory beside the in-memory run's; the Throughput line;
+      c. card against CPU, the first epoch of MPNN_demo streamed on the
+         first N_COMPARE structures: rtol 1e-3, and under precision bf16
+         BF16_RTOL;
+      d. CGCNN_demo streamed, kernel xla, the wire off, EPOCHS_STREAM_RACE
+         epochs under deterministic algorithms, captured with the prefetch
+         ring against eager with a synchronous assembler (depth 0): the
+         per-epoch errors to rtol 1e-6;
+      e. Predict on the streamed dataset from b's checkpoint against
+         in-memory Predict from it: the wire off to rtol 1e-4 and atol
+         1e-4, the wire on (f16 features and distances) to WIRE_RTOL; the
+         largest gaps printed.
+
+    Returns the bilinear kernels' launches of b and of e's streamed
+    Predict."""
+    import gc
+
+    from matdeeplearn_torch.data.batching import BatchSpec
+    from matdeeplearn_torch.data.dataset import get_dataset, split_data
+    from matdeeplearn_torch.data.streaming import StreamingGraphDataset
+    from matdeeplearn_torch.ops import fused_bilinear as FB
+    from matdeeplearn_torch.training import jobs
+    from matdeeplearn_torch.training import stream as ST
+    from matdeeplearn_torch.training.graphs import launch_counters
+
+    t_phase = time.perf_counter()
+    counters = launch_counters()
+    # ---- a. shards and link bytes
+    t0 = time.perf_counter()
+    sds = get_dataset(data_dir, 0, "False", stream_processing(data_dir))
+    t_shard = time.perf_counter() - t0
+    if not isinstance(sds, StreamingGraphDataset):
+        raise AssertionError("dataset_type large gave no StreamingGraphDataset")
+    disk = sum(os.path.getsize(os.path.join(sds.path, f))
+               for f in os.listdir(sds.path))
+    n_shards = int(sds._meta["num_shards"])
+    if n_shards <= sds.cache_shards:
+        raise AssertionError(f"{n_shards} shards fit the LRU's "
+                             f"{sds.cache_shards}: no epoch would evict")
+    bs = int(MPNN_DEMO["batch_size"])
+    spec = BatchSpec.for_dataset(sds.node_counts(), sds.edge_counts(), bs,
+                                 align=8, align_edges=8)
+    link = {w: {k: t.nbytes for k, t in sds.buffers(spec, w).items()}
+            for w in (True, False)}
+    print(f"phase 23 shards: {len(sds)} structures in {n_shards} shards of "
+          f"{N_SHARD_GRAPHS} (LRU {sds.cache_shards}), written in "
+          f"{t_shard:.3f} s (the processed cache read included), {disk} bytes "
+          f"on disk; a training batch (B={spec.num_graphs}, "
+          f"N={spec.num_nodes}, E={spec.num_edges}) over the link: wire "
+          f"{sum(link[True].values())} bytes (x {link[True]['x']}), full "
+          f"{sum(link[False].values())} bytes (x {link[False]['x']})")
+
+    # the host's assembly of one epoch's batches, shard reads included
+    train_idx, val_idx, _ = split_data(sds, TRAINING["train_ratio"],
+                                       TRAINING["val_ratio"],
+                                       TRAINING["test_ratio"], TRAIN_SEED)
+    rows = list(ST._train_id_batches(sds, train_idx, bs, TRAIN_SEED + 1))
+    assembly = {}
+    for wire in (True, False):
+        fresh = StreamingGraphDataset(sds.path)  # an empty LRU
+        buf = fresh.buffers(spec, wire)
+        fill = ST._assembler(fresh, spec, wire)
+        t0 = time.perf_counter()
+        for r in rows:
+            fill(r, buf)
+        assembly[wire] = 1e3 * (time.perf_counter() - t0) / len(rows)
+
+    # ---- b. MPNN_demo streamed on CUDA graphs, through cli.run
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(*counters)
+    ckpt = resume("mpnn_stream", mpnn_path)
+    cfg = training_config(data_dir, ckpt, "chip_mpnn_stream", "cuda",
+                          EPOCHS_STREAM, model=MPNN_DEMO)
+    cfg["Processing"] = stream_processing(data_dir)
+    wall, s_rows, text = run_training_text(cfg)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launched = {k: v for c in counters for k, v in c.items() if v}
+    train_launches = dict(FB.LAUNCHES)
+    if "stream=y" not in text or "kernel=fused" not in text:
+        raise AssertionError("the streamed MPNN run resolved to no "
+                             "stream=y kernel=fused")
+    need = EPOCHS_STREAM * len(rows) * MPNN_DEMO["gc_count"]
+    for k, v in train_launches.items():
+        if v < need:
+            raise AssertionError(f"{k} launched {v} times in the streamed "
+                                 f"MPNN Training, expected >= {need}")
+    stray = {k: v for k, v in launched.items() if k not in FB.LAUNCHES}
+    if stray:
+        raise AssertionError(f"the streamed MPNN run launched {stray}")
+    s_warm = warm_epoch_s(s_rows)
+    thr = check_throughput(text)
+    if not s_rows[-1][2] < s_rows[0][2]:
+        raise AssertionError(f"the streamed MPNN train error did not fall: "
+                             f"{s_rows[0][2]} -> {s_rows[-1][2]}")
+    print(f"streamed MPNN Training on {smi}: {wall:.3f} s wall for "
+          f"{EPOCHS_STREAM} epochs; epoch 1 (cold) {s_rows[0][4]:.5f} s, warm "
+          f"epochs {s_warm:.5f} s against {m_warm:.5f} s in memory (main "
+          f"path 5, {s_warm / m_warm:.2f}x); host assembly "
+          f"{assembly[True]:.3f} ms a batch wire, {assembly[False]:.3f} ms "
+          f"full; peak device memory {peak:.1f} MiB streamed, "
+          f"{mem_peak_mib:.1f} MiB in memory (phase 14c); launches "
+          f"{train_launches} (>= {need}); {thr}")
+    busy = profile_training(sds, dev, MPNN_DEMO, kernel="auto")
+
+    # ---- c. card against CPU on the first N_COMPARE structures
+    sub_sds = get_dataset(sub_dir, 0, "False", stream_processing(sub_dir))
+    compare = {}
+    for label, demo, rtol in (("f32", MPNN_DEMO, 1e-3),
+                              ("bf16", MPNN_BF16, BF16_RTOL)):
+        card, t_card = first_epoch_error(sub_sds, "cuda", demo, mpnn_path,
+                                         "auto")
+        cpu, t_cpu = first_epoch_error(sub_sds, "cpu", demo, mpnn_path,
+                                       "fused")
+        compare[label] = (card, cpu, abs(card - cpu) / abs(cpu))
+        print(f"streamed MPNN {label} card vs CPU on the first {N_COMPARE} "
+              f"structures: epoch 1 train error {card:.6f} vs {cpu:.6f}, "
+              f"relative gap {compare[label][2]:.3e} (rtol {rtol:g}); "
+              f"{t_card:.3f} s card, {t_cpu:.3f} s CPU (plain versions)")
+        np.testing.assert_allclose(card, cpu, rtol=rtol)
+
+    # ---- d. captured with the prefetch ring against eager, synchronous
+    race = {}
+    for capture, depth in ((None, 2), (False, 0)):
+        _, hist, secs, text_d = train_from_checkpoint(
+            sds, dev, {**CGCNN_DEMO, "kernel": "xla", "stream_wire": "False"},
+            model_path, EPOCHS_STREAM_RACE, True, capture, stream_depth=depth)
+        if capture is None and "capture=graphs" not in text_d:
+            raise AssertionError("the streamed CGCNN run did not capture")
+        race[depth] = (hist, secs)
+    r_gap = float(np.max(np.abs(race[2][0] - race[0][0]) / np.abs(race[0][0])))
+    print(f"streamed CGCNN (xla, wire off) on {smi} under deterministic "
+          f"algorithms: train errors {race[2][0][:, 0].tolist()} captured "
+          f"with the prefetch ring, {race[0][0][:, 0].tolist()} eager and "
+          f"synchronous, worst relative gap {r_gap:.3e} (rtol 1e-6); epoch "
+          f"seconds {race[2][1]} and {race[0][1]}")
+    if not np.isfinite(race[0][0][:, :2]).all():
+        raise AssertionError("streamed CGCNN: non-finite errors")
+    np.testing.assert_allclose(race[2][0], race[0][0], rtol=1e-6)
+
+    # ---- e. Predict on the stream from b's checkpoint against in memory
+    reset_launches(*counters)
+    pcfg = predict_config(data_dir, ckpt, "chip_mpnn_stream_predict", "cuda")
+    pcfg["Processing"] = stream_processing(data_dir)
+    p_wall, p_eval = run_predict(pcfg)
+    predict_launches = dict(FB.LAUNCHES)
+    stray = {k: v for c in counters for k, v in c.items()
+             if v and k not in FB.LAUNCHES}
+    p_steps = -(-len(sds) // 128)
+    if predict_launches["fused_bilinear_fwd"] < 4 * p_steps or stray:
+        raise AssertionError(f"streamed MPNN Predict launched "
+                             f"{predict_launches}, others {stray}")
+    run_predict(predict_config(data_dir, ckpt, "chip_mpnn_mem_predict",
+                               "cuda"))
+    ids_s, pred_s = read_predictions(
+        "chip_mpnn_stream_predict_predicted_outputs.csv")
+    ids_m, pred_m = read_predictions(
+        "chip_mpnn_mem_predict_predicted_outputs.csv")
+    if ids_s != ids_m or len(ids_s) != len(sds):
+        raise AssertionError("streamed and in-memory Predict list different "
+                             "ids")
+    _, model = jobs.load_model_for_inference(sds, ckpt, dev)
+    feed = jobs.predict_feed(sds, BatchSpec.for_dataset(
+        sds.node_counts(), sds.edge_counts(), 128), dev, "MPNN", wire=False)
+    _, pred_f, _ = ST.stream_evaluate(model, "l1_loss", feed,
+                                      np.arange(len(sds)), out=True)
+    top = float(np.abs(pred_m).max())
+    gaps = {"wire": float(np.abs(pred_s - pred_m).max()),
+            "full": float(np.abs(pred_f - pred_m).max())}
+    print(f"streamed MPNN Predict on {smi}: {p_wall:.4f} s wall, "
+          f"{p_eval:.5f} s evaluation, launches {predict_launches}; against "
+          f"in-memory Predict: max |diff| {gaps['full']:.3e} wire off (rtol "
+          f"1e-4, atol 1e-4), {gaps['wire']:.3e} wire on (rtol {WIRE_RTOL:g}, "
+          f"atol {WIRE_RTOL:g} of max(1, {top:.3f})); predictions up to "
+          f"{top:.3f}")
+    np.testing.assert_allclose(pred_f, pred_m, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(pred_s, pred_m, rtol=WIRE_RTOL,
+                               atol=WIRE_RTOL * max(1.0, top))
+    print(f"phase 23 (streaming) on {smi}: "
+          f"{time.perf_counter() - t_phase:.1f} s wall; streamed MPNN warm "
+          f"epoch {s_warm:.5f} s against {m_warm:.5f} s in memory, busy "
+          + ("not measured" if busy is None else f"{100 * busy:.1f}%")
+          + " of a profiled warm streamed epoch")
+    return {"MPNN streamed Training": train_launches,
+            "MPNN streamed Predict": predict_launches}
 
 
 def run_bench(smi: str) -> dict:
@@ -3289,18 +3556,25 @@ def main() -> int:
     # MPNN epoch over all 1,000 took 107 s on the card's host)
     sub_dir = os.path.join(WORK, f"data_first{N_COMPARE}")
     write_structures(sub_dir, n=N_COMPARE)
+    # the CPU side trains its first epoch alone (first_epoch_error: no val
+    # split, no split outputs), the plain versions' cost a minute each
     sub = {}
-    for where in ("cuda", "cpu"):
-        sub_wall, sub[where] = run_training(training_config(
-            sub_dir, resume_from_init(f"mpnn_first_{where}", mpnn_path),
-            f"chip_mpnn_first_{where}", where, EPOCHS_COMPARE, "fused",
-            model=MPNN_DEMO))
-        print(f"MPNN Training on the first {N_COMPARE} structures, "
-              f"{'the card' if where == 'cuda' else 'the CPU (plain versions)'}"
-              f": {sub_wall:.3f} s wall, the epoch {sub[where][0][4]:.3f} s")
-    np.testing.assert_allclose(sub["cuda"][0][2], sub["cpu"][0][2], rtol=1e-3)
+    sub_wall, rows = run_training(training_config(
+        sub_dir, resume_from_init("mpnn_first_cuda", mpnn_path),
+        "chip_mpnn_first_cuda", "cuda", EPOCHS_COMPARE, "fused",
+        model=MPNN_DEMO))
+    sub["cuda"] = rows[0][2]
+    print(f"MPNN Training on the first {N_COMPARE} structures, the card: "
+          f"{sub_wall:.3f} s wall, the epoch {rows[0][4]:.3f} s")
+    sub_ds = get_dataset(sub_dir, 0, "False",
+                         {**PROCESSING, "data_path": sub_dir})
+    sub["cpu"], sub_wall = first_epoch_error(sub_ds, "cpu", MPNN_DEMO,
+                                             mpnn_path, "fused")
+    print(f"MPNN Training on the first {N_COMPARE} structures, the CPU "
+          f"(plain versions): the epoch {sub_wall:.3f} s")
+    np.testing.assert_allclose(sub["cuda"], sub["cpu"], rtol=1e-3)
     print(f"MPNN card vs CPU on the first {N_COMPARE} structures: epoch 1 "
-          f"train error {sub['cuda'][0][2]:.5f} vs {sub['cpu'][0][2]:.5f} "
+          f"train error {sub['cuda']:.5f} vs {sub['cpu']:.5f} "
           f"(rtol 1e-3); on all {N_STRUCTURES}, the card's train error "
           f"{m_rows[0][2]:.5f} -> {m_rows[-1][2]:.5f}")
 
@@ -3665,20 +3939,23 @@ def main() -> int:
         raise AssertionError(f"the card's MPNN bf16 train error did not "
                              f"fall: {b_rows[0][2]} -> {b_rows[-1][2]}")
     bsub = {}
-    for where in ("cuda", "cpu"):
-        sub_wall, bsub[where] = run_training(training_config(
-            sub_dir, resume_from_init(f"mpnn_bf16_first_{where}", mpnn_path),
-            f"chip_mpnn_bf16_first_{where}", where, EPOCHS_COMPARE, "fused",
-            model=MPNN_BF16))
-        print(f"MPNN bf16 Training on the first {N_COMPARE} structures, "
-              f"{'the card' if where == 'cuda' else 'the CPU (plain versions)'}"
-              f": {sub_wall:.3f} s wall")
-    b_gap = abs(bsub["cuda"][0][2] - bsub["cpu"][0][2]) / bsub["cpu"][0][2]
+    sub_wall, rows = run_training(training_config(
+        sub_dir, resume_from_init("mpnn_bf16_first_cuda", mpnn_path),
+        "chip_mpnn_bf16_first_cuda", "cuda", EPOCHS_COMPARE, "fused",
+        model=MPNN_BF16))
+    bsub["cuda"] = rows[0][2]
+    print(f"MPNN bf16 Training on the first {N_COMPARE} structures, the "
+          f"card: {sub_wall:.3f} s wall")
+    bsub["cpu"], sub_wall = first_epoch_error(sub_ds, "cpu", MPNN_BF16,
+                                              mpnn_path, "fused")
+    print(f"MPNN bf16 Training on the first {N_COMPARE} structures, the CPU "
+          f"(plain versions, the first epoch alone): {sub_wall:.3f} s")
+    b_gap = abs(bsub["cuda"] - bsub["cpu"]) / bsub["cpu"]
     print(f"MPNN bf16 card vs CPU on the first {N_COMPARE} structures: epoch "
-          f"1 train error {bsub['cuda'][0][2]:.6f} vs {bsub['cpu'][0][2]:.6f}"
+          f"1 train error {bsub['cuda']:.6f} vs {bsub['cpu']:.6f}"
           f", relative gap {b_gap:.3e} (limit {BF16_RTOL:g}); f32 in main "
-          f"path 5: {sub['cuda'][0][2]:.6f} vs {sub['cpu'][0][2]:.6f}")
-    np.testing.assert_allclose(bsub["cuda"][0][2], bsub["cpu"][0][2],
+          f"path 5: {sub['cuda']:.6f} vs {sub['cpu']:.6f}")
+    np.testing.assert_allclose(bsub["cuda"], bsub["cpu"],
                                rtol=BF16_RTOL)
     reset_launches(*all_counts, FB.LAUNCHES_BF16)
     bp_wall, bp_eval = run_predict(predict_config(
@@ -3887,6 +4164,11 @@ def main() -> int:
           f"captured epoch; the f32 arm's worst miss of a single-pass limit "
           f"{min(sp_mutant.values()):.3g}x")
 
+    # ---- disk streaming: dataset_type large ------------------------------
+    stream_launches = check_streaming(
+        dataset, data_dir, sub_dir, mpnn_path, model_path, dev, smi, m_warm,
+        capture_times[("MPNN", "fused", "padded")][2], resume_from_init)
+
     kernels = []
     for key, name, src, line, count in (
             ("segment_sum", "csr_segment_sum", "csr.cu", "pallas_csr.py:135",
@@ -3955,6 +4237,10 @@ def main() -> int:
             row["f32_ms"] = t["f32_ms"]  # the f32 arm, timed in the same call
         if "parts_ms" in t:
             row["parts_ms"] = t["parts_ms"]  # its launches alone
+        if key in FB.LAUNCHES:
+            # the streamed paths' launches (phase 23), beside main path 5's
+            row["launches_by_path"] = {"MPNN Training": count, **{
+                path: lc[key] for path, lc in stream_launches.items()}}
         if key in ("segment_sum", "gather"):
             # the CSR kernels' callers: each path's launches (counters reset
             # just before it), and the src-sorted shapes MEGNet gives them

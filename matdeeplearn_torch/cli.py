@@ -13,8 +13,11 @@ meter's line ("Throughput: ... edges/s ..., MFU ...") after training;
 `--profile True` runs the training under torch.profiler and writes a
 Chrome trace (trace.json) to the job's `profile_dir` (default
 `<job_name>_profile`). `--batching=packed` trains on budget-packed
-batches (the bulk setting). main.py's `--parallel` and `--ep` raise,
-naming their ROADMAP item.
+batches (the bulk setting). `dataset_type: "large"` in the Processing
+section streams the dataset from npz shards of `large_shard_graphs` graphs
+(data/streaming.py; a model's `stream_wire` picks the wire batch), for
+every run mode. main.py's `--parallel` and `--ep` raise, naming their
+ROADMAP item.
 """
 
 from __future__ import annotations

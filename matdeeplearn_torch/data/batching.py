@@ -353,6 +353,10 @@ class GraphBatch:
     kernel_fused: bool = False
     # the single-pass arm of the fused and windowed kernels (the dataset's)
     kernel_bf16: bool = False
+    # MPNN's message on the bilinear kernel over the reference edge order
+    # (a streamed batch of the fused plan, training/stream.py): the kernel
+    # reads the mask alone, so it needs no sorted order
+    kernel_bilinear: bool = False
     # Windowed batches (assemble_batch_windowed): edge_dst is -1 on pad
     # slots (edge_dst_safe clamps it for index ops), and edges are ordered
     # by (window, dst) in tiles of num_edges / len(tile_window) slots.

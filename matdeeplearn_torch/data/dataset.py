@@ -15,8 +15,9 @@ the same edges, where it does not; process_data prints which ran. With
 SOAP_descriptor or SM_descriptor "True" the whole-structure descriptors
 (data/descriptors.py) go into extra_features ("SOAP" or "SM", float32),
 which the .npz cache keeps. The train/val/test and CV splits cut one
-seeded torch.randperm, as the reference does. The "large" streaming
-dataset is not ported yet (ROADMAP queue 1, item 14).
+seeded torch.randperm, as the reference does. `dataset_type: "large"`
+serves the dataset from npz shards under `<processed>/shards`
+(data/streaming.py), the reference package's streaming layout.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from matdeeplearn_torch.data import descriptors
 from matdeeplearn_torch.data import graphs as G
+from matdeeplearn_torch.data import streaming as S
 from matdeeplearn_torch.data import windowed as W
 from matdeeplearn_torch.data.native import featurize_structures
 from matdeeplearn_torch.data.structures import Structure, read_ase_db, read_structure
@@ -332,19 +334,24 @@ def get_dataset(
     reprocess: str | bool = "False",
     processing_args: dict | None = None,
 ) -> GraphDataset:
-    """Cached dataset fetch (reference get_dataset, process.py:87-129)."""
+    """Cached dataset fetch (reference get_dataset, process.py:87-129).
+    With dataset_type "large" a StreamingGraphDataset over
+    `<processed>/shards`: the existing shard directory, or one written
+    from the processed dataset in shards of `large_shard_graphs` graphs
+    (default 2048), as the reference package's get_dataset does."""
     args = {**DEFAULT_PROCESSING_ARGS, **(processing_args or {})}
-    if str(args.get("dataset_type", "inmemory")).lower() == "large":
-        raise NotImplementedError(
-            "dataset_type 'large' (streaming) is not ported yet "
-            "(ROADMAP queue 1, item 14)"
-        )
     processed_path = args.get("processed_path", PROCESSED_DIR_DEFAULT)
     full = os.path.join(data_path, processed_path)
     if not os.path.exists(data_path):
         raise FileNotFoundError(f"Data not found in: {data_path}")
     if str(reprocess) == "True" and os.path.exists(full):
         shutil.rmtree(full)
+    shard_dir = os.path.join(full, "shards")
+    large = str(args.get("dataset_type", "inmemory")).lower() == "large"
+    if large and os.path.exists(os.path.join(shard_dir, S.META_JSON)):
+        # disk streaming (the reference's StructureDataset_large): an
+        # existing shard directory serves without the processed arrays
+        return S.StreamingGraphDataset(shard_dir, target_index)
     ds = None
     if os.path.exists(os.path.join(full, "data.npz")):
         try:
@@ -353,7 +360,12 @@ def get_dataset(
             shutil.rmtree(full)
     if ds is None:
         ds = process_data(data_path, processed_path, args)
-    return ds.with_target_index(target_index)
+    ds = ds.with_target_index(target_index)
+    if large:
+        return S.load_or_create_sharded(
+            ds, shard_dir, target_index,
+            int(args.get("large_shard_graphs", 2048)))
+    return ds
 
 
 # ------------------------------------------------------------------ splitting

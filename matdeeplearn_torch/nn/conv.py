@@ -159,8 +159,10 @@ class NNConv(nn.Module):
 
     On a dst-sorted batch (kernels csr and fused) the message runs on the
     bilinear kernel (ops/fused_bilinear.py), which never forms the (E, D, K)
-    per-edge weights, and the mean on the CSR kernels; on the reference
-    order it is the einsum over the formed weights. Both branches keep one
+    per-edge weights, and the mean on the CSR kernels; on a streamed batch
+    of the fused plan (batch.kernel_bilinear, the reference edge order)
+    the message runs on the kernel and the mean on the plain segment ops;
+    otherwise it is the einsum over the formed weights. Both branches keep one
     parameter tree. Under bf16 activations the kernel runs its bf16 arm on
     f32 copies of xj and a (ops/fused_bilinear.py), its message cast back,
     and the einsum takes the per-edge weights formed in bf16 (the reference
@@ -180,7 +182,7 @@ class NNConv(nn.Module):
 
     def forward(self, x, batch, a, w1, b1):
         dt = x.dtype
-        if batch.dst_sorted:
+        if batch.dst_sorted or batch.kernel_bilinear:
             # the kernel reads f32 rows: gathered in f32, their gradient
             # sums in f32 (a bf16 gather's index_add_ adds in bf16)
             msg = FusedBilinear.apply(gather_src(x.float(), batch), a.float(),

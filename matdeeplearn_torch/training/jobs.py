@@ -26,6 +26,7 @@ from matdeeplearn_torch.data import dataset as D
 from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
                                               WindowedDeviceData, assemble,
                                               packed_id_matrix)
+from matdeeplearn_torch.data.streaming import StreamingGraphDataset
 from matdeeplearn_torch.models import (DESCRIPTOR_MODELS, MODEL_FIELDS,
                                        build_model, descriptor_width)
 from matdeeplearn_torch.training import train as T
@@ -36,6 +37,8 @@ from matdeeplearn_torch.training.optimizers import (build_optimizer,
                                                     optimizer_state,
                                                     set_learning_rate)
 from matdeeplearn_torch.training.scheduler import build_scheduler
+from matdeeplearn_torch.training.stream import (StreamFeed, stream_evaluate,
+                                                stream_trainer)
 from matdeeplearn_torch.training.trainer import fused_trainer
 from matdeeplearn_torch.utils.device import resolve_device
 from matdeeplearn_torch.utils.profiling import (attach_analytic_flops,
@@ -81,10 +84,11 @@ def csr_side(model_name: str) -> str:
 
 def resolve_kernel(model_name: str, kernel: str, batching: str,
                    device: torch.device, kernel_precision: str = "f32",
-                   csr_order: str | None = None) -> KernelPlan:
+                   csr_order: str | None = None,
+                   stream: bool = False) -> KernelPlan:
     """The kernel request of a model config → what the port runs, for
-    in-memory batches, padded or packed alike (the reference package's
-    _resolve_kernel, training/jobs.py:80-199):
+    padded or packed batches alike (the reference package's
+    _resolve_kernel, training/jobs.py:80-199). In memory:
 
       fused  — the model's conv on its fused kernel, dst-sorted batches
                (CGConv: ops/fused_cgconv.py; SchNet's cfconv:
@@ -133,6 +137,17 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                accelerator honours it for CGCNN; for MPNN (the bilinear
                kernel), GCN and MEGNet (csr) it is ignored with a note.
 
+    On a disk-streaming dataset (stream, data/streaming.py) the batches keep
+    the reference edge order and carry no windowed layout, so pallas,
+    fused and csr are unavailable and print the reference's note, except
+    MPNN's message: under auto on a CUDA device, or fused or csr anywhere,
+    it runs on the bilinear kernel (the fused plan: GraphBatch.
+    kernel_bilinear), its mean on the plain segment ops, as the
+    reference's streamed MPNN runs its bilinear kernel; csr notes that
+    its CSR mean is unavailable. Everything else runs xla, and
+    kernel_precision is not read (the reference's streamed batches never
+    carry kernel_bf16).
+
     kernel_precision is "f32" or "bf16" (any case); another value raises.
     Under csr and xla it is not read, as the reference's CSR and XLA
     batches never carry kernel_bf16. `batching` ("padded" or "packed")
@@ -160,6 +175,8 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                   "models have no edge aggregation); using the XLA scatter "
                   "path")
         return KernelPlan("xla", None, False)
+    if stream:
+        return _stream_plan(model_name, kernel, device)
     if kernel == "fused" and model_name not in FUSED_MODELS:
         print("kernel=fused applies to CGCNN, SchNet and MPNN; other models "
               "run the windowed aggregation kernel (kernel=pallas behavior)")
@@ -186,6 +203,25 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
                       and model_name in SINGLE_PASS_FUSED)
 
 
+def _stream_plan(model_name: str, kernel: str, device) -> KernelPlan:
+    """resolve_kernel on a disk-streaming dataset."""
+    mpnn_fused = model_name == "MPNN" and (
+        kernel in ("fused", "csr")
+        or (kernel == "auto" and torch.device(device).type == "cuda"))
+    if kernel == "pallas" or (kernel == "fused" and not mpnn_fused):
+        print(f"kernel={kernel} requested but unavailable (streaming datasets "
+              "have no windowed layout cache); using the XLA scatter path")
+    if kernel == "csr":
+        print("kernel=csr requested but unavailable (streaming datasets "
+              "assemble from the reference edge order); using the XLA "
+              "scatter path" + (" for the aggregations and the bilinear "
+                                "kernel for MPNN's message"
+                                if mpnn_fused else ""))
+    if mpnn_fused:
+        return KernelPlan("fused", None, True)
+    return KernelPlan("xla", None, False)
+
+
 @dataclass
 class Run:
     """Everything needed to train and evaluate one model on one dataset."""
@@ -194,7 +230,7 @@ class Run:
     optimizer: torch.optim.Optimizer
     scheduler: object
     spec: BatchSpec
-    data: DeviceDataset
+    data: DeviceDataset | None  # None on a disk-streaming dataset
     model_name: str
     model_config: dict
     kernel: str             # the resolved plan's name (KernelPlan.name)
@@ -216,6 +252,27 @@ class Run:
     init_fn: object = None
     optimizer_name: str = "AdamW"
     optimizer_args: dict = field(default_factory=dict)
+    # the batch source of a disk-streaming dataset (training/stream.py's
+    # StreamFeed), else None
+    feed: object = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.feed.device if self.data is None else self.data.device
+
+    @property
+    def streaming(self):
+        """The disk-streaming dataset (data/streaming.py), else None."""
+        return None if self.feed is None else self.feed.sds
+
+    @property
+    def stream_wire(self) -> bool:
+        """A streamed Run ships wire batches (stream_wire "False": full)."""
+        return self.feed is not None and self.feed.wire
+
+    @property
+    def stream_packed(self) -> bool:
+        return self.feed is not None and self.feed.packed
 
     @property
     def fused_kernel(self) -> bool:
@@ -234,6 +291,8 @@ class Run:
 
     def id_matrix(self, indices, shuffle: bool, seed) -> np.ndarray:
         """The (steps, slots) id matrix of one epoch over `indices`."""
+        if self.feed is not None:
+            return self.feed.id_matrix(indices, shuffle, seed)
         if self.id_matrix_fn is not None:
             return self.id_matrix_fn(indices, shuffle, seed)
         return T.epoch_id_matrix(indices, self.batch_size, shuffle, seed)
@@ -252,15 +311,22 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
     the windowed counts under pallas (align max(8, tw), edges te, so every
     bin is a windowed batch), the flat counts otherwise, fused included
     (the port's fused plan runs on flat dst-sorted batches, unlike the
-    reference's windowed fused kernels)."""
+    reference's windowed fused kernels).
+
+    On a disk-streaming dataset (the reference's stream branch) the spec
+    comes from its resident counts (align 8, edges 8), padded or packed,
+    and the batches from a StreamFeed (training/stream.py) with the
+    model's stream_wire, in place of device-resident data; the resolved
+    line says stream=y."""
     dev = resolve_device(device)
     model_name = model_parameters.get("model", "CGCNN")
     bs = int(batch_size or model_parameters.get("batch_size", 100))
     batching = str(model_parameters.get("batching", "padded")).lower()
+    is_stream = isinstance(dataset, StreamingGraphDataset)
     plan = resolve_kernel(
         model_name, str(model_parameters.get("kernel", "auto")).lower(),
         batching, dev, str(model_parameters.get("kernel_precision", "f32")),
-        model_parameters.get("csr_order"))
+        model_parameters.get("csr_order"), stream=is_stream)
     packed = batching == "packed"
 
     def init_fn(seed):
@@ -269,7 +335,13 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
                            dropout_seed=int(seed), device="cpu")
 
     model = init_fn(seed).to(dev)
-    if plan.windowed:
+    data = feed = None
+    if is_stream:
+        # the host packer bins by the resident counts; the feed packs the
+        # shard-local orders by sequential fill (training/stream.py)
+        counts = (dataset.node_counts(), dataset.edge_counts())
+        align = dict(align=8, align_edges=8)
+    elif plan.windowed:
         # kernel_tw / kernel_te: the window and tile sizes of the layout
         layout = D.windowed_layout(
             dataset,
@@ -296,6 +368,12 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
             return packed_id_matrix(indices, *counts, spec, bs, shuffle, seed)
     else:
         spec = BatchSpec.for_dataset(*counts, bs, **align)
+    if is_stream:  # the feed makes its own rows (Run.id_matrix)
+        id_matrix_fn = None
+        feed = StreamFeed(dataset, spec, dev, packed=packed, batch_size=bs,
+                          wire=str(model_parameters.get("stream_wire", "True"))
+                          != "False",
+                          bilinear=plan.fused and model_name == "MPNN")
     lr = float(model_parameters.get("lr", 1e-3))
     optimizer_name = model_parameters.get("optimizer", "AdamW")
     optimizer_args = dict(model_parameters.get("optimizer_args") or {})
@@ -311,7 +389,7 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
             f"{plan.name}({plan.edge_order})" if plan.name == "csr"
             else f"{plan.name}(single-pass)" if plan.single_pass
             else plan.name,
-            batching, model.precision, 1, 1, "n",
+            batching, model.precision, 1, 1, "y" if is_stream else "n",
             spec.num_graphs, spec.num_nodes, spec.num_edges,
             capture_plan(dev, optimizer, model),
         )
@@ -332,7 +410,8 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
                edge_order=plan.edge_order, batch_size=bs, lr=lr, loss=loss,
                scheduler_name=scheduler_name, scheduler_args=scheduler_args,
                id_matrix_fn=id_matrix_fn, init_fn=init_fn,
-               optimizer_name=optimizer_name, optimizer_args=optimizer_args)
+               optimizer_name=optimizer_name, optimizer_args=optimizer_args,
+               feed=feed)
 
 
 # Adam's and AdamW's state: all tensors, zero on a fresh optimizer's first
@@ -373,7 +452,7 @@ def reset_run(run: Run, seed: int) -> Run:
     else:
         run.optimizer = build_optimizer(
             run.optimizer_name, run.model.parameters(), run.lr,
-            run.optimizer_args, device=run.data.device)
+            run.optimizer_args, device=run.device)
         run.graphs.clear()
     run.scheduler = build_scheduler(run.scheduler_name, run.lr,
                                     run.scheduler_args)
@@ -397,7 +476,8 @@ def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
     capture plan allows (the `resolved:` line prints it), False eagerly;
     the graphs stay on `run.graphs`, so a later call replays them. `resume`
     (start_epoch, plateau_start, chunk_fn) goes to the trainer, for a run
-    resumed mid-training (training/hyper.py)."""
+    resumed mid-training (training/hyper.py). A streamed Run trains on its
+    feed (training/stream.py:stream_trainer), with the same semantics."""
     sa = run.scheduler_args
     scheduler_kwargs = dict(
         factor=float(sa.get("factor", 0.1)),
@@ -421,16 +501,17 @@ def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
         _sync_scheduler(run, sched)
         _save(checkpoint_path, run, best)
 
-    return fused_trainer(
-        model=run.model, optimizer=run.optimizer,
-        loss_fn=T.get_loss(run.loss), spec=run.spec, data=run.data,
-        train_idx=train_idx, val_idx=val_idx, id_matrix_fn=run.id_matrix,
-        epochs=epochs, verbosity=verbosity, lr=run.lr,
-        scheduler_kwargs=scheduler_kwargs,
-        scheduler_enabled=run.scheduler_name == "ReduceLROnPlateau",
-        checkpoint_fn=checkpoint_fn, shuffle_seed_base=seed, meter=meter,
-        capture=capture, graph_cache=run.graphs, **resume,
-    )
+    kw = dict(model=run.model, optimizer=run.optimizer,
+              loss_fn=T.get_loss(run.loss), train_idx=train_idx,
+              val_idx=val_idx, epochs=epochs, verbosity=verbosity, lr=run.lr,
+              scheduler_kwargs=scheduler_kwargs,
+              scheduler_enabled=run.scheduler_name == "ReduceLROnPlateau",
+              checkpoint_fn=checkpoint_fn, shuffle_seed_base=seed,
+              meter=meter, capture=capture, graph_cache=run.graphs, **resume)
+    if run.feed is not None:
+        return stream_trainer(feed=run.feed, **kw)
+    return fused_trainer(spec=run.spec, data=run.data,
+                         id_matrix_fn=run.id_matrix, **kw)
 
 
 def _sync_scheduler(run: Run, sched):
@@ -444,9 +525,13 @@ def _sync_scheduler(run: Run, sched):
 
 
 def _final_outputs(run: Run, dataset, idx):
-    loss, preds, targs = T.evaluate(run.model, run.loss, run.spec, run.data,
-                                    idx, run.batch_size, out=True,
-                                    id_matrix_fn=run.id_matrix)
+    if run.feed is not None:
+        loss, preds, targs = stream_evaluate(run.model, run.loss, run.feed,
+                                             idx, out=True)
+    else:
+        loss, preds, targs = T.evaluate(run.model, run.loss, run.spec,
+                                        run.data, idx, run.batch_size,
+                                        out=True, id_matrix_fn=run.id_matrix)
     ids = [dataset.structure_ids[i] for i in idx]
     return loss, ids, targs, preds
 
@@ -558,7 +643,9 @@ def predict(dataset, loss: str, job_parameters: dict,
     gathers, u broadcasts and edge→node means; the bilinear kernel every
     NNConv message), write
     `<job>_predicted_outputs.csv`, report the error. Runs on CUDA unless
-    `device` names another device."""
+    `device` names another device. On a disk-streaming dataset it
+    evaluates streamed wire batches in the reference edge order
+    (predict_feed; the reference's stream_evaluate defaults to the wire)."""
     dev = resolve_device(device)
     model_path = job_parameters["model_path"]
     if not os.path.exists(model_path):
@@ -571,12 +658,17 @@ def predict(dataset, loss: str, job_parameters: dict,
     spec = BatchSpec.for_dataset(
         dataset.node_counts(), dataset.edge_counts(), batch_size
     )
-    data = DeviceDataset.from_graph_dataset(
-        dataset, dev, edge_order=csr_side(meta["model_name"]))
     idx = np.arange(len(dataset))
-    t0 = time.time()
-    err, preds, targs = T.evaluate(model, loss, spec, data, idx, batch_size,
-                                   out=True)
+    if isinstance(dataset, StreamingGraphDataset):
+        feed = predict_feed(dataset, spec, dev, meta["model_name"])
+        t0 = time.time()
+        err, preds, targs = stream_evaluate(model, loss, feed, idx, out=True)
+    else:
+        data = DeviceDataset.from_graph_dataset(
+            dataset, dev, edge_order=csr_side(meta["model_name"]))
+        t0 = time.time()
+        err, preds, targs = T.evaluate(model, loss, spec, data, idx,
+                                       batch_size, out=True)
     elapsed = time.time() - t0
     print("Evaluation time (s): {:.5f}".format(elapsed))
 
@@ -761,6 +853,16 @@ def train_ensemble(dataset, job_parameters: dict, training_parameters: dict,
     return ens_err
 
 
+def predict_feed(dataset, spec, dev, model_name: str,
+                 wire: bool = True) -> StreamFeed:
+    """The feed of Predict and Analysis on a disk-streaming dataset: padded
+    batches of `spec`, MPNN's messages on the bilinear kernel (as on
+    Predict's in-memory batches), everything else on the plain ops of the
+    reference edge order."""
+    return StreamFeed(dataset, spec, dev, wire=wire,
+                      bilinear=model_name == "MPNN")
+
+
 def load_model_for_inference(dataset, model_path: str, dev):
     """(meta, model in eval mode on `dev`) from a checkpoint of either
     package (training/checkpoint.py)."""
@@ -783,19 +885,26 @@ def graph_embeddings(model, model_name: str, dataset, dev,
     sums on a card), over the dataset in order, sequential batches of
     `batch_size`. As the reference package, each batch keeps its first k
     rows, k its count of real graphs: the graph rows after an early pool
-    (a late pool's embedding is the node features)."""
+    (a late pool's embedding is the node features). A disk-streaming
+    dataset streams full batches in the reference edge order."""
     if model_name in DESCRIPTOR_MODELS:
         raise ValueError(f"Analysis reads a GNN's post-pool embedding; "
                          f"{model_name} has none")
     spec = BatchSpec.for_dataset(dataset.node_counts(), dataset.edge_counts(),
                                  batch_size)
-    data = DeviceDataset.from_graph_dataset(dataset, dev,
-                                            edge_order=csr_side(model_name))
     ids = T.epoch_id_matrix(np.arange(len(dataset)), batch_size, shuffle=False,
                             seed=None)
+    if isinstance(dataset, StreamingGraphDataset):
+        # full batches, as the reference's analysis assembles them
+        feed = predict_feed(dataset, spec, dev, model_name, wire=False)
+        batches = (feed.batch_of(feed.static) for _ in feed.batches(ids))
+    else:
+        data = DeviceDataset.from_graph_dataset(
+            dataset, dev, edge_order=csr_side(model_name))
+        batches = (assemble(data, row, spec) for row in ids)
     embs = []
-    for row in ids:
-        emb = model(assemble(data, row, spec), embed=True)
+    for row, batch in zip(ids, batches):
+        emb = model(batch, embed=True)
         embs.append(emb[:int((row >= 0).sum())].float().cpu().numpy())
     return np.concatenate(embs)
 

@@ -101,7 +101,11 @@ def train_step(model, optimizer, loss_fn, spec: BatchSpec, data: DeviceDataset,
     statistics, running update), masked loss, backward, optimizer.step().
     Returns (loss, graph count) as device tensors. The batch is windowed
     when the dataset carries the windowed layout (batching.assemble)."""
-    batch = assemble(data, ids, spec)
+    return train_batch(model, optimizer, loss_fn, assemble(data, ids, spec))
+
+
+def train_batch(model, optimizer, loss_fn, batch):
+    """train_step on an assembled batch (a streamed one: training/stream.py)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
     out = model(batch)
@@ -113,22 +117,14 @@ def train_step(model, optimizer, loss_fn, spec: BatchSpec, data: DeviceDataset,
 
 
 @torch.no_grad()
-def eval_sums(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids,
-              loss_sum: torch.Tensor, count_sum: torch.Tensor):
-    """Add Σ loss·count and Σ count over the rows of the (S, B) id matrix
-    `ids` to the device tensors loss_sum and count_sum, in place, in eval
-    mode."""
-    model.eval()
-    for row in ids:
-        loss, count, _ = eval_step(model, loss_fn, spec, data, row)
-        loss_sum += loss * count
-        count_sum += count
+def eval_step(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids):
+    """One batch in eval mode: (loss, graph count, per-slot outputs)."""
+    return eval_batch(model, loss_fn, assemble(data, ids, spec))
 
 
 @torch.no_grad()
-def eval_step(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids):
-    """One batch in eval mode: (loss, graph count, per-slot outputs)."""
-    batch = assemble(data, ids, spec)
+def eval_batch(model, loss_fn, batch):
+    """eval_step on an assembled batch."""
     out = model(batch)
     y = batch.y if out.ndim > 1 else batch.y[:, 0]
     return loss_fn(out, y, batch.graph_mask), torch.sum(batch.graph_mask), out

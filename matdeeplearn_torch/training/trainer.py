@@ -12,12 +12,11 @@ so a captured epoch does the eager epoch's arithmetic:
 
   * epoch e (counted from 1) trains on id_matrix_fn(train_idx,
     shuffle=True, seed=seed + e) (padded: train.epoch_id_matrix; packed:
-    the run's bins, the same number of steps every epoch); `train_into`
-    adds each step's loss·count and count to the static sums, so the train
-    error is the sample-weighted mean of the step losses, the epoch
-    objective whatever the bins hold;
-  * the val error is computed the same way (train.eval_sums); a NaN never
-    improves;
+    the run's bins, the same number of steps every epoch); each step adds
+    its loss·count and count to the static sums, so the train error is the
+    sample-weighted mean of the step losses, the epoch objective whatever
+    the bins hold;
+  * the val error is computed the same way; a NaN never improves;
   * `epoch_tail`: on improvement the parameters and BatchNorm statistics
     are copied into the best state (torch.where per tensor, in place, no
     branch on the host); after the best-val decision `plateau_step`
@@ -42,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from matdeeplearn_torch.data.batching import assemble
 from matdeeplearn_torch.training import train as T
 from matdeeplearn_torch.training.graphs import (CudaGraphs, GraphedStep,
                                                 capture_plan, launch_counters)
@@ -121,12 +121,9 @@ class EpochState:
         self.sched.cooldown.zero_()
 
 
-def train_into(model, optimizer, loss_fn, spec, data, ids, state: EpochState):
-    """One train step on the batch `ids`, its loss·count and count added
-    to the state's train sums."""
-    loss, count = T.train_step(model, optimizer, loss_fn, spec, data, ids)
-    state.lsum += loss * count
-    state.csum += count
+def _add_sums(loss, count, loss_sum, count_sum):
+    loss_sum += loss * count
+    count_sum += count
 
 
 def epoch_tail(state: EpochState, model, optimizer, *, has_val: bool,
@@ -163,21 +160,26 @@ def epoch_tail(state: EpochState, model, optimizer, *, has_val: bool,
 
 
 class EpochFns:
-    """The epoch's three functions, eager or as CUDA graphs: train(row),
-    evaluate(row) and tail(). Captured, each reads its batch's ids from a
-    static buffer that the host fills by a device-to-device copy."""
+    """The epoch's three functions, eager or as CUDA graphs: train(x),
+    evaluate(x) and tail(), x what batch_of turns into a batch (a row of
+    ids, or a streamed batch's device tensors). Captured, each reads its
+    input from a static one: train_input and val_input, which the host
+    fills by a device-to-device copy of x, unless x is that static input
+    (the stream's feed copies into it itself, training/stream.py)."""
 
-    def __init__(self, *, model, optimizer, loss_fn, spec, data,
+    def __init__(self, *, model, optimizer, loss_fn, batch_of,
                  state: EpochState, tail_kwargs: dict, graphs: bool,
-                 train_width: int = 0, val_width: int = 0):
+                 train_input=None, val_input=None):
         self.state = state
 
-        def train(row):
-            train_into(model, optimizer, loss_fn, spec, data, row, state)
+        def train(x):
+            loss, count = T.train_batch(model, optimizer, loss_fn, batch_of(x))
+            _add_sums(loss, count, state.lsum, state.csum)
 
-        def evaluate(row):
-            T.eval_sums(model, loss_fn, spec, data, row[None], state.vsum,
-                        state.vcnt)
+        def evaluate(x):
+            model.eval()
+            loss, count, _ = T.eval_batch(model, loss_fn, batch_of(x))
+            _add_sums(loss, count, state.vsum, state.vcnt)
 
         def tail():
             epoch_tail(state, model, optimizer, **tail_kwargs)
@@ -185,26 +187,24 @@ class EpochFns:
         if not graphs:
             self.train, self.evaluate, self.tail = train, evaluate, tail
             return
-        dev = data.device
-        train_ids = torch.full((train_width,), -1, dtype=torch.int32,
-                               device=dev)
-        val_ids = torch.full((val_width,), -1, dtype=torch.int32, device=dev)
         gens = getattr(model, "dropout_generators", list)
         backend, counters = CudaGraphs(gens), launch_counters()
-        graphed_train = GraphedStep(lambda: train(train_ids), backend,
+        graphed_train = GraphedStep(lambda: train(train_input), backend,
                                     counters)
-        graphed_eval = GraphedStep(lambda: evaluate(val_ids), backend,
+        graphed_eval = GraphedStep(lambda: evaluate(val_input), backend,
                                    counters)
 
-        # closures over the buffers and graphs, never over self: no
+        # closures over the inputs and graphs, never over self: no
         # reference cycle keeps a dropped run's graph pool alive until a
         # garbage collection
-        def replay_train(row):
-            train_ids.copy_(row)
+        def replay_train(x):
+            if x is not train_input:
+                train_input.copy_(x)
             graphed_train()
 
-        def replay_eval(row):
-            val_ids.copy_(row)
+        def replay_eval(x):
+            if x is not val_input:
+                val_input.copy_(x)
             graphed_eval()
 
         self.train, self.evaluate = replay_train, replay_eval
@@ -225,7 +225,8 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
                   checkpoint_fn=None, shuffle_seed_base: int = 0,
                   meter=None, capture: bool | None = None,
                   graph_cache: dict | None = None, start_epoch: int = 0,
-                  plateau_start: tuple | None = None, chunk_fn=None):
+                  plateau_start: tuple | None = None, chunk_fn=None,
+                  stream=None):
     """Run `epochs` epochs in chunks of `verbosity`. Returns (best_state,
     final PlateauState, history): best_state a state_dict copy (the model
     itself holds the last state), history one (train, val, lr) row of floats
@@ -258,41 +259,62 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
     num_bad, cooldown) to continue from. chunk_fn(epoch, rows, sched), if
     given, is called after every chunk (and its checkpoint_fn) with the
     last epoch's number, the chunk's (train, val, lr) rows and the plateau
-    state; a true return ends the training there."""
-    dev = data.device
+    state; a true return ends the training there.
+
+    stream (training/stream.py's StreamFeed), if given, feeds the epochs
+    from a disk-streaming dataset: each row of id_matrix_fn's matrices is
+    assembled on the host, through the feed's prefetch ring, and copied
+    into the feed's static batch on the device, which the steps read
+    (captured or eager); data is not read. A meter then takes each
+    streamed epoch, synced at its end, the call's first as warmup (the
+    reference package's stream_trainer)."""
+    dev = data.device if stream is None else stream.device
     plan = capture_plan(dev, optimizer, model, capture)
     has_val = len(val_idx) > 0
-    val_ids = (torch.as_tensor(id_matrix_fn(val_idx, False, None), device=dev)
-               if has_val else None)
+    val_ids = id_matrix_fn(val_idx, False, None) if has_val else None
+    if stream is None and has_val:
+        val_ids = torch.as_tensor(val_ids, device=dev)
     chunk = max(1, int(verbosity) or 5)
     graph_cache = {} if graph_cache is None else graph_cache
 
     def epoch_fns(train_shape) -> EpochFns:
         """The run's epoch functions: eager ones on a fresh state, or the
         cached graphs of these shapes (their state reset), or new ones."""
-        key = (train_shape, None if val_ids is None else tuple(val_ids.shape),
+        key = ("stream" if stream is not None else train_shape,
+               None if val_ids is None else tuple(val_ids.shape),
                spec, loss_fn, tuple(sorted(scheduler_kwargs.items())),
                scheduler_enabled)
         if plan.graphs and key in graph_cache:
             graph_cache[key].state.reset(model, lr)
             return graph_cache[key]
+        if stream is not None:  # the feed fills one static batch
+            batch_of = stream.batch_of
+            train_input = val_input = stream.static
+        else:
+            batch_of = lambda ids: assemble(data, ids, spec)  # noqa: E731
+            train_input = val_input = None
+            if plan.graphs:
+                train_input = torch.full((train_shape[1],), -1,
+                                         dtype=torch.int32, device=dev)
+                val_input = torch.full(
+                    (0 if val_ids is None else val_ids.shape[1],), -1,
+                    dtype=torch.int32, device=dev)
         fns = EpochFns(
-            model=model, optimizer=optimizer, loss_fn=loss_fn, spec=spec,
-            data=data, state=EpochState(model, lr, dev), graphs=plan.graphs,
+            model=model, optimizer=optimizer, loss_fn=loss_fn,
+            batch_of=batch_of, state=EpochState(model, lr, dev),
+            graphs=plan.graphs,
             tail_kwargs=dict(has_val=has_val, scheduler_kwargs=scheduler_kwargs,
                              scheduler_enabled=scheduler_enabled),
-            train_width=train_shape[1],
-            val_width=0 if val_ids is None else val_ids.shape[1])
+            train_input=train_input, val_input=val_input)
         if plan.graphs:
             graph_cache[key] = fns
         return fns
 
-    def chunk_ids(start: int) -> np.ndarray:
-        """The (k, S, B) id matrices of the chunk of epochs after `start`."""
-        return np.stack([
-            id_matrix_fn(train_idx, True,
-                         shuffle_seed_base + start_epoch + start + e + 1)
-            for e in range(min(chunk, epochs - start))])
+    def chunk_ids(start: int) -> list:
+        """The (S, B) id matrices of the chunk of epochs after `start`."""
+        return [id_matrix_fn(train_idx, True,
+                             shuffle_seed_base + start_epoch + start + e + 1)
+                for e in range(min(chunk, epochs - start))]
 
     fns = None
     history = []
@@ -300,23 +322,37 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
     t0 = time.time()
     next_ids = chunk_ids(0) if epochs > 0 else None
     while epoch < epochs:
-        ids = torch.as_tensor(next_ids, device=dev)
-        k = ids.shape[0]
+        ids = (next_ids if stream is not None
+               else torch.as_tensor(np.stack(next_ids), device=dev))
+        k = len(ids)
         if fns is None:
-            fns = epoch_fns(tuple(ids.shape[1:]))
+            fns = epoch_fns(tuple(ids[0].shape))
             if plateau_start is not None:
                 for t, v in zip(fns.state.sched, plateau_start):
                     t.fill_(v)
         state = fns.state
         hist = torch.empty((k, 3), device=dev)
         for e in range(k):
-            for row in ids[e]:
-                fns.train(row)
-            if has_val:
-                for row in val_ids:
-                    fns.evaluate(row)
+            t_epoch = time.time()
+            if stream is None:
+                for row in ids[e]:
+                    fns.train(row)
+                if has_val:
+                    for row in val_ids:
+                        fns.evaluate(row)
+            else:
+                stream.run((ids[e], fns.train),
+                           *([(val_ids, fns.evaluate)] if has_val else []))
             fns.tail()
             hist[e].copy_(state.row)
+            if stream is not None and meter is not None:
+                # a streamed epoch is the meter's unit (the reference
+                # package's stream_trainer): this call's first is warmup
+                hist[e].cpu()  # the epoch's sync
+                first = epoch + e == 0
+                meter.add_chunk(1, len(ids[e]), time.time() - t_epoch,
+                                key=("stream", len(ids[e])) if first else None,
+                                warmup=None if first else False)
         # the next chunk's batches (packed bins: host numpy) while the
         # device runs this one
         next_ids = chunk_ids(epoch + k) if epoch + k < epochs else None
@@ -327,15 +363,16 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
         history += [tuple(r) for r in rows]
         dt_chunk = time.time() - t0
         dt = dt_chunk / k
-        if meter is not None:
-            meter.add_chunk(k, k * ids.shape[1], dt_chunk,
+        if meter is not None and stream is None:
+            n_steps = ids.shape[1]
+            meter.add_chunk(k, k * n_steps, dt_chunk,
                             key=("graphs" if plan.graphs else "eager", k,
-                                 ids.shape[1]))
+                                 n_steps))
             if meter.flops_per_epoch == 0.0:
                 fwd = _forward_flops(model, loss_fn, spec, data, ids[0, 0])
                 if fwd:
                     meter.flops_per_epoch = fwd * (
-                        3 * ids.shape[1] + (len(val_ids) if has_val else 0))
+                        3 * n_steps + (len(val_ids) if has_val else 0))
         if verbosity:
             train_err, val_err, lr_now = rows[-1]
             print(

@@ -77,6 +77,13 @@ def _problem(rng, case, n_real=1500, n=2048, pad_to=12000):
     return dst, mask, n
 
 
+def _draw(*shape, seed: int, device):
+    """Standard normal draws from torch.Generator(seed) on the CPU, moved to
+    `device`: every random input of these tests replays."""
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)
+                       ).to(device)
+
+
 def _assert_sum_close(out, ref):
     torch.testing.assert_close(out, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
@@ -111,7 +118,7 @@ def test_each_call_counts_one_launch(cuda_device):
     dst, mask, n = _problem(np.random.default_rng(0), "sorted")
     dv = torch.as_tensor(dst, device=cuda_device)
     mv = torch.as_tensor(mask, device=cuda_device)
-    x = torch.randn(n, 8, device=cuda_device)
+    x = _draw(n, 8, seed=101, device=cuda_device)
     before = dict(csr.LAUNCHES)
     e = csr.gather(x, dv, mv)
     csr.segment_sum(e, dv, mv, n)
@@ -124,11 +131,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     dst, mask, n = _problem(np.random.default_rng(1), "sorted")
     dv = torch.as_tensor(dst, device=cuda_device)
     mv = torch.as_tensor(mask, device=cuda_device)
-    x = torch.randn(8, n, device=cuda_device).t()  # not contiguous
+    x = _draw(8, n, seed=102, device=cuda_device).t()  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         csr.gather(x, dv, mv)
     with pytest.raises(ValueError, match="int32"):
-        csr.segment_sum(torch.randn(len(dst), 4, device=cuda_device),
+        csr.segment_sum(_draw(len(dst), 4, seed=103, device=cuda_device),
                         dv.long(), mv, n)
 
 
@@ -196,7 +203,7 @@ def test_fused_cgconv_kernels_match_plain(cuda_device, case, d):
     out = FC.fused_cgconv(x, xj, dist, dst, mask, *ws, n, 0.2)
     _assert_fused_close(out, FC.fused_cgconv_plain(x, xj, dist, dst, mask, *ws,
                                                    n, 0.2), "forward")
-    g = torch.randn(n, d, device=cuda_device)
+    g = _draw(n, d, seed=104, device=cuda_device)
     got = FC.fused_cgconv_bwd(g, x, xj, dist, dst, mask, *ws, n, 0.2)
     ref = FC.fused_cgconv_bwd_plain(g, x, xj, dist, dst, mask, *ws, n, 0.2)
     names = ["x", "xj", "wfi", "wfj", "wfe", "bf", "wsi", "wsj", "wse", "bs"]
@@ -215,7 +222,7 @@ def test_fused_cgconv_backward_stages_match_plain(cuda_device, d):
     masked edges)."""
     x, xj, dist, dst, mask, ws, n = _fused_inputs("scattered", d,
                                                   device=cuda_device)
-    g = torch.randn(n, d, device=cuda_device)
+    g = _draw(n, d, seed=105, device=cuda_device)
     args = (x, xj, dist, dst, mask, *ws, n, 0.2)
     rows = FC.fused_cgconv_bwd_rows(g, *args)
     ref = FC.bwd_rows_plain(g, *args)
@@ -239,7 +246,7 @@ def test_fused_cgconv_autograd_and_launch_counts(cuda_device):
     before = dict(FC.LAUNCHES)
     out = FC.FusedCGConv.apply(leaves[0], leaves[1], dist, dst, mask,
                              *leaves[2:], n, 0.2)
-    cot = torch.randn_like(out)
+    cot = _draw(*out.shape, seed=106, device=out.device)
     (out * cot).sum().backward()
     torch.cuda.synchronize()
     assert set(FC.LAUNCHES) == {"fused_cgconv_fwd", "fused_cgconv_bwd",
@@ -256,7 +263,7 @@ def test_fused_cgconv_wgrad_is_bit_identical(cuda_device):
     """No atomics touch the weight gradient: two calls give the same bits."""
     x, xj, dist, dst, mask, ws, n = _fused_inputs("unsorted", 100,
                                                   device=cuda_device)
-    g = torch.randn(n, 100, device=cuda_device)
+    g = _draw(n, 100, seed=107, device=cuda_device)
     first = FC.fused_cgconv_bwd(g, x, xj, dist, dst, mask, *ws, n, 0.2)
     again = FC.fused_cgconv_bwd(g, x, xj, dist, dst, mask, *ws, n, 0.2)
     for a, b in zip(first[2:], again[2:]):
@@ -267,7 +274,7 @@ def test_fused_cgconv_wgrad_is_bit_identical(cuda_device):
 def test_wgrad_reduce_matches_plain(cuda_device, d, blocks):
     de = 50
     floats = FC._load().mdl_fused_cgconv_partial_floats(d, de)
-    partial = torch.randn(blocks * floats, device=cuda_device)
+    partial = _draw(blocks * floats, seed=108, device=cuda_device)
     _assert_fused_close(FC.wgrad_reduce(partial, blocks, d, de),
                         FC.wgrad_reduce_plain(partial, d, de), "reduce")
 
@@ -323,9 +330,14 @@ def test_fused_cgconv_fwd_matches_plain_at_tiling_edges(cuda_device, d, e,
         _assert_fused_close(out, FC.fused_cgconv_plain(*args), "forward")
 
 
-def _cfconv_tiling(f, e, real, device):
-    dst, mask = _edge_problem(e, 40, real, f * 1000 + e)
-    g = torch.Generator().manual_seed(f + e)
+# the draws of the tiling cases: `sweep` 0 is the tests', and the sweep
+# of sweep_cfconv_tiling.py runs the same cases over more
+SWEEP_STRIDE = 7919
+
+
+def _cfconv_tiling(f, e, real, device, sweep=0):
+    dst, mask = _edge_problem(e, 40, real, f * 1000 + e + SWEEP_STRIDE * sweep)
+    g = torch.Generator().manual_seed(f + e + SWEEP_STRIDE * sweep)
     t = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(device)
     xj = t(e, f)
     dist = torch.rand(e, generator=g).to(device)
@@ -347,20 +359,31 @@ def test_fused_cfconv_fwd_matches_plain_at_tiling_edges(cuda_device, f, e,
         _assert_fused_close(out, FS.fused_cfconv_plain(*args), "forward")
 
 
+def cfconv_bwd_tiling(f, e, real, device, sweep=0):
+    """(inputs, kernel gradients, plain gradients) of the cfconv backward's
+    tiling case (f, e, real) under the draw `sweep`, its cotangent from a
+    seeded generator."""
+    args = _cfconv_tiling(f, e, real, device, sweep)
+    cot = _draw(40, f, seed=f * 1000 + e + 1 + SWEEP_STRIDE * sweep,
+                device=device)
+    return (args, FS.fused_cfconv_bwd(cot, *args),
+            FS.fused_cfconv_bwd_plain(cot, *args))
+
+
+CFCONV_GRADS = ("xj", "w0", "b0", "w1", "b1")
+
+
 @pytest.mark.parametrize("e,real", TILING_EDGES)
 @pytest.mark.parametrize("f", TILING_WIDTHS)
 def test_fused_cfconv_bwd_matches_plain_at_tiling_edges(cuda_device, f, e,
                                                         real):
-    args = _cfconv_tiling(f, e, real, cuda_device)
-    cot = torch.randn(40, f, device=cuda_device)
-    got = FS.fused_cfconv_bwd(cot, *args)
-    ref = FS.fused_cfconv_bwd_plain(cot, *args)
+    args, got, ref = cfconv_bwd_tiling(f, e, real, cuda_device)
     if real == 0:
         assert float(got[0].abs().max()) == 0.0
         for a in got[1:]:
             assert float(a.abs().max()) == 0.0
         return
-    for name, a, b in zip(["xj", "w0", "b0", "w1", "b1"], got, ref):
+    for name, a, b in zip(CFCONV_GRADS, got, ref):
         _assert_fused_close(a, b, f"d_{name}")
     assert not got[0][args[4] == 0].any()
 
@@ -372,7 +395,7 @@ def test_fused_cfconv_backward_stages_match_plain(cuda_device, f):
     slice of the weight-gradient kernel (scattered mask)."""
     xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("scattered", f,
                                                       device=cuda_device)
-    g = torch.randn(n, f, device=cuda_device)
+    g = _draw(n, f, seed=110, device=cuda_device)
     args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
     rows = FS.fused_cfconv_bwd_rows(g, *args)
     ref = FS.bwd_rows_plain(g, *args)
@@ -393,7 +416,7 @@ def test_fused_cfconv_wgrad_launch_is_bit_identical(cuda_device):
     calls give the same bits."""
     xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("unsorted", 150,
                                                       device=cuda_device)
-    g = torch.randn(n, 150, device=cuda_device)
+    g = _draw(n, 150, seed=111, device=cuda_device)
     args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
     rows = FS.fused_cfconv_bwd_rows(g, *args)
     edges = (dist, wraw, dst, mask)
@@ -519,7 +542,7 @@ def test_fused_cfconv_kernels_match_plain(cuda_device, case, f):
     args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
     _assert_fused_close(FS.fused_cfconv(*args), FS.fused_cfconv_plain(*args),
                         "forward")
-    g = torch.randn(n, f, device=cuda_device)
+    g = _draw(n, f, seed=112, device=cuda_device)
     got = FS.fused_cfconv_bwd(g, *args)
     ref = FS.fused_cfconv_bwd_plain(g, *args)
     for name, a, b in zip(["xj", "w0", "b0", "w1", "b1"], got, ref):
@@ -535,7 +558,7 @@ def test_fused_cfconv_autograd_and_launch_counts(cuda_device):
     before = dict(FS.LAUNCHES)
     out = FS.FusedCFConv.apply(leaves[0], dist, wraw, dst, mask, *leaves[1:],
                                n, 0.2, 8.0)
-    cot = torch.randn_like(out)
+    cot = _draw(*out.shape, seed=113, device=out.device)
     (out * cot).sum().backward()
     torch.cuda.synchronize()
     for k in FS.LAUNCHES:
@@ -550,7 +573,7 @@ def test_fused_cfconv_autograd_and_launch_counts(cuda_device):
 def test_cfconv_wgrad_reduce_matches_plain(cuda_device, f, blocks):
     de = 50
     floats = FS._load().mdl_fused_cfconv_partial_floats(f, de)
-    partial = torch.randn(blocks * floats, device=cuda_device)
+    partial = _draw(blocks * floats, seed=114, device=cuda_device)
     _assert_fused_close(FS.wgrad_reduce(partial, blocks, f, de),
                         FS.wgrad_reduce_plain(partial, f, de), "reduce")
 
@@ -560,7 +583,7 @@ def test_fused_cfconv_wgrad_is_bit_identical(cuda_device):
     sum) give the same bits in two calls."""
     xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs("unsorted", 150,
                                                       device=cuda_device)
-    g = torch.randn(n, 150, device=cuda_device)
+    g = _draw(n, 150, seed=115, device=cuda_device)
     args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
     first, again = FS.fused_cfconv_bwd(g, *args), FS.fused_cfconv_bwd(g, *args)
     for a, b in zip(first[1:], again[1:]):
@@ -702,7 +725,7 @@ def test_fused_bilinear_kernels_match_plain(cuda_device, case, d, h, k):
     mask = args[-1]
     _assert_fused_close(FB.fused_bilinear(*args),
                         FB.fused_bilinear_plain(*args), "forward")
-    g = torch.randn(len(mask), k, device=cuda_device)
+    g = _draw(len(mask), k, seed=116, device=cuda_device)
     got = FB.fused_bilinear_bwd(g, *args)
     ref = FB.fused_bilinear_bwd_plain(g, *args)
     for name, a, b in zip(["xj", "a", "w1", "b1"], got, ref):
@@ -718,7 +741,7 @@ def test_fused_bilinear_kernels_match_plain(cuda_device, case, d, h, k):
                                         ("scattered", 150, 100, 150)])
 def test_fused_bilinear_wgrad_is_bit_identical(cuda_device, case, d, h, k):
     xj, a, _, _, mask = _bilinear_inputs(case, d, h, k, device=cuda_device)
-    g = torch.randn(len(mask), k, device=cuda_device)
+    g = _draw(len(mask), k, seed=117, device=cuda_device)
     first = FB.fused_bilinear_wgrad(g, xj, a, mask)
     assert torch.equal(FB.fused_bilinear_wgrad(g, xj, a, mask), first)
 
@@ -728,7 +751,7 @@ def test_fused_bilinear_wgrad_is_bit_identical(cuda_device, case, d, h, k):
                                         ("scattered", 150, 100, 150)])
 def test_fused_bilinear_bwd_rows_is_bit_identical(cuda_device, case, d, h, k):
     args = _bilinear_inputs(case, d, h, k, device=cuda_device)
-    g = torch.randn(len(args[-1]), k, device=cuda_device)
+    g = _draw(len(args[-1]), k, seed=118, device=cuda_device)
     d_xj, d_a = FB.fused_bilinear_bwd_rows(g, *args)
     again = FB.fused_bilinear_bwd_rows(g, *args)
     assert torch.equal(again[0], d_xj) and torch.equal(again[1], d_a)
@@ -780,7 +803,7 @@ def test_fused_bilinear_all_pad_batch_gives_zeros(cuda_device, bf16):
     xj, a, w1, b1, mask = _bilinear_inputs("sorted", 100, 100, 100,
                                            device=cuda_device)
     pad = torch.zeros_like(mask)
-    g = torch.randn(len(mask), 100, device=cuda_device)
+    g = _draw(len(mask), 100, seed=119, device=cuda_device)
     assert not FB.fused_bilinear(xj, a, w1, b1, pad, bf16=bf16).any()
     assert not FB.fused_bilinear_wgrad(g, xj, a, pad, bf16=bf16).any()
     d_xj, d_a = FB.fused_bilinear_bwd_rows(g, xj, a, w1, b1, pad, bf16=bf16)
@@ -823,7 +846,7 @@ def test_fused_bilinear_autograd_and_launch_counts(cuda_device):
     leaves = [t.clone().requires_grad_(True) for t in (xj, a, w1, b1)]
     before = dict(FB.LAUNCHES)
     out = FB.FusedBilinear.apply(*leaves, mask)
-    cot = torch.randn_like(out)
+    cot = _draw(*out.shape, seed=120, device=out.device)
     (out * cot).sum().backward()
     torch.cuda.synchronize()
     for key in FB.LAUNCHES:
@@ -876,7 +899,7 @@ def test_fused_bilinear_bf16_arm_matches_plain(cuda_device, case, d, h, k):
     d_xj, d_a and the weight gradient."""
     args = _bilinear_inputs(case, d, h, k, device=cuda_device)
     mask = args[-1]
-    g = torch.randn(len(mask), k, device=cuda_device)
+    g = _draw(len(mask), k, seed=121, device=cuda_device)
     got = _bf16_arm(args, g)
     ref = (FB.fused_bilinear_plain(*args, bf16=True),
            *FB.fused_bilinear_bwd_plain(g, *args, bf16=True))
@@ -897,7 +920,7 @@ def test_fused_bilinear_bf16_arm_matches_plain(cuda_device, case, d, h, k):
                                         ("scattered", 150, 100, 150)])
 def test_fused_bilinear_bf16_arm_is_bit_identical(cuda_device, case, d, h, k):
     args = _bilinear_inputs(case, d, h, k, device=cuda_device)
-    g = torch.randn(len(args[-1]), k, device=cuda_device)
+    g = _draw(len(args[-1]), k, seed=122, device=cuda_device)
     first = _bf16_arm(args, g)
     for a, b in zip(_bf16_arm(args, g), first):
         assert torch.equal(a, b)
@@ -915,7 +938,7 @@ def test_fused_bilinear_bf16_bwd_rows_kernels_match_plain(cuda_device, case,
     calls; masked rows exactly zero; one count of the backward, none of
     the forward."""
     xj, a, w1, b1, mask = _bilinear_inputs(case, d, h, k, device=cuda_device)
-    g = torch.randn(len(mask), k, device=cuda_device)
+    g = _draw(len(mask), k, seed=123, device=cuda_device)
     before = dict(FB.LAUNCHES_BF16)
     d_xj, d_a = FB.fused_bilinear_bwd_rows(g, xj, a, w1, b1, mask, bf16=True)
     torch.cuda.synchronize()
@@ -967,7 +990,7 @@ def test_fused_bilinear_bf16_autograd_and_launch_counts(cuda_device):
     leaves = [t.clone().requires_grad_(True) for t in (xj, a, w1, b1)]
     before, before_bf16 = dict(FB.LAUNCHES), dict(FB.LAUNCHES_BF16)
     out = FB.FusedBilinear.apply(*leaves, mask, True)
-    cot = torch.randn_like(out)
+    cot = _draw(*out.shape, seed=124, device=out.device)
     (out * cot).sum().backward()
     torch.cuda.synchronize()
     assert FB.LAUNCHES == before  # the f32 arm's counts stay
@@ -1674,6 +1697,189 @@ def _check_captured_matches_eager(ds, mp, kernel):
         assert l_g2 == l_e2
     finally:
         G.CudaGraphs.capture = capture
+    return {k: v for c in l_g for k, v in c.items()}
+
+
+def _toy_stream(tmp_path, n=24):
+    """_toy's structures served from npz shards of 5 graphs through an LRU
+    of 2 shards (dataset_type large)."""
+    import chip_smoke
+    from matdeeplearn_torch.data.dataset import get_dataset
+    from matdeeplearn_torch.data.streaming import StreamingGraphDataset
+
+    chip_smoke.write_structures(str(tmp_path), n=n)
+    ds = get_dataset(str(tmp_path), 0, "False",
+                     {"graph_max_radius": 6.0, "graph_max_neighbors": 8,
+                      "verbose": "False", "dataset_type": "large",
+                      "large_shard_graphs": 5})
+    return StreamingGraphDataset(ds.path, 0, cache_shards=2)
+
+
+@pytest.mark.parametrize("model,kernel,wire,precision", [
+    ("MPNN", "auto", "True", "f32"), ("MPNN", "fused", "True", "bf16"),
+    ("CGCNN", "auto", "False", "f32"), ("SchNet", "fused", "True", "f32")])
+def test_streamed_captured_training_matches_eager(cuda_device, tmp_path, model,
+                                                  kernel, wire, precision):
+    """test_captured_training_matches_eager on a disk-streaming dataset: the
+    captured steps read the feed's static batch, refilled from the pinned
+    ring by non-blocking copies, and give the eager loop's errors (rtol
+    1e-6), state and launches under deterministic algorithms. MPNN's
+    messages run on the bilinear kernels (auto on the card: fused; the bf16
+    arm under precision bf16); no streamed batch reaches the fused CGConv
+    or cfconv kernels, nor the CSR or windowed ones (SchNet's fused
+    request runs xla)."""
+    launches = _check_captured_matches_eager(
+        _toy_stream(tmp_path),
+        _capture_mp(model, kernel, "padded", stream_wire=wire,
+                    precision=precision), "xla" if model != "MPNN" else kernel)
+    bilinear = {k: v for k, v in launches.items() if "bilinear" in k}
+    others = {k: v for k, v in launches.items() if "bilinear" not in k}
+    assert not any(others.values()), others
+    if model == "MPNN":
+        arm = "_bf16" if precision == "bf16" else ""
+        for op in ("fwd", "bwd", "wgrad"):
+            assert bilinear[f"fused_bilinear_{op}{arm}"] > 0, bilinear
+    else:
+        assert not any(bilinear.values()), bilinear
+
+
+@pytest.mark.parametrize("fault", [None, "early_release", "side_stream"])
+def test_pinned_ring_refills_no_set_before_its_copy(cuda_device, tmp_path,
+                                                    fault):
+    """A slow device (a sleep in every step) behind a fast host: each fill
+    of a ring set finds the event of that set's last copy complete, and
+    every step reads the batch its ids name (checksums of the integer
+    arrays and of x's bits, exact). The check sees both faults a feed could
+    have: a set handed back before its copy ran (early_release), and copies
+    issued on another stream than the steps' (side_stream). Batches of 12
+    graphs keep x above 64 KB, a size below which CUDA may copy a small
+    pinned source as the copy is queued, which would hide the first
+    fault."""
+    from matdeeplearn_torch.data.batching import BatchSpec
+    from matdeeplearn_torch.data.streaming import StreamingGraphDataset
+    from matdeeplearn_torch.training.stream import StreamFeed
+
+    # an LRU that holds every shard: fills of about a millisecond, far ahead
+    # of the device (a fill that reads a shard takes about as long as a step)
+    sds = StreamingGraphDataset(_toy_stream(tmp_path).path, 0, cache_shards=8)
+    spec = BatchSpec.for_dataset(sds.node_counts(), sds.edge_counts(), 12)
+    feed = StreamFeed(sds, spec, cuda_device, wire=False, depth=2)
+    assert feed.static["x"].nbytes > 1 << 16
+    ring, fill, release, early, events = (feed.ring, feed.fill,
+                                          feed.ring.release, [], {})
+
+    def recorded_release(i, event):  # the event of each set's last copy
+        events[i] = event
+        release(i, event)
+
+    def checked_fill(ids, out):
+        i = next(k for k, st in enumerate(ring.sets) if st is out)
+        event = events.get(i)
+        if event is not None and not event.query():
+            early.append(i)
+        fill(ids, out)
+
+    feed.fill = checked_fill
+    ring.release = recorded_release
+    if fault == "early_release":
+        ring.release = lambda i, event: ring.free.put(i)
+    elif fault == "side_stream":
+        side, load = torch.cuda.Stream(), feed.load
+
+        def side_load(i):
+            with torch.cuda.stream(side):
+                load(i)
+
+        feed.load = side_load
+    rng = np.random.default_rng(0)
+    rows = [rng.permutation(len(sds))[:12] for _ in range(40)]
+    sums = []
+
+    def step(static):  # about 20 ms of device time: the host runs ahead
+        torch.cuda._sleep(40_000_000)
+        sums.append(torch.stack([static["edge_src"].long().sum(),
+                                 static["node_graph"].sum(),
+                                 static["n_node"].sum(),
+                                 static["x"].view(torch.int32).long().sum()]))
+
+    feed.run((rows, step))
+    torch.cuda.synchronize()
+    want = []
+    for ids in rows:
+        b = sds.assemble(ids, spec)
+        want.append([int(b.edge_src.long().sum()), int(b.node_graph.sum()),
+                     int(b.n_node.sum()),
+                     int(b.x.view(torch.int32).long().sum())])
+    got = torch.stack(sums).cpu().numpy()
+    wrong = int((got != np.array(want)).any(axis=1).sum())
+    if fault is None:
+        assert not early and wrong == 0, (early, wrong)
+    else:
+        assert wrong > 0, f"{fault}: the check saw no wrong batch"
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bilinear_kernels_on_a_streamed_batch(cuda_device, tmp_path, bf16):
+    """MPNN's bilinear kernels on a streamed batch (the reference edge
+    order, dst unsorted, real edges a prefix): forward and backward against
+    their plain versions at the bilinear tolerance (rtol 1e-4, atol
+    1e-4·max|ref|), zero rows on pad edges; and a small MPNN on the
+    streamed batch (GraphBatch.kernel_bilinear) on the card against the
+    CPU, outputs and parameter gradients to 1e-4 (2^-6 under bf16)."""
+    from matdeeplearn_torch.data.batching import BatchSpec
+    from matdeeplearn_torch.data.streaming import expand_wire
+    from matdeeplearn_torch.models import build_model
+
+    sds = _toy_stream(tmp_path)
+    spec = BatchSpec.for_dataset(sds.node_counts(), sds.edge_counts(), 10)
+    ids = np.array([3, 0, 9, 14, 6, 1, 22, 7, -1, -1], np.int32)
+    host = sds.assemble_wire(ids, spec)
+    batch = expand_wire(type(host)(**{k: None if v is None else v.to(cuda_device)
+                                      for k, v in vars(host).items()}))
+    dst = batch.edge_dst[batch.edge_mask > 0].cpu().numpy()
+    assert (np.diff(dst) < 0).any(), "the streamed batch is dst-sorted"
+    mask = batch.edge_mask
+    e, d, h, k = len(mask), 16, 12, 16
+    g = torch.Generator().manual_seed(5)
+    t = lambda *shape, s=1.0: (torch.randn(*shape, generator=g) * s).to(
+        cuda_device)
+    x = t(spec.num_nodes, d)
+    args = (x[batch.edge_src.long()], torch.relu(t(e, h)), t(h, d * k, s=0.1),
+            t(d * k, s=0.1), mask)
+    _assert_fused_close(FB.fused_bilinear(*args, bf16=bf16),
+                        FB.fused_bilinear_plain(*args, bf16=bf16), "forward")
+    cot = _draw(e, k, seed=129, device=cuda_device)
+    got = FB.fused_bilinear_bwd(cot, *args, bf16=bf16)
+    ref = FB.fused_bilinear_bwd_plain(cot, *args, bf16=bf16)
+    for name, a, b in zip(["xj", "a", "w1", "b1"], got, ref):
+        _assert_fused_close(a, b, f"d_{name}")
+    off = mask == 0
+    for a in (FB.fused_bilinear(*args, bf16=bf16), got[0], got[1]):
+        assert float(a[off].abs().max()) == 0.0
+
+    hp = {"dim1": 16, "dim2": 12, "dim3": 8, "gc_count": 2,
+          "post_fc_count": 1, "precision": "bf16" if bf16 else "f32"}
+    init = build_model("MPNN", sds, hp, device="cpu",
+                       generator=torch.Generator().manual_seed(0)).state_dict()
+    results = {}
+    for dev in ("cpu", cuda_device):
+        m = build_model("MPNN", sds, hp, device=dev)
+        m.load_state_dict(init)
+        m.eval()
+        b = expand_wire(type(host)(**{k: None if v is None else v.to(dev)
+                                      for k, v in vars(host).items()}))
+        b.kernel_bilinear = True
+        out = m(b)
+        (out.float() * b.graph_mask).abs().sum().backward()
+        results[str(dev)] = (out.detach().float().cpu(),
+                             {n: p.grad.cpu() for n, p in m.named_parameters()})
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = results["cpu"], results[str(cuda_device)]
+    tol = 2.0 ** -6 if bf16 else 1e-4
+    torch.testing.assert_close(o_gpu, o_cpu, rtol=tol, atol=tol)
+    for n, gr in g_cpu.items():
+        torch.testing.assert_close(g_gpu[n], gr, rtol=tol,
+                                   atol=tol * max(float(gr.abs().max()), 1e-6),
+                                   msg=lambda m, n=n: f"{n}: {m}")
 
 
 def test_captured_dropout_matches_eager_or_is_refused(cuda_device, tmp_path):
@@ -1849,8 +2055,8 @@ def test_csr_single_pass_arm_matches_plain(cuda_device, d):
     e = len(dst)
     dst_t = torch.as_tensor(dst, device=cuda_device)
     mask_t = torch.as_tensor(mask, device=cuda_device)
-    msg = torch.randn(e, d, device=cuda_device)
-    x = torch.randn(n, d, device=cuda_device)
+    msg = _draw(e, d, seed=125, device=cuda_device)
+    x = _draw(n, d, seed=126, device=cuda_device)
     before = dict(csr.LAUNCHES_SP)
     out = csr.segment_sum(msg, dst_t, mask_t, n, True)
     ref = csr.segment_sum_plain(msg.cpu(), dst_t.cpu(), mask_t.cpu(), n, True)
@@ -1881,7 +2087,7 @@ def test_fused_cgconv_single_pass_arm_matches_plain(cuda_device, case, d):
     outputs a rounded x_i or message reaches most)."""
     x, xj, dist, dst, mask, ws, n = _fused_inputs(case, d, device=cuda_device)
     args = (x, xj, dist, dst, mask, *ws, n, 0.2)
-    g = torch.randn(n, d, device=cuda_device)
+    g = _draw(n, d, seed=127, device=cuda_device)
     before, before_sp = dict(FC.LAUNCHES), dict(FC.LAUNCHES_SP)
     got = _cgconv_sp(args, g, True)
     assert FC.LAUNCHES_SP == {k: v + 1 for k, v in before_sp.items()}
@@ -1917,7 +2123,7 @@ def test_fused_cfconv_single_pass_arm_matches_plain(cuda_device, case, f):
     xj, dist, wraw, dst, mask, ws, n = _cfconv_inputs(case, f,
                                                       device=cuda_device)
     args = (xj, dist, wraw, dst, mask, *ws, n, 0.2, 8.0)
-    g = torch.randn(n, f, device=cuda_device)
+    g = _draw(n, f, seed=128, device=cuda_device)
     before_sp = dict(FS.LAUNCHES_SP)
     got = _cfconv_sp(args, g, True)
     assert FS.LAUNCHES_SP == {k: v + 1 for k, v in before_sp.items()}
