@@ -278,6 +278,18 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     synchronous assembler (rtol 1e-6, deterministic); streamed Predict
     against in-memory Predict (wire off rtol 1e-4, atol 1e-4; wire on
     WIRE_RTOL);
+24. data and edge parallelism (matdeeplearn_torch/parallel; check_parallel
+    says what each part holds): (a) CGCNN_demo, BatchNorm on, two dp steps
+    in a 2-rank gloo world on this card (CUDA tensors, deterministic) on
+    the fused CGConv kernels, against two single-replica steps averaged by
+    count in one process (P24_EXACT) and against the plain versions on the
+    CPU (P24_PLAIN), the dp steps' fused launches counted; (b) MEGNet_demo,
+    BatchNorm on, ep 2 on that world against the single-card steps on the
+    same batches (P24_EP_LOSS, P24_EP_STATE); (c) train_regular on a
+    1-rank NCCL mesh on CUDA graphs (the step's all_reduce captured), 2
+    epochs against the mesh-less run (P24_TRAIN_RTOL); (d) with two or more
+    cards, (a) on NCCL across two of them, else a line saying it did not
+    run; each part's gaps and seconds printed before any failure raises;
 20. prints a {"kernels": [...]} line (the CSR rows with their callers,
     each path's launches and the src-sorted shapes' times; each
     single-pass arm's row and each bilinear bf16 arm's row with `f32_ms`,
@@ -286,7 +298,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     the three bf16 arm rows' launches are 21's MPNN_demo Training's, the
     single-pass rows' 22's (the CSR arm is on no path: 0); the f32
     bilinear rows add `launches_by_path`, 5's and 23's streamed Training
-    and Predict.
+    and Predict, and the fused CGConv rows theirs, main path 2's and phase
+    24 (a)'s dp steps (both ranks).
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -301,6 +314,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -397,6 +411,21 @@ N_COMPARE = 200  # structures of MPNN's card/CPU training comparison
 N_SHARD_GRAPHS = 64
 EPOCHS_STREAM, EPOCHS_STREAM_RACE = 4, 2
 WIRE_RTOL = 1e-3
+# phase 24: parallelism. P24_STEPS dp and ep steps of 2 x 100 graphs; (a)
+# against single-replica steps with the same kernels: the same arithmetic
+# (a sum of two terms commutes), so P24_EXACT; against the plain versions on
+# the CPU, the card/CPU training limit of main path 2; (b) MEGNet_demo under
+# ep, its partial sums in another order: the loss to P24_EP_LOSS and the
+# state to P24_EP_STATE, five of AdamW's steps at MEGNet_demo's rate (an
+# element whose gradient is rounding noise, MEGNET_NOBN says why, moves by
+# up to about the rate in each of AdamW's first two steps (betas 0.9 and
+# 0.999), either way on either side: 4 rates apart, and slack); (c)
+# P24_EPOCHS epochs of train_regular on a 1-rank NCCL mesh against the
+# mesh-less run, whose gradients round otherwise (divided by the count in
+# the backward, not after it); the epoch lines print 5 decimals
+P24_STEPS, P24_EPOCHS = 2, 2
+P24_EXACT, P24_PLAIN, P24_TRAIN_RTOL = 1e-6, 1e-3, 1e-4
+P24_EP_LOSS, P24_EP_STATE = 1e-4, 5 * 0.0005
 # phase 19: the descriptor models (config.yml's SM_demo and SOAP_demo), the
 # run modes' sizes, and the SOAP corpus (write_clusters' Pt clusters)
 SM_DEMO = {
@@ -3073,6 +3102,320 @@ def check_run_modes(dataset, data_dir, trained, dev, smi, counters) -> dict:
     return out
 
 
+# ---- phase 24: data and edge parallelism ---------------------------------
+
+
+def free_port() -> int:
+    """A localhost port nothing listens on (for a world's rendezvous)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p24_steps(dataset, demo: dict, init: str, rows, dp: int, dev,
+              mesh=None) -> dict:
+    """Two (len(rows)) training steps of `demo` from the checkpoint `init`
+    on the id rows `rows` (dp·B ids each), under deterministic algorithms.
+    With a mesh: the dp/ep step (parallel/spmd.py) of this process's part,
+    the fused CGConv kernels' launches counted from 0 just before. Without
+    one: the same arithmetic in this process, the collective's part done by
+    hand: each replica's forward and backward of loss·count in turn (the
+    gradients summed by autograd, the BatchNorm running statistics reset to
+    the step's start for each replica and averaged after), the gradients
+    divided by max(Σ count, 1), one optimizer step. Returns the step
+    losses, the final state (on the CPU), the launches and the seconds."""
+    from matdeeplearn_torch.data.batching import assemble
+    from matdeeplearn_torch.ops import fused_cgconv as FC
+    from matdeeplearn_torch.parallel import spmd
+    from matdeeplearn_torch.training import jobs
+    from matdeeplearn_torch.training.checkpoint import load_checkpoint
+    from matdeeplearn_torch.training.train import get_loss
+
+    loss_fn = get_loss("l1_loss")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run = jobs.setup_run(dataset, demo, "l1_loss", seed=TRAIN_SEED,
+                                 device=dev, mesh=mesh)
+        run.model.load_state_dict(load_checkpoint(init)[1])
+        model, opt = run.model, run.optimizer
+        reducer = None if mesh is None else spmd.StepReducer(model, run.mesh)
+        bufs = [b for b in model.buffers() if b.is_floating_point()]
+        b = len(rows[0]) // dp
+        reset_launches(FC.LAUNCHES)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for row in rows:
+            if mesh is not None:
+                loss, _ = spmd.train_batch(
+                    model, opt, loss_fn,
+                    spmd.local_batch(run.data, row, run.spec, run.mesh),
+                    reducer)
+                losses.append(loss)
+                continue
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            start = [t.clone() for t in bufs]
+            ends, lsum, count = [], 0.0, 0.0
+            for r in range(dp):
+                with torch.no_grad():
+                    for t, s in zip(bufs, start):
+                        t.copy_(s)
+                batch = assemble(run.data, row[r * b:(r + 1) * b], run.spec)
+                out = model(batch)
+                c = torch.sum(batch.graph_mask)
+                part = loss_fn(out, batch.y[:, 0], batch.graph_mask) * c
+                part.backward()
+                ends.append([t.clone() for t in bufs])
+                lsum, count = lsum + part.detach(), count + c
+            csum = torch.clamp(count, min=1.0)
+            with torch.no_grad():
+                for i, t in enumerate(bufs):
+                    t.copy_(sum(e[i] for e in ends) / dp)
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad /= csum
+            opt.step()
+            losses.append(lsum / csum)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    resolved = [line for line in buf.getvalue().splitlines()
+                if line.startswith("resolved:")]
+    return {"losses": [float(v) for v in losses], "seconds": seconds,
+            "state": {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()},
+            "launches": dict(FC.LAUNCHES), "resolved": resolved[-1]}
+
+
+def p24_worker(rank: int, world: int, port: int, backend: str, data_dir: str,
+               parts: dict, out: str):
+    """One rank of phase 24's world (spawned; `backend` gloo: every rank on
+    card 0, NCCL: rank r on card r): joins the world, runs p24_steps with
+    a mesh for each of `parts` ({name: (demo, init, rows, dp, ep)}) and
+    saves {name: result} to out.<rank>."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from matdeeplearn_torch.data.dataset import get_dataset
+    from matdeeplearn_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            dataset = get_dataset(data_dir, 0, "False",
+                                  {**PROCESSING, "data_path": data_dir})
+        res = {}
+        for name, (demo, init, rows, dp, ep) in parts.items():
+            mesh = make_mesh(dp=dp, ep=ep, device=dev)
+            res[name] = p24_steps(dataset, demo, init, rows, dp, dev, mesh)
+        torch.save(res, f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def p24_world(backend: str, data_dir: str, parts: dict, out: str, world=2):
+    """Start phase 24's world of `world` spawned ranks; returns them."""
+    import multiprocessing
+
+    port = free_port()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=p24_worker,
+                         args=(r, world, port, backend, data_dir, parts, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def p24_results(procs, out: str, timeout: float = 300.0) -> list:
+    """Each rank's results, once every rank exited 0 (else it raises)."""
+    for p in procs:
+        p.join(timeout)
+    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    if bad:
+        raise RuntimeError(f"phase 24 ranks (rank, exit code) {bad} failed")
+    return [torch.load(f"{out}.{r}", weights_only=False)
+            for r in range(len(procs))]
+
+
+def p24_gap(got: dict, want: dict) -> tuple[float, float]:
+    """(largest |got - want| over all state entries relative to max(1,
+    max|want entry|), largest relative step-loss gap)."""
+    state = max(float((got["state"][k] - v).abs().max())
+                / max(1.0, float(v.abs().max()))
+                for k, v in want["state"].items())
+    loss = max(abs(a - b) / max(abs(b), 1e-30)
+               for a, b in zip(got["losses"], want["losses"]))
+    return state, loss
+
+
+def check_parallel(dataset, data_dir: str, model_path: str, megnet_path: str,
+                   dev, smi: str) -> dict:
+    """Phase 24: data and edge parallelism (matdeeplearn_torch/parallel).
+
+    (a) CGCNN_demo at full width (kernel auto: the fused CGConv kernels),
+        BatchNorm on, a 2-rank world on this card under gloo with CUDA
+        tensors: two dp steps (2 x 100 graphs a step) against p24_steps'
+        two single-replica steps in this process, averaged by count on the
+        card (the same kernels: to P24_EXACT of the state, loss and
+        parameters) and with the kernels' plain versions on the CPU (step
+        losses to P24_PLAIN); the ranks' fused launches;
+    (b) MEGNet_demo at full width, ep 2 on that world (kernel auto under
+        ep: xla on edge shards), BatchNorm on with the edge BatchNorms'
+        statistics summed over ep: two steps against the single-card steps
+        on the same batches (kernel xla): step losses to P24_EP_LOSS, the
+        state to P24_EP_STATE (AdamW's noise steps, MEGNET_NOBN says why);
+    (c) a 1-rank NCCL world in this process: jobs.train_regular on its
+        mesh, on CUDA graphs with the step's all_reduce captured, 2 epochs
+        from CGCNN_demo's checkpoint, against the mesh-less run, both
+        deterministic: per-epoch train and val errors to P24_TRAIN_RTOL;
+    (d) with two or more cards, (a) on NCCL across two of them.
+    Prints each part's gaps and seconds; any miss raises after the prints."""
+    import torch.distributed as dist
+
+    from matdeeplearn_torch.data.dataset import split_data
+    from matdeeplearn_torch.parallel.mesh import make_mesh
+    from matdeeplearn_torch.training import graphs, jobs
+    from matdeeplearn_torch.training import train as T
+
+    t_phase = time.perf_counter()
+    train_idx, val_idx, _ = split_data(dataset, TRAINING["train_ratio"],
+                                       TRAINING["val_ratio"],
+                                       TRAINING["test_ratio"], TRAIN_SEED)
+    ids = T.epoch_id_matrix(train_idx, 2 * 100, True, TRAIN_SEED)
+    rows_a = ids[:P24_STEPS]
+    rows_b = ids[:P24_STEPS].reshape(-1, 100)[:P24_STEPS]
+    out = os.path.join(WORK, "phase24")
+    parts = {"a": (CGCNN_DEMO, model_path, rows_a, 2, 1),
+             "b": (MEGNET_DEMO, megnet_path, rows_b, 1, 2)}
+    procs = p24_world("gloo", data_dir, parts, out)
+    # the references while the ranks run
+    ref_a = p24_steps(dataset, CGCNN_DEMO, model_path, rows_a, 2, dev)
+    cpu_a = p24_steps(dataset, {**CGCNN_DEMO, "kernel": "fused"}, model_path,
+                      rows_a, 2, torch.device("cpu"))
+    ref_b = p24_steps(dataset, {**MEGNET_DEMO, "kernel": "xla"}, megnet_path,
+                      rows_b, 1, dev)
+    ranks = p24_results(procs, out)
+    fails = []
+    for part, ref in (("a", ref_a), ("b", ref_b)):
+        for r, res in enumerate(ranks):
+            state, loss = p24_gap(res[part], ref)
+            print(f"phase 24 ({part}) rank {r} on {smi}: {res[part]['resolved']}; "
+                  f"losses {res[part]['losses']} against {ref['losses']}; "
+                  f"state gap {state:.3g}, loss gap {loss:.3g} of the "
+                  f"single-card steps; steps {res[part]['seconds']:.3f} s "
+                  f"(single-card {ref['seconds']:.3f} s)")
+            lim_s, lim_l = ((P24_EXACT, P24_EXACT) if part == "a"
+                            else (P24_EP_STATE, P24_EP_LOSS))
+            if state > lim_s or loss > lim_l:
+                fails.append(f"({part}) rank {r}: state {state:.3g} (limit "
+                             f"{lim_s}), loss {loss:.3g} (limit {lim_l})")
+        for r, res in enumerate(ranks[1:], 1):
+            if any(not torch.equal(v, ranks[0][part]["state"][k])
+                   for k, v in res[part]["state"].items()):
+                fails.append(f"({part}) rank {r}'s state differs from rank 0's")
+    _, plain = p24_gap(ranks[0]["a"], cpu_a)
+    print(f"phase 24 (a) on {smi}: dp step losses against the plain versions "
+          f"on the CPU {cpu_a['losses']}: largest gap {plain:.3g} (limit "
+          f"{P24_PLAIN})")
+    if plain > P24_PLAIN:
+        fails.append(f"(a) against the plain versions: {plain:.3g}")
+    launches = {k: sum(res["a"]["launches"][k] for res in ranks)
+                for k in ranks[0]["a"]["launches"]}
+    print(f"phase 24 (a) fused CGConv launches in the dp steps, both ranks: "
+          f"{launches}")
+    if min(launches.values()) < 2 * P24_STEPS * CGCNN_DEMO["gc_count"]:
+        fails.append(f"(a) fused kernels not launched in the dp step: "
+                     f"{launches}")
+    if "mesh=dp1xep2" not in ranks[0]["b"]["resolved"]:
+        fails.append(f"(b) resolved {ranks[0]['b']['resolved']}")
+
+    # (c) a 1-rank NCCL world: the captured step with its collective
+    t_c = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        rows = {}
+        for label, m in (("mesh", mesh), ("plain", None)):
+            before = graphs.CAPTURES["graphs"]
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    jobs.train_regular(
+                        dataset, {"job_name": f"p24_{label}",
+                                  "seed": TRAIN_SEED, "load_model": "True",
+                                  "model_path": model_path,
+                                  "save_model": "False",
+                                  "write_output": "False"},
+                        {**TRAINING, "verbosity": 1},
+                        {**CGCNN_DEMO, "epochs": P24_EPOCHS}, device=dev,
+                        mesh=m)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            text = buf.getvalue()
+            rows[label] = np.array([[float(v) for v in mt.groups()[2:4]]
+                                    for mt in EPOCH_LINE.finditer(text)])
+            line = next(ln for ln in text.splitlines()
+                        if ln.startswith("resolved:"))
+            captured = graphs.CAPTURES["graphs"] - before
+            print(f"phase 24 (c) {label} on {smi}: {line}; {captured} graphs "
+                  f"captured; (train, val) by epoch {rows[label].tolist()}")
+            if "capture=graphs" not in line or captured < 2 or (
+                    m is not None and "mesh=dp1xep1" not in line):
+                fails.append(f"(c) {label}: {line}, {captured} captures")
+        gap = float(np.max(np.abs(rows["mesh"] - rows["plain"])
+                           / np.abs(rows["plain"])))
+        print(f"phase 24 (c) on {smi}: NCCL world of 1, train_regular on its "
+              f"mesh against the mesh-less run, largest relative gap {gap:.3g} "
+              f"(limit {P24_TRAIN_RTOL}); {time.perf_counter() - t_c:.1f} s")
+        if rows["mesh"].shape != (P24_EPOCHS, 2) or not gap <= P24_TRAIN_RTOL:
+            fails.append(f"(c) gap {gap:.3g}")
+    finally:
+        dist.destroy_process_group()
+
+    # (d) (a) on NCCL across two cards
+    if torch.cuda.device_count() >= 2:
+        out_d = os.path.join(WORK, "phase24_nccl")
+        nccl = p24_results(p24_world("nccl", data_dir, {"a": parts["a"]},
+                                     out_d), out_d)
+        for r, res in enumerate(nccl):
+            state, loss = p24_gap(res["a"], ref_a)
+            print(f"phase 24 (d) rank {r} (card {r}, NCCL) on {smi}: state "
+                  f"gap {state:.3g}, loss gap {loss:.3g}; steps "
+                  f"{res['a']['seconds']:.3f} s")
+            if state > P24_EXACT or loss > P24_EXACT:
+                fails.append(f"(d) rank {r}: {state:.3g}, {loss:.3g}")
+    else:
+        print(f"phase 24 (d): {torch.cuda.device_count()} card visible; (a) "
+              "on NCCL across cards did not run")
+    print(f"phase 24 (parallelism) on {smi}: "
+          f"{time.perf_counter() - t_phase:.1f} s wall")
+    if fails:
+        raise AssertionError("phase 24: " + "; ".join(fails))
+    return launches
+
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4169,6 +4512,10 @@ def main() -> int:
         dataset, data_dir, sub_dir, mpnn_path, model_path, dev, smi, m_warm,
         capture_times[("MPNN", "fused", "padded")][2], resume_from_init)
 
+    # ---- parallelism: dp and ep on torch.distributed --------------------
+    dp_launches = check_parallel(dataset, data_dir, model_path, megnet_path,
+                                 dev, smi)
+
     kernels = []
     for key, name, src, line, count in (
             ("segment_sum", "csr_segment_sum", "csr.cu", "pallas_csr.py:135",
@@ -4237,6 +4584,10 @@ def main() -> int:
             row["f32_ms"] = t["f32_ms"]  # the f32 arm, timed in the same call
         if "parts_ms" in t:
             row["parts_ms"] = t["parts_ms"]  # its launches alone
+        if key in FC.LAUNCHES:
+            # the dp path's launches (phase 24 (a), both ranks)
+            row["launches_by_path"] = {"CGCNN Training": count,
+                                       "CGCNN dp2 Training": dp_launches[key]}
         if key in FB.LAUNCHES:
             # the streamed paths' launches (phase 23), beside main path 5's
             row["launches_by_path"] = {"MPNN Training": count, **{

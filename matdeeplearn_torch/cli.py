@@ -16,8 +16,18 @@ Chrome trace (trace.json) to the job's `profile_dir` (default
 batches (the bulk setting). `dataset_type: "large"` in the Processing
 section streams the dataset from npz shards of `large_shard_graphs` graphs
 (data/streaming.py; a model's `stream_wire` picks the wire batch), for
-every run mode. main.py's `--parallel` and `--ep` raise, naming their
-ROADMAP item.
+every run mode.
+
+`--parallel=True` trains Training, Repeat, CV and Ensemble on a (dp, ep)
+mesh (parallel/), one process a mesh member, `--ep` members to a replica's
+edge group (it must divide the world): under torchrun's environment
+(`python -m torch.distributed.run --nproc_per_node=N -m matdeeplearn_torch
+... --parallel=True`) each process joins that world; without one, on a
+host with k > 1 visible cards, the CLI spawns k workers, one a card (the
+reference's main.py lays its mesh over every visible device). A world of
+more than one process runs only those modes with --parallel=True. Rank 0
+draws the seed for every rank and alone writes the settings, checkpoints
+and CSVs.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from __future__ import annotations
 import argparse
 import os
 import pprint
+import socket
 import time
 
 import numpy as np
@@ -71,9 +82,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="padded, or packed: bins of about mean·B + max "
                              "nodes and edges (the bulk setting)")
     parser.add_argument("--parallel", default=None, type=str,
-                        help="not ported yet (ROADMAP queue 1, item 16)")
+                        help="True = train on a (dp, ep) mesh: torchrun's "
+                             "world, or one worker per visible card")
     parser.add_argument("--ep", default=None, type=int,
-                        help="not ported yet (ROADMAP queue 1, item 16)")
+                        help="edge-parallel members per replica (divides "
+                             "the world; default 1)")
     parser.add_argument("--profile", default=None, type=str,
                         help="True = write a torch.profiler Chrome trace of "
                              "the training to profile_dir (default "
@@ -84,18 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported_flags(args):
-    if args.parallel == "True" or (args.ep or 1) > 1:
-        raise NotImplementedError(
-            "--parallel/--ep (data and edge parallelism) are not ported yet "
-            "(ROADMAP queue 1, item 16)")
-
-
 def load_config(args) -> dict:
     """config.yml merged with the command-line flags, for one run mode."""
     import yaml
 
-    _refuse_unported_flags(args)
     if not os.path.exists(args.config_path):
         raise FileNotFoundError("Config file not found in " + args.config_path)
     with open(args.config_path) as f:
@@ -111,7 +116,7 @@ def load_config(args) -> dict:
 
     for key in ("job_name", "model", "seed", "model_path", "load_model",
                 "save_model", "write_output", "reprocess", "device",
-                "profile"):
+                "profile", "parallel", "ep"):
         v = getattr(args, key, None)
         if v is not None:
             config["Job"][key] = v
@@ -148,39 +153,137 @@ def run(config: dict):
     """Run one configured job. Returns what its job function returns:
     Training its errors by split, Predict its test error, CV its mean
     error, Repeat its (trials, 3) errors, Ensemble its ensemble's error,
-    Analysis the t-SNE coordinates, Hyperparameter the best trial."""
-    from matdeeplearn_torch.data.dataset import get_dataset
-    from matdeeplearn_torch.training import jobs
+    Analysis the t-SNE coordinates, Hyperparameter the best trial. Spawned
+    workers (spawn_workers) return None here."""
+    import torch
 
     run_mode = config["Job"]["run_mode"]
     if run_mode not in RUN_MODES:
         raise ValueError(f"Invalid run mode {run_mode!r}")
     device = config["Job"].get("device", "cuda")
-    if (run_mode in MESH_MODES and str(config["Job"].get("parallel")) == "True"
-            and str(device).startswith("cuda")):
-        import torch
+    parallel = (str(config["Job"].get("parallel")) == "True"
+                and run_mode in MESH_MODES)
+    if (parallel and "WORLD_SIZE" not in os.environ
+            and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        # the reference package trains on a mesh over every visible chip
+        return spawn_workers(config, torch.cuda.device_count())
+    mesh = join_mesh(config, parallel, device)
+    try:
+        return _run_job(config, run_mode, device if mesh is None
+                        else mesh.device, mesh)
+    finally:
+        if mesh is not None and mesh.world_group is not None:
+            import torch.distributed as dist
 
-        if torch.cuda.device_count() > 1:
-            # the reference package trains on a mesh over every visible chip
-            raise NotImplementedError(
-                "parallel: True with several visible cards is not ported yet "
-                "(ROADMAP queue 1, item 16); make one card visible or set "
-                "parallel: False")
+            dist.destroy_process_group()
+
+
+def join_mesh(config: dict, parallel: bool, device):
+    """The run's mesh (parallel/mesh.py), or None. Under torchrun's
+    environment the process joins the world (a failed rendezvous raises);
+    with `parallel` the mesh takes `ep` from the Job section (it must
+    divide the world), and every rank takes rank 0's seed and seeds
+    numpy's global generator with it (Repeat draws its trials' seeds
+    there). A world of more than one process without `parallel` (or in a
+    run mode without a mesh) raises."""
+    import torch
+    import torch.distributed as dist
+
+    from matdeeplearn_torch.parallel.mesh import (make_mesh,
+                                                  maybe_initialize_distributed)
+
+    if not maybe_initialize_distributed(device):
+        return None
+    if not parallel:
+        world = dist.get_world_size()
+        dist.destroy_process_group()
+        if world > 1:
+            raise ValueError(f"a world of {world} processes needs "
+                             "--parallel=True and a run mode of "
+                             f"{', '.join(MESH_MODES)}")
+        return None
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(ep=int(config["Job"].get("ep") or 1), device=dev)
+    seed = torch.tensor([int(config["Job"]["seed"])], device=dev)
+    dist.broadcast(seed, 0)
+    config["Job"]["seed"] = int(seed)
+    np.random.seed(config["Job"]["seed"])
+    print(f"Using mesh: dp={mesh.dp}, ep={mesh.ep} (rank {mesh.rank}, "
+          f"{mesh.backend}, {mesh.device})")
+    return mesh
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_worker(config: dict, rank: int, world: int, port: int):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    run(config)
+
+
+def spawn_workers(config: dict, world: int):
+    """Run the job on `world` spawned workers, one a card, as a torchrun
+    world on this host would (rendezvous on a free localhost port). Waits
+    for them; raises if one fails. Returns None: the workers hold the
+    results (rank 0 writes the files)."""
+    import multiprocessing
+
+    port = _free_port()
+    print(f"parallel: {world} visible cards, spawning {world} workers")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_spawned_worker,
+                         args=(config, rank, world, port))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join()
+    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    if failed:
+        raise RuntimeError(f"parallel workers {failed} failed (exit codes "
+                           f"{[procs[r].exitcode for r in failed]})")
+    return None
+
+
+def _run_job(config: dict, run_mode: str, device, mesh):
+    """run()'s job, on `device`, on `mesh` (None: no mesh)."""
+    import torch.distributed
+
+    from matdeeplearn_torch.data.dataset import get_dataset
+    from matdeeplearn_torch.training import jobs
 
     print("Settings: ")
     pprint.pprint(config)
-    with open(str(config["Job"]["job_name"]) + "_settings.txt", "w") as log_file:
-        pprint.pprint(config, log_file)
+    if mesh is None or mesh.is_main:
+        with open(str(config["Job"]["job_name"]) + "_settings.txt",
+                  "w") as log_file:
+            pprint.pprint(config, log_file)
 
     if run_mode == "Hyperparameter":
         return run_hyperparameter(config)
     t0 = time.time()
+    # in a world, rank 0 processes (or reads) the cache, the others then
+    # read what it wrote
+    ordered = mesh is not None and mesh.world_group is not None
+    if ordered and not mesh.is_main:
+        torch.distributed.barrier()
     dataset = get_dataset(
         config["Processing"]["data_path"],
         config["Training"]["target_index"],
-        config["Job"].get("reprocess", "False"),
+        config["Job"].get("reprocess", "False")
+        if mesh is None or mesh.is_main else "False",
         config["Processing"],
     )
+    if ordered and mesh.is_main:
+        torch.distributed.barrier()
     print(
         f"Dataset used: {len(dataset)} graphs, {dataset.num_features} node"
         f" features, {dataset.num_edge_features} edge features"
@@ -189,20 +292,20 @@ def run(config: dict):
     args = (dataset, config["Job"], config["Training"], config["Models"])
     if run_mode == "Training":
         print("Starting regular training")
-        return jobs.train_regular(*args, device=device)
+        return jobs.train_regular(*args, device=device, mesh=mesh)
     if run_mode == "Predict":
         print("Starting prediction from trained model")
         return jobs.predict(dataset, config["Training"]["loss"], config["Job"],
                             device=device)
     if run_mode == "Repeat":
         print(f"Repeat training for {config['Job']['repeat_trials']} trials")
-        return jobs.train_repeat(*args, device=device)
+        return jobs.train_repeat(*args, device=device, mesh=mesh)
     if run_mode == "CV":
         print("Starting cross validation")
-        return jobs.train_CV(*args, device=device)
+        return jobs.train_CV(*args, device=device, mesh=mesh)
     if run_mode == "Ensemble":
         print("Starting ensemble training")
-        return jobs.train_ensemble(*args, device=device)
+        return jobs.train_ensemble(*args, device=device, mesh=mesh)
     print("Starting analysis of graph features")
     return jobs.analysis(dataset, config["Job"]["model_path"], TSNE_ARGS,
                          device=device)

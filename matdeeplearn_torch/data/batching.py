@@ -169,6 +169,35 @@ def packed_id_matrix(indices, node_counts, edge_counts, spec: BatchSpec,
     return out
 
 
+def packed_id_matrix_sharded(indices, node_counts, edge_counts,
+                             spec: BatchSpec, nominal_batch: int, dp: int,
+                             shuffle: bool, seed) -> np.ndarray:
+    """(S, dp·B) id matrix of packed bins for dp replicas, each replica's
+    B slots of a row one valid bin (the reference package's
+    packed_id_matrix_sharded, bit for bit): the ids (shuffled by
+    np.random.default_rng(seed) when shuffle) split contiguously into dp
+    pieces (np.array_split, the DistributedSampler's role), each packed by
+    packed_id_matrix against the same per-replica spec with seed + 1 + r
+    (None for eval), the step counts equalised with all-pad rows and the
+    pieces concatenated along the slot axis. dp 1 is packed_id_matrix.
+    The count-weighted loss of the dp step makes uneven replica counts,
+    all-pad rows included, exact."""
+    indices = np.asarray(indices, np.int64)
+    if dp <= 1:
+        return packed_id_matrix(indices, node_counts, edge_counts, spec,
+                                nominal_batch, shuffle, seed)
+    order = indices.copy()
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    mats = [packed_id_matrix(s, node_counts, edge_counts, spec, nominal_batch,
+                             shuffle, None if seed is None else seed + 1 + r)
+            for r, s in enumerate(np.array_split(order, dp))]
+    steps = max(m.shape[0] for m in mats)
+    mats = [np.vstack([m, np.full((steps - m.shape[0], spec.num_graphs), -1,
+                                  np.int32)]) for m in mats]
+    return np.concatenate(mats, axis=1)
+
+
 @dataclass
 class DeviceDataset:
     """Featurized dataset resident on one device."""
@@ -366,6 +395,10 @@ class GraphBatch:
     # (B, D) whole-structure descriptors (SOAP or SM), zero rows on pad
     # graph slots; None when the dataset has none
     extra: torch.Tensor | None = None
+    # an edge shard of the batch under ep (parallel/spmd.py:
+    # slice_edge_shard): its parallel/ring.py EdgeShard, whose exchanges
+    # ops/aggregate.py runs; None on a whole batch
+    ep: object = None
 
     @property
     def dst_sorted(self) -> bool:

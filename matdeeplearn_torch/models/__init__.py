@@ -50,7 +50,7 @@ def descriptor_width(dataset) -> int:
 def build_model(name: str, dataset, hyperparams: dict, *,
                 generator: torch.Generator | None = None,
                 dropout_seed: int = 0,
-                device: str | torch.device | None = None):
+                device: str | torch.device | None = None, ep_group=None):
     """Instantiate a model by registry name with dataset-derived dims.
 
     Initial weights come from `generator`, dropout masks from a generator
@@ -59,7 +59,8 @@ def build_model(name: str, dataset, hyperparams: dict, *,
     (bf16 activations over f32 masters, models/base.py); another value
     raises. `remat` recomputes each conv block in the backward
     (models/base.py). SM and SOAP take their input width from the
-    dataset's descriptors.
+    dataset's descriptors. ep_group (MEGNet's only, a process group of ep
+    members) is the mesh's, not a config field (models/megnet.py).
     """
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model '{name}'; have {sorted(MODEL_REGISTRY)}")
@@ -80,5 +81,7 @@ def build_model(name: str, dataset, hyperparams: dict, *,
     kwargs.setdefault("num_features", dataset.num_features)
     kwargs.setdefault("edge_resolution", dataset.num_edge_features)
     kwargs.setdefault("edge_width", getattr(dataset, "edge_width", 0.2))
+    if name == "MEGNet":
+        kwargs["ep_group"] = ep_group
     return MODEL_REGISTRY[name](**kwargs, generator=generator,
                                 dropout_seed=dropout_seed, device=device)

@@ -9,7 +9,10 @@ graph) and u: 3·dim3 wide, 5·dim3 with set2set (`set2set_x`, `set2set_e`).
 Late pooling runs the head on x, then the pool (`set2set_x` and
 `lin_out_2` for set2set). Under remat each block is recomputed in the
 backward (models/base.py:run_conv), as the reference package's
-nn.remat(MEGNetBlock).
+nn.remat(MEGNetBlock). `ep_group`, which the job layer sets under ep
+(training/jobs.py:setup_run) and no config or checkpoint holds, sums the
+edge MLPs' BatchNorm statistics over the ep members (the reference's
+ep_axis, models/megnet.py:53-84).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ class MEGNet(GNNBase):
                  precision: str = "f32", *,
                  generator: torch.Generator | None = None,
                  dropout_seed: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, ep_group=None):
         super().__init__(
             num_features=num_features, dim1=dim1, dim2=dim2,
             pre_fc_count=pre_fc_count, post_fc_count=post_fc_count, pool=pool,
@@ -65,7 +68,7 @@ class MEGNet(GNNBase):
                                 MLP(din, (dim3, dim3), "relu", **kw))
             self.add_module(f"conv{i}", MEGNetBlock(
                 dim3, gc_fc_count, act=act, batch_norm=batch_norm,
-                track_stats=batch_track_stats, **kw))
+                track_stats=batch_track_stats, ep_group=ep_group, **kw))
         if pool == "set2set" and pool_order == "early":
             self.set2set_x = Set2Set(dim3, **kw)
             self.set2set_e = Set2Set(dim3, **kw)
@@ -91,14 +94,14 @@ class MEGNet(GNNBase):
         n = batch.num_nodes
         if self.pool_name == "set2set":
             e_node = edge_segment_reduce("mean", e, batch.edge_src, n,
-                                         batch.edge_mask)
+                                         batch.edge_mask, batch.ep)
             pooled = [self.set2set_x(x, *args), self.set2set_e(e_node, *args)]
         else:
             kind = _REDUCE_KIND[self.pool_name]
             # the mean rides the CSR segment-sum on a src-sorted batch
             e_node = (src_segment_mean(e, batch) if kind == "mean"
                       else edge_segment_reduce(kind, e, batch.edge_src, n,
-                                               batch.edge_mask))
+                                               batch.edge_mask, batch.ep))
             pooled = [self.pool(x, *args), self.pool(e_node, *args)]
         return self.apply_head(torch.cat(pooled + [u], dim=-1), batch,
                                pooled=True, embed=embed)

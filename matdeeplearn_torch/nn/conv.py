@@ -232,12 +232,15 @@ class GCNConv(nn.Module):
 class MEGNetMLP(nn.Module):
     """MEGNet's sub-MLP: (layers + 1) × [Linear → act → BatchNorm? →
     dropout], the activation before the BatchNorm (the reference's
-    megnet.py:43-55). `lin{i}` and `bn{i}` as in the reference package."""
+    megnet.py:43-55). `lin{i}` and `bn{i}` as in the reference package.
+    stat_group: the BatchNorms' statistics summed over this process group
+    (the edge MLP under ep: MaskedBatchNorm's group, the reference's
+    stat_axis)."""
 
     def __init__(self, din: int, dim: int, layers: int, act: str = "relu",
                  batch_norm: bool = True, track_stats: bool = True, *,
                  generator: torch.Generator | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, stat_group=None):
         super().__init__()
         self.depth, self.batch_norm = layers + 1, batch_norm
         self.act = get_activation(act)
@@ -247,7 +250,8 @@ class MEGNetMLP(nn.Module):
                                               device=device))
             if batch_norm:
                 self.add_module(f"bn{i}", MaskedBatchNorm(
-                    dim, track_stats=track_stats, device=device))
+                    dim, track_stats=track_stats, device=device,
+                    group=stat_group))
 
     def forward(self, x, mask, dropout):
         for i in range(self.depth):
@@ -270,16 +274,19 @@ class MEGNetBlock(nn.Module):
     csr layout) x[src], the u broadcast at g(src) and the edge→node mean run
     on the CSR kernels (ops/aggregate.py); x[dst] stays plain. u's edge
     mean reuses the nodes' edge mean v_e (the same value), so the CSR sum
-    runs once a block. forward takes the model's dropout."""
+    runs once a block. forward takes the model's dropout. ep_group: the
+    process group of an edge-sharded batch's ep members, over which the edge
+    MLP's BatchNorms sum their statistics (the reference's ep_axis; the
+    node and global MLPs see whole rows on every member)."""
 
     def __init__(self, dim: int, fc_layers: int, act: str = "relu",
                  batch_norm: bool = True, track_stats: bool = True, *,
                  generator: torch.Generator | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, ep_group=None):
         super().__init__()
         kw = dict(layers=fc_layers, act=act, batch_norm=batch_norm,
                   track_stats=track_stats, generator=generator, device=device)
-        self.edge_mlp = MEGNetMLP(4 * dim, dim, **kw)
+        self.edge_mlp = MEGNetMLP(4 * dim, dim, **kw, stat_group=ep_group)
         self.node_mlp = MEGNetMLP(3 * dim, dim, **kw)
         self.global_mlp = MEGNetMLP(3 * dim, dim, **kw)
 

@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from matdeeplearn_torch.parallel.ring import halo_exchange_sum
+
 
 def torch_linear_init(tensor: torch.Tensor, fan_in: int,
                       generator: torch.Generator | None = None) -> torch.Tensor:
@@ -170,15 +172,23 @@ class MaskedBatchNorm(nn.Module):
     Statistics, running buffers and the normalisation are f32 whatever the
     input's dtype; the output takes the input's dtype (the reference
     package's nn/layers.py:155-187).
+
+    group: a process group whose members each hold part of the rows (the
+    edge rows of one replica's batch under ep, MEGNet's edge MLP): the
+    count (no gradient), Σx and Σ(x - mean)² are summed over it by the
+    halo exchange (parallel/ring.py), so the statistics are the whole
+    batch's, as the reference's axis_name (nn/layers.py:160-180). It is
+    the mesh's, not the model config's: it never enters a checkpoint.
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
                  epsilon: float = 1e-5, track_stats: bool = True,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, group=None):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
         self.track_stats = track_stats
+        self.group = group
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
@@ -194,9 +204,19 @@ class MaskedBatchNorm(nn.Module):
         else:
             m = (torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)
                  if mask is None else mask.to(x.dtype)[:, None])
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum(0) / count
-            var = (((x - mean) ** 2) * m).sum(0) / count
+            if self.group is None:
+                count = torch.clamp(m.sum(), min=1.0)
+                mean = (x * m).sum(0) / count
+                var = (((x - mean) ** 2) * m).sum(0) / count
+            else:
+                # one exchange for Σx and the count (its part of the
+                # gradient is dropped: the mask has none), one for Σ(x-mean)²
+                s1 = halo_exchange_sum(
+                    torch.cat([(x * m).sum(0), m.sum().reshape(1)]), self.group)
+                count = torch.clamp(s1[-1].detach(), min=1.0)
+                mean = s1[:-1] / count
+                var = halo_exchange_sum((((x - mean) ** 2) * m).sum(0),
+                                        self.group) / count
             if (self.track_stats and not use_running_average
                     and self.update_stats):
                 with torch.no_grad():

@@ -31,8 +31,13 @@ batches never carry it. The plain paths stay in bf16 (their sums accumulate
 in f32: ops/segment.py), with the per-edge weights and the mask cast to
 the messages' dtype as there (:134-135).
 
-The reference's edge-parallel branches (a halo exchange of partial sums
-when the edges are sharded) wait for ROADMAP queue 1, item 16.
+On an edge shard (GraphBatch.ep, parallel/spmd.py:slice_edge_shard: this
+member's 1/ep of the padded edge slots) every edge→node reduction is the
+shard's (parallel/ring.py:EdgeShard): a local partial reduction and the
+halo exchange of the partial node rows, or under `ep_impl: gspmd` the
+edge-sized values gathered and reduced whole; the reference's
+edge-sharded branches (ops/aggregate.py:54-70, :278-320). A shard is never
+sorted or windowed, so the gathers there are index_select.
 """
 
 from __future__ import annotations
@@ -67,6 +72,11 @@ def edge_aggregate(messages: torch.Tensor, batch, reduce: str = "sum",
         raise ValueError(f"unknown reduce {reduce!r}")
     n = batch.num_nodes
     dtype = messages.dtype
+    if batch.ep is not None:
+        if weights is not None:
+            messages = messages * weights.to(dtype)[:, None]
+        fn = batch.ep.segment_mean if reduce == "mean" else batch.ep.segment_sum
+        return fn(messages, batch.edge_dst_safe.long(), n, batch.edge_mask)
     if batch.is_windowed:
         we = _windowed_edges(batch)
         m32 = messages.float()
@@ -142,21 +152,29 @@ def gather_edge_graph(u: torch.Tensor, edge_graph: torch.Tensor, batch
 
 
 def edge_segment_mean(values: torch.Tensor, segment_ids: torch.Tensor,
-                      num_segments: int, mask: torch.Tensor) -> torch.Tensor:
+                      num_segments: int, mask: torch.Tensor,
+                      ep=None) -> torch.Tensor:
     """Mean of per-edge `values` at `segment_ids` (MEGNet's edge→node means
-    at arbitrary node ids): the masked segment mean."""
-    return segment.segment_mean(values, segment_ids.long(), num_segments, mask)
+    at arbitrary node ids): the masked segment mean, over the whole edge set
+    of an edge shard's batch when `ep` (its GraphBatch.ep) is given."""
+    fn = segment.segment_mean if ep is None else ep.segment_mean
+    return fn(values, segment_ids.long(), num_segments, mask)
 
 
 def edge_segment_reduce(kind: str, values: torch.Tensor,
                         segment_ids: torch.Tensor, num_segments: int,
-                        mask: torch.Tensor) -> torch.Tensor:
+                        mask: torch.Tensor, ep=None) -> torch.Tensor:
     """Sum ("sum" or "add"), mean or max of per-edge `values` at node ids
     (MEGNet's edge→source-node pooling), the torch_scatter reduce names of
-    the reference's pool map."""
+    the reference's pool map; on an edge shard (`ep`) over the whole edge
+    set, the max exchanged before its empty → 0 clamp."""
     if kind == "mean":
-        return edge_segment_mean(values, segment_ids, num_segments, mask)
-    fn = segment.segment_sum if kind in ("sum", "add") else segment.segment_max
+        return edge_segment_mean(values, segment_ids, num_segments, mask, ep)
+    if ep is None:
+        fn = (segment.segment_sum if kind in ("sum", "add")
+              else segment.segment_max)
+    else:
+        fn = ep.segment_sum if kind in ("sum", "add") else ep.segment_max
     return fn(values, segment_ids.long(), num_segments, mask)
 
 
@@ -172,4 +190,5 @@ def src_segment_mean(values: torch.Tensor, batch) -> torch.Tensor:
                                      batch.edge_mask, n)
         return (out / torch.clamp(batch.in_degree, min=1.0)[:, None]
                 ).to(values.dtype)
-    return edge_segment_mean(values, batch.edge_src, n, batch.edge_mask)
+    return edge_segment_mean(values, batch.edge_src, n, batch.edge_mask,
+                             batch.ep)

@@ -56,7 +56,8 @@ class CapturePlan(NamedTuple):
 
 
 def capture_plan(device, optimizer, model, request: bool | None = None, *,
-                 generator_api: bool = GENERATOR_API) -> CapturePlan:
+                 generator_api: bool = GENERATOR_API,
+                 mesh=None) -> CapturePlan:
     """The capture plan of a training run.
 
     request None: graphs where they give the eager run's arithmetic, eager
@@ -71,7 +72,9 @@ def capture_plan(device, optimizer, model, request: bool | None = None, *,
         rewinds the model's generator to where the forward started
         (models/base.py), which a replayed graph cannot do;
       * the model draws dropout masks and this torch has no
-        CUDAGraph.register_generator_state.
+        CUDAGraph.register_generator_state;
+      * the steps' collectives run on gloo (a mesh whose ranks share a
+        card, parallel/mesh.py), which a graph cannot capture; NCCL's can.
     """
     reason = ""
     dropout = float(getattr(model, "dropout_rate", 0.0) or 0.0)
@@ -89,6 +92,8 @@ def capture_plan(device, optimizer, model, request: bool | None = None, *,
     elif dropout > 0 and not generator_api:
         reason = ("dropout needs CUDAGraph.register_generator_state, which "
                   "this torch lacks")
+    elif mesh is not None and not mesh.captures:
+        reason = "the mesh's gloo collectives cannot be captured"
     if reason and request:
         raise ValueError(f"capture=True, but the run cannot capture: {reason}")
     return CapturePlan(not reason, reason)

@@ -10,6 +10,12 @@ train_repeat, train_ensemble, analysis), for in-memory datasets, padded
 and packed batches, flat or windowed. CV folds and Repeat trials share one
 Run: `reset_run` writes fresh values into its tensors, so the trainer's
 CUDA graphs are captured once and replayed by every later fold or trial.
+
+Training, CV, Repeat and Ensemble take a `mesh` (parallel/mesh.py): this
+process is then one member of a (dp, ep) mesh, batch_size is per replica,
+the rate is scaled by dp as the reference scales it by its world size
+(training.py:389; the reference package's jobs.py:687, :850, :908), the
+steps are parallel/spmd.py's, and only rank 0 writes checkpoints and CSVs.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 from matdeeplearn_torch.data import dataset as D
 from matdeeplearn_torch.data.batching import (BatchSpec, DeviceDataset,
                                               WindowedDeviceData, assemble,
-                                              packed_id_matrix)
+                                              packed_id_matrix_sharded)
 from matdeeplearn_torch.data.streaming import StreamingGraphDataset
 from matdeeplearn_torch.models import (DESCRIPTOR_MODELS, MODEL_FIELDS,
                                        build_model, descriptor_width)
@@ -85,7 +91,7 @@ def csr_side(model_name: str) -> str:
 def resolve_kernel(model_name: str, kernel: str, batching: str,
                    device: torch.device, kernel_precision: str = "f32",
                    csr_order: str | None = None,
-                   stream: bool = False) -> KernelPlan:
+                   stream: bool = False, ep: int = 1) -> KernelPlan:
     """The kernel request of a model config → what the port runs, for
     padded or packed batches alike (the reference package's
     _resolve_kernel, training/jobs.py:80-199). In memory:
@@ -148,6 +154,16 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
     kernel_precision is not read (the reference's streamed batches never
     carry kernel_bf16).
 
+    Under edge parallelism (ep > 1, parallel/spmd.py) each member holds a
+    slice of a batch's edges, so the routes that need a whole batch's
+    sorted or windowed edges are off, as in the reference
+    (jobs.py:121-167): pallas, and fused for CGCNN, SchNet and the models
+    without a fused kernel, print the reference's "requested but
+    unavailable" note and run xla; csr keeps its sorted dataset but prints
+    the reference's note that edge shards disable the CSR kernels; auto
+    runs xla. MPNN's message stays on the bilinear kernel (fused, csr, and
+    auto on a CUDA device), which reads only the mask of its edge slice.
+
     kernel_precision is "f32" or "bf16" (any case); another value raises.
     Under csr and xla it is not read, as the reference's CSR and XLA
     batches never carry kernel_bf16. `batching` ("padded" or "packed")
@@ -177,6 +193,8 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
         return KernelPlan("xla", None, False)
     if stream:
         return _stream_plan(model_name, kernel, device)
+    if ep > 1:
+        return _ep_plan(model_name, kernel, device, csr_order, ep)
     if kernel == "fused" and model_name not in FUSED_MODELS:
         print("kernel=fused applies to CGCNN, SchNet and MPNN; other models "
               "run the windowed aggregation kernel (kernel=pallas behavior)")
@@ -201,6 +219,29 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
     return KernelPlan(kernel, None if kernel == "xla" else "dst", fused,
                       single_pass=fused and bf16
                       and model_name in SINGLE_PASS_FUSED)
+
+
+def _ep_plan(model_name: str, kernel: str, device, csr_order, ep: int
+             ) -> KernelPlan:
+    """resolve_kernel under edge parallelism (ep > 1)."""
+    mpnn_fused = model_name == "MPNN" and (
+        kernel in ("fused", "csr")
+        or (kernel == "auto" and torch.device(device).type == "cuda"))
+    if kernel == "pallas" or (kernel == "fused" and not mpnn_fused):
+        print(f"kernel={kernel} requested but unavailable (ep={ep} shards the "
+              "edge dim, incompatible with the windowed and fused layouts); "
+              "using the XLA scatter path")
+    if kernel == "csr":
+        print(f"kernel=csr with ep={ep}: edge shards disable the CSR kernels "
+              "(aggregations run XLA + ring halo exchange)")
+        order = str(csr_order or csr_side(model_name)).lower()
+        if order not in ("dst", "src"):
+            raise ValueError(f"unknown csr_order {csr_order!r}: expected "
+                             "dst or src")
+        return KernelPlan("csr", order, False)
+    if mpnn_fused:
+        return KernelPlan("fused", "dst", True)
+    return KernelPlan("xla", None, False)
 
 
 def _stream_plan(model_name: str, kernel: str, device) -> KernelPlan:
@@ -255,6 +296,8 @@ class Run:
     # the batch source of a disk-streaming dataset (training/stream.py's
     # StreamFeed), else None
     feed: object = None
+    # this process's place in a (dp, ep) mesh (parallel/mesh.py), else None
+    mesh: object = None
 
     @property
     def device(self) -> torch.device:
@@ -275,6 +318,16 @@ class Run:
         return self.feed is not None and self.feed.packed
 
     @property
+    def dp(self) -> int:
+        """dp replicas (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.dp
+
+    @property
+    def is_main(self) -> bool:
+        """The process that writes checkpoints and CSVs: rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.is_main
+
+    @property
     def fused_kernel(self) -> bool:
         """The conv keeps its edge intermediates on chip: kernel fused, and
         MPNN's message on the bilinear kernel under csr on dst-sorted
@@ -290,17 +343,33 @@ class Run:
         self.graphs.clear()
 
     def id_matrix(self, indices, shuffle: bool, seed) -> np.ndarray:
-        """The (steps, slots) id matrix of one epoch over `indices`."""
+        """The (steps, slots) id matrix of one epoch over `indices`; under a
+        mesh a row holds the dp replicas' slots (padded: batch_size · dp
+        ids, the reference's global batch)."""
         if self.feed is not None:
             return self.feed.id_matrix(indices, shuffle, seed)
         if self.id_matrix_fn is not None:
             return self.id_matrix_fn(indices, shuffle, seed)
-        return T.epoch_id_matrix(indices, self.batch_size, shuffle, seed)
+        return T.epoch_id_matrix(indices, self.batch_size * self.dp, shuffle,
+                                 seed)
+
+
+def replica_seed(seed: int, mesh=None) -> int:
+    """The dropout seed of this process's dp replica: `seed` for replica 0
+    (and without a mesh), a seed drawn from (seed, d) for replica d, so
+    the replicas draw different masks and the members of one ep group the
+    same ones (the reference splits its dropout key over dp and shares it
+    across ep, spmd.py:30-33, :127)."""
+    if mesh is None or mesh.dp_rank == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), mesh.dp_rank])
+               .generate_state(1)[0])
 
 
 def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
               batch_size: int | None = None, print_model: bool = False,
-              device: str | torch.device | None = None) -> Run:
+              device: str | torch.device | None = None,
+              lr_scale: float = 1.0, mesh=None) -> Run:
     """Model, optimizer, scheduler, batch geometry and device-resident data
     (the reference package's setup_run, its in-memory branches: padded or
     packed, flat or windowed). Initial weights come from
@@ -317,22 +386,38 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
     comes from its resident counts (align 8, edges 8), padded or packed,
     and the batches from a StreamFeed (training/stream.py) with the
     model's stream_wire, in place of device-resident data; the resolved
-    line says stream=y."""
+    line says stream=y.
+
+    With a mesh (parallel/mesh.py) the Run is this process's part of it:
+    batch_size is per replica, the spec's node and edge slots align to
+    8·ep (an edge shard is a contiguous 1/ep of them; the windowed plans,
+    ep 1 only, to max(8·ep, tw)), packed bins come per replica
+    (packed_id_matrix_sharded), the model's `ep_impl` ("ring" or "gspmd")
+    picks the exchange, MEGNet's edge BatchNorms sum over the ep group
+    (its ep_group, kept out of the checkpoint's config) and dropout draws
+    per replica (replica_seed). lr_scale multiplies the rate (the callers
+    pass dp). The resolved line prints the mesh as dp{dp}xep{ep}."""
     dev = resolve_device(device)
     model_name = model_parameters.get("model", "CGCNN")
     bs = int(batch_size or model_parameters.get("batch_size", 100))
     batching = str(model_parameters.get("batching", "padded")).lower()
     is_stream = isinstance(dataset, StreamingGraphDataset)
+    ep = 1 if mesh is None else mesh.ep
+    dp = 1 if mesh is None else mesh.dp
+    if mesh is not None:
+        mesh = mesh.with_impl(model_parameters.get("ep_impl", "ring"))
     plan = resolve_kernel(
         model_name, str(model_parameters.get("kernel", "auto")).lower(),
         batching, dev, str(model_parameters.get("kernel_precision", "f32")),
-        model_parameters.get("csr_order"), stream=is_stream)
+        model_parameters.get("csr_order"), stream=is_stream, ep=ep)
     packed = batching == "packed"
+    ep_group = mesh.ep_group if mesh is not None and ep > 1 else None
 
     def init_fn(seed):
         return build_model(model_name, dataset, model_parameters,
                            generator=torch.Generator().manual_seed(int(seed)),
-                           dropout_seed=int(seed), device="cpu")
+                           dropout_seed=replica_seed(seed, mesh), device="cpu",
+                           ep_group=ep_group)
 
     model = init_fn(seed).to(dev)
     data = feed = None
@@ -340,7 +425,7 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
         # the host packer bins by the resident counts; the feed packs the
         # shard-local orders by sequential fill (training/stream.py)
         counts = (dataset.node_counts(), dataset.edge_counts())
-        align = dict(align=8, align_edges=8)
+        align = dict(align=8 * ep, align_edges=8 * ep)
     elif plan.windowed:
         # kernel_tw / kernel_te: the window and tile sizes of the layout
         layout = D.windowed_layout(
@@ -350,13 +435,13 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
             te=int(model_parameters.get("kernel_te", 128) or 128))
         counts = (np.asarray(layout.node_counts_w),
                   np.asarray(layout.wedge_counts))
-        align = dict(align=max(8, layout.tw), align_edges=layout.te)
+        align = dict(align=max(8 * ep, layout.tw), align_edges=layout.te)
         data = DeviceDataset.from_graph_dataset(
             dataset, dev, windowed=WindowedDeviceData.from_layout(layout, dev),
             kernel_bf16=plan.single_pass)
     else:
         counts = (dataset.node_counts(), dataset.edge_counts())
-        align = {}
+        align = dict(align=8 * ep)
         data = DeviceDataset.from_graph_dataset(
             dataset, dev, edge_order=plan.edge_order, kernel_fused=plan.fused,
             kernel_bf16=plan.single_pass)
@@ -365,7 +450,8 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
         spec = BatchSpec.packed_for_dataset(*counts, bs, **align)
 
         def id_matrix_fn(indices, shuffle, seed):
-            return packed_id_matrix(indices, *counts, spec, bs, shuffle, seed)
+            return packed_id_matrix_sharded(indices, *counts, spec, bs, dp,
+                                            shuffle, seed)
     else:
         spec = BatchSpec.for_dataset(*counts, bs, **align)
     if is_stream:  # the feed makes its own rows (Run.id_matrix)
@@ -373,8 +459,9 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
         feed = StreamFeed(dataset, spec, dev, packed=packed, batch_size=bs,
                           wire=str(model_parameters.get("stream_wire", "True"))
                           != "False",
-                          bilinear=plan.fused and model_name == "MPNN")
-    lr = float(model_parameters.get("lr", 1e-3))
+                          bilinear=plan.fused and model_name == "MPNN",
+                          mesh=mesh)
+    lr = float(model_parameters.get("lr", 1e-3)) * lr_scale
     optimizer_name = model_parameters.get("optimizer", "AdamW")
     optimizer_args = dict(model_parameters.get("optimizer_args") or {})
     optimizer = build_optimizer(optimizer_name, model.parameters(), lr,
@@ -389,9 +476,9 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
             f"{plan.name}({plan.edge_order})" if plan.name == "csr"
             else f"{plan.name}(single-pass)" if plan.single_pass
             else plan.name,
-            batching, model.precision, 1, 1, "y" if is_stream else "n",
+            batching, model.precision, dp, ep, "y" if is_stream else "n",
             spec.num_graphs, spec.num_nodes, spec.num_edges,
-            capture_plan(dev, optimizer, model),
+            capture_plan(dev, optimizer, model, mesh=mesh),
         )
     )
     if print_model:
@@ -411,7 +498,7 @@ def setup_run(dataset, model_parameters: dict, loss: str, seed: int = 0,
                scheduler_name=scheduler_name, scheduler_args=scheduler_args,
                id_matrix_fn=id_matrix_fn, init_fn=init_fn,
                optimizer_name=optimizer_name, optimizer_args=optimizer_args,
-               feed=feed)
+               feed=feed, mesh=mesh)
 
 
 # Adam's and AdamW's state: all tensors, zero on a fresh optimizer's first
@@ -442,7 +529,7 @@ def reset_run(run: Run, seed: int) -> Run:
         for k, v in run.model.state_dict().items():
             v.copy_(fresh[k])
     if hasattr(run.model, "reseed_dropout"):  # the GNNs (SM, SOAP: none)
-        run.model.reseed_dropout(seed)
+        run.model.reseed_dropout(replica_seed(seed, run.mesh))
     if run.optimizer_name in _ZEROED_STATE:
         for state in run.optimizer.state.values():
             for t in state.values():
@@ -477,7 +564,8 @@ def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
     the graphs stay on `run.graphs`, so a later call replays them. `resume`
     (start_epoch, plateau_start, chunk_fn) goes to the trainer, for a run
     resumed mid-training (training/hyper.py). A streamed Run trains on its
-    feed (training/stream.py:stream_trainer), with the same semantics."""
+    feed (training/stream.py:stream_trainer), with the same semantics. A
+    Run on a mesh trains its part of it, and only rank 0 checkpoints."""
     sa = run.scheduler_args
     scheduler_kwargs = dict(
         factor=float(sa.get("factor", 0.1)),
@@ -493,7 +581,7 @@ def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
         # Save only when the best val improved since the last save
         # (reference checkpoints per improvement, training.py:143-155; here
         # once per chunk, as the reference package does).
-        if checkpoint_path is None:
+        if checkpoint_path is None or not run.is_main:
             return
         if np.isfinite(last_saved_val[0]) and best_val >= last_saved_val[0]:
             return
@@ -507,7 +595,8 @@ def run_fused_training(run: Run, *, train_idx, val_idx, epochs: int,
               scheduler_kwargs=scheduler_kwargs,
               scheduler_enabled=run.scheduler_name == "ReduceLROnPlateau",
               checkpoint_fn=checkpoint_fn, shuffle_seed_base=seed,
-              meter=meter, capture=capture, graph_cache=run.graphs, **resume)
+              meter=meter, capture=capture, graph_cache=run.graphs,
+              mesh=run.mesh, **resume)
     if run.feed is not None:
         return stream_trainer(feed=run.feed, **kw)
     return fused_trainer(spec=run.spec, data=run.data,
@@ -531,7 +620,8 @@ def _final_outputs(run: Run, dataset, idx):
     else:
         loss, preds, targs = T.evaluate(run.model, run.loss, run.spec,
                                         run.data, idx, run.batch_size,
-                                        out=True, id_matrix_fn=run.id_matrix)
+                                        out=True, id_matrix_fn=run.id_matrix,
+                                        mesh=run.mesh)
     ids = [dataset.structure_ids[i] for i in idx]
     return loss, ids, targs, preds
 
@@ -539,7 +629,7 @@ def _final_outputs(run: Run, dataset, idx):
 def train_regular(dataset, job_parameters: dict, training_parameters: dict,
                   model_parameters: dict,
                   device: str | torch.device | None = None,
-                  run: Run | None = None) -> dict:
+                  run: Run | None = None, mesh=None) -> dict:
     """The Training run mode (reference train_regular, training.py:377-539):
     split, train with the best-val model kept, evaluate each split, save
     the model, write `<job>_{train,val,test}_outputs.csv` and, with
@@ -548,7 +638,10 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
     training runs under a torch.profiler trace written to `profile_dir`
     (default `<job>_profile`). Runs on CUDA unless `device` names another
     device. A `run` (Repeat's) is reused: reset_run reseeds it, and its
-    graphs replay."""
+    graphs replay. With a `mesh` (parallel/mesh.py) this process trains its
+    part of the (dp, ep) mesh at lr × dp; every rank computes the same
+    errors and outputs, and rank 0 alone writes the checkpoints, the CSVs
+    and the profile."""
     job_name = str(job_parameters.get("job_name", "train_job"))
     seed = int(job_parameters.get("seed") or np.random.randint(1, 1_000_000))
     loss = training_parameters.get("loss", "l1_loss")
@@ -564,7 +657,8 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
         run = setup_run(
             dataset, model_parameters, loss, seed=seed,
             print_model=bool(model_parameters.get("print_model", True)),
-            device=device)
+            device=device, lr_scale=1 if mesh is None else mesh.dp,
+            mesh=mesh)
     else:
         reset_run(run, seed)
 
@@ -581,15 +675,19 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
 
     temp_path = job_parameters.get("temp_checkpoint_path", "my_model_temp.ckpt")
     meter = meter_for_training(dataset, train_idx,
-                               precision=run.model.precision).start()
+                               precision=run.model.precision,
+                               mesh=run.mesh).start()
     attach_analytic_flops(meter, run.model_name, run.model_config, run.spec,
-                          len(train_idx), len(val_idx), run.batch_size,
+                          len(train_idx), len(val_idx),
+                          run.batch_size * run.dp,
                           fused_kernel=run.fused_kernel,
                           steps_per_epoch=run.id_matrix(train_idx, True,
-                                                        seed).shape[0])
+                                                        seed).shape[0],
+                          replicas=run.dp)
     t0 = time.time()
     with trace(job_parameters.get("profile_dir", f"{job_name}_profile"),
-               enabled=str(job_parameters.get("profile")) == "True"):
+               enabled=(str(job_parameters.get("profile")) == "True"
+                        and run.is_main)):
         best, sched, _ = run_fused_training(
             run, train_idx=train_idx, val_idx=val_idx,
             epochs=int(model_parameters.get("epochs", 250)),
@@ -616,6 +714,8 @@ def train_regular(dataset, job_parameters: dict, training_parameters: dict,
         outputs[split] = (ids, targs, preds)
         print("{} Error: {:.5f}".format(split.capitalize(), err))
 
+    if not run.is_main:
+        return errors
     if str(job_parameters.get("save_model", "True")) == "True":
         _save(job_parameters.get("model_path", "my_model.ckpt"), run,
               run.model.state_dict())
@@ -683,12 +783,13 @@ def predict(dataset, loss: str, job_parameters: dict,
 
 def train_CV(dataset, job_parameters: dict, training_parameters: dict,
              model_parameters: dict,
-             device: str | torch.device | None = None) -> float:
+             device: str | torch.device | None = None, mesh=None) -> float:
     """The CV run mode (reference train_CV, training.py:587-715): n folds,
     each trained on the other n-1 with no val split (the final epoch's
     model) and tested on its own; `<job>_CV_outputs.csv` holds every
     fold's test outputs. One Run serves every fold (reset_run with seed +
-    k), so its CUDA graphs are captured in fold 0 and replayed after."""
+    k), so its CUDA graphs are captured in fold 0 and replayed after. With
+    a `mesh`, on it at lr × dp (rank 0 writes the CSV)."""
     job_name = str(job_parameters.get("job_name", "CV_job"))
     seed = int(job_parameters.get("seed") or np.random.randint(1, 1_000_000))
     folds = int(job_parameters.get("cv_folds", 5))
@@ -697,7 +798,8 @@ def train_CV(dataset, job_parameters: dict, training_parameters: dict,
     cv_idx = D.split_data_CV(dataset, num_folds=folds, seed=seed)
     run = setup_run(dataset, model_parameters, loss, seed=seed,
                     print_model=bool(model_parameters.get("print_model", True)),
-                    device=device)
+                    device=device, lr_scale=1 if mesh is None else mesh.dp,
+                    mesh=mesh)
     cv_error = 0.0
     all_ids, all_targs, all_preds = [], [], []
     for k in range(folds):
@@ -718,7 +820,7 @@ def train_CV(dataset, job_parameters: dict, training_parameters: dict,
         all_preds.append(preds)
     cv_error /= folds
     print("CV Error: {:.5f}".format(cv_error))
-    if str(job_parameters.get("write_output", "True")) == "True":
+    if run.is_main and str(job_parameters.get("write_output", "True")) == "True":
         write_results(all_ids, np.concatenate(all_targs),
                       np.concatenate(all_preds), f"{job_name}_CV_outputs.csv")
     return cv_error
@@ -726,12 +828,15 @@ def train_CV(dataset, job_parameters: dict, training_parameters: dict,
 
 def train_repeat(dataset, job_parameters: dict, training_parameters: dict,
                  model_parameters: dict,
-                 device: str | torch.device | None = None) -> np.ndarray:
+                 device: str | torch.device | None = None,
+                 mesh=None) -> np.ndarray:
     """The Repeat run mode (reference train_repeat, training.py:719-843):
     `repeat_trials` Training runs, each with a seed drawn from numpy's
     global generator, on one Run (reset_run per trial); prints the mean
     and standard deviation of each split's error and writes
-    `<job>_all_errorvalues.csv`. Returns the (trials, 3) errors."""
+    `<job>_all_errorvalues.csv`. Returns the (trials, 3) errors. With a
+    `mesh`, on it at lr × dp (the ranks' numpy generators must agree, as
+    the CLI seeds them; rank 0 writes and removes the files)."""
     job_name = str(job_parameters.get("job_name", "repeat_job"))
     trials = int(job_parameters.get("repeat_trials", 5))
     model_path = job_parameters.get("model_path", "my_model.ckpt")
@@ -740,7 +845,9 @@ def train_repeat(dataset, job_parameters: dict, training_parameters: dict,
     run = setup_run(dataset, model_parameters,
                     training_parameters.get("loss", "l1_loss"), seed=0,
                     print_model=bool(model_parameters.get("print_model", True)),
-                    device=device)
+                    device=device, lr_scale=1 if mesh is None else mesh.dp,
+                    mesh=mesh)
+    main = mesh is None or mesh.is_main
     errs = []
     for t in range(trials):
         jp = dict(job_parameters)
@@ -750,9 +857,9 @@ def train_repeat(dataset, job_parameters: dict, training_parameters: dict,
         jp["write_error"] = "True"
         jp["write_output"] = "True" if write_output != "False" else "False"
         e = train_regular(dataset, jp, training_parameters, model_parameters,
-                          device=device, run=run)
+                          device=device, run=run, mesh=mesh)
         errs.append([e["train"], e["val"], e["test"]])
-        if write_output == "False":
+        if write_output == "False" and main:
             for p in (jp["model_path"], "my_model_temp.ckpt"):
                 if os.path.exists(p):
                     os.remove(p)
@@ -761,6 +868,8 @@ def train_repeat(dataset, job_parameters: dict, training_parameters: dict,
     for label, i in (("Training", 0), ("Val", 1), ("Test", 2)):
         print("{} Error Avg: {:.3f}, {} Standard Dev: {:.3f}".format(
             label, mean[i], label, std[i]))
+    if not main:
+        return errs
     with open(f"{job_name}_all_errorvalues.csv", "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["", "Training", "Validation", "Test"])
@@ -809,13 +918,16 @@ def ensemble_outputs(member_rows: list, names: list, loss_name: str,
 
 def train_ensemble(dataset, job_parameters: dict, training_parameters: dict,
                    models_parameters: dict,
-                   device: str | torch.device | None = None) -> float:
+                   device: str | torch.device | None = None,
+                   mesh=None) -> float:
     """The Ensemble run mode (reference train_ensemble,
     training.py:1069-1196): train each model of `ensemble_list` (a Models
     section each) on one split, average their test predictions
     (ensemble_outputs) and write `<job>_test_ensemble_outputs.csv`. Under
     write_output Partial or False the members' CSVs, and their
-    checkpoints unless save_model is True, are removed."""
+    checkpoints unless save_model is True, are removed. With a `mesh` each
+    member trains on it; rank 0, which writes the members' CSVs, makes the
+    ensemble and returns its error, the other ranks NaN."""
     job_name = str(job_parameters.get("job_name", "ensemble_job"))
     ensemble_list = job_parameters["ensemble_list"]
     if isinstance(ensemble_list, str):
@@ -833,8 +945,11 @@ def train_ensemble(dataset, job_parameters: dict, training_parameters: dict,
         jp["seed"] = seed
         jp["write_output"] = "True"
         e = train_regular(dataset, jp, training_parameters,
-                          dict(models_parameters[mname]), device=device)
+                          dict(models_parameters[mname]), device=device,
+                          mesh=mesh)
         errors.append(e["test"])
+        if mesh is not None and not mesh.is_main:
+            continue
         with open(f"{jp['job_name']}_test_outputs.csv") as f:
             outputs.append(list(csv.reader(f))[1:])
         if write_output in ("Partial", "False"):
@@ -847,6 +962,8 @@ def train_ensemble(dataset, job_parameters: dict, training_parameters: dict,
                 os.remove(jp["model_path"])
     for mname, err in zip(ensemble_list, errors):
         print("Test Error, {}: {:.5f}".format(mname, err))
+    if mesh is not None and not mesh.is_main:
+        return float("nan")
     ens_err = ensemble_outputs(outputs, ensemble_list, loss_name,
                                f"{job_name}_test_ensemble_outputs.csv")
     print("Test Error, Ensemble: {:.5f}".format(ens_err))

@@ -29,6 +29,11 @@ the batch source differs, a `StreamFeed`:
     graphs.capture_plan allows, as the in-memory steps do;
   * the losses stay on the device, one host sync an epoch at most.
 
+Under a dp mesh (parallel/mesh.py; the reference's ShardedStream) every
+rank makes the same (dp·B)-wide id rows from the same seed, and fills only
+its own replica's slots of each row through its ring; under ep each
+member takes its edge shard of the batch (parallel/spmd.py).
+
 On the CPU the same code runs eagerly, without pinning. depth 0 assembles
 in the main thread, a set at a time (one set: each batch waits for the
 copy of the one before). The worker is stopped and joined on every exit
@@ -45,8 +50,10 @@ import threading
 import numpy as np
 import torch
 
-from matdeeplearn_torch.data.batching import GraphBatch, packed_id_matrix
+from matdeeplearn_torch.data.batching import (GraphBatch,
+                                              packed_id_matrix_sharded)
 from matdeeplearn_torch.data.streaming import WireBatch, expand_wire
+from matdeeplearn_torch.parallel import spmd
 from matdeeplearn_torch.training import train as T
 
 _DONE = object()
@@ -79,20 +86,21 @@ def _ordered_batches(order, batch_size: int):
         yield padded[s * batch_size:(s + 1) * batch_size]
 
 
-def _packed_rows(sds, order, spec, nominal_batch: int):
-    """Packed bins over a host order by sequential fill, which keeps the
-    order, so shard-local shuffling keeps its locality inside each bin
-    (the reference's packed_id_matrix_sharded at dp 1)."""
-    yield from packed_id_matrix(np.asarray(order), sds.node_counts(),
-                                sds.edge_counts(), spec, nominal_batch,
-                                shuffle=False, seed=None)
+def _packed_rows(sds, order, spec, nominal_batch: int, dp: int = 1):
+    """Packed (dp·B)-wide rows over a host order by sequential fill, which
+    keeps the order, so shard-local shuffling keeps its locality inside
+    each bin (the reference's packed_id_matrix_sharded)."""
+    yield from packed_id_matrix_sharded(
+        np.asarray(order), sds.node_counts(), sds.edge_counts(), spec,
+        nominal_batch, dp, shuffle=False, seed=None)
 
 
 def _train_id_batches(sds, indices, batch_size: int, seed, spec=None,
-                      packed: bool = False):
-    """One training epoch's id rows: the shard-local order where the
-    dataset has one (a global shuffle decompresses about every shard a
-    batch), else a seeded shuffle; packed bins with packed."""
+                      packed: bool = False, dp: int = 1):
+    """One training epoch's id rows, dp·batch_size wide: the shard-local
+    order where the dataset has one (a global shuffle decompresses about
+    every shard a batch), else a seeded shuffle; packed bins with
+    packed."""
     order_fn = getattr(sds, "shard_local_order", None)
     if order_fn is not None:
         order = order_fn(indices, seed)
@@ -100,20 +108,20 @@ def _train_id_batches(sds, indices, batch_size: int, seed, spec=None,
         order = np.asarray(indices).copy()
         np.random.default_rng(seed).shuffle(order)
     if packed:
-        return _packed_rows(sds, order, spec, batch_size)
-    return _ordered_batches(order, batch_size)
+        return _packed_rows(sds, order, spec, batch_size, dp)
+    return _ordered_batches(order, batch_size * dp)
 
 
 def _eval_id_batches(sds, indices, batch_size: int, spec=None,
-                     packed: bool = False):
+                     packed: bool = False, dp: int = 1):
     """An evaluation's id rows, in sorted id order: shards are contiguous
     id ranges, so a split in its own order would fault most of the shard
     cache every batch (the reference package measured about 118 s of
     decompression an eval pass at its 46k corpus)."""
     order = np.sort(np.asarray(indices))
     if packed:
-        return _packed_rows(sds, order, spec, batch_size)
-    return _epoch_ids(order, batch_size, shuffle=False, seed=None)
+        return _packed_rows(sds, order, spec, batch_size, dp)
+    return _epoch_ids(order, batch_size * dp, shuffle=False, seed=None)
 
 
 def _assembler(sds, spec, wire: bool):
@@ -225,12 +233,15 @@ class StreamFeed:
     """The batch source of a streamed Run: a dataset, its spec, the ring of
     host buffer sets and the one static batch on the device that every
     step reads (see the module docstring). bilinear marks its batches for
-    MPNN's bilinear kernel (GraphBatch.kernel_bilinear)."""
+    MPNN's bilinear kernel (GraphBatch.kernel_bilinear). With a mesh the
+    rows hold dp replicas' ids, this replica's slots are the ones filled,
+    and batch_of gives this ep member's edge shard."""
 
     def __init__(self, sds, spec, device, wire: bool = True,
                  packed: bool = False, batch_size: int | None = None,
-                 depth: int = 2, bilinear: bool = False):
+                 depth: int = 2, bilinear: bool = False, mesh=None):
         self.sds, self.spec, self.wire, self.packed = sds, spec, wire, packed
+        self.mesh, self.dp = mesh, 1 if mesh is None else mesh.dp
         self.device = torch.device(device)
         self.batch_size = int(batch_size or spec.num_graphs)
         self.depth, self.bilinear = int(depth), bilinear
@@ -246,21 +257,26 @@ class StreamFeed:
         batch = (expand_wire(WireBatch(**static)) if self.wire
                  else GraphBatch(**static))
         batch.kernel_bilinear = self.bilinear
-        return batch
+        return spmd.slice_edge_shard(batch, self.mesh)
 
     def id_matrix(self, indices, shuffle: bool, seed) -> np.ndarray:
         """The rows of a training epoch (shuffle: the shard-local order of
         `seed`) or of an evaluation (sorted ids), as one matrix."""
         rows = (_train_id_batches(self.sds, indices, self.batch_size, seed,
-                                  self.spec, self.packed) if shuffle
+                                  self.spec, self.packed, self.dp) if shuffle
                 else _eval_id_batches(self.sds, indices, self.batch_size,
-                                      self.spec, self.packed))
+                                      self.spec, self.packed, self.dp))
         return np.stack([np.asarray(r, np.int64) for r in rows])
 
     def batches(self, rows):
-        """Yield each row's ids once its batch is in self.static (its copy
-        issued on the current stream, before anything queued after)."""
-        source = _prefetch_batches(rows, self.fill, self.ring, self.depth)
+        """Yield each row's ids once its batch (this replica's slots) is in
+        self.static (its copy issued on the current stream, before anything
+        queued after)."""
+        fill = self.fill
+        if self.dp > 1:
+            def fill(ids, out):
+                self.fill(spmd.local_ids(ids, self.mesh), out)
+        source = _prefetch_batches(rows, fill, self.ring, self.depth)
         try:
             for ids, i in source:
                 self.load(i)
@@ -300,7 +316,8 @@ def stream_evaluate(model, loss_name: str, feed: StreamFeed, indices,
                     out: bool = False):
     """The mean loss over `indices`, assembled in sorted id order; with
     `out` also the predictions and targets in `indices` order. Eager, in
-    eval mode; one host sync at the end."""
+    eval mode; one host sync at the end. A feed with a mesh runs the dp/ep
+    eval step, whose outputs cover every replica's slots of a row."""
     model.eval()
     loss_fn = T.get_loss(loss_name)
     dev = feed.device
@@ -308,10 +325,14 @@ def stream_evaluate(model, loss_name: str, feed: StreamFeed, indices,
     count_sum = torch.zeros((), device=dev)
     preds, fids = [], []
     rows = _eval_id_batches(feed.sds, indices, feed.batch_size, feed.spec,
-                            feed.packed)
+                            feed.packed, feed.dp)
     for ids in feed.batches(rows):
-        loss, count, pred = T.eval_batch(model, loss_fn,
-                                         feed.batch_of(feed.static))
+        batch = feed.batch_of(feed.static)
+        if feed.mesh is None:
+            loss, count, pred = T.eval_batch(model, loss_fn, batch)
+        else:
+            loss, count, pred = spmd.eval_batch(model, loss_fn, batch,
+                                                feed.mesh, out=out)
         loss_sum += loss * count
         count_sum += count
         if out:  # every slot's output; the pads go on the host

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from matdeeplearn_torch.data.batching import BatchSpec, DeviceDataset, assemble
+from matdeeplearn_torch.parallel import spmd
 
 # --------------------------------------------------------------------- losses
 # Name-compatible with the reference's getattr(torch.nn.functional, loss)
@@ -131,11 +132,14 @@ def eval_batch(model, loss_fn, batch):
 
 
 def evaluate(model, loss_name: str, spec: BatchSpec, data: DeviceDataset,
-             indices, batch_size: int, out: bool = False, id_matrix_fn=None):
+             indices, batch_size: int, out: bool = False, id_matrix_fn=None,
+             mesh=None):
     """Mean loss over `indices`, and with `out` the per-graph predictions
     and targets in `indices` order. id_matrix_fn(indices, shuffle, seed)
     makes the eval id matrix (packed bins, which need not be sequential);
-    by default epoch_id_matrix with batch_size."""
+    by default epoch_id_matrix with batch_size. With a mesh
+    (parallel/mesh.py) each row holds dp replicas' ids and the dp/ep eval
+    step (parallel/spmd.py) returns the row's outputs in its id order."""
     model.eval()
     loss_fn = get_loss(loss_name)
     ids = (id_matrix_fn(indices, False, None) if id_matrix_fn is not None
@@ -144,7 +148,12 @@ def evaluate(model, loss_name: str, spec: BatchSpec, data: DeviceDataset,
     count_sum = torch.zeros((), device=data.device)
     outs = []
     for row in ids:
-        loss, count, pred = eval_step(model, loss_fn, spec, data, row)
+        if mesh is None:
+            loss, count, pred = eval_step(model, loss_fn, spec, data, row)
+        else:
+            loss, count, pred = spmd.eval_batch(
+                model, loss_fn, spmd.local_batch(data, row, spec, mesh), mesh,
+                out=out)
         loss_sum += loss * count
         count_sum += count
         outs.append(pred)

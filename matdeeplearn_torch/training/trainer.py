@@ -41,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from matdeeplearn_torch.data.batching import assemble
+from matdeeplearn_torch.parallel import spmd
 from matdeeplearn_torch.training import train as T
 from matdeeplearn_torch.training.graphs import (CudaGraphs, GraphedStep,
                                                 capture_plan, launch_counters)
@@ -165,20 +165,33 @@ class EpochFns:
     ids, or a streamed batch's device tensors). Captured, each reads its
     input from a static one: train_input and val_input, which the host
     fills by a device-to-device copy of x, unless x is that static input
-    (the stream's feed copies into it itself, training/stream.py)."""
+    (the stream's feed copies into it itself, training/stream.py). With a
+    mesh the steps are the dp/ep ones (parallel/spmd.py), whose losses and
+    counts are the replicas' sums, the same on every rank, so every rank's
+    tail takes the same decisions."""
 
     def __init__(self, *, model, optimizer, loss_fn, batch_of,
                  state: EpochState, tail_kwargs: dict, graphs: bool,
-                 train_input=None, val_input=None):
+                 train_input=None, val_input=None, mesh=None):
         self.state = state
+        reducer = None if mesh is None else spmd.StepReducer(model, mesh)
 
         def train(x):
-            loss, count = T.train_batch(model, optimizer, loss_fn, batch_of(x))
+            if mesh is None:
+                loss, count = T.train_batch(model, optimizer, loss_fn,
+                                            batch_of(x))
+            else:
+                loss, count = spmd.train_batch(model, optimizer, loss_fn,
+                                               batch_of(x), reducer)
             _add_sums(loss, count, state.lsum, state.csum)
 
         def evaluate(x):
             model.eval()
-            loss, count, _ = T.eval_batch(model, loss_fn, batch_of(x))
+            if mesh is None:
+                loss, count, _ = T.eval_batch(model, loss_fn, batch_of(x))
+            else:
+                loss, count, _ = spmd.eval_batch(model, loss_fn, batch_of(x),
+                                                 mesh)
             _add_sums(loss, count, state.vsum, state.vcnt)
 
         def tail():
@@ -226,7 +239,7 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
                   meter=None, capture: bool | None = None,
                   graph_cache: dict | None = None, start_epoch: int = 0,
                   plateau_start: tuple | None = None, chunk_fn=None,
-                  stream=None):
+                  stream=None, mesh=None):
     """Run `epochs` epochs in chunks of `verbosity`. Returns (best_state,
     final PlateauState, history): best_state a state_dict copy (the model
     itself holds the last state), history one (train, val, lr) row of floats
@@ -267,9 +280,16 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
     into the feed's static batch on the device, which the steps read
     (captured or eager); data is not read. A meter then takes each
     streamed epoch, synced at its end, the call's first as warmup (the
-    reference package's stream_trainer)."""
+    reference package's stream_trainer).
+
+    mesh (parallel/mesh.py), if given, trains this process's part of a
+    (dp, ep) mesh: id_matrix_fn's rows hold dp replicas' ids (dp·B
+    slots), this replica assembles its slots and this ep member keeps its
+    edge shard (spmd.local_batch, or the feed's batch_of), and the steps
+    are the dp/ep ones; the errors, the best-val decision and the plateau
+    are the whole mesh's, the same on every rank."""
     dev = data.device if stream is None else stream.device
-    plan = capture_plan(dev, optimizer, model, capture)
+    plan = capture_plan(dev, optimizer, model, capture, mesh=mesh)
     has_val = len(val_idx) > 0
     val_ids = id_matrix_fn(val_idx, False, None) if has_val else None
     if stream is None and has_val:
@@ -291,7 +311,7 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
             batch_of = stream.batch_of
             train_input = val_input = stream.static
         else:
-            batch_of = lambda ids: assemble(data, ids, spec)  # noqa: E731
+            batch_of = lambda ids: spmd.local_batch(data, ids, spec, mesh)  # noqa: E731
             train_input = val_input = None
             if plan.graphs:
                 train_input = torch.full((train_shape[1],), -1,
@@ -305,7 +325,7 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
             graphs=plan.graphs,
             tail_kwargs=dict(has_val=has_val, scheduler_kwargs=scheduler_kwargs,
                              scheduler_enabled=scheduler_enabled),
-            train_input=train_input, val_input=val_input)
+            train_input=train_input, val_input=val_input, mesh=mesh)
         if plan.graphs:
             graph_cache[key] = fns
         return fns
@@ -369,7 +389,8 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
                             key=("graphs" if plan.graphs else "eager", k,
                                  n_steps))
             if meter.flops_per_epoch == 0.0:
-                fwd = _forward_flops(model, loss_fn, spec, data, ids[0, 0])
+                fwd = _forward_flops(model, loss_fn, spec, data,
+                                     spmd.local_ids(ids[0, 0], mesh))
                 if fwd:
                     meter.flops_per_epoch = fwd * (
                         3 * n_steps + (len(val_ids) if has_val else 0))

@@ -331,19 +331,23 @@ def analytic_step_bytes(model_name: str, cfg: dict, n_nodes: int,
 def attach_analytic_flops(meter: ThroughputMeter, model_name: str,
                           cfg: dict, spec, n_train: int, n_val: int,
                           batch_size: int, fused_kernel: bool = False,
-                          steps_per_epoch: int | None = None) -> None:
+                          steps_per_epoch: int | None = None,
+                          replicas: int = 1) -> None:
     """Set meter.flops_per_epoch / bytes_per_epoch from the analytic models
     (train steps ~3x forward, val steps 1x) unless already set.
 
     steps_per_epoch: the actual step count where ceil(n/batch)
-    underestimates it (packed batching)."""
+    underestimates it (packed batching). replicas: the dp replicas (the
+    reference package's profiling.py:342-366): spec is one replica's and
+    batch_size the steps' global batch, so a step's work counts every
+    replica's batch, against the meter's devices (meter_for_training)."""
     if meter.flops_per_epoch > 0:
         return
-    fwd = analytic_step_flops(model_name, cfg, spec.num_nodes,
-                              spec.num_edges, spec.num_graphs)
-    fwd_b = analytic_step_bytes(model_name, cfg, spec.num_nodes,
-                                spec.num_edges, spec.num_graphs,
-                                fused_kernel=fused_kernel)
+    fwd = replicas * analytic_step_flops(model_name, cfg, spec.num_nodes,
+                                         spec.num_edges, spec.num_graphs)
+    fwd_b = replicas * analytic_step_bytes(model_name, cfg, spec.num_nodes,
+                                           spec.num_edges, spec.num_graphs,
+                                           fused_kernel=fused_kernel)
     tr_steps = steps_per_epoch or max(1, -(-n_train // max(batch_size, 1)))
     va_steps = -(-n_val // max(batch_size, 1)) if n_val else 0
     meter.flops_per_epoch = 3.0 * fwd * tr_steps + fwd * va_steps
@@ -372,12 +376,14 @@ def trace(log_dir: str | None, enabled: bool = True):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def meter_for_training(dataset, train_idx,
-                       precision: str = "f32") -> ThroughputMeter:
-    """Meter sized to one training epoch over train_idx."""
+def meter_for_training(dataset, train_idx, precision: str = "f32",
+                       mesh=None) -> ThroughputMeter:
+    """Meter sized to one training epoch over train_idx, over the mesh's
+    dp·ep devices (one without a mesh; the reference package's
+    profiling.py:378-388)."""
     idx = np.asarray(train_idx)
     return ThroughputMeter(
-        num_devices=1,
+        num_devices=1 if mesh is None else mesh.world,
         edges_per_epoch=float(dataset.edge_counts()[idx].sum()),
         graphs_per_epoch=float(len(idx)),
         precision=precision,
