@@ -273,7 +273,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     order; each >= 4 x 8 x 4 launches, no other kernel), its warm epoch
     beside main path 5's, the host's assembly a batch, the busy share of a
     profiled warm streamed epoch, the peak memory beside phase 14c's and
-    the Throughput line; card vs CPU on the first 200 (rtol 1e-3, bf16
+    the Throughput line; card vs CPU on the first 64 (rtol 1e-3, bf16
     2^-6); CGCNN_demo captured with the prefetch ring against eager with a
     synchronous assembler (rtol 1e-6, deterministic); streamed Predict
     against in-memory Predict (wire off rtol 1e-4, atol 1e-4; wire on
@@ -290,6 +290,19 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     epochs against the mesh-less run (P24_TRAIN_RTOL); (d) with two or more
     cards, (a) on NCCL across two of them, else a line saying it did not
     run; each part's gaps and seconds printed before any failure raises;
+25. the port's bench_bulk (matdeeplearn_torch/bench_bulk.py; check_bulk
+    says what it holds): its MP-skew corpus at 1,024 structures; the 17
+    configurations that the bench's bulk segment lacks (CGCNN packed xla
+    and fused; GCN, SchNet and MEGNet (src and dst) packed csr; MPNN xla
+    padded and packed fused; MEGNet, GCN and SchNet packed xla; SchNet xla
+    padded, fused padded and packed; CGCNN streamed padded, packed, and
+    packed with the wire off), full widths, 1 warm and 1 timed epoch on
+    CUDA graphs and the same eagerly: each plan's kernels >= gc_count x
+    steps x epochs launches and no other kernel, a finite record, device
+    memory back within 64 MiB, the peak printed; card vs CPU, first-epoch
+    train error rtol 1e-3, for SchNet packed fused and csr, GCN packed
+    csr, MEGNet packed xla and csr on dst, CGCNN streamed packed (first
+    128 structures) and MPNN packed fused (first 32);
 20. prints a {"kernels": [...]} line (the CSR rows with their callers,
     each path's launches and the src-sorted shapes' times; each
     single-pass arm's row and each bilinear bf16 arm's row with `f32_ms`,
@@ -299,7 +312,8 @@ Run from the root of a checkout, on a machine with an NVIDIA H100. It:
     single-pass rows' 22's (the CSR arm is on no path: 0); the f32
     bilinear rows add `launches_by_path`, 5's and 23's streamed Training
     and Predict, and the fused CGConv rows theirs, main path 2's and phase
-    24 (a)'s dp steps (both ranks).
+    24 (a)'s dp steps (both ranks); the CSR, fused CGConv, cfconv and f32
+    bilinear rows add each phase 25 configuration that launched them.
 
 Every failed check raises and the script exits non-zero. Without CUDA, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -401,6 +415,9 @@ BENCH_TIMEOUT_S = 600
 PROFILED_KERNELS = ("fused_cgconv_fwd_kernel", "fused_cgconv_bwd_kernel",
                     "fused_cgconv_wgrad_kernel", "wgrad_reduce_kernel")
 N_COMPARE = 200  # structures of MPNN's card/CPU training comparison
+# structures of phase 23 (c)'s streamed card/CPU comparison: its CPU side
+# runs the plain bilinear versions, whose cost grows with the structures
+N_COMPARE_STREAM = 64
 # phase 23: disk streaming. The 1,000 structures in shards of 64 graphs (16
 # shards against the LRU's 8, so every epoch evicts); the streamed MPNN_demo
 # run's epochs (3 warm: the meter's 20 steady-state steps); the epochs of
@@ -426,6 +443,27 @@ WIRE_RTOL = 1e-3
 P24_STEPS, P24_EPOCHS = 2, 2
 P24_EXACT, P24_PLAIN, P24_TRAIN_RTOL = 1e-6, 1e-3, 1e-4
 P24_EP_LOSS, P24_EP_STATE = 1e-4, 5 * 0.0005
+# phase 25: the port's bench_bulk (matdeeplearn_torch/bench_bulk.py). Its
+# MP-skew corpus at N_BULK structures; the configurations that the bench's
+# bulk segment lacks, each at full width under its batch rule for
+# P25_EPOCHS warm and as many timed epochs, captured, then eager; the
+# card-vs-CPU comparisons (first-epoch train error, rtol 1e-3, at batch
+# P25_COMPARE_BATCH so that several steps land in the epoch) on the
+# corpus' first P25_COMPARE_N structures, MPNN's on its first
+# P25_MPNN_COMPARE_N (the plain versions of its bilinear kernels take
+# longest on the CPU); the streamed one on shards of P25_SHARD_GRAPHS
+N_BULK = 1024
+P25_CONFIGS = ("packed", "packed-fused", "gcn-packed-csr", "schnet-packed-csr",
+               "megnet-packed-csr", "megnet-packed-csr-dst", "mpnn-xla",
+               "megnet-packed", "gcn-packed", "schnet-packed", "schnet-xla",
+               "mpnn-packed-fused", "schnet-fused", "schnet-packed-fused",
+               "stream", "stream-packed", "stream-packed-nowire")
+P25_COMPARE = ("schnet-packed-fused", "schnet-packed-csr", "gcn-packed-csr",
+               "megnet-packed", "megnet-packed-csr-dst", "stream-packed",
+               "mpnn-packed-fused")
+P25_EPOCHS = 1
+P25_COMPARE_N, P25_MPNN_COMPARE_N, P25_COMPARE_BATCH = 128, 32, 32
+P25_SHARD_GRAPHS = 32
 # phase 19: the descriptor models (config.yml's SM_demo and SOAP_demo), the
 # run modes' sizes, and the SOAP corpus (write_clusters' Pt clusters)
 SM_DEMO = {
@@ -2423,8 +2461,8 @@ def first_epoch_error(ds, device: str, model: dict, init: str,
     return float(hist[0][0]), time.perf_counter() - t0
 
 
-def check_streaming(dataset, data_dir, sub_dir, mpnn_path, model_path, dev,
-                    smi, m_warm, mem_peak_mib, resume) -> dict:
+def check_streaming(dataset, data_dir, mpnn_path, model_path, dev, smi,
+                    m_warm, mem_peak_mib, resume) -> dict:
     """Phase 23: disk streaming (dataset_type large, data/streaming.py and
     training/stream.py) on the 1,000 structures in shards of
     N_SHARD_GRAPHS graphs, more shards than the LRU holds:
@@ -2440,8 +2478,8 @@ def check_streaming(dataset, data_dir, sub_dir, mpnn_path, model_path, dev,
          busy share of a profiled warm streamed epoch; the peak device
          memory beside the in-memory run's; the Throughput line;
       c. card against CPU, the first epoch of MPNN_demo streamed on the
-         first N_COMPARE structures: rtol 1e-3, and under precision bf16
-         BF16_RTOL;
+         first N_COMPARE_STREAM structures: rtol 1e-3, and under precision
+         bf16 BF16_RTOL;
       d. CGCNN_demo streamed, kernel xla, the wire off, EPOCHS_STREAM_RACE
          epochs under deterministic algorithms, captured with the prefetch
          ring against eager with a synchronous assembler (depth 0): the
@@ -2544,7 +2582,9 @@ def check_streaming(dataset, data_dir, sub_dir, mpnn_path, model_path, dev,
           f"{train_launches} (>= {need}); {thr}")
     busy = profile_training(sds, dev, MPNN_DEMO, kernel="auto")
 
-    # ---- c. card against CPU on the first N_COMPARE structures
+    # ---- c. card against CPU on the first N_COMPARE_STREAM structures
+    sub_dir = os.path.join(WORK, f"data_first{N_COMPARE_STREAM}")
+    write_structures(sub_dir, n=N_COMPARE_STREAM)
     sub_sds = get_dataset(sub_dir, 0, "False", stream_processing(sub_dir))
     compare = {}
     for label, demo, rtol in (("f32", MPNN_DEMO, 1e-3),
@@ -2554,7 +2594,8 @@ def check_streaming(dataset, data_dir, sub_dir, mpnn_path, model_path, dev,
         cpu, t_cpu = first_epoch_error(sub_sds, "cpu", demo, mpnn_path,
                                        "fused")
         compare[label] = (card, cpu, abs(card - cpu) / abs(cpu))
-        print(f"streamed MPNN {label} card vs CPU on the first {N_COMPARE} "
+        print(f"streamed MPNN {label} card vs CPU on the first "
+              f"{N_COMPARE_STREAM} "
               f"structures: epoch 1 train error {card:.6f} vs {cpu:.6f}, "
               f"relative gap {compare[label][2]:.3e} (rtol {rtol:g}); "
               f"{t_card:.3f} s card, {t_cpu:.3f} s CPU (plain versions)")
@@ -3414,6 +3455,190 @@ def check_parallel(dataset, data_dir: str, model_path: str, megnet_path: str,
         raise AssertionError("phase 24: " + "; ".join(fails))
     return launches
 
+
+
+def first_graphs(ds, k: int):
+    """The first k graphs of a GraphDataset, as one of their own."""
+    from dataclasses import replace
+
+    n1, e1 = int(ds.node_ptr[k]), int(ds.edge_ptr[k])
+    return replace(
+        ds, node_x=ds.node_x[:n1], node_z=ds.node_z[:n1],
+        edge_src=ds.edge_src[:e1], edge_dst=ds.edge_dst[:e1],
+        edge_weight=ds.edge_weight[:e1], edge_dist_norm=ds.edge_dist_norm[:e1],
+        node_ptr=ds.node_ptr[:k + 1], edge_ptr=ds.edge_ptr[:k + 1],
+        y=ds.y[:k], u=ds.u[:k], structure_ids=ds.structure_ids[:k],
+        cache_dir=None)
+
+
+def p25_plan(name: str) -> list:
+    """The launch counters of the kernels a bench_bulk configuration's plan
+    runs (training/jobs.py:resolve_kernel on a card): fused CGConv, cfconv
+    or bilinear (MPNN's mean on the CSR sum, its backward the CSR gather),
+    csr the CSR kernels (MEGNet on the dst order: the x[dst] gather and its
+    backward; its src-side gathers and means plain), xla and the CGCNN
+    streams none."""
+    from matdeeplearn_torch import bench_bulk as BB
+    from matdeeplearn_torch.ops import csr
+    from matdeeplearn_torch.ops import fused_bilinear as FB
+    from matdeeplearn_torch.ops import fused_cfconv as FS
+    from matdeeplearn_torch.ops import fused_cgconv as FC
+
+    extra, stream = BB.CONFIGS[name]
+    kernel, model = extra["kernel"], extra.get("model", "CGCNN")
+    if stream or kernel == "xla":
+        return []
+    if kernel == "csr":
+        return [csr.LAUNCHES]
+    return {"CGCNN": [FC.LAUNCHES], "SchNet": [FS.LAUNCHES],
+            "MPNN": [FB.LAUNCHES, csr.LAUNCHES]}[model]
+
+
+def check_bulk(dev, smi: str) -> dict:
+    """Phase 25: the port's bench_bulk (matdeeplearn_torch/bench_bulk.py),
+    in this process so that it reads the launch counters:
+
+      a. its MP-skew corpus at N_BULK structures (seed 0), cached under
+         build/chip_smoke/bench_bulk/: median, p95 and largest atoms, edges;
+      b. each of P25_CONFIGS through bench_bulk.run_config (its batch rule
+         at --batch 256, full widths, P25_EPOCHS warm and timed epochs on
+         CUDA graphs, then on the eager loop), the counters reset just
+         before: each kernel of the plan (p25_plan) launched at least
+         gc_count x train steps x the epochs run, no other kernel; every
+         number of the record finite and s/epoch > 0; device memory
+         allocated after it within HYPER_MEMORY_SLACK_MIB of before (its
+         Runs and graphs freed; from the second configuration on, as phase
+         19g holds from its second trial); its peak memory printed;
+      c. card against CPU (plain versions) for each of P25_COMPARE: the
+         first epoch's train error from one initial state on the corpus'
+         first P25_COMPARE_N structures (MPNN: P25_MPNN_COMPARE_N) at
+         batch P25_COMPARE_BATCH, all of them in the train split, rtol
+         1e-3; MEGNet without BatchNorm (MEGNET_NOBN says why); the stream
+         on shards of P25_SHARD_GRAPHS.
+
+    Every check is printed before a miss raises. Returns each
+    configuration's launches by kernel name, for the kernels line."""
+    import gc
+
+    from matdeeplearn_torch import bench_bulk as BB
+    from matdeeplearn_torch.data.streaming import load_or_create_sharded
+    from matdeeplearn_torch.training import jobs
+    from matdeeplearn_torch.training.graphs import launch_counters
+
+    t_phase = time.perf_counter()
+    BB.CACHE = os.path.join(WORK, "bench_bulk")
+    counters = launch_counters()
+    fails = []
+    # ---- a. the corpus
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        ds = BB.build_corpus(N_BULK)
+    nc, ec = ds.node_counts(), ds.edge_counts()
+    print(f"phase 25 corpus (bench_bulk.build_corpus, n {N_BULK}, seed 0): "
+          f"built in {time.perf_counter() - t0:.2f} s; atoms median "
+          f"{np.median(nc):.0f}, p95 {np.percentile(nc, 95):.0f}, max "
+          f"{nc.max()}; {int(nc.sum())} atoms, {int(ec.sum())} edges "
+          f"({ec.mean():.1f} a structure)")
+    tr, va = BB.split(len(ds))
+
+    # ---- b. the configurations
+    epochs_run = 4 * P25_EPOCHS  # warm and timed, captured and eager
+    launches = {}
+    for name in P25_CONFIGS:
+        extra, stream, batch, label = BB.config(name, 256)
+        sdir = (os.path.join(BB.CACHE, f"shards_{N_BULK}") if stream
+                else None)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        reset_launches(*counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rec = BB.run_config(label, ds, extra, tr, va, batch, P25_EPOCHS,
+                                dev, stream_dir=sdir)
+        wall = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        plan = p25_plan(name)
+        launched = {k: v for c in plan for k, v in c.items()}
+        stray = {k: v for c in counters if not any(c is p for p in plan)
+                 for k, v in c.items() if v}
+        need = int(BB.MODEL["gc_count"]) * rec["steps_per_epoch"] * epochs_run
+        launches[name] = launched
+        numbers = [v for k, v in rec.items() if not isinstance(v, str)]
+        grew = (after - before) / 2**20
+        print(f"phase 25 {name} ({label}, kernel_mode {rec['kernel_mode']}) "
+              f"on {smi}: {rec['s_per_epoch']:.5f} s/epoch captured, "
+              f"{rec['s_per_epoch_eager']:.5f} eager, "
+              f"{rec['steps_per_epoch']} steps, {rec['step_ms']:.3f} "
+              f"ms/step, {rec['edges_per_s_per_chip']} edges/s, MFU "
+              f"{rec.get('mfu_pct')}%, HBM {rec.get('hbm_util_pct')}%"
+              + (f", assembly {rec['stream_assembly_ms_per_batch']:.3f} ms a "
+                 "batch" if stream else "")
+              + f"; peak {rec['peak_mem_mib']:.1f} MiB, allocated "
+              f"{before / 2**20:.1f} -> {after / 2**20:.1f} MiB; launches "
+              f"{launched} (each >= {need}), others {stray}; {wall:.1f} s")
+        if any(v < need for v in launched.values()) or stray:
+            fails.append(f"{name}: launches {launched} (>= {need}), "
+                         f"others {stray}")
+        if not (np.isfinite(numbers).all() and rec["s_per_epoch"] > 0):
+            fails.append(f"{name}: record {rec}")
+        # the first configuration may leave the process's one-time state
+        # (the trainer's stream and its cuBLAS workspace), as phase 19g's
+        # first trial does: the rule holds from the second on
+        if name != P25_CONFIGS[0] and abs(grew) > HYPER_MEMORY_SLACK_MIB:
+            fails.append(f"{name}: device memory grew {grew:.1f} MiB")
+
+    # ---- c. card against CPU
+    for name in P25_COMPARE:
+        extra, stream, _, label = BB.config(name, P25_COMPARE_BATCH)
+        mp = {**BB.MODEL, "batch_size": P25_COMPARE_BATCH, "epochs": 1,
+              **extra}
+        if mp["model"] == "MEGNet":
+            mp["batch_norm"] = "False"
+        k = P25_MPNN_COMPARE_N if mp["model"] == "MPNN" else P25_COMPARE_N
+        data = first_graphs(ds, k)
+        if stream:
+            data = load_or_create_sharded(
+                data, os.path.join(BB.CACHE, f"shards_first{k}"),
+                graphs_per_shard=P25_SHARD_GRAPHS)
+        errs, secs, init = {}, {}, None
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                run = jobs.setup_run(data, mp, "l1_loss", seed=TRAIN_SEED,
+                                     device=device)
+                if init is None:
+                    init = {n: v.detach().cpu().clone()
+                            for n, v in run.model.state_dict().items()}
+                else:
+                    run.model.load_state_dict(init)
+                _, _, hist = jobs.run_fused_training(
+                    run, train_idx=np.arange(k), val_idx=np.array([], np.int64),
+                    epochs=1, verbosity=1, seed=TRAIN_SEED)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            errs[device] = float(hist[0][0])
+            secs[device] = time.perf_counter() - t0
+            del run
+        gap = abs(errs["cuda"] - errs["cpu"]) / abs(errs["cpu"])
+        print(f"phase 25 (c) {name} ({label}) card vs CPU on the first {k} "
+              f"structures at batch {P25_COMPARE_BATCH}: epoch 1 train error "
+              f"{errs['cuda']:.6f} vs {errs['cpu']:.6f}, relative gap "
+              f"{gap:.3e} (rtol 1e-3); {secs['cuda']:.2f} s card, "
+              f"{secs['cpu']:.2f} s CPU")
+        if not (np.isfinite(list(errs.values())).all() and gap <= 1e-3):
+            fails.append(f"(c) {name}: {errs}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 25 (bench_bulk) on {smi}: "
+          f"{time.perf_counter() - t_phase:.1f} s wall")
+    if fails:
+        raise AssertionError("phase 25: " + "; ".join(fails))
+    return launches
 
 
 def main() -> int:
@@ -4509,12 +4734,15 @@ def main() -> int:
 
     # ---- disk streaming: dataset_type large ------------------------------
     stream_launches = check_streaming(
-        dataset, data_dir, sub_dir, mpnn_path, model_path, dev, smi, m_warm,
+        dataset, data_dir, mpnn_path, model_path, dev, smi, m_warm,
         capture_times[("MPNN", "fused", "padded")][2], resume_from_init)
 
     # ---- parallelism: dp and ep on torch.distributed --------------------
     dp_launches = check_parallel(dataset, data_dir, model_path, megnet_path,
                                  dev, smi)
+
+    # ---- the port's bench_bulk: the configurations bench.py lacks -------
+    bulk_launches = check_bulk(dev, smi)
 
     kernels = []
     for key, name, src, line, count in (
@@ -4610,6 +4838,13 @@ def main() -> int:
             row["src_order_shapes"] = [
                 {k: v for k, v in st.items() if k != "kernel"}
                 for st in src_times if st["kernel"] == key]
+        # phase 25's bench_bulk configurations on this kernel (each one's
+        # launches, captured and eager); the cfconv rows' main path is
+        # SchNet_demo's Training
+        for cfg, lc in bulk_launches.items():
+            if lc.get(key):
+                row.setdefault("launches_by_path", {"SchNet Training": count})[
+                    f"bench_bulk {cfg} (n {N_BULK})"] = lc[key]
         kernels.append(row)
     print(f"chip_smoke on {smi}: {time.perf_counter() - t_script:.1f} s in "
           "all, the kernels' build included")

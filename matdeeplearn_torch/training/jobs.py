@@ -167,9 +167,10 @@ def resolve_kernel(model_name: str, kernel: str, batching: str,
     kernel_precision is "f32" or "bf16" (any case); another value raises.
     Under csr and xla it is not read, as the reference's CSR and XLA
     batches never carry kernel_bf16. `batching` ("padded" or "packed")
-    changes the batch geometry, not the plan. A request the port cannot
-    honour raises NotImplementedError naming its ROADMAP item; nothing
-    falls back quietly.
+    changes the batch geometry, not the plan. An unknown kernel, batching,
+    model, kernel_precision or csr_order raises ValueError; a route the
+    batches cannot take prints the reference's note naming the plan that
+    runs instead; nothing falls back quietly.
     """
     precision = str(kernel_precision).lower()
     if precision not in KERNEL_PRECISIONS:

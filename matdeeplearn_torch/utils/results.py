@@ -1,7 +1,7 @@
 """Output CSV writer (reference write_results, training/training.py:211-223).
 
-Single-process for now: the rank-0 gate comes with data parallelism
-(ROADMAP queue 1, item 16).
+It writes what it is given; on a (dp, ep) mesh only rank 0 calls it, by
+the gate of training/jobs.py (Run.is_main).
 """
 
 from __future__ import annotations

@@ -521,15 +521,12 @@ def test_cuda_request_without_cuda_raises(toy_dataset):
                          {"loss": "l1_loss"}, MODEL)
 
 
-@pytest.mark.parametrize("flag,item", [("--parallel=True", "item 16"),
-                                       ("--ep=2", "item 16"),
-                                       ("--batching=packed", None)])
-def test_cli_refuses_unported_flags(flag, item):
-    """main.py's flags reach the config and none raises any more: until
-    ROADMAP item 16 (`item`: the item that ported the flag; None: ported
-    before the cases were written) --parallel and --ep raised here, naming
-    it. --parallel and --ep go to the Job section, as main.py's do, and
-    --batching to the model's."""
+@pytest.mark.parametrize("flag", ["--parallel=True", "--ep=2",
+                                  "--batching=packed"])
+def test_cli_flags_reach_the_config(flag):
+    """main.py's flags reach the config, none raising: --parallel and --ep
+    go to the Job section, as main.py's do, and --batching to the
+    model's."""
     from matdeeplearn_torch import cli
 
     args = cli.build_parser().parse_args(
@@ -540,7 +537,6 @@ def test_cli_refuses_unported_flags(flag, item):
         "--ep=2": ("Job", "ep", 2),
         "--batching=packed": ("Models", "batching", "packed")}[flag]
     assert config[section][key] == value
-    assert item in (None, "item 16")
 
 
 def test_chip_smoke_training_job_matches_config_yml():
