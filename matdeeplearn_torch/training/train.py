@@ -17,6 +17,7 @@ import torch
 
 from matdeeplearn_torch.data.batching import BatchSpec, DeviceDataset, assemble
 from matdeeplearn_torch.parallel import spmd
+from matdeeplearn_torch.utils.profiling import span
 
 # --------------------------------------------------------------------- losses
 # Name-compatible with the reference's getattr(torch.nn.functional, loss)
@@ -119,8 +120,12 @@ def train_batch(model, optimizer, loss_fn, batch):
 
 @torch.no_grad()
 def eval_step(model, loss_fn, spec: BatchSpec, data: DeviceDataset, ids):
-    """One batch in eval mode: (loss, graph count, per-slot outputs)."""
-    return eval_batch(model, loss_fn, assemble(data, ids, spec))
+    """One batch in eval mode: (loss, graph count, per-slot outputs), in the
+    spans `mdl.evaluate.assemble` and `mdl.evaluate.forward`."""
+    with span("mdl.evaluate.assemble"):
+        batch = assemble(data, ids, spec)
+    with span("mdl.evaluate.forward"):
+        return eval_batch(model, loss_fn, batch)
 
 
 @torch.no_grad()
@@ -139,37 +144,47 @@ def evaluate(model, loss_name: str, spec: BatchSpec, data: DeviceDataset,
     makes the eval id matrix (packed bins, which need not be sequential);
     by default epoch_id_matrix with batch_size. With a mesh
     (parallel/mesh.py) each row holds dp replicas' ids and the dp/ep eval
-    step (parallel/spmd.py) returns the row's outputs in its id order."""
+    step (parallel/spmd.py) returns the row's outputs in its id order.
+    Under a profiler the call is the span `mdl.evaluate` around
+    `mdl.evaluate.ids`, each batch's `.assemble` and `.forward`, and
+    `.readback`."""
     model.eval()
     loss_fn = get_loss(loss_name)
-    ids = (id_matrix_fn(indices, False, None) if id_matrix_fn is not None
-           else epoch_id_matrix(indices, batch_size, shuffle=False, seed=None))
-    loss_sum = torch.zeros((), device=data.device)
-    count_sum = torch.zeros((), device=data.device)
-    outs = []
-    for row in ids:
-        if mesh is None:
-            loss, count, pred = eval_step(model, loss_fn, spec, data, row)
-        else:
-            loss, count, pred = spmd.eval_batch(
-                model, loss_fn, spmd.local_batch(data, row, spec, mesh), mesh,
-                out=out)
-        loss_sum += loss * count
-        count_sum += count
-        outs.append(pred)
-    loss = float(loss_sum / torch.clamp(count_sum, min=1.0))
-    if not out:
-        return loss
-    outs = torch.cat(outs).cpu().numpy()
-    # Map flat batch-slot outputs back to `indices` order (the -1 slots
-    # dropped; a packed matrix is not sequential).
-    flat_ids = ids.reshape(-1)
-    sel = flat_ids >= 0
-    fids, fouts = flat_ids[sel], outs[sel]
-    order = np.argsort(fids)
-    take = order[np.searchsorted(fids[order], np.asarray(indices))]
-    outs = fouts[take]
-    targs = data.y.cpu().numpy()[np.asarray(indices)]
-    if outs.ndim == 1 and targs.ndim == 2 and targs.shape[1] == 1:
-        targs = targs[:, 0]
-    return loss, outs, targs
+    with span("mdl.evaluate"):
+        with span("mdl.evaluate.ids"):
+            ids = (id_matrix_fn(indices, False, None)
+                   if id_matrix_fn is not None
+                   else epoch_id_matrix(indices, batch_size, shuffle=False,
+                                        seed=None))
+        loss_sum = torch.zeros((), device=data.device)
+        count_sum = torch.zeros((), device=data.device)
+        outs = []
+        for row in ids:
+            if mesh is None:
+                loss, count, pred = eval_step(model, loss_fn, spec, data, row)
+            else:
+                with span("mdl.evaluate.assemble"):
+                    batch = spmd.local_batch(data, row, spec, mesh)
+                with span("mdl.evaluate.forward"):
+                    loss, count, pred = spmd.eval_batch(model, loss_fn, batch,
+                                                        mesh, out=out)
+            loss_sum += loss * count
+            count_sum += count
+            outs.append(pred)
+        with span("mdl.evaluate.readback"):
+            loss = float(loss_sum / torch.clamp(count_sum, min=1.0))
+            if not out:
+                return loss
+            outs = torch.cat(outs).cpu().numpy()
+            # Map flat batch-slot outputs back to `indices` order (the -1
+            # slots dropped; a packed matrix is not sequential).
+            flat_ids = ids.reshape(-1)
+            sel = flat_ids >= 0
+            fids, fouts = flat_ids[sel], outs[sel]
+            order = np.argsort(fids)
+            take = order[np.searchsorted(fids[order], np.asarray(indices))]
+            outs = fouts[take]
+            targs = data.y.cpu().numpy()[np.asarray(indices)]
+            if outs.ndim == 1 and targs.ndim == 2 and targs.shape[1] == 1:
+                targs = targs[:, 0]
+            return loss, outs, targs

@@ -26,7 +26,9 @@ so a captured epoch does the eager epoch's arithmetic:
     static buffer and the sums are zeroed;
   * once per chunk the host syncs, prints the reference's epoch line for
     the chunk's last epoch and calls `checkpoint_fn`; it makes the next
-    chunk's id matrices before that sync, while the device trains.
+    chunk's id matrices before that sync, while the device trains. Under
+    a profiler the four phases are spans (utils/profiling.py:span):
+    `mdl.trainer.launch`, `.pack`, `.sync` and `.report`.
 
 The reference package's MDL_MAX_DISPATCH_S segmenting (`_segmented_trainer`)
 works around a TPU runtime that kills long dispatches; CUDA launches and
@@ -46,7 +48,7 @@ from matdeeplearn_torch.training import train as T
 from matdeeplearn_torch.training.graphs import (CudaGraphs, GraphedStep,
                                                 capture_plan, launch_counters)
 from matdeeplearn_torch.training.optimizers import set_learning_rate
-from matdeeplearn_torch.utils.profiling import op_cost
+from matdeeplearn_torch.utils.profiling import span
 
 
 class PlateauState(NamedTuple):
@@ -224,14 +226,6 @@ class EpochFns:
         self.tail = GraphedStep(tail, backend, counters)
 
 
-def _forward_flops(model, loss_fn, spec, data, row) -> float | None:
-    """FLOPs of one eval-mode forward of the batch `row` (op_cost; the
-    hand kernels are opaque to it), for a meter with no analytic count."""
-    model.eval()
-    with torch.no_grad():
-        return op_cost(T.eval_step, model, loss_fn, spec, data, row)
-
-
 def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
                   id_matrix_fn, epochs: int, verbosity: int, lr: float,
                   scheduler_kwargs: dict, scheduler_enabled: bool = True,
@@ -339,75 +333,78 @@ def fused_trainer(*, model, optimizer, loss_fn, spec, data, train_idx, val_idx,
     fns = None
     history = []
     epoch = 0
-    t0 = time.time()
-    next_ids = chunk_ids(0) if epochs > 0 else None
+    t0 = time.perf_counter()
+    next_ids = None
+    if epochs > 0:
+        with span("mdl.trainer.pack"):
+            next_ids = chunk_ids(0)
     while epoch < epochs:
-        ids = (next_ids if stream is not None
-               else torch.as_tensor(np.stack(next_ids), device=dev))
-        k = len(ids)
-        if fns is None:
-            fns = epoch_fns(tuple(ids[0].shape))
-            if plateau_start is not None:
-                for t, v in zip(fns.state.sched, plateau_start):
-                    t.fill_(v)
-        state = fns.state
-        hist = torch.empty((k, 3), device=dev)
-        for e in range(k):
-            t_epoch = time.time()
-            if stream is None:
-                for row in ids[e]:
-                    fns.train(row)
-                if has_val:
-                    for row in val_ids:
-                        fns.evaluate(row)
-            else:
-                stream.run((ids[e], fns.train),
-                           *([(val_ids, fns.evaluate)] if has_val else []))
-            fns.tail()
-            hist[e].copy_(state.row)
-            if stream is not None and meter is not None:
-                # a streamed epoch is the meter's unit (the reference
-                # package's stream_trainer): this call's first is warmup
-                hist[e].cpu()  # the epoch's sync
-                first = epoch + e == 0
-                meter.add_chunk(1, len(ids[e]), time.time() - t_epoch,
-                                key=("stream", len(ids[e])) if first else None,
-                                warmup=None if first else False)
+        with span("mdl.trainer.launch"):
+            ids = (next_ids if stream is not None
+                   else torch.as_tensor(np.stack(next_ids), device=dev))
+            k = len(ids)
+            if fns is None:
+                fns = epoch_fns(tuple(ids[0].shape))
+                if plateau_start is not None:
+                    for t, v in zip(fns.state.sched, plateau_start):
+                        t.fill_(v)
+            state = fns.state
+            hist = torch.empty((k, 3), device=dev)
+            for e in range(k):
+                t_epoch = time.perf_counter()
+                if stream is None:
+                    for row in ids[e]:
+                        fns.train(row)
+                    if has_val:
+                        for row in val_ids:
+                            fns.evaluate(row)
+                else:
+                    stream.run((ids[e], fns.train),
+                               *([(val_ids, fns.evaluate)] if has_val else []))
+                fns.tail()
+                hist[e].copy_(state.row)
+                if stream is not None and meter is not None:
+                    # a streamed epoch is the meter's unit (the reference
+                    # package's stream_trainer): this call's first is warmup
+                    hist[e].cpu()  # the epoch's sync
+                    first = epoch + e == 0
+                    meter.add_chunk(
+                        1, len(ids[e]), time.perf_counter() - t_epoch,
+                        key=("stream", len(ids[e])) if first else None,
+                        warmup=None if first else False)
         # the next chunk's batches (packed bins: host numpy) while the
         # device runs this one
-        next_ids = chunk_ids(epoch + k) if epoch + k < epochs else None
+        next_ids = None
+        if epoch + k < epochs:
+            with span("mdl.trainer.pack"):
+                next_ids = chunk_ids(epoch + k)
         if plan.graphs:  # the mode an eager epoch leaves (a replay sets none)
             model.train(not has_val)
         epoch += k
-        rows = hist.cpu().numpy().astype(float)  # the sync
+        with span("mdl.trainer.sync"):
+            rows = hist.cpu().numpy().astype(float)
         history += [tuple(r) for r in rows]
-        dt_chunk = time.time() - t0
+        dt_chunk = time.perf_counter() - t0
         dt = dt_chunk / k
         if meter is not None and stream is None:
             n_steps = ids.shape[1]
             meter.add_chunk(k, k * n_steps, dt_chunk,
                             key=("graphs" if plan.graphs else "eager", k,
                                  n_steps))
-            if meter.flops_per_epoch == 0.0:
-                fwd = _forward_flops(model, loss_fn, spec, data,
-                                     spmd.local_ids(ids[0, 0], mesh))
-                if fwd:
-                    meter.flops_per_epoch = fwd * (
-                        3 * n_steps + (len(val_ids) if has_val else 0))
-        if verbosity:
-            train_err, val_err, lr_now = rows[-1]
-            print(
-                "Epoch: {:04d}, Learning Rate: {:.6f}, Training Error: {:.5f},"
-                " Val Error: {:.5f}, Time per epoch (s): {:.5f}".format(
-                    start_epoch + epoch, lr_now, train_err, val_err, dt
-                )
-            )
-        if checkpoint_fn is not None:
-            checkpoint_fn(state.best, float(state.best_val), state.sched)
+        with span("mdl.trainer.report"):
+            if verbosity:
+                train_err, val_err, lr_now = rows[-1]
+                print(
+                    "Epoch: {:04d}, Learning Rate: {:.6f}, Training Error:"
+                    " {:.5f}, Val Error: {:.5f}, Time per epoch (s): {:.5f}"
+                    .format(start_epoch + epoch, lr_now, train_err, val_err,
+                            dt))
+            if checkpoint_fn is not None:
+                checkpoint_fn(state.best, float(state.best_val), state.sched)
         if chunk_fn is not None and chunk_fn(start_epoch + epoch, rows,
                                              state.sched):
             break
-        t0 = time.time()
+        t0 = time.perf_counter()
     state = EpochState(model, lr, dev) if fns is None else fns.state
     best = {k: v.clone() for k, v in state.best.items()}
     sched = PlateauState(*(t.clone() for t in state.sched))

@@ -9,19 +9,38 @@ utils/profiling.py, for PyTorch on CUDA):
   * analytic_step_flops / analytic_step_bytes — the analytic model of one
     padded batch's forward matmul FLOPs and HBM traffic, the reference's
     own numbers (attach_analytic_flops sets a meter's per-epoch work);
-  * op_cost() — FLOPs of one call from torch.utils.flop_counter (the
-    counterpart of the reference's xla_cost; the port's hand kernels are
-    as opaque to it as the Pallas calls are to XLA's cost model);
   * device_peaks() — the card's dense BF16 tensor-core peak and HBM rate,
     the roofline denominators;
   * trace() — a torch.profiler context writing one Chrome trace (.json),
     enabled per job by the `profile: "True"` / `profile_dir` job
-    parameters.
+    parameters;
+  * span() — the program's spans on the profiler's timeline while a
+    profiler records, and nothing otherwise.
 
 MFU is reported against the BF16 tensor-core peak whatever the compute
 dtype, the reference's convention: an f32 or 3xTF32 run cannot read above
 100%, and at the 3xTF32 ceiling (495/3 = 165 TFLOP/s on an H100 SXM) it
 reads 16.7%.
+
+The spans an operator sees in `trace.json` (and the benchmark's traced
+breakdown names), each `mdl.<module>.<phase>`:
+
+  * the epoch loop (training/trainer.py), once per chunk of `verbosity`
+    epochs: `mdl.trainer.launch` (the chunk's ids to the device and every
+    step, val step, epoch tail and history copy enqueued),
+    `mdl.trainer.pack` (the next chunk's id matrices, on the host; also
+    the first chunk's, before the loop), `mdl.trainer.sync` (the chunk's
+    history to the host: the wait for the device) and `mdl.trainer.report`
+    (the epoch line and the checkpoint);
+  * Predict and the split errors (training/train.py:evaluate), once per
+    call: `mdl.evaluate` (the whole call) around `mdl.evaluate.ids` (the
+    id matrix), one `mdl.evaluate.assemble` and one `mdl.evaluate.forward`
+    per batch, and `mdl.evaluate.readback` (the loss's sync, the outputs
+    to the host in the callers' order, the targets).
+
+A captured step's forward, backward and optimizer have no host side when
+replayed, so they have no span: the trace splits their device time by
+kernel name.
 """
 
 from __future__ import annotations
@@ -33,6 +52,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Dense BF16 tensor-core FLOP/s and HBM bytes/s of one card, by
 # torch.cuda.get_device_name(), from NVIDIA's H100 datasheet (SXM: 989.4
@@ -56,19 +76,6 @@ def device_peaks(device=None) -> tuple[float, float] | None:
     return GPU_PEAKS.get(torch.cuda.get_device_name(dev))
 
 
-def op_cost(fn, *args, **kwargs) -> float | None:
-    """FLOPs of one call fn(*args, **kwargs), counted by
-    torch.utils.flop_counter.FlopCounterMode (the operators it knows:
-    matmuls, convolutions, attention); None when it counts nothing. The
-    call runs once."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        fn(*args, **kwargs)
-    flops = float(counter.get_total_flops())
-    return flops if flops > 0 else None
-
-
 @dataclass
 class ThroughputMeter:
     """Accumulates work counters over chunks of epochs and reports rates.
@@ -81,8 +88,8 @@ class ThroughputMeter:
     rate. The start()/tick() wall-clock accounting remains for callers
     without chunk boundaries.
 
-    When `flops_per_epoch`/`bytes_per_epoch` are set (attach_analytic_flops
-    or op_cost) and the card's peaks are known, rates() also reports mfu_pct
+    When `flops_per_epoch`/`bytes_per_epoch` are set (attach_analytic_flops)
+    and the card's peaks are known, rates() also reports mfu_pct
     (achieved FLOP/s over the BF16 peak × devices) and hbm_util_pct.
     """
 
@@ -352,6 +359,19 @@ def attach_analytic_flops(meter: ThroughputMeter, model_name: str,
     va_steps = -(-n_val // max(batch_size, 1)) if n_val else 0
     meter.flops_per_epoch = 3.0 * fwd * tr_steps + fwd * va_steps
     meter.bytes_per_epoch = 3.0 * fwd_b * tr_steps + fwd_b * va_steps
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The span `name` (`mdl.<module>.<phase>`): while a torch.profiler
+    records, a record_function range on its timeline (the clock of its
+    device records); otherwise one shared null context, so a span costs
+    one read of the profiler's flag and allocates nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

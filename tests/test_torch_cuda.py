@@ -37,7 +37,9 @@ CUDA graphs equals its eager loop bit for bit. The single-pass arms
 CSR arms at the f32 arms' tolerances, the fused arms by SP_MEDIAN and
 SP_LARGEST, which say why), bit-identical twice on sorted edges, the f32
 arm on the same inputs 10x outside; kernel_precision bf16 training runs
-card against CPU to rtol 2^-6.
+card against CPU to rtol 2^-6. Captured training under torch.profiler
+gives the errors and launches of the same run without one, and the
+trainer's spans, their device-side copies flagged as annotations.
 """
 
 import numpy as np
@@ -1675,6 +1677,34 @@ def test_captured_bf16_training_matches_eager(cuda_device, tmp_path, model,
     _check_captured_matches_eager(
         _toy(tmp_path), _capture_mp(model, kernel, "padded",
                                     precision="bf16"), kernel)
+
+
+def test_captured_training_is_the_same_under_a_profiler(cuda_device,
+                                                        tmp_path):
+    """Packed CGCNN on the fused kernels and CUDA graphs, captured and
+    replayed under torch.profiler (CPU and CUDA) against the same run
+    without one: the errors to rtol 1e-6 (the kernels' atomics), the same
+    launches; the trainer's four spans once an epoch, each span's
+    device-side copy flagged a user annotation (so the benchmark's trace
+    reading counts it as no device work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ds = _toy(tmp_path)
+    mp = _capture_mp("CGCNN", "fused", "packed")
+    _, h_off, l_off, _ = _train_run(ds, mp, None)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, h_on, l_on, text = _train_run(ds, mp, None)
+    assert "capture=graphs" in text
+    np.testing.assert_allclose(h_on, h_off, rtol=1e-6)
+    assert l_on == l_off
+    spans = [e for e in prof.events() if e.name.startswith("mdl.")]
+    host = [e.name for e in spans if str(e.device_type).endswith("CPU")]
+    for name in ("mdl.trainer.pack", "mdl.trainer.launch", "mdl.trainer.sync",
+                 "mdl.trainer.report"):
+        assert host.count(name) == 3, name
+    assert len(spans) > len(host)  # the device-side copies
+    assert all(e.is_user_annotation for e in spans)
 
 
 def _check_captured_matches_eager(ds, mp, kernel):

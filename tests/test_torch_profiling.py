@@ -10,8 +10,6 @@
   analytic_step_flops / analytic_step_bytes / attach_analytic_flops equal
   to the reference's exactly for config.yml's seven model configs, with
   and without the fused kernel.
-* op_cost of a Linear: 2·M·N·K; the trainer counts a forward with it
-  for a meter that has no analytic count.
 * trace writes a Chrome trace and is a no-op when disabled; train_regular
   prints a Throughput line; the CLI's --profile True writes a trace.
 """
@@ -182,33 +180,6 @@ def test_analytic_model_equals_jax(model, fused):
                              fused_kernel=fused)
     assert m.flops_per_epoch == ref.flops_per_epoch > 0
     assert m.bytes_per_epoch == ref.bytes_per_epoch > 0
-
-
-def test_op_cost_of_a_linear():
-    lin = torch.nn.Linear(24, 40, bias=False)
-    x = torch.randn(16, 24)
-    assert P.op_cost(lin, x) == 2 * 16 * 40 * 24
-    assert P.op_cost(torch.relu, x) is None  # counts nothing
-
-
-def test_trainer_counts_flops_with_op_cost_without_an_analytic_count(
-        toy_data_dir):
-    """A meter with no FLOPs gets one eval forward's op_cost × (3 × train
-    steps + val steps) after the first chunk, as the reference's trainer
-    takes xla_cost of its fused program."""
-    ds = get_dataset(toy_data_dir, 0, "False", dict(TOY_PROCESSING_ARGS))
-    run = TJ.setup_run(ds, {"model": "CGCNN", "dim1": 8, "dim2": 8,
-                            "gc_count": 1, "post_fc_count": 1,
-                            "batch_size": 4}, "l1_loss", seed=1, device="cpu")
-    meter = P.ThroughputMeter()
-    idx = np.arange(len(ds))
-    TJ.run_fused_training(run, train_idx=idx[:12], val_idx=idx[12:],
-                          epochs=2, verbosity=1, seed=1, meter=meter)
-    # 3 train steps and 1 val step an epoch; the forward's matmuls counted
-    batch_flops = meter.flops_per_epoch / (3 * 3 + 1)
-    assert batch_flops > 0 and batch_flops == int(batch_flops)
-    assert meter.epochs == 2 and meter.steps == 6
-    assert meter.warmup_s > 0 and meter.rates()["epochs"] == 2
 
 
 def test_trace_writes_profile(tmp_path):
